@@ -1,0 +1,169 @@
+"""The port's configs against the JAX dataclasses, and config.json loading.
+
+twingan_tpu_torch keeps its own copies of PGGANConfig, TwinGANConfig,
+GanLossConfig and OptimizerConfig; they must stay field for field the same
+(names, order, defaults, validation), so a stage dir written by the JAX
+runner loads in the port.
+"""
+
+import dataclasses
+import json
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from twingan_tpu.models.config import PGGANConfig as JaxPGGANConfig  # noqa: E402
+from twingan_tpu.runner.checkpoint import save_config_snapshot  # noqa: E402
+from twingan_tpu.train.losses import GanLossConfig as JaxGanLossConfig  # noqa: E402
+from twingan_tpu.train.optimizers import OptimizerConfig as JaxOptimizerConfig  # noqa: E402
+from twingan_tpu.train.twingan_trainer import TwinGANConfig as JaxTwinGANConfig  # noqa: E402
+from twingan_tpu.train.twingan_trainer import TwinGANTrainer  # noqa: E402
+
+from twingan_tpu_torch.models.config import PGGANConfig, require_ported  # noqa: E402
+from twingan_tpu_torch.runner.checkpoint import save_stage  # noqa: E402
+from twingan_tpu_torch.runner.config_io import (  # noqa: E402
+    find_latest_stage_dir,
+    load_stage_config,
+    trainer_config_from_dict,
+)
+from twingan_tpu_torch.train.losses import GanLossConfig  # noqa: E402
+from twingan_tpu_torch.train.optimizers import OptimizerConfig  # noqa: E402
+from twingan_tpu_torch.train.twingan_trainer import TwinGANConfig, fade_alpha  # noqa: E402
+
+PAIRS = [
+    (JaxPGGANConfig, PGGANConfig),
+    (JaxTwinGANConfig, TwinGANConfig),
+    (JaxGanLossConfig, GanLossConfig),
+    (JaxOptimizerConfig, OptimizerConfig),
+]
+
+
+def _default(field):
+    if field.default_factory is not dataclasses.MISSING:
+        return field.default_factory()
+    return field.default
+
+
+def _as_plain(obj):
+    """Nested dataclass -> dict, with tuples and lists compared alike."""
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _as_plain(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [_as_plain(x) for x in obj]
+    return obj
+
+
+@pytest.mark.parametrize("jax_cls,port_cls", PAIRS, ids=[p[1].__name__ for p in PAIRS])
+def test_fields_and_defaults_match(jax_cls, port_cls):
+    jf, pf = dataclasses.fields(jax_cls), dataclasses.fields(port_cls)
+    assert [f.name for f in jf] == [f.name for f in pf]
+    for a, b in zip(jf, pf):
+        assert _as_plain(_default(a)) == _as_plain(_default(b)), a.name
+    assert _as_plain(jax_cls()) == _as_plain(port_cls())
+
+
+@pytest.mark.parametrize("kw", [
+    {"norm_type": "group_norm"},
+    {"resolution": 48},
+    {"resolution": 4, "is_growing": True},
+    {"fused_scale_impl": "winograd"},
+    {"quantized_inference": "int4"},
+])
+def test_pggan_validation_matches(kw):
+    with pytest.raises(ValueError):
+        JaxPGGANConfig(**kw)
+    with pytest.raises(ValueError):
+        PGGANConfig(**kw)
+
+
+def test_twingan_validation_matches():
+    for kw in ({"model": {"num_domains": 1}},
+               {"model": {"norm_type": "batch_norm", "num_domains": 2}, "fuse_passes": True}):
+        with pytest.raises(ValueError):
+            JaxTwinGANConfig(model=JaxPGGANConfig(**kw["model"]),
+                             **{k: v for k, v in kw.items() if k != "model"})
+        with pytest.raises(ValueError):
+            TwinGANConfig(model=PGGANConfig(**kw["model"]),
+                          **{k: v for k, v in kw.items() if k != "model"})
+
+
+@pytest.mark.parametrize("kw", [
+    {"resolution": 256, "max_channels": 256},
+    {"resolution": 64, "max_channels": 32, "min_channels": 48},
+    {"resolution": 512, "max_channels": 512},
+])
+def test_channel_schedule_matches(kw):
+    j, p = JaxPGGANConfig(**kw), PGGANConfig(**kw)
+    assert (j.max_stage, j.noise_dim) == (p.max_stage, p.noise_dim)
+    assert [j.channels(s) for s in range(j.max_stage + 1)] == [
+        p.channels(s) for s in range(p.max_stage + 1)]
+
+
+def test_jax_config_json_loads_in_port(tmp_path):
+    jcfg = JaxTwinGANConfig(
+        model=JaxPGGANConfig(resolution=64, max_channels=32, norm_type="instance_norm",
+                             equalized_lr=True, do_pixel_norm=True, num_domains=2,
+                             do_self_attention=True, self_attention_hw=16, dtype="bfloat16"),
+        loss=JaxGanLossConfig(architecture="wgan_gp"),
+        opt=JaxOptimizerConfig(learning_rate=0.001, frozen_scopes=("encoder",)),
+        use_unet=True, max_steps=1234)
+    save_config_snapshot(str(tmp_path), {"run": {"train_dir": "x"}, "trainer": jcfg})
+    run, cfg = load_stage_config(str(tmp_path))
+    assert run == {"train_dir": "x"}
+    assert isinstance(cfg, TwinGANConfig)
+    assert _as_plain(cfg) == _as_plain(jcfg)
+    # And the port writes the same schema back.
+    save_stage(str(tmp_path / "port"), cfg, {}, step=3)
+    with open(tmp_path / "config.json") as a, open(tmp_path / "port" / "config.json") as b:
+        assert json.load(a)["trainer"] == json.load(b)["trainer"]
+
+
+def test_gan_trainer_config_is_not_ported():
+    with pytest.raises(NotImplementedError, match="GanTrainerConfig"):
+        trainer_config_from_dict({"model": {}})
+
+
+def test_find_latest_stage_dir(tmp_path):
+    for name in ("8", "8to16", "16to32", "32", "64to128"):
+        os.makedirs(tmp_path / name)
+    for name in ("8", "8to16", "16to32", "32"):
+        (tmp_path / name / "model.pt").write_bytes(b"")
+    # 64to128 has no checkpoint; 32 (stable) outranks 16to32 (growing).
+    assert find_latest_stage_dir(str(tmp_path)) == str(tmp_path / "32")
+    with pytest.raises(FileNotFoundError):
+        find_latest_stage_dir(str(tmp_path / "64to128"))
+
+
+@pytest.mark.parametrize("growing,step", [(False, 500), (True, 0), (True, 250), (True, 1000)])
+def test_fade_alpha_matches(growing, step):
+    import jax.numpy as jnp
+
+    jcfg = JaxTwinGANConfig(model=JaxPGGANConfig(resolution=8, is_growing=growing, num_domains=2),
+                            grow_start_step=100, max_steps=1100)
+    pcfg = TwinGANConfig(model=PGGANConfig(resolution=8, is_growing=growing, num_domains=2),
+                         grow_start_step=100, max_steps=1100)
+    ref = float(TwinGANTrainer(jcfg)._alpha(jnp.asarray(step, jnp.int32)))
+    assert fade_alpha(pcfg, step) == pytest.approx(ref, rel=1e-6, abs=1e-7)
+
+
+@pytest.mark.parametrize("kw,name", [
+    ({"fused_scale": True}, "fused_scale"),
+    ({"spectral_norm": True, "spectral_norm_in_non_discriminator": True},
+     "spectral_norm_in_non_discriminator"),
+    ({"style_dim": 8}, "style_dim"),
+    ({"quantized_inference": "int8"}, "quantized_inference"),
+    ({"attention_context_parallel": True}, "attention_context_parallel"),
+    ({"norm_type": "batch_renorm"}, "batch_renorm"),
+    ({"norm_type": "layer_norm"}, "layer_norm"),
+])
+def test_unported_options_raise(kw, name):
+    with pytest.raises(NotImplementedError, match=name):
+        require_ported(PGGANConfig(**kw))
+
+
+def test_discriminator_only_spectral_norm_is_allowed():
+    # spectral_norm alone touches only the discriminator, which translation
+    # does not run.
+    require_ported(PGGANConfig(spectral_norm=True))

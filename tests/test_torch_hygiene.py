@@ -1,0 +1,83 @@
+"""What the port may import and run where there is no card.
+
+The card's machine has torch, numpy and the CUDA toolkit but no jax, flax,
+PIL or cv2, so neither twingan_tpu_torch nor chip_smoke.py may load them
+(PIL only inside the functions that read or write image files). Without a
+card, chip_smoke.py and the port's entry points fail instead of falling
+back to the CPU; and the port never routes attention to a library kernel.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, "twingan_tpu_torch")
+BANNED = ("jax", "jaxlib", "flax", "twingan_tpu", "PIL", "cv2")
+
+_IMPORT_ALL = f"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {REPO!r})
+import twingan_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(twingan_tpu_torch.__path__, "twingan_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+print(len(names))
+banned = sorted(m for m in sys.modules if m.split(".")[0] in {BANNED!r})
+print("BANNED:" + ",".join(banned))
+"""
+
+
+def _no_card_env():
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
+
+
+def test_port_and_smoke_import_nothing_the_card_lacks():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True,
+                          text=True, cwd=REPO, env=_no_card_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    count, banned = proc.stdout.strip().splitlines()[-2:]
+    assert int(count) >= 20  # every module of the package was imported
+    assert banned == "BANNED:", banned
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+                          cwd=REPO, env=_no_card_env(), timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "no CUDA device" in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    with open(os.path.join(REPO, "chip_smoke.py")) as src:
+        (tmp_path / "chip_smoke.py").write_text(src.read())
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], capture_output=True, text=True,
+                          cwd=str(tmp_path), env=_no_card_env(), timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def _port_sources():
+    for root, _, files in os.walk(PACKAGE):
+        for name in files:
+            if name.endswith((".py", ".cu")):
+                path = os.path.join(root, name)
+                with open(path) as fh:
+                    yield os.path.relpath(path, REPO), fh.read()
+
+
+@pytest.mark.parametrize("word", [
+    "scaled_dot_product_attention", "torch.compile", "cpp_extension", "torch/extension.h",
+    "import jax", "import flax", "from twingan_tpu ", "from twingan_tpu.", "import twingan_tpu\n",
+])
+def test_port_sources_avoid(word):
+    hits = [path for path, text in _port_sources() if word in text]
+    assert not hits, f"{word!r} in {hits}"

@@ -1,0 +1,14 @@
+"""PyTorch port of ``twingan_tpu`` for one NVIDIA Hopper card.
+
+The package mirrors ``twingan_tpu/`` module for module (``models/``,
+``ops/``, ``train/``, ``runner/``, ``data/``, ``utils/``, ``infer/``,
+``serve/``) and keeps its parameter names, so a reader finds each module's
+counterpart and a Flax checkpoint bridges 1:1 (``bridge.py``). It imports
+``torch`` and never ``jax``, ``flax`` or ``twingan_tpu``.
+
+Slice ported so far: 256 px image translation served through
+``infer.translate.ImageInferer`` and ``serve.clients``, with SAGAN
+self-attention on a hand-written CUDA flash-attention forward kernel
+(``csrc/flash_attn_fwd.cu``). Public functions take NHWC tensors, like the
+JAX package; modules compute in NCHW views of the same memory.
+"""

@@ -1,0 +1,95 @@
+"""Weight bridge between the JAX package's Flax trees and the port.
+
+A Flax ``params`` tree and its ``batch_stats`` collection, given as nested
+dicts of numpy arrays (``jax.device_get`` of the JAX state), become a
+PyTorch ``state_dict`` and back:
+
+- the key is the Flax path joined with dots (``block_64_conv0.conv.kernel``,
+  ``block_64_conv0.norm.gamma_1``, ``self_attention_64.sa_gamma``);
+  ``batch_stats`` leaves (``moving_mean_%d``/``moving_var_%d``) are buffers
+  under the same path;
+- conv kernels are HWIO in Flax and OIHW in PyTorch;
+- every other leaf is copied as it is.
+
+The conversion is exact both ways. Imports numpy and torch only.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from twingan_tpu_torch.train.twingan_trainer import ENC, GEN
+
+_HWIO_TO_OIHW = (3, 2, 0, 1)
+_OIHW_TO_HWIO = (2, 3, 1, 0)
+
+
+def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key + "."))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _is_conv_kernel(key: str, arr: np.ndarray) -> bool:
+    return key.endswith("kernel") and arr.ndim == 4
+
+
+def state_dict_from_flax(params: Mapping[str, Any],
+                         batch_stats: Mapping[str, Any] | None = None,
+                         prefix: str = "") -> dict[str, torch.Tensor]:
+    """One Flax module's ``params`` (+ ``batch_stats``) -> state_dict."""
+    sd = {}
+    flat = _flatten(params)
+    flat.update(_flatten(batch_stats or {}))
+    for key, arr in flat.items():
+        if _is_conv_kernel(key, arr):
+            arr = arr.transpose(_HWIO_TO_OIHW)
+        sd[prefix + key] = torch.from_numpy(np.array(arr))  # a writable copy
+    return sd
+
+
+def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                         prefix: str = "") -> tuple[dict, dict]:
+    """Inverse of ``state_dict_from_flax``: -> (params, batch_stats)."""
+    params, stats = {}, {}
+    for key, t in state_dict.items():
+        if not key.startswith(prefix):
+            continue
+        key = key[len(prefix):]
+        arr = t.detach().cpu().numpy()
+        if _is_conv_kernel(key, arr):
+            arr = np.ascontiguousarray(arr.transpose(_OIHW_TO_HWIO))
+        leaf = key.rsplit(".", 1)[-1]
+        (stats if leaf.startswith(("moving_mean_", "moving_var_")) else params)[key] = arr
+    return _unflatten(params), _unflatten(stats)
+
+
+def translator_state_dict(params: Mapping[str, Any],
+                          model_state: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A JAX TwinGAN state's encoder and generator -> the state_dict of
+    ``TwinGANTranslator``. ``params``/``model_state`` are the trainer
+    state's dicts (pass the Polyak-averaged params for an EMA model)."""
+    sd = {}
+    for name in (ENC, GEN):
+        stats = model_state.get(name, {}).get("batch_stats")
+        sd.update(state_dict_from_flax(params[name], stats, prefix=name + "."))
+    return sd

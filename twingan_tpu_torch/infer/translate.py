@@ -1,0 +1,125 @@
+"""Checkpoint-based image translation: ``ImageInferer`` and its CLI.
+
+Counterpart of ``twingan_tpu/infer/translate.py`` with the same contract:
+uint8 image -> float [0,1] -> bilinear resize to image_hw (RESHAPE) ->
+batch -> encoder (source domain) -> generator (target domain), the output
+returned as float32 NHWC (clipped only when saved as an image). The model
+is rebuilt from the stage's config.json and model.pt.
+
+It runs on the CUDA card unless the caller passes ``device="cpu"``; with no
+card and no such request it raises, never falling back to the CPU.
+
+Usage:
+    python -m twingan_tpu_torch.infer.translate \\
+        --model_path=/trained/256 --input_image_path=in.jpg \\
+        --output_image_path=out.jpg [--direction=s2t|t2s] [--batch_size=8]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+
+from twingan_tpu_torch.data.preprocess import host_resize
+from twingan_tpu_torch.runner.checkpoint import load_model
+from twingan_tpu_torch.runner.config_io import find_latest_stage_dir, load_stage_config
+from twingan_tpu_torch.train.twingan_trainer import TwinGANTranslator, translate
+from twingan_tpu_torch.utils.image_io import imread_rgb, imsave_float
+
+
+def resolve_device(device: Optional[str | torch.device]) -> torch.device:
+    """``None`` means the CUDA card, which must then exist."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: twingan_tpu_torch runs on the card unless "
+                "device='cpu' is passed")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class ImageInferer:
+    """Loads a trained stage and translates images.
+
+    ``dtype`` overrides the config's compute dtype (e.g. "float32" for an
+    exact reference run); parameters stay fp32 either way."""
+
+    def __init__(self, model_path: str, image_hw: int = 0, direction: str = "s2t",
+                 device: Optional[str | torch.device] = None, dtype: Optional[str] = None):
+        self.device = resolve_device(device)
+        stage_dir = model_path
+        if not os.path.exists(os.path.join(stage_dir, "config.json")):
+            stage_dir = find_latest_stage_dir(model_path)
+        _, tcfg = load_stage_config(stage_dir)
+        if dtype is not None:
+            tcfg = tcfg.replace(model=tcfg.model.replace(dtype=dtype))
+        self.cfg = tcfg
+        self.direction = direction
+        self.image_hw = image_hw or tcfg.model.resolution
+        state_dict, self.step = load_model(stage_dir)
+        model = TwinGANTranslator(tcfg)
+        model.load_state_dict(state_dict, strict=True)
+        self.model = model.to(self.device)
+
+    def preprocess(self, image: np.ndarray) -> np.ndarray:
+        """uint8 HWC -> float [0,1] at (image_hw, image_hw)."""
+        return host_resize(image, "RESHAPE", self.image_hw)
+
+    def infer_batch(self, images: Sequence[np.ndarray]) -> np.ndarray:
+        batch = np.stack([self.preprocess(im) for im in images])
+        x = torch.from_numpy(batch).to(self.device)
+        out = translate(self.cfg, self.model.encoder_content, self.model.generator, x,
+                        self.direction, step=self.step)
+        return out.float().cpu().numpy()
+
+
+def _iter_images(path: str) -> Iterator[str]:
+    if not os.path.isdir(path):
+        yield path
+        return
+    exts = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+    for root, _, files in sorted(os.walk(path)):
+        for name in sorted(files):
+            if name.lower().endswith(exts):
+                yield os.path.join(root, name)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model_path", required=True, help="stage dir or train dir")
+    p.add_argument("--image_hw", type=int, default=0)
+    p.add_argument("--input_image_path", required=True, help="image file or folder")
+    p.add_argument("--output_image_path", required=True, help="output file or folder")
+    p.add_argument("--direction", default="s2t", choices=["s2t", "t2s"])
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    inferer = ImageInferer(args.model_path, args.image_hw, args.direction, device=args.device)
+    paths = list(_iter_images(args.input_image_path))
+    out_is_dir = os.path.isdir(args.input_image_path) or len(paths) > 1
+    if out_is_dir:
+        os.makedirs(args.output_image_path, exist_ok=True)
+
+    t0 = time.time()
+    for i in range(0, len(paths), args.batch_size):
+        chunk = paths[i: i + args.batch_size]
+        outs = inferer.infer_batch([imread_rgb(p_) for p_ in chunk])
+        for path, out in zip(chunk, outs):
+            dst = args.output_image_path
+            if out_is_dir:
+                rel = os.path.relpath(path, args.input_image_path)
+                dst = os.path.join(args.output_image_path, rel.replace(os.sep, "_"))
+            imsave_float(dst, out)
+    dt = time.time() - t0
+    print(f"translated {len(paths)} images in {dt:.2f}s on {inferer.device}")
+
+
+if __name__ == "__main__":
+    main()

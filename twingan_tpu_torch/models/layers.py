@@ -1,0 +1,214 @@
+"""Building blocks of the encoder/generator path, as ``nn.Module``s.
+
+Counterpart of ``twingan_tpu/models/layers.py`` (EqConv, DomainNorm,
+ConvBlock, ResBlockAdd, SelfAttention) with the same parameter names, so a
+Flax tree maps onto ``state_dict`` keys one to one (``bridge.py``):
+``conv.kernel`` (stored OIHW), ``conv.bias``, ``norm.beta_%d``,
+``norm.gamma_%d``, buffers ``norm.moving_mean_%d``/``norm.moving_var_%d``,
+``sa_gamma``.
+
+Modules take NCHW tensors (the NHWC inputs of the public functions arrive
+as NCHW views of the same memory). Parameters are fp32; activations are
+computed in ``cfg.dtype`` and norm statistics in fp32, as in the JAX layers.
+Norms run with moving (eval) statistics: the train-mode statistics and
+their updates belong to the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from twingan_tpu_torch.models.config import PGGANConfig
+from twingan_tpu_torch.ops import attention, basic, norms
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def same_padding(kernel_size: int) -> tuple[int, int]:
+    """(before, after) of TF 'SAME' padding at stride 1; uneven for even
+    kernels, which the larger to_rgb filters can have."""
+    total = kernel_size - 1
+    return total // 2, total - total // 2
+
+
+class EqConv(nn.Module):
+    """Conv2D with optional equalized-lr input scaling.
+
+    Under equalized lr the kernel is drawn from N(0, 1) and the *input* is
+    scaled by sqrt(2 / (in_channels * k^2)) at run time (the total fan-in,
+    UNet skip channels included); otherwise the kernel is N(0, init_stddev).
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
+                 padding: str = "SAME", use_bias: bool = True,
+                 equalized_lr: bool = False, init_stddev: float = 0.02,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"unknown padding {padding!r}")
+        self.in_channels = in_channels
+        self.kernel_size = kernel_size
+        self.padding = padding
+        self.equalized_lr = equalized_lr
+        self.init_stddev = 1.0 if equalized_lr else init_stddev
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(features, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.kernel.normal_(0.0, self.init_stddev, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.equalized_lr:
+            scale = basic.equalized_lr_scale(self.in_channels, self.kernel_size)
+            x = x * torch.tensor(scale, dtype=self.dtype, device=x.device)
+        pad = 0
+        if self.padding == "SAME":
+            before, after = same_padding(self.kernel_size)
+            if before == after:
+                pad = before
+            else:
+                x = F.pad(x, (before, after, before, after))
+        y = F.conv2d(x, self.kernel.to(self.dtype), padding=pad)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)[:, None, None]
+        return y
+
+
+class DomainNorm(nn.Module):
+    """Normalization with one parameter/statistic bank per domain; the call
+    selects the bank. kind: none | batch_norm (moving statistics, eps 1e-3)
+    | instance_norm (per-sample statistics, eps 1e-6)."""
+
+    def __init__(self, kind: str, num_features: int, num_domains: int = 1):
+        super().__init__()
+        if kind not in ("none", "batch_norm", "instance_norm"):
+            raise NotImplementedError(f"norm_type={kind} is not ported to twingan_tpu_torch yet")
+        self.kind = kind
+        self.num_domains = num_domains
+        if kind == "none":
+            return
+        for d in range(num_domains):
+            self.register_parameter(f"beta_{d}", nn.Parameter(torch.zeros(num_features)))
+            self.register_parameter(f"gamma_{d}", nn.Parameter(torch.ones(num_features)))
+            if kind == "batch_norm":
+                self.register_buffer(f"moving_mean_{d}", torch.zeros(num_features))
+                self.register_buffer(f"moving_var_{d}", torch.ones(num_features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            for name, t in list(self.named_parameters()) + list(self.named_buffers()):
+                t.fill_(1.0 if name.startswith(("gamma_", "moving_var_")) else 0.0)
+
+    def forward(self, x: torch.Tensor, domain: int) -> torch.Tensor:
+        if self.kind == "none":
+            return x
+        if self.training:
+            raise NotImplementedError("DomainNorm train-mode statistics: training slice")
+        gamma = getattr(self, f"gamma_{domain}")[:, None, None]
+        beta = getattr(self, f"beta_{domain}")[:, None, None]
+        xf = x.float()
+        if self.kind == "instance_norm":
+            mean, var = norms.instance_moments(xf, nchw=True)
+            y = norms.normalize(xf, mean, var, gamma, beta, eps=1e-6)
+        else:
+            mean = getattr(self, f"moving_mean_{domain}")[:, None, None]
+            var = getattr(self, f"moving_var_{domain}")[:, None, None]
+            y = norms.normalize(xf, mean, var, gamma, beta, eps=1e-3)
+        return y.to(x.dtype)
+
+
+_ACTIVATIONS = {None: None, "leaky": basic.leaky_relu, "tanh": torch.tanh}
+
+
+class ConvBlock(nn.Module):
+    """conv -> norm -> activation; bias exactly when no norm runs."""
+
+    def __init__(self, cfg: PGGANConfig, in_channels: int, features: int,
+                 kernel_size: int = 3, padding: str = "SAME",
+                 activation: Optional[str] = "leaky", norm: bool = True):
+        super().__init__()
+        norm_kind = cfg.norm_type if norm else "none"
+        self.conv = EqConv(
+            in_channels, features, kernel_size, padding,
+            use_bias=(norm_kind == "none"), equalized_lr=cfg.equalized_lr,
+            init_stddev=cfg.init_stddev, dtype=torch_dtype(cfg.dtype),
+        )
+        self.norm = DomainNorm(norm_kind, features, cfg.num_domains)
+        self.activation = _ACTIVATIONS[activation]
+
+    def forward(self, x: torch.Tensor, domain: int) -> torch.Tensor:
+        y = self.norm(self.conv(x), domain)
+        return y if self.activation is None else self.activation(y)
+
+
+class ResBlockAdd(nn.Module):
+    """Optional residual shortcut: identity when channels match, else a
+    plain 1x1 conv named ``shortcut``. A no-op unless ``use_res_block``."""
+
+    def __init__(self, cfg: PGGANConfig, in_channels: int, features: int):
+        super().__init__()
+        self.enabled = cfg.use_res_block
+        if self.enabled and in_channels != features:
+            self.shortcut = ConvBlock(cfg, in_channels, features, kernel_size=1,
+                                      activation=None, norm=False)
+        else:
+            self.shortcut = None
+
+    def forward(self, inp: torch.Tensor, conv_out: torch.Tensor, domain: int) -> torch.Tensor:
+        if not self.enabled:
+            return conv_out
+        if self.shortcut is None:
+            return inp.to(conv_out.dtype) + conv_out
+        return self.shortcut(inp, domain) + conv_out
+
+
+class SelfAttention(nn.Module):
+    """SAGAN self-attention: f/g 1x1 convs to C/8 channels with tanh, h 1x1
+    conv to C channels, y = sa_gamma * softmax(f g^T) h + x. sa_gamma starts
+    at 0, as in the JAX layer."""
+
+    def __init__(self, cfg: PGGANConfig, channels: int):
+        super().__init__()
+        c_bar = max(channels // 8, 1)
+        self.sa_f = ConvBlock(cfg, channels, c_bar, 1, activation="tanh")
+        self.sa_g = ConvBlock(cfg, channels, c_bar, 1, activation="tanh")
+        self.sa_h = ConvBlock(cfg, channels, channels, 1, activation=None)
+        self.sa_gamma = nn.Parameter(torch.zeros(1))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.sa_gamma.zero_()
+
+    def forward(self, x: torch.Tensor, domain: int) -> torch.Tensor:
+        b, c, hh, ww = x.shape
+
+        def rows(t: torch.Tensor) -> torch.Tensor:  # NCHW -> [B, N, C'] contiguous
+            return t.permute(0, 2, 3, 1).reshape(b, hh * ww, t.shape[1]).contiguous()
+
+        f = rows(self.sa_f(x, domain))
+        g = rows(self.sa_g(x, domain))
+        h = rows(self.sa_h(x, domain))
+        o = attention.self_attention(f, g, h)
+        o = o.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
+        return self.sa_gamma.to(x.dtype) * o + x
+
+
+def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Draw every layer's parameters from ``generator`` with the JAX
+    package's initializers (same distributions, not the same numbers)."""
+    for m in module.modules():
+        if isinstance(m, (EqConv, DomainNorm, SelfAttention)):
+            m.reset_parameters(generator)

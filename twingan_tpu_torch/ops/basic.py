@@ -1,0 +1,49 @@
+"""Elementary ops of the translation path, in PyTorch.
+
+Counterpart of ``twingan_tpu/ops/basic.py``. Image tensors are NHWC by
+default, as in the JAX package; the spatial ops take ``nchw=True`` for the
+modules, which compute on NCHW views. Every function keeps the input dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
+    """max(alpha*x, x), the default activation of every conv."""
+    return torch.maximum(x * alpha, x)
+
+
+def pixel_norm(x: torch.Tensor, eps: float = 1e-6, dim: int = -1) -> torch.Tensor:
+    """Pixelwise feature-vector normalization over the channel axis."""
+    ms = torch.mean(torch.square(x), dim=dim, keepdim=True)
+    return x * torch.rsqrt(ms + eps)
+
+
+def equalized_lr_scale(fan_in: int, kernel_size: int = 1) -> float:
+    """He constant sqrt(2 / (fan_in * k^2)) applied to the layer input."""
+    return math.sqrt(2.0 / (fan_in * kernel_size * kernel_size))
+
+
+def upsample_nearest_2x(x: torch.Tensor, nchw: bool = False) -> torch.Tensor:
+    """Nearest-neighbour 2x spatial upsample."""
+    if nchw:
+        return F.interpolate(x, scale_factor=2, mode="nearest")
+    return F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest").permute(0, 2, 3, 1)
+
+
+def avg_pool_2x(x: torch.Tensor, nchw: bool = False) -> torch.Tensor:
+    """2x2 stride-2 average pool (VALID)."""
+    if nchw:
+        return F.avg_pool2d(x, 2)
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def blend(new: torch.Tensor, old: torch.Tensor, alpha) -> torch.Tensor:
+    """Fade-in blend used during growth: new*alpha + (1-alpha)*old."""
+    alpha = torch.as_tensor(alpha, dtype=new.dtype, device=new.device)
+    return new * alpha + (1 - alpha) * old

@@ -1,0 +1,72 @@
+"""Config (de)serialization: typed configs from a stage's config.json.
+
+Counterpart of ``twingan_tpu/runner/config_io.py``. The JSON schema is the
+JAX runner's (``{"run": {...}, "trainer": {...}}``), so a stage directory
+written by either package loads here. Only TwinGAN trainer configs are
+ported; a GanTrainer (generation) config raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any
+
+from twingan_tpu_torch.models.config import PGGANConfig
+from twingan_tpu_torch.runner.checkpoint import MODEL_FILE
+from twingan_tpu_torch.train.losses import GanLossConfig
+from twingan_tpu_torch.train.optimizers import OptimizerConfig
+from twingan_tpu_torch.train.twingan_trainer import TwinGANConfig
+
+
+def _build(cls, data: dict) -> Any:
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in data.items():
+        if k not in fields:
+            continue
+        if k == "model":
+            v = _build(PGGANConfig, v)
+        elif k == "loss":
+            v = _build(GanLossConfig, v)
+        elif k == "opt":
+            v = _build(OptimizerConfig, v)
+            v = v.replace(frozen_scopes=tuple(v.frozen_scopes))
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def trainer_config_from_dict(data: dict) -> TwinGANConfig:
+    if "l_cyc_weight" not in data:
+        raise NotImplementedError(
+            "GanTrainerConfig (PGGAN generation) is not ported to twingan_tpu_torch yet")
+    return _build(TwinGANConfig, data)
+
+
+def load_stage_config(stage_dir: str):
+    """Reads a stage dir's config.json -> (run_dict, trainer_config)."""
+    with open(os.path.join(stage_dir, "config.json")) as f:
+        data = json.load(f)
+    return data.get("run", {}), trainer_config_from_dict(data["trainer"])
+
+
+def find_latest_stage_dir(train_dir: str) -> str:
+    """The most advanced stage dir holding a port checkpoint: the largest
+    resolution, the stable stage ahead of the growing one ("128to256")."""
+    candidates = []
+    for name in os.listdir(train_dir):
+        full = os.path.join(train_dir, name)
+        if not os.path.isfile(os.path.join(full, MODEL_FILE)):
+            continue
+        if name.isdigit():
+            candidates.append((int(name), 1, full))
+        elif "to" in name:
+            try:
+                res = int(name.split("to")[1])
+            except ValueError:
+                continue
+            candidates.append((res, 0, full))
+    if not candidates:
+        raise FileNotFoundError(f"no stage checkpoints under {train_dir}")
+    return sorted(candidates)[-1][2]

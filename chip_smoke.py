@@ -5,30 +5,51 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero and no
+Phases, each printing JSON lines; any failure exits non-zero and no
 result line is printed:
 
-1. device  - the card's name and power limit; TF32 off for the comparisons.
-2. build   - nvcc builds ``csrc/flash_attn_fwd.cu`` (the hand-written
-             flash-attention forward kernel) into a ctypes library.
-3. kernel  - at each listed shape, the kernel against its plain PyTorch
-             version on the same inputs (output and logsumexp), with the
-             kernel's, the plain version's and SDPA's times (CUDA events,
-             median) beside the card's bound for the same work.
-4. serving - the port's main path at full width: a 256 px TwinGAN (batch
-             norm, eq-lr, pixel norm, UNet skips, bf16, SAGAN attention at
-             64 px) with seeded random weights is written as a stage dir,
-             loaded by ``ImageInferer`` and served to 8 concurrent requests
-             per round through ``BatchingLocalClient``; the kernel's launch
-             count must be 2 (encoder + generator) per dispatched batch, and
-             one request must agree with the same weights run in fp32 on
-             the CPU with the plain attention.
-5. kernels - one line listing each kernel of the path.
+1. device   - the card's name and power limit; TF32 off for the comparisons.
+2. build    - nvcc builds ``csrc/flash_attn_fwd.cu`` (the flash-attention
+              forward kernel) and ``csrc/flash_attn_bwd.cu`` (its two
+              backward kernels, dq and dkv) into ctypes libraries, both
+              compiles started together.
+3. kernel   - at each listed shape, the forward kernel against its plain
+              PyTorch version on the same inputs (output and logsumexp);
+              then the backward kernels: the gradients that
+              ``FlashAttention`` returns (forward kernel, delta, dq, dkv)
+              against autograd of the plain ``attention_core`` on the same
+              f, g, h and output gradient (above N 16384 against a
+              reference chunked over query rows, which also checks the
+              forward kernel there). Each row has the kernels', the
+              plain versions' and SDPA's times (CUDA events, median) beside
+              the card's bound for the same work. A "bound" line gives the
+              bound of the TPU kernel not ported yet.
+4. serving  - the serving path at full width: a 256 px TwinGAN (batch
+              norm, eq-lr, pixel norm, UNet skips, bf16, SAGAN attention at
+              64 px) with seeded random weights is written as a stage dir,
+              loaded by ``ImageInferer`` and served to 8 concurrent requests
+              per round through ``BatchingLocalClient``; the forward
+              kernel's launch count must be 2 (encoder + generator) per
+              dispatched batch, and one request must agree with the same
+              weights run in fp32 on the CPU with the plain attention.
+5. train    - the training path at full width: ``TwinGANTrainer`` on the
+              same configuration (DRAGAN, Adam, n_critic 2, batch 3, seeded
+              random weights with every sa_gamma 1). One G step and one D
+              step on the card, in fp32 and in bf16, are held against the
+              same weights, batch and injected noise in fp32 on the CPU
+              with the plain attention (losses, and the cosine similarity
+              of each network's gradient and of every attention
+              projection's); then one warm-up and 3 timed
+              rounds, whose kernel launches must be what the passes of the
+              step imply; then the trained state is written as a stage dir
+              and ``ImageInferer`` serves a batch from it.
+6. kernels  - one line listing each kernel of the two paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and the repository around it; without either it
-exits non-zero. A watchdog ends it (non-zero) after 15 minutes.
+exits non-zero. A watchdog ends it (non-zero) after 15 minutes. It writes
+only under the system's temporary directory, and removes what it wrote.
 """
 
 from __future__ import annotations
@@ -38,6 +59,7 @@ import os
 import shutil
 import subprocess
 import sys
+import statistics
 import tempfile
 import threading
 import time
@@ -46,8 +68,15 @@ from concurrent.futures import ThreadPoolExecutor
 WATCHDOG_S = 900
 SEED = 0
 REPO = os.path.dirname(os.path.abspath(__file__))
-KERNEL_SOURCE = "twingan_tpu_torch/csrc/flash_attn_fwd.cu"
-KERNEL_REPLACES = "twingan_tpu/ops/attention.py:54"
+# Each kernel of the paths: its source and the TPU kernel it replaces.
+KERNELS = {
+    "flash_attn_fwd": ("twingan_tpu_torch/csrc/flash_attn_fwd.cu",
+                       "twingan_tpu/ops/attention.py:54"),
+    "flash_attn_dq": ("twingan_tpu_torch/csrc/flash_attn_bwd.cu",
+                      "twingan_tpu/ops/attention.py:127"),
+    "flash_attn_dkv": ("twingan_tpu_torch/csrc/flash_attn_bwd.cu",
+                       "twingan_tpu/ops/attention.py:153"),
+}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of a call is
 # the larger of its bytes over the memory rate and its FLOPs over the peak
@@ -71,6 +100,36 @@ KERNEL_CASES = [
     ("docs/PERFORMANCE.md", 4, 16384, 32, 64, "float32"),
 ]
 
+# (label, B, N, c_bar, C, dtype) for the backward kernels. The training
+# shape is the main path's: batch 3 (TWINGAN_BATCH_SCHEDULE[256]), attention
+# at 64 px in the encoder, the generator and both discriminators.
+TRAIN_CASE = ("train batch", 3, 4096, 8, 64, "bfloat16")
+BWD_CASES = [
+    TRAIN_CASE,
+    ("train batch", 3, 4096, 8, 64, "float32"),
+    ("ragged N", 2, 1000, 8, 64, "float32"),
+    ("ragged N", 2, 1000, 8, 64, "bfloat16"),
+    ("c_bar 1, C 8", 2, 4096, 1, 8, "float32"),
+    ("c_bar 32, C 256", 2, 4096, 32, 256, "bfloat16"),
+    ("docs/PERFORMANCE.md", 4, 4096, 32, 64, "float32"),
+    ("docs/PERFORMANCE.md", 4, 16384, 32, 64, "float32"),
+    ("docs/PERFORMANCE.md", 4, 65536, 32, 64, "float32"),
+]
+# Above this N the plain version's N^2 matrices (68 GB at N 65536, B 4)
+# do not fit: such a case is checked against a reference chunked over query
+# rows, the plain versions are not timed, and the kernels are timed over
+# fewer launches.
+PLAIN_MAX_N = 16384
+REFERENCE_ROWS = 2048
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "FLASH_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+# The TPU kernel not ported yet, at the shape its script runs
+# (tools/exp_fused_conv.py defaults): a direct 3x3 SAME conv, bias, leaky
+# ReLU and pixel norm on x [8, 256, 256, 16] bf16 with w [3, 3, 16, 16]
+# fp32; the kernel multiplies in fp32 and writes bf16.
+FUSED_CONV = dict(name="_fused_kernel", replaces="tools/exp_fused_conv.py:76",
+                  batch=8, hw=256, cin=16, cout=16)
+
 # Serving-path agreement with the fp32 CPU run, in units of the CPU
 # output's standard deviation. bf16 keeps 8 significant bits and every
 # layer rounds its activations; the same weights at 32 px (half the depth)
@@ -82,6 +141,31 @@ SERVE_MEAN_TOL = 0.1
 SERVE_MAX_TOL = 0.5
 REQUESTS_PER_ROUND = 8
 TIMED_ROUNDS = 3
+
+# Training: TWINGAN_BATCH_SCHEDULE[256] of the JAX stage runner.
+TRAIN_BATCH = 3
+TRAIN_TIMED_ROUNDS = 3
+# One G step and one D step on the card against the same steps in fp32 on
+# the CPU with the plain attention, from the same weights, batches and
+# penalty noise: (loss rtol, loss atol, min cosine of each network's
+# gradient, min cosine of each attention projection's gradient).
+# - float32 on the card checks the kernels inside training. The CPU's own
+#   sensitivity bounds it: multiplying every weight by (1 + 1e-7 N(0,1))
+#   moves the fp32 gradients of a 64 px batch-norm model by up to 5e-4 of
+#   the largest one (tests/test_torch_twingan_step.py), and the kernels
+#   agree with the plain version to 1e-4; a wrong dq or dkv kernel would
+#   turn the projections' gradients around. Limits 1e-3 / 1e-4 / 0.999 /
+#   0.999.
+# - bfloat16 is the main path's type; every layer rounds activations and
+#   gradients to 8 bits. The same comparison with the CPU in the card's
+#   place at 64 px (tests/test_torch_twingan_step.py runs it) moves losses
+#   by about 2 % (0.09 absolute), network cosines down to about 0.8 (the
+#   encoder, through batch-norm backward in bf16) and projection cosines
+#   to about 0.75. The limits leave room for the depth of 256 px: losses
+#   0.1 relative + 0.1 absolute, network cosine 0.5; the projections are
+#   reported and held only by the fp32 check.
+TRAIN_LIMITS = {"float32": (1e-3, 1e-4, 0.999, 0.999),
+                "bfloat16": (0.1, 0.1, 0.5, None)}
 
 
 def emit(obj) -> None:
@@ -115,6 +199,45 @@ def tolerance(dtype: str, ref_max: float) -> float:
     return scale * (1e-4 if dtype == "float32" else 1.0 / 64)
 
 
+def grad_tolerance(dtype: str, ref_max: float, n: int) -> float:
+    """Backward kernels vs autograd of the plain version, max abs error on
+    each gradient. fp32: 1e-4 of the gradient's magnitude (sequential sums
+    over N) up to N 16384; the rounding error of a sum of N terms grows as
+    sqrt(N) (measured: 2.3e-5 of the magnitude at N 4096, 5.7e-5 at 16384),
+    so beyond 16384 the share grows as sqrt(N / 16384). bf16: the same
+    inputs; the kernels sum in fp32 and round each output once (1/256 of
+    the magnitude), and delta = rowsum(do * o) takes the forward kernel's
+    bf16 output where the reference has the exact probabilities (up to
+    another 1/256 of the largest term): 1/64."""
+    scale = max(1.0, ref_max)
+    if dtype != "float32":
+        return scale / 64
+    return scale * 1e-4 * max(1.0, (n / PLAIN_MAX_N) ** 0.5)
+
+
+def chunked_reference(f, g, h, do, rows: int = REFERENCE_ROWS):
+    """Exact fp32 attention forward and backward by the formulas of the
+    plain versions, over chunks of ``rows`` query rows (O(rows * N)
+    memory): (o, lse, df, dg, dh)."""
+    import torch
+
+    f, g, h, do = (t.float() for t in (f, g, h, do))
+    o, lse, df = torch.empty_like(h), torch.empty(f.shape[:2], device=f.device), torch.empty_like(f)
+    dg, dh = torch.zeros_like(g), torch.zeros_like(h)
+    for i in range(0, f.shape[1], rows):
+        fi, doi = f[:, i:i + rows], do[:, i:i + rows]
+        s = torch.matmul(fi, g.transpose(1, 2))
+        lse[:, i:i + rows] = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[:, i:i + rows, None])
+        o[:, i:i + rows] = torch.matmul(p, h)
+        delta = torch.sum(doi * o[:, i:i + rows], dim=-1)
+        ds = p * (torch.matmul(doi, h.transpose(1, 2)) - delta[..., None])
+        df[:, i:i + rows] = torch.matmul(ds, g)
+        dg += torch.matmul(ds.transpose(1, 2), fi)
+        dh += torch.matmul(p.transpose(1, 2), doi)
+    return o, lse, df, dg, dh
+
+
 def device_phase():
     import torch
 
@@ -141,18 +264,22 @@ def device_phase():
 def build_phase():
     from twingan_tpu_torch.ops import attention, cuda_build
 
+    names = (attention.KERNEL_NAME, attention.BWD_LIBRARY)
     t0 = time.perf_counter()
-    cuda_build.load(attention.KERNEL_NAME)
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
+        list(pool.map(cuda_build.build, names))
+    for name in names:
+        cuda_build.load(name)
     seconds = time.perf_counter() - t0
-    log = cuda_build.build_info[attention.KERNEL_NAME]["log"]
-    regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "registers" in ln]
-    emit({"phase": "build", "ok": True, "kernel": attention.KERNEL_NAME,
-          "seconds": round(seconds, 3), "nvcc_seconds": cuda_build.build_info[attention.KERNEL_NAME]["seconds"],
-          "ptxas": regs})
+    for name in names:
+        log = cuda_build.build_info[name]["log"]
+        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "registers" in ln]
+        emit({"phase": "build", "ok": True, "library": name, "seconds": round(seconds, 3),
+              "nvcc_seconds": cuda_build.build_info[name]["seconds"], "ptxas": regs})
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """Median of ``reps`` launches, each timed by CUDA events, after warm-up."""
+    """Median of ``reps`` launches, each timed by CUDA events, after 3 warm-ups."""
     import torch
 
     for _ in range(3):
@@ -169,15 +296,46 @@ def time_ms(fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def bound(b: int, n: int, c_bar: int, c: int, dtype: str) -> tuple[float, str]:
-    """Least time of the function on the card: each input read once, each
-    output written once, the two products' FLOPs at the type's peak."""
-    elt = 4 if dtype == "float32" else 2
-    nbytes = elt * (2 * b * n * c_bar + b * n * c) + elt * b * n * c + 4 * b * n
-    flops = 2.0 * b * n * n * (c_bar + c)
+def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def bound(b: int, n: int, c_bar: int, c: int, dtype: str) -> tuple[float, str]:
+    """Least time of the forward on the card: each input read once, each
+    output written once, the two products' FLOPs at the type's peak."""
+    elt = 4 if dtype == "float32" else 2
+    nbytes = elt * (2 * b * n * c_bar + b * n * c) + elt * b * n * c + 4 * b * n
+    return _bound(nbytes, 2.0 * b * n * n * (c_bar + c), dtype)
+
+
+def bwd_bounds(b: int, n: int, c_bar: int, c: int, dtype: str) -> dict:
+    """Least times of the dq and the dkv kernel: f, g, h, do read once, lse
+    and delta (fp32) read once, the outputs written once. dq recomputes
+    s = f g^T and dp = do h^T and forms df = ds g: 2 B N^2 (2 c_bar + C)
+    FLOPs; dkv adds dh = p^T do and dg = ds^T f: 2 B N^2 (2 c_bar + 2 C)."""
+    elt = 4 if dtype == "float32" else 2
+    inputs = elt * (2 * b * n * c_bar + 2 * b * n * c) + 8 * b * n
+    return {"flash_attn_dq": _bound(inputs + elt * b * n * c_bar,
+                                    2.0 * b * n * n * (2 * c_bar + c), dtype),
+            "flash_attn_dkv": _bound(inputs + elt * b * n * (c_bar + c),
+                                     2.0 * b * n * n * (2 * c_bar + 2 * c), dtype)}
+
+
+def fused_conv_bound() -> dict:
+    """The bound of the unported TPU kernel at its script's shape: bf16 x
+    read and bf16 y written once (the fp32 weights are negligible), and the
+    conv's FLOPs at the fp32 rate, the type of its products."""
+    k = FUSED_CONV
+    pixels = k["batch"] * k["hw"] * k["hw"]
+    nbytes = 2 * pixels * (k["cin"] + k["cout"]) + 4 * 9 * k["cin"] * k["cout"]
+    bound_ms, by = _bound(nbytes, 2.0 * pixels * 9 * k["cin"] * k["cout"], "float32")
+    return {"phase": "bound", "kernel": k["name"], "replaces": k["replaces"],
+            "shape": f"x [{k['batch']}, {k['hw']}, {k['hw']}, {k['cin']}] bf16, "
+                     f"w [3, 3, {k['cin']}, {k['cout']}] fp32",
+            "bytes": nbytes, "flops": 2.0 * pixels * 9 * k["cin"] * k["cout"],
+            "bound_ms": bound_ms, "bound_by": by}
 
 
 def kernel_phase() -> dict:
@@ -219,7 +377,107 @@ def kernel_phase() -> dict:
             fail("kernel", f"flash_attn_fwd disagrees with the plain version at {label} "
                            f"B={b} N={n} c_bar={c_bar} C={c} {dtype}")
         results[(label, b, n, c_bar, c, dtype)] = row
+    emit(fused_conv_bound())
     return results[SERVING_CASE]
+
+
+def sdpa_backend(q, k, v, do):
+    """The first of SDPA_BACKENDS that runs forward and backward on these
+    inputs (q/k and v differ in head width, which not every backend takes)."""
+    import warnings
+
+    import torch
+    from torch.nn import functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # each refusal warns with its reason
+                torch.autograd.grad(F.scaled_dot_product_attention(q, k, v, scale=1.0),
+                                    (q, k, v), do)
+            torch.cuda.synchronize()
+            return name, backend
+        except RuntimeError:
+            continue
+    fail("kernel", "no SDPA backend runs these inputs")
+
+
+def backward_kernel_phase() -> dict:
+    """B2 and B3 at every listed shape; returns the training shape's row.
+    At N above PLAIN_MAX_N the reference is ``chunked_reference``, which
+    also checks the forward kernel's output and logsumexp there."""
+    import torch
+    from torch.nn import functional as F
+    from torch.nn.attention import sdpa_kernel
+    from twingan_tpu_torch.ops import attention
+
+    results = {}
+    for label, b, n, c_bar, c, dtype in BWD_CASES:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+        f, g = (torch.randn(b, n, c_bar, device="cuda", generator=gen).to(dt) for _ in range(2))
+        h, do = (torch.randn(b, n, c, device="cuda", generator=gen).to(dt) for _ in range(2))
+        chunked = n > PLAIN_MAX_N
+        reps = 3 if chunked else 20
+        leaves = [t.clone().requires_grad_(True) for t in (f, g, h)]
+        grads = torch.autograd.grad(attention.flash_attention_core(*leaves), leaves, do)
+        errs, tols, extra = {}, {}, {}
+        if chunked:
+            ref_o, ref_lse, *refs = chunked_reference(f, g, h, do)
+            o, lse = attention.flash_attention_forward(f, g, h)
+            extra = {"reference": f"chunked over {REFERENCE_ROWS} query rows",
+                     "forward_err": (o.float() - ref_o).abs().max().item(),
+                     "forward_tolerance": tolerance(dtype, ref_o.abs().max().item()),
+                     "lse_err": (lse - ref_lse).abs().max().item(),
+                     "lse_tolerance": 1e-4 * max(1.0, ref_lse.abs().max().item())}
+            del o, lse, ref_o, ref_lse
+        else:
+            ref_leaves = [t.float().requires_grad_(True) for t in (f, g, h)]
+            refs = torch.autograd.grad(attention.attention_core(*ref_leaves), ref_leaves,
+                                       do.float())
+            del ref_leaves
+        torch.cuda.synchronize()
+        for name, out, ref in zip(("df", "dg", "dh"), grads, refs):
+            errs[name] = (out.float() - ref).abs().max().item()
+            tols[name] = grad_tolerance(dtype, ref.abs().max().item(), n)
+        del grads, refs, leaves
+        torch.cuda.empty_cache()
+
+        o, lse = attention.flash_attention_forward(f, g, h)
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        args = (f, g, h, do, lse, delta)
+        ms = {"flash_attn_dq": time_ms(lambda: attention.flash_attention_dq(*args), reps),
+              "flash_attn_dkv": time_ms(lambda: attention.flash_attention_dkv(*args), reps)}
+        plain_ms = None if chunked else {
+            "flash_attn_dq": time_ms(lambda: attention.flash_attention_dq_plain(*args)),
+            "flash_attn_dkv": time_ms(lambda: attention.flash_attention_dkv_plain(*args))}
+        q, k, v = (t[:, None].detach().requires_grad_(True) for t in (f, g, h))
+        backend_name, backend = sdpa_backend(q, k, v, do[:, None])
+        with sdpa_kernel(backend):
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(q, k, v, scale=1.0), (q, k, v), do[:, None]),
+                reps)
+        bounds = bwd_bounds(b, n, c_bar, c, dtype)
+        row = {"phase": "kernel", "kernels": ["flash_attn_dq", "flash_attn_dkv"], "case": label,
+               "B": b, "N": n, "c_bar": c_bar, "C": c, "dtype": dtype, "max_abs_err": errs,
+               "tolerance": tols, "ms": ms, "plain_ms": plain_ms,
+               "library": f"SDPA forward + backward, scale 1.0, {backend_name} backend",
+               "library_ms": library_ms,
+               "bound_ms": {k_: v_[0] for k_, v_ in bounds.items()},
+               "bound_by": {k_: v_[1] for k_, v_ in bounds.items()}, **extra,
+               "ok": bool(all(errs[k_] <= tols[k_] for k_ in errs)
+                          and (not chunked or (extra["forward_err"] <= extra["forward_tolerance"]
+                                               and extra["lse_err"] <= extra["lse_tolerance"])))}
+        emit(row)
+        if not row["ok"]:
+            fail("kernel", f"flash backward disagrees with autograd of the plain version at "
+                           f"{label} B={b} N={n} c_bar={c_bar} C={c} {dtype}")
+        results[(label, b, n, c_bar, c, dtype)] = row
+        del o, lse, delta, args, q, k, v
+        torch.cuda.empty_cache()
+    return results[TRAIN_CASE]
 
 
 def slice_config():
@@ -262,6 +520,7 @@ def random_translator(cfg):
 
 
 def serving_phase(card: str, smi_line: str) -> int:
+    """Returns the forward kernel's launches while serving."""
     import numpy as np
     import torch
     from twingan_tpu_torch.infer.translate import ImageInferer
@@ -333,19 +592,253 @@ def serving_phase(card: str, smi_line: str) -> int:
         shutil.rmtree(stage_dir, ignore_errors=True)
 
 
+class GradRecorder:
+    """Stands in for one side's optimizer for one step: keeps the gradients
+    it is handed (on the CPU, fp32), then lets the optimizer step."""
+
+    def __init__(self, inner):
+        self.inner, self.names, self.params = inner, inner.names, inner.params
+        self.grads = None
+
+    def step(self, grads):
+        self.grads = {n: g.detach().float().cpu() for n, g in zip(self.names, grads)}
+        self.inner.step(grads)
+
+
+def train_config(base=None):
+    """The serving slice's configuration (so trained weights load into
+    ImageInferer unchanged) with the training defaults of the JAX package:
+    DRAGAN, Adam, n_critic 2; fuse_passes auto (off for batch norm)."""
+    return (base or slice_config()).replace(batch_size=TRAIN_BATCH)
+
+
+def set_attention_gamma(nets, value: float = 1.0) -> None:
+    """At its init value 0, sa_gamma would zero the gradients into the
+    attention projections, and a wrong backward kernel could not show."""
+    import torch
+    from twingan_tpu_torch.models.layers import SelfAttention
+
+    with torch.no_grad():
+        for m in nets.modules():
+            if isinstance(m, SelfAttention):
+                m.sa_gamma.fill_(value)
+
+
+def expected_launches(trainer, nets) -> dict:
+    """Kernel launches per G step and per D step, from the step's passes:
+    each pass of a network with self-attention runs the forward kernel
+    once, and dq and dkv once if the pass is differentiated.
+    G step: 4 encoder passes (enc(s), enc(t), the two prime re-encodes),
+    4 generator passes (2 when fused), the discriminator on prime and
+    cycle per domain (one pass per domain when fused), all differentiated.
+    D step: enc(s), enc(t) and the generator passes under no_grad; the
+    discriminator on real, prime and cycle per domain (one pass per domain
+    when fused), differentiated; the two gradient-penalty passes on the
+    plain route."""
+    from twingan_tpu_torch.models.layers import SelfAttention
+    from twingan_tpu_torch.ops import attention
+    from twingan_tpu_torch.train.twingan_trainer import DIS_S, ENC, GEN
+
+    cfg = trainer.cfg
+    sa = {k: sum(isinstance(m, SelfAttention) for m in nets[k].modules())
+          for k in (ENC, GEN, DIS_S)}
+    kinds = 2 if (cfg.model.resolution >= 64 and cfg.do_l_cyc_gan) else 1
+    gen_passes = 2 if cfg.fuse else 4
+    g_dis = 2 if cfg.fuse else 2 * kinds
+    d_dis = 2 if cfg.fuse else 2 * (1 + kinds)
+    g = 4 * sa[ENC] + gen_passes * sa[GEN] + g_dis * sa[DIS_S]
+    d = d_dis * sa[DIS_S]
+    d_light = 2 * sa[ENC] + gen_passes * sa[GEN]
+    fwd, dq, dkv = attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL
+    return {"g_step": {fwd: g, dq: g, dkv: g, attention.PLAIN_ROUTE: 0},
+            "d_step": {fwd: d_light + d, dq: d, dkv: d, attention.PLAIN_ROUTE: 2 * sa[DIS_S]}}
+
+
+def _cosine(a, b) -> float:
+    """In float64: fp32 sums over millions of elements are off by more than
+    the differences the limits look for."""
+    import torch
+
+    a, b = a.double(), b.double()
+    return float(torch.dot(a, b) / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
+
+
+def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda") -> list:
+    """One G step and one D step, each from ``weights``, on the ``card`` in
+    float32 and in bfloat16 against the same steps in fp32 on the CPU (plain
+    attention). Returns one row per step and card type."""
+    import torch
+    from twingan_tpu_torch.models.layers import SelfAttention
+    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    def run(trainer, kind, batch):
+        state = trainer.state_from_nets(trainer.build_nets(), step=0, critic_step=1)
+        state.nets.load_state_dict(weights)
+        side = "gen_opt" if kind == "g_step" else "dis_opt"
+        setattr(state, side, GradRecorder(getattr(state, side)))
+        t0 = time.perf_counter()
+        if kind == "g_step":
+            _, metrics = trainer.g_step(state, batch)
+        else:
+            _, metrics = trainer.d_step(state, batch, gp_noise=gp_noise)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        seconds = time.perf_counter() - t0
+        sa_names = [n for n, m in state.nets.named_modules() if isinstance(m, SelfAttention)]
+        return metrics, getattr(state, side).grads, seconds, sa_names
+
+    def flat(grads, prefix):
+        return torch.cat([g.flatten() for n, g in grads.items() if n.startswith(prefix + ".")])
+
+    def on(device, dtype):
+        return TwinGANTrainer(cfg.replace(model=cfg.model.replace(dtype=dtype)), device=device)
+
+    rows = []
+    ref_trainer = on("cpu", "float32")
+    for kind, batch in zip(("g_step", "d_step"), batches):
+        ref_m, ref_grads, cpu_s, _ = run(ref_trainer, kind, batch)
+        for dtype, (rtol, atol, min_cos, min_sa_cos) in TRAIN_LIMITS.items():
+            m, grads, card_s, sa_names = run(on(card, dtype), kind, batch)
+            loss_err = {k: abs(m[k] - ref_m[k]) for k in ref_m
+                        if k not in ("alpha", "gdrop_strength")}
+            networks = sorted({n.split(".", 1)[0] for n in grads})
+            net_cos = {net: _cosine(flat(grads, net), flat(ref_grads, net)) for net in networks}
+            sa_cos = {f"{sa}.{proj}": _cosine(flat(grads, f"{sa}.{proj}"),
+                                               flat(ref_grads, f"{sa}.{proj}"))
+                      for sa in sa_names if sa.split(".", 1)[0] in networks
+                      for proj in ("sa_f", "sa_g", "sa_h")}
+            ok = (all(loss_err[k] <= rtol * abs(ref_m[k]) + atol for k in loss_err)
+                  and min(net_cos.values()) >= min_cos
+                  and (min_sa_cos is None or min(sa_cos.values()) >= min_sa_cos))
+            rows.append({"phase": "train", "check": f"{kind}, card {dtype} vs CPU float32",
+                         "losses": m, "cpu_losses": ref_m, "loss_abs_err": loss_err,
+                         "grad_cosine": net_cos, "attention_projection_grad_cosine": sa_cos,
+                         "limits": {"loss_rtol": rtol, "loss_atol": atol,
+                                    "grad_cosine": min_cos, "projection_cosine": min_sa_cos},
+                         "card_s": card_s, "cpu_s": cpu_s, "ok": bool(ok)})
+    return rows
+
+
+def _train_batch(rng, cfg, device):
+    import torch
+
+    res = cfg.model.resolution
+    return {k: torch.from_numpy(rng.rand(TRAIN_BATCH, res, res, 3).astype("float32")).to(device)
+            for k in ("source", "target")}
+
+
+def train_phase(card: str, smi_line: str) -> dict:
+    """Returns the kernel launches of the timed rounds, by kernel."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.infer.translate import ImageInferer
+    from twingan_tpu_torch.ops import attention
+    from twingan_tpu_torch.runner.checkpoint import load_model, save_stage
+    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    cfg = train_config()
+    trainer = TwinGANTrainer(cfg)  # the card, by default
+    state = trainer.init_state(SEED)
+    set_attention_gamma(state.nets)
+    weights = {k: v.detach().cpu().clone() for k, v in state.nets.state_dict().items()}
+    rng = np.random.RandomState(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    res = cfg.model.resolution
+    gp_noise = {d: {"alpha": torch.rand(TRAIN_BATCH, 1, 1, 1, generator=gen),
+                    "noise": torch.rand(TRAIN_BATCH, res, res, 3, generator=gen) * 2 - 1}
+                for d in ("s", "t")}
+    for row in compare_steps(cfg, weights, [_train_batch(rng, cfg, "cpu") for _ in range(2)],
+                             gp_noise):
+        emit(row)
+        if not row["ok"]:
+            fail("train", f"the card's {row['check']} disagrees beyond the limits")
+
+    rounds = [[_train_batch(rng, cfg, "cuda") for _ in range(cfg.n_critic)]
+              for _ in range(1 + TRAIN_TIMED_ROUNDS)]
+    state, _ = trainer.round_step(state, rounds[0], rng=SEED)  # warm-up
+    torch.cuda.synchronize()
+    attention.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    round_s, metrics = [], []
+    for batches in rounds[1:]:
+        t0 = time.perf_counter()
+        state, m = trainer.round_step(state, batches, rng=SEED)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        metrics.append(m)
+    counts = dict(attention.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = expected_launches(trainer, state.nets)
+    expected = {k: TRAIN_TIMED_ROUNDS * (per_step["g_step"][k] + (cfg.n_critic - 1)
+                                         * per_step["d_step"][k]) for k in counts}
+    losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    med = statistics.median(round_s)
+    row = {"phase": "train", "check": "timed rounds", "rounds": TRAIN_TIMED_ROUNDS,
+           "batch": TRAIN_BATCH, "n_critic": cfg.n_critic, "fused": cfg.fuse,
+           "round_s": round_s, "rounds_per_s": 1.0 / med,
+           "images_per_s": cfg.n_critic * TRAIN_BATCH / med,
+           "timing": "synchronized host clock around each round; images/s counts "
+                     "n_critic * batch per round, as tools/train_bench.py does",
+           "peak_memory_bytes": peak, "launches": counts, "expected_launches": expected,
+           "expected_per_step": per_step, "losses": losses, "card": card, "nvidia_smi": smi_line,
+           "ok": bool(counts == expected and finite)}
+    emit(row)
+    if not row["ok"]:
+        fail("train", "the timed rounds' launches differ from the passes' count, "
+                      "or a loss is not finite")
+
+    stage_dir = tempfile.mkdtemp(prefix="twingan_smoke_train_")
+    try:
+        save_stage(stage_dir, cfg, trainer.translator_state_dict(state), step=state.step)
+        saved, _ = load_model(stage_dir)
+        moved = [k for k in saved if "moving_" in k and not torch.equal(saved[k], weights[k])]
+        images = [rng.randint(0, 256, (res, res, 3)).astype(np.uint8) for _ in range(TRAIN_BATCH)]
+        out = ImageInferer(stage_dir).infer_batch(images)
+        row = {"phase": "train", "check": "serve the trained state", "step": state.step,
+               "moving_statistics_moved": len(moved),
+               "moving_statistics_saved": sum("moving_" in k for k in saved),
+               "output_shape": list(out.shape), "finite": bool(np.isfinite(out).all()),
+               "ok": bool(out.shape == (TRAIN_BATCH, res, res, 3) and np.isfinite(out).all()
+                          and len(moved) == sum("moving_" in k for k in saved) > 0)}
+        emit(row)
+        if not row["ok"]:
+            fail("train", "the trained stage does not serve, or its moving statistics "
+                          "are not the ones the rounds updated")
+    finally:
+        shutil.rmtree(stage_dir, ignore_errors=True)
+    return counts
+
+
+def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
+                 plain_ms: float, bound_ms: float, bound_by: str, library_ms: float) -> dict:
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
 def main() -> int:
     start_watchdog()
     card, smi_line = device_phase()
     build_phase()
     serving_row = kernel_phase()
-    launches = serving_phase(card, smi_line)
-    emit({"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": serving_row["max_abs_err"], "max_err": serving_row["max_abs_err"],
-        "ms": serving_row["ms"], "plain_ms": serving_row["plain_ms"],
-        "bound_ms": serving_row["bound_ms"], "bound_by": serving_row["bound_by"],
-        "library_ms": serving_row["library_ms"]}]})
+    train_row = backward_kernel_phase()
+    serving_launches = serving_phase(card, smi_line)
+    train_launches = train_phase(card, smi_line)
+    fwd = "flash_attn_fwd"
+    entries = [kernel_entry(
+        fwd, serving_launches + train_launches[fwd],
+        {"serving": serving_launches, "train": train_launches[fwd]},
+        serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
+        serving_row["bound_ms"], serving_row["bound_by"], serving_row["library_ms"])]
+    for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
+        entries.append(kernel_entry(
+            name, train_launches[name], {"train": train_launches[name]},
+            max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
+            train_row["plain_ms"][name], train_row["bound_ms"][name],
+            train_row["bound_by"][name], train_row["library_ms"]))
+    emit({"kernels": entries})
     print(smi_line, flush=True)
     import torch
 

@@ -27,7 +27,7 @@ names = [m.name for m in pkgutil.walk_packages(twingan_tpu_torch.__path__, "twin
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-print(len(names))
+print(",".join(names))
 banned = sorted(m for m in sys.modules if m.split(".")[0] in {BANNED!r})
 print("BANNED:" + ",".join(banned))
 """
@@ -39,13 +39,35 @@ def _no_card_env():
     return env
 
 
+# Modules every slice so far added; the walk must reach each of them.
+EXPECTED_MODULES = (
+    "twingan_tpu_torch.bridge", "twingan_tpu_torch.infer.translate",
+    "twingan_tpu_torch.models.pggan", "twingan_tpu_torch.ops.attention",
+    "twingan_tpu_torch.ops.cuda_build", "twingan_tpu_torch.serve.clients",
+    "twingan_tpu_torch.train.base", "twingan_tpu_torch.train.losses",
+    "twingan_tpu_torch.train.optimizers", "twingan_tpu_torch.train.state",
+    "twingan_tpu_torch.train.twingan_trainer",
+)
+
+
 def test_port_and_smoke_import_nothing_the_card_lacks():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True,
                           text=True, cwd=REPO, env=_no_card_env(), timeout=300)
     assert proc.returncode == 0, proc.stderr
-    count, banned = proc.stdout.strip().splitlines()[-2:]
-    assert int(count) >= 20  # every module of the package was imported
+    names, banned = proc.stdout.strip().splitlines()[-2:]
+    names = names.split(",")
+    assert len(names) >= 24  # every module of the package was imported
+    assert set(EXPECTED_MODULES) <= set(names), set(EXPECTED_MODULES) - set(names)
     assert banned == "BANNED:", banned
+
+
+def test_every_kernel_source_is_built_by_the_package():
+    csrc = os.path.join(PACKAGE, "csrc")
+    sources = sorted(n[:-3] for n in os.listdir(csrc) if n.endswith(".cu"))
+    assert sources == ["flash_attn_bwd", "flash_attn_fwd"]
+    from twingan_tpu_torch.ops import attention
+
+    assert {attention.KERNEL_NAME, attention.BWD_LIBRARY} == set(sources)
 
 
 def test_chip_smoke_fails_without_a_card():

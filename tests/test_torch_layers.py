@@ -95,9 +95,16 @@ def test_domain_norm(kind, domain):
 
 
 def test_domain_norm_train_mode_raises():
-    p = layers.DomainNorm("batch_norm", 4, 2).train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        p(torch.zeros(1, 4, 2, 2), 0)
+    """Train mode takes batch moments per bn_num_groups group, and raises on
+    a batch the groups cannot split; without update=True it leaves the
+    moving statistics alone (tests/test_torch_train_ops.py holds it
+    against the Flax layer)."""
+    p = layers.DomainNorm("batch_norm", 4, 2, num_groups=2).train()
+    with pytest.raises(ValueError, match="bn_num_groups"):
+        p(torch.zeros(3, 4, 2, 2), 0)
+    p(torch.randn(4, 4, 2, 2), 0)
+    assert torch.equal(p.moving_mean_0, torch.zeros(4))
+    assert torch.equal(p.moving_var_0, torch.ones(4))
 
 
 @pytest.mark.parametrize("norm_type,activation,k", [

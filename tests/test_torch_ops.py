@@ -153,7 +153,10 @@ def test_cpu_route_launches_no_kernel():
     out = attention.self_attention(f, g, h)
     np.testing.assert_array_equal(out.numpy(), attention.attention_core(f, g, h).numpy())
     np.testing.assert_array_equal(attention.flash_attention_core(f, g, h).numpy(), out.numpy())
-    assert attention.launch_counts == {attention.KERNEL_NAME: 0}
+    leaves = [t.clone().requires_grad_(True) for t in (f, g, h)]
+    torch.autograd.grad(attention.flash_attention_core(*leaves).sum(), leaves)
+    assert attention.launch_counts == {attention.KERNEL_NAME: 0, attention.DQ_KERNEL: 0,
+                                       attention.DKV_KERNEL: 0, attention.PLAIN_ROUTE: 0}
 
 
 @pytest.mark.parametrize("shapes,dtypes,msg", [
@@ -170,10 +173,15 @@ def test_wrapper_rejects_bad_inputs(shapes, dtypes, msg):
 
 
 def test_backward_raises():
+    """The backward kernels have no second-order rule: a create_graph=True
+    pass through FlashAttention raises instead of returning a gradient
+    that treats their outputs as constants (a first-order pass runs)."""
     f, g, h = (_t(a).requires_grad_() for a in _fgh(1, 16, 4, 8, seed=3))
+    attention.flash_attention_core(f, g, h).sum().backward()
+    assert f.grad is not None and g.grad is not None and h.grad is not None
     out = attention.flash_attention_core(f, g, h)
-    with pytest.raises(NotImplementedError, match="flash backward: training slice"):
-        out.sum().backward()
+    with pytest.raises(RuntimeError, match="differentiable once only"):
+        torch.autograd.grad(out.square().sum(), f, create_graph=True)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

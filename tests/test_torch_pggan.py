@@ -1,4 +1,5 @@
-"""The port's Encoder -> Generator against the Flax modules, and the bridge.
+"""The port's Encoder -> Generator against the Flax modules, and the bridge
+(one network's tree, and a whole TwinGAN train state's four networks).
 
 Both modules run with UNet skips and self-attention (sa_gamma 0.7), for
 batch and instance norm, on a stable and a growing stage, at 16 px with
@@ -18,10 +19,15 @@ import jax.numpy as jnp  # noqa: E402
 
 from twingan_tpu.models import pggan as jpggan  # noqa: E402
 from twingan_tpu.models.config import PGGANConfig as JaxPGGANConfig  # noqa: E402
+from twingan_tpu.train.twingan_trainer import TwinGANConfig as JaxTwinGANConfig  # noqa: E402
+from twingan_tpu.train.twingan_trainer import TwinGANTrainer  # noqa: E402
 
+from twingan_tpu_torch import bridge  # noqa: E402
 from twingan_tpu_torch.bridge import flax_from_state_dict, state_dict_from_flax  # noqa: E402
 from twingan_tpu_torch.models import pggan  # noqa: E402
 from twingan_tpu_torch.models.config import PGGANConfig  # noqa: E402
+from twingan_tpu_torch.train.twingan_trainer import TwinGANConfig  # noqa: E402
+from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer as PortTrainer  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -162,3 +168,36 @@ def test_modules_refuse_unported_options(kw, name):
         pggan.Encoder(cfg)
     with pytest.raises(NotImplementedError, match=name):
         pggan.Generator(cfg)
+
+
+@pytest.mark.parametrize("norm_type", ["batch_norm", "instance_norm"])
+def test_train_state_bridge_round_trips(norm_type):
+    """All four networks of a JAX TwinGAN train state, params and
+    batch_stats, into the port's train state and back, exactly."""
+    kw = dict(resolution=16, max_channels=16, norm_type=norm_type, equalized_lr=True,
+              num_domains=2, do_self_attention=True, self_attention_hw=8)
+    jtrainer = TwinGANTrainer(JaxTwinGANConfig(model=JaxPGGANConfig(**kw), use_unet=True,
+                                               batch_size=2))
+    jstate = jax.jit(jtrainer.init_state)(jax.random.PRNGKey(0))
+    rng = np.random.RandomState(2)
+    params = randomize(jax.device_get(jstate.params), rng)
+    model_state = randomize(jax.device_get(jstate.model_state), rng)
+    assert set(params) == {"encoder_content", "generator", "discriminator_s", "discriminator_t"}
+
+    trainer = PortTrainer(TwinGANConfig(model=PGGANConfig(**kw), use_unet=True, batch_size=2),
+                          device="cpu")
+    state = bridge.twingan_state_from_flax(trainer, params, model_state, step=3, critic_step=5)
+    assert (state.step, state.critic_step) == (3, 5)
+    back_params, back_state = bridge.flax_from_twingan_state(state)
+    assert set(back_state) == set(model_state)
+    for name in params:
+        assert _flax_leaves(back_params[name]).keys() == _flax_leaves(params[name]).keys()
+        for k, v in _flax_leaves(params[name]).items():
+            np.testing.assert_array_equal(_flax_leaves(back_params[name])[k], v, err_msg=k)
+        stats = _flax_leaves(model_state[name])
+        assert _flax_leaves(back_state[name]).keys() == stats.keys()
+        for k, v in stats.items():
+            np.testing.assert_array_equal(_flax_leaves(back_state[name])[k], v, err_msg=k)
+    has_stats = norm_type == "batch_norm"
+    assert bool(model_state["generator"]) == has_stats
+    assert model_state["discriminator_s"] == {}

@@ -6,9 +6,11 @@ The package mirrors ``twingan_tpu/`` module for module (``models/``,
 counterpart and a Flax checkpoint bridges 1:1 (``bridge.py``). It imports
 ``torch`` and never ``jax``, ``flax`` or ``twingan_tpu``.
 
-Slice ported so far: 256 px image translation served through
-``infer.translate.ImageInferer`` and ``serve.clients``, with SAGAN
-self-attention on a hand-written CUDA flash-attention forward kernel
-(``csrc/flash_attn_fwd.cu``). Public functions take NHWC tensors, like the
-JAX package; modules compute in NCHW views of the same memory.
+Slices ported so far: 256 px image translation served through
+``infer.translate.ImageInferer`` and ``serve.clients``, and the 256 px
+TwinGAN training round (``train.twingan_trainer.TwinGANTrainer``), with
+SAGAN self-attention on hand-written CUDA flash-attention kernels, forward
+(``csrc/flash_attn_fwd.cu``) and backward (``csrc/flash_attn_bwd.cu``).
+Public functions take NHWC tensors, like the JAX package; modules compute
+in NCHW views of the same memory.
 """

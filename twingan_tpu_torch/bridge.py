@@ -2,13 +2,15 @@
 
 A Flax ``params`` tree and its ``batch_stats`` collection, given as nested
 dicts of numpy arrays (``jax.device_get`` of the JAX state), become a
-PyTorch ``state_dict`` and back:
+PyTorch ``state_dict`` and back, for one network or for a whole train
+state (``params``/``model_state`` keyed by network name):
 
 - the key is the Flax path joined with dots (``block_64_conv0.conv.kernel``,
   ``block_64_conv0.norm.gamma_1``, ``self_attention_64.sa_gamma``);
   ``batch_stats`` leaves (``moving_mean_%d``/``moving_var_%d``) are buffers
   under the same path;
-- conv kernels are HWIO in Flax and OIHW in PyTorch;
+- conv kernels are HWIO in Flax and OIHW in PyTorch; dense kernels keep
+  the Flax [in, out] layout;
 - every other leaf is copied as it is.
 
 The conversion is exact both ways. Imports numpy and torch only.
@@ -21,7 +23,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from twingan_tpu_torch.train.twingan_trainer import ENC, GEN
+from twingan_tpu_torch.train.state import GanTrainState
+from twingan_tpu_torch.train.twingan_trainer import ENC, GEN, TwinGANTrainer
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _OIHW_TO_HWIO = (2, 3, 1, 0)
@@ -83,13 +86,48 @@ def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor],
     return _unflatten(params), _unflatten(stats)
 
 
+def train_state_dict(params: Mapping[str, Any], model_state: Mapping[str, Any],
+                     names: tuple[str, ...] | None = None) -> dict[str, torch.Tensor]:
+    """A JAX train state's networks (all of ``params``, or ``names``) ->
+    one state_dict with the network name as the key prefix."""
+    sd = {}
+    for name in names or tuple(params):
+        stats = model_state.get(name, {}).get("batch_stats")
+        sd.update(state_dict_from_flax(params[name], stats, prefix=name + "."))
+    return sd
+
+
+def flax_train_state(state_dict: Mapping[str, torch.Tensor],
+                     names: tuple[str, ...]) -> tuple[dict, dict]:
+    """Inverse of ``train_state_dict``: -> (params, model_state) keyed by
+    network name, a network's ``model_state`` holding ``batch_stats`` when it
+    has moving statistics and empty otherwise, as the JAX state's."""
+    params, model_state = {}, {}
+    for name in names:
+        params[name], stats = flax_from_state_dict(state_dict, prefix=name + ".")
+        model_state[name] = {"batch_stats": stats} if stats else {}
+    return params, model_state
+
+
 def translator_state_dict(params: Mapping[str, Any],
                           model_state: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """A JAX TwinGAN state's encoder and generator -> the state_dict of
     ``TwinGANTranslator``. ``params``/``model_state`` are the trainer
     state's dicts (pass the Polyak-averaged params for an EMA model)."""
-    sd = {}
-    for name in (ENC, GEN):
-        stats = model_state.get(name, {}).get("batch_stats")
-        sd.update(state_dict_from_flax(params[name], stats, prefix=name + "."))
-    return sd
+    return train_state_dict(params, model_state, (ENC, GEN))
+
+
+def twingan_state_from_flax(trainer: TwinGANTrainer, params: Mapping[str, Any],
+                            model_state: Mapping[str, Any], step: int = 0,
+                            critic_step: int = 0) -> GanTrainState:
+    """A port train state holding a JAX TwinGAN state's four networks, on
+    the trainer's device, with fresh optimizers (as ``init_state`` has)."""
+    nets = trainer.build_nets()
+    nets.load_state_dict(train_state_dict(params, model_state, tuple(nets.keys())),
+                         strict=True)
+    return trainer.state_from_nets(nets, step=step, critic_step=critic_step)
+
+
+def flax_from_twingan_state(state: GanTrainState) -> tuple[dict, dict]:
+    """A port TwinGAN state's networks -> the JAX (params, model_state)."""
+    return flax_train_state(state.nets.state_dict(), tuple(state.nets.keys()))

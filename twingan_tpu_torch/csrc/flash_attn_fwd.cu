@@ -26,8 +26,12 @@
 //  - key tiles of 32 rows of g and h are staged through shared memory as
 //    fp32 (zero padded to the compile-time cbar bound CB and to the column
 //    groups), loaded with coalesced reads by the whole block;
-//  - scores are taken 16 keys at a time: one max, one rescale of (l, acc),
-//    then 16 exp-and-accumulate steps, so the rescale costs 1/16 of a key.
+//  - scores are taken 16 keys at a time: one max, then the chunk's 16
+//    probabilities and weighted values are summed apart, and (l, acc) are
+//    rescaled and take the chunk's sums once. Added one key at a time, the
+//    positive terms of l are lost against the growing total (0.02 % of lse's
+//    denominator at N = 65536, a bias every backward probability inherits);
+//    chunk sums cut the additions into (l, acc) 16-fold.
 // The simple CUDA-core version is exact fp32 online softmax; tensor cores
 // (wgmma) and TMA staging are the next step for speed.
 
@@ -119,17 +123,21 @@ __global__ void __launch_bounds__(256) flash_attn_fwd_kernel(
       // exp(-inf - m_new) = 0 covers both the first chunk and masked keys.
       const float m_new = fmaxf(m, mx);
       const float scale = __expf(m - m_new);
-      l *= scale;
+      float lsum = 0.f;
+      float part[kColsPerThread];
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) acc[j] *= scale;
+      for (int j = 0; j < kColsPerThread; ++j) part[j] = 0.f;
 #pragma unroll
       for (int jj = 0; jj < kChunk; ++jj) {
         const float p = __expf(s[jj] - m_new);
-        l += p;
+        lsum += p;
         const float* hj = hs + (j0 + jj) * hc + col0;
 #pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j) acc[j] = fmaf(p, hj[j], acc[j]);
+        for (int j = 0; j < kColsPerThread; ++j) part[j] = fmaf(p, hj[j], part[j]);
       }
+      l = fmaf(l, scale, lsum);
+#pragma unroll
+      for (int j = 0; j < kColsPerThread; ++j) acc[j] = fmaf(acc[j], scale, part[j]);
       m = m_new;
     }
   }

@@ -28,19 +28,9 @@ import torch
 from twingan_tpu_torch.data.preprocess import host_resize
 from twingan_tpu_torch.runner.checkpoint import load_model
 from twingan_tpu_torch.runner.config_io import find_latest_stage_dir, load_stage_config
+from twingan_tpu_torch.train.base import resolve_device
 from twingan_tpu_torch.train.twingan_trainer import TwinGANTranslator, translate
 from twingan_tpu_torch.utils.image_io import imread_rgb, imsave_float
-
-
-def resolve_device(device: Optional[str | torch.device]) -> torch.device:
-    """``None`` means the CUDA card, which must then exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: twingan_tpu_torch runs on the card unless "
-                "device='cpu' is passed")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class ImageInferer:

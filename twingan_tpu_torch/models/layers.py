@@ -1,17 +1,22 @@
-"""Building blocks of the encoder/generator path, as ``nn.Module``s.
+"""Building blocks of the PGGAN networks, as ``nn.Module``s.
 
-Counterpart of ``twingan_tpu/models/layers.py`` (EqConv, DomainNorm,
-ConvBlock, ResBlockAdd, SelfAttention) with the same parameter names, so a
-Flax tree maps onto ``state_dict`` keys one to one (``bridge.py``):
-``conv.kernel`` (stored OIHW), ``conv.bias``, ``norm.beta_%d``,
-``norm.gamma_%d``, buffers ``norm.moving_mean_%d``/``norm.moving_var_%d``,
-``sa_gamma``.
+Counterpart of ``twingan_tpu/models/layers.py`` (EqConv, EqDense,
+DomainNorm, ConvBlock, ResBlockAdd, SelfAttention) with the same parameter
+names, so a Flax tree maps onto ``state_dict`` keys one to one
+(``bridge.py``): ``conv.kernel`` (stored OIHW), ``conv.bias``,
+``kernel``/``bias`` of a dense layer (stored [in, out] as in Flax),
+``norm.beta_%d``, ``norm.gamma_%d``, buffers
+``norm.moving_mean_%d``/``norm.moving_var_%d``, ``sa_gamma``.
 
 Modules take NCHW tensors (the NHWC inputs of the public functions arrive
 as NCHW views of the same memory). Parameters are fp32; activations are
 computed in ``cfg.dtype`` and norm statistics in fp32, as in the JAX layers.
-Norms run with moving (eval) statistics: the train-mode statistics and
-their updates belong to the training slice.
+
+Norm statistics follow the module's mode, as the JAX ``train`` flag does:
+in eval mode batch norm uses the moving statistics; in train mode
+(``.train()``) it normalizes with the batch moments, and it moves the
+moving statistics only when the call passes ``update=True`` (the JAX
+``apply_model(update_state=True)``), never as a side effect of the mode.
 """
 
 from __future__ import annotations
@@ -87,17 +92,63 @@ class EqConv(nn.Module):
         return y
 
 
+class EqDense(nn.Module):
+    """Dense layer with the same equalized-lr treatment as EqConv: the input
+    is scaled by sqrt(2 / in_features) at run time under equalized lr. The
+    kernel is stored [in_features, features], the Flax layout."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 equalized_lr: bool = False, init_stddev: float = 0.02,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.in_features = in_features
+        self.equalized_lr = equalized_lr
+        self.init_stddev = 1.0 if equalized_lr else init_stddev
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.kernel.normal_(0.0, self.init_stddev, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        if self.equalized_lr:
+            scale = basic.equalized_lr_scale(self.in_features, 1)
+            x = x * torch.tensor(scale, dtype=self.dtype, device=x.device)
+        y = x @ self.kernel.to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+BN_EPS = 1e-3
+BN_DECAY = 0.999
+
+
 class DomainNorm(nn.Module):
     """Normalization with one parameter/statistic bank per domain; the call
-    selects the bank. kind: none | batch_norm (moving statistics, eps 1e-3)
-    | instance_norm (per-sample statistics, eps 1e-6)."""
+    selects the bank. kind: none | batch_norm (eps 1e-3) | instance_norm
+    (per-sample statistics, eps 1e-6).
 
-    def __init__(self, kind: str, num_features: int, num_domains: int = 1):
+    Batch norm in train mode normalizes with the biased moments of each of
+    ``num_groups`` contiguous batch groups (0 or 1: the whole batch) and,
+    with ``update=True``, moves the bank's moving mean and variance toward
+    the groups' mean moments (decay 0.999, no zero-debias). The moving
+    variance is fed the same biased variance, which ``nn.BatchNorm2d`` would
+    not do. Eval mode uses the moving statistics."""
+
+    def __init__(self, kind: str, num_features: int, num_domains: int = 1,
+                 num_groups: int = 0):
         super().__init__()
         if kind not in ("none", "batch_norm", "instance_norm"):
             raise NotImplementedError(f"norm_type={kind} is not ported to twingan_tpu_torch yet")
         self.kind = kind
         self.num_domains = num_domains
+        self.num_groups = max(num_groups, 1)
         if kind == "none":
             return
         for d in range(num_domains):
@@ -112,21 +163,29 @@ class DomainNorm(nn.Module):
             for name, t in list(self.named_parameters()) + list(self.named_buffers()):
                 t.fill_(1.0 if name.startswith(("gamma_", "moving_var_")) else 0.0)
 
-    def forward(self, x: torch.Tensor, domain: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, domain: int, update: bool = False) -> torch.Tensor:
         if self.kind == "none":
             return x
-        if self.training:
-            raise NotImplementedError("DomainNorm train-mode statistics: training slice")
         gamma = getattr(self, f"gamma_{domain}")[:, None, None]
         beta = getattr(self, f"beta_{domain}")[:, None, None]
         xf = x.float()
         if self.kind == "instance_norm":
             mean, var = norms.instance_moments(xf, nchw=True)
             y = norms.normalize(xf, mean, var, gamma, beta, eps=1e-6)
+        elif self.training:
+            gmean, gvar = norms.group_batch_moments(xf, self.num_groups)  # [G, C]
+            xg = xf.reshape(self.num_groups, -1, *xf.shape[1:])
+            y = norms.normalize(xg, gmean[:, None, :, None, None], gvar[:, None, :, None, None],
+                                gamma, beta, eps=BN_EPS).reshape(xf.shape)
+            if update:
+                with torch.no_grad():
+                    for name, value in (("moving_mean", gmean), ("moving_var", gvar)):
+                        moving = getattr(self, f"{name}_{domain}")
+                        moving.copy_(norms.update_moving(moving, value.mean(dim=0), BN_DECAY))
         else:
             mean = getattr(self, f"moving_mean_{domain}")[:, None, None]
             var = getattr(self, f"moving_var_{domain}")[:, None, None]
-            y = norms.normalize(xf, mean, var, gamma, beta, eps=1e-3)
+            y = norms.normalize(xf, mean, var, gamma, beta, eps=BN_EPS)
         return y.to(x.dtype)
 
 
@@ -134,23 +193,26 @@ _ACTIVATIONS = {None: None, "leaky": basic.leaky_relu, "tanh": torch.tanh}
 
 
 class ConvBlock(nn.Module):
-    """conv -> norm -> activation; bias exactly when no norm runs."""
+    """conv -> norm -> activation; bias exactly when no norm runs.
+    ``discriminator=True`` (the discriminator's layers) and ``norm=False``
+    (resblock shortcuts) run no norm."""
 
     def __init__(self, cfg: PGGANConfig, in_channels: int, features: int,
                  kernel_size: int = 3, padding: str = "SAME",
-                 activation: Optional[str] = "leaky", norm: bool = True):
+                 activation: Optional[str] = "leaky", norm: bool = True,
+                 discriminator: bool = False):
         super().__init__()
-        norm_kind = cfg.norm_type if norm else "none"
+        norm_kind = "none" if (discriminator or not norm) else cfg.norm_type
         self.conv = EqConv(
             in_channels, features, kernel_size, padding,
             use_bias=(norm_kind == "none"), equalized_lr=cfg.equalized_lr,
             init_stddev=cfg.init_stddev, dtype=torch_dtype(cfg.dtype),
         )
-        self.norm = DomainNorm(norm_kind, features, cfg.num_domains)
+        self.norm = DomainNorm(norm_kind, features, cfg.num_domains, cfg.bn_num_groups)
         self.activation = _ACTIVATIONS[activation]
 
-    def forward(self, x: torch.Tensor, domain: int) -> torch.Tensor:
-        y = self.norm(self.conv(x), domain)
+    def forward(self, x: torch.Tensor, domain: int = 0, update: bool = False) -> torch.Tensor:
+        y = self.norm(self.conv(x), domain, update)
         return y if self.activation is None else self.activation(y)
 
 
@@ -158,16 +220,17 @@ class ResBlockAdd(nn.Module):
     """Optional residual shortcut: identity when channels match, else a
     plain 1x1 conv named ``shortcut``. A no-op unless ``use_res_block``."""
 
-    def __init__(self, cfg: PGGANConfig, in_channels: int, features: int):
+    def __init__(self, cfg: PGGANConfig, in_channels: int, features: int,
+                 discriminator: bool = False):
         super().__init__()
         self.enabled = cfg.use_res_block
         if self.enabled and in_channels != features:
             self.shortcut = ConvBlock(cfg, in_channels, features, kernel_size=1,
-                                      activation=None, norm=False)
+                                      activation=None, norm=False, discriminator=discriminator)
         else:
             self.shortcut = None
 
-    def forward(self, inp: torch.Tensor, conv_out: torch.Tensor, domain: int) -> torch.Tensor:
+    def forward(self, inp: torch.Tensor, conv_out: torch.Tensor, domain: int = 0) -> torch.Tensor:
         if not self.enabled:
             return conv_out
         if self.shortcut is None:
@@ -178,30 +241,33 @@ class ResBlockAdd(nn.Module):
 class SelfAttention(nn.Module):
     """SAGAN self-attention: f/g 1x1 convs to C/8 channels with tanh, h 1x1
     conv to C channels, y = sa_gamma * softmax(f g^T) h + x. sa_gamma starts
-    at 0, as in the JAX layer."""
+    at 0, as in the JAX layer. The call's ``route`` picks the attention
+    core (``ops.attention.self_attention``)."""
 
-    def __init__(self, cfg: PGGANConfig, channels: int):
+    def __init__(self, cfg: PGGANConfig, channels: int, discriminator: bool = False):
         super().__init__()
         c_bar = max(channels // 8, 1)
-        self.sa_f = ConvBlock(cfg, channels, c_bar, 1, activation="tanh")
-        self.sa_g = ConvBlock(cfg, channels, c_bar, 1, activation="tanh")
-        self.sa_h = ConvBlock(cfg, channels, channels, 1, activation=None)
+        kw = dict(discriminator=discriminator)
+        self.sa_f = ConvBlock(cfg, channels, c_bar, 1, activation="tanh", **kw)
+        self.sa_g = ConvBlock(cfg, channels, c_bar, 1, activation="tanh", **kw)
+        self.sa_h = ConvBlock(cfg, channels, channels, 1, activation=None, **kw)
         self.sa_gamma = nn.Parameter(torch.zeros(1))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.sa_gamma.zero_()
 
-    def forward(self, x: torch.Tensor, domain: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, domain: int = 0, update: bool = False,
+                route: str = "kernel") -> torch.Tensor:
         b, c, hh, ww = x.shape
 
         def rows(t: torch.Tensor) -> torch.Tensor:  # NCHW -> [B, N, C'] contiguous
             return t.permute(0, 2, 3, 1).reshape(b, hh * ww, t.shape[1]).contiguous()
 
-        f = rows(self.sa_f(x, domain))
-        g = rows(self.sa_g(x, domain))
-        h = rows(self.sa_h(x, domain))
-        o = attention.self_attention(f, g, h)
+        f = rows(self.sa_f(x, domain, update))
+        g = rows(self.sa_g(x, domain, update))
+        h = rows(self.sa_h(x, domain, update))
+        o = attention.self_attention(f, g, h, route)
         o = o.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return self.sa_gamma.to(x.dtype) * o + x
 
@@ -210,5 +276,5 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every layer's parameters from ``generator`` with the JAX
     package's initializers (same distributions, not the same numbers)."""
     for m in module.modules():
-        if isinstance(m, (EqConv, DomainNorm, SelfAttention)):
+        if isinstance(m, (EqConv, EqDense, DomainNorm, SelfAttention)):
             m.reset_parameters(generator)

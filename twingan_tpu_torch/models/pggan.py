@@ -1,18 +1,22 @@
-"""PGGAN encoder and generator for translation, as ``nn.Module``s.
+"""PGGAN encoder, generator and discriminator, as ``nn.Module``s.
 
-Counterpart of ``Encoder``, ``Generator`` and ``EncoderSkips`` in
-``twingan_tpu/models/pggan.py``: the same stages, fade-in blend, channel
-schedule, UNet skip lookup, self-attention placement and layer names
-(``block_64_conv0``, ``to_rgb_256``, ``self_attention_64``, ...), registered
-as direct submodules so ``state_dict`` keys read like the Flax paths.
+Counterpart of ``Encoder``, ``Generator``, ``Discriminator`` and
+``EncoderSkips`` in ``twingan_tpu/models/pggan.py``: the same stages,
+fade-in blend, channel schedule, UNet skip lookup, self-attention placement
+and layer names (``block_64_conv0``, ``to_rgb_256``, ``self_attention_64``,
+``prediction``, ...), registered as direct submodules so ``state_dict`` keys
+read like the Flax paths.
 
 PyTorch needs every layer's input width when the module is built, where
 Flax infers it at the first call, so the generator is told whether UNet
 skips will come (``unet``) and takes the encoder's [B,4,4,C] code (the
 noise-input variant belongs to the generation slice).
 
-Both modules take and return NHWC tensors and compute on NCHW views. They
-are inference modules, built in eval mode: norms use moving statistics.
+The modules take and return NHWC tensors and compute on NCHW views. The
+encoder and the generator are built in eval mode (norms use moving
+statistics); a trainer switches them to train mode, where norms take batch
+moments and ``update=True`` moves the moving statistics
+(``models/layers.py``). The discriminator has no norms.
 """
 
 from __future__ import annotations
@@ -24,7 +28,13 @@ import torch
 import torch.nn as nn
 
 from twingan_tpu_torch.models.config import PGGANConfig, require_ported
-from twingan_tpu_torch.models.layers import ConvBlock, ResBlockAdd, SelfAttention, torch_dtype
+from twingan_tpu_torch.models.layers import (
+    ConvBlock,
+    EqDense,
+    ResBlockAdd,
+    SelfAttention,
+    torch_dtype,
+)
 from twingan_tpu_torch.ops import basic
 
 
@@ -46,6 +56,13 @@ class EncoderSkips:
 
     blocks: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
     interp: Dict[int, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def cat(a: "EncoderSkips", b: "EncoderSkips") -> "EncoderSkips":
+        """The skips of two batches, concatenated along the batch axis."""
+        return EncoderSkips(
+            blocks={hw: torch.cat([t, b.blocks[hw]]) for hw, t in a.blocks.items()},
+            interp={hw: torch.cat([t, b.interp[hw]]) for hw, t in a.interp.items()})
 
     def lookup(self, hw: int, expected_ch: int) -> torch.Tensor:
         feat = self.interp.get(hw)
@@ -85,14 +102,15 @@ class Encoder(nn.Module):
         self.add_module(f"{name}_conv", ConvBlock(self.cfg, c, features, kernel_size=1))
         self.add_module(f"{name}_res", ResBlockAdd(self.cfg, c, features))
 
-    def _apply_from_rgb(self, name: str, t: torch.Tensor, domain: int) -> torch.Tensor:
-        y = getattr(self, f"{name}_conv")(t, domain)
+    def _apply_from_rgb(self, name: str, t: torch.Tensor, domain: int,
+                        update: bool) -> torch.Tensor:
+        y = getattr(self, f"{name}_conv")(t, domain, update)
         if self.cfg.do_pixel_norm:
             y = basic.pixel_norm(y, dim=1)
         return getattr(self, f"{name}_res")(t, y, domain)
 
-    def forward(self, x: torch.Tensor, *, alpha: float = 0.0,
-                domain: int = 0) -> tuple[torch.Tensor, EncoderSkips]:
+    def forward(self, x: torch.Tensor, *, alpha: float = 0.0, domain: int = 0,
+                update: bool = False) -> tuple[torch.Tensor, EncoderSkips]:
         cfg = self.cfg
         skips = EncoderSkips()
         max_stage = cfg.max_stage
@@ -104,17 +122,17 @@ class Encoder(nn.Module):
         shrunk = None
         if cfg.is_growing:
             shrunk = basic.avg_pool_2x(x, nchw=True)
-            shrunk = self._apply_from_rgb(f"from_rgb_{src_hw // 2}", shrunk, domain)
-        net = self._apply_from_rgb(f"from_rgb_{src_hw}", x, domain)
+            shrunk = self._apply_from_rgb(f"from_rgb_{src_hw // 2}", shrunk, domain, update)
+        net = self._apply_from_rgb(f"from_rgb_{src_hw}", x, domain, update)
 
         for stage in range(max_stage, 0, -1):
             hw = src_hw >> (max_stage - stage)
             if cfg.do_self_attention and hw == cfg.self_attention_hw:
-                net = getattr(self, f"self_attention_{hw}")(net, domain)
-            y = getattr(self, f"block_{hw}_conv0")(net, domain)
+                net = getattr(self, f"self_attention_{hw}")(net, domain, update)
+            y = getattr(self, f"block_{hw}_conv0")(net, domain, update)
             if cfg.do_pixel_norm:
                 y = basic.pixel_norm(y, dim=1)
-            y = getattr(self, f"block_{hw}_conv1")(y, domain)
+            y = getattr(self, f"block_{hw}_conv1")(y, domain, update)
             if cfg.do_pixel_norm:
                 y = basic.pixel_norm(y, dim=1)
             net = getattr(self, f"block_{hw}_res")(net, y, domain)
@@ -169,7 +187,8 @@ class Generator(nn.Module):
             kernel_size=self._rgb_kernel(hw), activation=None))
 
     def forward(self, source: torch.Tensor, *, alpha: float = 0.0, domain: int = 0,
-                unet_skips: Optional[EncoderSkips] = None) -> torch.Tensor:
+                unet_skips: Optional[EncoderSkips] = None,
+                update: bool = False) -> torch.Tensor:
         cfg = self.cfg
         if source.dim() != 4 or source.shape[1:3] != (4, 4):
             raise NotImplementedError(
@@ -181,34 +200,123 @@ class Generator(nn.Module):
         net = _nchw(source).to(torch_dtype(cfg.dtype))
         prev_rgb = None
 
-        net = self.block_4_conv0(net, domain)
+        net = self.block_4_conv0(net, domain, update)
         if cfg.do_pixel_norm:
             net = basic.pixel_norm(net, dim=1)
-        net = self.block_4_conv1(net, domain)
+        net = self.block_4_conv1(net, domain, update)
         if cfg.do_pixel_norm:
             net = basic.pixel_norm(net, dim=1)
         if cfg.do_self_attention and cfg.self_attention_hw == 4:
-            net = self.self_attention_4(net, domain)
+            net = self.self_attention_4(net, domain, update)
 
         for stage in range(1, cfg.max_stage + 1):
             hw = 2 ** (stage + 2)
             if stage == cfg.max_stage and cfg.is_growing:
-                prev_rgb = getattr(self, f"to_rgb_{hw // 2}")(net, domain)
+                prev_rgb = getattr(self, f"to_rgb_{hw // 2}")(net, domain, update)
                 prev_rgb = basic.upsample_nearest_2x(prev_rgb, nchw=True)
             inp = basic.upsample_nearest_2x(net, nchw=True)
             if self._has_skip(hw):
                 skip = unet_skips.lookup(hw, cfg.channels(stage - 1))
                 inp = torch.cat([inp, _nchw(skip).to(inp.dtype)], dim=1)
-            y = getattr(self, f"block_{hw}_conv0")(inp, domain)
+            y = getattr(self, f"block_{hw}_conv0")(inp, domain, update)
             if cfg.do_pixel_norm:
                 y = basic.pixel_norm(y, dim=1)
-            y = getattr(self, f"block_{hw}_conv1")(y, domain)
+            y = getattr(self, f"block_{hw}_conv1")(y, domain, update)
             if cfg.do_pixel_norm:
                 y = basic.pixel_norm(y, dim=1)
             net = getattr(self, f"block_{hw}_res")(inp, y, domain)
             if cfg.do_self_attention and hw == cfg.self_attention_hw:
-                net = getattr(self, f"self_attention_{hw}")(net, domain)
+                net = getattr(self, f"self_attention_{hw}")(net, domain, update)
 
-        rgb = getattr(self, f"to_rgb_{cfg.resolution}")(net, domain)
+        rgb = getattr(self, f"to_rgb_{cfg.resolution}")(net, domain, update)
         out = basic.blend(rgb, prev_rgb, alpha) if cfg.is_growing else rgb
         return _nhwc(out)
+
+
+class Discriminator(nn.Module):
+    """PGGAN discriminator: from_rgb -> mirrored blocks with avg-pool
+    downsampling (fade-in blend on a growing stage, self-attention at
+    ``self_attention_hw``) -> minibatch stddev -> k3 and k4 VALID convs ->
+    the linear ``prediction``. No norms; every conv has a bias. Returns the
+    [B, 1] prediction in ``cfg.dtype``.
+
+    ``attention`` is the self-attention route (``ops.attention``): "kernel"
+    for the CUDA kernels, "plain" for the twice-differentiable plain version
+    that the gradient penalty needs."""
+
+    def __init__(self, cfg: PGGANConfig, do_gdrop: bool = False):
+        super().__init__()
+        unported = [("gdrop", do_gdrop), ("spectral_norm", cfg.spectral_norm),
+                    ("quantized_inference", cfg.quantized_inference != ""),
+                    ("attention_context_parallel", cfg.attention_context_parallel)]
+        for name, is_set in unported:
+            if is_set:
+                raise NotImplementedError(
+                    f"{name} in the discriminator is not ported to twingan_tpu_torch yet")
+        self.cfg = cfg
+        max_stage = cfg.max_stage
+        res = cfg.resolution
+        self._from_rgb(f"from_rgb_{res}", self._channels(max_stage))
+        if cfg.is_growing:
+            self._from_rgb(f"from_rgb_{res // 2}", self._channels(max_stage - 1))
+        for stage in range(max_stage, 0, -1):
+            hw = res >> (max_stage - stage)
+            in_ch, ch_out = self._channels(stage), self._channels(stage - 1)
+            if cfg.do_self_attention and hw == cfg.self_attention_hw:
+                self.add_module(f"self_attention_{hw}",
+                                SelfAttention(cfg, in_ch, discriminator=True))
+            self.add_module(f"block_{hw}_conv0", ConvBlock(cfg, in_ch, in_ch, discriminator=True))
+            self.add_module(f"block_{hw}_conv1", ConvBlock(cfg, in_ch, ch_out, discriminator=True))
+            self.add_module(f"block_{hw}_res", ResBlockAdd(cfg, in_ch, ch_out, discriminator=True))
+        mc = cfg.dis_max_channels
+        self.before_fc_conv0 = ConvBlock(cfg, self._channels(0) + 1, mc, discriminator=True)
+        self.before_fc_conv1 = ConvBlock(cfg, mc, mc, kernel_size=4, padding="VALID",
+                                         discriminator=True)
+        self.prediction = EqDense(mc, 1, equalized_lr=cfg.equalized_lr,
+                                  init_stddev=cfg.init_stddev, dtype=torch_dtype(cfg.dtype))
+
+    def _channels(self, stage: int) -> int:
+        return self.cfg.channels(stage, discriminator=True)
+
+    def _from_rgb(self, name: str, features: int) -> None:
+        c = self.cfg.image_channels
+        self.add_module(f"{name}_conv", ConvBlock(self.cfg, c, features, kernel_size=1,
+                                                  discriminator=True))
+        self.add_module(f"{name}_res", ResBlockAdd(self.cfg, c, features, discriminator=True))
+
+    def _apply_from_rgb(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        return getattr(self, f"{name}_res")(t, getattr(self, f"{name}_conv")(t))
+
+    def forward(self, x: torch.Tensor, *, alpha: float = 0.0, stddev_groups: int = 1,
+                attention: str = "kernel", cond_embed: Optional[torch.Tensor] = None,
+                cond_image: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if cond_embed is not None or cond_image is not None:
+            raise NotImplementedError(
+                "conditional discriminator inputs are not ported to twingan_tpu_torch yet")
+        cfg = self.cfg
+        max_stage = cfg.max_stage
+        src_hw = x.shape[1]
+        if src_hw != cfg.resolution:
+            raise ValueError(f"discriminator expects {cfg.resolution} px input, got {src_hw}")
+        x = _nchw(x).to(torch_dtype(cfg.dtype))
+
+        shrunk = None
+        if cfg.is_growing:
+            shrunk = self._apply_from_rgb(f"from_rgb_{src_hw // 2}",
+                                          basic.avg_pool_2x(x, nchw=True))
+        net = self._apply_from_rgb(f"from_rgb_{src_hw}", x)
+
+        for stage in range(max_stage, 0, -1):
+            hw = src_hw >> (max_stage - stage)
+            if cfg.do_self_attention and hw == cfg.self_attention_hw:
+                net = getattr(self, f"self_attention_{hw}")(net, route=attention)
+            y = getattr(self, f"block_{hw}_conv0")(net)
+            y = getattr(self, f"block_{hw}_conv1")(y)
+            net = getattr(self, f"block_{hw}_res")(net, y)
+            net = basic.avg_pool_2x(net, nchw=True)
+            if stage == max_stage and cfg.is_growing:
+                net = basic.blend(net, shrunk, alpha)
+
+        net = basic.minibatch_stddev(net, num_groups=stddev_groups, nchw=True)
+        net = self.before_fc_conv1(self.before_fc_conv0(net))
+        return self.prediction(net.reshape(net.shape[0], -1))

@@ -4,17 +4,32 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
 
 - ``attention_core`` is the plain PyTorch version of the JAX einsum path
   (scores and softmax in fp32, the probabilities cast to h's dtype, the
-  value product accumulated in fp32). The tests use it, and the kernel
-  wrapper runs it for tensors on the CPU;
-- ``flash_attention_forward`` is the wrapper of the hand-written CUDA kernel
-  ``csrc/flash_attn_fwd.cu``, which replaces the Pallas ``_flash_kernel``.
-  On a CUDA tensor it launches the kernel or raises; it never falls back;
+  value product accumulated in fp32). The tests use it, the kernel wrappers
+  run it for tensors on the CPU, and its autograd is twice differentiable;
+- ``flash_attention_forward`` wraps the hand-written CUDA kernel
+  ``csrc/flash_attn_fwd.cu`` (Pallas ``_flash_kernel``), and
+  ``flash_attention_backward`` the two kernels of ``csrc/flash_attn_bwd.cu``
+  (Pallas ``_flash_dq_kernel`` and ``_flash_dkv_kernel``). On a CUDA tensor
+  each launches its kernel or raises; it never falls back. Their plain
+  versions (``attention_core``/``attention_lse`` and
+  ``flash_attention_dq_plain``/``flash_attention_dkv_plain``) run on CPU
+  tensors;
+- ``FlashAttention`` is the autograd boundary. Its backward is
+  ``once_differentiable`` and refuses to run under ``create_graph=True``:
+  the kernels' outputs carry no graph, and a second-order pass through
+  them would treat them as constants. ``once_differentiable`` alone raises
+  only when the engine reaches its error node, which
+  ``torch.autograd.grad(..., inputs)`` can prune, leaving a wrong
+  gradient without an error; so the first-order pass that would build the
+  second-order graph raises instead;
 - ``self_attention`` is the dispatch the SelfAttention layer calls. On a
-  CUDA tensor the kernel runs at any N (there is no TPU-style size
-  threshold); on a CPU tensor the plain version runs.
-
-The backward kernels (Pallas ``_flash_dq_kernel`` / ``_flash_dkv_kernel``)
-belong to the training slice: ``FlashAttention.backward`` raises.
+  CUDA tensor the kernels run at any N (there is no TPU-style size
+  threshold); on a CPU tensor the plain version runs. ``route="plain"``
+  asks for the plain version on any device. The gradient penalty takes it:
+  DRAGAN and WGAN-GP differentiate the discriminator twice, the backward
+  kernels have no second-order rule, and neither has the JAX package's
+  ``custom_vjp`` (on a TPU its penalty also runs the einsum path). Each such
+  call is counted under ``PLAIN_ROUTE``.
 """
 
 from __future__ import annotations
@@ -26,12 +41,17 @@ import torch
 from twingan_tpu_torch.ops import cuda_build
 
 KERNEL_NAME = "flash_attn_fwd"
+BWD_LIBRARY = "flash_attn_bwd"
+DQ_KERNEL = "flash_attn_dq"
+DKV_KERNEL = "flash_attn_dkv"
+PLAIN_ROUTE = "attention_core_double_backward"
 MAX_CBAR = 64
 MAX_C = 256
 
 # Kernel launches since the last reset_launch_counts(), by kernel name. Only
-# the wrapper adds to it, once per launch of its kernel.
-launch_counts = {KERNEL_NAME: 0}
+# a wrapper adds to it, once per launch of its kernel; PLAIN_ROUTE counts the
+# calls that asked for the twice-differentiable plain version.
+launch_counts = {KERNEL_NAME: 0, DQ_KERNEL: 0, DKV_KERNEL: 0, PLAIN_ROUTE: 0}
 
 
 def reset_launch_counts() -> None:
@@ -67,18 +87,25 @@ def _check(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> None:
         raise ValueError("f, g, h must be on one device")
 
 
-def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the CUDA kernel; every check the kernel needs happens here."""
+def _check_kernel_args(name: str, f: torch.Tensor, h: torch.Tensor, *tensors: torch.Tensor) -> None:
+    """What the CUDA kernels take: fp32 or bf16, c_bar and C in range,
+    contiguous tensors."""
     if f.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash_attn_fwd takes float32 or bfloat16, got {f.dtype}")
-    b, n, c_bar = f.shape
-    c = h.shape[-1]
+        raise ValueError(f"{name} takes float32 or bfloat16, got {f.dtype}")
+    c_bar, c = f.shape[-1], h.shape[-1]
     if not 1 <= c_bar <= MAX_CBAR or not 1 <= c <= MAX_C:
         raise ValueError(
-            f"flash_attn_fwd takes c_bar in [1, {MAX_CBAR}] and C in [1, {MAX_C}], "
+            f"{name} takes c_bar in [1, {MAX_CBAR}] and C in [1, {MAX_C}], "
             f"got {c_bar} and {c}")
-    if not (f.is_contiguous() and g.is_contiguous() and h.is_contiguous()):
-        raise ValueError("flash_attn_fwd takes contiguous f, g, h")
+    if not all(t.is_contiguous() for t in (f, h, *tensors)):
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the CUDA kernel; every check the kernel needs happens here."""
+    _check_kernel_args(KERNEL_NAME, f, h, g)
+    b, n, c_bar = f.shape
+    c = h.shape[-1]
     lib = cuda_build.load(KERNEL_NAME)
     fn = lib.flash_attn_fwd
     if fn.argtypes is None:
@@ -115,26 +142,160 @@ def flash_attention_forward(
     return attention_core(f, g, h), attention_lse(f, g)
 
 
+def flash_attention_dq_plain(f, g, h, do, lse, delta) -> torch.Tensor:
+    """Plain version of the dq kernel: df = ds g, with p = exp(f g^T - lse),
+    dp = do h^T and ds = p (dp - delta), over the full N^2 in fp32."""
+    p = torch.exp(torch.matmul(f.float(), g.float().transpose(1, 2)) - lse[..., None])
+    ds = p * (torch.matmul(do.float(), h.float().transpose(1, 2)) - delta[..., None])
+    return torch.matmul(ds, g.float()).to(f.dtype)
+
+
+def flash_attention_dkv_plain(f, g, h, do, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dkv kernel: dg = ds^T f and dh = p^T do."""
+    p = torch.exp(torch.matmul(f.float(), g.float().transpose(1, 2)) - lse[..., None])
+    ds = p * (torch.matmul(do.float(), h.float().transpose(1, 2)) - delta[..., None])
+    dg = torch.matmul(ds.transpose(1, 2), f.float())
+    dh = torch.matmul(p.transpose(1, 2), do.float())
+    return dg.to(g.dtype), dh.to(h.dtype)
+
+
+def flash_attention_backward_plain(f, g, h, do, lse, delta):
+    """(df, dg, dh) of the two backward kernels' plain versions."""
+    return (flash_attention_dq_plain(f, g, h, do, lse, delta),
+            *flash_attention_dkv_plain(f, g, h, do, lse, delta))
+
+
+def _bwd_fn(lib, name: str, n_ptrs: int, n_strides: int):
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = [vp] * n_ptrs + [i32] * 6 + [i64] * n_strides + [vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_backward(f, g, h, do, lse, delta) -> None:
+    _check(f, g, h)
+    if do.shape != h.shape or lse.shape != f.shape[:2] or delta.shape != f.shape[:2]:
+        raise ValueError(
+            f"shape mismatch: do {tuple(do.shape)}, lse {tuple(lse.shape)}, "
+            f"delta {tuple(delta.shape)} for h {tuple(h.shape)}")
+    if any(t.device != f.device for t in (do, lse, delta)):
+        raise ValueError("do, lse and delta must be on f's device")
+    if f.is_cuda:
+        _check_kernel_args("flash backward", f, h, g, do, lse, delta)
+        if do.dtype != h.dtype or lse.dtype != torch.float32 or delta.dtype != torch.float32:
+            raise ValueError("flash backward takes do in h's dtype and fp32 lse and delta")
+    elif f.device.type != "cpu":
+        raise ValueError(f"flash backward runs on cuda or cpu, not {f.device}")
+
+
+def _backward_args(f, g, h, do, lse, delta) -> tuple:
+    """The kernels' shared leading arguments: the six input pointers; then,
+    after the output pointers, dtype, device and sizes; then the input
+    strides (lse and delta share one batch stride, both being contiguous)."""
+    ptrs = (f.data_ptr(), g.data_ptr(), h.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    sizes = (0 if f.dtype == torch.float32 else 1, f.device.index or 0, *f.shape, h.shape[-1])
+    strides = (f.stride(0), f.stride(1), g.stride(0), g.stride(1), h.stride(0), h.stride(1),
+               do.stride(0), do.stride(1), lse.stride(0))
+    return ptrs, sizes, strides
+
+
+def flash_attention_dq(f, g, h, do, lse, delta) -> torch.Tensor:
+    """df in f's dtype. A CUDA tensor goes to the dq kernel (or raises); a
+    CPU tensor to ``flash_attention_dq_plain``."""
+    _check_backward(f, g, h, do, lse, delta)
+    if not f.is_cuda:
+        return flash_attention_dq_plain(f, g, h, do, lse, delta)
+    df = torch.empty_like(f)
+    ptrs, sizes, strides = _backward_args(f, g, h, do, lse, delta)
+    err = _bwd_fn(cuda_build.load(BWD_LIBRARY), DQ_KERNEL, 7, 11)(
+        *ptrs, df.data_ptr(), *sizes, *strides, df.stride(0), df.stride(1),
+        torch.cuda.current_stream(f.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{DQ_KERNEL} launch failed: cudaError_t {err}")
+    launch_counts[DQ_KERNEL] += 1
+    return df
+
+
+def flash_attention_dkv(f, g, h, do, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dg, dh) in the dtypes of g and h. A CUDA tensor goes to the dkv
+    kernel (or raises); a CPU tensor to ``flash_attention_dkv_plain``."""
+    _check_backward(f, g, h, do, lse, delta)
+    if not f.is_cuda:
+        return flash_attention_dkv_plain(f, g, h, do, lse, delta)
+    dg, dh = torch.empty_like(g), torch.empty_like(h)
+    ptrs, sizes, strides = _backward_args(f, g, h, do, lse, delta)
+    err = _bwd_fn(cuda_build.load(BWD_LIBRARY), DKV_KERNEL, 8, 13)(
+        *ptrs, dg.data_ptr(), dh.data_ptr(), *sizes, *strides, dg.stride(0), dg.stride(1),
+        dh.stride(0), dh.stride(1), torch.cuda.current_stream(f.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{DKV_KERNEL} launch failed: cudaError_t {err}")
+    launch_counts[DKV_KERNEL] += 1
+    return dg, dh
+
+
+def flash_attention_backward(f, g, h, do, lse, delta):
+    """(df, dg, dh) in the dtypes of f, g, h, from the forward's fp32 lse
+    and delta = rowsum(do * o) [B, N] fp32: the dq and the dkv kernel on a
+    CUDA tensor, their plain versions on a CPU tensor."""
+    return (flash_attention_dq(f, g, h, do, lse, delta),
+            *flash_attention_dkv(f, g, h, do, lse, delta))
+
+
+def _first_order_only(backward):
+    """Raise when the backward runs with grad mode on (create_graph=True)."""
+
+    def wrapper(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "FlashAttention is differentiable once only: its backward kernels "
+                "have no second-order rule. Take self_attention(..., route='plain') "
+                "for a create_graph=True pass (the gradient penalty's).")
+        return backward(ctx, *grads)
+
+    return wrapper
+
+
 class FlashAttention(torch.autograd.Function):
-    """Autograd boundary of the forward kernel. Its backward kernels are not
-    ported yet, so a gradient through it raises instead of being wrong."""
+    """Autograd boundary of the three kernels: the forward saves (o, lse),
+    the backward computes delta = rowsum(do * o) as a plain fp32 reduction
+    (as the JAX package does outside its kernels) and launches dq and dkv.
+    Differentiable once only (see the module docstring)."""
 
     @staticmethod
     def forward(ctx, f, g, h):
-        o, _ = flash_attention_forward(f, g, h)
+        o, lse = flash_attention_forward(f, g, h)
+        ctx.save_for_backward(f, g, h, o, lse)
         return o
 
     @staticmethod
+    @_first_order_only
+    @torch.autograd.function.once_differentiable
     def backward(ctx, do):
-        raise NotImplementedError("flash backward: training slice")
+        f, g, h, o, lse = ctx.saved_tensors
+        do = do.to(h.dtype).contiguous()
+        delta = torch.sum(do.float() * o.float(), dim=-1)
+        return flash_attention_backward(f, g, h, do, lse, delta)
 
 
 flash_attention_core = FlashAttention.apply
 
+ROUTES = ("kernel", "plain")
 
-def self_attention(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-    """The layer's dispatch: the CUDA kernel for CUDA tensors at every N, the
-    plain version for CPU tensors."""
+
+def self_attention(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                   route: str = "kernel") -> torch.Tensor:
+    """The layer's dispatch. ``route="kernel"``: the CUDA kernels for CUDA
+    tensors at every N, the plain version for CPU tensors. ``route="plain"``:
+    the twice-differentiable plain version on any device, counted under
+    ``PLAIN_ROUTE`` (the gradient penalty's passes)."""
+    if route not in ROUTES:
+        raise ValueError(f"unknown attention route {route!r}")
+    if route == "plain":
+        launch_counts[PLAIN_ROUTE] += 1
+        return attention_core(f, g, h)
     if f.is_cuda:
         return flash_attention_core(f, g, h)
     return attention_core(f, g, h)

@@ -1,4 +1,4 @@
-"""Elementary ops of the translation path, in PyTorch.
+"""Elementary ops of the translation and training paths, in PyTorch.
 
 Counterpart of ``twingan_tpu/ops/basic.py``. Image tensors are NHWC by
 default, as in the JAX package; the spatial ops take ``nchw=True`` for the
@@ -47,3 +47,30 @@ def blend(new: torch.Tensor, old: torch.Tensor, alpha) -> torch.Tensor:
     """Fade-in blend used during growth: new*alpha + (1-alpha)*old."""
     alpha = torch.as_tensor(alpha, dtype=new.dtype, device=new.device)
     return new * alpha + (1 - alpha) * old
+
+
+def minibatch_stddev(x: torch.Tensor, eps: float | None = None, num_groups: int = 1,
+                     nchw: bool = False) -> torch.Tensor:
+    """Append the across-minibatch stddev as one constant feature map.
+
+    The biased (population) variance over the batch axis at each location,
+    its square root after adding eps (1e-8 in fp32, 1e-6 in other dtypes),
+    averaged to one scalar per group of ``num_groups`` contiguous equal
+    sub-batches and tiled to [B, H, W, 1]. Groups aligned to the sub-batch
+    boundaries make one pass over concatenated batches compute each pass's
+    own statistic."""
+    if eps is None:
+        eps = 1e-8 if x.dtype == torch.float32 else 1e-6
+    t = x if nchw else x.permute(0, 3, 1, 2)
+    b, c, h, w = t.shape
+    groups = max(num_groups, 1)
+    if b % groups:
+        raise ValueError(f"batch {b} not divisible by num_groups {num_groups}")
+    tg = t.reshape(groups, b // groups, c, h, w)
+    mean = torch.mean(tg, dim=1, keepdim=True)
+    var = torch.mean(torch.square(tg - mean), dim=1, keepdim=True)
+    std = torch.sqrt(var + torch.tensor(eps, dtype=x.dtype, device=x.device))
+    scalar = torch.mean(std, dim=(1, 2, 3, 4))  # [groups]
+    tiled = scalar[:, None, None, None, None].expand(groups, b // groups, 1, h, w)
+    out = torch.cat([t, tiled.reshape(b, 1, h, w).to(x.dtype)], dim=1)
+    return out if nchw else out.permute(0, 2, 3, 1)

@@ -1,8 +1,8 @@
-"""Functional normalization cores used at inference.
+"""Functional normalization cores.
 
-Counterpart of the eval-time part of ``twingan_tpu/ops/norms.py``: batch
-moments, instance moments and the normalize step. Moving-statistic updates
-and batch renorm belong to the training slice.
+Counterpart of ``twingan_tpu/ops/norms.py`` for batch and instance norm:
+batch moments, per-group batch moments, instance moments, the normalize
+step and the moving-statistic update. Batch renorm is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,3 +44,21 @@ def instance_moments(x: torch.Tensor, nchw: bool = False) -> tuple[torch.Tensor,
     mean = torch.mean(x, dim=dims, keepdim=True)
     var = torch.mean(torch.square(x - mean), dim=dims, keepdim=True)
     return mean, var
+
+
+def group_batch_moments(x: torch.Tensor, num_groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Biased batch moments of NCHW ``x`` per contiguous batch group:
+    ([G, C] mean, [G, C] variance), the variance as the mean of squared
+    deviations. One group is the full-batch moments."""
+    b = x.shape[0]
+    if b % num_groups:
+        raise ValueError(f"batch {b} not divisible by bn_num_groups {num_groups}")
+    xg = x.reshape(num_groups, b // num_groups, *x.shape[1:])
+    mean = torch.mean(xg, dim=(1, 3, 4))
+    var = torch.mean(torch.square(xg - mean[:, None, :, None, None]), dim=(1, 3, 4))
+    return mean, var
+
+
+def update_moving(moving: torch.Tensor, value: torch.Tensor, decay: float) -> torch.Tensor:
+    """assign_moving_average without zero-debias: m*decay + v*(1-decay)."""
+    return moving * decay + value.to(moving.dtype) * (1 - decay)

@@ -1,0 +1,100 @@
+"""Shared GAN trainer base: the fade-in schedule and the n-critic round.
+
+Counterpart of ``twingan_tpu/train/base.py``. PyTorch runs eagerly, so
+``g_step``/``d_step`` are the subclass's methods as they are (the JAX
+package jit-compiles them), and ``scan_rounds``, which the JAX package
+compiles into one on-device loop, is a Python loop over stacked batches
+with the same counter semantics.
+
+The step functions take ``rng``, an integer seed; a step's random numbers
+come from ``step_generator(rng, critic_step)``, as the JAX steps fold the
+critic counter into their PRNG key.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import torch
+
+from twingan_tpu_torch.models.config import require_ported
+from twingan_tpu_torch.ops import basic
+
+
+def resolve_device(device: Optional[str | torch.device]) -> torch.device:
+    """``None`` means the CUDA card, which must then exist."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: twingan_tpu_torch runs on the card unless "
+                "device='cpu' is passed")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def fade_alpha(cfg, step: int) -> float:
+    """The fade-in alpha at ``step``: 0 on a stable stage, else the linear
+    ramp over [grow_start_step, max_steps]."""
+    if not cfg.model.is_growing:
+        return 0.0
+    denom = max(cfg.max_steps - cfg.grow_start_step, 1)
+    return float(step - cfg.grow_start_step) / denom
+
+
+def step_generator(rng: int, critic_step: int, device: torch.device) -> torch.Generator:
+    """The random stream of one step: seeded from (rng, critic_step)."""
+    seed = (int(rng) * 1_000_003 + int(critic_step)) % (2**63)
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def require_trainable(cfg) -> None:
+    """Raise ``NotImplementedError`` for the model options the port's
+    modules lack and the trainer options it lacks."""
+    require_ported(cfg.model)
+    unported = [
+        ("remat", cfg.remat),
+        ("sync_batch_norm_axis", cfg.model.sync_batch_norm_axis is not None),
+        ("use_gdrop", cfg.use_gdrop),
+    ]
+    for name, is_set in unported:
+        if is_set:
+            raise NotImplementedError(f"{name} is not ported to twingan_tpu_torch's trainers yet")
+
+
+class BaseGanTrainer:
+    """Subclasses implement ``g_step``/``d_step`` (state, batch, rng) ->
+    (state, metrics) and set ``self.cfg`` with model/n_critic/growth
+    fields."""
+
+    def _alpha(self, step: int) -> float:
+        return fade_alpha(self.cfg, step)
+
+    def growing_image(self, x: torch.Tensor, alpha: float) -> torch.Tensor:
+        """Fade-in blend of NHWC images with their low-res selves."""
+        if not self.cfg.model.is_growing:
+            return x
+        low = basic.upsample_nearest_2x(basic.avg_pool_2x(x))
+        return basic.blend(x, low, alpha)
+
+    def round_step(self, state, batches, rng: int = 0):
+        """One n-critic round: G first, then n_critic-1 D updates."""
+        state, metrics = self.g_step(state, batches[0], rng)
+        metrics = dict(metrics)
+        for i in range(1, self.cfg.n_critic):
+            state, d_metrics = self.d_step(state, batches[i], rng)
+            metrics.update(d_metrics)
+        return state, metrics
+
+    def scan_rounds(self, state, batches: Mapping[str, torch.Tensor], rng: int = 0):
+        """Rounds over stacked batches: each leaf is [n_rounds, n_critic,
+        batch, ...]. Returns the final state and each metric stacked over
+        the rounds."""
+        n_rounds = next(iter(batches.values())).shape[0]
+        history: dict[str, list] = {}
+        for r in range(n_rounds):
+            round_batches = [{k: v[r, i] for k, v in batches.items()}
+                             for i in range(self.cfg.n_critic)]
+            state, metrics = self.round_step(state, round_batches, rng)
+            for k, v in metrics.items():
+                history.setdefault(k, []).append(torch.as_tensor(v))
+        return state, {k: torch.stack(v) for k, v in history.items()}

@@ -1,13 +1,32 @@
-"""Optimizer configuration (the optimizer factory belongs to the training
-slice).
+"""Optimizer + learning-rate-schedule factory.
 
-A copy of ``OptimizerConfig`` from ``twingan_tpu/train/optimizers.py`` with
-the same fields and defaults, so the JAX ``config.json`` loads.
+Counterpart of ``twingan_tpu/train/optimizers.py``: ``OptimizerConfig``
+field for field (so the JAX ``config.json`` loads), the three schedules
+(fixed, exponential with staircase, polynomial of power 1), and the chain
+the JAX factory builds with optax, applied in the same order:
+clip_by_global_norm -> coupled weight decay (wd * param added to the
+gradient) -> the optimizer -> frozen scopes (their params never move).
+
+Optimizers: ``adam``, ``sgd`` and ``momentum`` run on ``torch.optim``,
+whose update rules are optax's (Adam with bias-corrected moments and eps
+outside the root; heavy-ball momentum with the trace starting at the first
+gradient). ``rmsprop`` (optax adds eps inside the root, ``torch.optim``
+outside it), ``adagrad``, ``adadelta`` and ``ftrl`` are not ported yet.
+
+As in optax, the schedule counts this optimizer's own updates, evaluated
+before each one; ``updates_per_step`` stretches it for an optimizer that
+updates several times per global step (the discriminator's n_critic - 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Mapping, Sequence
+
+import torch
+
+PORTED_OPTIMIZERS = ("adam", "sgd", "momentum")
+UNPORTED_OPTIMIZERS = ("rmsprop", "adagrad", "adadelta", "ftrl")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,3 +55,84 @@ class OptimizerConfig:
 
     def replace(self, **kw) -> "OptimizerConfig":
         return dataclasses.replace(self, **kw)
+
+
+def build_schedule(cfg: OptimizerConfig, updates_per_step: int = 1) -> Callable[[int], float]:
+    """The learning rate at update ``count`` (0 for the first update)."""
+    r = max(1, updates_per_step)
+    kind = cfg.learning_rate_decay_type
+    if kind == "fixed":
+        return lambda count: cfg.learning_rate
+    if kind == "exponential":
+        steps = cfg.decay_steps * r
+        return lambda count: cfg.learning_rate * cfg.learning_rate_decay_factor ** (count // steps)
+    if kind == "polynomial":
+        steps = cfg.decay_steps * r
+
+        def polynomial(count: int) -> float:
+            frac = 1.0 - min(max(count, 0), steps) / steps
+            return (cfg.learning_rate - cfg.end_learning_rate) * frac + cfg.end_learning_rate
+
+        return polynomial
+    raise ValueError(f"unsupported decay type {kind!r}")
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+
+
+class Optimizer:
+    """One side's optimizer over named parameters. ``step(grads)`` takes the
+    gradients in the order of ``names`` and updates the parameters in place.
+    """
+
+    def __init__(self, cfg: OptimizerConfig, params: Mapping[str, torch.nn.Parameter],
+                 updates_per_step: int = 1):
+        if cfg.optimizer in UNPORTED_OPTIMIZERS:
+            raise NotImplementedError(
+                f"optimizer {cfg.optimizer!r} is not ported to twingan_tpu_torch yet")
+        if cfg.optimizer not in PORTED_OPTIMIZERS:
+            raise ValueError(f"unsupported optimizer {cfg.optimizer!r}")
+        self.cfg = cfg
+        self.schedule = build_schedule(cfg, updates_per_step)
+        self.count = 0
+        self.names = list(params)
+        self.params = list(params.values())
+        # Frozen params are left out of the optimizer: optax zeroes their
+        # updates after it, so they never move either way.
+        self.trainable = [not any(s in name for s in cfg.frozen_scopes) for name in self.names]
+        train = [p for p, t in zip(self.params, self.trainable) if t]
+        lr = cfg.learning_rate
+        if cfg.optimizer == "adam":
+            self.opt = torch.optim.Adam(train, lr=lr, betas=(cfg.adam_beta1, cfg.adam_beta2),
+                                        eps=cfg.opt_epsilon)
+        elif cfg.optimizer == "sgd":
+            self.opt = torch.optim.SGD(train, lr=lr)
+        else:
+            self.opt = torch.optim.SGD(train, lr=lr, momentum=cfg.momentum)
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> None:
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        cfg = self.cfg
+        grads = [g.float() for g in grads]
+        if cfg.clip_global_norm:
+            norm = float(global_norm(grads))
+            if not norm < cfg.clip_global_norm:
+                grads = [g * (cfg.clip_global_norm / norm) for g in grads]
+        for p, g, t in zip(self.params, grads, self.trainable):
+            if t:
+                p.grad = g + cfg.weight_decay * p if cfg.weight_decay else g
+        lr = self.schedule(self.count)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        self.opt.zero_grad(set_to_none=True)
+        self.count += 1
+
+
+def build_optimizer(cfg: OptimizerConfig, params: Mapping[str, torch.nn.Parameter],
+                    updates_per_step: int = 1) -> Optimizer:
+    return Optimizer(cfg, params, updates_per_step)

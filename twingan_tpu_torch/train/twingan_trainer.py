@@ -1,31 +1,62 @@
-"""TwinGAN configuration and translation, in PyTorch.
+"""TwinGAN trainer and translation, in PyTorch.
 
 Counterpart of ``twingan_tpu/train/twingan_trainer.py``: ``TwinGANConfig``
-field for field (same defaults and validation), the encoder + generator
-pair a translation needs (``TwinGANTranslator``, whose ``state_dict`` keys
-are the JAX ``params`` keys ``encoder_content`` / ``generator`` followed by
-the Flax paths), and ``translate`` with the contract of
-``TwinGANTrainer.translate``: the encoder runs in the source domain and the
-generator in the target domain with eval statistics, the generator takes
-the UNet skips when ``use_unet``, and on a growing stage the fade-in alpha
-follows the step. The training step belongs to the training slice.
+field for field (same defaults and validation), ``TwinGANTrainer`` with the
+JAX entry points (``init_state``, ``g_step``, ``d_step``, and from the base
+``round_step``/``scan_rounds``), the encoder + generator pair a translation
+needs (``TwinGANTranslator``, whose ``state_dict`` keys are the JAX
+``params`` keys ``encoder_content`` / ``generator`` followed by the Flax
+paths), and ``translate`` with the contract of ``TwinGANTrainer.translate``.
+
+The step follows the JAX one pass for pass:
+- four generator passes (s_prime = G_s(E_t(t)), t_prime = G_t(E_s(s)),
+  s_cycle = G_s(E_s(s)), t_cycle = G_t(E_t(t))), fused into one pass per
+  output domain when ``cfg.fuse`` (per-sample norms only);
+- the G step updates the moving statistics in the JAX order, enc(s),
+  enc(t), then s_prime, s_cycle, t_prime, t_cycle; the re-encodes of the
+  primes and the discriminator passes inside it do not update;
+- the D step's generator forward runs under ``torch.no_grad()`` (the JAX
+  ``stop_gradient``) with train-mode statistics and no updates; its
+  discriminator passes run real/prime/cycle (fused into one pass per
+  domain with aligned minibatch-stddev groups when ``cfg.fuse``), and the
+  gradient penalty's pass takes the plain attention route
+  (``ops/attention.py``), the one twice-differentiable path.
+Metric names are the JAX ones. Style embedding, encoder distillation,
+gdrop and remat are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Mapping, Optional
 
 import torch
 import torch.nn as nn
 
 from twingan_tpu_torch.models.config import PGGANConfig
-from twingan_tpu_torch.models.pggan import Encoder, Generator
-from twingan_tpu_torch.train.losses import GanLossConfig
-from twingan_tpu_torch.train.optimizers import OptimizerConfig
+from twingan_tpu_torch.models.layers import reset_parameters
+from twingan_tpu_torch.models.pggan import Discriminator, Encoder, EncoderSkips, Generator
+from twingan_tpu_torch.train.base import (
+    BaseGanTrainer,
+    fade_alpha,
+    require_trainable,
+    resolve_device,
+    step_generator,
+)
+from twingan_tpu_torch.train.losses import (
+    GanLossConfig,
+    discriminator_gan_loss,
+    generator_gan_loss,
+    gradient_penalty,
+    l1_loss,
+)
+from twingan_tpu_torch.train.optimizers import OptimizerConfig, build_optimizer, global_norm
+from twingan_tpu_torch.train.state import GanTrainState, polyak_update, update_gdrop_state
 
 ENC = "encoder_content"
 GEN = "generator"
+DIS_S = "discriminator_s"
+DIS_T = "discriminator_t"
 
 DOMAIN_S = 0
 DOMAIN_T = 1
@@ -70,6 +101,12 @@ class TwinGANConfig:
     def batch_coupled_norm(self) -> bool:
         return self.model.norm_type.startswith(("batch_norm", "batch_renorm"))
 
+    @property
+    def fuse(self) -> bool:
+        if self.fuse_passes is None:
+            return not self.batch_coupled_norm
+        return self.fuse_passes
+
     def __post_init__(self):
         if self.model.num_domains != 2:
             raise ValueError("TwinGAN requires model.num_domains == 2")
@@ -84,15 +121,6 @@ class TwinGANConfig:
                 f"({self.model.norm_type}) would mix the per-pass batch "
                 "moments; use per-sample norms or fuse_passes=False"
             )
-
-
-def fade_alpha(cfg: TwinGANConfig, step: int) -> float:
-    """The fade-in alpha at ``step``: 0 on a stable stage, else the linear
-    ramp over [grow_start_step, max_steps] (JAX BaseGanTrainer._alpha)."""
-    if not cfg.model.is_growing:
-        return 0.0
-    denom = max(cfg.max_steps - cfg.grow_start_step, 1)
-    return float(step - cfg.grow_start_step) / denom
 
 
 class TwinGANTranslator(nn.Module):
@@ -120,3 +148,229 @@ def translate(cfg: TwinGANConfig, enc: Encoder, gen: Generator, images: torch.Te
         code, skips = enc(images, alpha=alpha, domain=src_domain)
         return gen(code, alpha=alpha, domain=out_domain,
                    unet_skips=skips if cfg.use_unet else None)
+
+
+class TwinGANTrainer(BaseGanTrainer):
+    """One TwinGAN stage's training: networks ``encoder_content``,
+    ``generator``, ``discriminator_s`` and ``discriminator_t``, one
+    optimizer per side. Runs on the CUDA card unless ``device="cpu"``."""
+
+    generator_side_keys = (ENC, GEN)
+    discriminator_side_keys = (DIS_S, DIS_T)
+
+    def __init__(self, cfg: TwinGANConfig, device: Optional[str | torch.device] = None):
+        unported = [("use_style_embedding", cfg.use_style_embedding),
+                    ("do_encoder_distillation", cfg.do_encoder_distillation)]
+        for name, is_set in unported:
+            if is_set:
+                raise NotImplementedError(f"{name} is not ported to twingan_tpu_torch yet")
+        require_trainable(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dis_opt_cfg = (cfg.opt.replace(learning_rate=cfg.discriminator_learning_rate)
+                            if cfg.use_ttur else cfg.opt)
+
+    def build_nets(self) -> nn.ModuleDict:
+        m = self.cfg.model
+        return nn.ModuleDict({
+            ENC: Encoder(m), GEN: Generator(m, unet=self.cfg.use_unet),
+            DIS_S: Discriminator(m), DIS_T: Discriminator(m),
+        })
+
+    def init_state(self, seed: int = 0) -> GanTrainState:
+        """Networks drawn from ``seed`` with the JAX initializers (the same
+        distributions, not the same numbers; ``bridge.py`` loads a JAX
+        state's), in train mode on the trainer's device."""
+        nets = self.build_nets()
+        reset_parameters(nets, torch.Generator().manual_seed(seed))
+        return self.state_from_nets(nets)
+
+    def state_from_nets(self, nets: nn.ModuleDict, step: int = 0,
+                        critic_step: int = 0) -> GanTrainState:
+        """A train state around ``nets`` with fresh optimizers."""
+        cfg = self.cfg
+        nets = nets.to(self.device).train()
+        gen_params = self._side_params(nets, self.generator_side_keys)
+        dis_params = self._side_params(nets, self.discriminator_side_keys)
+        zero = torch.zeros((), device=self.device)
+        return GanTrainState(
+            nets=nets,
+            gen_opt=build_optimizer(cfg.opt, gen_params),
+            # D updates n_critic-1 times per global step; its schedule is
+            # stretched so decayed rates track the global step.
+            dis_opt=build_optimizer(self.dis_opt_cfg, dis_params,
+                                    updates_per_step=max(1, cfg.n_critic - 1)),
+            gdrop_strength=zero.clone(), gen_loss_ema=zero.clone(),
+            step=step, critic_step=critic_step,
+            gen_ema_params=({k: p.detach().clone() for k, p in gen_params.items()}
+                            if cfg.moving_average_decay else None),
+        )
+
+    @staticmethod
+    def _side_params(nets: nn.ModuleDict, keys) -> dict[str, nn.Parameter]:
+        return {f"{k}.{n}": p for k in keys for n, p in nets[k].named_parameters()}
+
+    def translator_state_dict(self, state: GanTrainState) -> dict[str, torch.Tensor]:
+        """The encoder and generator as ``TwinGANTranslator.state_dict()``
+        (the Polyak-averaged parameters when they are kept), for
+        ``runner.checkpoint.save_stage`` and ``ImageInferer``."""
+        sd = {k: v for k, v in state.nets.state_dict().items()
+              if k.split(".", 1)[0] in self.generator_side_keys}
+        if state.gen_ema_params is not None:
+            sd.update(state.gen_ema_params)
+        return sd
+
+    # ------------------------------------------------------------------ #
+    # Forward
+    # ------------------------------------------------------------------ #
+    def _forward(self, nets: nn.ModuleDict, sources: torch.Tensor, targets: torch.Tensor,
+                 alpha: float, update: bool, light: bool = False) -> dict[str, Any]:
+        """The four generator passes (and, unless ``light``, the prime
+        re-encodes). Output names carry the OUTPUT domain."""
+        cfg = self.cfg
+        enc, gen = nets[ENC], nets[GEN]
+
+        def gen_apply(code, domain, skips):
+            return gen(code, alpha=alpha, domain=domain,
+                       unet_skips=skips if cfg.use_unet else None, update=update)
+
+        enc_s, skips_s = enc(sources, alpha=alpha, domain=DOMAIN_S, update=update)
+        enc_t, skips_t = enc(targets, alpha=alpha, domain=DOMAIN_T, update=update)
+        if cfg.fuse:
+            cat = EncoderSkips.cat if cfg.use_unet else (lambda a, b: None)
+            s_prime, s_cycle = gen_apply(torch.cat([enc_t, enc_s]), DOMAIN_S,
+                                         cat(skips_t, skips_s)).chunk(2)
+            t_prime, t_cycle = gen_apply(torch.cat([enc_s, enc_t]), DOMAIN_T,
+                                         cat(skips_s, skips_t)).chunk(2)
+        else:
+            s_prime = gen_apply(enc_t, DOMAIN_S, skips_t)
+            s_cycle = gen_apply(enc_s, DOMAIN_S, skips_s)
+            t_prime = gen_apply(enc_s, DOMAIN_T, skips_s)
+            t_cycle = gen_apply(enc_t, DOMAIN_T, skips_t)
+        outs = dict(sources=sources, targets=targets, enc_s=enc_s, enc_t=enc_t,
+                    s_prime=s_prime, s_cycle=s_cycle, t_prime=t_prime, t_cycle=t_cycle)
+        if not light:
+            outs["enc_t_prime"] = enc(t_prime, alpha=alpha, domain=DOMAIN_T)[0]
+            outs["enc_s_prime"] = enc(s_prime, alpha=alpha, domain=DOMAIN_S)[0]
+        return outs
+
+    def _need_cycle(self) -> bool:
+        return self.cfg.model.resolution >= 64 and self.cfg.do_l_cyc_gan
+
+    # ------------------------------------------------------------------ #
+    # Losses
+    # ------------------------------------------------------------------ #
+    def _generator_losses(self, outs, preds) -> dict[str, torch.Tensor]:
+        cfg = self.cfg
+        losses: dict[str, torch.Tensor] = {}
+        for domain, opposite in (("s", "t"), ("t", "s")):
+            original = outs["sources" if domain == "s" else "targets"]
+            losses[f"l_cyc_{domain}"] = l1_loss(original, outs[f"{domain}_cycle"], cfg.l_cyc_weight)
+            if self._need_cycle():
+                losses[f"generator_fool_loss_cycle_{domain}"] = generator_gan_loss(
+                    cfg.loss, preds[f"dis_{domain}_cycle"])
+            losses[f"generator_fool_loss_prime_{domain}"] = generator_gan_loss(
+                cfg.loss, preds[f"dis_{domain}_prime"])
+            if cfg.l_content_weight:
+                losses[f"l_{domain}_content"] = l1_loss(
+                    outs[f"enc_{domain}"], outs[f"enc_{opposite}_prime"], cfg.l_content_weight)
+        return losses
+
+    # ------------------------------------------------------------------ #
+    # Train steps
+    # ------------------------------------------------------------------ #
+    def _images(self, batch: Mapping[str, torch.Tensor], alpha: float):
+        return tuple(self.growing_image(batch[k].to(self.device, torch.float32), alpha)
+                     for k in ("source", "target"))
+
+    @staticmethod
+    def _grads(total: torch.Tensor, params) -> list[torch.Tensor]:
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+    def g_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0):
+        """One generator-side update. ``batch``: NHWC "source" and "target"
+        images in [0, 1]. Returns (state, metrics); the state is updated in
+        place."""
+        cfg = self.cfg
+        nets = state.nets
+        alpha = self._alpha(state.step)
+        sources, targets = self._images(batch, alpha)
+        outs = self._forward(nets, sources, targets, alpha, update=True)
+        kinds = ("prime", "cycle") if self._need_cycle() else ("prime",)
+        preds = {}
+        for domain, dis_name in (("s", DIS_S), ("t", DIS_T)):
+            dis = nets[dis_name]
+            if cfg.fuse:
+                pred = dis(torch.cat([outs[f"{domain}_{k}"] for k in kinds]), alpha=alpha,
+                           stddev_groups=len(kinds))
+                preds.update({f"dis_{domain}_{k}": p for k, p in zip(kinds, pred.chunk(len(kinds)))})
+            else:
+                for k in kinds:
+                    preds[f"dis_{domain}_{k}"] = dis(outs[f"{domain}_{k}"], alpha=alpha)
+        losses = self._generator_losses(outs, preds)
+        total = sum(losses.values())
+        grads = self._grads(total, state.gen_opt.params)
+        grad_norm = global_norm(grads)
+        state.gen_opt.step(grads)
+        state.gen_loss_ema, strength = update_gdrop_state(
+            state.gen_loss_ema, total, state.step, cfg.gdrop_coef, cfg.gdrop_lim, cfg.gdrop_exp)
+        if cfg.use_gdrop:
+            state.gdrop_strength = strength
+        if cfg.moving_average_decay:
+            polyak_update(state.gen_ema_params,
+                          dict(zip(state.gen_opt.names, state.gen_opt.params)),
+                          cfg.moving_average_decay)
+        state.step += 1
+        state.critic_step += 1
+        metrics = {"generator_loss": total.detach(), "alpha": alpha,
+                   "gdrop_strength": state.gdrop_strength, "generator_grad_norm": grad_norm,
+                   **{k: v.detach() for k, v in losses.items()}}
+        return state, metrics
+
+    def d_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0,
+               gp_noise: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None):
+        """One discriminator-side update. ``gp_noise`` injects the gradient
+        penalty's random numbers per domain, ``{"s": {"alpha": [B,1,1,1],
+        "noise": images' shape}, "t": {...}}``; otherwise they are drawn
+        from ``step_generator(rng, critic_step)``."""
+        cfg = self.cfg
+        nets = state.nets
+        alpha = self._alpha(state.step)
+        sources, targets = self._images(batch, alpha)
+        with torch.no_grad():
+            outs = self._forward(nets, sources, targets, alpha, update=False, light=True)
+        generator = None if gp_noise is not None else step_generator(
+            rng, state.critic_step, self.device)
+        need_cycle = self._need_cycle()
+        losses: dict[str, torch.Tensor] = {}
+        for domain, dis_name, real in (("s", DIS_S, sources), ("t", DIS_T, targets)):
+            dis = nets[dis_name]
+            fakes = [outs[f"{domain}_prime"]] + ([outs[f"{domain}_cycle"]] if need_cycle else [])
+            if cfg.fuse:
+                preds = dis(torch.cat([real, *fakes]), alpha=alpha,
+                            stddev_groups=1 + len(fakes)).chunk(1 + len(fakes))
+            else:
+                preds = [dis(x, alpha=alpha) for x in (real, *fakes)]
+            for name, val in discriminator_gan_loss(cfg.loss, preds[1], preds[0]).items():
+                losses[f"{name}_prime_{domain}"] = val
+            if need_cycle:
+                # Only the real/fake terms for the cycle.
+                cyc = discriminator_gan_loss(cfg.loss, preds[2], preds[0])
+                for name in ("discriminator_loss", "discriminator_fake_loss",
+                             "discriminator_real_loss"):
+                    if name in cyc:
+                        losses[f"{name}_cycle_{domain}"] = cyc[name]
+            noise = (gp_noise or {}).get(domain, {})
+            losses[f"gradient_penalty_{domain}"] = gradient_penalty(
+                cfg.loss, lambda x, dis=dis: dis(x, alpha=alpha, attention="plain"),
+                real, fakes[0], alpha=noise.get("alpha"), noise=noise.get("noise"),
+                generator=generator)
+        total = sum(losses.values())
+        grads = self._grads(total, state.dis_opt.params)
+        grad_norm = global_norm(grads)
+        state.dis_opt.step(grads)
+        state.critic_step += 1
+        metrics = {"discriminator_loss": total.detach(), "discriminator_grad_norm": grad_norm,
+                   **{k: v.detach() for k, v in losses.items()}}
+        return state, metrics

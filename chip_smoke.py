@@ -10,9 +10,10 @@ result line is printed:
 
 1. device   - the card's name and power limit; TF32 off for the comparisons.
 2. build    - nvcc builds ``csrc/flash_attn_fwd.cu`` (the flash-attention
-              forward kernel) and ``csrc/flash_attn_bwd.cu`` (its two
-              backward kernels, dq and dkv) into ctypes libraries, both
-              compiles started together.
+              forward kernel), ``csrc/flash_attn_bwd.cu`` (its two
+              backward kernels, dq and dkv) and ``csrc/fused_conv.cu``
+              (the fused conv3x3 + bias + leaky + pixel-norm kernel B4)
+              into ctypes libraries, the three compiles started together.
 3. kernel   - at each listed shape, the forward kernel against its plain
               PyTorch version on the same inputs (output and logsumexp);
               then the backward kernels: the gradients that
@@ -22,8 +23,12 @@ result line is printed:
               reference chunked over query rows, which also checks the
               forward kernel there). Each row has the kernels', the
               plain versions' and SDPA's times (CUDA events, median) beside
-              the card's bound for the same work. A "bound" line gives the
-              bound of the TPU kernel not ported yet.
+              the card's bound for the same work. Then B4 against its
+              plain version at the TPU script's shape, at every distinct
+              layer of the generation configuration (pggan256, batch 12,
+              bf16), in fp32, at a ragged 20 x 20 and at the widths
+              past 256 channels (512 and 1024), each row with cuDNN's
+              conv alone and the eager chain of the grad route beside it.
 4. serving  - the serving path at full width: a 256 px TwinGAN (batch
               norm, eq-lr, pixel norm, UNet skips, bf16, SAGAN attention at
               64 px) with seeded random weights is written as a stage dir,
@@ -42,8 +47,19 @@ result line is printed:
               projection's); then one warm-up and 3 timed
               rounds, whose kernel launches must be what the passes of the
               step imply; then the trained state is written as a stage dir
-              and ``ImageInferer`` serves a batch from it.
-6. kernels  - one line listing each kernel of the two paths.
+              and ``ImageInferer`` serves a batch from it. Neither serving
+              nor training may take a B4 route (they run batch norm).
+6. generation - the generation path at full width and depth:
+              ``GanTrainer`` on pggan256 (256 px, max_channels 256, no
+              norm, pixel norm, eq-lr, bf16; batch 12, DRAGAN, Adam,
+              n_critic 2) with seeded random weights and biases. One G
+              step and one D step on the card, in fp32 and in bf16, held
+              against the same weights, batch, z and penalty noise in fp32
+              on the CPU at batch 4; one warm-up and 3 timed rounds, 13 B4
+              launches per D step and 13 autograd-route steps per G step;
+              ``sample`` of 12 images from the trained state (13 B4
+              launches) against the same state in fp32 on the CPU.
+7. kernels  - one line listing each kernel of the three paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -76,6 +92,7 @@ KERNELS = {
                       "twingan_tpu/ops/attention.py:127"),
     "flash_attn_dkv": ("twingan_tpu_torch/csrc/flash_attn_bwd.cu",
                        "twingan_tpu/ops/attention.py:153"),
+    "fused_conv": ("twingan_tpu_torch/csrc/fused_conv.cu", "tools/exp_fused_conv.py:76"),
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of a call is
@@ -123,12 +140,38 @@ PLAIN_MAX_N = 16384
 REFERENCE_ROWS = 2048
 SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "FLASH_ATTENTION", "CUDNN_ATTENTION", "MATH")
 
-# The TPU kernel not ported yet, at the shape its script runs
-# (tools/exp_fused_conv.py defaults): a direct 3x3 SAME conv, bias, leaky
-# ReLU and pixel norm on x [8, 256, 256, 16] bf16 with w [3, 3, 16, 16]
-# fp32; the kernel multiplies in fp32 and writes bf16.
-FUSED_CONV = dict(name="_fused_kernel", replaces="tools/exp_fused_conv.py:76",
-                  batch=8, hw=256, cin=16, cout=16)
+# Kernel B4 (fused conv3x3 SAME + bias + leaky + pixel norm): (label, B,
+# H = W, Cin, Cout, dtype, layers of one generator pass at this shape).
+# The TPU script's shape (tools/exp_fused_conv.py defaults), every distinct
+# conv-leaky-pixel-norm layer of pggan256 at its batch of 12 (block_4_conv1,
+# then conv0 and conv1 at 8 to 256 px: 13 layers a pass), one fp32 case and
+# a ragged one (20 x 20, Cout not a multiple of 8). Then the widths past
+# 256 channels, where a thread takes several groups of 8 channels: the
+# published PGGAN width (fmap_max 512) at 4 and 8 px, the widest the config
+# gives (1024 at 4 px), and two with groups past Cout (300 and 520).
+GEN_BATCH = 12
+FUSED_CONV_CASES = [
+    ("exp_fused_conv.py", 8, 256, 16, 16, "bfloat16", 0),
+    ("pggan256 block_4_conv1", GEN_BATCH, 4, 256, 256, "bfloat16", 1),
+    ("pggan256 block_8_conv0/1", GEN_BATCH, 8, 256, 256, "bfloat16", 2),
+    ("pggan256 block_16_conv0/1", GEN_BATCH, 16, 256, 256, "bfloat16", 2),
+    ("pggan256 block_32_conv0", GEN_BATCH, 32, 256, 128, "bfloat16", 1),
+    ("pggan256 block_32_conv1", GEN_BATCH, 32, 128, 128, "bfloat16", 1),
+    ("pggan256 block_64_conv0", GEN_BATCH, 64, 128, 64, "bfloat16", 1),
+    ("pggan256 block_64_conv1", GEN_BATCH, 64, 64, 64, "bfloat16", 1),
+    ("pggan256 block_128_conv0", GEN_BATCH, 128, 64, 32, "bfloat16", 1),
+    ("pggan256 block_128_conv1", GEN_BATCH, 128, 32, 32, "bfloat16", 1),
+    ("pggan256 block_256_conv0", GEN_BATCH, 256, 32, 16, "bfloat16", 1),
+    ("pggan256 block_256_conv1", GEN_BATCH, 256, 16, 16, "bfloat16", 1),
+    ("fp32", GEN_BATCH, 32, 256, 128, "float32", 0),
+    ("ragged", 4, 20, 40, 20, "bfloat16", 0),
+    ("fmap_max 512, block_4_conv1", GEN_BATCH, 4, 512, 512, "bfloat16", 0),
+    ("fmap_max 512, block_8_conv0/1", GEN_BATCH, 8, 512, 512, "bfloat16", 0),
+    ("1024 channels, block_4_conv1", GEN_BATCH, 4, 1024, 1024, "bfloat16", 0),
+    ("wide ragged, 2 groups a thread", 2, 20, 24, 300, "bfloat16", 0),
+    ("wide, 3 of 4 groups a thread", 2, 8, 16, 520, "float32", 0),
+]
+GEN_LAYERS_PER_PASS = 13
 
 # Serving-path agreement with the fp32 CPU run, in units of the CPU
 # output's standard deviation. bf16 keeps 8 significant bits and every
@@ -166,6 +209,15 @@ TRAIN_TIMED_ROUNDS = 3
 #   reported and held only by the fp32 check.
 TRAIN_LIMITS = {"float32": (1e-3, 1e-4, 0.999, 0.999),
                 "bfloat16": (0.1, 0.1, 0.5, None)}
+
+# Generation: the PGGAN generator at 256 px (Karras et al. 2018; the JAX
+# pggan_runner's flags with --generator_norm_type none --do_pixel_norm
+# --equalized_learning_rate), batch 12 (its 256 px schedule). The step
+# comparison with the CPU runs batch 4, to keep the CPU's fp32 D step (the
+# penalty's double backward at full depth) short; the sample comparison
+# uses serving's limits.
+GEN_COMPARE_BATCH = 4
+GEN_TIMED_ROUNDS = 3
 
 
 def emit(obj) -> None:
@@ -262,9 +314,9 @@ def device_phase():
 
 
 def build_phase():
-    from twingan_tpu_torch.ops import attention, cuda_build
+    from twingan_tpu_torch.ops import attention, cuda_build, fused_conv
 
-    names = (attention.KERNEL_NAME, attention.BWD_LIBRARY)
+    names = (attention.KERNEL_NAME, attention.BWD_LIBRARY, fused_conv.KERNEL_NAME)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
         list(pool.map(cuda_build.build, names))
@@ -323,19 +375,22 @@ def bwd_bounds(b: int, n: int, c_bar: int, c: int, dtype: str) -> dict:
                                      2.0 * b * n * n * (2 * c_bar + 2 * c), dtype)}
 
 
-def fused_conv_bound() -> dict:
-    """The bound of the unported TPU kernel at its script's shape: bf16 x
-    read and bf16 y written once (the fp32 weights are negligible), and the
-    conv's FLOPs at the fp32 rate, the type of its products."""
-    k = FUSED_CONV
-    pixels = k["batch"] * k["hw"] * k["hw"]
-    nbytes = 2 * pixels * (k["cin"] + k["cout"]) + 4 * 9 * k["cin"] * k["cout"]
-    bound_ms, by = _bound(nbytes, 2.0 * pixels * 9 * k["cin"] * k["cout"], "float32")
-    return {"phase": "bound", "kernel": k["name"], "replaces": k["replaces"],
-            "shape": f"x [{k['batch']}, {k['hw']}, {k['hw']}, {k['cin']}] bf16, "
-                     f"w [3, 3, {k['cin']}, {k['cout']}] fp32",
-            "bytes": nbytes, "flops": 2.0 * pixels * 9 * k["cin"] * k["cout"],
-            "bound_ms": bound_ms, "bound_by": by}
+def fused_conv_bound(b: int, hw: int, cin: int, cout: int, dtype: str) -> tuple[float, str]:
+    """Least time of B4 on the card: x read and y written once in their
+    type, the fp32 weights and bias read once, and the conv's FLOPs at the
+    fp32 rate, the type of its products (the TPU kernel's too)."""
+    elt = 4 if dtype == "float32" else 2
+    pixels = b * hw * hw
+    nbytes = elt * pixels * (cin + cout) + 4 * (9 * cin * cout + cout)
+    return _bound(nbytes, 2.0 * pixels * 9 * cin * cout, "float32")
+
+
+def fused_conv_tolerance(dtype: str, ref_max: float) -> float:
+    """B4 vs its plain version, max abs error. fp32: both sum the same fp32
+    products in other orders, 1e-5 of the output's magnitude. bf16: both
+    round fp32 results that differ by about 1e-6 relative, so an element
+    may land one bf16 ulp apart: 2^-7 of the magnitude."""
+    return max(1.0, ref_max) * (1e-5 if dtype == "float32" else 2.0 ** -7)
 
 
 def kernel_phase() -> dict:
@@ -377,8 +432,66 @@ def kernel_phase() -> dict:
             fail("kernel", f"flash_attn_fwd disagrees with the plain version at {label} "
                            f"B={b} N={n} c_bar={c_bar} C={c} {dtype}")
         results[(label, b, n, c_bar, c, dtype)] = row
-    emit(fused_conv_bound())
     return results[SERVING_CASE]
+
+
+def eager_conv_chain(x, w, b):
+    """What the grad route runs for one step: cuDNN's conv on x's type, the
+    bias, leaky and pixel norm as separate kernels (as ConvBlock +
+    pixel_norm, with the eq-lr scale already in w)."""
+    import torch.nn.functional as F
+    from twingan_tpu_torch.ops import basic
+
+    y = F.conv2d(x, w.to(x.dtype), padding=1) + b.to(x.dtype)[:, None, None]
+    return basic.pixel_norm(basic.leaky_relu(y), dim=1)
+
+
+def fused_conv_phase() -> list:
+    """B4 at every listed shape against its plain version; returns the rows
+    of the generator's layers."""
+    import torch
+    import torch.nn.functional as F
+    from twingan_tpu_torch.ops import fused_conv
+
+    rows = []
+    for label, b, hw, cin, cout, dtype, per_pass in FUSED_CONV_CASES:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+        x = torch.randn(b, cin, hw, hw, device="cuda", generator=gen).to(dt)
+        kernel = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen)
+        w9 = fused_conv.fold_weights(kernel, (2.0 / (cin * 9)) ** 0.5)
+        bias = 0.2 * torch.randn(cout, device="cuda", generator=gen)
+        y = fused_conv.fused_conv(x, w9, bias)
+        torch.cuda.synchronize()
+        ref = fused_conv.fused_conv_plain(x, w9, bias)
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        ref_max = ref.float().abs().max().item()
+        tol = fused_conv_tolerance(dtype, ref_max)
+        w = w9.reshape(3, 3, cin, cout).permute(3, 2, 0, 1).contiguous()
+        w_lib = w.to(dt)
+        bound_ms, bound_by = fused_conv_bound(b, hw, cin, cout, dtype)
+        row = {"phase": "kernel", "kernel": "fused_conv", "case": label, "B": b, "H": hw,
+               "W": hw, "Cin": cin, "Cout": cout, "dtype": dtype, "layers_per_pass": per_pass,
+               "max_abs_err": err, "tolerance": tol,
+               "shape_ok": tuple(y.shape) == (b, cout, hw, hw) and y.dtype == dt,
+               "finite": bool(torch.isfinite(y).all()),
+               "ms": time_ms(lambda: fused_conv.fused_conv(x, w9, bias)),
+               "plain_ms": time_ms(lambda: fused_conv.fused_conv_plain(x, w9, bias)),
+               "library": "cuDNN F.conv2d alone, weights in x's type (no single PyTorch "
+                          "call computes conv + bias + leaky + pixel norm)",
+               "library_ms": time_ms(lambda: F.conv2d(x, w_lib, padding=1)),
+               "eager_chain_ms": time_ms(lambda: eager_conv_chain(x, w, bias)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        row["ok"] = bool(err <= tol and row["shape_ok"] and row["finite"])
+        emit(row)
+        if not row["ok"]:
+            fail("kernel", f"fused_conv disagrees with the plain version at {label} "
+                           f"B={b} H=W={hw} {cin}->{cout} {dtype}")
+        rows.append(row)
+        del x, kernel, w9, bias, y, ref, w, w_lib
+        torch.cuda.empty_cache()
+    return [r for r in rows if r["layers_per_pass"]]
 
 
 def sdpa_backend(q, k, v, do):
@@ -663,40 +776,52 @@ def _cosine(a, b) -> float:
     return float(torch.dot(a, b) / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
 
 
-def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda") -> list:
+def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_cls=None,
+                  zs=None, phase: str = "train", limits=None, grad_prefix=None) -> list:
     """One G step and one D step, each from ``weights``, on the ``card`` in
     float32 and in bfloat16 against the same steps in fp32 on the CPU (plain
-    attention). Returns one row per step and card type."""
+    attention), within ``limits`` (TRAIN_LIMITS by default). ``trainer_cls``
+    is TwinGANTrainer (the default) or GanTrainer, whose steps also take the
+    generator's noise ``zs[kind]``. ``grad_prefix[kind]`` is put before the
+    names of the step's optimizer, where they do not start with the
+    network's name. Returns one row per step and card type."""
     import torch
     from twingan_tpu_torch.models.layers import SelfAttention
     from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    trainer_cls = trainer_cls or TwinGANTrainer
+    limits = limits or TRAIN_LIMITS
+    grad_prefix = grad_prefix or {}
 
     def run(trainer, kind, batch):
         state = trainer.state_from_nets(trainer.build_nets(), step=0, critic_step=1)
         state.nets.load_state_dict(weights)
         side = "gen_opt" if kind == "g_step" else "dis_opt"
         setattr(state, side, GradRecorder(getattr(state, side)))
+        kw = {} if zs is None else {"z": zs[kind]}
         t0 = time.perf_counter()
         if kind == "g_step":
-            _, metrics = trainer.g_step(state, batch)
+            _, metrics = trainer.g_step(state, batch, **kw)
         else:
-            _, metrics = trainer.d_step(state, batch, gp_noise=gp_noise)
+            _, metrics = trainer.d_step(state, batch, gp_noise=gp_noise, **kw)
         metrics = {k: float(v) for k, v in metrics.items()}
         seconds = time.perf_counter() - t0
         sa_names = [n for n, m in state.nets.named_modules() if isinstance(m, SelfAttention)]
-        return metrics, getattr(state, side).grads, seconds, sa_names
+        prefix = grad_prefix.get(kind, "")
+        grads = {prefix + n: g for n, g in getattr(state, side).grads.items()}
+        return metrics, grads, seconds, sa_names
 
     def flat(grads, prefix):
         return torch.cat([g.flatten() for n, g in grads.items() if n.startswith(prefix + ".")])
 
     def on(device, dtype):
-        return TwinGANTrainer(cfg.replace(model=cfg.model.replace(dtype=dtype)), device=device)
+        return trainer_cls(cfg.replace(model=cfg.model.replace(dtype=dtype)), device=device)
 
     rows = []
     ref_trainer = on("cpu", "float32")
     for kind, batch in zip(("g_step", "d_step"), batches):
         ref_m, ref_grads, cpu_s, _ = run(ref_trainer, kind, batch)
-        for dtype, (rtol, atol, min_cos, min_sa_cos) in TRAIN_LIMITS.items():
+        for dtype, (rtol, atol, min_cos, min_sa_cos) in limits.items():
             m, grads, card_s, sa_names = run(on(card, dtype), kind, batch)
             loss_err = {k: abs(m[k] - ref_m[k]) for k in ref_m
                         if k not in ("alpha", "gdrop_strength")}
@@ -709,7 +834,7 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda") -> list:
             ok = (all(loss_err[k] <= rtol * abs(ref_m[k]) + atol for k in loss_err)
                   and min(net_cos.values()) >= min_cos
                   and (min_sa_cos is None or min(sa_cos.values()) >= min_sa_cos))
-            rows.append({"phase": "train", "check": f"{kind}, card {dtype} vs CPU float32",
+            rows.append({"phase": phase, "check": f"{kind}, card {dtype} vs CPU float32",
                          "losses": m, "cpu_losses": ref_m, "loss_abs_err": loss_err,
                          "grad_cosine": net_cos, "attention_projection_grad_cosine": sa_cos,
                          "limits": {"loss_rtol": rtol, "loss_atol": atol,
@@ -809,23 +934,203 @@ def train_phase(card: str, smi_line: str) -> dict:
     return counts
 
 
+def generation_config(batch: int = GEN_BATCH):
+    """pggan256: the PGGAN generation configuration at full width and depth
+    (no norm, pixel norm, eq-lr, one domain, bf16), DRAGAN, Adam and
+    n_critic 2 at the JAX package's defaults."""
+    from twingan_tpu_torch.models.config import PGGANConfig
+    from twingan_tpu_torch.train.gan_trainer import GanTrainerConfig
+
+    return GanTrainerConfig(
+        model=PGGANConfig(resolution=256, max_channels=256, norm_type="none",
+                          do_pixel_norm=True, equalized_lr=True, num_domains=1,
+                          dtype="bfloat16"),
+        batch_size=batch, n_critic=2)
+
+
+def randomize_biases(nets, seed: int) -> None:
+    """Every bias N(0, 0.2) from ``seed`` (the initializers set them to 0),
+    so that B4's bias term shows in the comparisons."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in nets.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+
+
+def generation_inputs(cfg, batch: int, seed: int):
+    """Batches of two steps, their noise and the penalty's draws, on the
+    CPU: (batches, {"g_step": z, "d_step": z}, gp_noise)."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.models.pggan import noise_shape
+
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator().manual_seed(seed)
+    res = cfg.model.resolution
+    batches = [{"target": torch.from_numpy(rng.rand(batch, res, res, 3).astype("float32"))}
+               for _ in range(2)]
+    zs = {k: torch.randn(noise_shape(cfg.model, batch), generator=gen)
+          for k in ("g_step", "d_step")}
+    gp_noise = {"alpha": torch.rand(batch, 1, 1, 1, generator=gen),
+                "noise": torch.rand(batch, res, res, 3, generator=gen) * 2 - 1}
+    return batches, zs, gp_noise
+
+
+def compare_generation_steps(cfg, weights, batches, zs, gp_noise, card: str = "cuda") -> list:
+    """``compare_steps`` for GanTrainer: its optimizers name parameters
+    inside their network, and pggan256 has no attention, so there is no
+    projection check."""
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+
+    limits = {dtype: (*lim[:3], None) for dtype, lim in TRAIN_LIMITS.items()}
+    return compare_steps(cfg, weights, batches, gp_noise, card, GanTrainer, zs, "generation",
+                         limits, {"g_step": "generator.", "d_step": "discriminator."})
+
+
+def generation_phase(card: str, smi_line: str) -> dict:
+    """Returns B4's launches in the timed rounds and in ``sample``."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.models.pggan import noise_shape
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+
+    cfg = generation_config()
+    trainer = GanTrainer(cfg)  # the card, by default
+    state = trainer.init_state(SEED)
+    randomize_biases(state.nets, SEED)
+    weights = {k: v.detach().cpu().clone() for k, v in state.nets.state_dict().items()}
+    batches, zs, gp_noise = generation_inputs(cfg, GEN_COMPARE_BATCH, SEED + 3)
+    for row in compare_generation_steps(cfg.replace(batch_size=GEN_COMPARE_BATCH), weights,
+                                        batches, zs, gp_noise):
+        row["batch"] = GEN_COMPARE_BATCH
+        emit(row)
+        if not row["ok"]:
+            fail("generation", f"the card's {row['check']} disagrees beyond the limits")
+
+    rng = np.random.RandomState(SEED + 4)
+    res = cfg.model.resolution
+    rounds = [[{"target": torch.from_numpy(rng.rand(GEN_BATCH, res, res, 3).astype("float32"))
+                .to("cuda")} for _ in range(cfg.n_critic)] for _ in range(1 + GEN_TIMED_ROUNDS)]
+    state, _ = trainer.round_step(state, rounds[0], rng=SEED)  # warm-up
+    torch.cuda.synchronize()
+    fused_conv.reset_launch_counts()
+    attention.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    round_s, losses = [], []
+    for batches in rounds[1:]:
+        t0 = time.perf_counter()
+        state, m = trainer.round_step(state, batches, rng=SEED)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in m.items()})
+    counts = dict(fused_conv.launch_counts)
+    attention_counts = dict(attention.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    d_steps = GEN_TIMED_ROUNDS * (cfg.n_critic - 1)
+    expected = {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS * d_steps,
+                fused_conv.AUTOGRAD_ROUTE: GEN_LAYERS_PER_PASS * GEN_TIMED_ROUNDS}
+    finite = all(np.isfinite(v) for m in losses for v in m.values())
+    med = statistics.median(round_s)
+    row = {"phase": "generation", "check": "timed rounds", "rounds": GEN_TIMED_ROUNDS,
+           "batch": GEN_BATCH, "n_critic": cfg.n_critic, "round_s": round_s,
+           "rounds_per_s": 1.0 / med, "images_per_s": cfg.n_critic * GEN_BATCH / med,
+           "timing": "synchronized host clock around each round; images/s counts "
+                     "n_critic * batch per round",
+           "peak_memory_bytes": peak, "launches": counts, "expected_launches": expected,
+           "attention_launches": attention_counts, "losses": losses, "card": card,
+           "nvidia_smi": smi_line,
+           "ok": bool(counts == expected and not any(attention_counts.values()) and finite)}
+    emit(row)
+    if not row["ok"]:
+        fail("generation", "the timed rounds' B4 launches differ from 13 per D step and 13 "
+                           "autograd-route steps per G step, or a loss is not finite")
+
+    z = torch.randn(noise_shape(cfg.model, GEN_BATCH),
+                    generator=torch.Generator().manual_seed(SEED + 5))
+    fused_conv.reset_launch_counts()
+    out = trainer.sample(state, z).float()
+    torch.cuda.synchronize()
+    sample_counts = dict(fused_conv.launch_counts)
+    cpu = GanTrainer(cfg.replace(model=cfg.model.replace(dtype="float32")), device="cpu")
+    nets = cpu.build_nets()
+    nets.load_state_dict({k: v.cpu() for k, v in state.nets.state_dict().items()})
+    ref = cpu.sample(cpu.state_from_nets(nets, step=state.step), z)
+    out = out.cpu()
+    std = float(ref.std())
+    diff = (out - ref).abs()
+    mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+    row = {"phase": "generation", "check": "sample, card bf16 vs CPU float32",
+           "images": GEN_BATCH, "output_shape": list(out.shape),
+           "finite": bool(torch.isfinite(out).all()), "step": state.step,
+           "launches": sample_counts, "output_std": std,
+           "mean_abs_err_over_std": mean_err, "max_abs_err_over_std": max_err,
+           "mean_tolerance": SERVE_MEAN_TOL, "max_tolerance": SERVE_MAX_TOL,
+           "ok": bool(tuple(out.shape) == (GEN_BATCH, res, res, cfg.model.image_channels)
+                      and bool(torch.isfinite(out).all())
+                      and sample_counts == {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS,
+                                            fused_conv.AUTOGRAD_ROUTE: 0}
+                      and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
+    emit(row)
+    if not row["ok"]:
+        fail("generation", "the card's samples disagree with the fp32 CPU run, or sample "
+                           "did not launch B4 once per conv-leaky-pixel-norm layer")
+    return {"rounds": counts[fused_conv.KERNEL_NAME],
+            "sample": sample_counts[fused_conv.KERNEL_NAME]}
+
+
 def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
-                 plain_ms: float, bound_ms: float, bound_by: str, library_ms: float) -> dict:
+                 plain_ms: float, bound_ms: float, bound_by: str, library_ms: float,
+                 **extra) -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "launches_by_path": by_path, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **extra}
+
+
+def fused_conv_entry(layer_rows: list, launches: dict) -> dict:
+    """B4's line: the sums over the 13 layers of one pggan256 generator
+    pass at batch 12 (each distinct layer's row times its count)."""
+    total = lambda key: sum(r[key] * r["layers_per_pass"] for r in layer_rows)  # noqa: E731
+    heaviest = max(layer_rows, key=lambda r: r["bound_ms"] * r["layers_per_pass"])
+    return kernel_entry(
+        "fused_conv", sum(launches.values()), {"generation": sum(launches.values())},
+        max(r["max_abs_err"] for r in layer_rows), total("ms"), total("plain_ms"),
+        total("bound_ms"), heaviest["bound_by"], total("library_ms"),
+        launches_in_generation=launches,
+        times="per generator pass of pggan256 at batch 12: the sum over its 13 "
+              "conv-leaky-pixel-norm layers; library_ms is cuDNN's conv alone",
+        eager_chain_ms=total("eager_chain_ms"))
+
+
+def require_no_b4(phase: str) -> None:
+    """The serving and training configurations (batch norm) have no
+    conv-leaky-pixel-norm layer: B4 must not have run."""
+    from twingan_tpu_torch.ops import fused_conv
+
+    if any(fused_conv.launch_counts.values()):
+        fail(phase, f"B4 routes taken on the {phase} path: {fused_conv.launch_counts}")
 
 
 def main() -> int:
     start_watchdog()
     card, smi_line = device_phase()
+    from twingan_tpu_torch.ops import fused_conv
+
     build_phase()
     serving_row = kernel_phase()
     train_row = backward_kernel_phase()
+    b4_rows = fused_conv_phase()
+    fused_conv.reset_launch_counts()
     serving_launches = serving_phase(card, smi_line)
+    require_no_b4("serving")
     train_launches = train_phase(card, smi_line)
+    require_no_b4("train")
+    generation_launches = generation_phase(card, smi_line)
     fwd = "flash_attn_fwd"
     entries = [kernel_entry(
         fwd, serving_launches + train_launches[fwd],
@@ -838,6 +1143,7 @@ def main() -> int:
             max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
             train_row["plain_ms"][name], train_row["bound_ms"][name],
             train_row["bound_by"][name], train_row["library_ms"]))
+    entries.append(fused_conv_entry(b4_rows, generation_launches))
     emit({"kernels": entries})
     print(smi_line, flush=True)
     import torch

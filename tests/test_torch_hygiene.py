@@ -43,8 +43,9 @@ def _no_card_env():
 EXPECTED_MODULES = (
     "twingan_tpu_torch.bridge", "twingan_tpu_torch.infer.translate",
     "twingan_tpu_torch.models.pggan", "twingan_tpu_torch.ops.attention",
-    "twingan_tpu_torch.ops.cuda_build", "twingan_tpu_torch.serve.clients",
-    "twingan_tpu_torch.train.base", "twingan_tpu_torch.train.losses",
+    "twingan_tpu_torch.ops.cuda_build", "twingan_tpu_torch.ops.fused_conv",
+    "twingan_tpu_torch.serve.clients", "twingan_tpu_torch.train.base",
+    "twingan_tpu_torch.train.gan_trainer", "twingan_tpu_torch.train.losses",
     "twingan_tpu_torch.train.optimizers", "twingan_tpu_torch.train.state",
     "twingan_tpu_torch.train.twingan_trainer",
 )
@@ -64,10 +65,10 @@ def test_port_and_smoke_import_nothing_the_card_lacks():
 def test_every_kernel_source_is_built_by_the_package():
     csrc = os.path.join(PACKAGE, "csrc")
     sources = sorted(n[:-3] for n in os.listdir(csrc) if n.endswith(".cu"))
-    assert sources == ["flash_attn_bwd", "flash_attn_fwd"]
-    from twingan_tpu_torch.ops import attention
+    assert sources == ["flash_attn_bwd", "flash_attn_fwd", "fused_conv"]
+    from twingan_tpu_torch.ops import attention, fused_conv
 
-    assert {attention.KERNEL_NAME, attention.BWD_LIBRARY} == set(sources)
+    assert {attention.KERNEL_NAME, attention.BWD_LIBRARY, fused_conv.KERNEL_NAME} == set(sources)
 
 
 def test_chip_smoke_fails_without_a_card():

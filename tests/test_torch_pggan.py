@@ -1,5 +1,6 @@
-"""The port's Encoder -> Generator against the Flax modules, and the bridge
-(one network's tree, and a whole TwinGAN train state's four networks).
+"""The port's Encoder -> Generator against the Flax modules, the
+noise-input generator of generation, and the bridge (one network's tree,
+and a whole TwinGAN train state's four networks).
 
 Both modules run with UNet skips and self-attention (sa_gamma 0.7), for
 batch and instance norm, on a stable and a growing stage, at 16 px with
@@ -146,11 +147,43 @@ def test_bridge_covers_every_leaf_and_round_trips(norm_type):
         assert set(_flax_leaves(back_stats)) == set(_flax_leaves(stats))
 
 
+@pytest.mark.parametrize("norm_type,growing,rank", [
+    ("none", False, 4), ("none", True, 2), ("batch_norm", False, 4)])
+def test_noise_input_generator_matches(norm_type, growing, rank):
+    """The generation generator: [B,1,1,C] (or [B,C]) noise padded to 7x7,
+    block_4_conv0 a k4 VALID conv. Under norm_type "none" with pixel norm
+    its conv-leaky-pixel-norm steps take B4's route with no gradient (the
+    plain version on the CPU) and the layers with one; both agree with
+    the Flax generator."""
+    kw = dict(resolution=16, max_channels=16, norm_type=norm_type, equalized_lr=True,
+              do_pixel_norm=True, is_growing=growing)
+    jcfg, pcfg = JaxPGGANConfig(**kw), PGGANConfig(**kw)
+    assert pggan.noise_shape(pcfg, 3) == jpggan.noise_shape(jcfg, 3)
+    z = np.random.RandomState(3).randn(*pggan.noise_shape(pcfg, 2)).astype(np.float32)
+    if rank == 2:
+        z = z[:, 0, 0, :]
+    jgen = jpggan.Generator(jcfg)
+    variables = jax.device_get(jgen.init(jax.random.PRNGKey(2), jnp.asarray(z)))
+    variables = {k: randomize(v, np.random.RandomState(4)) for k, v in variables.items()}
+    ref, _ = jgen.apply(variables, jnp.asarray(z), alpha=0.4)
+    gen = pggan.Generator(pcfg, noise_input=True)
+    gen.load_state_dict(state_dict_from_flax(variables["params"], variables.get("batch_stats")))
+    assert gen.block_4_conv0.conv.kernel.shape == (16, pcfg.noise_dim, 4, 4)
+    with torch.no_grad():
+        out = gen(torch.from_numpy(z), alpha=0.4)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    out_grad = gen(torch.from_numpy(z), alpha=0.4)
+    assert out_grad.grad_fn is not None
+    np.testing.assert_allclose(out_grad.detach().numpy(), np.asarray(ref), **TOL)
+
+
 def test_generator_input_contract():
     cfg = PGGANConfig(resolution=8, max_channels=8, num_domains=2)
     gen = pggan.Generator(cfg, unet=False)
-    with pytest.raises(NotImplementedError, match="noise input"):
+    with pytest.raises(ValueError, match="noise_input=True"):
         gen(torch.zeros(1, 1, 1, cfg.noise_dim))
+    with pytest.raises(ValueError, match="noise"):
+        pggan.Generator(cfg, noise_input=True)(torch.zeros(1, 4, 4, cfg.channels(0)))
     with pytest.raises(ValueError, match="unet"):
         gen(torch.zeros(1, 4, 4, cfg.channels(0)), unet_skips=pggan.EncoderSkips())
     with pytest.raises(ValueError, match="16 px"):

@@ -5,8 +5,9 @@ without per-group moments and moving-statistic updates, instance norm),
 EqDense, the loss library (every architecture, the gradient penalty with
 JAX's own random draws handed in, L1 and cosine distance), the optimizer
 factory on identical gradients (adam, sgd, momentum x the three schedules
-x one or two updates per global step, and the clip / weight-decay /
-frozen-scope chain), and the gdrop and Polyak state updates. Inputs come
+x one or two updates per global step, the clip / weight-decay /
+frozen-scope chain, a whole side frozen, and scopes that span two levels
+of a nested tree), and the gdrop and Polyak state updates. Inputs come
 from numpy seeds. Tolerances: single ops atol 1e-5 (fp32 sums taken in
 other orders); optimizers after five updates rtol 1e-5 / atol 1e-6.
 """
@@ -231,6 +232,81 @@ def test_optimizer_chain_matches():
     ref, out = _run_optimizers(kw, 1)
     for k in ref:
         np.testing.assert_allclose(out[k], ref[k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def _run_nested(cfg_kw, params, n_steps=5):
+    """Five updates of both factories on a nested tree (the JAX side) and
+    its dotted names (the port's): -> (JAX leaves, port leaves, port
+    optimizer), keyed by dotted name."""
+    flat = state_dict_from_flax(params)  # no 4-d leaves: no layout change
+    rng = np.random.RandomState(13)
+    grads = [{k: rng.randn(*v.shape).astype(np.float32) for k, v in flat.items()}
+             for _ in range(n_steps)]
+    cfg = dict(cfg_kw, learning_rate=0.1)
+    tx = joptimizers.build_optimizer(joptimizers.OptimizerConfig(**cfg))
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    opt_state = tx.init(jparams)
+    for g in grads:
+        jgrads = jax.tree_util.tree_map(jnp.asarray, _nest(g))
+        updates, opt_state = tx.update(jgrads, opt_state, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+    tparams = {k: torch.nn.Parameter(v.clone()) for k, v in flat.items()}
+    opt = optimizers.build_optimizer(optimizers.OptimizerConfig(**cfg), tparams)
+    for g in grads:
+        opt.step([torch.from_numpy(g[k]) for k in opt.names])
+    ref = {k: v.numpy() for k, v in state_dict_from_flax(jax.device_get(jparams)).items()}
+    return ref, {k: p.detach().numpy() for k, p in tparams.items()}, opt
+
+
+def _nest(flat):
+    tree = {}
+    for key, v in flat.items():
+        node = tree
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+SIDE = {"discriminator_s": {"prediction": {"kernel": np.ones((3, 2), np.float32),
+                                           "bias": np.zeros(2, np.float32)}},
+        "discriminator_t": {"block_4_conv0": {"conv": {"bias": np.ones(4, np.float32)}}}}
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd", "momentum"])
+def test_frozen_whole_side_matches(name):
+    """Every parameter of the side frozen (TwinGAN's D side under
+    frozen_scopes=("discriminator",), its two networks sharing cfg.opt): no
+    torch.optim is built, the updates are still counted, and nothing moves,
+    as under optax's masked updates."""
+    ref, out, opt = _run_nested({"optimizer": name, "frozen_scopes": ("discriminator",)}, SIDE)
+    assert opt.opt is None and opt.count == 5 and not any(opt.trainable)
+    start = state_dict_from_flax(SIDE)
+    for k in ref:
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+        np.testing.assert_array_equal(out[k], start[k].numpy(), err_msg=k)
+
+
+NESTED = {"block_4_conv0": {"conv": {"kernel": np.full((3, 2), 0.5, np.float32),
+                                     "bias": np.zeros(2, np.float32)}},
+          "block_8_conv0": {"conv": {"kernel": np.full((2, 2), -0.5, np.float32)}},
+          "b": np.ones(3, np.float32)}
+
+
+@pytest.mark.parametrize("scope,frozen", [
+    ("block_4_conv0.conv", ()),  # the dotted form is no JAX path: nothing frozen
+    ("['block_4_conv0']['conv']", ("block_4_conv0.conv.kernel", "block_4_conv0.conv.bias")),
+    ("['conv']['kernel']", ("block_4_conv0.conv.kernel", "block_8_conv0.conv.kernel")),
+    ("['b']", ("b",)),
+])
+def test_frozen_scope_spanning_two_levels_matches(scope, frozen):
+    ref, out, opt = _run_nested({"optimizer": "sgd", "frozen_scopes": (scope,)}, NESTED)
+    assert sorted(n for n, t in zip(opt.names, opt.trainable) if not t) == sorted(frozen)
+    start = state_dict_from_flax(NESTED)
+    for k in ref:
+        np.testing.assert_allclose(out[k], ref[k], rtol=1e-5, atol=1e-6, err_msg=k)
+        assert np.array_equal(ref[k], start[k].numpy()) == (k in frozen), k
 
 
 @pytest.mark.parametrize("name", optimizers.UNPORTED_OPTIMIZERS)

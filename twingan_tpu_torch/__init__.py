@@ -10,7 +10,10 @@ Slices ported so far: 256 px image translation served through
 ``infer.translate.ImageInferer`` and ``serve.clients``, and the 256 px
 TwinGAN training round (``train.twingan_trainer.TwinGANTrainer``), with
 SAGAN self-attention on hand-written CUDA flash-attention kernels, forward
-(``csrc/flash_attn_fwd.cu``) and backward (``csrc/flash_attn_bwd.cu``).
+(``csrc/flash_attn_fwd.cu``) and backward (``csrc/flash_attn_bwd.cu``);
+256 px PGGAN generation (``train.gan_trainer.GanTrainer``), whose
+generator runs its conv-leaky-pixel-norm layers on the hand-written fused
+conv kernel (``csrc/fused_conv.cu``) wherever no gradient is needed.
 Public functions take NHWC tensors, like the JAX package; modules compute
 in NCHW views of the same memory.
 """

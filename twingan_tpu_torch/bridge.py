@@ -13,6 +13,13 @@ state (``params``/``model_state`` keyed by network name):
   the Flax [in, out] layout;
 - every other leaf is copied as it is.
 
+A GanTrainer (generation) state crosses whole (``gan_state_from_flax`` and
+``flax_from_gan_state``): both networks, both optimizers' update counts
+and slots (Adam's mu and nu, momentum's trace, in the parameters' layout),
+the counters, the gdrop state and the Polyak average. The optax state is
+read by its field names (``mu``, ``nu``, ``trace``, ``count``), without
+importing optax.
+
 The conversion is exact both ways. Imports numpy and torch only.
 """
 
@@ -23,6 +30,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from twingan_tpu_torch.train import gan_trainer
+from twingan_tpu_torch.train.gan_trainer import GanTrainer
+from twingan_tpu_torch.train.optimizers import SLOTS
 from twingan_tpu_torch.train.state import GanTrainState
 from twingan_tpu_torch.train.twingan_trainer import ENC, GEN, TwinGANTrainer
 
@@ -131,3 +141,75 @@ def twingan_state_from_flax(trainer: TwinGANTrainer, params: Mapping[str, Any],
 def flax_from_twingan_state(state: GanTrainState) -> tuple[dict, dict]:
     """A port TwinGAN state's networks -> the JAX (params, model_state)."""
     return flax_train_state(state.nets.state_dict(), tuple(state.nets.keys()))
+
+
+GAN_NETS = (gan_trainer.GEN, gan_trainer.DIS)
+
+
+def _optax_slots(opt_state: Any) -> tuple[int, dict]:
+    """(update count, {slot: param tree}) of an optax state: the first
+    ``count`` field met and every ``mu``/``nu``/``trace`` field, through
+    the nested tuples and NamedTuples of a chain."""
+    found: dict = {}
+
+    def walk(node):
+        fields = getattr(node, "_fields", None)
+        if fields is None:
+            if isinstance(node, (tuple, list)):
+                for v in node:
+                    walk(v)
+            return
+        for f in fields:
+            v = getattr(node, f)
+            if f == "count":
+                found.setdefault("count", int(np.asarray(v)))
+            elif f in ("mu", "nu", "trace"):
+                found.setdefault("slots", {})[f] = v
+            else:
+                walk(v)
+
+    walk(opt_state)
+    if "count" not in found:
+        raise ValueError("no update count in the optimizer state")
+    return found["count"], found.get("slots", {})
+
+
+def gan_state_from_flax(trainer: GanTrainer, jax_state: Any) -> GanTrainState:
+    """A JAX ``GanTrainState`` with numpy leaves (``jax.device_get``) -> the
+    port's state on the trainer's device, every field carried."""
+    nets = trainer.build_nets()
+    nets.load_state_dict(train_state_dict(jax_state.params, jax_state.model_state, GAN_NETS),
+                         strict=True)
+    state = trainer.state_from_nets(nets, step=int(jax_state.step),
+                                    critic_step=int(jax_state.critic_step))
+    for opt, opt_state in ((state.gen_opt, jax_state.gen_opt_state),
+                           (state.dis_opt, jax_state.dis_opt_state)):
+        count, slots = _optax_slots(opt_state)
+        if set(slots) != set(SLOTS[opt.cfg.optimizer]):
+            raise ValueError(f"optimizer state holds {sorted(slots)}, "
+                             f"{opt.cfg.optimizer} needs {sorted(SLOTS[opt.cfg.optimizer])}")
+        opt.load_slots(count, {k: state_dict_from_flax(tree) for k, tree in slots.items()})
+    device = trainer.device
+    state.gdrop_strength = torch.tensor(float(jax_state.gdrop_strength), device=device)
+    state.gen_loss_ema = torch.tensor(float(jax_state.gen_loss_ema), device=device)
+    if jax_state.gen_ema_params is not None:
+        state.gen_ema_params = {k: v.to(device)
+                                for k, v in state_dict_from_flax(jax_state.gen_ema_params).items()}
+    return state
+
+
+def flax_from_gan_state(state: GanTrainState) -> dict[str, Any]:
+    """Inverse of ``gan_state_from_flax``: the JAX state's fields as a dict
+    of numpy trees; each optimizer state as ``{"count": int, slot: tree}``
+    (zeros for the frozen parameters, which the port keeps no slots for)."""
+    params, model_state = flax_train_state(state.nets.state_dict(), GAN_NETS)
+    out = {"step": state.step, "critic_step": state.critic_step, "params": params,
+           "model_state": model_state,
+           "gdrop_strength": np.float32(float(state.gdrop_strength)),
+           "gen_loss_ema": np.float32(float(state.gen_loss_ema)),
+           "gen_ema_params": (None if state.gen_ema_params is None
+                              else flax_from_state_dict(state.gen_ema_params)[0])}
+    for side, opt in (("gen_opt_state", state.gen_opt), ("dis_opt_state", state.dis_opt)):
+        out[side] = {"count": opt.count, **{k: flax_from_state_dict(sd)[0]
+                                            for k, sd in opt.slots().items()}}
+    return out

@@ -29,7 +29,7 @@ from twingan_tpu_torch.data.preprocess import host_resize
 from twingan_tpu_torch.runner.checkpoint import load_model
 from twingan_tpu_torch.runner.config_io import find_latest_stage_dir, load_stage_config
 from twingan_tpu_torch.train.base import resolve_device
-from twingan_tpu_torch.train.twingan_trainer import TwinGANTranslator, translate
+from twingan_tpu_torch.train.twingan_trainer import TwinGANConfig, TwinGANTranslator, translate
 from twingan_tpu_torch.utils.image_io import imread_rgb, imsave_float
 
 
@@ -46,6 +46,9 @@ class ImageInferer:
         if not os.path.exists(os.path.join(stage_dir, "config.json")):
             stage_dir = find_latest_stage_dir(model_path)
         _, tcfg = load_stage_config(stage_dir)
+        if not isinstance(tcfg, TwinGANConfig):
+            raise ValueError(f"{stage_dir} holds a generation stage ({type(tcfg).__name__}); "
+                             "ImageInferer translates with a TwinGAN stage")
         if dtype is not None:
             tcfg = tcfg.replace(model=tcfg.model.replace(dtype=dtype))
         self.cfg = tcfg

@@ -100,8 +100,13 @@ class PGGANConfig:
 def require_ported(cfg: PGGANConfig) -> None:
     """Raise ``NotImplementedError`` naming the first option set in ``cfg``
     that the encoder/generator path of the port does not implement."""
+    from twingan_tpu_torch.ops.fused_conv import MAX_COUT
+
     unported = [
         ("fused_scale", cfg.fused_scale),
+        (f"min_channels={cfg.min_channels} (pixel norm without a norm runs kernel B4, "
+         f"which takes at most {MAX_COUT} channels)",
+         cfg.norm_type == "none" and cfg.do_pixel_norm and cfg.min_channels > MAX_COUT),
         ("spectral_norm_in_non_discriminator",
          cfg.spectral_norm and cfg.spectral_norm_in_non_discriminator),
         ("style_dim", cfg.style_dim > 0),

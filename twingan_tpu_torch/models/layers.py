@@ -28,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from twingan_tpu_torch.models.config import PGGANConfig
-from twingan_tpu_torch.ops import attention, basic, norms
+from twingan_tpu_torch.ops import attention, basic, fused_conv, norms
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -74,11 +74,18 @@ class EqConv(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
+    @property
+    def input_scale(self) -> float:
+        """The run-time input scale: sqrt(2 / (in_channels * k^2)) under
+        equalized lr, else 1."""
+        if not self.equalized_lr:
+            return 1.0
+        return basic.equalized_lr_scale(self.in_channels, self.kernel_size)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
         if self.equalized_lr:
-            scale = basic.equalized_lr_scale(self.in_channels, self.kernel_size)
-            x = x * torch.tensor(scale, dtype=self.dtype, device=x.device)
+            x = x * torch.tensor(self.input_scale, dtype=self.dtype, device=x.device)
         pad = 0
         if self.padding == "SAME":
             before, after = same_padding(self.kernel_size)
@@ -195,7 +202,14 @@ _ACTIVATIONS = {None: None, "leaky": basic.leaky_relu, "tanh": torch.tanh}
 class ConvBlock(nn.Module):
     """conv -> norm -> activation; bias exactly when no norm runs.
     ``discriminator=True`` (the discriminator's layers) and ``norm=False``
-    (resblock shortcuts) run no norm."""
+    (resblock shortcuts) run no norm.
+
+    ``forward_pixel_norm`` is the block followed by the pixel norm, one
+    conv-leaky-pixel-norm step. A block with kernel B4's structure
+    (``fusable``: k3 SAME, no norm, a bias, leaky) runs
+    ``ops.fused_conv.fused_conv`` (B4) where no gradient is needed, on its
+    weights with the equalized-lr scale folded in, and this block's layers,
+    counted under ``fused_conv.AUTOGRAD_ROUTE``, where one is."""
 
     def __init__(self, cfg: PGGANConfig, in_channels: int, features: int,
                  kernel_size: int = 3, padding: str = "SAME",
@@ -211,9 +225,28 @@ class ConvBlock(nn.Module):
         self.norm = DomainNorm(norm_kind, features, cfg.num_domains, cfg.bn_num_groups)
         self.activation = _ACTIVATIONS[activation]
 
+    @property
+    def fusable(self) -> bool:
+        conv = self.conv
+        return (conv.kernel_size == 3 and conv.padding == "SAME" and conv.bias is not None
+                and self.norm.kind == "none" and self.activation is basic.leaky_relu)
+
     def forward(self, x: torch.Tensor, domain: int = 0, update: bool = False) -> torch.Tensor:
         y = self.norm(self.conv(x), domain, update)
         return y if self.activation is None else self.activation(y)
+
+    def forward_pixel_norm(self, x: torch.Tensor, domain: int = 0,
+                           update: bool = False) -> torch.Tensor:
+        conv = self.conv
+        if self.fusable:
+            x = x.to(conv.dtype)
+            if not (torch.is_grad_enabled()
+                    and any(t.requires_grad for t in (x, conv.kernel, conv.bias))):
+                return fused_conv.fused_conv(
+                    x.contiguous(), fused_conv.fold_weights(conv.kernel, conv.input_scale),
+                    conv.bias.detach().float().contiguous())
+            fused_conv.launch_counts[fused_conv.AUTOGRAD_ROUTE] += 1
+        return basic.pixel_norm(self(x, domain, update), dim=1)
 
 
 class ResBlockAdd(nn.Module):

@@ -7,10 +7,18 @@ and layer names (``block_64_conv0``, ``to_rgb_256``, ``self_attention_64``,
 ``prediction``, ...), registered as direct submodules so ``state_dict`` keys
 read like the Flax paths.
 
-PyTorch needs every layer's input width when the module is built, where
-Flax infers it at the first call, so the generator is told whether UNet
-skips will come (``unet``) and takes the encoder's [B,4,4,C] code (the
-noise-input variant belongs to the generation slice).
+PyTorch needs every layer's input width and kernel shape when the module
+is built, where Flax infers them at the first call, so the generator is
+told whether UNet skips will come (``unet``) and which input it takes:
+the encoder's [B,4,4,C] code (translation; ``block_4_conv0`` a k3 SAME
+conv) or, with ``noise_input=True``, [B,C] or [B,1,1,C] noise of
+``noise_shape`` (generation), padded to 7x7 for a k4 VALID
+``block_4_conv0``, as the JAX generator picks from the input's shape.
+
+Every conv -> leaky -> pixel-norm step of the generator goes through
+``ConvBlock.forward_pixel_norm``, which runs kernel B4
+(``ops/fused_conv.py``) where no gradient is needed and the block has the
+structure B4 computes (``norm_type="none"``, k3 SAME, bias, leaky).
 
 The modules take and return NHWC tensors and compute on NCHW views. The
 encoder and the generator are built in eval mode (norms use moving
@@ -26,6 +34,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from twingan_tpu_torch.models.config import PGGANConfig, require_ported
 from twingan_tpu_torch.models.layers import (
@@ -36,6 +45,11 @@ from twingan_tpu_torch.models.layers import (
     torch_dtype,
 )
 from twingan_tpu_torch.ops import basic
+
+
+def noise_shape(cfg: PGGANConfig, batch_size: int) -> tuple[int, int, int, int]:
+    """The generation input's shape, [B,1,1,noise_dim]."""
+    return (batch_size, 1, 1, cfg.noise_dim)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -145,16 +159,22 @@ class Encoder(nn.Module):
 
 
 class Generator(nn.Module):
-    """PGGAN generator for translation: the [B,4,4,channels(0)] code (and
-    UNet skips when ``unet``) -> [B,res,res,image_channels]."""
+    """PGGAN generator: the [B,4,4,channels(0)] code (and UNet skips when
+    ``unet``) -> [B,res,res,image_channels] for translation; with
+    ``noise_input``, [B,noise_dim] or [B,1,1,noise_dim] noise instead."""
 
-    def __init__(self, cfg: PGGANConfig, unet: bool = False):
+    def __init__(self, cfg: PGGANConfig, unet: bool = False, noise_input: bool = False):
         super().__init__()
         require_ported(cfg)
         self.cfg = cfg
         self.unet = unet
+        self.noise_input = noise_input
         ch0 = cfg.channels(0)
-        self.add_module("block_4_conv0", ConvBlock(cfg, ch0, ch0))
+        if noise_input:
+            self.add_module("block_4_conv0", ConvBlock(cfg, cfg.noise_dim, ch0, kernel_size=4,
+                                                       padding="VALID"))
+        else:
+            self.add_module("block_4_conv0", ConvBlock(cfg, ch0, ch0))
         self.add_module("block_4_conv1", ConvBlock(cfg, ch0, ch0))
         self._maybe_attention(4, ch0)
         for stage in range(1, cfg.max_stage + 1):
@@ -186,26 +206,37 @@ class Generator(nn.Module):
             self.cfg, in_ch, self.cfg.image_channels,
             kernel_size=self._rgb_kernel(hw), activation=None))
 
+    def _conv(self, hw: int, i: int, x: torch.Tensor, domain: int,
+              update: bool) -> torch.Tensor:
+        """``block_{hw}_conv{i}``, then the pixel norm when it is on."""
+        block = getattr(self, f"block_{hw}_conv{i}")
+        if self.cfg.do_pixel_norm:
+            return block.forward_pixel_norm(x, domain, update)
+        return block(x, domain, update)
+
     def forward(self, source: torch.Tensor, *, alpha: float = 0.0, domain: int = 0,
                 unet_skips: Optional[EncoderSkips] = None,
                 update: bool = False) -> torch.Tensor:
         cfg = self.cfg
-        if source.dim() != 4 or source.shape[1:3] != (4, 4):
-            raise NotImplementedError(
-                "the port's generator takes the [B,4,4,C] encoder code; the "
-                "noise input is not ported yet")
+        if self.noise_input:
+            if source.dim() == 2:
+                source = source[:, None, None, :]
+            if source.dim() != 4 or source.shape[1:3] != (1, 1):
+                raise ValueError("a generator built with noise_input=True takes [B,C] or "
+                                 f"[B,1,1,C] noise, got {tuple(source.shape)}")
+            source = F.pad(source, (0, 0, 3, 3, 3, 3))  # 7x7: the k4 VALID conv lands on 4x4
+        elif source.dim() != 4 or source.shape[1:3] != (4, 4):
+            raise ValueError("a generator built for translation takes the [B,4,4,C] encoder "
+                             f"code, got {tuple(source.shape)}; build it with noise_input=True "
+                             "for the noise input")
         if self.unet != (unet_skips is not None):
             raise ValueError("generator built with unet=%s got unet_skips=%s"
                              % (self.unet, unet_skips is not None))
         net = _nchw(source).to(torch_dtype(cfg.dtype))
         prev_rgb = None
 
-        net = self.block_4_conv0(net, domain, update)
-        if cfg.do_pixel_norm:
-            net = basic.pixel_norm(net, dim=1)
-        net = self.block_4_conv1(net, domain, update)
-        if cfg.do_pixel_norm:
-            net = basic.pixel_norm(net, dim=1)
+        net = self._conv(4, 0, net, domain, update)
+        net = self._conv(4, 1, net, domain, update)
         if cfg.do_self_attention and cfg.self_attention_hw == 4:
             net = self.self_attention_4(net, domain, update)
 
@@ -218,12 +249,8 @@ class Generator(nn.Module):
             if self._has_skip(hw):
                 skip = unet_skips.lookup(hw, cfg.channels(stage - 1))
                 inp = torch.cat([inp, _nchw(skip).to(inp.dtype)], dim=1)
-            y = getattr(self, f"block_{hw}_conv0")(inp, domain, update)
-            if cfg.do_pixel_norm:
-                y = basic.pixel_norm(y, dim=1)
-            y = getattr(self, f"block_{hw}_conv1")(y, domain, update)
-            if cfg.do_pixel_norm:
-                y = basic.pixel_norm(y, dim=1)
+            y = self._conv(hw, 0, inp, domain, update)
+            y = self._conv(hw, 1, y, domain, update)
             net = getattr(self, f"block_{hw}_res")(inp, y, domain)
             if cfg.do_self_attention and hw == cfg.self_attention_hw:
                 net = getattr(self, f"self_attention_{hw}")(net, domain, update)

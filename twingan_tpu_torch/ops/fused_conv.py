@@ -1,0 +1,130 @@
+"""Fused conv3x3 SAME + bias + leaky ReLU 0.2 + pixel norm (kernel B4).
+
+Counterpart of ``_fused_kernel`` / ``pallas_block`` in
+``tools/exp_fused_conv.py``, the one Pallas kernel of the repo outside the
+package. It computes, per pixel of x:
+
+    y = pn(leaky(conv3x3_same(x, w) + b)),  leaky(v) = max(0.2 v, v),
+    pn(v) = v * rsqrt(mean_c(v^2) + 1e-6)
+
+with the conv's products and sums, and the epilogue, in fp32, and y cast
+to x's dtype. That is the generator's ``block_*_conv0/conv1`` step under
+``norm_type="none"`` with pixel norm: the conv with its bias, the leaky
+activation, then ``pixel_norm`` (eps 1e-6).
+
+- ``fused_conv_plain`` is the plain PyTorch version: fp32 ``F.conv2d`` of
+  ``x.float()``, the fp32 epilogue, the cast. The tests hold it against
+  the JAX functions, and ``fused_conv`` runs it for CPU tensors;
+- ``fused_conv`` wraps the hand-written CUDA kernel
+  ``csrc/fused_conv.cu``: on a CUDA tensor it launches the kernel or
+  raises, never falling back;
+- ``fold_weights`` folds the equalized-lr scale into a conv's weights,
+  ``w_eff = kernel * scale`` in fp32 as [9, Cin, Cout] (the Pallas layout).
+
+The dispatch of one generator step is ``ConvBlock.forward_pixel_norm``:
+``fused_conv`` where no gradient is needed; where one is, the block's eager
+layers (cuDNN conv, bias, leaky, pixel norm), counted under
+``AUTOGRAD_ROUTE``, since the JAX package has no backward for the kernel.
+
+Tensors are NCHW, the modules' layout, read in place: the kernel handles
+the 1-pixel halo with bounds checks, where the Pallas version materializes
+halo-duplicated row tiles because BlockSpec windows cannot overlap.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from twingan_tpu_torch.ops import cuda_build
+
+KERNEL_NAME = "fused_conv"
+AUTOGRAD_ROUTE = "fused_conv_autograd"
+MAX_COUT = 1024  # every generator width: 1024 // 2**stage at most
+LEAKY_SLOPE = 0.2
+PIXEL_NORM_EPS = 1e-6
+
+# Kernel launches since the last reset_launch_counts(). Only ``fused_conv``
+# adds to KERNEL_NAME, once per launch; AUTOGRAD_ROUTE counts the steps that
+# ``ConvBlock.forward_pixel_norm`` sent to the eager layers because a
+# gradient was needed.
+launch_counts = {KERNEL_NAME: 0, AUTOGRAD_ROUTE: 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def fold_weights(kernel: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """An OIHW [Cout, Cin, 3, 3] kernel times the equalized-lr input scale,
+    in fp32, as the kernel's contiguous [9, Cin, Cout] (tap dy * 3 + dx)."""
+    cout, cin = kernel.shape[:2]
+    w = kernel.detach().float() * scale
+    return w.permute(2, 3, 1, 0).reshape(9, cin, cout).contiguous()
+
+
+def fused_conv_plain(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: x NCHW [B, Cin, H, W], w9 [9, Cin, Cout] fp32, b [Cout]
+    fp32 -> y NCHW [B, Cout, H, W] in x's dtype."""
+    cin, cout = w9.shape[1:]
+    w = w9.float().reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    y = F.conv2d(x.float(), w, padding=1) + b.float()[:, None, None]
+    y = torch.maximum(y * LEAKY_SLOPE, y)
+    y = y * torch.rsqrt(torch.mean(torch.square(y), dim=1, keepdim=True) + PIXEL_NORM_EPS)
+    return y.to(x.dtype)
+
+
+def _check(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> None:
+    """What the kernel takes (checked for CPU tensors too, so that both
+    routes accept the same calls)."""
+    if x.dim() != 4 or w9.dim() != 3 or b.dim() != 1:
+        raise ValueError("fused_conv takes x [B, Cin, H, W], w9 [9, Cin, Cout] and b [Cout]")
+    cin, cout = w9.shape[1:]
+    if w9.shape[0] != 9 or x.shape[1] != cin or b.shape[0] != cout:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w9 {tuple(w9.shape)}, "
+                         f"b {tuple(b.shape)}")
+    if not 1 <= cout <= MAX_COUT or min(x.shape) < 1 or x.shape[0] > 65535:
+        raise ValueError(f"fused_conv takes 1 <= Cout <= {MAX_COUT}, non-empty x and "
+                         f"B <= 65535, got x {tuple(x.shape)}, Cout {cout}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"fused_conv takes float32 or bfloat16 x, got {x.dtype}")
+    if w9.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"fused_conv takes float32 w9 and b, got {w9.dtype} and {b.dtype}")
+    if not (x.is_contiguous() and w9.is_contiguous() and b.is_contiguous()):
+        raise ValueError("fused_conv takes contiguous NCHW x, w9 and b")
+    if not (x.device == w9.device == b.device):
+        raise ValueError("x, w9 and b must be on one device")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_conv runs on cuda or cpu, not {x.device}")
+
+
+def _launch(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    bsz, cin, h, w = x.shape
+    cout = w9.shape[2]
+    fn = cuda_build.load(KERNEL_NAME).fused_conv3x3_leaky_pixel_norm
+    if fn.argtypes is None:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 4 + [i32] * 7 + [vp]
+        fn.restype = ctypes.c_int
+    y = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=x.device)
+    err = fn(x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(),
+             0 if x.dtype == torch.float32 else 1, x.device.index or 0, bsz, cin, cout, h, w,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError_t {err}")
+    launch_counts[KERNEL_NAME] += 1
+    return y
+
+
+def fused_conv(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y = pn(leaky(conv3x3_same(x, w9) + b)) in x's dtype, NCHW. A CUDA
+    tensor goes to the kernel (or raises); a CPU tensor to the plain
+    version."""
+    _check(x, w9, b)
+    if x.is_cuda:
+        return _launch(x, w9, b)
+    return fused_conv_plain(x, w9, b)
+

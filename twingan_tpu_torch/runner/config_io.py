@@ -2,8 +2,9 @@
 
 Counterpart of ``twingan_tpu/runner/config_io.py``. The JSON schema is the
 JAX runner's (``{"run": {...}, "trainer": {...}}``), so a stage directory
-written by either package loads here. Only TwinGAN trainer configs are
-ported; a GanTrainer (generation) config raises.
+written by either package loads here: a TwinGAN trainer config (told
+apart by its ``l_cyc_weight`` field, as the JAX reader does) or a
+GanTrainer (generation) config.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any
 
 from twingan_tpu_torch.models.config import PGGANConfig
 from twingan_tpu_torch.runner.checkpoint import MODEL_FILE
+from twingan_tpu_torch.train.gan_trainer import GanTrainerConfig
 from twingan_tpu_torch.train.losses import GanLossConfig
 from twingan_tpu_torch.train.optimizers import OptimizerConfig
 from twingan_tpu_torch.train.twingan_trainer import TwinGANConfig
@@ -37,11 +39,9 @@ def _build(cls, data: dict) -> Any:
     return cls(**kwargs)
 
 
-def trainer_config_from_dict(data: dict) -> TwinGANConfig:
-    if "l_cyc_weight" not in data:
-        raise NotImplementedError(
-            "GanTrainerConfig (PGGAN generation) is not ported to twingan_tpu_torch yet")
-    return _build(TwinGANConfig, data)
+def trainer_config_from_dict(data: dict) -> TwinGANConfig | GanTrainerConfig:
+    cls = TwinGANConfig if "l_cyc_weight" in data else GanTrainerConfig
+    return _build(cls, data)
 
 
 def load_stage_config(stage_dir: str):

@@ -13,6 +13,7 @@ critic counter into their PRNG key.
 
 from __future__ import annotations
 
+import copy
 from typing import Mapping, Optional
 
 import torch
@@ -75,6 +76,20 @@ class BaseGanTrainer:
             return x
         low = basic.upsample_nearest_2x(basic.avg_pool_2x(x))
         return basic.blend(x, low, alpha)
+
+    @staticmethod
+    def _grads(total: torch.Tensor, params) -> list[torch.Tensor]:
+        """d total / d params, zeros for a parameter the loss does not reach."""
+        grads = torch.autograd.grad(total, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+
+    def eval_metrics(self, state, batch, rng: int = 0, **step_kw):
+        """The G step's metrics with the caller's state left untouched: the
+        step runs on a deep copy of the state (networks, optimizers,
+        counters), which is then dropped, as the JAX ``eval_metrics``
+        discards the stepped state."""
+        _, metrics = self.g_step(copy.deepcopy(state), batch, rng, **step_kw)
+        return metrics
 
     def round_step(self, state, batches, rng: int = 0):
         """One n-critic round: G first, then n_critic-1 D updates."""

@@ -1,0 +1,251 @@
+"""PGGAN image-generation trainer, in PyTorch.
+
+Counterpart of ``twingan_tpu/train/gan_trainer.py``: ``GanTrainerConfig``
+field for field (same names, order and defaults, so the JAX
+``config.json`` loads), and ``GanTrainer`` with the JAX entry points
+(``init_state``, ``g_step``, ``d_step``, ``sample``, and from the base
+``round_step``, ``scan_rounds`` and ``eval_metrics``). Networks
+``generator`` (the noise-input PGGAN generator) and ``discriminator``.
+
+The steps follow the JAX ones:
+- the G step: z -> generator (train mode, moving statistics updated) ->
+  discriminator -> the generator's GAN loss; Adam on the generator; the
+  gdrop state and the Polyak average of the generator's parameters;
+- the D step: the generator's pass runs under ``torch.no_grad()`` (the JAX
+  ``stop_gradient``) with no updates, so its conv-leaky-pixel-norm steps
+  run kernel B4 on the card (``ops/fused_conv.py``); the discriminator on
+  the fake and the real batch, the GAN terms, and the gradient penalty,
+  whose pass takes the twice-differentiable plain attention route;
+- ``sample``: eval mode, the Polyak-averaged parameters when
+  ``moving_average_decay`` is set, no gradient (B4 again).
+
+As in the JAX package each side's optimizer is built over the network's
+own parameter paths, without the network's name (``block_4_conv0.conv.kernel``),
+so a frozen scope matches the path inside the network; the discriminator's
+schedule is stretched by ``max(1, n_critic - 1)``.
+
+The generator's input is, in order: the step's ``z`` argument (injected
+noise), the batch's ``"source"`` item (as in ``_gen_input``), or normal
+noise of ``noise_shape`` drawn from ``step_generator(rng, critic_step)``.
+The gradient penalty's draws come from the same generator unless the D
+step is handed ``gp_noise``.
+
+Not ported yet, raising ``NotImplementedError``: ``use_gdrop``,
+``use_conditional_labels``, ``remat``, and ``generator_network``
+cyclegan/dcgan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional
+
+import torch
+import torch.nn as nn
+from torch.func import functional_call
+
+from twingan_tpu_torch.models.config import PGGANConfig
+from twingan_tpu_torch.models.layers import reset_parameters
+from twingan_tpu_torch.models.pggan import Discriminator, Generator, noise_shape
+from twingan_tpu_torch.train.base import (
+    BaseGanTrainer,
+    require_trainable,
+    resolve_device,
+    step_generator,
+)
+from twingan_tpu_torch.train.losses import (
+    GanLossConfig,
+    discriminator_gan_loss,
+    generator_gan_loss,
+    gradient_penalty,
+)
+from twingan_tpu_torch.train.optimizers import OptimizerConfig, build_optimizer, global_norm
+from twingan_tpu_torch.train.state import GanTrainState, polyak_update, update_gdrop_state
+
+GEN = "generator"
+DIS = "discriminator"
+
+
+@dataclasses.dataclass(frozen=True)
+class GanTrainerConfig:
+    model: PGGANConfig = dataclasses.field(default_factory=PGGANConfig)
+    loss: GanLossConfig = dataclasses.field(default_factory=GanLossConfig)
+    opt: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
+    batch_size: int = 16
+    n_critic: int = 2
+    use_ttur: bool = False
+    discriminator_learning_rate: float = 0.0004
+    use_gdrop: bool = False
+    gdrop_coef: float = 0.2
+    gdrop_lim: float = 0.5
+    gdrop_exp: float = 2.0
+    grow_start_step: int = 0
+    max_steps: int = 300000
+    generator_network: str = "pggan"
+    cyclegan_num_channels: int = 64
+    dcgan_depth: int = 64
+    dcgan_latent_dim: int = 64
+    moving_average_decay: float = 0.0
+    remat: bool = False
+    use_conditional_labels: bool = False
+    num_classes: int = 0
+    conditional_embed_dim: int = 32
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+class GanTrainer(BaseGanTrainer):
+    """One PGGAN generation stage's training, one optimizer per network.
+    Runs on the CUDA card unless ``device="cpu"``."""
+
+    def __init__(self, cfg: GanTrainerConfig, device: Optional[str | torch.device] = None):
+        if cfg.use_conditional_labels:
+            raise NotImplementedError(
+                "use_conditional_labels is not ported to twingan_tpu_torch yet")
+        if cfg.generator_network in ("cyclegan", "dcgan"):
+            raise NotImplementedError(
+                f"generator_network={cfg.generator_network} is not ported to "
+                "twingan_tpu_torch yet")
+        if cfg.generator_network != "pggan":
+            raise NotImplementedError(
+                f"generator_network {cfg.generator_network!r} is not implemented")
+        require_trainable(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dis_opt_cfg = (cfg.opt.replace(learning_rate=cfg.discriminator_learning_rate)
+                            if cfg.use_ttur else cfg.opt)
+
+    def build_nets(self) -> nn.ModuleDict:
+        m = self.cfg.model
+        return nn.ModuleDict({GEN: Generator(m, noise_input=True), DIS: Discriminator(m)})
+
+    def init_state(self, seed: int = 0) -> GanTrainState:
+        """Networks drawn from ``seed`` with the JAX initializers (the same
+        distributions, not the same numbers; ``bridge.py`` loads a JAX
+        state's), in train mode on the trainer's device."""
+        nets = self.build_nets()
+        reset_parameters(nets, torch.Generator().manual_seed(seed))
+        return self.state_from_nets(nets)
+
+    def state_from_nets(self, nets: nn.ModuleDict, step: int = 0,
+                        critic_step: int = 0) -> GanTrainState:
+        """A train state around ``nets`` with fresh optimizers."""
+        cfg = self.cfg
+        nets = nets.to(self.device).train()
+        gen_params = dict(nets[GEN].named_parameters())
+        zero = torch.zeros((), device=self.device)
+        return GanTrainState(
+            nets=nets,
+            gen_opt=build_optimizer(cfg.opt, gen_params),
+            # D updates n_critic-1 times per global step; its schedule is
+            # stretched so decayed rates track the global step.
+            dis_opt=build_optimizer(self.dis_opt_cfg, dict(nets[DIS].named_parameters()),
+                                    updates_per_step=max(1, cfg.n_critic - 1)),
+            gdrop_strength=zero.clone(), gen_loss_ema=zero.clone(),
+            step=step, critic_step=critic_step,
+            gen_ema_params=({k: p.detach().clone() for k, p in gen_params.items()}
+                            if cfg.moving_average_decay else None),
+        )
+
+    # ------------------------------------------------------------------ #
+    # Train steps
+    # ------------------------------------------------------------------ #
+    def _gen_input(self, batch: Mapping[str, torch.Tensor], generator: torch.Generator,
+                   batch_size: int) -> torch.Tensor:
+        """The batch's "source" item when present, else fresh noise."""
+        src = batch.get("source")
+        if src is not None:
+            return src.to(self.device, torch.float32)
+        return torch.randn(noise_shape(self.cfg.model, batch_size), generator=generator,
+                           device=self.device)
+
+    def _real(self, batch: Mapping[str, torch.Tensor], alpha: float) -> torch.Tensor:
+        return self.growing_image(batch["target"].to(self.device, torch.float32), alpha)
+
+    def g_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0,
+               z: Optional[torch.Tensor] = None):
+        """One generator update. ``batch``: NHWC "target" images in [0, 1]
+        (and optionally the generator's input as "source"). Returns (state,
+        metrics); the state is updated in place."""
+        cfg = self.cfg
+        gen, dis = state.nets[GEN], state.nets[DIS]
+        alpha = self._alpha(state.step)
+        real = self._real(batch, alpha)
+        if z is None:
+            z = self._gen_input(batch, step_generator(rng, state.critic_step, self.device),
+                                real.shape[0])
+        fake = gen(z.to(self.device), alpha=alpha, update=True)
+        loss = generator_gan_loss(cfg.loss, dis(fake, alpha=alpha))
+        grads = self._grads(loss, state.gen_opt.params)
+        grad_norm = global_norm(grads)
+        state.gen_opt.step(grads)
+        state.gen_loss_ema, strength = update_gdrop_state(
+            state.gen_loss_ema, loss, state.step, cfg.gdrop_coef, cfg.gdrop_lim, cfg.gdrop_exp)
+        if cfg.use_gdrop:
+            state.gdrop_strength = strength
+        if cfg.moving_average_decay:
+            polyak_update(state.gen_ema_params,
+                          dict(zip(state.gen_opt.names, state.gen_opt.params)),
+                          cfg.moving_average_decay)
+        state.step += 1
+        state.critic_step += 1
+        metrics = {"generator_loss": loss.detach(), "alpha": alpha,
+                   "gdrop_strength": state.gdrop_strength, "generator_grad_norm": grad_norm}
+        return state, metrics
+
+    def d_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0,
+               z: Optional[torch.Tensor] = None,
+               gp_noise: Optional[Mapping[str, torch.Tensor]] = None):
+        """One discriminator update. ``gp_noise`` injects the gradient
+        penalty's random numbers, ``{"alpha": [B,1,1,1], "noise": the
+        images' shape}``; otherwise they are drawn from
+        ``step_generator(rng, critic_step)``, as z is."""
+        cfg = self.cfg
+        gen, dis = state.nets[GEN], state.nets[DIS]
+        alpha = self._alpha(state.step)
+        real = self._real(batch, alpha)
+        generator = step_generator(rng, state.critic_step, self.device)
+        if z is None:
+            z = self._gen_input(batch, generator, real.shape[0])
+        with torch.no_grad():
+            fake = gen(z.to(self.device), alpha=alpha, update=False)
+        fake_pred = dis(fake, alpha=alpha)
+        real_pred = dis(real, alpha=alpha)
+        losses = discriminator_gan_loss(cfg.loss, fake_pred, real_pred)
+        noise = gp_noise or {}
+        losses["gradient_penalty"] = gradient_penalty(
+            cfg.loss, lambda x: dis(x, alpha=alpha, attention="plain"), real, fake,
+            alpha=noise.get("alpha"), noise=noise.get("noise"), generator=generator)
+        total = sum(losses.values())
+        grads = self._grads(total, state.dis_opt.params)
+        grad_norm = global_norm(grads)
+        state.dis_opt.step(grads)
+        state.critic_step += 1
+        metrics = {"discriminator_loss": total.detach(),
+                   "real_pred_mean": real_pred.detach().float().mean(),
+                   "fake_pred_mean": fake_pred.detach().float().mean(),
+                   "discriminator_grad_norm": grad_norm,
+                   **{k: v.detach() for k, v in losses.items()}}
+        return state, metrics
+
+    # ------------------------------------------------------------------ #
+    # Sampling
+    # ------------------------------------------------------------------ #
+    def sample(self, state: GanTrainState, z: torch.Tensor) -> torch.Tensor:
+        """Inference-mode generation (moving statistics, no gradient) from
+        noise ``z`` [B, noise_dim] or [B,1,1,noise_dim], with the
+        Polyak-averaged parameters when they are kept. Returns NHWC images
+        in the compute dtype."""
+        gen = state.nets[GEN]
+        was_training = gen.training
+        gen.eval()
+        try:
+            with torch.no_grad():
+                z = z.to(self.device, torch.float32)
+                alpha = self._alpha(state.step)
+                if state.gen_ema_params is None:
+                    return gen(z, alpha=alpha)
+                return functional_call(gen, state.gen_ema_params, (z,), {"alpha": alpha})
+        finally:
+            gen.train(was_training)

@@ -16,6 +16,13 @@ outside it), ``adagrad``, ``adadelta`` and ``ftrl`` are not ported yet.
 As in optax, the schedule counts this optimizer's own updates, evaluated
 before each one; ``updates_per_step`` stretches it for an optimizer that
 updates several times per global step (the discriminator's n_critic - 1).
+
+A frozen scope matches as in the JAX ``freeze_scopes``: as a substring of
+the parameter's path in ``jax.tree_util.keystr`` form (``scope_path``),
+``['block_4_conv0']['conv']['kernel']`` for ``block_4_conv0.conv.kernel``.
+When every parameter is frozen no ``torch.optim`` is built (it refuses an
+empty list), the updates are still counted, and nothing moves, as under
+optax's masked updates.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ import torch
 
 PORTED_OPTIMIZERS = ("adam", "sgd", "momentum")
 UNPORTED_OPTIMIZERS = ("rmsprop", "adagrad", "adadelta", "ftrl")
+# Each optimizer's per-parameter state: optax's field name -> torch.optim's.
+SLOTS = {"adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+         "momentum": {"trace": "momentum_buffer"}, "sgd": {}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +87,12 @@ def build_schedule(cfg: OptimizerConfig, updates_per_step: int = 1) -> Callable[
     raise ValueError(f"unsupported decay type {kind!r}")
 
 
+def scope_path(name: str) -> str:
+    """A dotted parameter name in ``jax.tree_util.keystr`` form, the string
+    the JAX package's frozen scopes are matched against."""
+    return "".join(f"['{p}']" for p in name.split("."))
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm)."""
     return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
@@ -101,16 +117,48 @@ class Optimizer:
         self.params = list(params.values())
         # Frozen params are left out of the optimizer: optax zeroes their
         # updates after it, so they never move either way.
-        self.trainable = [not any(s in name for s in cfg.frozen_scopes) for name in self.names]
+        self.trainable = [not any(s in scope_path(name) for s in cfg.frozen_scopes)
+                          for name in self.names]
         train = [p for p, t in zip(self.params, self.trainable) if t]
         lr = cfg.learning_rate
-        if cfg.optimizer == "adam":
+        if not train:
+            self.opt = None
+        elif cfg.optimizer == "adam":
             self.opt = torch.optim.Adam(train, lr=lr, betas=(cfg.adam_beta1, cfg.adam_beta2),
                                         eps=cfg.opt_epsilon)
         elif cfg.optimizer == "sgd":
             self.opt = torch.optim.SGD(train, lr=lr)
         else:
             self.opt = torch.optim.SGD(train, lr=lr, momentum=cfg.momentum)
+
+    def slots(self) -> dict[str, dict[str, torch.Tensor]]:
+        """The per-parameter state under optax's names (``{"mu": {name:
+        tensor}, "nu": ...}`` for adam), zeros where torch.optim holds none:
+        frozen parameters, and every parameter before the first update."""
+        out = {}
+        for slot, torch_slot in SLOTS[self.cfg.optimizer].items():
+            out[slot] = {}
+            for name, p in zip(self.names, self.params):
+                held = self.opt.state.get(p, {}) if self.opt is not None else {}
+                t = held.get(torch_slot)
+                out[slot][name] = torch.zeros_like(p) if t is None else t.detach().clone()
+        return out
+
+    @torch.no_grad()
+    def load_slots(self, count: int, slots: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
+        """Set the update count and the per-parameter state, the inverse of
+        ``slots``. Frozen parameters keep none (they never move)."""
+        self.count = int(count)
+        if self.opt is None:
+            return
+        for p, name, trainable in zip(self.params, self.names, self.trainable):
+            if not trainable:
+                continue
+            state = {torch_slot: slots[slot][name].to(p.device, p.dtype).clone()
+                     for slot, torch_slot in SLOTS[self.cfg.optimizer].items()}
+            if self.cfg.optimizer == "adam":
+                state["step"] = torch.tensor(float(count), dtype=torch.float32)
+            self.opt.state[p] = state
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> None:
@@ -125,11 +173,12 @@ class Optimizer:
         for p, g, t in zip(self.params, grads, self.trainable):
             if t:
                 p.grad = g + cfg.weight_decay * p if cfg.weight_decay else g
-        lr = self.schedule(self.count)
-        for group in self.opt.param_groups:
-            group["lr"] = lr
-        self.opt.step()
-        self.opt.zero_grad(set_to_none=True)
+        if self.opt is not None:
+            lr = self.schedule(self.count)
+            for group in self.opt.param_groups:
+                group["lr"] = lr
+            self.opt.step()
+            self.opt.zero_grad(set_to_none=True)
         self.count += 1
 
 

@@ -283,11 +283,6 @@ class TwinGANTrainer(BaseGanTrainer):
         return tuple(self.growing_image(batch[k].to(self.device, torch.float32), alpha)
                      for k in ("source", "target"))
 
-    @staticmethod
-    def _grads(total: torch.Tensor, params) -> list[torch.Tensor]:
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-
     def g_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0):
         """One generator-side update. ``batch``: NHWC "source" and "target"
         images in [0, 1]. Returns (state, metrics); the state is updated in

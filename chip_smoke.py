@@ -8,12 +8,14 @@ Run from the repository root, with no arguments:
 Phases, each printing JSON lines; any failure exits non-zero and no
 result line is printed:
 
-1. device   - the card's name and power limit; TF32 off for the comparisons.
+1. device   - the card's name, power limit and top SM clock; TF32 off for
+              the comparisons.
 2. build    - nvcc builds ``csrc/flash_attn_fwd.cu`` (the flash-attention
               forward kernel), ``csrc/flash_attn_bwd.cu`` (its two
               backward kernels, dq and dkv) and ``csrc/fused_conv.cu``
               (the fused conv3x3 + bias + leaky + pixel-norm kernel B4)
-              into ctypes libraries, the three compiles started together.
+              into ctypes libraries, the three compiles started together,
+              and prints each kernel's registers and spills.
 3. kernel   - at each listed shape, the forward kernel against its plain
               PyTorch version on the same inputs (output and logsumexp);
               then the backward kernels: the gradients that
@@ -21,10 +23,12 @@ result line is printed:
               against autograd of the plain ``attention_core`` on the same
               f, g, h and output gradient (above N 16384 against a
               reference chunked over query rows, which also checks the
-              forward kernel there). Each row has the kernels', the
-              plain versions' and SDPA's times (CUDA events, median) beside
-              the card's bound for the same work. Then B4 against its
-              plain version at the TPU script's shape, at every distinct
+              forward kernel there). Each row names the variant that ran
+              (bf16: tensor cores for the forward and dkv; fp32: CUDA
+              cores) and has the kernels', the plain versions' and SDPA's
+              times (CUDA events, median) beside the card's bound for the
+              same work. Then B4 against its plain version at the TPU
+              script's shape, at every distinct
               layer of the generation configuration (pggan256, batch 12,
               bf16), in fp32, at a ragged 20 x 20 and at the widths
               past 256 channels (512 and 1024), each row with cuDNN's
@@ -35,8 +39,9 @@ result line is printed:
               loaded by ``ImageInferer`` and served to 8 concurrent requests
               per round through ``BatchingLocalClient``; the forward
               kernel's launch count must be 2 (encoder + generator) per
-              dispatched batch, and one request must agree with the same
-              weights run in fp32 on the CPU with the plain attention.
+              dispatched batch, all of them its tensor-core variant, and
+              one request must agree with the same weights run in fp32 on
+              the CPU with the plain attention.
 5. train    - the training path at full width: ``TwinGANTrainer`` on the
               same configuration (DRAGAN, Adam, n_critic 2, batch 3, seeded
               random weights with every sa_gamma 1). One G step and one D
@@ -44,9 +49,12 @@ result line is printed:
               same weights, batch and injected noise in fp32 on the CPU
               with the plain attention (losses, and the cosine similarity
               of each network's gradient and of every attention
-              projection's); then one warm-up and 3 timed
+              projection's), the fp32 steps on the CUDA-core variants of
+              the forward and dkv kernels only, the bf16 steps on the
+              tensor-core ones only; then one warm-up and 3 timed bf16
               rounds, whose kernel launches must be what the passes of the
-              step imply; then the trained state is written as a stage dir
+              step imply, on the tensor-core variants; then the trained
+              state is written as a stage dir
               and ``ImageInferer`` serves a batch from it. Neither serving
               nor training may take a B4 route (they run batch norm).
 6. generation - the generation path at full width and depth:
@@ -96,10 +104,17 @@ KERNELS = {
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of a call is
-# the larger of its bytes over the memory rate and its FLOPs over the peak
-# of its input type (bf16 on the tensor cores, fp32 outside them).
+# the largest of its bytes over the memory rate, its FLOPs over the peak of
+# its input type (bf16 on the tensor cores, fp32 outside them) and, for
+# attention, its exponentials over the special-function units' rate: 16
+# base-2 exponentials a clock on each SM (the CUDA C++ Programming Guide's
+# instruction throughput table, compute capability 9.0; the
+# FlashAttention-3 paper gives 3.9 T/s for the H100 SXM), at the card's top
+# SM clock, which the device phase reads from nvidia-smi.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+EXP_PER_SM_CLOCK = 16
+exp_per_s = 3.9e12  # replaced by device_phase with the card's SMs x 16 x top clock
 
 # (label, B, N, c_bar, C, dtype). The serving shape is the main path's: the
 # client pads every batch to 4, and attention sits at 64 px (N = 4096) with
@@ -115,6 +130,8 @@ KERNEL_CASES = [
     ("c_bar 32, C 256", 2, 4096, 32, 256, "bfloat16"),
     ("docs/PERFORMANCE.md", 4, 4096, 32, 64, "float32"),
     ("docs/PERFORMANCE.md", 4, 16384, 32, 64, "float32"),
+    # The tensor-core variant's per-tile sums of l over 256 tiles of keys.
+    ("long N", 2, 16384, 8, 64, "bfloat16"),
 ]
 
 # (label, B, N, c_bar, C, dtype) for the backward kernels. The training
@@ -131,6 +148,8 @@ BWD_CASES = [
     ("docs/PERFORMANCE.md", 4, 4096, 32, 64, "float32"),
     ("docs/PERFORMANCE.md", 4, 16384, 32, 64, "float32"),
     ("docs/PERFORMANCE.md", 4, 65536, 32, 64, "float32"),
+    # The tensor-core dkv's fp32 sums of dh and dg over 128 query tiles.
+    ("long N", 2, 16384, 8, 64, "bfloat16"),
 ]
 # Above this N the plain version's N^2 matrices (68 GB at N 65536, B 4)
 # do not fit: such a case is checked against a reference chunked over query
@@ -304,12 +323,23 @@ def device_phase():
     if smi.returncode != 0 or not smi.stdout.strip():
         fail("device", f"nvidia-smi failed: {smi.stderr.strip()}")
     smi_line = smi.stdout.strip().splitlines()[0]
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    try:
+        sm_mhz = float(clock.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        fail("device", f"nvidia-smi gave no top SM clock: {clock.stdout!r} {clock.stderr!r}")
+    global exp_per_s
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_per_s = sms * EXP_PER_SM_CLOCK * sm_mhz * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "ok": True, "kind": name, "count": torch.cuda.device_count(),
-          "nvidia_smi": smi_line, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "tf32": "off for matmul and cuDNN"})
+          "nvidia_smi": smi_line, "sms": sms, "max_sm_clock_mhz": sm_mhz,
+          "exponentials_per_s": exp_per_s, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "tf32": "off for matmul and cuDNN"})
     return name, smi_line
 
 
@@ -324,10 +354,25 @@ def build_phase():
         cuda_build.load(name)
     seconds = time.perf_counter() - t0
     for name in names:
-        log = cuda_build.build_info[name]["log"]
-        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines() if "registers" in ln]
         emit({"phase": "build", "ok": True, "library": name, "seconds": round(seconds, 3),
-              "nvcc_seconds": cuda_build.build_info[name]["seconds"], "ptxas": regs})
+              "nvcc_seconds": cuda_build.build_info[name]["seconds"],
+              "ptxas": ptxas_usage(cuda_build.build_info[name]["log"])})
+
+
+def ptxas_usage(log: str) -> list:
+    """Each kernel's registers and spills from ``nvcc -Xptxas -v``: the
+    entry's (mangled) name, then its "N bytes spill stores, M bytes spill
+    loads" and "Used R registers" lines."""
+    rows, row = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            row = {"kernel": ln.split("'")[1] if "'" in ln else ln.strip()}
+            rows.append(row)
+        elif row is not None and "spill stores" in ln:
+            row["spills"] = ln.strip()
+        elif row is not None and "registers" in ln:
+            row["registers"] = ln.split(":", 1)[1].strip()
+    return rows
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -348,31 +393,43 @@ def time_ms(fn, reps: int = 20) -> float:
     return times[len(times) // 2]
 
 
-def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+def _bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0) -> tuple[float, str]:
+    """The largest of the three times, and which it is."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / PEAK_FLOPS[dtype],
+             "exponentials": exps / exp_per_s}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
 
 
 def bound(b: int, n: int, c_bar: int, c: int, dtype: str) -> tuple[float, str]:
     """Least time of the forward on the card: each input read once, each
-    output written once, the two products' FLOPs at the type's peak."""
+    output written once, the two products' FLOPs at the type's peak, and
+    the B N^2 exponentials at the special-function units' rate."""
     elt = 4 if dtype == "float32" else 2
     nbytes = elt * (2 * b * n * c_bar + b * n * c) + elt * b * n * c + 4 * b * n
-    return _bound(nbytes, 2.0 * b * n * n * (c_bar + c), dtype)
+    return _bound(nbytes, 2.0 * b * n * n * (c_bar + c), dtype, b * n * n)
 
 
 def bwd_bounds(b: int, n: int, c_bar: int, c: int, dtype: str) -> dict:
     """Least times of the dq and the dkv kernel: f, g, h, do read once, lse
     and delta (fp32) read once, the outputs written once. dq recomputes
     s = f g^T and dp = do h^T and forms df = ds g: 2 B N^2 (2 c_bar + C)
-    FLOPs; dkv adds dh = p^T do and dg = ds^T f: 2 B N^2 (2 c_bar + 2 C)."""
+    FLOPs; dkv adds dh = p^T do and dg = ds^T f: 2 B N^2 (2 c_bar + 2 C).
+    Each recomputes the B N^2 probabilities: as many exponentials."""
     elt = 4 if dtype == "float32" else 2
     inputs = elt * (2 * b * n * c_bar + 2 * b * n * c) + 8 * b * n
     return {"flash_attn_dq": _bound(inputs + elt * b * n * c_bar,
-                                    2.0 * b * n * n * (2 * c_bar + c), dtype),
+                                    2.0 * b * n * n * (2 * c_bar + c), dtype, b * n * n),
             "flash_attn_dkv": _bound(inputs + elt * b * n * (c_bar + c),
-                                     2.0 * b * n * n * (2 * c_bar + 2 * c), dtype)}
+                                     2.0 * b * n * n * (2 * c_bar + 2 * c), dtype, b * n * n)}
+
+
+def ran_variants(kernel: str) -> list:
+    """The variants of ``kernel`` launched since the last reset."""
+    from twingan_tpu_torch.ops import attention
+
+    return [k.split("/", 1)[1] for k, v in attention.variant_counts.items()
+            if v and k.startswith(kernel + "/")]
 
 
 def fused_conv_bound(b: int, hw: int, cin: int, cout: int, dtype: str) -> tuple[float, str]:
@@ -405,8 +462,10 @@ def kernel_phase() -> dict:
         f = torch.randn(b, n, c_bar, device="cuda", generator=gen).to(dt)
         g = torch.randn(b, n, c_bar, device="cuda", generator=gen).to(dt)
         h = torch.randn(b, n, c, device="cuda", generator=gen).to(dt)
+        attention.reset_launch_counts()
         o, lse = attention.flash_attention_forward(f, g, h)
         torch.cuda.synchronize()
+        variant = ran_variants(attention.KERNEL_NAME)
         ref = attention.attention_core(f, g, h)
         ref_lse = attention.attention_lse(f, g)
         torch.cuda.synchronize()
@@ -423,10 +482,12 @@ def kernel_phase() -> dict:
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
         bound_ms, bound_by = bound(b, n, c_bar, c, dtype)
         row = {"phase": "kernel", "case": label, "B": b, "N": n, "c_bar": c_bar, "C": c,
-               "dtype": dtype, "max_abs_err": err, "tolerance": tol, "lse_err": lse_err,
-               "lse_tolerance": lse_tol, "sdpa_err": sdpa_err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-               "ok": bool(err <= tol and lse_err <= lse_tol)}
+               "dtype": dtype, "variant": variant, "max_abs_err": err, "tolerance": tol,
+               "lse_err": lse_err, "lse_tolerance": lse_tol, "sdpa_err": sdpa_err, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "ok": bool(err <= tol and lse_err <= lse_tol
+                          and variant == [attention.VARIANTS[attention.KERNEL_NAME][dt]])}
         emit(row)
         if not row["ok"]:
             fail("kernel", f"flash_attn_fwd disagrees with the plain version at {label} "
@@ -535,7 +596,9 @@ def backward_kernel_phase() -> dict:
         chunked = n > PLAIN_MAX_N
         reps = 3 if chunked else 20
         leaves = [t.clone().requires_grad_(True) for t in (f, g, h)]
+        attention.reset_launch_counts()
         grads = torch.autograd.grad(attention.flash_attention_core(*leaves), leaves, do)
+        variants = {k_: ran_variants(k_) for k_ in (attention.DQ_KERNEL, attention.DKV_KERNEL)}
         errs, tols, extra = {}, {}, {}
         if chunked:
             ref_o, ref_lse, *refs = chunked_reference(f, g, h, do)
@@ -574,13 +637,14 @@ def backward_kernel_phase() -> dict:
                 reps)
         bounds = bwd_bounds(b, n, c_bar, c, dtype)
         row = {"phase": "kernel", "kernels": ["flash_attn_dq", "flash_attn_dkv"], "case": label,
-               "B": b, "N": n, "c_bar": c_bar, "C": c, "dtype": dtype, "max_abs_err": errs,
-               "tolerance": tols, "ms": ms, "plain_ms": plain_ms,
+               "B": b, "N": n, "c_bar": c_bar, "C": c, "dtype": dtype, "variant": variants,
+               "max_abs_err": errs, "tolerance": tols, "ms": ms, "plain_ms": plain_ms,
                "library": f"SDPA forward + backward, scale 1.0, {backend_name} backend",
                "library_ms": library_ms,
                "bound_ms": {k_: v_[0] for k_, v_ in bounds.items()},
                "bound_by": {k_: v_[1] for k_, v_ in bounds.items()}, **extra,
                "ok": bool(all(errs[k_] <= tols[k_] for k_ in errs)
+                          and all(v_ == [attention.VARIANTS[k_][dt]] for k_, v_ in variants.items())
                           and (not chunked or (extra["forward_err"] <= extra["forward_tolerance"]
                                                and extra["lse_err"] <= extra["lse_tolerance"])))}
         emit(row)
@@ -664,6 +728,7 @@ def serving_phase(card: str, smi_line: str) -> int:
         finally:
             client.close()
         launches = attention.launch_counts[attention.KERNEL_NAME]
+        variants = dict(attention.variant_counts)
         dispatches = client.dispatches
 
         for i, out in enumerate(outs):
@@ -674,6 +739,9 @@ def serving_phase(card: str, smi_line: str) -> int:
         if launches != 2 * dispatches or dispatches < 2 * (1 + TIMED_ROUNDS):
             fail("serving", f"{launches} kernel launches for {dispatches} dispatched batches "
                             "(expected 2 per batch: encoder and generator)")
+        fwd_tc = f"{attention.KERNEL_NAME}/{attention.TENSOR_CORE}"
+        if variants[fwd_tc] != launches or sum(variants.values()) != launches:
+            fail("serving", f"bf16 serving launched other variants than {fwd_tc}: {variants}")
 
         cpu = ImageInferer(stage_dir, device="cpu", dtype="float32")
         ref = cpu.infer_batch([images[0]])[0]
@@ -688,6 +756,7 @@ def serving_phase(card: str, smi_line: str) -> int:
         timed = sorted(round_s[1:])[len(round_s[1:]) // 2]
         row = {"phase": "serving", "requests": REQUESTS_PER_ROUND * (1 + TIMED_ROUNDS),
                "dispatches": dispatches, "kernel_launches": launches,
+               "kernel_variants": {k: v for k, v in variants.items() if v},
                "images_per_s": REQUESTS_PER_ROUND / timed, "round_s": round_s,
                "card": card, "nvidia_smi": smi_line,
                "vs_cpu_fp32": {"mean_abs_err_over_std": mean_err, "max_abs_err_over_std": max_err,
@@ -787,6 +856,7 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
     network's name. Returns one row per step and card type."""
     import torch
     from twingan_tpu_torch.models.layers import SelfAttention
+    from twingan_tpu_torch.ops import attention
     from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
 
     trainer_cls = trainer_cls or TwinGANTrainer
@@ -799,6 +869,7 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
         side = "gen_opt" if kind == "g_step" else "dis_opt"
         setattr(state, side, GradRecorder(getattr(state, side)))
         kw = {} if zs is None else {"z": zs[kind]}
+        attention.reset_launch_counts()
         t0 = time.perf_counter()
         if kind == "g_step":
             _, metrics = trainer.g_step(state, batch, **kw)
@@ -823,6 +894,15 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
         ref_m, ref_grads, cpu_s, _ = run(ref_trainer, kind, batch)
         for dtype, (rtol, atol, min_cos, min_sa_cos) in limits.items():
             m, grads, card_s, sa_names = run(on(card, dtype), kind, batch)
+            # The forward and dkv kernels run the variant of the step's type
+            # only (on the CPU, neither runs).
+            variants = {k: v for k, v in attention.variant_counts.items() if v}
+            want = {f"{k}/{attention.VARIANTS[k][getattr(torch, dtype)]}"
+                    for k in (attention.KERNEL_NAME, attention.DKV_KERNEL)}
+            other = [k for k in variants if k.startswith((attention.KERNEL_NAME + "/",
+                                                          attention.DKV_KERNEL + "/"))
+                     and k not in want]
+            on_card = torch.device(card).type == "cuda" and bool(sa_names)
             loss_err = {k: abs(m[k] - ref_m[k]) for k in ref_m
                         if k not in ("alpha", "gdrop_strength")}
             networks = sorted({n.split(".", 1)[0] for n in grads})
@@ -833,10 +913,12 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
                       for proj in ("sa_f", "sa_g", "sa_h")}
             ok = (all(loss_err[k] <= rtol * abs(ref_m[k]) + atol for k in loss_err)
                   and min(net_cos.values()) >= min_cos
-                  and (min_sa_cos is None or min(sa_cos.values()) >= min_sa_cos))
+                  and (min_sa_cos is None or min(sa_cos.values()) >= min_sa_cos)
+                  and not other and (not on_card or want <= set(variants)))
             rows.append({"phase": phase, "check": f"{kind}, card {dtype} vs CPU float32",
                          "losses": m, "cpu_losses": ref_m, "loss_abs_err": loss_err,
                          "grad_cosine": net_cos, "attention_projection_grad_cosine": sa_cos,
+                         "kernel_variants": variants,
                          "limits": {"loss_rtol": rtol, "loss_atol": atol,
                                     "grad_cosine": min_cos, "projection_cosine": min_sa_cos},
                          "card_s": card_s, "cpu_s": cpu_s, "ok": bool(ok)})
@@ -891,12 +973,17 @@ def train_phase(card: str, smi_line: str) -> dict:
         round_s.append(time.perf_counter() - t0)
         metrics.append(m)
     counts = dict(attention.launch_counts)
+    variants = {k: v for k, v in attention.variant_counts.items() if v}
     peak = torch.cuda.max_memory_allocated()
     per_step = expected_launches(trainer, state.nets)
     expected = {k: TRAIN_TIMED_ROUNDS * (per_step["g_step"][k] + (cfg.n_critic - 1)
                                          * per_step["d_step"][k]) for k in counts}
     losses = [{k: float(v) for k, v in m.items()} for m in metrics]
     finite = all(np.isfinite(v) for m in losses for v in m.values())
+    # bf16 rounds: the forward and dkv kernels on their tensor-core variants only.
+    expected_variants = {f"{k}/{attention.VARIANTS[k][torch.bfloat16]}": expected[k]
+                         for k in (attention.KERNEL_NAME, attention.DQ_KERNEL,
+                                   attention.DKV_KERNEL)}
     med = statistics.median(round_s)
     row = {"phase": "train", "check": "timed rounds", "rounds": TRAIN_TIMED_ROUNDS,
            "batch": TRAIN_BATCH, "n_critic": cfg.n_critic, "fused": cfg.fuse,
@@ -905,12 +992,13 @@ def train_phase(card: str, smi_line: str) -> dict:
            "timing": "synchronized host clock around each round; images/s counts "
                      "n_critic * batch per round, as tools/train_bench.py does",
            "peak_memory_bytes": peak, "launches": counts, "expected_launches": expected,
+           "kernel_variants": variants, "expected_variants": expected_variants,
            "expected_per_step": per_step, "losses": losses, "card": card, "nvidia_smi": smi_line,
-           "ok": bool(counts == expected and finite)}
+           "ok": bool(counts == expected and variants == expected_variants and finite)}
     emit(row)
     if not row["ok"]:
-        fail("train", "the timed rounds' launches differ from the passes' count, "
-                      "or a loss is not finite")
+        fail("train", "the timed rounds' launches differ from the passes' count or ran "
+                      "another variant than the bf16 one, or a loss is not finite")
 
     stage_dir = tempfile.mkdtemp(prefix="twingan_smoke_train_")
     try:
@@ -1136,13 +1224,15 @@ def main() -> int:
         fwd, serving_launches + train_launches[fwd],
         {"serving": serving_launches, "train": train_launches[fwd]},
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
-        serving_row["bound_ms"], serving_row["bound_by"], serving_row["library_ms"])]
+        serving_row["bound_ms"], serving_row["bound_by"], serving_row["library_ms"],
+        variant=serving_row["variant"][0])]
     for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
         entries.append(kernel_entry(
             name, train_launches[name], {"train": train_launches[name]},
             max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
             train_row["plain_ms"][name], train_row["bound_ms"][name],
-            train_row["bound_by"][name], train_row["library_ms"]))
+            train_row["bound_by"][name], train_row["library_ms"],
+            variant=train_row["variant"][name][0]))
     entries.append(fused_conv_entry(b4_rows, generation_launches))
     emit({"kernels": entries})
     print(smi_line, flush=True)

@@ -91,7 +91,7 @@ def test_chip_smoke_fails_alone(tmp_path):
 def _port_sources():
     for root, _, files in os.walk(PACKAGE):
         for name in files:
-            if name.endswith((".py", ".cu")):
+            if name.endswith((".py", ".cu", ".cuh")):
                 path = os.path.join(root, name)
                 with open(path) as fh:
                     yield os.path.relpath(path, REPO), fh.read()

@@ -205,7 +205,14 @@ def test_library_path_keys_on_source(monkeypatch, tmp_path):
     assert first == cuda_build.library_path("k")
     assert first.startswith(str(tmp_path / "_build")) and first.endswith("libk.so")
     (src / "k.cu").write_text("// b\n")
-    assert cuda_build.library_path("k") != first
+    second = cuda_build.library_path("k")
+    assert second != first
+    # A header of csrc/ (which a source may include) is part of the key.
+    (src / "h.cuh").write_text("// h\n")
+    third = cuda_build.library_path("k")
+    assert third != second
+    (src / "h.cuh").write_text("// h, edited\n")
+    assert cuda_build.library_path("k") not in (first, second, third)
 
 
 def test_kernel_source_uses_plain_c_interface():

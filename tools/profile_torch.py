@@ -42,8 +42,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _group(name: str) -> str:
     low = name.lower()
     for kernel in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
-        if kernel in low:
-            return f"attention kernel ({kernel})"
+        if kernel in low:  # the tensor-core variants' kernels are named *_mma_kernel
+            cores = "tensor cores" if f"{kernel}_mma" in low else "CUDA cores"
+            return f"attention kernel ({kernel}, {cores})"
     if "memcpy" in low or "memset" in low:
         return "copies"
     if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm", "sm90_", "cutlass")):

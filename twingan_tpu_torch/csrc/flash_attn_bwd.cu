@@ -1,4 +1,4 @@
-// SAGAN flash-attention backward for Hopper (sm_90a), CUDA cores, fp32 math.
+// SAGAN flash-attention backward for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of the blockwise backward in
 // twingan_tpu/ops/attention.py, launched by `_flash_backward`:
@@ -14,15 +14,53 @@
 // delta: [B, N] fp32. cbar may be 1..64 and C 1..256; N is any size (the
 // last tile of either side is masked). Outputs are in the input dtype.
 //
-// What bounds them on the H100: arithmetic, as in the forward. dq does
-// 2*B*N^2*(2*cbar + C) and dkv 2*B*N^2*(2*cbar + 2*C) floating-point
-// operations plus B*N^2 exponentials each, on O(B*N*(cbar + C)) bytes, so
-// the N^2 matrices p, dp and ds must never reach device memory.
+// What bounds them on the H100. dq does 2*B*N^2*(2*cbar + C) and dkv
+// 2*B*N^2*(2*cbar + 2*C) FLOPs of products plus B*N^2 exponentials each, on
+// O(B*N*(cbar + C)) bytes, so the N^2 matrices p, dp and ds never reach
+// device memory. At the training shape (B 3, N 4096, cbar 8, C 64) dkv's
+// 14.5 GFLOP take 14.7 us at the bf16 tensor-core peak and its 50 M
+// exponentials 12.9 us at the special-function unit's rate: its products
+// bound it, closely followed by the exponentials.
 //
-// Design. The TPU kernels carry their fp32 accumulators across a sequential
-// grid axis in VMEM. CUDA blocks run in no order, so that axis becomes a
-// loop inside one block, and each output row is owned by one block: no
-// atomics, so the results are deterministic, as the two TPU kernels' are.
+// The TPU kernels carry their fp32 accumulators across a sequential grid
+// axis in VMEM. CUDA blocks run in no order, so that axis becomes a loop
+// inside one block, and each output row is owned by one warp (tensor-core
+// variant) or one block (CUDA-core variant): no atomics, so the results are
+// deterministic, as the two TPU kernels' are.
+//
+// dkv, tensor-core variant (bf16), the key-owning
+// FlashAttention-2 backward:
+//  - a warp owns 16 key rows and keeps g's (16 x cbar) and h's (16 x C) A
+//    fragments in registers, with fp32 accumulators for dg and dh. The
+//    training shape (B 3, N 4096) has only 768 such key warps, about 1.5 a
+//    scheduler of the 132 SMs, too few to hide a tile's serial chain; so
+//    each key row's queries are split between two warps, whose dg and dh
+//    are summed in a fixed order through shared memory at the end. A block
+//    is 2 key warps x 2 query halves (32 keys, 4 warps): 384 blocks at the
+//    training shape, and at 3 blocks an SM (at most 170 registers a
+//    thread, 43 KB of shared memory a block) all of them are resident in
+//    one wave on 132 SMs, 2.9 an SM on average (64-key blocks would make
+//    192, 72 SMs holding one and 60 two);
+//  - it loops over query tiles of 128 (64 for each half): f [128, cbar],
+//    do [128, C], lse and delta [128], double-buffered by 16-byte cp.async
+//    copies in shared memory, one barrier a tile (zero filled past N;
+//    queries past N get p = 0). Copying was over 40 % of the kernel's time
+//    while each copy recomputed its row, column, bounds and address
+//    (tools/flash_split.py); a thread now sets its addresses up once;
+//  - per tile, with m16n8k16 (m16n8k8 for S at cbar 8):
+//      S^T = g f^T (f by ldmatrix, as stored);
+//      P^T = 2^(S^T log2e - lse log2e), one FFMA and one ex2.approx each;
+//      dP^T = h do^T (h from registers, do by ldmatrix, as stored);
+//      dS^T = P^T (dP^T - delta);
+//      dh += P^T do (P^T's accumulators rounded to bf16 A fragments in
+//        registers, do by ldmatrix.trans);
+//      dg += dS^T f (dS^T likewise, f by ldmatrix.trans; n = cbar).
+//    P and dS are rounded to bf16 only as product operands; sums are fp32,
+//    and dg and dh are written once. For C > 64 the grid's third dimension
+//    takes 64-column slices of dh (dP still runs over all of C; the first
+//    slice also computes dg).
+//
+// dq (both types) and dkv's CUDA-core variant (fp32):
 //  - dq: a block owns `rows` query rows of one batch element and loops over
 //    key tiles (g and h staged in shared memory as fp32);
 //  - dkv: a block owns `rows` key rows and loops over query tiles (f, do,
@@ -35,14 +73,15 @@
 // Each thread then recomputes s and p itself (cbar is small), and the
 // cbar-wide accumulator (df or dg) is split across the row's threads by
 // column (k % groups == ty). Threads of one warp share threadIdx.y,
-// so every read of a staged tile is a shared-memory broadcast.
-// This is the simple CUDA-core version; tensor cores (wgmma) and TMA
-// staging are the next step for speed.
+// so every read of a staged tile is a shared-memory broadcast. These run on
+// fp32 CUDA cores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -66,6 +105,330 @@ struct Strides {
   int64_t f_sb, f_sn, g_sb, g_sn, h_sb, h_sn, do_sb, do_sn, row_sb;
   int64_t o0_sb, o0_sn, o1_sb, o1_sn;
 };
+
+// ---------------------------------------------------------------------------
+// dkv, tensor-core variant (bf16).
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kMmaRowWarps = 2;                 // warps along the key rows
+constexpr int kMmaSplit = 2;                    // warps along the queries of each key row
+constexpr int kMmaThreads = 32 * kMmaRowWarps * kMmaSplit;
+constexpr int kMmaKeys = 16 * kMmaRowWarps;     // key rows a block owns
+constexpr int kMmaQ = 64;                       // queries per warp and tile
+constexpr int kMmaStageQ = kMmaQ * kMmaSplit;   // queries per staged tile
+constexpr int kMmaCols = 64;                    // dh columns a block computes
+
+// Row stride of the staged f tile: 16 bytes at cbar 8, else padded by 16
+// bytes so that the 8 rows an ldmatrix reads fall in distinct bank groups.
+template <int CB>
+__host__ __device__ constexpr int f_stride() {
+  return CB == 8 ? 8 : CB + 8;
+}
+
+template <int CB, int CK>
+__host__ __device__ constexpr size_t dkv_mma_smem_bytes() {
+  return 2 * kMmaStageQ * (sizeof(bf16) * (f_stride<CB>() + CK + 8) + 2 * sizeof(float));
+}
+
+// CB: cbar padded to 8, 16, 32 or 64; CK: C padded to 64 or 256 (dP's depth).
+template <int CB, int CK>
+__global__ void __launch_bounds__(kMmaThreads, CK == 64 ? 3 : 1) flash_attn_dkv_mma_kernel(
+    const bf16* __restrict__ f, const bf16* __restrict__ g, const bf16* __restrict__ h,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dg, bf16* __restrict__ dh, int n,
+    int cbar, int c, Strides st, bool vec) {
+  using namespace flash_mma;
+  constexpr int FS = f_stride<CB>();
+  constexpr int DS = CK + 8;                 // do tile row stride
+  constexpr int KS = CB == 8 ? 1 : CB / 16;  // k steps of S^T = g f^T
+  constexpr int HK = CK / 16;                // k steps of dP^T = h do^T
+  constexpr int NG = CB / 8;                 // 8-column blocks of dg
+  constexpr int kMerge = 4 * (8 + NG);       // per lane: dh's and dg's accumulators
+  static_assert(kMmaRowWarps * kMerge * 32 * sizeof(float) <= dkv_mma_smem_bytes<CB, CK>(),
+                "the merge reuses the staging buffers");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* fs = reinterpret_cast<bf16*>(smem_raw);                     // [2][kMmaStageQ][FS]
+  bf16* dos = fs + 2 * kMmaStageQ * FS;                             // [2][kMmaStageQ][DS]
+  float* ls = reinterpret_cast<float*>(dos + 2 * kMmaStageQ * DS);  // [2][kMmaStageQ] lse
+  float* dls = ls + 2 * kMmaStageQ;                                 // [2][kMmaStageQ] delta
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tig = lane % 4, mi = lane / 8, mr = lane % 8;  // mr, mi: ldmatrix row, matrix
+  const int row_warp = warp % kMmaRowWarps, split = warp / kMmaRowWarps;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.x * kMmaKeys + 16 * row_warp;  // the warp's first key row
+  const int c0 = blockIdx.z * kMmaCols;                  // the block's dh columns
+  const bool with_dg = blockIdx.z == 0;
+  f += b * st.f_sb;
+  g += b * st.g_sb;
+  h += b * st.h_sb;
+  dout += b * st.do_sb;
+  lse += b * st.row_sb;
+  delta += b * st.row_sb;
+
+  uint32_t ga[KS][4], ha[HK][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) load_a_frag(ga[ks], g, k0, 16 * ks, n, cbar, st.g_sn, lane);
+#pragma unroll
+  for (int ks = 0; ks < HK; ++ks) load_a_frag(ha[ks], h, k0, 16 * ks, n, c, st.h_sn, lane);
+  float dga[NG][4], dha[8][4];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) dga[j][0] = dga[j][1] = dga[j][2] = dga[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dha[j][0] = dha[j][1] = dha[j][2] = dha[j][3] = 0.f;
+
+  const TileCopier<kMmaStageQ, CB, FS, kMmaThreads> f_copier(f, 0, cbar, st.f_sn, tid);
+  const TileCopier<kMmaStageQ, CK, DS, kMmaThreads> do_copier(dout, 0, c, st.do_sn, tid);
+  auto stage = [&](int t, int buf) {
+    const int q0 = t * kMmaStageQ;
+    bf16* ft = fs + buf * kMmaStageQ * FS;
+    bf16* dt = dos + buf * kMmaStageQ * DS;
+    if (vec) {
+      f_copier.copy(ft, q0, n, st.f_sn);
+      do_copier.copy(dt, q0, n, st.do_sn);
+    } else {
+      stage_tile_elements<kMmaStageQ, CB, FS, kMmaThreads>(ft, f, q0, 0, n, cbar, st.f_sn, tid);
+      stage_tile_elements<kMmaStageQ, CK, DS, kMmaThreads>(dt, dout, q0, 0, n, c, st.do_sn,
+                                                           tid);
+    }
+    stage_row<kMmaStageQ, kMmaThreads>(ls + buf * kMmaStageQ, lse, q0, n, vec, tid);
+    stage_row<kMmaStageQ, kMmaThreads>(dls + buf * kMmaStageQ, delta, q0, n, vec, tid);
+  };
+
+  // Each staged tile holds kMmaSplit tiles of 64 queries; warp `split` of
+  // each key group takes the split-th. One barrier a tile: it both
+  // publishes tile t and retires tile t - 1, whose buffer the next copies
+  // refill.
+  const int ntiles = (n + kMmaStageQ - 1) / kMmaStageQ;
+  stage(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();  // tile t has landed (this thread's copies)
+    __syncthreads();     // ... and every thread's; tile t - 1 is retired
+    if (t + 1 < ntiles) stage(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const int q0 = t * kMmaStageQ + split * kMmaQ;
+    if (q0 >= n) continue;  // the last tile holds no query of this warp
+    const int sub = (t & 1) * kMmaStageQ + split * kMmaQ;
+    const bf16* ft = fs + sub * FS;
+    const bf16* dt = dos + sub * DS;
+    const float* lt = ls + sub;
+    const float* dlt = dls + sub;
+
+    // S^T = g f^T: 16 keys x 64 queries, 8 blocks of 8 queries.
+    float p[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+    if constexpr (CB == 8) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // matrix i of lanes 8i..8i+7: queries 32j + 8i ..
+        uint32_t bf[4];
+        ldmatrix_x4(bf, ft + (32 * j + lane) * FS);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma1688(p[4 * j + i], ga[0][0], ga[0][1], bf[i]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {  // matrices: (queries +0, k +0), (+0, +8), (+8, +0), (+8, +8)
+          uint32_t bf[4];
+          ldmatrix_x4(bf, ft + (16 * j + 8 * (mi / 2) + mr) * FS + 16 * ks + 8 * (mi % 2));
+          mma16816(p[2 * j], ga[ks], bf[0], bf[1]);
+          mma16816(p[2 * j + 1], ga[ks], bf[2], bf[3]);
+        }
+      }
+    }
+
+    // P^T = 2^(S^T log2e - lse log2e); queries past N get 0.
+    const bool ragged = q0 + kMmaQ > n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * tig);
+      const float l0 = lq.x * kLog2e, l1 = lq.y * kLog2e;
+      p[j][0] = ex2(fmaf(p[j][0], kLog2e, -l0));
+      p[j][1] = ex2(fmaf(p[j][1], kLog2e, -l1));
+      p[j][2] = ex2(fmaf(p[j][2], kLog2e, -l0));
+      p[j][3] = ex2(fmaf(p[j][3], kLog2e, -l1));
+      if (ragged) {
+        const int q = q0 + 8 * j + 2 * tig;
+        if (q >= n) p[j][0] = p[j][2] = 0.f;
+        if (q + 1 >= n) p[j][1] = p[j][3] = 0.f;
+      }
+    }
+
+    // dP^T = h do^T: 16 keys x 64 queries, over C.
+    float ds[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HK; ++ks) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // matrices: (queries +0, C +0), (+0, +8), (+8, +0), (+8, +8)
+        uint32_t bf[4];
+        ldmatrix_x4(bf, dt + (16 * j + 8 * (mi / 2) + mr) * DS + 16 * ks + 8 * (mi % 2));
+        mma16816(ds[2 * j], ha[ks], bf[0], bf[1]);
+        mma16816(ds[2 * j + 1], ha[ks], bf[2], bf[3]);
+      }
+    }
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dq = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * tig);
+      ds[j][0] = p[j][0] * (ds[j][0] - dq.x);
+      ds[j][1] = p[j][1] * (ds[j][1] - dq.y);
+      ds[j][2] = p[j][2] * (ds[j][2] - dq.x);
+      ds[j][3] = p[j][3] * (ds[j][3] - dq.y);
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 16 queries a step
+      // dh += P^T do: the slice's 64 columns of do, transposed.
+      const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                              pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                              pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                              pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // matrices: (queries +0, cols +0), (+8, +0), (+0, +8), (+8, +8)
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, dt + (16 * kk + 8 * (mi % 2) + mr) * DS + c0 + 16 * j + 8 * (mi / 2));
+        mma16816(dha[2 * j], pa, bf[0], bf[1]);
+        mma16816(dha[2 * j + 1], pa, bf[2], bf[3]);
+      }
+      // dg += dS^T f
+      if (with_dg) {
+        const uint32_t da[4] = {pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
+                                pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
+                                pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
+                                pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
+        if constexpr (CB == 8) {  // matrices: queries +0, +8 (lanes 0-15 address them)
+          uint32_t bf[2];
+          ldmatrix_x2_trans(bf, ft + (16 * kk + 8 * (mi % 2) + mr) * FS);
+          mma16816(dga[0], da, bf[0], bf[1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < CB / 16; ++j) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, ft + (16 * kk + 8 * (mi % 2) + mr) * FS + 16 * j + 8 * (mi / 2));
+            mma16816(dga[2 * j], da, bf[0], bf[1]);
+            mma16816(dga[2 * j + 1], da, bf[2], bf[3]);
+          }
+        }
+      }
+    }
+  }
+
+  // Sum the two query halves of each key row in a fixed order
+  // (deterministic): the second warp of each key group hands its
+  // accumulators to the first through shared memory, which now holds no
+  // tile (the last copy group was empty).
+  float* xs = reinterpret_cast<float*>(smem_raw) + row_warp * kMerge * 32 + lane;
+  __syncthreads();  // every warp is done with the staged tiles
+  if (split == 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * j + e) * 32] = dha[j][e];
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(32 + 4 * j + e) * 32] = dga[j][e];
+    }
+  }
+  __syncthreads();
+  if (split == 1) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dha[j][e] += xs[(4 * j + e) * 32];
+  }
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dga[j][e] += xs[(32 + 4 * j + e) * 32];
+  }
+
+  // Epilogue: dh's slice and (first slice) dg, each written once.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + lane / 4 + 8 * r;
+    if (row >= n) continue;
+    bf16* hrow = dh + b * st.o1_sb + row * st.o1_sn;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + 8 * j + 2 * tig;
+      if (vec && col < c) {  // c even: col + 1 < c too, and the pair 4-byte aligned
+        *reinterpret_cast<__nv_bfloat162*>(hrow + col) =
+            __floats2bfloat162_rn(dha[j][2 * r], dha[j][2 * r + 1]);
+      } else {
+        if (col < c) hrow[col] = __float2bfloat16(dha[j][2 * r]);
+        if (col + 1 < c) hrow[col + 1] = __float2bfloat16(dha[j][2 * r + 1]);
+      }
+    }
+    if (!with_dg) continue;
+    bf16* grow = dg + b * st.o0_sb + row * st.o0_sn;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int col = 8 * j + 2 * tig;
+      if (vec && col < cbar) {
+        *reinterpret_cast<__nv_bfloat162*>(grow + col) =
+            __floats2bfloat162_rn(dga[j][2 * r], dga[j][2 * r + 1]);
+      } else {
+        if (col < cbar) grow[col] = __float2bfloat16(dga[j][2 * r]);
+        if (col + 1 < cbar) grow[col + 1] = __float2bfloat16(dga[j][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int CB, int CK>
+cudaError_t launch_dkv_mma(const void* const* in, void* dg, void* dh, int batch, int n,
+                           int cbar, int c, const Strides& st, bool vec, cudaStream_t stream) {
+  const dim3 grid((n + kMmaKeys - 1) / kMmaKeys, batch, (c + kMmaCols - 1) / kMmaCols);
+  constexpr size_t smem = dkv_mma_smem_bytes<CB, CK>();  // 43 KB at cbar 8, C 64
+  auto kernel = flash_attn_dkv_mma_kernel<CB, CK>;
+  if (smem > 48 * 1024) {  // up to 174 KB at cbar 64, C 256
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(in[0]), static_cast<const bf16*>(in[1]),
+      static_cast<const bf16*>(in[2]), static_cast<const bf16*>(in[3]),
+      static_cast<const float*>(in[4]), static_cast<const float*>(in[5]), static_cast<bf16*>(dg),
+      static_cast<bf16*>(dh), n, cbar, c, st, vec);
+  return cudaGetLastError();
+}
+
+template <int CB>
+cudaError_t dispatch_dkv_mma(const void* const* in, void* dg, void* dh, int batch, int n,
+                             int cbar, int c, const Strides& st, bool vec, cudaStream_t s) {
+  if (c <= 64) return launch_dkv_mma<CB, 64>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+  return launch_dkv_mma<CB, 256>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+cudaError_t dkv_mma(const void* const* in, void* dg, void* dh, int batch, int n, int cbar,
+                    int c, const Strides& st, cudaStream_t s) {
+  // 16-byte staging copies and paired stores need every row of f, do, dg
+  // and dh to start on a 16-byte boundary (and lse, delta on 4 floats);
+  // other layouts are staged element by element.
+  bool vec = cbar % 8 == 0 && c % 8 == 0 && st.row_sb % 4 == 0 && aligned16(dg) && aligned16(dh);
+  for (int i = 0; i < 6; ++i) vec = vec && aligned16(in[i]);
+  const int64_t strides[12] = {st.f_sb, st.f_sn, st.g_sb, st.g_sn, st.h_sb, st.h_sn,
+                               st.do_sb, st.do_sn, st.o0_sb, st.o0_sn, st.o1_sb, st.o1_sn};
+  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 8 == 0;
+  if (cbar <= 8) return dispatch_dkv_mma<8>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+  if (cbar <= 16) return dispatch_dkv_mma<16>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+  if (cbar <= 32) return dispatch_dkv_mma<32>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+  return dispatch_dkv_mma<64>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+}
+
+// ---------------------------------------------------------------------------
+// dq and dkv's CUDA-core variant.
 
 // Stage the kTile rows starting at `r0` of a [N, width] row-major matrix
 // (row stride `sn`) into a zero-padded [kTile][padded] fp32 tile.
@@ -303,19 +666,13 @@ cudaError_t launch_dkv(const void* const* in, void* dg, void* dh, int batch, int
   return cudaGetLastError();
 }
 
-// Instantiates `fn<T, CB>` for the cbar bound (8, 16, 32 or 64) and dtype.
-#define DISPATCH(dtype, cbar, fn, ...)                                        \
+// Instantiates `fn<T, CB>` for the cbar bound (8, 16, 32 or 64).
+#define DISPATCH_CBAR(T, cbar, fn, ...)                                       \
   do {                                                                        \
-    if (dtype == 0) {                                                         \
-      if (cbar <= 8) return fn<float, 8>(__VA_ARGS__);                        \
-      if (cbar <= 16) return fn<float, 16>(__VA_ARGS__);                      \
-      if (cbar <= 32) return fn<float, 32>(__VA_ARGS__);                      \
-      return fn<float, 64>(__VA_ARGS__);                                      \
-    }                                                                         \
-    if (cbar <= 8) return fn<__nv_bfloat16, 8>(__VA_ARGS__);                  \
-    if (cbar <= 16) return fn<__nv_bfloat16, 16>(__VA_ARGS__);                \
-    if (cbar <= 32) return fn<__nv_bfloat16, 32>(__VA_ARGS__);                \
-    return fn<__nv_bfloat16, 64>(__VA_ARGS__);                                \
+    if (cbar <= 8) return fn<T, 8>(__VA_ARGS__);                              \
+    if (cbar <= 16) return fn<T, 16>(__VA_ARGS__);                            \
+    if (cbar <= 32) return fn<T, 32>(__VA_ARGS__);                            \
+    return fn<T, 64>(__VA_ARGS__);                                            \
   } while (0)
 
 cudaError_t check(int dtype, int device, int batch, int n, int cbar, int c) {
@@ -328,19 +685,23 @@ cudaError_t check(int dtype, int device, int batch, int n, int cbar, int c) {
 
 cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int cbar, int c,
                const Strides& st, cudaStream_t s) {
-  DISPATCH(dtype, cbar, launch_dq, in, df, batch, n, cbar, c, st, s);
+  if (dtype == 0) DISPATCH_CBAR(float, cbar, launch_dq, in, df, batch, n, cbar, c, st, s);
+  DISPATCH_CBAR(__nv_bfloat16, cbar, launch_dq, in, df, batch, n, cbar, c, st, s);
 }
 
+// bf16 runs the tensor-core variant, fp32 the CUDA-core one.
 cudaError_t dkv(const void* const* in, void* dg, void* dh, int dtype, int batch, int n,
                 int cbar, int c, const Strides& st, cudaStream_t s) {
-  DISPATCH(dtype, cbar, launch_dkv, in, dg, dh, batch, n, cbar, c, st, s);
+  if (dtype == 1) return dkv_mma(in, dg, dh, batch, n, cbar, c, st, s);
+  DISPATCH_CBAR(float, cbar, launch_dkv, in, dg, dh, batch, n, cbar, c, st, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements: batch and row
-// strides of f, g, h, do, the batch stride of lse and delta (which share
-// it), then the batch and row strides of each output. The last dimension of
+// dtype: 0 = float32, 1 = bfloat16 (dkv's tensor-core variant; dq runs on
+// CUDA cores for both). Strides are in elements: batch and row strides of
+// f, g, h, do, the batch stride of lse and delta (which share it), then the
+// batch and row strides of each output. The last dimension of
 // every tensor must be contiguous. Each function launches one kernel on
 // `stream` and returns the cudaError_t of cudaGetLastError() after the
 // launch (0 on success).

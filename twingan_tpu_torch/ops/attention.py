@@ -14,6 +14,11 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
   versions (``attention_core``/``attention_lse`` and
   ``flash_attention_dq_plain``/``flash_attention_dkv_plain``) run on CPU
   tensors;
+- the forward and dkv kernels have two variants, chosen by the input type
+  in their C entry points (``VARIANTS`` names them): bf16 runs on the
+  tensor cores (``mma.sync``), fp32 on the CUDA cores, and dq on the CUDA
+  cores for both. ``variant_counts`` counts each launch under its variant,
+  beside ``launch_counts``' total;
 - ``FlashAttention`` is the autograd boundary. Its backward is
   ``once_differentiable`` and refuses to run under ``create_graph=True``:
   the kernels' outputs carry no graph, and a second-order pass through
@@ -48,15 +53,33 @@ PLAIN_ROUTE = "attention_core_double_backward"
 MAX_CBAR = 64
 MAX_C = 256
 
+CUDA_CORE = "cuda_core"
+TENSOR_CORE = "tensor_core"
+# The variant each kernel's C entry point launches for each input type.
+VARIANTS = {
+    KERNEL_NAME: {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE},
+    DQ_KERNEL: {torch.float32: CUDA_CORE, torch.bfloat16: CUDA_CORE},
+    DKV_KERNEL: {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE},
+}
+
 # Kernel launches since the last reset_launch_counts(), by kernel name. Only
 # a wrapper adds to it, once per launch of its kernel; PLAIN_ROUTE counts the
 # calls that asked for the twice-differentiable plain version.
 launch_counts = {KERNEL_NAME: 0, DQ_KERNEL: 0, DKV_KERNEL: 0, PLAIN_ROUTE: 0}
+# The same launches by "<kernel>/<variant>".
+variant_counts = {f"{k}/{v}": 0 for k, by_type in VARIANTS.items()
+                  for v in dict.fromkeys(by_type.values())}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, variant_counts):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    launch_counts[name] += 1
+    variant_counts[f"{name}/{VARIANTS[name][dtype]}"] += 1
 
 
 def attention_core(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -123,7 +146,7 @@ def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> tuple[torch.Te
     )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError_t {err}")
-    launch_counts[KERNEL_NAME] += 1
+    _count(KERNEL_NAME, f.dtype)
     return o, lse
 
 
@@ -215,7 +238,7 @@ def flash_attention_dq(f, g, h, do, lse, delta) -> torch.Tensor:
         torch.cuda.current_stream(f.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{DQ_KERNEL} launch failed: cudaError_t {err}")
-    launch_counts[DQ_KERNEL] += 1
+    _count(DQ_KERNEL, f.dtype)
     return df
 
 
@@ -232,7 +255,7 @@ def flash_attention_dkv(f, g, h, do, lse, delta) -> tuple[torch.Tensor, torch.Te
         dh.stride(0), dh.stride(1), torch.cuda.current_stream(f.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{DKV_KERNEL} launch failed: cudaError_t {err}")
-    launch_counts[DKV_KERNEL] += 1
+    _count(DKV_KERNEL, f.dtype)
     return dg, dh
 
 

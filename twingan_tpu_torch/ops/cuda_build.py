@@ -7,8 +7,9 @@ PyTorch headers), compiled at first use for ``sm_90a``:
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so csrc/<name>.cu
 
 into ``twingan_tpu_torch/_build/<name>-<hash>/``, keyed by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-loaded as built. The compile goes to a temporary file that is renamed into
+source, of every header in ``csrc/`` (``*.cuh``, which a source may
+include) and of the flags, so an edited source or header rebuilds and an
+unchanged one is loaded as built. The compile goes to a temporary file that is renamed into
 place, so two processes building at once cannot load a half-written
 library. A failed build raises with nvcc's output; there is no other path.
 """
@@ -52,10 +53,14 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` is built, keyed by its content and flags."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}", f"lib{name}.so")
+    """Where ``csrc/<name>.cu`` is built, keyed by its content, the headers
+    of ``csrc/`` and the flags."""
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for source in (f"{name}.cu", *headers):
+        with open(os.path.join(CSRC_DIR, source), "rb") as fh:
+            digest.update(source.encode() + b"\0" + fh.read())
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}", f"lib{name}.so")
 
 
 def build(name: str) -> str:

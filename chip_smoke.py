@@ -13,9 +13,11 @@ result line is printed:
 2. build    - nvcc builds ``csrc/flash_attn_fwd.cu`` (the flash-attention
               forward kernel), ``csrc/flash_attn_bwd.cu`` (its two
               backward kernels, dq and dkv) and ``csrc/fused_conv.cu``
-              (the fused conv3x3 + bias + leaky + pixel-norm kernel B4)
-              into ctypes libraries, the three compiles started together,
-              and prints each kernel's registers and spills.
+              (the fused conv3x3 + bias + leaky + pixel-norm kernel B4;
+              each of the four kernels has a tensor-core variant for bf16
+              and a CUDA-core one for fp32) into ctypes libraries, the
+              three compiles started together, and prints each kernel's
+              registers and spills.
 3. kernel   - at each listed shape, the forward kernel against its plain
               PyTorch version on the same inputs (output and logsumexp);
               then the backward kernels: the gradients that
@@ -24,15 +26,17 @@ result line is printed:
               f, g, h and output gradient (above N 16384 against a
               reference chunked over query rows, which also checks the
               forward kernel there). Each row names the variant that ran
-              (bf16: tensor cores for the forward and dkv; fp32: CUDA
-              cores) and has the kernels', the plain versions' and SDPA's
+              (bf16: tensor cores; fp32: CUDA cores) and fails on the
+              other, and has the kernels', the plain versions' and SDPA's
               times (CUDA events, median) beside the card's bound for the
               same work. Then B4 against its plain version at the TPU
               script's shape, at every distinct
               layer of the generation configuration (pggan256, batch 12,
               bf16), in fp32, at a ragged 20 x 20 and at the widths
-              past 256 channels (512 and 1024), each row with cuDNN's
-              conv alone and the eager chain of the grad route beside it.
+              past 256 channels (512 and 1024), each row naming its
+              variant, with cuDNN's conv alone (NCHW, and at its best:
+              benchmark mode, channels-last) and the eager chain of the
+              grad route beside it.
 4. serving  - the serving path at full width: a 256 px TwinGAN (batch
               norm, eq-lr, pixel norm, UNet skips, bf16, SAGAN attention at
               64 px) with seeded random weights is written as a stage dir,
@@ -50,7 +54,7 @@ result line is printed:
               with the plain attention (losses, and the cosine similarity
               of each network's gradient and of every attention
               projection's), the fp32 steps on the CUDA-core variants of
-              the forward and dkv kernels only, the bf16 steps on the
+              the three attention kernels only, the bf16 steps on the
               tensor-core ones only; then one warm-up and 3 timed bf16
               rounds, whose kernel launches must be what the passes of the
               step imply, on the tensor-core variants; then the trained
@@ -63,10 +67,12 @@ result line is printed:
               n_critic 2) with seeded random weights and biases. One G
               step and one D step on the card, in fp32 and in bf16, held
               against the same weights, batch, z and penalty noise in fp32
-              on the CPU at batch 4; one warm-up and 3 timed rounds, 13 B4
-              launches per D step and 13 autograd-route steps per G step;
-              ``sample`` of 12 images from the trained state (13 B4
-              launches) against the same state in fp32 on the CPU.
+              on the CPU at batch 4 (the fp32 D step's B4 launches all
+              CUDA-core, the bf16 one's all tensor-core); one warm-up and
+              3 timed rounds, 13 B4 launches per D step, all tensor-core,
+              and 13 autograd-route steps per G step; ``sample`` of 12
+              images from the trained state (13 tensor-core B4 launches)
+              against the same state in fp32 on the CPU.
 7. kernels  - one line listing each kernel of the three paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -433,13 +439,18 @@ def ran_variants(kernel: str) -> list:
 
 
 def fused_conv_bound(b: int, hw: int, cin: int, cout: int, dtype: str) -> tuple[float, str]:
-    """Least time of B4 on the card: x read and y written once in their
-    type, the fp32 weights and bias read once, and the conv's FLOPs at the
-    fp32 rate, the type of its products (the TPU kernel's too)."""
+    """Least time of B4 on the card by the route of its variant: x read and
+    y written once in their type, the fp32 weights and bias read once,
+    against the conv's FLOPs at the rate of the variant's products. fp32
+    (CUDA cores): 67 TFLOP/s. bf16 (tensor cores): each multiply-add by an
+    fp32 weight is two bf16 products (the weight's high and low halves), so
+    twice the FLOPs at 989 TFLOP/s, 494.5 effective (TF32's 495 would give
+    the same)."""
     elt = 4 if dtype == "float32" else 2
     pixels = b * hw * hw
     nbytes = elt * pixels * (cin + cout) + 4 * (9 * cin * cout + cout)
-    return _bound(nbytes, 2.0 * pixels * 9 * cin * cout, "float32")
+    products = 1 if dtype == "float32" else 2
+    return _bound(nbytes, products * 2.0 * pixels * 9 * cin * cout, dtype)
 
 
 def fused_conv_tolerance(dtype: str, ref_max: float) -> float:
@@ -507,6 +518,23 @@ def eager_conv_chain(x, w, b):
     return basic.pixel_norm(basic.leaky_relu(y), dim=1)
 
 
+def cudnn_best_ms(x, w) -> float:
+    """cuDNN's conv at its best: benchmark mode (it times its algorithms on
+    the first calls) and channels-last x and w. Both settings are restored,
+    so that no later phase runs under them."""
+    import torch
+    import torch.nn.functional as F
+
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        x_cl = x.contiguous(memory_format=torch.channels_last)
+        w_cl = w.contiguous(memory_format=torch.channels_last)
+        return time_ms(lambda: F.conv2d(x_cl, w_cl, padding=1))
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
 def fused_conv_phase() -> list:
     """B4 at every listed shape against its plain version; returns the rows
     of the generator's layers."""
@@ -522,8 +550,10 @@ def fused_conv_phase() -> list:
         kernel = torch.randn(cout, cin, 3, 3, device="cuda", generator=gen)
         w9 = fused_conv.fold_weights(kernel, (2.0 / (cin * 9)) ** 0.5)
         bias = 0.2 * torch.randn(cout, device="cuda", generator=gen)
+        fused_conv.reset_launch_counts()
         y = fused_conv.fused_conv(x, w9, bias)
         torch.cuda.synchronize()
+        variant = [k.split("/", 1)[1] for k, v in fused_conv.variant_counts.items() if v]
         ref = fused_conv.fused_conv_plain(x, w9, bias)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs().max().item()
@@ -534,7 +564,7 @@ def fused_conv_phase() -> list:
         bound_ms, bound_by = fused_conv_bound(b, hw, cin, cout, dtype)
         row = {"phase": "kernel", "kernel": "fused_conv", "case": label, "B": b, "H": hw,
                "W": hw, "Cin": cin, "Cout": cout, "dtype": dtype, "layers_per_pass": per_pass,
-               "max_abs_err": err, "tolerance": tol,
+               "variant": variant, "max_abs_err": err, "tolerance": tol,
                "shape_ok": tuple(y.shape) == (b, cout, hw, hw) and y.dtype == dt,
                "finite": bool(torch.isfinite(y).all()),
                "ms": time_ms(lambda: fused_conv.fused_conv(x, w9, bias)),
@@ -542,12 +572,17 @@ def fused_conv_phase() -> list:
                "library": "cuDNN F.conv2d alone, weights in x's type (no single PyTorch "
                           "call computes conv + bias + leaky + pixel norm)",
                "library_ms": time_ms(lambda: F.conv2d(x, w_lib, padding=1)),
+               "library_best": "cuDNN F.conv2d alone, cudnn.benchmark on, x and weights "
+                               "channels-last in x's type",
+               "library_best_ms": cudnn_best_ms(x, w_lib),
                "eager_chain_ms": time_ms(lambda: eager_conv_chain(x, w, bias)),
                "bound_ms": bound_ms, "bound_by": bound_by}
-        row["ok"] = bool(err <= tol and row["shape_ok"] and row["finite"])
+        row["ok"] = bool(err <= tol and row["shape_ok"] and row["finite"]
+                         and variant == [fused_conv.VARIANTS[dt]])
         emit(row)
         if not row["ok"]:
-            fail("kernel", f"fused_conv disagrees with the plain version at {label} "
+            fail("kernel", f"fused_conv disagrees with the plain version, or ran another "
+                           f"variant than {fused_conv.VARIANTS[dt]}, at {label} "
                            f"B={b} H=W={hw} {cin}->{cout} {dtype}")
         rows.append(row)
         del x, kernel, w9, bias, y, ref, w, w_lib
@@ -846,17 +881,21 @@ def _cosine(a, b) -> float:
 
 
 def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_cls=None,
-                  zs=None, phase: str = "train", limits=None, grad_prefix=None) -> list:
+                  zs=None, phase: str = "train", limits=None, grad_prefix=None,
+                  b4_steps=()) -> list:
     """One G step and one D step, each from ``weights``, on the ``card`` in
     float32 and in bfloat16 against the same steps in fp32 on the CPU (plain
     attention), within ``limits`` (TRAIN_LIMITS by default). ``trainer_cls``
     is TwinGANTrainer (the default) or GanTrainer, whose steps also take the
     generator's noise ``zs[kind]``. ``grad_prefix[kind]`` is put before the
     names of the step's optimizer, where they do not start with the
-    network's name. Returns one row per step and card type."""
+    network's name. On the card, each step launches only the variants of
+    its type: the three attention kernels where the networks have
+    attention, and B4 in the steps named in ``b4_steps`` and in no other.
+    Returns one row per step and card type."""
     import torch
     from twingan_tpu_torch.models.layers import SelfAttention
-    from twingan_tpu_torch.ops import attention
+    from twingan_tpu_torch.ops import attention, fused_conv
     from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
 
     trainer_cls = trainer_cls or TwinGANTrainer
@@ -870,6 +909,7 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
         setattr(state, side, GradRecorder(getattr(state, side)))
         kw = {} if zs is None else {"z": zs[kind]}
         attention.reset_launch_counts()
+        fused_conv.reset_launch_counts()
         t0 = time.perf_counter()
         if kind == "g_step":
             _, metrics = trainer.g_step(state, batch, **kw)
@@ -894,15 +934,18 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
         ref_m, ref_grads, cpu_s, _ = run(ref_trainer, kind, batch)
         for dtype, (rtol, atol, min_cos, min_sa_cos) in limits.items():
             m, grads, card_s, sa_names = run(on(card, dtype), kind, batch)
-            # The forward and dkv kernels run the variant of the step's type
-            # only (on the CPU, neither runs).
-            variants = {k: v for k, v in attention.variant_counts.items() if v}
-            want = {f"{k}/{attention.VARIANTS[k][getattr(torch, dtype)]}"
-                    for k in (attention.KERNEL_NAME, attention.DKV_KERNEL)}
-            other = [k for k in variants if k.startswith((attention.KERNEL_NAME + "/",
-                                                          attention.DKV_KERNEL + "/"))
-                     and k not in want]
-            on_card = torch.device(card).type == "cuda" and bool(sa_names)
+            # The kernels run the variant of the step's type only (on the
+            # CPU, none runs).
+            dt = getattr(torch, dtype)
+            variants = {k: v for counts in (attention.variant_counts, fused_conv.variant_counts)
+                        for k, v in counts.items() if v}
+            attn = {f"{k}/{attention.VARIANTS[k][dt]}"
+                    for k in (attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL)}
+            b4 = ({f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[dt]}"} if kind in b4_steps
+                  else set())
+            other = [k for k in variants if k not in attn | b4]
+            want = (attn if sa_names else set()) | b4
+            on_card = torch.device(card).type == "cuda"
             loss_err = {k: abs(m[k] - ref_m[k]) for k in ref_m
                         if k not in ("alpha", "gdrop_strength")}
             networks = sorted({n.split(".", 1)[0] for n in grads})
@@ -980,7 +1023,7 @@ def train_phase(card: str, smi_line: str) -> dict:
                                          * per_step["d_step"][k]) for k in counts}
     losses = [{k: float(v) for k, v in m.items()} for m in metrics]
     finite = all(np.isfinite(v) for m in losses for v in m.values())
-    # bf16 rounds: the forward and dkv kernels on their tensor-core variants only.
+    # bf16 rounds: the three attention kernels on their tensor-core variants only.
     expected_variants = {f"{k}/{attention.VARIANTS[k][torch.bfloat16]}": expected[k]
                          for k in (attention.KERNEL_NAME, attention.DQ_KERNEL,
                                    attention.DKV_KERNEL)}
@@ -1069,13 +1112,14 @@ def generation_inputs(cfg, batch: int, seed: int):
 
 def compare_generation_steps(cfg, weights, batches, zs, gp_noise, card: str = "cuda") -> list:
     """``compare_steps`` for GanTrainer: its optimizers name parameters
-    inside their network, and pggan256 has no attention, so there is no
-    projection check."""
+    inside their network, pggan256 has no attention, so there is no
+    projection check, and its D step's generator pass runs B4."""
     from twingan_tpu_torch.train.gan_trainer import GanTrainer
 
     limits = {dtype: (*lim[:3], None) for dtype, lim in TRAIN_LIMITS.items()}
     return compare_steps(cfg, weights, batches, gp_noise, card, GanTrainer, zs, "generation",
-                         limits, {"g_step": "generator.", "d_step": "discriminator."})
+                         limits, {"g_step": "generator.", "d_step": "discriminator."},
+                         b4_steps=("d_step",))
 
 
 def generation_phase(card: str, smi_line: str) -> dict:
@@ -1116,11 +1160,18 @@ def generation_phase(card: str, smi_line: str) -> dict:
         round_s.append(time.perf_counter() - t0)
         losses.append({k: float(v) for k, v in m.items()})
     counts = dict(fused_conv.launch_counts)
+    variants = dict(fused_conv.variant_counts)
     attention_counts = dict(attention.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     d_steps = GEN_TIMED_ROUNDS * (cfg.n_critic - 1)
     expected = {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS * d_steps,
                 fused_conv.AUTOGRAD_ROUTE: GEN_LAYERS_PER_PASS * GEN_TIMED_ROUNDS}
+    # bf16 rounds: B4 on its tensor-core variant only.
+    b4_tc = f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[torch.bfloat16]}"
+
+    def only_tensor_core(launches: int) -> dict:
+        return {k: (launches if k == b4_tc else 0) for k in fused_conv.variant_counts}
+
     finite = all(np.isfinite(v) for m in losses for v in m.values())
     med = statistics.median(round_s)
     row = {"phase": "generation", "check": "timed rounds", "rounds": GEN_TIMED_ROUNDS,
@@ -1129,13 +1180,15 @@ def generation_phase(card: str, smi_line: str) -> dict:
            "timing": "synchronized host clock around each round; images/s counts "
                      "n_critic * batch per round",
            "peak_memory_bytes": peak, "launches": counts, "expected_launches": expected,
-           "attention_launches": attention_counts, "losses": losses, "card": card,
-           "nvidia_smi": smi_line,
-           "ok": bool(counts == expected and not any(attention_counts.values()) and finite)}
+           "kernel_variants": variants, "attention_launches": attention_counts,
+           "losses": losses, "card": card, "nvidia_smi": smi_line,
+           "ok": bool(counts == expected and variants == only_tensor_core(expected[
+               fused_conv.KERNEL_NAME]) and not any(attention_counts.values()) and finite)}
     emit(row)
     if not row["ok"]:
-        fail("generation", "the timed rounds' B4 launches differ from 13 per D step and 13 "
-                           "autograd-route steps per G step, or a loss is not finite")
+        fail("generation", "the timed rounds' B4 launches differ from 13 per D step, all "
+                           "tensor-core, and 13 autograd-route steps per G step, or a loss is "
+                           "not finite")
 
     z = torch.randn(noise_shape(cfg.model, GEN_BATCH),
                     generator=torch.Generator().manual_seed(SEED + 5))
@@ -1143,6 +1196,7 @@ def generation_phase(card: str, smi_line: str) -> dict:
     out = trainer.sample(state, z).float()
     torch.cuda.synchronize()
     sample_counts = dict(fused_conv.launch_counts)
+    sample_variants = dict(fused_conv.variant_counts)
     cpu = GanTrainer(cfg.replace(model=cfg.model.replace(dtype="float32")), device="cpu")
     nets = cpu.build_nets()
     nets.load_state_dict({k: v.cpu() for k, v in state.nets.state_dict().items()})
@@ -1154,18 +1208,20 @@ def generation_phase(card: str, smi_line: str) -> dict:
     row = {"phase": "generation", "check": "sample, card bf16 vs CPU float32",
            "images": GEN_BATCH, "output_shape": list(out.shape),
            "finite": bool(torch.isfinite(out).all()), "step": state.step,
-           "launches": sample_counts, "output_std": std,
+           "launches": sample_counts, "kernel_variants": sample_variants, "output_std": std,
            "mean_abs_err_over_std": mean_err, "max_abs_err_over_std": max_err,
            "mean_tolerance": SERVE_MEAN_TOL, "max_tolerance": SERVE_MAX_TOL,
            "ok": bool(tuple(out.shape) == (GEN_BATCH, res, res, cfg.model.image_channels)
                       and bool(torch.isfinite(out).all())
                       and sample_counts == {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS,
                                             fused_conv.AUTOGRAD_ROUTE: 0}
+                      and sample_variants == only_tensor_core(GEN_LAYERS_PER_PASS)
                       and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
     emit(row)
     if not row["ok"]:
         fail("generation", "the card's samples disagree with the fp32 CPU run, or sample "
-                           "did not launch B4 once per conv-leaky-pixel-norm layer")
+                           "did not launch B4's tensor-core variant once per "
+                           "conv-leaky-pixel-norm layer")
     return {"rounds": counts[fused_conv.KERNEL_NAME],
             "sample": sample_counts[fused_conv.KERNEL_NAME]}
 
@@ -1189,10 +1245,11 @@ def fused_conv_entry(layer_rows: list, launches: dict) -> dict:
         "fused_conv", sum(launches.values()), {"generation": sum(launches.values())},
         max(r["max_abs_err"] for r in layer_rows), total("ms"), total("plain_ms"),
         total("bound_ms"), heaviest["bound_by"], total("library_ms"),
-        launches_in_generation=launches,
+        launches_in_generation=launches, variant=heaviest["variant"][0],
         times="per generator pass of pggan256 at batch 12: the sum over its 13 "
-              "conv-leaky-pixel-norm layers; library_ms is cuDNN's conv alone",
-        eager_chain_ms=total("eager_chain_ms"))
+              "conv-leaky-pixel-norm layers; library_ms is cuDNN's conv alone (NCHW), "
+              "library_best_ms the same at its best (benchmark mode, channels-last)",
+        library_best_ms=total("library_best_ms"), eager_chain_ms=total("eager_chain_ms"))
 
 
 def require_no_b4(phase: str) -> None:

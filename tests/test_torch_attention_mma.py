@@ -1,5 +1,5 @@
-"""The tensor-core (bf16) variants of the flash-attention forward and dkv
-kernels, checked on the CPU.
+"""The tensor-core (bf16) variants of the flash-attention forward, dq and
+dkv kernels, checked on the CPU.
 
 The kernels run only on the card (``chip_smoke.py`` holds them against
 their plain versions there). What can be held here, before any card time:
@@ -9,7 +9,8 @@ their plain versions there). What can be held here, before any card time:
   alternate tiles of each row and merge at the end), sums l from the fp32
   probabilities and rounds the output once; dkv rounds P and dS to bf16
   as product operands per 64-query tile (two warps take alternate tiles)
-  and sums in fp32. Fed the same seeded inputs (bf16 values) as the JAX
+  and sums in fp32; dq rounds dS to bf16 per 64-key tile (two warps take
+  alternate tiles) and sums in fp32. Fed the same seeded inputs (bf16 values) as the JAX
   package's ``attention_core`` and its Pallas ``_flash_forward`` /
   ``_flash_backward`` (interpret mode, fp32), the model stays within
   ``chip_smoke.py``'s ``tolerance("bfloat16", ...)``, its 1e-4 logsumexp
@@ -35,7 +36,7 @@ from twingan_tpu.ops import attention as jattention  # noqa: E402
 from twingan_tpu_torch.ops import attention, cuda_build  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TILE = 64   # keys (forward) or queries (dkv) per warp and tile
+TILE = 64   # keys (forward, dq) or queries (dkv) per warp and tile
 SPLIT = 2   # warps sharing one row's tiles, taking alternate ones
 
 
@@ -110,6 +111,20 @@ def mma_dkv_model(f, g, h, do, lse, delta):
     return _bf16(dg[0] + dg[1]), _bf16(dh[0] + dh[1])
 
 
+def mma_dq_model(f, g, h, do, lse, delta):
+    """df as the tensor-core dq rounds it (fp32 tensors): dS rounded to bf16
+    per 64-key tile as the product's operand, the two warps' fp32 sums
+    added in a fixed order, df rounded once."""
+    n = f.shape[1]
+    p = torch.exp(f @ g.transpose(1, 2) - lse[..., None])
+    ds = p * (do @ h.transpose(1, 2) - delta[..., None])
+    df = [torch.zeros_like(f) for _ in range(SPLIT)]
+    for i, k0 in enumerate(range(0, n, TILE)):
+        k = slice(k0, k0 + TILE)
+        df[i % SPLIT] += _bf16(ds[:, :, k]) @ g[:, k]
+    return _bf16(df[0] + df[1])
+
+
 def _max_err(a, ref) -> tuple[float, float]:
     a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
     return float(np.abs(a - ref).max()), float(np.abs(ref).max())
@@ -151,6 +166,38 @@ def test_dkv_rounding_model_within_chip_tolerance(smoke, b, n, c_bar, c):
         assert 0 < err <= smoke.grad_tolerance("bfloat16", ref_max, n), (name, err, ref_max)
 
 
+@pytest.mark.parametrize("b,n,c_bar,c", [(2, 512, 8, 64), (1, 256, 32, 256)])
+def test_dq_rounding_model_within_chip_tolerance(smoke, b, n, c_bar, c):
+    """The kernels' path (the forward model's bf16 output and lse, delta =
+    rowsum(do o), the dq model) against the Pallas backward's df (interpret
+    mode, fp32, from its own forward): within grad_tolerance("bfloat16")."""
+    f, g, h, do = _inputs(b, n, c_bar, c, seed=n + c + 2)
+    jf, jg, jh, jdo = map(jnp.asarray, (f, g, h, do))
+    ref_o, ref_lse = jattention._flash_forward(jf, jg, jh, 128, 128)
+    ref_delta = jnp.sum(jdo * ref_o, axis=-1)
+    ref_df, _, _ = jattention._flash_backward(jf, jg, jh, jdo, ref_lse, ref_delta, 128, 128)
+    tf, tg, th, tdo = map(torch.from_numpy, (f, g, h, do))
+    o, lse = mma_forward_model(tf, tg, th)
+    df = mma_dq_model(tf, tg, th, tdo, lse, torch.sum(tdo * o, dim=-1))
+    err, ref_max = _max_err(df, ref_df)
+    assert 0 < err <= smoke.grad_tolerance("bfloat16", ref_max, n), (err, ref_max)
+
+
+def test_dq_rounding_model_at_ragged_n(smoke):
+    """N 1000, the ragged case of chip_smoke.py's BWD_CASES (a last key tile
+    of 40 keys, taken by the first warp): against jax.grad of the einsum
+    path in fp32."""
+    b, n, c_bar, c = 1, 1000, 8, 64
+    f, g, h, do = _inputs(b, n, c_bar, c, seed=8)
+    jf, jg, jh, jdo = map(jnp.asarray, (f, g, h, do))
+    ref_df = jax.grad(lambda q: jnp.sum(jattention.attention_core(q, jg, jh) * jdo))(jf)
+    tf, tg, th, tdo = map(torch.from_numpy, (f, g, h, do))
+    o, lse = mma_forward_model(tf, tg, th)
+    df = mma_dq_model(tf, tg, th, tdo, lse, torch.sum(tdo * o, dim=-1))
+    err, ref_max = _max_err(df, ref_df)
+    assert 0 < err <= smoke.grad_tolerance("bfloat16", ref_max, n), (err, ref_max)
+
+
 def test_rounding_models_at_ragged_n(smoke):
     """N 200 (a last tile of 8 keys; the JAX flash kernels reject it):
     against jax.grad of the einsum path in fp32."""
@@ -178,6 +225,7 @@ def _source(name: str) -> str:
 @pytest.mark.parametrize("name,entry,replaces", [
     ("flash_attn_fwd.cu", 'extern "C" int flash_attn_fwd(', "_flash_kernel"),
     ("flash_attn_bwd.cu", 'extern "C" int flash_attn_dkv(', "_flash_dkv_kernel"),
+    ("flash_attn_bwd.cu", 'extern "C" int flash_attn_dq(', "_flash_dq_kernel"),
 ])
 def test_tensor_core_sources(name, entry, replaces):
     src = _source(name)
@@ -193,16 +241,27 @@ def test_tensor_core_sources(name, entry, replaces):
     assert "#include <torch" not in header and "ATen" not in header
 
 
+def test_dq_kernel_runs_on_mma():
+    """The bf16 dq kernel is the tensor-core one: its body recomputes P with
+    ex2, forms dP and df on mma.sync, reads g transposed by ldmatrix, and
+    the C entry point sends bf16 to it."""
+    src = _source("flash_attn_bwd.cu")
+    body = src[src.index("flash_attn_dq_mma_kernel("):src.index("cudaError_t launch_dq_mma(")]
+    for op in ("mma1688(", "mma16816(", "ldmatrix_x4(", "ldmatrix_x2_trans(",
+               "ldmatrix_x4_trans(", "ex2(", "TileCopier<", "cp_async_commit()"):
+        assert op in body, op
+    assert "if (dtype == 1) return dq_mma(" in src
+
+
 def test_variants_by_type():
-    """bf16 takes the tensor-core variant of the forward and dkv, fp32 the
-    CUDA-core one; dq has only the latter."""
+    """bf16 takes the tensor-core variant of each of the three kernels,
+    fp32 the CUDA-core one."""
     v = attention.VARIANTS
-    assert v[attention.KERNEL_NAME] == v[attention.DKV_KERNEL] == {
+    assert v[attention.KERNEL_NAME] == v[attention.DQ_KERNEL] == v[attention.DKV_KERNEL] == {
         torch.float32: attention.CUDA_CORE, torch.bfloat16: attention.TENSOR_CORE}
-    assert set(v[attention.DQ_KERNEL].values()) == {attention.CUDA_CORE}
     assert set(attention.variant_counts) == {
         "flash_attn_fwd/cuda_core", "flash_attn_fwd/tensor_core", "flash_attn_dq/cuda_core",
-        "flash_attn_dkv/cuda_core", "flash_attn_dkv/tensor_core"}
+        "flash_attn_dq/tensor_core", "flash_attn_dkv/cuda_core", "flash_attn_dkv/tensor_core"}
 
 
 def test_bf16_on_the_cpu_runs_the_plain_versions():
@@ -212,6 +271,10 @@ def test_bf16_on_the_cpu_runs_the_plain_versions():
     torch.testing.assert_close(o, attention.attention_core(f, g, h), rtol=0, atol=0)
     torch.testing.assert_close(lse, attention.attention_lse(f, g), rtol=0, atol=0)
     delta = torch.sum(do.float() * o.float(), dim=-1)
+    df = attention.flash_attention_dq(f, g, h, do, lse, delta)
+    assert df.dtype == torch.bfloat16
+    torch.testing.assert_close(df, attention.flash_attention_dq_plain(f, g, h, do, lse, delta),
+                               rtol=0, atol=0)
     dg, dh = attention.flash_attention_dkv(f, g, h, do, lse, delta)
     ref_dg, ref_dh = attention.flash_attention_dkv_plain(f, g, h, do, lse, delta)
     assert dg.dtype == dh.dtype == torch.bfloat16

@@ -21,7 +21,13 @@ the same input. Tolerances, as a share of the output's largest magnitude:
 
 The CUDA kernel runs only on the card (``chip_smoke.py`` holds it against
 this plain version); here the wrapper's checks and the dispatch's routes
-are tested.
+are tested, and a model of the tensor-core variant's arithmetic: each fp32
+weight split into hi = bf16(w) and lo = bf16(w - hi), bf16 x times each
+half summed in fp32, the Cin chunks of 16 split across blocks and their
+partial sums added in a fixed order, one rounding of the output. Fed the
+same bf16-valued inputs, the model stays within ``chip_smoke.py``'s
+``fused_conv_tolerance("bfloat16", ...)`` of ``pallas_block`` (interpret
+mode) and of ``fused_conv_plain``.
 """
 
 import importlib.util
@@ -33,6 +39,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from twingan_tpu_torch.models import pggan  # noqa: E402
 from twingan_tpu_torch.models.config import PGGANConfig  # noqa: E402
@@ -41,6 +48,7 @@ from twingan_tpu_torch.ops import basic, fused_conv  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(2, 16, 16, 16), (1, 8, 32, 16), (2, 4, 8, 8)]
+CHUNK = 16  # input channels of one K chunk of the tensor-core variant
 BF16_ULP = 2.0 ** -7
 XLA_BF16_SHARE = 2.0 ** -6
 
@@ -49,6 +57,14 @@ XLA_BF16_SHARE = 2.0 ** -6
 def exp():
     spec = importlib.util.spec_from_file_location(
         "exp_fused_conv", os.path.join(REPO, "tools", "exp_fused_conv.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
@@ -274,3 +290,100 @@ def test_kernel_source_uses_plain_c_interface():
         src = fh.read()
     assert 'extern "C" int fused_conv3x3_leaky_pixel_norm(' in src
     assert "torch/" not in src and "ATen" not in src
+
+
+def split_weights(w9: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """hi = bf16(w), lo = bf16(w - hi) (round to nearest even), in fp32."""
+    hi = w9.to(torch.bfloat16).float()
+    return hi, (w9 - hi).to(torch.bfloat16).float()
+
+
+def mma_model(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor, splits: int) -> torch.Tensor:
+    """y as the tensor-core variant rounds it: x (bf16 values, NCHW, fp32)
+    times the weights' hi and lo halves, each product exact and summed in
+    fp32; Cin's chunks of 16 cut into ``splits`` ranges whose partial sums
+    are added in order; the fp32 epilogue; y rounded to bf16 once."""
+    cin, cout = w9.shape[1:]
+    hi, lo = split_weights(w9)
+    chunks = -(-cin // CHUNK)
+    per_split = -(-chunks // splits)
+    total = None
+    for c0 in range(0, chunks, per_split):
+        ci = slice(c0 * CHUNK, (c0 + per_split) * CHUNK)
+        part = sum(F.conv2d(x[:, ci], half[:, ci].reshape(3, 3, -1, cout).permute(3, 2, 0, 1),
+                            padding=1) for half in (hi, lo))
+        total = part if total is None else total + part
+    y = total + b[:, None, None]
+    y = torch.maximum(y * fused_conv.LEAKY_SLOPE, y)
+    y = y * torch.rsqrt(torch.mean(torch.square(y), dim=1, keepdim=True)
+                        + fused_conv.PIXEL_NORM_EPS)
+    return y.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("shape,splits", [
+    ((2, 8, 40, 20, 1), 3),   # Cout not a multiple of 8; three chunks, one a split
+    ((1, 16, 16, 16, 2), 1),  # one chunk, the fused epilogue
+    ((2, 4, 48, 12, 3), 2),   # 4 px, a ragged Cout, chunks split 2 + 1
+], ids=["8px_40to20", "16px_16to16", "4px_48to12"])
+def test_mma_model_within_chip_tolerance(exp, smoke, shape, splits):
+    b, hw, cin, cout, seed = shape
+    x, w, bias = _inputs(b, hw, cin, cout, seed=seed)
+    ref = _jax(exp.pallas_block, x, w, bias, torch.bfloat16)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+    w9 = torch.from_numpy(w.reshape(9, cin, cout))
+    y = mma_model(xt, w9, torch.from_numpy(bias), splits).permute(0, 2, 3, 1).numpy()
+    tol = smoke.fused_conv_tolerance("bfloat16", float(np.abs(ref).max()))
+    err = float(np.abs(y - ref).max())
+    assert err <= tol, (err, tol)
+    plain = _plain(x, w, bias, torch.bfloat16)
+    assert float(np.abs(y - plain).max()) <= smoke.fused_conv_tolerance(
+        "bfloat16", float(np.abs(plain).max()))
+
+
+def test_split_weights_reconstruct_fp32():
+    """hi + lo carries each fp32 weight to 2^-16 of itself (the split's
+    error is at most 2^-18), where bf16 alone keeps 2^-9; weights that bf16
+    holds exactly have lo = 0."""
+    rng = np.random.RandomState(10)
+    w = torch.from_numpy((rng.randn(9, 24, 20) * np.exp(rng.uniform(-8, 8, (9, 24, 20))))
+                         .astype(np.float32))
+    hi, lo = split_weights(w)
+    assert torch.all((w - (hi + lo)).abs() <= 2.0 ** -16 * w.abs())
+    assert torch.any((w - hi).abs() > 2.0 ** -12 * w.abs())
+    exact = w.to(torch.bfloat16).float()
+    assert torch.equal(split_weights(exact)[1], torch.zeros_like(exact))
+
+
+def test_tensor_core_source():
+    """The bf16 variant is an implicit GEMM on mma.sync: x by ldmatrix, the
+    split weights by ldmatrix.trans, staged by cp.async; a tile's split-K
+    blocks form a cluster and sum through distributed shared memory in rank
+    order; the C entry point sends bf16 to it."""
+    with open(os.path.join(REPO, "twingan_tpu_torch", "csrc", "fused_conv.cu")) as fh:
+        src = fh.read()
+    assert "_fused_kernel" in src and '#include "flash_mma.cuh"' in src
+    body = src[src.index("fused_conv_mma_kernel("):src.index("#define FUSED_CONV_CONFIGS")]
+    for op in ("mma16816(", "ldmatrix_x4(", "ldmatrix_x4_trans(", "cp_async16(",
+               "__floats2bfloat162_rn(v.x - f01.x", "__shfl_xor_sync(",
+               "for (int sp = 0; sp < splits; ++sp) v += cluster.map_shared_rank(part, sp)"):
+        assert op in body, op
+    assert "atomicAdd" not in src
+    assert "cudaLaunchAttributeClusterDimension" in src
+    assert "launch_tensor_core(" in src and "if (dtype == 0)" in src
+
+
+def test_variants_by_type():
+    assert fused_conv.VARIANTS == {torch.float32: "cuda_core", torch.bfloat16: "tensor_core"}
+    assert set(fused_conv.variant_counts) == {"fused_conv/cuda_core", "fused_conv/tensor_core"}
+
+
+def test_bf16_on_the_cpu_runs_the_plain_version():
+    x, w, bias = _inputs(2, 6, 5, 12, seed=11)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().bfloat16()
+    w9, b = torch.from_numpy(w.reshape(9, 5, 12)), torch.from_numpy(bias)
+    fused_conv.reset_launch_counts()
+    y = fused_conv.fused_conv(xt, w9, b)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y, fused_conv.fused_conv_plain(xt, w9, b), rtol=0, atol=0)
+    assert not any(fused_conv.launch_counts.values())
+    assert not any(fused_conv.variant_counts.values())

@@ -2,15 +2,16 @@
 """Where the time of the tensor-core flash-attention kernels goes, on one card.
 
 Times the bf16 forward (B1, ``csrc/flash_attn_fwd.cu``) at the serving
-shape (B 4, N 4096, c_bar 8, C 64) and the bf16 dkv kernel (B3,
-``csrc/flash_attn_bwd.cu``) at the training shape (B 3), each beside
-copies of its source with one part taken out:
+shape (B 4, N 4096, c_bar 8, C 64) and the bf16 dq and dkv kernels (B2
+and B3, ``csrc/flash_attn_bwd.cu``) at the training shape (B 3), each
+beside copies of its source with one part taken out:
 
 - ``no_exp``: the exponentials (each ex2 replaced by its argument);
 - ``no_scores``: the score product S = f g^T (S^T = g f^T in dkv);
 - ``no_value`` (forward): the value product O += P h;
-- ``no_dp`` (dkv): the product dP^T = h do^T;
-- ``no_grads`` (dkv): the products dh += P^T do and dg += dS^T f;
+- ``no_dp`` (dq, dkv): the product dP = do h^T (dP^T = h do^T in dkv);
+- ``no_grads``: the products dh += P^T do and dg += dS^T f (dkv), df +=
+  dS g (dq);
 - ``no_staging``: the copies of every tile after the first (the kernel
   reads the first tile's shared memory again).
 
@@ -70,6 +71,26 @@ DKV_CUTS = {
     "no_staging": [("    if (t + 1 < ntiles) stage(t + 1, (t + 1) & 1);",
                     "    if (t + 1 < ntiles && t < 0) stage(t + 1, (t + 1) & 1);")],
 }
+# dq's lines; where dkv has the same text (an exponential, the staging),
+# its copy is cut too, and only dq is timed.
+DQ_CUTS = {
+    "no_exp": [(f"p[j][{e}] = ex2(fmaf(p[j][{e}], kLog2e, -l{e // 2}));",
+                f"p[j][{e}] = fmaf(p[j][{e}], kLog2e, -l{e // 2});") for e in range(4)],
+    "no_scores": [("for (int i = 0; i < 4; ++i) mma1688(p[4 * j + i], fa[0][0], fa[0][1], bf[i]);",
+                   "p[4 * j][0] += __uint_as_float(bf[0]);")],
+    "no_dp": [("        mma16816(ds[2 * j], doa[ks], bf[0], bf[1]);\n"
+               "        mma16816(ds[2 * j + 1], doa[ks], bf[2], bf[3]);",
+               "        ds[2 * j][0] += __uint_as_float(bf[0] ^ doa[ks][0]);")],
+    "no_grads": [("        mma16816(dfa[0], da, bf[0], bf[1]);",
+                  "        dfa[0][0] += __uint_as_float(bf[0] ^ da[0]);")],
+    "no_staging": DKV_CUTS["no_staging"],
+}
+# kernel -> (library, cuts, shape B, N, c_bar, C)
+KERNELS = {
+    attention.KERNEL_NAME: (attention.KERNEL_NAME, FWD_CUTS, (4, 4096, 8, 64)),
+    attention.DQ_KERNEL: (attention.BWD_LIBRARY, DQ_CUTS, (3, 4096, 8, 64)),
+    attention.DKV_KERNEL: (attention.BWD_LIBRARY, DKV_CUTS, (3, 4096, 8, 64)),
+}
 
 
 def build_copy(library: str, name: str, cuts, workdir: str) -> tuple[str, str]:
@@ -120,29 +141,25 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     workdir = tempfile.mkdtemp(prefix="flash_split_")
     try:
-        jobs = [(attention.KERNEL_NAME, "kernel", [])]
-        jobs += [(attention.KERNEL_NAME, n, c) for n, c in FWD_CUTS.items()]
-        jobs += [(attention.BWD_LIBRARY, "kernel", [])]
-        jobs += [(attention.BWD_LIBRARY, n, c) for n, c in DKV_CUTS.items()]
+        jobs = [(kernel, name, cuts) for kernel, (_, all_cuts, _) in KERNELS.items()
+                for name, cuts in [("kernel", []), *all_cuts.items()]]
         with ThreadPoolExecutor(len(jobs)) as pool:
             built = list(pool.map(lambda j: (j[0], *build_copy(
-                j[0], j[1], j[2], os.path.join(workdir, j[0]))), jobs))
+                KERNELS[j[0]][0], j[1], j[2], os.path.join(workdir, j[0]))), jobs))
         gen = torch.Generator(device="cuda").manual_seed(0)
-        shapes = {attention.KERNEL_NAME: (4, 4096, 8, 64), attention.BWD_LIBRARY: (3, 4096, 8, 64)}
-        for library, (b, n, c_bar, c) in shapes.items():
+        for kernel, (library, _, (b, n, c_bar, c)) in KERNELS.items():
             f, g = (torch.randn(b, n, c_bar, device="cuda", generator=gen).bfloat16()
                     for _ in range(2))
             h, do = (torch.randn(b, n, c, device="cuda", generator=gen).bfloat16()
                      for _ in range(2))
             o, lse = attention.flash_attention_forward(f, g, h)
             delta = torch.sum(do.float() * o.float(), dim=-1)
-            if library == attention.KERNEL_NAME:
-                def call():
-                    attention.flash_attention_forward(f, g, h)
-            else:
-                def call():
-                    attention.flash_attention_dkv(f, g, h, do, lse, delta)
-            copies = [(name, ctypes.CDLL(so)) for lib, name, so in built if lib == library]
+            call = {
+                attention.KERNEL_NAME: lambda: attention.flash_attention_forward(f, g, h),
+                attention.DQ_KERNEL: lambda: attention.flash_attention_dq(f, g, h, do, lse, delta),
+                attention.DKV_KERNEL: lambda: attention.flash_attention_dkv(f, g, h, do, lse, delta),
+            }[kernel]
+            copies = [(name, ctypes.CDLL(so)) for k, name, so in built if k == kernel]
             real = cuda_build.load(library)
             for rep in range(REPEATS):
                 for name, lib in copies:
@@ -151,8 +168,7 @@ def main() -> int:
                         ms = time_ms(call)
                     finally:
                         cuda_build._loaded[library] = real
-                    print(json.dumps({"kernel": "flash_attn_fwd" if library == attention.KERNEL_NAME
-                                      else "flash_attn_dkv", "B": b, "N": n, "c_bar": c_bar,
+                    print(json.dumps({"kernel": kernel, "B": b, "N": n, "c_bar": c_bar,
                                       "C": c, "dtype": "bfloat16", "copy": name, "repeat": rep,
                                       "ms": ms, "card": smi}), flush=True)
     finally:

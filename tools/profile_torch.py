@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's serving or training path on one CUDA card.
+"""Profile the PyTorch port's serving, training or generation path on one CUDA card.
 
-Both paths run the model ``chip_smoke.py`` drives (256 px TwinGAN, batch
-norm, eq-lr, pixel norm, UNet, bf16, SAGAN attention at 64 px; seeded
-random weights):
+The paths run the models ``chip_smoke.py`` drives, with seeded random
+weights:
 
-- ``--path serving``: the model loaded through ``ImageInferer``;
+- ``--path serving``: the 256 px TwinGAN (batch norm, eq-lr, pixel norm,
+  UNet, bf16, SAGAN attention at 64 px) loaded through ``ImageInferer``;
   ``--steps`` calls of ``infer_batch`` on ``--batch`` images;
-- ``--path train``: ``TwinGANTrainer`` with chip_smoke.py's training
-  configuration (DRAGAN, Adam, n_critic 2, batch 3, every sa_gamma 1);
-  ``--steps`` rounds of ``round_step`` (one G step, one D step).
+- ``--path train``: ``TwinGANTrainer`` on the same model with
+  chip_smoke.py's training configuration (DRAGAN, Adam, n_critic 2, batch
+  3, every sa_gamma 1); ``--steps`` rounds of ``round_step`` (one G step,
+  one D step);
+- ``--path generation``: ``GanTrainer`` on pggan256 (no norm, pixel norm,
+  eq-lr, bf16, batch 12, DRAGAN, Adam, n_critic 2, random biases);
+  ``--steps`` rounds of ``round_step``, whose D step runs the generator
+  through kernel B4.
 
 After warm-up, the steps run under ``torch.profiler``, which prints JSON
 lines per step (a batch or a round):
@@ -22,7 +27,7 @@ lines per step (a batch or a round):
 
 Run from the repository root:
 
-    python3 tools/profile_torch.py [--path serving|train] [--batch 4] [--steps 10]
+    python3 tools/profile_torch.py [--path serving|train|generation] [--batch 4] [--steps 10]
 """
 
 from __future__ import annotations
@@ -41,6 +46,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _group(name: str) -> str:
     low = name.lower()
+    if "fused_conv" in low:  # B4: the tensor-core kernel and its split-K sum, or CUDA cores
+        cores = "CUDA cores" if "fused_conv_kernel" in low else "tensor cores"
+        return f"fused conv kernel (B4, {cores})"
     for kernel in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
         if kernel in low:  # the tensor-core variants' kernels are named *_mma_kernel
             cores = "tensor cores" if f"{kernel}_mma" in low else "CUDA cores"
@@ -97,10 +105,27 @@ def _train_step(chip_smoke):
     return lambda: trainer.round_step(state, batches, rng=chip_smoke.SEED)
 
 
+def _generation_step(chip_smoke):
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+
+    cfg = chip_smoke.generation_config()
+    trainer = GanTrainer(cfg)
+    state = trainer.init_state(chip_smoke.SEED)
+    chip_smoke.randomize_biases(state.nets, chip_smoke.SEED)
+    rng = np.random.RandomState(chip_smoke.SEED)
+    res = cfg.model.resolution
+    batches = [{"target": torch.from_numpy(rng.rand(cfg.batch_size, res, res, 3)
+                                           .astype("float32")).to("cuda")}
+               for _ in range(cfg.n_critic)]
+    return lambda: trainer.round_step(state, batches, rng=chip_smoke.SEED)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--path", default="serving", choices=["serving", "train"])
+    p.add_argument("--path", default="serving", choices=["serving", "train", "generation"])
     p.add_argument("--batch", type=int, default=4, help="serving batch size")
     p.add_argument("--steps", type=int, default=10, help="batches or rounds profiled")
     p.add_argument("--top", type=int, default=12)
@@ -117,8 +142,9 @@ def main(argv=None) -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    step = (_serving_step(chip_smoke, args.batch) if args.path == "serving"
-            else _train_step(chip_smoke))
+    step = {"serving": lambda: _serving_step(chip_smoke, args.batch),
+            "train": lambda: _train_step(chip_smoke),
+            "generation": lambda: _generation_step(chip_smoke)}[args.path]()
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -154,7 +180,8 @@ def main(argv=None) -> int:
     streams = sorted({ev.device_resource_id() for ev in prof.profiler.kineto_results.events()
                       if str(ev.device_type()).endswith("CUDA") and not ev.is_user_annotation()})
     print(json.dumps({"phase": "window", "path": args.path, "card": smi,
-                      "batch": args.batch if args.path == "serving" else chip_smoke.TRAIN_BATCH,
+                      "batch": {"serving": args.batch, "train": chip_smoke.TRAIN_BATCH,
+                                "generation": chip_smoke.GEN_BATCH}[args.path],
                       "steps": n, f"wall_ms_per_{unit}": 1e3 * wall_s / n,
                       f"device_busy_ms_per_{unit}": busy_us / 1e3 / n,
                       f"device_summed_ms_per_{unit}": sum(by_name.values()) / 1e3 / n,

@@ -25,8 +25,8 @@
 // The TPU kernels carry their fp32 accumulators across a sequential grid
 // axis in VMEM. CUDA blocks run in no order, so that axis becomes a loop
 // inside one block, and each output row is owned by one warp (tensor-core
-// variant) or one block (CUDA-core variant): no atomics, so the results are
-// deterministic, as the two TPU kernels' are.
+// variants) or one block (CUDA-core variants): no atomics, so the results
+// are deterministic, as the two TPU kernels' are.
 //
 // dkv, tensor-core variant (bf16), the key-owning
 // FlashAttention-2 backward:
@@ -60,7 +60,34 @@
 //    takes 64-column slices of dh (dP still runs over all of C; the first
 //    slice also computes dg).
 //
-// dq (both types) and dkv's CUDA-core variant (fp32):
+// dq, tensor-core variant (bf16), dkv's transposed twin, the query-owning
+// FlashAttention-2 backward. dq's products are 2 B N^2 (2 cbar + C) FLOPs,
+// 8.05 GFLOP at the training shape (8 us at the bf16 tensor-core peak), so
+// its 50 M exponentials bound it (12 us), as they bound the forward:
+//  - a warp owns 16 query rows and keeps f's (16 x cbar) and do's (16 x C)
+//    A fragments in registers, with the rows' lse log2e and delta and an
+//    fp32 (16 x cbar) accumulator for df; each row's keys are split
+//    between two warps that take alternate 64-key tiles and sum their df
+//    in a fixed order through shared memory at the end (768 query warps
+//    at the training shape would leave the SMs as short of warps as dkv's
+//    key warps). A block is 2 query warps x 2 key halves, 384 blocks at the
+//    training shape, 3 an SM;
+//  - it loops over key tiles of 128 (64 for each half): g [128, cbar] and
+//    h [128, C], double-buffered by the same 16-byte cp.async copier, zero
+//    filled past N; keys past N get p = 0;
+//  - per tile, with m16n8k16 (m16n8k8 for S at cbar 8):
+//      S = f g^T (g by ldmatrix, as stored);
+//      P = 2^(S log2e - lse log2e);
+//      dP = do h^T (do from registers, h by ldmatrix, as stored);
+//      dS = P (dP - delta);
+//      df += dS g (dS's accumulators rounded to bf16 A fragments in
+//        registers, g by ldmatrix.trans; n = cbar).
+//    dS is rounded to bf16 only as a product operand; sums are fp32, and
+//    df is written once. At C 256 do's fragments take 64 registers a
+//    thread; that instantiation has its own launch bound (one block an
+//    SM, up to 255 registers) instead of 3 blocks an SM.
+//
+// The CUDA-core variants (fp32):
 //  - dq: a block owns `rows` query rows of one batch element and loops over
 //    key tiles (g and h staged in shared memory as fp32);
 //  - dkv: a block owns `rows` key rows and loops over query tiles (f, do,
@@ -428,7 +455,261 @@ cudaError_t dkv_mma(const void* const* in, void* dg, void* dh, int batch, int n,
 }
 
 // ---------------------------------------------------------------------------
-// dq and dkv's CUDA-core variant.
+// dq, tensor-core variant (bf16).
+
+template <int CB, int CK>
+__host__ __device__ constexpr size_t dq_mma_smem_bytes() {
+  return 2 * kMmaStageQ * sizeof(bf16) * (f_stride<CB>() + CK + 8);
+}
+
+// CB: cbar padded to 8, 16, 32 or 64; CK: C padded to 64 or 256 (dP's depth).
+// kMmaKeys, kMmaQ and kMmaStageQ name dkv's roles: here a block owns
+// kMmaKeys query rows and a staged tile holds kMmaStageQ keys.
+template <int CB, int CK>
+__global__ void __launch_bounds__(kMmaThreads, CK == 64 ? 3 : 1) flash_attn_dq_mma_kernel(
+    const bf16* __restrict__ f, const bf16* __restrict__ g, const bf16* __restrict__ h,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ df, int n, int cbar, int c,
+    Strides st, bool vec) {
+  using namespace flash_mma;
+  constexpr int GS = f_stride<CB>();         // g tile row stride
+  constexpr int HS = CK + 8;                 // h tile row stride
+  constexpr int KS = CB == 8 ? 1 : CB / 16;  // k steps of S = f g^T
+  constexpr int DK = CK / 16;                // k steps of dP = do h^T
+  constexpr int NG = CB / 8;                 // 8-column blocks of df
+  constexpr int kMerge = 4 * NG;             // per lane: df's accumulators
+  static_assert(kMmaRowWarps * kMerge * 32 * sizeof(float) <= dq_mma_smem_bytes<CB, CK>(),
+                "the merge reuses the staging buffers");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gs = reinterpret_cast<bf16*>(smem_raw);  // [2][kMmaStageQ][GS]
+  bf16* hs = gs + 2 * kMmaStageQ * GS;           // [2][kMmaStageQ][HS]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tig = lane % 4, mi = lane / 8, mr = lane % 8;  // mr, mi: ldmatrix row, matrix
+  const int row_warp = warp % kMmaRowWarps, split = warp / kMmaRowWarps;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * kMmaKeys + 16 * row_warp;  // the warp's first query row
+  f += b * st.f_sb;
+  g += b * st.g_sb;
+  h += b * st.h_sb;
+  dout += b * st.do_sb;
+
+  uint32_t fa[KS][4], doa[DK][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) load_a_frag(fa[ks], f, q0, 16 * ks, n, cbar, st.f_sn, lane);
+#pragma unroll
+  for (int ks = 0; ks < DK; ++ks) load_a_frag(doa[ks], dout, q0, 16 * ks, n, c, st.do_sn, lane);
+  // The thread's two rows (grp and grp + 8): lse log2e and delta. A row
+  // past N has f = do = 0, so its dS is 0 whatever p is.
+  const int r0 = q0 + lane / 4, r1 = r0 + 8;
+  const float l0 = r0 < n ? lse[b * st.row_sb + r0] * kLog2e : 0.f;
+  const float l1 = r1 < n ? lse[b * st.row_sb + r1] * kLog2e : 0.f;
+  const float d0 = r0 < n ? delta[b * st.row_sb + r0] : 0.f;
+  const float d1 = r1 < n ? delta[b * st.row_sb + r1] : 0.f;
+  float dfa[NG][4];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) dfa[j][0] = dfa[j][1] = dfa[j][2] = dfa[j][3] = 0.f;
+
+  const TileCopier<kMmaStageQ, CB, GS, kMmaThreads> g_copier(g, 0, cbar, st.g_sn, tid);
+  const TileCopier<kMmaStageQ, CK, HS, kMmaThreads> h_copier(h, 0, c, st.h_sn, tid);
+  auto stage = [&](int t, int buf) {
+    const int k0 = t * kMmaStageQ;
+    bf16* gt = gs + buf * kMmaStageQ * GS;
+    bf16* ht = hs + buf * kMmaStageQ * HS;
+    if (vec) {
+      g_copier.copy(gt, k0, n, st.g_sn);
+      h_copier.copy(ht, k0, n, st.h_sn);
+    } else {
+      stage_tile_elements<kMmaStageQ, CB, GS, kMmaThreads>(gt, g, k0, 0, n, cbar, st.g_sn, tid);
+      stage_tile_elements<kMmaStageQ, CK, HS, kMmaThreads>(ht, h, k0, 0, n, c, st.h_sn, tid);
+    }
+  };
+
+  // Each staged tile holds kMmaSplit tiles of 64 keys; warp `split` of each
+  // query group takes the split-th. One barrier a tile, as in dkv.
+  const int ntiles = (n + kMmaStageQ - 1) / kMmaStageQ;
+  stage(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();  // tile t has landed (this thread's copies)
+    __syncthreads();     // ... and every thread's; tile t - 1 is retired
+    if (t + 1 < ntiles) stage(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const int k0 = t * kMmaStageQ + split * kMmaQ;
+    if (k0 >= n) continue;  // the last tile holds no key of this warp
+    const int sub = (t & 1) * kMmaStageQ + split * kMmaQ;
+    const bf16* gt = gs + sub * GS;
+    const bf16* ht = hs + sub * HS;
+
+    // S = f g^T: 16 queries x 64 keys, 8 blocks of 8 keys.
+    float p[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+    if constexpr (CB == 8) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {  // matrix i of lanes 8i..8i+7: keys 32j + 8i ..
+        uint32_t bf[4];
+        ldmatrix_x4(bf, gt + (32 * j + lane) * GS);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma1688(p[4 * j + i], fa[0][0], fa[0][1], bf[i]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // matrices: (keys +0, k +0), (+0, +8), (+8, +0), (+8, +8)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t bf[4];
+          ldmatrix_x4(bf, gt + (16 * j + 8 * (mi / 2) + mr) * GS + 16 * ks + 8 * (mi % 2));
+          mma16816(p[2 * j], fa[ks], bf[0], bf[1]);
+          mma16816(p[2 * j + 1], fa[ks], bf[2], bf[3]);
+        }
+      }
+    }
+
+    // P = 2^(S log2e - lse log2e); keys past N get 0.
+    const bool ragged = k0 + kMmaQ > n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      p[j][0] = ex2(fmaf(p[j][0], kLog2e, -l0));
+      p[j][1] = ex2(fmaf(p[j][1], kLog2e, -l0));
+      p[j][2] = ex2(fmaf(p[j][2], kLog2e, -l1));
+      p[j][3] = ex2(fmaf(p[j][3], kLog2e, -l1));
+      if (ragged) {
+        const int key = k0 + 8 * j + 2 * tig;
+        if (key >= n) p[j][0] = p[j][2] = 0.f;
+        if (key + 1 >= n) p[j][1] = p[j][3] = 0.f;
+      }
+    }
+
+    // dP = do h^T: 16 queries x 64 keys, over C.
+    float ds[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DK; ++ks) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // matrices: (keys +0, C +0), (+0, +8), (+8, +0), (+8, +8)
+        uint32_t bf[4];
+        ldmatrix_x4(bf, ht + (16 * j + 8 * (mi / 2) + mr) * HS + 16 * ks + 8 * (mi % 2));
+        mma16816(ds[2 * j], doa[ks], bf[0], bf[1]);
+        mma16816(ds[2 * j + 1], doa[ks], bf[2], bf[3]);
+      }
+    }
+    // dS = P (dP - delta)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ds[j][0] = p[j][0] * (ds[j][0] - d0);
+      ds[j][1] = p[j][1] * (ds[j][1] - d0);
+      ds[j][2] = p[j][2] * (ds[j][2] - d1);
+      ds[j][3] = p[j][3] * (ds[j][3] - d1);
+    }
+
+    // df += dS g, 16 keys a step (g transposed).
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t da[4] = {pack_bf16(ds[2 * kk][0], ds[2 * kk][1]),
+                              pack_bf16(ds[2 * kk][2], ds[2 * kk][3]),
+                              pack_bf16(ds[2 * kk + 1][0], ds[2 * kk + 1][1]),
+                              pack_bf16(ds[2 * kk + 1][2], ds[2 * kk + 1][3])};
+      if constexpr (CB == 8) {  // matrices: keys +0, +8 (lanes 0-15 address them)
+        uint32_t bf[2];
+        ldmatrix_x2_trans(bf, gt + (16 * kk + 8 * (mi % 2) + mr) * GS);
+        mma16816(dfa[0], da, bf[0], bf[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < CB / 16; ++j) {
+          uint32_t bf[4];
+          ldmatrix_x4_trans(bf, gt + (16 * kk + 8 * (mi % 2) + mr) * GS + 16 * j + 8 * (mi / 2));
+          mma16816(dfa[2 * j], da, bf[0], bf[1]);
+          mma16816(dfa[2 * j + 1], da, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+
+  // Sum the two key halves of each query row in a fixed order
+  // (deterministic), as dkv does.
+  float* xs = reinterpret_cast<float*>(smem_raw) + row_warp * kMerge * 32 + lane;
+  __syncthreads();  // every warp is done with the staged tiles
+  if (split == 1) {
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * j + e) * 32] = dfa[j][e];
+    }
+  }
+  __syncthreads();
+  if (split == 1) return;
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dfa[j][e] += xs[(4 * j + e) * 32];
+  }
+
+  // Epilogue: df, written once.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + lane / 4 + 8 * r;
+    if (row >= n) continue;
+    bf16* frow = df + b * st.o0_sb + row * st.o0_sn;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int col = 8 * j + 2 * tig;
+      if (vec && col < cbar) {  // cbar a multiple of 8: col + 1 < cbar, the pair aligned
+        *reinterpret_cast<__nv_bfloat162*>(frow + col) =
+            __floats2bfloat162_rn(dfa[j][2 * r], dfa[j][2 * r + 1]);
+      } else {
+        if (col < cbar) frow[col] = __float2bfloat16(dfa[j][2 * r]);
+        if (col + 1 < cbar) frow[col + 1] = __float2bfloat16(dfa[j][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int CB, int CK>
+cudaError_t launch_dq_mma(const void* const* in, void* df, int batch, int n, int cbar, int c,
+                          const Strides& st, bool vec, cudaStream_t stream) {
+  const dim3 grid((n + kMmaKeys - 1) / kMmaKeys, batch);
+  constexpr size_t smem = dq_mma_smem_bytes<CB, CK>();  // 40 KB at cbar 8, C 64
+  auto kernel = flash_attn_dq_mma_kernel<CB, CK>;
+  if (smem > 48 * 1024) {  // up to 172 KB at cbar 64, C 256
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(in[0]), static_cast<const bf16*>(in[1]),
+      static_cast<const bf16*>(in[2]), static_cast<const bf16*>(in[3]),
+      static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
+      static_cast<bf16*>(df), n, cbar, c, st, vec);
+  return cudaGetLastError();
+}
+
+template <int CB>
+cudaError_t dispatch_dq_mma(const void* const* in, void* df, int batch, int n, int cbar, int c,
+                            const Strides& st, bool vec, cudaStream_t s) {
+  if (c <= 64) return launch_dq_mma<CB, 64>(in, df, batch, n, cbar, c, st, vec, s);
+  return launch_dq_mma<CB, 256>(in, df, batch, n, cbar, c, st, vec, s);
+}
+
+cudaError_t dq_mma(const void* const* in, void* df, int batch, int n, int cbar, int c,
+                   const Strides& st, cudaStream_t s) {
+  // As dkv_mma: 16-byte staging copies of g and h and paired stores of df
+  // need 16-byte aligned rows; other layouts are staged element by element.
+  bool vec = cbar % 8 == 0 && c % 8 == 0 && aligned16(df);
+  for (int i = 0; i < 4; ++i) vec = vec && aligned16(in[i]);
+  const int64_t strides[10] = {st.f_sb, st.f_sn, st.g_sb, st.g_sn, st.h_sb, st.h_sn,
+                               st.do_sb, st.do_sn, st.o0_sb, st.o0_sn};
+  for (int i = 0; i < 10; ++i) vec = vec && strides[i] % 8 == 0;
+  if (cbar <= 8) return dispatch_dq_mma<8>(in, df, batch, n, cbar, c, st, vec, s);
+  if (cbar <= 16) return dispatch_dq_mma<16>(in, df, batch, n, cbar, c, st, vec, s);
+  if (cbar <= 32) return dispatch_dq_mma<32>(in, df, batch, n, cbar, c, st, vec, s);
+  return dispatch_dq_mma<64>(in, df, batch, n, cbar, c, st, vec, s);
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core variants (fp32).
 
 // Stage the kTile rows starting at `r0` of a [N, width] row-major matrix
 // (row stride `sn`) into a zero-padded [kTile][padded] fp32 tile.
@@ -683,13 +964,13 @@ cudaError_t check(int dtype, int device, int batch, int n, int cbar, int c) {
   return cudaSetDevice(device);
 }
 
+// bf16 runs the tensor-core variant, fp32 the CUDA-core one.
 cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int cbar, int c,
                const Strides& st, cudaStream_t s) {
-  if (dtype == 0) DISPATCH_CBAR(float, cbar, launch_dq, in, df, batch, n, cbar, c, st, s);
-  DISPATCH_CBAR(__nv_bfloat16, cbar, launch_dq, in, df, batch, n, cbar, c, st, s);
+  if (dtype == 1) return dq_mma(in, df, batch, n, cbar, c, st, s);
+  DISPATCH_CBAR(float, cbar, launch_dq, in, df, batch, n, cbar, c, st, s);
 }
 
-// bf16 runs the tensor-core variant, fp32 the CUDA-core one.
 cudaError_t dkv(const void* const* in, void* dg, void* dh, int dtype, int batch, int n,
                 int cbar, int c, const Strides& st, cudaStream_t s) {
   if (dtype == 1) return dkv_mma(in, dg, dh, batch, n, cbar, c, st, s);
@@ -698,8 +979,8 @@ cudaError_t dkv(const void* const* in, void* dg, void* dh, int dtype, int batch,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (dkv's tensor-core variant; dq runs on
-// CUDA cores for both). Strides are in elements: batch and row strides of
+// dtype: 0 = float32 (the CUDA-core variants), 1 = bfloat16 (the
+// tensor-core ones). Strides are in elements: batch and row strides of
 // f, g, h, do, the batch stride of lse and delta (which share it), then the
 // batch and row strides of each output. The last dimension of
 // every tensor must be contiguous. Each function launches one kernel on

@@ -14,11 +14,10 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
   versions (``attention_core``/``attention_lse`` and
   ``flash_attention_dq_plain``/``flash_attention_dkv_plain``) run on CPU
   tensors;
-- the forward and dkv kernels have two variants, chosen by the input type
-  in their C entry points (``VARIANTS`` names them): bf16 runs on the
-  tensor cores (``mma.sync``), fp32 on the CUDA cores, and dq on the CUDA
-  cores for both. ``variant_counts`` counts each launch under its variant,
-  beside ``launch_counts``' total;
+- each of the three kernels has two variants, chosen by the input type
+  in its C entry point (``VARIANTS`` names them): bf16 runs on the tensor
+  cores (``mma.sync``), fp32 on the CUDA cores. ``variant_counts`` counts
+  each launch under its variant, beside ``launch_counts``' total;
 - ``FlashAttention`` is the autograd boundary. Its backward is
   ``once_differentiable`` and refuses to run under ``create_graph=True``:
   the kernels' outputs carry no graph, and a second-order pass through
@@ -58,7 +57,7 @@ TENSOR_CORE = "tensor_core"
 # The variant each kernel's C entry point launches for each input type.
 VARIANTS = {
     KERNEL_NAME: {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE},
-    DQ_KERNEL: {torch.float32: CUDA_CORE, torch.bfloat16: CUDA_CORE},
+    DQ_KERNEL: {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE},
     DKV_KERNEL: {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE},
 }
 

@@ -17,7 +17,12 @@ activation, then ``pixel_norm`` (eps 1e-6).
   the JAX functions, and ``fused_conv`` runs it for CPU tensors;
 - ``fused_conv`` wraps the hand-written CUDA kernel
   ``csrc/fused_conv.cu``: on a CUDA tensor it launches the kernel or
-  raises, never falling back;
+  raises, never falling back. The kernel has two variants, chosen by x's
+  type in its C entry point (``VARIANTS`` names them): bf16 x runs on the
+  tensor cores (an implicit GEMM on ``mma.sync``, each fp32 weight split
+  into a high and a low bf16 half, so the products stay those of the fp32
+  weights), fp32 x on the CUDA cores. ``variant_counts`` counts each
+  launch under its variant, beside ``launch_counts``' total;
 - ``fold_weights`` folds the equalized-lr scale into a conv's weights,
   ``w_eff = kernel * scale`` in fp32 as [9, Cin, Cout] (the Pallas layout).
 
@@ -39,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from twingan_tpu_torch.ops import cuda_build
+from twingan_tpu_torch.ops.attention import CUDA_CORE, TENSOR_CORE
 
 KERNEL_NAME = "fused_conv"
 AUTOGRAD_ROUTE = "fused_conv_autograd"
@@ -51,11 +57,16 @@ PIXEL_NORM_EPS = 1e-6
 # ``ConvBlock.forward_pixel_norm`` sent to the eager layers because a
 # gradient was needed.
 launch_counts = {KERNEL_NAME: 0, AUTOGRAD_ROUTE: 0}
+# The variant the C entry point launches for each type of x, and the
+# kernel's launches by "<kernel>/<variant>".
+VARIANTS = {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE}
+variant_counts = {f"{KERNEL_NAME}/{v}": 0 for v in VARIANTS.values()}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, variant_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def fold_weights(kernel: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
@@ -116,6 +127,7 @@ def _launch(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError_t {err}")
     launch_counts[KERNEL_NAME] += 1
+    variant_counts[f"{KERNEL_NAME}/{VARIANTS[x.dtype]}"] += 1
     return y
 
 

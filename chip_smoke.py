@@ -73,7 +73,23 @@ result line is printed:
               and 13 autograd-route steps per G step; ``sample`` of 12
               images from the trained state (13 tensor-core B4 launches)
               against the same state in fp32 on the CPU.
-7. kernels  - one line listing each kernel of the three paths.
+7. runner   - progressive training through the stage runner, the
+              training entry point: pggan256 on synthetic data from 4 to
+              256 px (13 stages, 48 images a resolution, a checkpoint every
+              2 steps, 2 kept), in two calls on one train dir (7 stages,
+              then the rest, which skip the first 7 and grow 32 -> 32to64
+              from disk), B4's tensor-core launches per stage held to
+              rounds x (n_critic - 1) x (1 + 2 log2(res / 4)); the 256
+              stage's checkpoint restored on the card and on the CPU, 12
+              samples of each held to serving's limits; one fresh 256 px
+              stage of 40 rounds (a checkpoint every 20 steps), where the
+              first round and the writes are spread. Then the TwinGAN
+              slice config from 128 to 256 px (stages 128, 128to256 and 256,
+              2 rounds each), B1-B3's tensor-core launches per stage held to
+              the passes' count, and a batch served from the final
+              ``model.pt``. One line per stage: steps, rounds/s, the
+              stage's wall time and its parts, peak memory, launches.
+8. kernels  - one line listing each kernel of the four paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -243,6 +259,18 @@ TRAIN_LIMITS = {"float32": (1e-3, 1e-4, 0.999, 0.999),
 # uses serving's limits.
 GEN_COMPARE_BATCH = 4
 GEN_TIMED_ROUNDS = 3
+
+# The runner phase: images a resolution for pggan256 (3 rounds at batch 16
+# below 64 px, 4 at batch 12 from 64 px), the stages of its first call, and
+# images a resolution for the TwinGAN plan (2 rounds at batch 4 and 3).
+RUNNER_PGGAN_IMAGES = 48
+RUNNER_FIRST_CALL_STAGES = 7
+RUNNER_TWINGAN_IMAGES = {128: 8, 256: 6}
+# One pggan256 stage at 256 px long enough that the first round and the
+# writes are spread over many rounds: 40 rounds at batch 12, a checkpoint
+# every 20 steps (2 checkpoints and model.pt).
+RUNNER_LONG_STAGE_IMAGES = 480
+RUNNER_LONG_STAGE_SAVE_EVERY = 20
 
 
 def emit(obj) -> None:
@@ -1226,6 +1254,232 @@ def generation_phase(card: str, smi_line: str) -> dict:
             "sample": sample_counts[fused_conv.KERNEL_NAME]}
 
 
+def counting_runner(cfg, stage_rows: list):
+    """A ``StageRunner`` whose stages each set the kernels' counts to 0 just
+    before they run and read them just after, with the stage's wall time
+    and peak device memory: one row per stage into ``stage_rows``."""
+    import torch
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.runner.stage_runner import StageRunner
+
+    class CountingRunner(StageRunner):
+        def _run_stage(self, res, growing, steps, stage_dir, prev_stage_dir, cm):
+            torch.cuda.synchronize()
+            attention.reset_launch_counts()
+            fused_conv.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            info = super()._run_stage(res, growing, steps, stage_dir, prev_stage_dir, cm)
+            torch.cuda.synchronize()
+            rounds = info["steps"] - info["started"].get("resumed_at", 0)
+            stage_rows.append({
+                "stage": os.path.basename(stage_dir), "resolution": res, "growing": growing,
+                "steps": info["steps"], "rounds": rounds,
+                "rounds_per_s": rounds / info["rounds_s"],
+                "stage_wall_s": time.perf_counter() - t0,
+                "parts_s": {k: info[k] for k in ("build_s", "restore_s", "rounds_s", "saves_s")},
+                "saves": info["saves"], "started": info["started"],
+                "nan_recoveries": info["nan_recoveries"],
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                "attention_launches": dict(attention.launch_counts),
+                "b4_launches": dict(fused_conv.launch_counts),
+                "kernel_variants": {k: v for counts in (attention.variant_counts,
+                                                        fused_conv.variant_counts)
+                                    for k, v in counts.items() if v}})
+            return info
+
+    return CountingRunner(cfg)  # the card, by default
+
+
+def runner_losses_ok(runner) -> bool:
+    """Every logged loss of the run is finite."""
+    import math
+
+    return all(math.isfinite(r["g_loss"]) and math.isfinite(r["d_loss"])
+               for r in runner.metrics_log)
+
+
+def runner_phase(card: str, smi_line: str) -> dict:
+    """Returns the runner path's launches by kernel."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.infer.translate import ImageInferer
+    from twingan_tpu_torch.models.pggan import noise_shape
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.runner.checkpoint import CheckpointManager
+    from twingan_tpu_torch.runner.config_io import load_stage_config
+    from twingan_tpu_torch.runner.stage_runner import RunConfig, stage_dir_name, stage_plan
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    t_phase = time.perf_counter()
+    totals: dict = {}
+    b4_tc = f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[torch.bfloat16]}"
+    train_dir = tempfile.mkdtemp(prefix="twingan_smoke_runner_")
+    try:
+        # pggan256 from 4 to 256 px, in two calls on one train dir.
+        cfg = RunConfig(program="image_generation", train_dir=os.path.join(train_dir, "pggan"),
+                        start_hw=4, max_hw=256, num_images_per_resolution=RUNNER_PGGAN_IMAGES,
+                        use_synthetic_data=True, trainer=generation_config(),
+                        log_every_n_steps=1, save_every_n_steps=2, keep_checkpoints=2,
+                        log_image_every_n_iter=0, seed=SEED)
+        plan = [stage_dir_name(r, g) for r, g in stage_plan(cfg.start_hw, cfg.max_hw)]
+        rows, summaries, runners = [], [], []
+        for call_cfg in (cfg.replace(max_stages_per_run=RUNNER_FIRST_CALL_STAGES), cfg):
+            runner = counting_runner(call_cfg, rows)
+            summaries.append(runner.run())
+            runners.append(runner)
+        first, second = summaries
+        n_critic = cfg.trainer.n_critic
+        for row in rows:
+            res = row["resolution"]
+            layers = 1 + 2 * int(round(np.log2(res // 4)))
+            expected = {fused_conv.KERNEL_NAME: row["rounds"] * (n_critic - 1) * layers,
+                        fused_conv.AUTOGRAD_ROUTE: row["rounds"] * layers}
+            row.update(phase="runner", program="image_generation", expected_b4=expected,
+                       card=card, nvidia_smi=smi_line)
+            row["ok"] = bool(row["b4_launches"] == expected
+                             and row["kernel_variants"] == {b4_tc: expected[
+                                 fused_conv.KERNEL_NAME]}
+                             and not any(row["attention_launches"].values())
+                             and row["nan_recoveries"] == 0)
+            emit(row)
+            totals[fused_conv.KERNEL_NAME] = (totals.get(fused_conv.KERNEL_NAME, 0)
+                                              + row["b4_launches"][fused_conv.KERNEL_NAME])
+        done = [r["stage"] for r in rows]
+        grown = next((r for r in rows if r["stage"] == "32to64"), None)
+        ok = (done == plan and list(first) == plan[:RUNNER_FIRST_CALL_STAGES] + ["_incomplete"]
+              and all(second[s].get("skipped") for s in plan[:RUNNER_FIRST_CALL_STAGES])
+              and grown is not None and grown["started"].get("from", "").endswith("/32")
+              and grown["started"].get("carried", 0) > 0
+              and all(r["ok"] for r in rows) and all(runner_losses_ok(r) for r in runners))
+        emit({"phase": "runner", "check": "pggan256, 4 to 256 px in two calls",
+              "stages": done, "first_call": list(first), "second_call_skipped": [
+                  s for s in plan if second.get(s, {}).get("skipped")],
+              "32to64_started": grown and grown["started"],
+              "seconds": time.perf_counter() - t_phase, "ok": bool(ok)})
+        if not ok:
+            fail("runner", "the pggan256 plan did not train every stage in two calls, grow "
+                           "32to64 from disk, launch B4's tensor-core variant as the stages' "
+                           "rounds imply, or keep every loss finite")
+
+        # The 256 stage's latest checkpoint, restored on the card and in fp32
+        # on the CPU: 12 samples of each.
+        stage = os.path.join(cfg.train_dir, "256")
+        _, tcfg = load_stage_config(stage)
+        t0 = time.perf_counter()
+        trainer = GanTrainer(tcfg)
+        state = CheckpointManager(stage).restore(trainer.init_state(SEED + 1))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        z = torch.randn(noise_shape(tcfg.model, GEN_BATCH),
+                        generator=torch.Generator().manual_seed(SEED + 6))
+        fused_conv.reset_launch_counts()
+        out = trainer.sample(state, z).float().cpu()
+        sample_counts = dict(fused_conv.launch_counts)
+        cpu = GanTrainer(tcfg.replace(model=tcfg.model.replace(dtype="float32")), device="cpu")
+        ref = cpu.sample(CheckpointManager(stage).restore(cpu.init_state(SEED + 1)), z)
+        std = float(ref.std())
+        diff = (out - ref).abs()
+        mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+        row = {"phase": "runner", "check": "restore the 256 stage, sample 12, card bf16 vs CPU "
+                                           "float32", "step": state.step,
+               "restore_s": restore_s, "output_shape": list(out.shape),
+               "finite": bool(torch.isfinite(out).all()), "launches": sample_counts,
+               "output_std": std, "mean_abs_err_over_std": mean_err,
+               "max_abs_err_over_std": max_err, "mean_tolerance": SERVE_MEAN_TOL,
+               "max_tolerance": SERVE_MAX_TOL,
+               "ok": bool(tuple(out.shape) == (GEN_BATCH, 256, 256, 3)
+                          and bool(torch.isfinite(out).all())
+                          and state.step == RUNNER_PGGAN_IMAGES // GEN_BATCH
+                          and sample_counts[fused_conv.KERNEL_NAME] == GEN_LAYERS_PER_PASS
+                          and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
+        emit(row)
+        if not row["ok"]:
+            fail("runner", "the restored 256 stage's samples disagree with the fp32 CPU "
+                           "restore, or did not run B4")
+        del trainer, state, cpu
+        torch.cuda.empty_cache()
+
+        # Where a stage's time goes once the first round and the writes are
+        # spread: one fresh 256 px stage of 40 rounds.
+        lcfg = cfg.replace(train_dir=os.path.join(train_dir, "pggan_long"), start_hw=256,
+                           num_images_per_resolution=RUNNER_LONG_STAGE_IMAGES,
+                           save_every_n_steps=RUNNER_LONG_STAGE_SAVE_EVERY)
+        rows = []
+        runner = counting_runner(lcfg, rows)
+        runner.run()
+        row = rows[0]
+        layers = 1 + 2 * int(round(np.log2(256 // 4)))
+        rounds = RUNNER_LONG_STAGE_IMAGES // GEN_BATCH
+        expected = {fused_conv.KERNEL_NAME: rounds * (n_critic - 1) * layers,
+                    fused_conv.AUTOGRAD_ROUTE: rounds * layers}
+        wall = sum(row["parts_s"].values())
+        row.update(phase="runner", program="image_generation",
+                   check=f"pggan256, one 256 px stage of {rounds} rounds",
+                   expected_b4=expected, parts_share={k: v / wall
+                                                      for k, v in row["parts_s"].items()},
+                   card=card, nvidia_smi=smi_line)
+        row["ok"] = bool(row["rounds"] == rounds and row["b4_launches"] == expected
+                         and row["kernel_variants"] == {b4_tc: expected[fused_conv.KERNEL_NAME]}
+                         and row["saves"] == rounds // RUNNER_LONG_STAGE_SAVE_EVERY + 1
+                         and row["nan_recoveries"] == 0 and runner_losses_ok(runner))
+        emit(row)
+        if not row["ok"]:
+            fail("runner", "the long 256 px stage did not train its rounds with B4's "
+                           "tensor-core launches, write each checkpoint once, or keep its "
+                           "losses finite")
+        totals[fused_conv.KERNEL_NAME] += row["b4_launches"][fused_conv.KERNEL_NAME]
+
+        # The TwinGAN slice config from 128 to 256 px.
+        tcfg = RunConfig(program="twingan", train_dir=os.path.join(train_dir, "twingan"),
+                         start_hw=128, max_hw=256, num_images_schedule=RUNNER_TWINGAN_IMAGES,
+                         use_synthetic_data=True, trainer=slice_config(),
+                         log_every_n_steps=1, save_every_n_steps=2, keep_checkpoints=2,
+                         log_image_every_n_iter=0, seed=SEED)
+        rows = []
+        runner = counting_runner(tcfg, rows)
+        summary = runner.run()
+        attn = (attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL)
+        for row in rows:
+            trainer, _ = runner._build_trainer(row["resolution"], row["growing"], row["steps"])
+            per_step = expected_launches(trainer, trainer.build_nets())
+            expected = {k: row["rounds"] * (per_step["g_step"][k] + (trainer.cfg.n_critic - 1)
+                                            * per_step["d_step"][k])
+                        for k in per_step["g_step"]}
+            variants = {f"{k}/{attention.VARIANTS[k][torch.bfloat16]}": expected[k]
+                        for k in attn}
+            row.update(phase="runner", program="twingan", expected_attention=expected,
+                       card=card, nvidia_smi=smi_line)
+            row["ok"] = bool(row["attention_launches"] == expected
+                             and row["kernel_variants"] == variants
+                             and not any(row["b4_launches"].values())
+                             and row["nan_recoveries"] == 0)
+            emit(row)
+            for k in attn:
+                totals[k] = totals.get(k, 0) + row["attention_launches"][k]
+        inferer = ImageInferer(tcfg.train_dir)
+        rng = np.random.RandomState(SEED + 7)
+        images = [rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)
+                  for _ in range(TRAIN_BATCH)]
+        served = inferer.infer_batch(images)
+        plan = [stage_dir_name(r, g) for r, g in stage_plan(tcfg.start_hw, tcfg.max_hw)]
+        ok = ([r["stage"] for r in rows] == plan and all(r["ok"] for r in rows)
+              and runner_losses_ok(runner) and inferer.step == summary["256"]["steps"]
+              and served.shape == (TRAIN_BATCH, 256, 256, 3) and np.isfinite(served).all())
+        emit({"phase": "runner", "check": "TwinGAN slice config, 128 to 256 px, served from "
+                                          "model.pt", "stages": [r["stage"] for r in rows],
+              "served_shape": list(served.shape), "served_finite": bool(np.isfinite(served).all()),
+              "seconds": time.perf_counter() - t_phase, "ok": bool(ok)})
+        if not ok:
+            fail("runner", "the TwinGAN plan did not train its 3 stages with B1-B3's "
+                           "tensor-core launches as the passes imply, keep its losses "
+                           "finite, or serve from its model.pt")
+        return totals
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+
+
 def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
                  plain_ms: float, bound_ms: float, bound_by: str, library_ms: float,
                  **extra) -> dict:
@@ -1236,13 +1490,14 @@ def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
             "library_ms": library_ms, **extra}
 
 
-def fused_conv_entry(layer_rows: list, launches: dict) -> dict:
+def fused_conv_entry(layer_rows: list, launches: dict, runner_launches: int) -> dict:
     """B4's line: the sums over the 13 layers of one pggan256 generator
     pass at batch 12 (each distinct layer's row times its count)."""
     total = lambda key: sum(r[key] * r["layers_per_pass"] for r in layer_rows)  # noqa: E731
     heaviest = max(layer_rows, key=lambda r: r["bound_ms"] * r["layers_per_pass"])
     return kernel_entry(
-        "fused_conv", sum(launches.values()), {"generation": sum(launches.values())},
+        "fused_conv", sum(launches.values()) + runner_launches,
+        {"generation": sum(launches.values()), "runner": runner_launches},
         max(r["max_abs_err"] for r in layer_rows), total("ms"), total("plain_ms"),
         total("bound_ms"), heaviest["bound_by"], total("library_ms"),
         launches_in_generation=launches, variant=heaviest["variant"][0],
@@ -1276,21 +1531,25 @@ def main() -> int:
     train_launches = train_phase(card, smi_line)
     require_no_b4("train")
     generation_launches = generation_phase(card, smi_line)
+    runner_launches = runner_phase(card, smi_line)
     fwd = "flash_attn_fwd"
     entries = [kernel_entry(
-        fwd, serving_launches + train_launches[fwd],
-        {"serving": serving_launches, "train": train_launches[fwd]},
+        fwd, serving_launches + train_launches[fwd] + runner_launches[fwd],
+        {"serving": serving_launches, "train": train_launches[fwd],
+         "runner": runner_launches[fwd]},
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
         serving_row["bound_ms"], serving_row["bound_by"], serving_row["library_ms"],
         variant=serving_row["variant"][0])]
     for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
         entries.append(kernel_entry(
-            name, train_launches[name], {"train": train_launches[name]},
+            name, train_launches[name] + runner_launches[name],
+            {"train": train_launches[name], "runner": runner_launches[name]},
             max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
             train_row["plain_ms"][name], train_row["bound_ms"][name],
             train_row["bound_by"][name], train_row["library_ms"],
             variant=train_row["variant"][name][0]))
-    entries.append(fused_conv_entry(b4_rows, generation_launches))
+    entries.append(fused_conv_entry(b4_rows, generation_launches,
+                                    runner_launches["fused_conv"]))
     emit({"kernels": entries})
     print(smi_line, flush=True)
     import torch

@@ -113,13 +113,13 @@ def run_steps(res=32, growing=False, step=0):
 
     ptrainer = GanTrainer(pcfg, device="cpu")
     fused_conv.reset_launch_counts()
-    g_port, pm_g = ptrainer.g_step(bridge.gan_state_from_flax(ptrainer, state0),
+    g_port, pm_g = ptrainer.g_step(bridge.state_from_flax(ptrainer, state0),
                                    {"target": torch.from_numpy(images[0])},
                                    z=torch.from_numpy(z_g))
     g_routes = dict(fused_conv.launch_counts)
     fused_conv.reset_launch_counts()
     noise = gp_draws(rng, int(state1.critic_step), images[1].shape)
-    d_port, pm_d = ptrainer.d_step(bridge.gan_state_from_flax(ptrainer, state1),
+    d_port, pm_d = ptrainer.d_step(bridge.state_from_flax(ptrainer, state1),
                                    {"target": torch.from_numpy(images[1]),
                                     "source": torch.from_numpy(z_d)}, gp_noise=noise)
     d_routes = dict(fused_conv.launch_counts)
@@ -139,11 +139,29 @@ def _leaves(tree, prefix=""):
     return out
 
 
-def adam_slots(opt_state):
-    """(count, mu, nu) of a JAX Adam state, in the port's layout."""
-    count, slots = bridge._optax_slots(opt_state)
-    return count, *({k: v.numpy() for k, v in bridge.state_dict_from_flax(slots[s]).items()}
-                    for s in ("mu", "nu"))
+def opt_fields(state_dict, side):
+    """(update count, {slot: {path: array}}) of one optimizer of a JAX-layout
+    state dict (a JAX state, or ``bridge.flax_state_dict`` of the port's):
+    the one count of the chain, and each slot's arrays by parameter path."""
+    counts, slots = set(), {}
+    for key, v in bridge.flat_from_flax(state_dict).items():
+        parts = key.split("/")
+        if parts[0] != side:
+            continue
+        if parts[-1] == "count":
+            counts.add(int(v))
+        for i, part in enumerate(parts):
+            if part in ("mu", "nu", "trace"):
+                slots.setdefault(part, {})["/".join(parts[i + 1:])] = v
+    assert len(counts) == 1, counts
+    return counts.pop(), slots
+
+
+def net_params(state_dict, net):
+    """One network's parameters of a JAX-layout state dict, by path."""
+    prefix = f"params/{net}/"
+    return {k[len(prefix):]: v for k, v in bridge.flat_from_flax(state_dict).items()
+            if k.startswith(prefix)}
 
 
 def check_metrics(jm, pm):
@@ -158,19 +176,16 @@ def check_side(jstate, port_state, side, share):
     """One side after its step: the gradient (from Adam's mu and nu), the
     update count, and the parameters (see the module docstring)."""
     opt_name, net = ("gen_opt_state", GEN) if side == "gen" else ("dis_opt_state", DIS)
-    count, mu_ref, nu_ref = adam_slots(getattr(jstate, opt_name))
-    ported = bridge.flax_from_gan_state(port_state)[opt_name]
-    assert ported["count"] == count == 1
-    mu = {k: v.numpy() for k, v in bridge.state_dict_from_flax(ported["mu"]).items()}
-    nu = {k: v.numpy() for k, v in bridge.state_dict_from_flax(ported["nu"]).items()}
+    ported = bridge.flax_state_dict(port_state)
+    count, ref_slots = opt_fields(jstate, opt_name)
+    port_count, slots = opt_fields(ported, opt_name)
+    assert port_count == count == 1
+    mu_ref, nu_ref, mu, nu = ref_slots["mu"], ref_slots["nu"], slots["mu"], slots["nu"]
     assert set(mu) == set(mu_ref)
     g_ref = {k: v / (1 - BETA1) for k, v in mu_ref.items()}
     scale = max(np.abs(v).max() for v in g_ref.values())
     assert scale > 0
-    params_ref = {k[len(net) + 1:]: v.numpy() for k, v in bridge.train_state_dict(
-        jstate.params, jstate.model_state, (net,)).items()}
-    params = {k[len(net) + 1:]: v.detach().numpy() for k, v in port_state.nets.state_dict().items()
-              if k.startswith(net + ".")}
+    params_ref, params = net_params(jstate, net), net_params(ported, net)
     assert set(params) == set(params_ref) == set(mu)
     for k in mu:
         np.testing.assert_allclose(mu[k] / (1 - BETA1), g_ref[k], rtol=GRAD_REL,
@@ -186,7 +201,7 @@ def check_side(jstate, port_state, side, share):
 def check_state_fields(jstate, port_state):
     assert (port_state.step, port_state.critic_step) == (int(jstate.step),
                                                          int(jstate.critic_step))
-    out = bridge.flax_from_gan_state(port_state)
+    out = bridge.flax_state_dict(port_state)
     for k in ("gdrop_strength", "gen_loss_ema"):
         np.testing.assert_allclose(out[k], np.asarray(getattr(jstate, k)), rtol=1e-5,
                                    atol=1e-6, err_msg=k)
@@ -198,15 +213,16 @@ def check_g_step(steps, share=GEN_GRAD_SHARE):
     check_state_fields(s1, port)
     # The Polyak average moved by 0.1 of each parameter's move.
     ema_ref = _leaves(s1.gen_ema_params)
-    ema = _leaves(bridge.flax_from_gan_state(port)["gen_ema_params"])
+    ported = bridge.flax_state_dict(port)
+    ema = _leaves(ported["gen_ema_params"])
     assert set(ema) == set(ema_ref)
     for k in ema:
         np.testing.assert_allclose(ema[k], ema_ref[k], rtol=0,
                                    atol=0.1 * 2 * LR + STATE_ATOL, err_msg=k)
     # The discriminator did not move.
+    dis = _leaves(ported["params"][DIS])
     for k, v in _leaves(steps["state0"].params[DIS]).items():
-        np.testing.assert_array_equal(_leaves(bridge.flax_from_gan_state(port)["params"][DIS])[k],
-                                      v, err_msg=k)
+        np.testing.assert_array_equal(dis[k], v, err_msg=k)
 
 
 def check_d_step(steps, share=DIS_GRAD_SHARE):
@@ -219,7 +235,7 @@ def check_sample(steps):
     """``sample`` of the JAX state after both steps, bridged: the Polyak
     average in eval mode with no gradient (B4's route)."""
     ptrainer = steps["ptrainer"]
-    state = bridge.gan_state_from_flax(ptrainer, steps["state2"])
+    state = bridge.state_from_flax(ptrainer, steps["state2"])
     fused_conv.reset_launch_counts()
     out = ptrainer.sample(state, torch.from_numpy(steps["z_s"]))
     assert fused_conv.launch_counts[fused_conv.AUTOGRAD_ROUTE] == 0
@@ -265,7 +281,7 @@ def test_eval_metrics_leaves_the_state_untouched(steps):
     """The G step's metrics (JAX eval_metrics returns _g_step's), and the
     caller's state as it was."""
     ptrainer = steps["ptrainer"]
-    state = bridge.gan_state_from_flax(ptrainer, steps["state0"])
+    state = bridge.state_from_flax(ptrainer, steps["state0"])
     before = {k: v.clone() for k, v in state.nets.state_dict().items()}
     ema_before = {k: v.clone() for k, v in state.gen_ema_params.items()}
     slots_before = state.gen_opt.slots()
@@ -294,28 +310,25 @@ def test_gan_state_bridge_round_trips(steps, norm_type):
         jcfg, pcfg = configs(res=8, norm_type=norm_type)
         jstate = initial_state(JaxGanTrainer(jcfg), step=2)
         ptrainer = GanTrainer(pcfg, device="cpu")
-    out = bridge.flax_from_gan_state(bridge.gan_state_from_flax(ptrainer, jstate))
-    for field in ("params", "model_state", "gen_ema_params"):
-        ref, got = _leaves(getattr(jstate, field)), _leaves(out[field])
-        assert got.keys() == ref.keys(), field
-        for k in ref:
-            np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{field}.{k}")
+    ref = bridge.flat_from_flax(jstate)
+    got = bridge.flat_from_flax(bridge.flax_state_dict(bridge.state_from_flax(ptrainer, jstate)))
+    assert got.keys() == ref.keys()
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     assert bool(_leaves(jstate.model_state)) == (norm_type == "batch_norm")
-    for side in ("gen_opt_state", "dis_opt_state"):
-        count, slots = bridge._optax_slots(getattr(jstate, side))
-        assert out[side]["count"] == count
-        for s in ("mu", "nu"):
-            ref, got = _leaves(slots[s]), _leaves(out[side][s])
-            assert got.keys() == ref.keys()
-            for k in ref:
-                np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{side}.{s}.{k}")
-    for k in ("step", "critic_step", "gdrop_strength", "gen_loss_ema"):
-        assert out[k] == getattr(jstate, k), k
+    # Each Adam chain's two counts and its slots, the counters and the gdrop state.
+    sides = ("gen_opt_state", "dis_opt_state")
+    assert {k for k in ref if k.endswith("count")} == {f"{side}/{i}/count" for side in sides
+                                                       for i in (0, 1)}
+    for side in sides:
+        for slot in ("mu", "nu"):
+            assert any(k.startswith(f"{side}/0/{slot}/") for k in ref), (side, slot)
+    assert {"step", "critic_step", "gdrop_strength", "gen_loss_ema"} <= ref.keys()
 
 
 def test_sample_without_a_polyak_average_uses_the_parameters(steps):
     ptrainer = steps["ptrainer"]
-    state = bridge.gan_state_from_flax(ptrainer, steps["state2"])
+    state = bridge.state_from_flax(ptrainer, steps["state2"])
     state.gen_ema_params = None
     z = torch.from_numpy(steps["z_s"])
     out = ptrainer.sample(state, z)

@@ -216,13 +216,13 @@ def check_grads(jgrads, recorder, names, share):
                                        err_msg=k)
 
 
-def check_state(jparams, jmodel_state, port_state, names):
+def check_state(jparams, jmodel_state, port_state, names, atol=STATE_ATOL):
     ref = {k: v.numpy() for k, v in bridge.train_state_dict(jparams, jmodel_state, names).items()}
     got = {k: v.numpy() for k, v in port_state.nets.state_dict().items()
            if k.split(".", 1)[0] in names}
     assert set(ref) == set(got)
     for k in ref:
-        np.testing.assert_allclose(got[k], ref[k], atol=STATE_ATOL, rtol=0, err_msg=k)
+        np.testing.assert_allclose(got[k], ref[k], atol=atol, rtol=0, err_msg=k)
 
 
 GEN_SIDE = ("encoder_content", "generator")

@@ -13,7 +13,10 @@ SAGAN self-attention on hand-written CUDA flash-attention kernels, forward
 (``csrc/flash_attn_fwd.cu``) and backward (``csrc/flash_attn_bwd.cu``);
 256 px PGGAN generation (``train.gan_trainer.GanTrainer``), whose
 generator runs its conv-leaky-pixel-norm layers on the hand-written fused
-conv kernel (``csrc/fused_conv.cu``) wherever no gradient is needed.
+conv kernel (``csrc/fused_conv.cu``) wherever no gradient is needed;
+and progressive training, 4 px to 256 px stage by stage with growth
+migration and resumable checkpoints (``runner.stage_runner.StageRunner``,
+the CLI ``python -m twingan_tpu_torch.runner.pggan_runner``).
 Public functions take NHWC tensors, like the JAX package; modules compute
 in NCHW views of the same memory.
 """

@@ -13,27 +13,30 @@ state (``params``/``model_state`` keyed by network name):
   the Flax [in, out] layout;
 - every other leaf is copied as it is.
 
-A GanTrainer (generation) state crosses whole (``gan_state_from_flax`` and
-``flax_from_gan_state``): both networks, both optimizers' update counts
-and slots (Adam's mu and nu, momentum's trace, in the parameters' layout),
-the counters, the gdrop state and the Polyak average. The optax state is
-read by its field names (``mu``, ``nu``, ``trace``, ``count``), without
-importing optax.
+A whole train state, of either trainer, crosses through the flat state
+dict of ``train.state.state_to_dict``, whose keys are the JAX state dict's
+paths: ``flat_from_flax`` flattens a JAX state (or an Orbax restore of
+one) as ``flax.serialization.to_state_dict`` would, without importing
+flax or optax, and ``torch_flat``/``flax_flat`` convert its leaves'
+layout. ``state_from_flax`` and its inverse ``flax_state_dict`` carry
+every field: the networks' parameters and moving statistics, both
+optimizers' update counts and slots (Adam's mu and nu, momentum's trace),
+the counters, the gdrop state and the Polyak average.
+``twingan_state_from_flax``/``flax_from_twingan_state`` carry a TwinGAN
+state's networks only, with fresh optimizers.
 
 The conversion is exact both ways. Imports numpy and torch only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
-from twingan_tpu_torch.train import gan_trainer
-from twingan_tpu_torch.train.gan_trainer import GanTrainer
-from twingan_tpu_torch.train.optimizers import SLOTS
-from twingan_tpu_torch.train.state import GanTrainState
+from twingan_tpu_torch.train.state import GanTrainState, state_from_dict, state_to_dict
 from twingan_tpu_torch.train.twingan_trainer import ENC, GEN, TwinGANTrainer
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
@@ -127,11 +130,79 @@ def translator_state_dict(params: Mapping[str, Any],
     return train_state_dict(params, model_state, (ENC, GEN))
 
 
+def flat_from_flax(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+    """A JAX state with numpy leaves (``jax.device_get``), or the nested
+    dict of an Orbax restore, flattened as ``flax.serialization.
+    to_state_dict`` lays it out: dataclass fields, dict keys, NamedTuple
+    fields and tuple indices joined with ``/``; None and empty states leave
+    nothing."""
+    if tree is None:
+        return {}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        items = [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, Mapping):
+        items = list(tree.items())
+    elif hasattr(tree, "_fields"):
+        items = [(f, getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, (tuple, list)):
+        items = list(enumerate(tree))
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(flat_from_flax(v, f"{prefix}{k}/"))
+    return out
+
+
+def torch_flat(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """JAX-layout leaves -> the port's tensors (conv kernels HWIO -> OIHW)."""
+    out = {}
+    for key, arr in flat.items():
+        arr = np.asarray(arr)
+        if _is_conv_kernel(key, arr):
+            arr = arr.transpose(_HWIO_TO_OIHW)
+        out[key] = torch.from_numpy(np.array(arr))  # a writable copy
+    return out
+
+
+def flax_flat(flat: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of ``torch_flat``."""
+    out = {}
+    for key, t in flat.items():
+        arr = t.detach().cpu().numpy()
+        out[key] = np.ascontiguousarray(arr.transpose(_OIHW_TO_HWIO)) if _is_conv_kernel(
+            key, arr) else arr
+    return out
+
+
+def state_from_flax(trainer, jax_state: Any) -> GanTrainState:
+    """A whole JAX train state (numpy leaves) -> the port's state on the
+    trainer's device: networks, optimizer counts and slots, counters and
+    Polyak average."""
+    state = trainer.state_from_nets(trainer.build_nets())
+    return state_from_dict(state, torch_flat(flat_from_flax(jax_state)))
+
+
+def flax_state_dict(state: GanTrainState) -> dict:
+    """Inverse of ``state_from_flax``: the nested JAX state dict (numpy
+    leaves), as ``flax.serialization.to_state_dict`` of the JAX state;
+    ``flax.serialization.from_state_dict`` loads it into a JAX template."""
+    tree: dict = {}
+    for key, arr in flax_flat(state_to_dict(state)).items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return tree
+
+
 def twingan_state_from_flax(trainer: TwinGANTrainer, params: Mapping[str, Any],
                             model_state: Mapping[str, Any], step: int = 0,
                             critic_step: int = 0) -> GanTrainState:
-    """A port train state holding a JAX TwinGAN state's four networks, on
-    the trainer's device, with fresh optimizers (as ``init_state`` has)."""
+    """A JAX TwinGAN state's four networks -> a port state on the trainer's
+    device, with fresh optimizers (as ``init_state`` has) and the counters
+    given. ``state_from_flax`` carries the whole state."""
     nets = trainer.build_nets()
     nets.load_state_dict(train_state_dict(params, model_state, tuple(nets.keys())),
                          strict=True)
@@ -139,77 +210,6 @@ def twingan_state_from_flax(trainer: TwinGANTrainer, params: Mapping[str, Any],
 
 
 def flax_from_twingan_state(state: GanTrainState) -> tuple[dict, dict]:
-    """A port TwinGAN state's networks -> the JAX (params, model_state)."""
+    """Inverse of ``twingan_state_from_flax``: the networks as the JAX
+    (params, model_state)."""
     return flax_train_state(state.nets.state_dict(), tuple(state.nets.keys()))
-
-
-GAN_NETS = (gan_trainer.GEN, gan_trainer.DIS)
-
-
-def _optax_slots(opt_state: Any) -> tuple[int, dict]:
-    """(update count, {slot: param tree}) of an optax state: the first
-    ``count`` field met and every ``mu``/``nu``/``trace`` field, through
-    the nested tuples and NamedTuples of a chain."""
-    found: dict = {}
-
-    def walk(node):
-        fields = getattr(node, "_fields", None)
-        if fields is None:
-            if isinstance(node, (tuple, list)):
-                for v in node:
-                    walk(v)
-            return
-        for f in fields:
-            v = getattr(node, f)
-            if f == "count":
-                found.setdefault("count", int(np.asarray(v)))
-            elif f in ("mu", "nu", "trace"):
-                found.setdefault("slots", {})[f] = v
-            else:
-                walk(v)
-
-    walk(opt_state)
-    if "count" not in found:
-        raise ValueError("no update count in the optimizer state")
-    return found["count"], found.get("slots", {})
-
-
-def gan_state_from_flax(trainer: GanTrainer, jax_state: Any) -> GanTrainState:
-    """A JAX ``GanTrainState`` with numpy leaves (``jax.device_get``) -> the
-    port's state on the trainer's device, every field carried."""
-    nets = trainer.build_nets()
-    nets.load_state_dict(train_state_dict(jax_state.params, jax_state.model_state, GAN_NETS),
-                         strict=True)
-    state = trainer.state_from_nets(nets, step=int(jax_state.step),
-                                    critic_step=int(jax_state.critic_step))
-    for opt, opt_state in ((state.gen_opt, jax_state.gen_opt_state),
-                           (state.dis_opt, jax_state.dis_opt_state)):
-        count, slots = _optax_slots(opt_state)
-        if set(slots) != set(SLOTS[opt.cfg.optimizer]):
-            raise ValueError(f"optimizer state holds {sorted(slots)}, "
-                             f"{opt.cfg.optimizer} needs {sorted(SLOTS[opt.cfg.optimizer])}")
-        opt.load_slots(count, {k: state_dict_from_flax(tree) for k, tree in slots.items()})
-    device = trainer.device
-    state.gdrop_strength = torch.tensor(float(jax_state.gdrop_strength), device=device)
-    state.gen_loss_ema = torch.tensor(float(jax_state.gen_loss_ema), device=device)
-    if jax_state.gen_ema_params is not None:
-        state.gen_ema_params = {k: v.to(device)
-                                for k, v in state_dict_from_flax(jax_state.gen_ema_params).items()}
-    return state
-
-
-def flax_from_gan_state(state: GanTrainState) -> dict[str, Any]:
-    """Inverse of ``gan_state_from_flax``: the JAX state's fields as a dict
-    of numpy trees; each optimizer state as ``{"count": int, slot: tree}``
-    (zeros for the frozen parameters, which the port keeps no slots for)."""
-    params, model_state = flax_train_state(state.nets.state_dict(), GAN_NETS)
-    out = {"step": state.step, "critic_step": state.critic_step, "params": params,
-           "model_state": model_state,
-           "gdrop_strength": np.float32(float(state.gdrop_strength)),
-           "gen_loss_ema": np.float32(float(state.gen_loss_ema)),
-           "gen_ema_params": (None if state.gen_ema_params is None
-                              else flax_from_state_dict(state.gen_ema_params)[0])}
-    for side, opt in (("gen_opt_state", state.gen_opt), ("dis_opt_state", state.dis_opt)):
-        out[side] = {"count": opt.count, **{k: flax_from_state_dict(sd)[0]
-                                            for k, sd in opt.slots().items()}}
-    return out

@@ -1,1 +1,2 @@
-"""Stage checkpoints and config files of the port."""
+"""The progressive-growth stage runner, its CLI, checkpoints, migration and
+config files."""

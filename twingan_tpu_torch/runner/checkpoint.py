@@ -1,11 +1,21 @@
-"""Stage checkpoints of the port: ``config.json`` + ``model.pt``.
+"""Train-state checkpoints, stage serving files and config snapshots.
 
-Counterpart of ``twingan_tpu/runner/checkpoint.py`` for serving. A stage
-directory holds the config snapshot in the JAX runner's JSON schema
-(``{"run": ..., "trainer": ...}``) and ``model.pt``, a ``torch.save`` of
-``{"step": int, "state_dict": TwinGANTranslator.state_dict()}``. Orbax
-checkpoints of the JAX package become such a directory through
-``bridge.py``.
+Counterpart of ``twingan_tpu/runner/checkpoint.py``. ``CheckpointManager``
+keeps step-keyed checkpoints of the whole train state under one stage
+directory, ``ckpt-<step>/state.pt``: a ``torch.save`` of the flat dict of
+``train.state.state_to_dict`` (JAX state-dict paths, CPU tensors), read
+back with ``weights_only=True``. Restoring matches leaves by path and
+shape (``runner/migrate.py``), as the JAX manager does, so a new optional
+field never orphans a checkpoint, and a resume that carries no parameter
+is refused.
+
+Beside the checkpoints a stage directory holds ``config.json``, the config
+snapshot in the JAX runner's schema (``{"run": ..., "trainer": ...}``),
+and ``model.pt``, the serving unit: a ``torch.save`` of ``{"step": int,
+"state_dict": ...}`` with ``TwinGANTranslator.state_dict()`` for a TwinGAN
+stage or the generator's (``generator.``-prefixed) for a generation stage.
+Orbax checkpoints of the JAX package become such a directory through
+``tools/orbax_to_torch_stage.py``.
 """
 
 from __future__ import annotations
@@ -13,11 +23,90 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Mapping
+import re
+import shutil
+from typing import Any, Mapping, Optional
 
 import torch
 
+from twingan_tpu_torch.runner.migrate import migrate_state_dict
+from twingan_tpu_torch.train.state import state_from_dict, state_to_dict
+
 MODEL_FILE = "model.pt"
+STATE_FILE = "state.pt"
+_STEP_RE = re.compile(r"^ckpt-(\d+)$")
+
+
+class CheckpointManager:
+    """Step-keyed train-state checkpoints under one stage directory."""
+
+    def __init__(self, train_dir: str):
+        self.train_dir = os.path.abspath(train_dir)
+        os.makedirs(self.train_dir, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self.train_dir, f"ckpt-{step}")
+
+    def all_steps(self) -> list[int]:
+        steps = []
+        for name in os.listdir(self.train_dir):
+            m = _STEP_RE.match(name)
+            if m and os.path.isfile(os.path.join(self.train_dir, name, STATE_FILE)):
+                steps.append(int(m.group(1)))
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: Any, keep: int = 3) -> str:
+        """Save ``state`` (a ``GanTrainState`` or a flat dict) at ``step``;
+        keeps ``keep`` checkpoints (all for keep <= 0), never pruning the
+        one just written even when it sorts below the others."""
+        path = self._path(step)
+        flat = state if isinstance(state, Mapping) else state_to_dict(state)
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save({k: v.detach().cpu() for k, v in flat.items()}, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+        if keep > 0:
+            prunable = [s for s in self.all_steps() if s != step]
+            for old in prunable[: -(keep - 1)] if keep > 1 else prunable:
+                shutil.rmtree(self._path(old), ignore_errors=True)
+        return path
+
+    def restore_dict(self, step: Optional[int] = None) -> Optional[dict]:
+        """The raw flat state dict (CPU tensors), or None if no checkpoint
+        exists."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            return None
+        return torch.load(os.path.join(self._path(step), STATE_FILE), map_location="cpu",
+                          weights_only=True)
+
+    def restore(self, template_state: Any, step: Optional[int] = None) -> Optional[Any]:
+        """Restore into a fresh template state, in place (same-stage
+        resume), matching leaves by path and shape; None if there is no
+        checkpoint. Refuses a checkpoint that carries no parameter."""
+        raw = self.restore_dict(step)
+        if raw is None:
+            return None
+        template = state_to_dict(template_state)
+        merged, report = migrate_state_dict(template, raw, reset_paths=())
+        # A resume that carries nothing is a config/checkpoint mismatch:
+        # fresh params under a carried step counter would train garbage
+        # labelled 'resumed' and prune the good checkpoints.
+        if not any(p.startswith("params") for p in report["carried"]):
+            raise ValueError(
+                f"checkpoint in {self.train_dir} matches no parameter of the "
+                "current model (config changed between runs?); refusing a "
+                f"silent fresh start. Report: { {k: len(v) for k, v in report.items()} }")
+        if report["shape_mismatch"]:
+            print(f"[checkpoint] WARNING: {len(report['shape_mismatch'])} "
+                  f"leaves shape-mismatched on restore and keep fresh init: "
+                  f"{report['shape_mismatch'][:5]}...")
+        return state_from_dict(template_state, merged)
 
 
 def _jsonable(obj):
@@ -30,14 +119,26 @@ def _jsonable(obj):
     return obj
 
 
+def save_config_snapshot(train_dir: str, config: Any, name: str = "config.json") -> str:
+    """Dump the nested config (dataclasses, dicts) as JSON."""
+    os.makedirs(train_dir, exist_ok=True)
+    path = os.path.join(train_dir, name)
+    with open(path, "w") as f:
+        json.dump(_jsonable(config), f, indent=2, default=str)
+    return path
+
+
 def save_stage(stage_dir: str, trainer_cfg: Any, state_dict: Mapping[str, torch.Tensor],
                step: int = 0, run: Mapping[str, Any] | None = None) -> str:
     """Write ``config.json`` (the JAX runner's schema) and ``model.pt``
     into ``stage_dir``."""
+    save_config_snapshot(stage_dir, {"run": dict(run or {}), "trainer": trainer_cfg})
+    return save_model(stage_dir, state_dict, step)
+
+
+def save_model(stage_dir: str, state_dict: Mapping[str, torch.Tensor], step: int) -> str:
+    """Write ``model.pt`` alone, beside a config the runner already wrote."""
     os.makedirs(stage_dir, exist_ok=True)
-    with open(os.path.join(stage_dir, "config.json"), "w") as f:
-        json.dump(_jsonable({"run": dict(run or {}), "trainer": trainer_cfg}), f,
-                  indent=2, default=str)
     path = os.path.join(stage_dir, MODEL_FILE)
     cpu = {k: v.detach().cpu() for k, v in state_dict.items()}
     torch.save({"step": int(step), "state_dict": cpu}, path)

@@ -1,0 +1,578 @@
+"""Progressive-growth stage runner.
+
+Counterpart of ``twingan_tpu/runner/stage_runner.py``:
+- the stage plan: resolutions start_hw..max_hw doubling, a growing stage
+  before the stable one at each new resolution; stage dirs ``4``,
+  ``4to8``, ``8``, ...;
+- the per-resolution batch schedules and steps per stage
+  (``num_images_per_resolution`` / batch);
+- a stage whose checkpoint reached its steps is skipped; a stage with a
+  checkpoint resumes from it; otherwise it warm-starts from the last stage
+  (or ``checkpoint_path``) by growth migration (``runner/migrate.py``);
+- per stage: ``config.json`` in the JAX schema, ``ckpt-<step>`` train-state
+  checkpoints on the save cadence and at the end (where the cadence has
+  not just written the last step: the JAX runner writes it again),
+  ``model.pt`` (the serving unit) beside the final one,
+  ``logs/metrics.jsonl``.
+
+Each stage builds a new trainer at its resolution and drives it with the
+same loop as the JAX runner: augmented synthetic batches, ``round_step``
+(or ``scan_rounds`` over stacked batches with ``rounds_per_scan > 1``),
+cadences that fire when the step crosses a multiple of their period, NaN
+recovery from the last checkpoint with a budget, the optional deferred
+probe (``async_probe``), the transfer bound, and a ``torch.profiler``
+trace. The round's seed is ``seed + 17``, the augmentation's
+``seed + 13``.
+
+The stage summary adds the split of a stage's time: ``build_s`` (trainer
+and fresh state), ``restore_s`` (resume or migration), ``rounds_s`` and
+``saves_s`` (checkpoints and ``model.pt``, ``saves`` of them); the NaN
+recoveries it took; and ``started``, where its state came from (the
+migration report's counts, or the step it resumed at).
+
+Not ported yet, raising ``NotImplementedError``: real data (``dataset_dir``
+without ``use_synthetic_data``; A10), the in-training SWD
+(``eval_every_n_iter_in_training``; A11) and several devices
+(``num_devices > 1``; A9). ``device_resident_gb`` applies to real data
+only and is inert until A10.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from twingan_tpu_torch.data.pipeline import SyntheticSource
+from twingan_tpu_torch.data.preprocess import (
+    PreprocessConfig,
+    augment_batch,
+    postprocess_image,
+    resize_bilinear,
+)
+from twingan_tpu_torch.models.pggan import noise_shape
+from twingan_tpu_torch.runner.checkpoint import (
+    CheckpointManager,
+    save_config_snapshot,
+    save_model,
+)
+from twingan_tpu_torch.runner.migrate import migrate_state_dict
+from twingan_tpu_torch.train import gan_trainer, twingan_trainer
+from twingan_tpu_torch.train.base import resolve_device
+from twingan_tpu_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
+from twingan_tpu_torch.train.state import serving_state_dict, state_from_dict, state_to_dict
+from twingan_tpu_torch.train.twingan_trainer import TwinGANConfig, TwinGANTrainer
+from twingan_tpu_torch.utils.image_io import save_image_grid, stack_comparison
+from twingan_tpu_torch.utils.summary import SummaryWriter
+
+PGGAN_BATCH_SCHEDULE = {4: 16, 8: 16, 16: 16, 32: 16, 64: 12, 128: 12, 256: 12, 512: 6}
+TWINGAN_BATCH_SCHEDULE = {4: 8, 8: 8, 16: 8, 32: 8, 64: 8, 128: 4, 256: 3, 512: 2}
+
+
+def stage_plan(start_hw: int, max_hw: int) -> list[tuple[int, bool]]:
+    """[(resolution, is_growing)]: growing first at each new resolution,
+    no growing stage at start_hw."""
+    plan = []
+    res = start_hw
+    while res <= max_hw:
+        if res != start_hw:
+            plan.append((res, True))
+        plan.append((res, False))
+        res *= 2
+    return plan
+
+
+def stage_dir_name(res: int, growing: bool) -> str:
+    return f"{res // 2}to{res}" if growing else str(res)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """The JAX ``RunConfig`` field for field (same names, order and
+    defaults), so a JAX stage's ``config.json`` loads."""
+    program: str = "twingan"                 # twingan | image_generation
+    train_dir: str = "/tmp/twingan_tpu_train"
+    start_hw: int = 4
+    max_hw: int = 64
+    num_images_per_resolution: int = 300000
+    num_images_schedule: Optional[dict] = None   # res -> images override
+    batch_schedule: Optional[dict] = None        # res -> batch size override
+    dataset_name: str = "image_only"
+    dataset_dir: str = ""
+    dataset_split: str = "train"
+    target_dataset_name: str = "image_only"
+    target_dataset_dir: str = ""
+    use_synthetic_data: bool = False
+    vocab_file: str = ""
+    resize_mode: str = "PAD"
+    color_space: str = "rgb"
+    do_random_cropping: bool = False
+    subtract_mean: bool = False
+    trainer: Any = None
+    log_every_n_steps: int = 10
+    save_every_n_steps: int = 2000
+    log_image_every_n_iter: int = 2000
+    log_image_n_per_hw: int = 8
+    custom_sources_np_path: str = ""
+    eval_every_n_iter_in_training: int = 0
+    log_histograms_every_n_iter: int = 0
+    keep_checkpoints: int = 3
+    profile_stage_steps: int = 0
+    rounds_per_scan: int = 1
+    checkpoint_path: str = ""
+    checkpoint_exclude_scopes: tuple = ()
+    max_nan_recoveries: int = 3
+    num_devices: int = 0
+    seed: int = 0
+    max_stages_per_run: int = 0
+    max_transfer_gb_per_run: float = 0.0
+    device_resident_gb: float = 4.0
+    skip_start_stage: bool = False
+    async_probe: bool = False
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+def require_ported_run(cfg: RunConfig) -> None:
+    """Raise ``NotImplementedError`` for the runner options whose modules
+    the port lacks, naming their queue item."""
+    unported = [
+        ("real data (dataset_dir without use_synthetic_data; queue item A10)",
+         bool(cfg.dataset_dir) and not cfg.use_synthetic_data),
+        ("eval_every_n_iter_in_training (the in-training SWD; queue item A11)",
+         cfg.eval_every_n_iter_in_training > 0),
+        ("num_devices > 1 (data parallelism; queue item A9)", cfg.num_devices > 1),
+    ]
+    for name, is_set in unported:
+        if is_set:
+            raise NotImplementedError(f"{name} is not ported to twingan_tpu_torch yet")
+
+
+class StageRunner:
+    """Runs the stage plan of ``cfg`` on the CUDA card unless ``device`` says
+    otherwise (``device="cpu"``)."""
+
+    def __init__(self, cfg: RunConfig, device: Optional[str | torch.device] = None):
+        require_ported_run(cfg)
+        if cfg.trainer is None:
+            trainer = TwinGANConfig() if cfg.program == "twingan" else GanTrainerConfig()
+            cfg = cfg.replace(trainer=trainer)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.metrics_log: list = []
+
+    def batch_size(self, res: int) -> int:
+        sched = self.cfg.batch_schedule or (
+            TWINGAN_BATCH_SCHEDULE if self.cfg.program == "twingan" else PGGAN_BATCH_SCHEDULE)
+        return sched.get(res) or sched[max(sched)]
+
+    def steps_for_stage(self, res: int) -> int:
+        images = self.cfg.num_images_per_resolution
+        if self.cfg.num_images_schedule:
+            images = self.cfg.num_images_schedule.get(res, images)
+        return max(1, images // self.batch_size(res))
+
+    def _build_trainer(self, res: int, growing: bool, steps: int):
+        model = self.cfg.trainer.model.replace(resolution=res, is_growing=growing)
+        tcfg = self.cfg.trainer.replace(model=model, batch_size=self.batch_size(res),
+                                        max_steps=steps, grow_start_step=0)
+        if self.cfg.program == "twingan":
+            return TwinGANTrainer(tcfg, device=self.device), tcfg
+        return GanTrainer(tcfg, device=self.device), tcfg
+
+    def _preprocess_cfg(self, res: int) -> PreprocessConfig:
+        return PreprocessConfig(
+            output_hw=res, resize_mode=self.cfg.resize_mode, color_space=self.cfg.color_space,
+            do_random_cropping=self.cfg.do_random_cropping,
+            subtract_mean=self.cfg.subtract_mean, is_training=True)
+
+    def _build_data(self, res: int, batch: int) -> SyntheticSource:
+        keys = ("source", "target") if self.cfg.program == "twingan" else ("target",)
+        return SyntheticSource(batch, self._preprocess_cfg(res).host_hw, seed=self.cfg.seed,
+                               keys=keys)
+
+    @staticmethod
+    def _serving_state_dict(trainer, state) -> dict:
+        """``model.pt``'s content: the translator (TwinGAN) or the generator,
+        with the Polyak average where it is kept."""
+        flat = state_to_dict(state)
+        if isinstance(trainer, TwinGANTrainer):
+            return serving_state_dict(flat, (twingan_trainer.ENC, twingan_trainer.GEN))
+        return serving_state_dict(flat, (gan_trainer.GEN,), ema_net=gan_trainer.GEN)
+
+    # ------------------------------------------------------------------ #
+    def run(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        os.makedirs(cfg.train_dir, exist_ok=True)
+        prev_stage_dir: Optional[str] = None
+        summary: Dict[str, Any] = {}
+        executed = 0
+        for i, (res, growing) in enumerate(stage_plan(cfg.start_hw, cfg.max_hw)):
+            tag = stage_dir_name(res, growing)
+            if i == 0 and cfg.skip_start_stage and cfg.checkpoint_path:
+                # The external checkpoint is the plan's first stage: the next
+                # stage grows from it directly.
+                print(f"[stage {tag}] supplied by --checkpoint_path {cfg.checkpoint_path}; "
+                      "skipping")
+                prev_stage_dir = cfg.checkpoint_path
+                summary[tag] = {"skipped": True, "external": cfg.checkpoint_path}
+                continue
+            stage_dir = os.path.join(cfg.train_dir, tag)
+            steps = self.steps_for_stage(res)
+            cm = CheckpointManager(stage_dir)
+            latest = cm.latest_step()
+            if latest is not None and latest >= steps:
+                print(f"[stage {tag}] complete at step {latest}; skipping")
+                prev_stage_dir = stage_dir
+                summary[tag] = {"skipped": True, "step": latest}
+                continue
+            if cfg.max_stages_per_run and executed >= cfg.max_stages_per_run:
+                summary["_incomplete"] = True
+                return summary
+            info = self._run_stage(res, growing, steps, stage_dir, prev_stage_dir, cm)
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()  # the last stage's state is gone
+            summary[tag] = info
+            if info.get("partial"):
+                summary["_incomplete"] = True
+                return summary
+            prev_stage_dir = stage_dir
+            executed += 1
+        return summary
+
+    def _run_stage(self, res: int, growing: bool, steps: int, stage_dir: str,
+                   prev_stage_dir: Optional[str], cm: CheckpointManager) -> Dict[str, Any]:
+        cfg = self.cfg
+        tag = stage_dir_name(res, growing)
+        t_build = time.perf_counter()
+        trainer, tcfg = self._build_trainer(res, growing, steps)
+        save_config_snapshot(stage_dir, {"run": cfg.replace(trainer=None), "trainer": tcfg})
+        state = trainer.init_state(cfg.seed)
+        writer = SummaryWriter(os.path.join(stage_dir, "logs"))
+        t_restore = time.perf_counter()
+
+        start_step = 0
+        started = {"from": None}  # where the stage's state came from
+        latest = cm.latest_step()
+        if latest is not None:
+            state = cm.restore(state, latest)
+            start_step = state.step
+            started = {"from": stage_dir, "resumed_at": start_step}
+            print(f"[stage {tag}] resumed at step {start_step}")
+        elif prev_stage_dir is not None or cfg.checkpoint_path:
+            source = prev_stage_dir or cfg.checkpoint_path
+            raw = CheckpointManager(source).restore_dict()
+            if raw is not None:
+                migrated, report = migrate_state_dict(
+                    state_to_dict(state), raw,
+                    exclude_scopes=(tuple(cfg.checkpoint_exclude_scopes)
+                                    if prev_stage_dir is None else ()))
+                state = state_from_dict(state, migrated)
+                del raw, migrated
+                started = {"from": source, **{k: len(v) for k, v in report.items()}}
+                print(f"[stage {tag}] warm start from {source}: "
+                      f"{len(report['carried'])} carried, {len(report['fresh'])} fresh, "
+                      f"{len(report['shape_mismatch'])} shape-mismatched")
+        t_start = time.perf_counter()
+        times = {"build_s": t_restore - t_build, "restore_s": t_start - t_restore,
+                 "saves_s": 0.0, "saves": 0}
+        last_saved = {"step": None}
+
+        def save(step: int, st) -> None:
+            t0 = time.perf_counter()
+            cm.save(step, st, keep=cfg.keep_checkpoints)
+            times["saves_s"] += time.perf_counter() - t0
+            times["saves"] += 1
+            last_saved["step"] = step
+
+        data_iter = iter(self._build_data(res, trainer.cfg.batch_size))
+        pp = self._preprocess_cfg(res)
+        aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 13)
+        rng = cfg.seed + 17
+        n_critic = trainer.cfg.n_critic
+        want_fixed = bool(cfg.log_image_every_n_iter)
+        fixed_batch: Dict[str, np.ndarray] = {}
+        staged = {"bytes": 0}
+
+        def put(x: np.ndarray) -> torch.Tensor:
+            staged["bytes"] += x.nbytes
+            return torch.from_numpy(x).to(self.device)
+
+        def prepare(raw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+            # sorted: the draw order must not depend on dict order.
+            return {k: (augment_batch(put(raw[k]), pp, generator=aug_gen)
+                        if k in ("source", "target") else put(raw[k])) for k in sorted(raw)}
+
+        def next_batches():
+            batches = [prepare(next(data_iter)) for _ in range(n_critic)]
+            if want_fixed and not fixed_batch:
+                fixed_batch.update({k: v.float().cpu().numpy() for k, v in batches[0].items()})
+            return batches
+
+        def scan_chunk(state, n_rounds):
+            """n_rounds rounds through ``scan_rounds``: every host batch of
+            the chunk stacked ([R, n_critic, B, ...]), staged and augmented
+            at once per key."""
+            raw = [[next(data_iter) for _ in range(n_critic)] for _ in range(n_rounds)]
+            stacked = {}
+            for k in sorted(raw[0][0]):
+                arr = np.stack([np.stack([raw[r][c][k] for c in range(n_critic)])
+                                for r in range(n_rounds)])
+                x = put(arr)
+                if k in ("source", "target"):
+                    flat = augment_batch(x.reshape((-1,) + x.shape[3:]), pp, generator=aug_gen)
+                    x = flat.reshape(x.shape[:3] + flat.shape[1:])
+                stacked[k] = x
+            if want_fixed and not fixed_batch:
+                fixed_batch.update({k: v[0, 0].float().cpu().numpy() for k, v in stacked.items()})
+            state, metrics = trainer.scan_rounds(state, stacked, rng)
+            return state, {k: v[-1] for k, v in metrics.items()}
+
+        last_log = time.perf_counter()
+        last_log_step = start_step
+        nan_recoveries = 0
+        profiler = None
+        profiled = False
+        cadence_idx: dict = {}
+        paused = False
+        pending_probe = None
+
+        def nonfinite(m) -> bool:
+            probe = float(m.get("generator_loss", 0.0)) + float(m.get("discriminator_loss", 0.0))
+            return not np.isfinite(probe)
+
+        def recover_from_nan(at_step: int):
+            """Restore the last checkpoint into a fresh state (raises once the
+            budget is spent)."""
+            nonlocal nan_recoveries
+            nan_recoveries += 1
+            if nan_recoveries > cfg.max_nan_recoveries:
+                raise FloatingPointError(
+                    f"[stage {tag}] non-finite loss at step {at_step}; recovery budget exhausted")
+            fresh = trainer.init_state(cfg.seed + nan_recoveries)
+            restored = cm.restore(fresh)
+            st = restored if restored is not None else fresh
+            print(f"[stage {tag}] non-finite loss; restored checkpoint at step {st.step} "
+                  f"(recovery {nan_recoveries}/{cfg.max_nan_recoveries})")
+            return st, st.step
+
+        try:
+            step = start_step
+            while step < steps:
+                if (cfg.profile_stage_steps and not profiled and profiler is None
+                        and step >= start_step + 2):  # past the first rounds' warm-up
+                    activities = [torch.profiler.ProfilerActivity.CPU]
+                    if self.device.type == "cuda":
+                        activities.append(torch.profiler.ProfilerActivity.CUDA)
+                    profiler = torch.profiler.profile(activities=activities)
+                    profiler.start()
+                if cfg.rounds_per_scan > 1 and min(cfg.rounds_per_scan,
+                                                   steps - step) == cfg.rounds_per_scan:
+                    state, metrics = scan_chunk(state, cfg.rounds_per_scan)
+                    step += cfg.rounds_per_scan
+                else:
+                    state, metrics = trainer.round_step(state, next_batches(), rng)
+                    step += 1
+                if profiler is not None and step >= start_step + 2 + cfg.profile_stage_steps:
+                    self._stop_profiler(profiler, stage_dir)
+                    profiler, profiled = None, True
+                if cfg.async_probe:
+                    cur = step
+                    to_check, pending_probe = pending_probe, (cur, metrics)
+                else:
+                    cur = state.step
+                    to_check = (cur, metrics)
+                if to_check is not None and cfg.max_nan_recoveries > 0 and nonfinite(to_check[1]):
+                    state = None  # free it before the fresh one is built
+                    state, step = recover_from_nan(to_check[0])
+                    pending_probe = None
+                    continue
+
+                # A cadence fires when cur crosses a multiple of its period:
+                # scan strides that do not divide the period still fire.
+                def due(every: int, attr: str) -> bool:
+                    if not every:
+                        return False
+                    idx = cur // every
+                    if idx > cadence_idx.get(attr, start_step // every):
+                        cadence_idx[attr] = idx
+                        return True
+                    return False
+
+                def would_fire(every: int, attr: str) -> bool:
+                    return bool(every) and (cur // every) > cadence_idx.get(
+                        attr, start_step // every)
+
+                if cfg.async_probe and pending_probe is not None and (
+                        cur >= steps
+                        or would_fire(cfg.save_every_n_steps, "save")
+                        or would_fire(cfg.log_image_every_n_iter, "image")
+                        or would_fire(cfg.log_histograms_every_n_iter, "hist")):
+                    # The deferred probe runs before anything snapshots state:
+                    # a non-finite state is never persisted.
+                    chk_step, chk_m = pending_probe
+                    pending_probe = None
+                    if cfg.max_nan_recoveries > 0 and nonfinite(chk_m):
+                        state = None
+                        state, step = recover_from_nan(chk_step)
+                        continue
+
+                if due(cfg.log_every_n_steps, "log") or cur >= steps:
+                    g = float(metrics.get("generator_loss", np.nan))
+                    d = float(metrics.get("discriminator_loss", np.nan))
+                    now = time.perf_counter()
+                    rate = (cur - last_log_step) / max(now - last_log, 1e-9)
+                    last_log_step, last_log = cur, now
+                    self.metrics_log.append({"stage": tag, "step": cur, "g_loss": g,
+                                             "d_loss": d, "rounds_per_sec": round(rate, 3)})
+                    writer.scalars(cur, {k: v for k, v in metrics.items() if np.ndim(v) == 0})
+                    writer.scalars(cur, {"rounds_per_sec": rate})
+                    print(f"[stage {tag}] step {cur}/{steps} g={g:.4f} d={d:.4f} "
+                          f"{rate:.2f} rounds/s")
+                if due(cfg.save_every_n_steps, "save"):
+                    save(cur, state)
+                if due(cfg.log_image_every_n_iter, "image"):
+                    self._dump_samples(trainer, state, stage_dir, cur, fixed_batch)
+                if due(cfg.log_histograms_every_n_iter, "hist"):
+                    writer.histograms(cur, {k[len("params/"):]: v.float().cpu().numpy()
+                                            for k, v in state_to_dict(state).items()
+                                            if k.startswith("params/")})
+                if (cfg.max_transfer_gb_per_run
+                        and staged["bytes"] >= cfg.max_transfer_gb_per_run * 1e9
+                        and cur < steps):
+                    paused = True
+                    print(f"[stage {tag}] pausing at step {cur} after staging "
+                          f"{staged['bytes'] / 1e9:.1f} GB; re-run to resume")
+                    break
+            if (pending_probe is not None and cfg.max_nan_recoveries > 0
+                    and nonfinite(pending_probe[1])):
+                # A pause with an unchecked chunk: roll back rather than
+                # persist a non-finite state.
+                state = None
+                state, step = recover_from_nan(pending_probe[0])
+            if last_saved["step"] != state.step:  # the cadence may have just written it
+                save(state.step, state)
+            if not paused:
+                t0 = time.perf_counter()
+                save_model(stage_dir, self._serving_state_dict(trainer, state), state.step)
+                times["saves_s"] += time.perf_counter() - t0
+                times["saves"] += 1
+        finally:
+            if profiler is not None:
+                self._stop_profiler(profiler, stage_dir)
+            writer.close()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        done = state.step - start_step
+        info = {"steps": state.step, "wall_time_sec": round(wall, 1),
+                "rounds_per_sec": round(done / max(wall, 1e-9), 3),
+                "rounds_s": wall - times["saves_s"], **times,
+                "nan_recoveries": nan_recoveries, "started": started}
+        if paused:
+            info["partial"] = True
+        return info
+
+    @staticmethod
+    def _stop_profiler(profiler, stage_dir: str) -> None:
+        profiler.stop()
+        out = os.path.join(stage_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        profiler.export_chrome_trace(os.path.join(out, "trace.json"))
+
+    # ------------------------------------------------------------------ #
+    def _display(self, x) -> np.ndarray:
+        """Training-space batch -> [0,1] RGB display space."""
+        return postprocess_image(torch.as_tensor(np.asarray(x, np.float32)),
+                                 self.cfg.color_space,
+                                 subtract_mean=self.cfg.subtract_mean).numpy()
+
+    def _fixed_custom_sources(self, res: int, n: int):
+        """The ``custom_sources_np_path`` npy at this stage's resolution in
+        [0, 1] RGB (resolved against dataset_dir when relative), cached."""
+        path = self.cfg.custom_sources_np_path
+        if not path:
+            return None
+        if not os.path.isabs(path):
+            path = os.path.join(self.cfg.dataset_dir, path)
+        cache_key = (path, res)
+        cached = getattr(self, "_custom_sources_cache", None)
+        if cached and cached[0] == cache_key:
+            return cached[1][:n]
+        try:
+            arr = np.load(path)
+        except Exception as e:
+            print(f"[custom sources unavailable ({e}); using data batch]")
+            return None
+        if arr.dtype == np.uint8:
+            arr = arr.astype(np.float32) / 255.0
+        arr = np.asarray(arr, np.float32)
+        if arr.ndim == 2:
+            arr = arr[None, ..., None]
+        elif arr.ndim == 3:
+            arr = arr[None] if arr.shape[-1] in (1, 3, 4) else arr[..., None]
+        if arr.shape[-1] == 1:
+            arr = np.repeat(arr, 3, axis=-1)
+        elif arr.shape[-1] == 4:
+            arr = arr[..., :3]
+        if arr.shape[1:3] != (res, res):
+            arr = resize_bilinear(torch.from_numpy(np.ascontiguousarray(arr)), res).numpy()
+        self._custom_sources_cache = (cache_key, arr)
+        return arr[:n]
+
+    def _dump_samples(self, trainer, state, stage_dir: str, step: int,
+                      fixed_batch=None) -> None:
+        """Sample grids of the fixed batch: TwinGAN translations both ways
+        (and of the custom sources), or a PGGAN noise interpolation. A
+        failure is printed and never stops training."""
+        try:
+            out_dir = os.path.join(stage_dir, "generated_samples")
+            fixed_batch = fixed_batch or {}
+            n_show = max(2, self.cfg.log_image_n_per_hw)
+
+            def as_np(t):
+                return t.float().cpu().numpy()
+
+            if isinstance(trainer, TwinGANTrainer):
+                res = trainer.cfg.model.resolution
+                src, tgt = fixed_batch.get("source"), fixed_batch.get("target")
+                if src is None:
+                    rng = np.random.RandomState(31415)
+                    src = rng.rand(n_show, res, res, 3).astype(np.float32)
+                    tgt = rng.rand(n_show, res, res, 3).astype(np.float32)
+                src, tgt = np.asarray(src)[:n_show], np.asarray(tgt)[:n_show]
+                t_prime = as_np(trainer.translate(state, torch.from_numpy(src), "s2t"))
+                s_prime = as_np(trainer.translate(state, torch.from_numpy(tgt), "t2s"))
+                save_image_grid(os.path.join(out_dir, f"{step}_source_t_prime.png"),
+                                self._display(stack_comparison([src, t_prime])))
+                save_image_grid(os.path.join(out_dir, f"{step}_target_s_prime.png"),
+                                self._display(stack_comparison([tgt, s_prime])))
+                custom = self._fixed_custom_sources(res, n_show)
+                if custom is not None:
+                    pp_eval = dataclasses.replace(self._preprocess_cfg(res), is_training=False)
+                    csrc = augment_batch(torch.from_numpy(custom), pp_eval)
+                    cout = as_np(trainer.translate(state, csrc, "s2t"))
+                    save_image_grid(os.path.join(out_dir, f"{step}_sources_ph.png"), custom)
+                    save_image_grid(os.path.join(out_dir, f"{step}_custom_t_style_rand.png"),
+                                    self._display(cout))
+            else:
+                # Noise interpolation (seed 314, lerp z2 -> z1).
+                rng = np.random.RandomState(314)
+                shape = noise_shape(trainer.cfg.model, 1)
+                z1 = rng.standard_normal(shape).astype(np.float32)
+                z2 = rng.standard_normal(shape).astype(np.float32)
+                ts = np.linspace(0.0, 1.0, n_show, dtype=np.float32).reshape(-1, 1, 1, 1)
+                img = as_np(trainer.sample(state, torch.from_numpy(z1 * ts + z2 * (1 - ts))))
+                rows = [img]
+                if fixed_batch.get("target") is not None:
+                    rows.append(np.asarray(fixed_batch["target"])[:n_show])
+                k = min(len(r) for r in rows)
+                save_image_grid(os.path.join(out_dir, f"{step}.png"),
+                                self._display(stack_comparison([r[:k] for r in rows])))
+        except Exception as e:  # sample dumps must never kill training
+            print(f"[sample dump failed: {e}]")

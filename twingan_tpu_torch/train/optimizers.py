@@ -67,6 +67,31 @@ class OptimizerConfig:
         return dataclasses.replace(self, **kw)
 
 
+def state_paths(cfg: OptimizerConfig) -> tuple[tuple[str, ...], dict[str, str]]:
+    """Where the optax chain the JAX factory builds for ``cfg`` keeps its
+    update counts and per-parameter slots, as ``/``-joined paths inside the
+    optimizer's state dict: (count paths, {slot: path prefix}). Adam is
+    (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count)); sgd and
+    momentum (EmptyState or TraceState(trace), ScaleByScheduleState(count));
+    weight decay and clipping chain an empty state before it, frozen scopes
+    a masked empty state after it."""
+    if cfg.optimizer == "adam":
+        counts, slots = ("0/count", "1/count"), {"mu": "0/mu", "nu": "0/nu"}
+    elif cfg.optimizer == "momentum":
+        counts, slots = ("1/count",), {"trace": "0/trace"}
+    else:
+        counts, slots = ("1/count",), {}
+    prefix = ""
+    if cfg.weight_decay:
+        prefix = "1/" + prefix
+    if cfg.clip_global_norm:
+        prefix = "1/" + prefix
+    if cfg.frozen_scopes:
+        prefix = "0/" + prefix
+    return (tuple(prefix + c for c in counts),
+            {k: prefix + v for k, v in slots.items()})
+
+
 def build_schedule(cfg: OptimizerConfig, updates_per_step: int = 1) -> Callable[[int], float]:
     """The learning rate at update ``count`` (0 for the first update)."""
     r = max(1, updates_per_step)

@@ -6,7 +6,9 @@ JAX entry points (``init_state``, ``g_step``, ``d_step``, and from the base
 ``round_step``/``scan_rounds``), the encoder + generator pair a translation
 needs (``TwinGANTranslator``, whose ``state_dict`` keys are the JAX
 ``params`` keys ``encoder_content`` / ``generator`` followed by the Flax
-paths), and ``translate`` with the contract of ``TwinGANTrainer.translate``.
+paths), and ``translate`` with the contract of ``TwinGANTrainer.translate``
+for serving a stage; the method ``TwinGANTrainer.translate`` runs on a
+train state (the runner's sample grids).
 
 The step follows the JAX one pass for pass:
 - four generator passes (s_prime = G_s(E_t(t)), t_prime = G_t(E_s(s)),
@@ -32,6 +34,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
 
 from twingan_tpu_torch.models.config import PGGANConfig
 from twingan_tpu_torch.models.layers import reset_parameters
@@ -209,6 +212,35 @@ class TwinGANTrainer(BaseGanTrainer):
     @staticmethod
     def _side_params(nets: nn.ModuleDict, keys) -> dict[str, nn.Parameter]:
         return {f"{k}.{n}": p for k in keys for n, p in nets[k].named_parameters()}
+
+    def translate(self, state: GanTrainState, images: torch.Tensor, direction: str = "s2t",
+                  style: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """NHWC images of one domain -> the other (``direction`` s2t or
+        t2s), the counterpart of the JAX method: eval-mode (moving)
+        statistics, the fade-in alpha of ``state.step``, and the
+        Polyak-averaged parameters when they are kept. The runner's sample
+        dumps call it; the module-level ``translate`` serves a stage."""
+        if style is not None:
+            raise NotImplementedError("use_style_embedding is not ported to twingan_tpu_torch yet")
+        enc, gen = state.nets[ENC], state.nets[GEN]
+        modes = enc.training, gen.training
+        enc.eval()
+        gen.eval()
+        try:
+            if state.gen_ema_params is not None:
+                enc, gen = (self._with_params(net, name, state.gen_ema_params)
+                            for net, name in ((enc, ENC), (gen, GEN)))
+            return translate(self.cfg, enc, gen, images.to(self.device, torch.float32),
+                             direction, step=state.step)
+        finally:
+            state.nets[ENC].train(modes[0])
+            state.nets[GEN].train(modes[1])
+
+    @staticmethod
+    def _with_params(net: nn.Module, name: str, params: Mapping[str, torch.Tensor]):
+        """``net`` called with the entries of ``params`` under ``name.``."""
+        own = {k[len(name) + 1:]: v for k, v in params.items() if k.startswith(name + ".")}
+        return lambda *args, **kw: functional_call(net, own, args, kw)
 
     def translator_state_dict(self, state: GanTrainState) -> dict[str, torch.Tensor]:
         """The encoder and generator as ``TwinGANTranslator.state_dict()``

@@ -89,7 +89,34 @@ result line is printed:
               the passes' count, and a batch served from the final
               ``model.pt``. One line per stage: steps, rounds/s, the
               stage's wall time and its parts, peak memory, launches.
-8. kernels  - one line listing each kernel of the four paths.
+8. data     - a dataset of two domains, A and B, of 512 smooth random
+              images each (half 256 x 256, half 320 x 272 so that PAD
+              resamples), drawn from the seed and written as PNG (every row
+              filter in turn, by the encoder here) in 4 tfrecord shards per
+              domain; every image read back through ``TFRecordSource``
+              equals its array; the native host library must have loaded;
+              decode and host-resize ms per image (4, 32, 256 px), one
+              256 px stage's decode-and-resize time and the bytes it puts
+              on the card.
+9. runner_data - training on that dataset through the stage runner:
+              pggan256 from 4 to 256 px on A (the CLI's flags, 48 images a
+              resolution, device-resident), the in-training SWD every 3
+              steps, so once a stage from 16 px on: B4's launches per stage
+              are the runner phase's formula plus one ``sample`` per SWD,
+              and every ``swd_in_training_<step>.txt`` must hold finite
+              scores; one fresh 256 px stage of 40 rounds (its rounds/s
+              beside the synthetic stage's), and the same stage streamed
+              by the ``DevicePrefetcher`` for 10 rounds, whose raw batches
+              must equal the resident stage's bit for bit; the TwinGAN
+              slice config from 128 to 256 px, A as source and B as target,
+              B1-B3 launches per stage as in the runner phase.
+10. eval    - ``run_eval`` on that TwinGAN run's final stage: ``swd`` on
+              2048 images (the chunked path), ``msssim`` on 256, ``loss``
+              and ``output`` on 64, each with its attention launches held
+              to its translations' and passes' count (2 B1 a translated
+              batch); then the SWD (both paths) and MS-SSIM of 128 fixed
+              images on the card against the CPU with the same draws.
+11. kernels - one line listing each kernel of the paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -271,6 +298,38 @@ RUNNER_TWINGAN_IMAGES = {128: 8, 256: 6}
 # every 20 steps (2 checkpoints and model.pt).
 RUNNER_LONG_STAGE_IMAGES = 480
 RUNNER_LONG_STAGE_SAVE_EVERY = 20
+
+# The data phase: a dataset of two domains, A and B, each of DATA_IMAGES
+# smooth random images written as PNG in DATA_SHARDS tfrecord shards; half
+# of each domain at each shape (H, W), so that PAD really resamples.
+DATA_IMAGES = 512
+DATA_SHARDS = 4
+DATA_SHAPES = ((256, 256), (320, 272))
+DATA_RESIZE_HW = (4, 32, 256)
+DATA_TIMED_IMAGES = 32  # of each shape, per timed resize size
+# The runner_data phase: the in-training SWD every 3 steps fires once at
+# every stage from 16 px on (3 or 4 rounds a stage); the streaming 256 px
+# stage's rounds, held bit-equal to the resident stage's first ones.
+RUNNER_DATA_SWD_EVERY = 3
+RUNNER_DATA_STREAM_ROUNDS = 10
+# The eval phase: run_eval's modes on the TwinGAN run's final stage. The
+# reference SWD protocol takes 8192 images; 2048 (2 x 1.6 GB of float32,
+# past the 512 MiB switch to the chunked path) is a cut for time.
+EVAL_BATCH = 16
+EVAL_SWD_IMAGES = 2048
+EVAL_MSSSIM_IMAGES = 256
+EVAL_LOSS_IMAGES, EVAL_LOSS_BATCH = 64, 8
+EVAL_OUTPUT_IMAGES = 64
+# The card's SWD and MS-SSIM of EVAL_COMPARE_IMAGES fixed images against
+# the CPU's with the same draws, to the tolerances the CPU tests hold the
+# port to against the JAX package (tests/test_torch_evals.py): the sorts
+# and reductions run in another order.
+EVAL_COMPARE_IMAGES = 128
+SWD_RTOL = 1e-4
+MSSSIM_ATOL = 1e-5
+
+# Numbers an earlier phase measured that a later one prints beside its own.
+MEASURED: dict = {}
 
 
 def emit(obj) -> None:
@@ -1212,6 +1271,7 @@ def generation_phase(card: str, smi_line: str) -> dict:
            "losses": losses, "card": card, "nvidia_smi": smi_line,
            "ok": bool(counts == expected and variants == only_tensor_core(expected[
                fused_conv.KERNEL_NAME]) and not any(attention_counts.values()) and finite)}
+    MEASURED["generation_rounds_per_s"] = row["rounds_per_s"]
     emit(row)
     if not row["ok"]:
         fail("generation", "the timed rounds' B4 launches differ from 13 per D step, all "
@@ -1277,7 +1337,8 @@ def counting_runner(cfg, stage_rows: list):
                 "steps": info["steps"], "rounds": rounds,
                 "rounds_per_s": rounds / info["rounds_s"],
                 "stage_wall_s": time.perf_counter() - t0,
-                "parts_s": {k: info[k] for k in ("build_s", "restore_s", "rounds_s", "saves_s")},
+                "parts_s": {k: info[k] for k in ("build_s", "restore_s", "data_s", "rounds_s",
+                                                 "saves_s")},
                 "saves": info["saves"], "started": info["started"],
                 "nan_recoveries": info["nan_recoveries"],
                 "peak_memory_bytes": torch.cuda.max_memory_allocated(),
@@ -1424,6 +1485,7 @@ def runner_phase(card: str, smi_line: str) -> dict:
                          and row["kernel_variants"] == {b4_tc: expected[fused_conv.KERNEL_NAME]}
                          and row["saves"] == rounds // RUNNER_LONG_STAGE_SAVE_EVERY + 1
                          and row["nan_recoveries"] == 0 and runner_losses_ok(runner))
+        MEASURED["synthetic_long_stage_rounds_per_s"] = row["rounds_per_s"]
         emit(row)
         if not row["ok"]:
             fail("runner", "the long 256 px stage did not train its rounds with B4's "
@@ -1480,6 +1542,489 @@ def runner_phase(card: str, smi_line: str) -> dict:
         shutil.rmtree(train_dir, ignore_errors=True)
 
 
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def encode_png(img) -> bytes:
+    """uint8 [H, W, 3] -> an 8-bit RGB PNG file whose row r is filtered by
+    type r % 5 (None, Sub, Up, Average, Paeth), so that decoding it runs
+    every filter."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    left = np.concatenate([np.zeros((h, c), np.int16), x[:, :-c]], axis=1)
+    up = np.concatenate([np.zeros((1, w * c), np.int16), x[:-1]], axis=0)
+    upleft = np.concatenate([np.zeros((h, c), np.int16), up[:, :-c]], axis=1)
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    kinds = np.arange(h) % 5
+    filtered = ((x - preds[kinds, np.arange(h)]) % 256).astype(np.uint8)
+    raw = np.concatenate([kinds.astype(np.uint8)[:, None], filtered], axis=1).tobytes()
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(raw, 6)) + _png_chunk(b"IEND", b""))
+
+
+def smooth_images(n: int, h: int, w: int, seed: int):
+    """n smooth random uint8 [h, w, 3] images: coarse and finer noise,
+    drawn on the CPU from ``seed`` and interpolated bicubically on the
+    card."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand(n, 3, 6, 6, generator=g).cuda()
+    fine = torch.rand(n, 3, 40, 40, generator=g).cuda()
+    x = (F.interpolate(coarse, size=(h, w), mode="bicubic", align_corners=False) * 0.8
+         + F.interpolate(fine, size=(h, w), mode="bicubic", align_corners=False) * 0.3 - 0.05)
+    return (x.clamp(0, 1) * 255).round().to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+
+
+def data_phase(card: str, smi_line: str, root: str) -> dict:
+    """Writes the dataset under ``root``, reads it back through
+    ``TFRecordSource`` and times the host data path. Returns the domains'
+    shard directories and images."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch import native
+    from twingan_tpu_torch.data.datasets import get_dataset
+    from twingan_tpu_torch.data.example import decode_example, encode_example
+    from twingan_tpu_torch.data.pipeline import DeviceResidentSampler, TFRecordSource
+    from twingan_tpu_torch.data.png import decode_png, row_filters
+    from twingan_tpu_torch.data.preprocess import PreprocessConfig, host_resize_uint8
+    from twingan_tpu_torch.data.tfrecord import TFRecordReader, TFRecordWriter, list_shards
+
+    t_phase = time.perf_counter()
+    lib = native.load()
+    out: dict = {"images": {}}
+    t0 = time.perf_counter()
+    written = 0
+    for d, dom in enumerate(("a", "b")):
+        images = []
+        per_shape = DATA_IMAGES // len(DATA_SHAPES)
+        for s, (h, w) in enumerate(DATA_SHAPES):
+            images += list(smooth_images(per_shape, h, w, SEED + 20 + 2 * d + s))
+        with ThreadPoolExecutor(8) as pool:
+            encoded = list(pool.map(encode_png, images))
+        out_dir = os.path.join(root, dom)
+        # Shards interleave the shapes: image i goes to shard i % DATA_SHARDS.
+        for shard in range(DATA_SHARDS):
+            path = os.path.join(out_dir, f"image_only_train_{shard:05d}-of-{DATA_SHARDS:05d}"
+                                         ".tfrecord")
+            with TFRecordWriter(path) as wr:
+                for i in range(shard, DATA_IMAGES, DATA_SHARDS):
+                    wr.write(encode_example({"image/encoded": encoded[i],
+                                             "image/format": b"png",
+                                             "image/filename": f"{dom}_{i:04d}.png".encode()}))
+                    written += len(encoded[i])
+        out[dom] = out_dir
+        out["images"][dom] = {f"{dom}_{i:04d}.png": img for i, img in enumerate(images)}
+    write_s = time.perf_counter() - t0
+
+    # Every image back through TFRecordSource (no resize) equals its array.
+    mismatched, seen = [], 0
+    for dom in ("a", "b"):
+        src = TFRecordSource(get_dataset("image_only"), list_shards(out[dom], "train"),
+                             PreprocessConfig(output_hw=256, resize_mode="NONE"), 1,
+                             seed=SEED, repeat=False, drop_remainder=False, cache=False,
+                             yield_uint8=True)
+        for batch in src:
+            name = bytes(batch["filename"][0]).decode()
+            seen += 1
+            if not np.array_equal(batch["source"][0], out["images"][dom][name]):
+                mismatched.append(name)
+    payloads = [bytes(decode_example(p)["image/encoded"][0])
+                for p in TFRecordReader(list_shards(out["a"], "train")[0])]
+    filters = sorted(set(row_filters(payloads[0])))
+    t0 = time.perf_counter()
+    for p in payloads:
+        decode_png(p)
+    decode_ms = (time.perf_counter() - t0) / len(payloads) * 1e3
+    resize_ms = {}
+    sample = ([v for k, v in out["images"]["a"].items() if v.shape[0] == DATA_SHAPES[0][0]]
+              [:DATA_TIMED_IMAGES]
+              + [v for v in out["images"]["a"].values() if v.shape[0] == DATA_SHAPES[1][0]]
+              [:DATA_TIMED_IMAGES])
+    for hw in DATA_RESIZE_HW:
+        t0 = time.perf_counter()
+        for img in sample:
+            host_resize_uint8(img, "PAD", hw)
+        resize_ms[hw] = (time.perf_counter() - t0) / len(sample) * 1e3
+    # One 256 px stage's host data path: decode and resize every image of
+    # A, then the copy to the card.
+    src = TFRecordSource(get_dataset("image_only", use_target=True),
+                         list_shards(out["a"], "train"),
+                         PreprocessConfig(output_hw=256, resize_mode="PAD"), GEN_BATCH,
+                         seed=SEED, yield_uint8=True)
+    t0 = time.perf_counter()
+    arrays = src.materialize(4 << 30)
+    materialize_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sampler = DeviceResidentSampler([(arrays, {"target": "target"}, SEED)], GEN_BATCH, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    row = {"phase": "data", "check": "write, read back, decode and resize",
+           "domains": {d: {"images": DATA_IMAGES, "shards": DATA_SHARDS,
+                           "shapes_hw": [list(s) for s in DATA_SHAPES]} for d in ("a", "b")},
+           "png_bytes": written, "write_s": write_s, "read_back": seen,
+           "mismatched": mismatched[:5], "native_library": bool(lib is not None),
+           "filters_in_first_file": filters, "decode_ms_per_image": decode_ms,
+           "host_resize_ms_per_image": resize_ms,
+           "stage_256_materialize_s": materialize_s,
+           "stage_256_materialize_ms_per_image": materialize_s / DATA_IMAGES * 1e3,
+           "device_resident_bytes": sampler.resident_bytes, "upload_s": upload_s,
+           "seconds": time.perf_counter() - t_phase, "card": card, "nvidia_smi": smi_line}
+    row["ok"] = bool(lib is not None and not mismatched and seen == 2 * DATA_IMAGES
+                     and filters == [0, 1, 2, 3, 4]
+                     and sampler.resident_bytes == DATA_IMAGES * 256 * 256 * 3)
+    emit(row)
+    if not row["ok"]:
+        fail("data", "the native library did not load, or an image read back through "
+                     "TFRecordSource differs from the array it was written from")
+    del sampler
+    return out
+
+
+def swd_files_ok(stage_dir: str, steps: list) -> bool:
+    """Each ``swd_in_training_<step>.txt`` exists and holds finite scores."""
+    import math
+
+    for step in steps:
+        path = os.path.join(stage_dir, f"swd_in_training_{step}.txt")
+        if not os.path.exists(path):
+            return False
+        rows = [line.split("\t") for line in open(path).read().splitlines()[2:]]
+        if not rows or not all(math.isfinite(float(v)) for r in rows for v in r[1:]):
+            return False
+    return True
+
+
+def runner_data_phase(card: str, smi_line: str, data: dict) -> dict:
+    """Progressive training on the dataset. Returns the launches by
+    kernel and the TwinGAN train dir (which the eval phase reads)."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.runner import pggan_runner, stage_runner
+    from twingan_tpu_torch.runner.stage_runner import RunConfig, stage_dir_name, stage_plan
+
+    t_phase = time.perf_counter()
+    totals: dict = {}
+    b4_tc = f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[torch.bfloat16]}"
+    root = data["root"]
+
+    # pggan256 from 4 to 256 px on domain A, through the CLI's flags.
+    argv = ["--program_name=image_generation", f"--train_dir={os.path.join(root, 'pggan')}",
+            "--start_hw=4", "--max_hw=256",
+            f"--num_images_per_resolution={RUNNER_PGGAN_IMAGES}", f"--dataset_dir={data['a']}",
+            "--generator_norm_type=none", "--do_pixel_norm=true",
+            "--equalized_learning_rate=true", "--dtype=bfloat16", "--log_every_n_steps=1",
+            "--save_every_n_steps=2", "--keep_checkpoints=2", "--log_image_every_n_iter=0",
+            f"--eval_every_n_iter_in_training={RUNNER_DATA_SWD_EVERY}", f"--seed={SEED}"]
+    cfg = pggan_runner.config_from_args(pggan_runner.build_parser().parse_args(argv))
+    rows: list = []
+    runner = counting_runner(cfg, rows)
+    runner.run()
+    n_critic = cfg.trainer.n_critic
+    for row in rows:
+        res = row["resolution"]
+        layers = 1 + 2 * int(round(np.log2(res // 4)))
+        evals = row["steps"] // RUNNER_DATA_SWD_EVERY if res >= 16 else 0
+        expected = {fused_conv.KERNEL_NAME: (row["rounds"] * (n_critic - 1) + evals) * layers,
+                    fused_conv.AUTOGRAD_ROUTE: row["rounds"] * layers}
+        swd_steps = [RUNNER_DATA_SWD_EVERY * (k + 1) for k in range(evals)]
+        stage_dir = os.path.join(cfg.train_dir, row["stage"])
+        row.update(phase="runner_data", program="image_generation", expected_b4=expected,
+                   swd_evals=evals, swd_files=[f"swd_in_training_{s}.txt" for s in swd_steps],
+                   card=card, nvidia_smi=smi_line)
+        row["ok"] = bool(row["b4_launches"] == expected
+                         and row["kernel_variants"] == {b4_tc: expected[fused_conv.KERNEL_NAME]}
+                         and not any(row["attention_launches"].values())
+                         and row["nan_recoveries"] == 0
+                         and swd_files_ok(stage_dir, swd_steps)
+                         and (res < 16 or evals >= 1))
+        emit(row)
+        totals[fused_conv.KERNEL_NAME] = (totals.get(fused_conv.KERNEL_NAME, 0)
+                                          + row["b4_launches"][fused_conv.KERNEL_NAME])
+    plan = [stage_dir_name(r, g) for r, g in stage_plan(cfg.start_hw, cfg.max_hw)]
+    ok = ([r["stage"] for r in rows] == plan and all(r["ok"] for r in rows)
+          and runner_losses_ok(runner))
+    emit({"phase": "runner_data", "check": "pggan256, 4 to 256 px on the dataset, device-"
+                                           "resident, the in-training SWD at 16 px and up",
+          "stages": [r["stage"] for r in rows],
+          "seconds": time.perf_counter() - t_phase, "ok": bool(ok)})
+    if not ok:
+        fail("runner_data", "the pggan256 plan on the dataset did not train every stage with "
+                            "B4's tensor-core launches as its rounds and SWD samples imply, "
+                            "write finite in-training SWD files, or keep its losses finite")
+
+    # One fresh 256 px stage of 40 rounds on the dataset, then the same stage
+    # streamed through the DevicePrefetcher for 10 rounds: the raw batches
+    # of both (recorded on the card as they reach the augmentation) match.
+    recorded: dict = {}
+    orig_augment = stage_runner.augment_batch
+
+    def recording(key: str, limit: int):
+        def spy(images, *a, **kw):
+            seen = recorded.setdefault(key, [])
+            if len(seen) < limit:
+                seen.append(images.clone())
+            return orig_augment(images, *a, **kw)
+        return spy
+
+    long_cfg = cfg.replace(train_dir=os.path.join(root, "pggan_long"), start_hw=256,
+                           num_images_per_resolution=RUNNER_LONG_STAGE_IMAGES,
+                           save_every_n_steps=RUNNER_LONG_STAGE_SAVE_EVERY,
+                           eval_every_n_iter_in_training=0)
+    stream_cfg = long_cfg.replace(train_dir=os.path.join(root, "pggan_stream"),
+                                  num_images_per_resolution=RUNNER_DATA_STREAM_ROUNDS * GEN_BATCH,
+                                  device_resident_gb=0.0)
+    layers = 1 + 2 * int(round(np.log2(256 // 4)))
+    long_rows = {}
+    for key, run_cfg in (("resident", long_cfg), ("streaming", stream_cfg)):
+        stage_runner.augment_batch = recording(key, RUNNER_DATA_STREAM_ROUNDS * n_critic)
+        try:
+            rows = []
+            runner = counting_runner(run_cfg, rows)
+            runner.run()
+        finally:
+            stage_runner.augment_batch = orig_augment
+        row = rows[0]
+        rounds = run_cfg.num_images_per_resolution // GEN_BATCH
+        expected = {fused_conv.KERNEL_NAME: rounds * (n_critic - 1) * layers,
+                    fused_conv.AUTOGRAD_ROUTE: rounds * layers}
+        wall = sum(row["parts_s"].values())
+        row.update(phase="runner_data", program="image_generation",
+                   check=f"pggan256, one 256 px stage of {rounds} rounds on the dataset, "
+                         + ("device-resident" if key == "resident" else
+                            "streamed by the DevicePrefetcher"),
+                   expected_b4=expected, parts_share={k: v / wall
+                                                      for k, v in row["parts_s"].items()},
+                   card=card, nvidia_smi=smi_line)
+        row["ok"] = bool(row["rounds"] == rounds and row["b4_launches"] == expected
+                         and row["kernel_variants"] == {b4_tc: expected[fused_conv.KERNEL_NAME]}
+                         and row["nan_recoveries"] == 0 and runner_losses_ok(runner))
+        if key == "resident":
+            row["synthetic_long_stage_rounds_per_s"] = MEASURED.get(
+                "synthetic_long_stage_rounds_per_s")
+            row["generation_phase_rounds_per_s"] = MEASURED.get("generation_rounds_per_s")
+            row["ms_per_round_beyond_generation"] = (
+                1e3 / row["rounds_per_s"] - 1e3 / MEASURED["generation_rounds_per_s"]
+                if MEASURED.get("generation_rounds_per_s") else None)
+        emit(row)
+        long_rows[key] = row
+        totals[fused_conv.KERNEL_NAME] += row["b4_launches"][fused_conv.KERNEL_NAME]
+    a, b = recorded.get("resident", []), recorded.get("streaming", [])
+    same = len(a) == len(b) == RUNNER_DATA_STREAM_ROUNDS * n_critic and all(
+        x.dtype == torch.uint8 and torch.equal(x, y) for x, y in zip(a, b))
+    emit({"phase": "runner_data", "check": "streamed batches equal the resident ones",
+          "batches_compared": len(b), "bit_equal": bool(same),
+          "ok": bool(same and all(r["ok"] for r in long_rows.values()))})
+    if not same or not all(r["ok"] for r in long_rows.values()):
+        fail("runner_data", "the 256 px stage on the dataset did not train its rounds with "
+                            "B4's tensor-core launches, or the streamed batches differ from "
+                            "the device-resident ones")
+    del recorded, a, b
+    torch.cuda.empty_cache()
+
+    # The TwinGAN slice config from 128 to 256 px, A as source, B as target.
+    tcfg = RunConfig(program="twingan", train_dir=os.path.join(root, "twingan"),
+                     start_hw=128, max_hw=256, num_images_schedule=RUNNER_TWINGAN_IMAGES,
+                     dataset_dir=data["a"], target_dataset_dir=data["b"],
+                     trainer=slice_config(), log_every_n_steps=1, save_every_n_steps=2,
+                     keep_checkpoints=2, log_image_every_n_iter=0, seed=SEED)
+    rows = []
+    runner = counting_runner(tcfg, rows)
+    runner.run()
+    attn = (attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL)
+    for row in rows:
+        trainer, _ = runner._build_trainer(row["resolution"], row["growing"], row["steps"])
+        per_step = expected_launches(trainer, trainer.build_nets())
+        expected = {k: row["rounds"] * (per_step["g_step"][k] + (trainer.cfg.n_critic - 1)
+                                        * per_step["d_step"][k])
+                    for k in per_step["g_step"]}
+        variants = {f"{k}/{attention.VARIANTS[k][torch.bfloat16]}": expected[k] for k in attn}
+        row.update(phase="runner_data", program="twingan", expected_attention=expected,
+                   card=card, nvidia_smi=smi_line)
+        row["ok"] = bool(row["attention_launches"] == expected
+                         and row["kernel_variants"] == variants
+                         and not any(row["b4_launches"].values())
+                         and row["nan_recoveries"] == 0)
+        emit(row)
+        for k in attn:
+            totals[k] = totals.get(k, 0) + row["attention_launches"][k]
+    plan = [stage_dir_name(r, g) for r, g in stage_plan(tcfg.start_hw, tcfg.max_hw)]
+    ok = ([r["stage"] for r in rows] == plan and all(r["ok"] for r in rows)
+          and runner_losses_ok(runner))
+    emit({"phase": "runner_data", "check": "TwinGAN slice config, 128 to 256 px, A as source "
+                                           "and B as target", "stages": [r["stage"] for r in rows],
+          "seconds": time.perf_counter() - t_phase, "ok": bool(ok)})
+    if not ok:
+        fail("runner_data", "the TwinGAN plan on the dataset did not train its 3 stages with "
+                            "B1-B3's tensor-core launches as the passes imply, or keep its "
+                            "losses finite")
+    return {"launches": totals, "twingan_dir": tcfg.train_dir}
+
+
+def eval_phase(card: str, smi_line: str, data: dict, twingan_dir: str) -> dict:
+    """``run_eval`` on the TwinGAN run's final stage, then the card's SWD
+    and MS-SSIM against the CPU's. Returns the launches by kernel."""
+    import math
+
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.evals import metrics, run_eval
+    from twingan_tpu_torch.ops import attention, swd
+    from twingan_tpu_torch.data.preprocess import host_resize_uint8
+    from twingan_tpu_torch.runner.config_io import find_latest_stage_dir, load_stage_config
+    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    t_phase = time.perf_counter()
+    stage = find_latest_stage_dir(twingan_dir)
+    _, tcfg = load_stage_config(stage)
+    trainer = TwinGANTrainer(tcfg)
+    g_step = expected_launches(trainer, trainer.build_nets())["g_step"]
+    del trainer
+    fwd = attention.KERNEL_NAME
+    tc = {k: f"{k}/{attention.VARIANTS[k][torch.bfloat16]}"
+          for k in (fwd, attention.DQ_KERNEL, attention.DKV_KERNEL)}
+    base = [f"--model_path={twingan_dir}", f"--dataset_dir={data['a']}",
+            f"--target_dataset_dir={data['b']}", f"--seed={SEED}"]
+    n_batches = lambda n, b: -(-n // b)  # noqa: E731
+    modes = [
+        ("swd", [f"--swd_num_images={EVAL_SWD_IMAGES}", f"--batch_size={EVAL_BATCH}"],
+         {fwd: 2 * n_batches(EVAL_SWD_IMAGES, EVAL_BATCH)}),
+        ("msssim", [f"--num_images={EVAL_MSSSIM_IMAGES}", f"--batch_size={EVAL_BATCH}"],
+         {fwd: 4 * n_batches(EVAL_MSSSIM_IMAGES, EVAL_BATCH)}),  # s2t, then back t2s
+        ("loss", [f"--num_images={EVAL_LOSS_IMAGES}", f"--batch_size={EVAL_LOSS_BATCH}"],
+         {k: n_batches(EVAL_LOSS_IMAGES, EVAL_LOSS_BATCH) * g_step[k] for k in tc}),
+        ("output", [f"--num_images={EVAL_OUTPUT_IMAGES}", f"--batch_size={EVAL_BATCH}"],
+         {fwd: n_batches(EVAL_OUTPUT_IMAGES, EVAL_BATCH)}),  # the encoder only
+    ]
+    totals: dict = {}
+    spied = {"chunked": 0, "swd_s": 0.0}
+    orig_chunked, orig_swd_eval = metrics.sliced_wasserstein_distance_chunked, run_eval.swd_eval
+
+    def chunked_spy(*a, **kw):
+        spied["chunked"] += 1
+        return orig_chunked(*a, **kw)
+
+    def swd_eval_timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_swd_eval(*a, **kw)
+        torch.cuda.synchronize()
+        spied["swd_s"] = time.perf_counter() - t0
+        return out
+
+    eval_root = os.path.join(data["root"], "eval")
+    for mode, extra, expected in modes:
+        expected = {k: expected.get(k, 0) for k in tc}
+        metrics.sliced_wasserstein_distance_chunked = chunked_spy
+        run_eval.swd_eval = swd_eval_timed
+        try:
+            torch.cuda.synchronize()
+            attention.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            result = run_eval.main([f"--mode={mode}", f"--eval_dir={eval_root}/{mode}"]
+                                   + base + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            metrics.sliced_wasserstein_distance_chunked = orig_chunked
+            run_eval.swd_eval = orig_swd_eval
+        launches = {k: attention.launch_counts[k] for k in tc}
+        variants = {tc[k]: attention.variant_counts[tc[k]] for k in tc}
+        if mode == "swd":
+            values = [v for pair in (result["table"] or {}).values() for v in pair]
+            checked = (result["images"] >= EVAL_SWD_IMAGES and spied["chunked"] == 1
+                       and list(result["table"] or {}) == [256, 128, 64, 32, 16]
+                       and all(math.isfinite(v) for v in values))
+            summary = {"table": result["table"], "swd_seconds": spied["swd_s"],
+                       "chunked_path": spied["chunked"] == 1}
+        elif mode == "msssim":
+            checked = (result["images"] >= EVAL_MSSSIM_IMAGES
+                       and math.isfinite(result["diversity"])
+                       and math.isfinite(result["fidelity"]))
+            summary = {k: result[k] for k in ("diversity", "fidelity", "images")}
+        elif mode == "loss":
+            checked = bool(result["losses"]) and all(math.isfinite(v)
+                                                    for v in result["losses"].values())
+            summary = {"losses": result["losses"]}
+        else:
+            lines = open(result["path"]).read().splitlines()
+            checked = result["images"] == EVAL_OUTPUT_IMAGES and len(lines) == EVAL_OUTPUT_IMAGES
+            summary = {"rows": len(lines)}
+        row = {"phase": "eval", "mode": mode, "stage": os.path.basename(stage),
+               "seconds": seconds, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "attention_launches": launches, "expected_attention": expected,
+               "kernel_variants": variants, **summary, "card": card, "nvidia_smi": smi_line}
+        row["ok"] = bool(checked and launches == expected
+                         and variants == {tc[k]: expected[k] for k in tc})
+        emit(row)
+        if not row["ok"]:
+            fail("eval", f"run_eval --mode={mode} gave no finite result, or its attention "
+                         "launches differ from its translations' and passes' count on the "
+                         "tensor-core variants")
+        for k in tc:
+            totals[k] = totals.get(k, 0) + launches[k]
+
+    # The card's SWD (both paths) and MS-SSIM of fixed images against the
+    # CPU's with the same draws.
+    names = sorted(data["images"]["a"])[:EVAL_COMPARE_IMAGES]
+    fake = np.stack([host_resize_uint8(data["images"]["a"][n], "PAD", 256)
+                     for n in names]).astype(np.float32) / 255.0
+    names = sorted(data["images"]["b"])[:EVAL_COMPARE_IMAGES]
+    real = np.stack([host_resize_uint8(data["images"]["b"][n], "PAD", 256)
+                     for n in names]).astype(np.float32) / 255.0
+    compare = {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "cpu"):
+        table = metrics.swd_eval(SEED, [real], [fake], num_images=EVAL_COMPARE_IMAGES,
+                                 device=dev)
+        compare[dev] = {
+            "swd": np.array(list(table.values()), np.float64),
+            "swd_chunked": swd.sliced_wasserstein_distance_chunked(
+                real, fake, seed=SEED, device=dev).astype(np.float64) * 1e3,
+            "pairwise_msssim": metrics.pairwise_msssim(real, fake, device=dev),
+            "msssim_eval": metrics.msssim_eval([real], device=dev)}
+    card_row, cpu_row = compare["cuda"], compare["cpu"]
+    rel = {k: float(np.max(np.abs(card_row[k] - cpu_row[k]) / np.abs(cpu_row[k])))
+           for k in ("swd", "swd_chunked")}
+    absd = {k: abs(card_row[k] - cpu_row[k]) for k in ("pairwise_msssim", "msssim_eval")}
+    row = {"phase": "eval", "check": f"SWD and MS-SSIM of {EVAL_COMPARE_IMAGES} fixed images, "
+                                     "card vs CPU, the same draws",
+           "swd_card": card_row["swd"].tolist(), "swd_cpu": cpu_row["swd"].tolist(),
+           "swd_chunked_card": card_row["swd_chunked"].tolist(),
+           "swd_chunked_cpu": cpu_row["swd_chunked"].tolist(),
+           "max_rel_diff": rel, "swd_rtol": SWD_RTOL,
+           "msssim_card": {k: card_row[k] for k in absd},
+           "msssim_cpu": {k: cpu_row[k] for k in absd}, "msssim_abs_diff": absd,
+           "msssim_atol": MSSSIM_ATOL, "seconds": time.perf_counter() - t0,
+           "ok": bool(all(v <= SWD_RTOL for v in rel.values())
+                      and all(v <= MSSSIM_ATOL for v in absd.values())
+                      and all(np.isfinite(card_row["swd"]).tolist()))}
+    emit(row)
+    if not row["ok"]:
+        fail("eval", "the card's SWD or MS-SSIM disagrees with the CPU's beyond the CPU "
+                     "tests' tolerances")
+    emit({"phase": "eval", "check": "run_eval on the TwinGAN run's final stage",
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return totals
+
+
 def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
                  plain_ms: float, bound_ms: float, bound_by: str, library_ms: float,
                  **extra) -> dict:
@@ -1490,14 +2035,15 @@ def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
             "library_ms": library_ms, **extra}
 
 
-def fused_conv_entry(layer_rows: list, launches: dict, runner_launches: int) -> dict:
+def fused_conv_entry(layer_rows: list, launches: dict, more: dict) -> dict:
     """B4's line: the sums over the 13 layers of one pggan256 generator
-    pass at batch 12 (each distinct layer's row times its count)."""
+    pass at batch 12 (each distinct layer's row times its count);
+    ``more`` holds the launches of the paths after the generation phase."""
     total = lambda key: sum(r[key] * r["layers_per_pass"] for r in layer_rows)  # noqa: E731
     heaviest = max(layer_rows, key=lambda r: r["bound_ms"] * r["layers_per_pass"])
+    by_path = {"generation": sum(launches.values()), **more}
     return kernel_entry(
-        "fused_conv", sum(launches.values()) + runner_launches,
-        {"generation": sum(launches.values()), "runner": runner_launches},
+        "fused_conv", sum(by_path.values()), by_path,
         max(r["max_abs_err"] for r in layer_rows), total("ms"), total("plain_ms"),
         total("bound_ms"), heaviest["bound_by"], total("library_ms"),
         launches_in_generation=launches, variant=heaviest["variant"][0],
@@ -1532,24 +2078,36 @@ def main() -> int:
     require_no_b4("train")
     generation_launches = generation_phase(card, smi_line)
     runner_launches = runner_phase(card, smi_line)
+    root = tempfile.mkdtemp(prefix="twingan_smoke_data_")
+    try:
+        data = data_phase(card, smi_line, root)
+        data["root"] = root
+        realdata = runner_data_phase(card, smi_line, data)
+        eval_launches = eval_phase(card, smi_line, data, realdata["twingan_dir"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
+    by_path = {"serving": serving_launches, "train": train_launches[fwd],
+               "runner": runner_launches[fwd], "runner_data": data_launches[fwd],
+               "eval": eval_launches[fwd]}
     entries = [kernel_entry(
-        fwd, serving_launches + train_launches[fwd] + runner_launches[fwd],
-        {"serving": serving_launches, "train": train_launches[fwd],
-         "runner": runner_launches[fwd]},
+        fwd, sum(by_path.values()), by_path,
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
         serving_row["bound_ms"], serving_row["bound_by"], serving_row["library_ms"],
         variant=serving_row["variant"][0])]
     for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
+        by_path = {"train": train_launches[name], "runner": runner_launches[name],
+                   "runner_data": data_launches[name], "eval": eval_launches[name]}
         entries.append(kernel_entry(
-            name, train_launches[name] + runner_launches[name],
-            {"train": train_launches[name], "runner": runner_launches[name]},
+            name, sum(by_path.values()), by_path,
             max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
             train_row["plain_ms"][name], train_row["bound_ms"][name],
             train_row["bound_by"][name], train_row["library_ms"],
             variant=train_row["variant"][name][0]))
     entries.append(fused_conv_entry(b4_rows, generation_launches,
-                                    runner_launches["fused_conv"]))
+                                    {"runner": runner_launches["fused_conv"],
+                                     "runner_data": data_launches["fused_conv"]}))
     emit({"kernels": entries})
     print(smi_line, flush=True)
     import torch

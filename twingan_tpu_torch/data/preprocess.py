@@ -1,13 +1,17 @@
-"""Image preprocessing: the host-side resize for inference, and the batched
-train-time augmentation on the device.
+"""Image preprocessing: the host-side resize, and the batched train-time
+augmentation on the device.
 
 Counterpart of ``twingan_tpu/data/preprocess.py``:
 
-- ``host_resize_uint8``/``host_resize`` for the modes serving uses,
-  ``RESHAPE`` and ``NONE``. An image already at ``new_hw`` is returned as
-  it is: PIL's bilinear resize to the same size is the identity, so only a
-  real resize imports PIL, inside the function. The other modes (PAD,
-  CROP, RANDOM_CROP*) are not ported yet and raise.
+- ``host_resize_uint8``/``host_resize``: every resize mode (NONE, PAD,
+  CROP, RESHAPE, RANDOM_CROP, RANDOM_CROP_AND_RESHAPE) with the JAX
+  signature (``rng``, ``initial_crop_hw``). The JAX package resizes with
+  PIL's bilinear filter; the card's machine has no PIL, so
+  ``pil_bilinear_resize`` re-implements Pillow's 8-bit resampling
+  (``Resample.c``) in numpy to the bit: the same float64 coefficients
+  rounded to 22-bit fixed point, a horizontal pass into a uint8 image, then
+  a vertical one, each output ``clip8((1 << 21) + sum(in * k)) >> 22``, and
+  the support widened by the scale when shrinking (PIL's antialiasing).
 - ``PreprocessConfig`` field for field, with ``host_hw``;
 - ``augment_batch``: the random crop, the per-image or shared horizontal
   flip, the colour distortion (fast: brightness and saturation, in one of
@@ -23,9 +27,9 @@ ordering, the colour factors), which is how the parity tests hand both
 packages the same draws.
 
 ``jax.image.resize(..., "bilinear")`` antialiases when it shrinks an image
-and ``F.interpolate`` does not: the resize here matches JAX where it
-enlarges and at the same size, and shrinking raises ``NotImplementedError``
-(queue item A5) rather than differ.
+and ``F.interpolate`` does not: the device resize here matches JAX where
+it enlarges and at the same size, and shrinking raises
+``NotImplementedError`` (queue item A5) rather than differ.
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-PORTED_RESIZE_MODES = ("NONE", "RESHAPE")
+RESIZE_MODES = ("NONE", "PAD", "CROP", "RESHAPE", "RANDOM_CROP", "RANDOM_CROP_AND_RESHAPE")
+PORTED_RESIZE_MODES = RESIZE_MODES
 
 RGB_TO_YIQ = np.array(
     [[0.299, 0.587, 0.114], [0.596, -0.274, -0.322], [0.211, -0.523, 0.312]], np.float32
@@ -88,26 +93,118 @@ class PreprocessConfig:
 # Host side
 # ------------------------------------------------------------------ #
 
-def host_resize_uint8(img: np.ndarray, mode: str, new_hw: int) -> np.ndarray:
-    """uint8 HWC (or HW) -> uint8 HWC at (new_hw, new_hw) for RESHAPE."""
-    if mode not in PORTED_RESIZE_MODES:
-        raise NotImplementedError(f"resize mode {mode} is not ported to twingan_tpu_torch yet")
+# Pillow's fixed-point precision for 8-bit resampling (Resample.c).
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _bilinear_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's ``precompute_coeffs`` for the bilinear filter (support 1)
+    and ``normalize_coeffs_8bpc``: each output's first input index [out]
+    and its int32 weights [out, ksize] (0 past the window's end)."""
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # C's (int) truncates toward zero; negatives clamp to 0 just after.
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    x = np.arange(ksize)
+    inside = x[None, :] < xmax[:, None]
+    t = np.abs(((x[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where(inside & (t < 1.0), 1.0 - t, 0.0)
+    # The weights' sum, accumulated left to right as the C loop does.
+    ww = np.cumsum(w, axis=1)[:, -1:]
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    k = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS)).astype(np.int64)
+    return xmin, np.where(inside, k, 0)
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 8-bit resample along ``axis`` (0 rows, 1
+    columns) of a uint8 [H, W, C] image: each output gathers its window,
+    one tap at a time (whole lines of the image, the resampled axis moved
+    to the front), and sums in int32 (at most 255 x 2^22 plus the rounding
+    term, under 2^31)."""
+    lines = np.ascontiguousarray(np.moveaxis(img, axis, 0))
+    in_size = lines.shape[0]
+    xmin, k = _bilinear_coeffs(in_size, out_size)
+    idx = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None, :], in_size - 1)
+    k = k.astype(np.int32).reshape(out_size, -1, *([1] * (lines.ndim - 1)))
+    acc = np.full((out_size,) + lines.shape[1:], 1 << (_PRECISION_BITS - 1), np.int32)
+    for tap in range(k.shape[1]):
+        acc += lines[idx[:, tap]] * k[:, tap]
+    return np.moveaxis(np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8), 0, axis)
+
+
+def pil_bilinear_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """uint8 [H, W, C] -> uint8 [out_h, out_w, C], equal to PIL's
+    ``Image.resize((out_w, out_h), BILINEAR)`` of the same image (mode L
+    for one channel, RGB for three); the same size is a copy, as in PIL."""
+    img = np.asarray(img, np.uint8)
+    h, w = img.shape[:2]
+    if w != out_w:  # Pillow skips a pass whose size does not change
+        img = _resample_axis(img, out_w, axis=1)
+    if h != out_h:
+        img = _resample_axis(img, out_h, axis=0)
+    return np.array(img, np.uint8)
+
+
+def host_resize_uint8(img: np.ndarray, mode: str, new_hw: int,
+                      rng: Optional[np.random.RandomState] = None,
+                      initial_crop_hw: Optional[int] = None) -> np.ndarray:
+    """uint8 HWC (or HW) -> uint8 HWC at (new_hw, new_hw), the JAX
+    function's geometry and draws: PAD centres the image on a black
+    square, CROP takes the centred square, the random crops draw their
+    offsets from ``rng`` (numpy's global state when None)."""
+    if mode not in RESIZE_MODES:
+        raise ValueError(f"unknown resize mode {mode!r}; known: {RESIZE_MODES}")
     img = np.asarray(img)
     if img.ndim == 2:
         img = img[:, :, None]
-    if mode == "NONE" or img.shape[:2] == (new_hw, new_hw):
+    h, w = img.shape[:2]
+
+    def bilinear(arr, hw):
+        return pil_bilinear_resize(arr.astype(np.uint8), hw, hw)
+
+    if mode == "NONE":
         return np.asarray(img, np.uint8)
-    from PIL import Image as PILImage
+    if mode == "PAD":
+        if h != w:
+            size = max(h, w)
+            oh, ow = (size - h) // 2, (size - w) // 2
+            padded = np.zeros((size, size, img.shape[2]), img.dtype)
+            padded[oh: oh + h, ow: ow + w] = img
+            img = padded
+        img = bilinear(img, new_hw)
+    elif mode == "CROP":
+        if h != w:
+            size = min(h, w)
+            oh, ow = (h - size) // 2, (w - size) // 2
+            img = img[oh: oh + size, ow: ow + size]
+        img = bilinear(img, new_hw)
+    elif mode == "RESHAPE":
+        img = bilinear(img, new_hw)
+    else:  # RANDOM_CROP, RANDOM_CROP_AND_RESHAPE
+        crop_hw = new_hw if mode == "RANDOM_CROP" else int(initial_crop_hw)
+        rng = rng or np.random
+        if min(h, w) < crop_hw:
+            img = bilinear(img, crop_hw)
+            h = w = crop_hw
+        oh = int(rng.randint(0, h - crop_hw + 1))
+        ow = int(rng.randint(0, w - crop_hw + 1))
+        img = img[oh: oh + crop_hw, ow: ow + crop_hw]
+        if mode == "RANDOM_CROP_AND_RESHAPE":
+            img = bilinear(img, new_hw)
+    return np.asarray(img, np.uint8)
 
-    arr = img.astype(np.uint8)
-    pil = PILImage.fromarray(arr.squeeze(-1) if arr.shape[-1] == 1 else arr)
-    out = np.asarray(pil.resize((new_hw, new_hw), PILImage.BILINEAR), np.uint8)
-    return out[:, :, None] if out.ndim == 2 else out
 
-
-def host_resize(img: np.ndarray, mode: str, new_hw: int) -> np.ndarray:
+def host_resize(img: np.ndarray, mode: str, new_hw: int,
+                rng: Optional[np.random.RandomState] = None,
+                initial_crop_hw: Optional[int] = None) -> np.ndarray:
     """uint8 HWC -> float32 HWC in [0,1] at (new_hw, new_hw)."""
-    return host_resize_uint8(img, mode, new_hw).astype(np.float32) / 255.0
+    out = host_resize_uint8(img, mode, new_hw, rng=rng, initial_crop_hw=initial_crop_hw)
+    return out.astype(np.float32) / 255.0
 
 
 # ------------------------------------------------------------------ #

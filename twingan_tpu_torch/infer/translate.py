@@ -52,6 +52,7 @@ class ImageInferer:
         if dtype is not None:
             tcfg = tcfg.replace(model=tcfg.model.replace(dtype=dtype))
         self.cfg = tcfg
+        self.stage_dir = stage_dir
         self.direction = direction
         self.image_hw = image_hw or tcfg.model.resolution
         state_dict, self.step = load_model(stage_dir)
@@ -63,12 +64,15 @@ class ImageInferer:
         """uint8 HWC -> float [0,1] at (image_hw, image_hw)."""
         return host_resize(image, "RESHAPE", self.image_hw)
 
+    def translate(self, x: torch.Tensor, direction: Optional[str] = None) -> torch.Tensor:
+        """A float NHWC batch in [0,1] at image_hw -> the other domain, on
+        the inferer's device (``direction`` defaults to the inferer's)."""
+        return translate(self.cfg, self.model.encoder_content, self.model.generator,
+                         x.to(self.device), direction or self.direction, step=self.step)
+
     def infer_batch(self, images: Sequence[np.ndarray]) -> np.ndarray:
         batch = np.stack([self.preprocess(im) for im in images])
-        x = torch.from_numpy(batch).to(self.device)
-        out = translate(self.cfg, self.model.encoder_content, self.model.generator, x,
-                        self.direction, step=self.step)
-        return out.float().cpu().numpy()
+        return self.translate(torch.from_numpy(batch)).float().cpu().numpy()
 
 
 def _iter_images(path: str) -> Iterator[str]:

@@ -6,7 +6,16 @@ them (``config_from_args``), and one more flag, ``--device`` (the card by
 default, ``cpu`` on request). Every stage writes its config to
 ``config.json`` in its stage directory.
 
-Example, synthetic data from 4 to 256 px:
+Example, tfrecord shards (``data/converters.py``) from 4 to 256 px, with
+the in-training SWD every 1000 steps:
+    python -m twingan_tpu_torch.runner.pggan_runner \\
+        --program_name=image_generation --dataset_dir=/data/faces \\
+        --train_dir=/tmp/run --start_hw=4 --max_hw=256 \\
+        --generator_norm_type=none --do_pixel_norm=true \\
+        --equalized_learning_rate=true --dtype=bfloat16 \\
+        --eval_every_n_iter_in_training=1000
+
+Synthetic data:
     python -m twingan_tpu_torch.runner.pggan_runner \\
         --program_name=image_generation --use_synthetic_data=true \\
         --train_dir=/tmp/run --start_hw=4 --max_hw=256 \\
@@ -18,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 
+from twingan_tpu_torch.data.datasets import get_dataset
 from twingan_tpu_torch.models.config import PGGANConfig
 from twingan_tpu_torch.runner.stage_runner import RunConfig, StageRunner
 from twingan_tpu_torch.train.gan_trainer import GanTrainerConfig
@@ -267,15 +277,14 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
             target_embed_dim=args.target_embed_dim,
         )
     else:
-        if args.use_conditional_labels and not args.num_classes:
-            raise NotImplementedError(
-                "--use_conditional_labels takes its class count from the dataset, and "
-                "datasets are not ported to twingan_tpu_torch yet (queue item A10)")
+        num_classes = args.num_classes
+        if args.use_conditional_labels and not num_classes:
+            num_classes = get_dataset(args.dataset_name).num_classes
         trainer = GanTrainerConfig(
             **common,
             generator_network=args.generator_network,
             use_conditional_labels=args.use_conditional_labels,
-            num_classes=args.num_classes,
+            num_classes=num_classes or 0,
             conditional_embed_dim=args.conditional_embed_dim,
         )
     return RunConfig(

@@ -16,25 +16,32 @@ Counterpart of ``twingan_tpu/runner/stage_runner.py``:
   ``logs/metrics.jsonl``.
 
 Each stage builds a new trainer at its resolution and drives it with the
-same loop as the JAX runner: augmented synthetic batches, ``round_step``
+same loop as the JAX runner: augmented batches (synthetic, or real data
+from tfrecord shards: held on the device by a ``DeviceResidentSampler``
+when the stage's dataset fits ``device_resident_gb``, else streamed by a
+``DevicePrefetcher``; ``UnpairedSource`` for TwinGAN's two domains),
+``round_step``
 (or ``scan_rounds`` over stacked batches with ``rounds_per_scan > 1``),
 cadences that fire when the step crosses a multiple of their period, NaN
 recovery from the last checkpoint with a budget, the optional deferred
 probe (``async_probe``), the transfer bound, and a ``torch.profiler``
-trace. The round's seed is ``seed + 17``, the augmentation's
-``seed + 13``.
+trace, and the in-training SWD (``eval_every_n_iter_in_training``: the
+stage's first augmented batch against the model's samples or
+translations of it, ``swd_in_training_<step>.txt``; a failure is printed
+and never stops training). The round's seed is ``seed + 17``, the
+augmentation's ``seed + 13``.
 
 The stage summary adds the split of a stage's time: ``build_s`` (trainer
-and fresh state), ``restore_s`` (resume or migration), ``rounds_s`` and
-``saves_s`` (checkpoints and ``model.pt``, ``saves`` of them); the NaN
+and fresh state), ``restore_s`` (resume or migration), ``data_s`` (the
+data source: a device-resident dataset decoded, resized and copied to
+the device; a streaming one only started, its decoding then runs beside
+the rounds), ``rounds_s`` and ``saves_s`` (checkpoints and ``model.pt``,
+``saves`` of them); the NaN
 recoveries it took; and ``started``, where its state came from (the
 migration report's counts, or the step it resumed at).
 
-Not ported yet, raising ``NotImplementedError``: real data (``dataset_dir``
-without ``use_synthetic_data``; A10), the in-training SWD
-(``eval_every_n_iter_in_training``; A11) and several devices
-(``num_devices > 1``; A9). ``device_resident_gb`` applies to real data
-only and is inert until A10.
+Not ported yet, raising ``NotImplementedError``: several devices
+(``num_devices > 1``; A9).
 """
 
 from __future__ import annotations
@@ -47,13 +54,22 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from twingan_tpu_torch.data.pipeline import SyntheticSource
+from twingan_tpu_torch.data.datasets import get_dataset
+from twingan_tpu_torch.data.pipeline import (
+    DevicePrefetcher,
+    DeviceResidentSampler,
+    SyntheticSource,
+    TFRecordSource,
+    UnpairedSource,
+)
 from twingan_tpu_torch.data.preprocess import (
     PreprocessConfig,
     augment_batch,
     postprocess_image,
     resize_bilinear,
 )
+from twingan_tpu_torch.data.tfrecord import list_shards
+from twingan_tpu_torch.evals.metrics import swd_eval
 from twingan_tpu_torch.models.pggan import noise_shape
 from twingan_tpu_torch.runner.checkpoint import (
     CheckpointManager,
@@ -69,6 +85,9 @@ from twingan_tpu_torch.train.twingan_trainer import TwinGANConfig, TwinGANTraine
 from twingan_tpu_torch.utils.image_io import save_image_grid, stack_comparison
 from twingan_tpu_torch.utils.summary import SummaryWriter
 
+# The batch items the trainers consume, and the images among them.
+BATCH_KEYS = ("source", "target", "source_embedding", "target_embedding", "conditional_labels")
+IMAGE_KEYS = ("source", "target")
 PGGAN_BATCH_SCHEDULE = {4: 16, 8: 16, 16: 16, 32: 16, 64: 12, 128: 12, 256: 12, 512: 6}
 TWINGAN_BATCH_SCHEDULE = {4: 8, 8: 8, 16: 8, 32: 8, 64: 8, 128: 4, 256: 3, 512: 2}
 
@@ -142,10 +161,6 @@ def require_ported_run(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError`` for the runner options whose modules
     the port lacks, naming their queue item."""
     unported = [
-        ("real data (dataset_dir without use_synthetic_data; queue item A10)",
-         bool(cfg.dataset_dir) and not cfg.use_synthetic_data),
-        ("eval_every_n_iter_in_training (the in-training SWD; queue item A11)",
-         cfg.eval_every_n_iter_in_training > 0),
         ("num_devices > 1 (data parallelism; queue item A9)", cfg.num_devices > 1),
     ]
     for name, is_set in unported:
@@ -191,10 +206,107 @@ class StageRunner:
             do_random_cropping=self.cfg.do_random_cropping,
             subtract_mean=self.cfg.subtract_mean, is_training=True)
 
-    def _build_data(self, res: int, batch: int) -> SyntheticSource:
-        keys = ("source", "target") if self.cfg.program == "twingan" else ("target",)
-        return SyntheticSource(batch, self._preprocess_cfg(res).host_hw, seed=self.cfg.seed,
-                               keys=keys)
+    def _build_sources(self, res: int, batch: int):
+        """The real-data TFRecordSource pair ((a, b); b is None for
+        single-dataset programs), yielding uint8 images."""
+        cfg = self.cfg
+        needs_pair = cfg.program == "twingan"
+        pp = self._preprocess_cfg(res)
+        # The trainer's label space sizes the dataset's one-hots.
+        num_classes = int(getattr(cfg.trainer, "num_classes", 0) or 0)
+        a = TFRecordSource(
+            # Single-dataset generation: the images are the real-data
+            # distribution ('target') and the generator input stays noise.
+            get_dataset(cfg.dataset_name, num_classes=num_classes,
+                        vocab_file=cfg.vocab_file or None, use_target=not needs_pair),
+            list_shards(cfg.dataset_dir, cfg.dataset_split),
+            pp, batch, seed=cfg.seed, yield_uint8=True,
+        )
+        b = None
+        if needs_pair:
+            b = TFRecordSource(
+                get_dataset(cfg.target_dataset_name, use_target=False),
+                list_shards(cfg.target_dataset_dir or cfg.dataset_dir, cfg.dataset_split),
+                pp, batch, seed=cfg.seed + 1, yield_uint8=True,
+            )
+        return a, b
+
+    def _build_resident(self, res: int, batch: int) -> Optional[DeviceResidentSampler]:
+        """A DeviceResidentSampler over the stage's datasets, or None where
+        the resident path does not apply (budget 0, synthetic data, random
+        host resize, ragged, oversized or undecodable datasets): the caller
+        then streams."""
+        cfg = self.cfg
+        if not cfg.device_resident_gb or cfg.use_synthetic_data or not cfg.dataset_dir:
+            return None
+        budget = int(cfg.device_resident_gb * (1 << 30))
+        a, b = self._build_sources(res, batch)
+        arrs_a = a.materialize(budget)
+        if arrs_a is None:
+            return None
+        img_a = next((k for k in ("source", "target", "image") if k in arrs_a), None)
+        if img_a is None:
+            return None
+        if b is not None:
+            used = sum(v.nbytes for v in arrs_a.values())
+            arrs_b = b.materialize(max(budget - used, 1))
+            if arrs_b is None:
+                return None
+            img_b = next((k for k in ("source", "target", "image") if k in arrs_b), None)
+            if img_b is None:
+                return None
+            # UnpairedSource's key map: a_* -> the source side, b_* -> target.
+            domains = [
+                (arrs_a, {"source": img_a, "source_embedding": "embedding",
+                          "conditional_labels": "conditional_labels"}, cfg.seed),
+                (arrs_b, {"target": img_b, "target_embedding": "embedding"}, cfg.seed + 1),
+            ]
+        else:
+            domains = [(arrs_a, {"target": img_a, "conditional_labels": "conditional_labels"},
+                        cfg.seed)]
+        try:
+            sampler = DeviceResidentSampler(domains, batch, self.device)
+        except ValueError:
+            return None
+        print(f"[data {res}px] device-resident: {sampler.resident_bytes / 1e6:.1f} MB "
+              "copied once; a round moves its sample indices only")
+        return sampler
+
+    def _build_data(self, res: int, batch: int, to_device: bool = True):
+        """(iterator over batches, close function). Synthetic batches are
+        host arrays; real ones come through a DevicePrefetcher, as device
+        tensors, or as host arrays with ``to_device=False`` (the caller
+        stacks a scan chunk's batches into one copy)."""
+        cfg = self.cfg
+        needs_pair = cfg.program == "twingan"
+        if cfg.use_synthetic_data or not cfg.dataset_dir:
+            keys = ("source", "target") if needs_pair else ("target",)
+            num_classes = 0
+            if getattr(cfg.trainer, "use_conditional_labels", False):
+                keys = keys + ("conditional_labels",)
+                num_classes = cfg.trainer.num_classes
+            src = SyntheticSource(batch, self._preprocess_cfg(res).host_hw, seed=cfg.seed,
+                                  keys=keys, num_classes=num_classes)
+            return iter(src), lambda: None
+        a, b = self._build_sources(res, batch)
+        if needs_pair:
+            pf = DevicePrefetcher(
+                UnpairedSource(a, b), depth=2, device=self.device, to_device=to_device,
+                # Only what the trainer consumes, not the a_*/b_* duplicates.
+                keys=("source", "target", "source_embedding", "target_embedding",
+                      "conditional_labels"))
+            return iter(pf), pf.close
+
+        def to_target(it):
+            for item in it:
+                item = dict(item)
+                if item.get("target") is None and item.get("source") is not None:
+                    item["target"] = item["source"]
+                yield item
+
+        pf = DevicePrefetcher(to_target(iter(a)), depth=2, device=self.device,
+                              to_device=to_device)
+        return iter(pf), pf.close
 
     @staticmethod
     def _serving_state_dict(trainer, state) -> dict:
@@ -290,41 +402,66 @@ class StageRunner:
             times["saves"] += 1
             last_saved["step"] = step
 
-        data_iter = iter(self._build_data(res, trainer.cfg.batch_size))
+        t_data = time.perf_counter()
+        resident = self._build_resident(res, trainer.cfg.batch_size)
+        if resident is not None:
+            data_iter, close_data = None, (lambda: None)
+        else:
+            data_iter, close_data = self._build_data(res, trainer.cfg.batch_size,
+                                                     to_device=cfg.rounds_per_scan <= 1)
+        times["data_s"] = time.perf_counter() - t_data
         pp = self._preprocess_cfg(res)
         aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 13)
         rng = cfg.seed + 17
         n_critic = trainer.cfg.n_critic
-        want_fixed = bool(cfg.log_image_every_n_iter)
+        want_fixed = bool(cfg.log_image_every_n_iter or cfg.eval_every_n_iter_in_training)
         fixed_batch: Dict[str, np.ndarray] = {}
+        # Bytes this stage copied to the device for its batches: images, or
+        # only sample indices on the device-resident path.
         staged = {"bytes": 0}
 
-        def put(x: np.ndarray) -> torch.Tensor:
+        def put(x) -> torch.Tensor:
+            if isinstance(x, torch.Tensor):  # staged by the prefetcher or resident
+                if resident is None:
+                    staged["bytes"] += x.nbytes
+                return x.to(self.device)
             staged["bytes"] += x.nbytes
-            return torch.from_numpy(x).to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
-        def prepare(raw: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        def prepare(raw) -> Dict[str, torch.Tensor]:
             # sorted: the draw order must not depend on dict order.
             return {k: (augment_batch(put(raw[k]), pp, generator=aug_gen)
-                        if k in ("source", "target") else put(raw[k])) for k in sorted(raw)}
+                        if k in IMAGE_KEYS else put(raw[k]))
+                    for k in sorted(raw) if k in BATCH_KEYS}
 
         def next_batches():
-            batches = [prepare(next(data_iter)) for _ in range(n_critic)]
+            if resident is not None:
+                raws = resident.sample_batches(n_critic)
+                staged["bytes"] += resident.last_index_bytes
+            else:
+                raws = [next(data_iter) for _ in range(n_critic)]
+            batches = [prepare(raw) for raw in raws]
             if want_fixed and not fixed_batch:
                 fixed_batch.update({k: v.float().cpu().numpy() for k, v in batches[0].items()})
             return batches
 
         def scan_chunk(state, n_rounds):
-            """n_rounds rounds through ``scan_rounds``: every host batch of
-            the chunk stacked ([R, n_critic, B, ...]), staged and augmented
-            at once per key."""
-            raw = [[next(data_iter) for _ in range(n_critic)] for _ in range(n_rounds)]
+            """n_rounds rounds through ``scan_rounds``: every batch of the
+            chunk stacked ([R, n_critic, B, ...]), staged and augmented at
+            once per key."""
+            if resident is not None:
+                stacked_raw = resident.sample_chunk(n_rounds, n_critic)
+                staged["bytes"] += resident.last_index_bytes
+            else:
+                raw = [[next(data_iter) for _ in range(n_critic)] for _ in range(n_rounds)]
+                stacked_raw = {k: put(np.stack([np.stack([np.asarray(raw[r][c][k])
+                                                          for c in range(n_critic)])
+                                                for r in range(n_rounds)]))
+                               for k in sorted(raw[0][0]) if k in BATCH_KEYS}
             stacked = {}
-            for k in sorted(raw[0][0]):
-                arr = np.stack([np.stack([raw[r][c][k] for c in range(n_critic)])
-                                for r in range(n_rounds)])
-                x = put(arr)
-                if k in ("source", "target"):
+            for k in sorted(stacked_raw):
+                x = stacked_raw[k]
+                if k in IMAGE_KEYS:
                     flat = augment_batch(x.reshape((-1,) + x.shape[3:]), pp, generator=aug_gen)
                     x = flat.reshape(x.shape[:3] + flat.shape[1:])
                 stacked[k] = x
@@ -412,6 +549,7 @@ class StageRunner:
                         cur >= steps
                         or would_fire(cfg.save_every_n_steps, "save")
                         or would_fire(cfg.log_image_every_n_iter, "image")
+                        or would_fire(cfg.eval_every_n_iter_in_training, "swd_train")
                         or would_fire(cfg.log_histograms_every_n_iter, "hist")):
                     # The deferred probe runs before anything snapshots state:
                     # a non-finite state is never persisted.
@@ -438,6 +576,8 @@ class StageRunner:
                     save(cur, state)
                 if due(cfg.log_image_every_n_iter, "image"):
                     self._dump_samples(trainer, state, stage_dir, cur, fixed_batch)
+                if due(cfg.eval_every_n_iter_in_training, "swd_train"):
+                    self._in_training_swd(trainer, state, stage_dir, cur, fixed_batch, writer)
                 if due(cfg.log_histograms_every_n_iter, "hist"):
                     writer.histograms(cur, {k[len("params/"):]: v.float().cpu().numpy()
                                             for k, v in state_to_dict(state).items()
@@ -465,6 +605,7 @@ class StageRunner:
         finally:
             if profiler is not None:
                 self._stop_profiler(profiler, stage_dir)
+            close_data()
             writer.close()
         if self.device.type == "cuda":
             torch.cuda.synchronize()
@@ -472,7 +613,7 @@ class StageRunner:
         done = state.step - start_step
         info = {"steps": state.step, "wall_time_sec": round(wall, 1),
                 "rounds_per_sec": round(done / max(wall, 1e-9), 3),
-                "rounds_s": wall - times["saves_s"], **times,
+                "rounds_s": wall - times["saves_s"] - times["data_s"], **times,
                 "nan_recoveries": nan_recoveries, "started": started}
         if paused:
             info["partial"] = True
@@ -491,6 +632,48 @@ class StageRunner:
         return postprocess_image(torch.as_tensor(np.asarray(x, np.float32)),
                                  self.cfg.color_space,
                                  subtract_mean=self.cfg.subtract_mean).numpy()
+
+    def _in_training_swd(self, trainer, state, stage_dir: str, step: int, fixed_batch,
+                         writer) -> None:
+        """The in-training SWD: the stage's fixed batch (its first augmented
+        batch) as the reals against the model's generations or s2t
+        translations of it, the table in ``swd_in_training_<step>.txt`` and
+        the levels' means logged. A failure is printed and never stops
+        training."""
+        try:
+            real = (fixed_batch or {}).get("target")
+            if real is None:
+                return
+            real = np.asarray(real, np.float32)
+            if real.shape[1] < 16:
+                return  # reference: 'Not doing swd on small images.'
+            if isinstance(trainer, TwinGANTrainer):
+                src = fixed_batch.get("source")
+                if src is None:
+                    return
+                fake = trainer.translate(state, torch.from_numpy(np.asarray(src, np.float32)),
+                                         "s2t")
+            else:
+                src = fixed_batch.get("source")
+                if src is not None:
+                    inp = np.asarray(src, np.float32)
+                else:
+                    rng = np.random.RandomState(9)
+                    inp = rng.standard_normal(
+                        noise_shape(trainer.cfg.model, len(real))).astype(np.float32)
+                fake = trainer.sample(state, torch.from_numpy(inp))
+            fake = fake.float().cpu().numpy()
+            out = os.path.join(stage_dir, f"swd_in_training_{step}.txt")
+            # Display space, so scores compare across colour spaces.
+            table = swd_eval(step, [self._display(real)], [self._display(fake)],
+                             num_images=min(len(real), len(fake)), save_path=out,
+                             device=self.device)
+            if table:
+                vals = list(table.values())
+                writer.scalars(step, {"swd_real": float(np.mean([v[0] for v in vals])),
+                                      "swd_fake": float(np.mean([v[1] for v in vals]))})
+        except Exception as e:  # eval must never kill training
+            print(f"[in-training swd failed: {e}]")
 
     def _fixed_custom_sources(self, res: int, n: int):
         """The ``custom_sources_np_path`` npy at this stage's resolution in

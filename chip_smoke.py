@@ -116,7 +116,27 @@ result line is printed:
               to its translations' and passes' count (2 B1 a translated
               batch); then the SWD (both paths) and MS-SSIM of 128 fixed
               images on the card against the CPU with the same draws.
-11. kernels - one line listing each kernel of the paths.
+11. recipe  - the reference's headline TwinGAN recipe (docs/USAGE.md:
+              batch renorm, UNet, pixel norm, max_channels 256, DRAGAN
+              lambda 0.25, lr 1e-4, the recipe's batch schedule, bf16)
+              with SAGAN attention at 64 px: one G and one D step at
+              256 px, batch 3, global step 10001 (the schedule's second
+              clip), from renorm EMAs drawn from the seed and He-scaled
+              kernels, on the card in fp32 and bf16 against fp32 on the
+              CPU (TRAIN_LIMITS; the renorm EMAs and moving statistics
+              after the step too), the clipped r and d counted; 3 timed
+              256 px rounds beside the train phase's batch-norm rate; the
+              plan from 4 to 256 px through the training command's
+              main() on synthetic data, B1-B3's tensor-core launches per
+              stage held to the passes' count (from 32to64 on), every
+              stage's renorm EMAs finite and moved from zero, and the 256
+              stage served by ``ImageInferer`` within serving's limits of
+              the CPU. Then pggan256 with spectral norm (without eq-lr):
+              a G and a D step against the CPU with every u held to
+              SPECTRAL_U_ATOL, and, with spectral norm in the generator
+              too, a 12-image ``sample`` on B4's tensor-core variant (13
+              launches, W / sigma folded in) against the CPU.
+12. kernels - one line listing each kernel of the paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -327,6 +347,32 @@ EVAL_OUTPUT_IMAGES = 64
 EVAL_COMPARE_IMAGES = 128
 SWD_RTOL = 1e-4
 MSSSIM_ATOL = 1e-5
+
+# The recipe phase: the reference's headline TwinGAN recipe (docs/USAGE.md,
+# "Train TwinGAN from scratch") as the port's training command takes it,
+# plus the slice's SAGAN attention at 64 px, on synthetic data. Its step
+# comparison starts at global step 10001, where the schedule's second clip
+# holds, from renorm EMAs drawn from the seed (at their zero init r is 1
+# and d is 0, and no clip would bite). 16 images a resolution: 2 rounds a
+# stage at batch 8 below 128 px, 4 at 128 px (batch 4), 5 at 256 px
+# (batch 3).
+RECIPE_FLAGS = [
+    "--program_name=twingan", "--dataset_split_name=train",
+    "--resize_mode=RESHAPE", "--do_random_cropping=true", "--learning_rate=0.0001",
+    "--generator_network=pggan", "--use_unet=true",
+    "--loss_architecture=dragan", "--gradient_penalty_lambda=0.25",
+    "--pggan_max_num_channels=256", "--generator_norm_type=batch_renorm",
+    "--hw_to_batch_size={4: 8, 8: 8, 16: 8, 32: 8, 64: 8, 128: 4, 256: 3, 512: 2}",
+    "--do_pixel_norm=true", "--l_content_weight=0.1", "--l_cyc_weight=1.0",
+    "--dtype=bfloat16", "--rounds_per_scan=16",
+    "--do_self_attention=true", "--self_attention_hw=64",
+]
+RECIPE_IMAGES = 16
+RECIPE_STEP = 10001
+# A spectral norm's u after a step, card against CPU: one power iteration
+# in fp32 from the same u on the same fp32 weights (TF32 off), sums taken
+# in other orders; u is a unit vector.
+SPECTRAL_U_ATOL = 1e-5
 
 # Numbers an earlier phase measured that a later one prints beside its own.
 MEASURED: dict = {}
@@ -967,9 +1013,17 @@ def _cosine(a, b) -> float:
     return float(torch.dot(a, b) / (torch.linalg.vector_norm(a) * torch.linalg.vector_norm(b)))
 
 
+def _held_leaf(key: str, held_buffers) -> bool:
+    """``key``'s leaf is one of ``held_buffers``: the same name, or a name
+    the entry ending in ``_`` starts (``renorm_`` for every renorm EMA)."""
+    leaf = key.rsplit(".", 1)[-1]
+    return any(leaf == pat or (pat.endswith("_") and leaf.startswith(pat))
+               for pat in held_buffers)
+
+
 def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_cls=None,
                   zs=None, phase: str = "train", limits=None, grad_prefix=None,
-                  b4_steps=()) -> list:
+                  b4_steps=(), step: int = 0, held_buffers=None) -> list:
     """One G step and one D step, each from ``weights``, on the ``card`` in
     float32 and in bfloat16 against the same steps in fp32 on the CPU (plain
     attention), within ``limits`` (TRAIN_LIMITS by default). ``trainer_cls``
@@ -979,6 +1033,10 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
     network's name. On the card, each step launches only the variants of
     its type: the three attention kernels where the networks have
     attention, and B4 in the steps named in ``b4_steps`` and in no other.
+    Each step starts at global ``step``. ``held_buffers`` maps buffer
+    leaves (``renorm_``, ``u``) to the absolute limit their values after
+    the step are held to against the CPU's, elementwise; None holds them
+    to the step's loss limits (rtol * |cpu| + atol).
     Returns one row per step and card type."""
     import torch
     from twingan_tpu_torch.models.layers import SelfAttention
@@ -989,8 +1047,10 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
     limits = limits or TRAIN_LIMITS
     grad_prefix = grad_prefix or {}
 
+    held_buffers = held_buffers or {}
+
     def run(trainer, kind, batch):
-        state = trainer.state_from_nets(trainer.build_nets(), step=0, critic_step=1)
+        state = trainer.state_from_nets(trainer.build_nets(), step=step, critic_step=1)
         state.nets.load_state_dict(weights)
         side = "gen_opt" if kind == "g_step" else "dis_opt"
         setattr(state, side, GradRecorder(getattr(state, side)))
@@ -1007,7 +1067,9 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
         sa_names = [n for n, m in state.nets.named_modules() if isinstance(m, SelfAttention)]
         prefix = grad_prefix.get(kind, "")
         grads = {prefix + n: g for n, g in getattr(state, side).grads.items()}
-        return metrics, grads, seconds, sa_names
+        buffers = {k: v.detach().float().cpu() for k, v in state.nets.state_dict().items()
+                   if _held_leaf(k, held_buffers)}
+        return metrics, grads, seconds, sa_names, buffers
 
     def flat(grads, prefix):
         return torch.cat([g.flatten() for n, g in grads.items() if n.startswith(prefix + ".")])
@@ -1018,9 +1080,9 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
     rows = []
     ref_trainer = on("cpu", "float32")
     for kind, batch in zip(("g_step", "d_step"), batches):
-        ref_m, ref_grads, cpu_s, _ = run(ref_trainer, kind, batch)
+        ref_m, ref_grads, cpu_s, _, ref_buffers = run(ref_trainer, kind, batch)
         for dtype, (rtol, atol, min_cos, min_sa_cos) in limits.items():
-            m, grads, card_s, sa_names = run(on(card, dtype), kind, batch)
+            m, grads, card_s, sa_names, buffers = run(on(card, dtype), kind, batch)
             # The kernels run the variant of the step's type only (on the
             # CPU, none runs).
             dt = getattr(torch, dtype)
@@ -1041,14 +1103,26 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
                                                flat(ref_grads, f"{sa}.{proj}"))
                       for sa in sa_names if sa.split(".", 1)[0] in networks
                       for proj in ("sa_f", "sa_g", "sa_h")}
+            buffer_err, buffers_ok = {}, True
+            for pat, limit in held_buffers.items():
+                keys = [k for k in ref_buffers if _held_leaf(k, (pat,))]
+                errs = [(buffers[k] - ref_buffers[k]).abs() for k in keys]
+                bounds = [limit if limit is not None else rtol * ref_buffers[k].abs() + atol
+                          for k in keys]
+                buffer_err[pat] = {"held": len(keys),
+                                   "max_abs_err": max((float(e.max()) for e in errs), default=0.0),
+                                   "limit": limit if limit is not None else [rtol, atol]}
+                buffers_ok = buffers_ok and bool(keys) and all(
+                    bool((e <= b).all()) for e, b in zip(errs, bounds))
             ok = (all(loss_err[k] <= rtol * abs(ref_m[k]) + atol for k in loss_err)
-                  and min(net_cos.values()) >= min_cos
+                  and buffers_ok and min(net_cos.values()) >= min_cos
                   and (min_sa_cos is None or min(sa_cos.values()) >= min_sa_cos)
                   and not other and (not on_card or want <= set(variants)))
             rows.append({"phase": phase, "check": f"{kind}, card {dtype} vs CPU float32",
                          "losses": m, "cpu_losses": ref_m, "loss_abs_err": loss_err,
                          "grad_cosine": net_cos, "attention_projection_grad_cosine": sa_cos,
-                         "kernel_variants": variants,
+                         "kernel_variants": variants, "step": step,
+                         "buffers_after_step": buffer_err,
                          "limits": {"loss_rtol": rtol, "loss_atol": atol,
                                     "grad_cosine": min_cos, "projection_cosine": min_sa_cos},
                          "card_s": card_s, "cpu_s": cpu_s, "ok": bool(ok)})
@@ -1115,6 +1189,8 @@ def train_phase(card: str, smi_line: str) -> dict:
                          for k in (attention.KERNEL_NAME, attention.DQ_KERNEL,
                                    attention.DKV_KERNEL)}
     med = statistics.median(round_s)
+    MEASURED["train_rounds_per_s"] = 1.0 / med
+    MEASURED["train_peak_memory_bytes"] = peak
     row = {"phase": "train", "check": "timed rounds", "rounds": TRAIN_TIMED_ROUNDS,
            "batch": TRAIN_BATCH, "n_critic": cfg.n_critic, "fused": cfg.fuse,
            "round_s": round_s, "rounds_per_s": 1.0 / med,
@@ -1166,6 +1242,17 @@ def generation_config(batch: int = GEN_BATCH):
         batch_size=batch, n_critic=2)
 
 
+def spectral_generation_config(batch: int = GEN_BATCH):
+    """pggan256 with spectral norm in the discriminator, and without
+    equalized lr: a spectral norm makes each kernel's largest singular value
+    1, and the eq-lr input scale (0.03 at 256 channels) on top of it shrinks
+    every layer 30-fold, so that the discriminator's prediction no longer
+    depends on its input (real and fake predictions equal, the generator's
+    gradient about 1e-16), a comparison of nothing."""
+    cfg = generation_config(batch)
+    return cfg.replace(model=cfg.model.replace(spectral_norm=True, equalized_lr=False))
+
+
 def randomize_biases(nets, seed: int) -> None:
     """Every bias N(0, 0.2) from ``seed`` (the initializers set them to 0),
     so that B4's bias term shows in the comparisons."""
@@ -1197,16 +1284,17 @@ def generation_inputs(cfg, batch: int, seed: int):
     return batches, zs, gp_noise
 
 
-def compare_generation_steps(cfg, weights, batches, zs, gp_noise, card: str = "cuda") -> list:
+def compare_generation_steps(cfg, weights, batches, zs, gp_noise, card: str = "cuda",
+                             phase: str = "generation", **kw) -> list:
     """``compare_steps`` for GanTrainer: its optimizers name parameters
     inside their network, pggan256 has no attention, so there is no
     projection check, and its D step's generator pass runs B4."""
     from twingan_tpu_torch.train.gan_trainer import GanTrainer
 
     limits = {dtype: (*lim[:3], None) for dtype, lim in TRAIN_LIMITS.items()}
-    return compare_steps(cfg, weights, batches, gp_noise, card, GanTrainer, zs, "generation",
+    return compare_steps(cfg, weights, batches, gp_noise, card, GanTrainer, zs, phase,
                          limits, {"g_step": "generator.", "d_step": "discriminator."},
-                         b4_steps=("d_step",))
+                         b4_steps=("d_step",), **kw)
 
 
 def generation_phase(card: str, smi_line: str) -> dict:
@@ -1318,6 +1406,12 @@ def counting_runner(cfg, stage_rows: list):
     """A ``StageRunner`` whose stages each set the kernels' counts to 0 just
     before they run and read them just after, with the stage's wall time
     and peak device memory: one row per stage into ``stage_rows``."""
+    return counting_runner_class(stage_rows)(cfg)  # the card, by default
+
+
+def counting_runner_class(stage_rows: list):
+    """The class of ``counting_runner``, for a caller that builds the
+    runner itself (the training command)."""
     import torch
     from twingan_tpu_torch.ops import attention, fused_conv
     from twingan_tpu_torch.runner.stage_runner import StageRunner
@@ -1349,7 +1443,7 @@ def counting_runner(cfg, stage_rows: list):
                                     for k, v in counts.items() if v}})
             return info
 
-    return CountingRunner(cfg)  # the card, by default
+    return CountingRunner
 
 
 def runner_losses_ok(runner) -> bool:
@@ -2025,6 +2119,324 @@ def eval_phase(card: str, smi_line: str, data: dict, twingan_dir: str) -> dict:
     return totals
 
 
+def recipe_config():
+    """The headline recipe at 256 px as the training command builds it from
+    RECIPE_FLAGS (the CLI's parser and ``config_from_args``), at the
+    recipe's 256 px batch."""
+    from twingan_tpu_torch.runner import pggan_runner
+
+    args = pggan_runner.build_parser().parse_args(
+        RECIPE_FLAGS + ["--train_dir=unused", "--start_hw=256", "--max_hw=256"])
+    return pggan_runner.config_from_args(args).trainer.replace(batch_size=TRAIN_BATCH)
+
+
+def seed_renorm_state(nets, seed: int) -> None:
+    """Every batch-renorm bank's EMAs drawn from ``seed``: weights in
+    [0.85, 0.95], debiased means N(0, 1) and standard deviations
+    log-uniform in [0.1, 5], off the batches' moments, so that r and d
+    clip; the moving statistics N(0, 0.2) and U(0.5, 1.5)."""
+    import math
+
+    import torch
+    from twingan_tpu_torch.models.layers import DomainNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in nets.modules():
+            if not (isinstance(m, DomainNorm) and m.kind == "batch_renorm"):
+                continue
+            for d in range(m.num_domains):
+                for name in ("mean", "stddev"):
+                    weight = getattr(m, f"renorm_{name}_weight_{d}")
+                    weight.copy_(torch.empty(()).uniform_(0.85, 0.95, generator=gen))
+                    ema = getattr(m, f"renorm_{name}_{d}")
+                    if name == "mean":
+                        value = torch.randn(ema.shape, generator=gen)
+                    else:
+                        value = torch.empty(ema.shape).uniform_(
+                            math.log(0.1), math.log(5.0), generator=gen).exp()
+                    ema.copy_(value.to(ema.device) * weight)
+                mean, var = getattr(m, f"moving_mean_{d}"), getattr(m, f"moving_var_{d}")
+                mean.copy_(torch.empty(mean.shape).normal_(0.0, 0.2, generator=gen))
+                var.copy_(torch.empty(var.shape).uniform_(0.5, 1.5, generator=gen))
+
+
+def he_scale_kernels(nets, seed: int) -> None:
+    """Every conv and dense kernel redrawn N(0, 2 / fan_in) from ``seed``.
+    Without equalized lr the recipe draws N(0, 0.02), under which the
+    norm-free discriminators shrink their activations layer by layer until
+    the prediction (about 1e-7) is set by minibatch stddev's epsilon, which
+    is 1e-8 in fp32 and 1e-6 in bf16: the two types would then compare two
+    different functions. He-scaled kernels keep every layer's activations
+    near unit scale, as training brings them."""
+    import torch
+    from twingan_tpu_torch.models.layers import EqConv, EqDense
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in nets.modules():
+            if isinstance(m, (EqConv, EqDense)) and not m.equalized_lr:
+                fan_in = m.kernel[0].numel() if isinstance(m, EqConv) else m.kernel.shape[0]
+                m.kernel.copy_(torch.randn(m.kernel.shape, generator=gen)
+                               * (2.0 / fan_in) ** 0.5)
+
+
+def clip_counter():
+    """Wraps ``norms.batch_renorm_correction`` to count the r and d values
+    it clips; returns (counts, restore)."""
+    from twingan_tpu_torch.ops import norms
+
+    counts = {"clipped": 0, "values": 0}
+    real = norms.batch_renorm_correction
+
+    def counting(mean, var, state, clip, **kw):
+        r, d, new = real(mean, var, state, clip, **kw)
+        rmax, rmin, dmax = (float(r.new_tensor(clip[k])) for k in ("rmax", "rmin", "dmax"))
+        counts["clipped"] += int(((r == rmax) | (r == rmin) | (d.abs() == dmax)).sum())
+        counts["values"] += 2 * r.numel()
+        return r, d, new
+
+    norms.batch_renorm_correction = counting
+    return counts, lambda: setattr(norms, "batch_renorm_correction", real)
+
+
+def recipe_phase(card: str, smi_line: str) -> dict:
+    """The headline TwinGAN recipe (batch renorm) and pggan256 with spectral
+    norm on the card. Returns the recipe plan's launches by kernel and the
+    spectral-norm sample's B4 launches."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.infer.translate import ImageInferer
+    from twingan_tpu_torch.models.pggan import noise_shape
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.runner import pggan_runner
+    from twingan_tpu_torch.runner.checkpoint import CheckpointManager
+    from twingan_tpu_torch.runner.stage_runner import stage_dir_name, stage_plan
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    t_phase = time.perf_counter()
+    attn = (attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL)
+    tc = {k: f"{k}/{attention.VARIANTS[k][torch.bfloat16]}" for k in attn}
+
+    # 1. One G and one D step of the recipe at full width, at step 10001
+    # from the seeded renorm state, against fp32 on the CPU.
+    cfg = recipe_config()
+    trainer = TwinGANTrainer(cfg)  # the card, by default
+    state = trainer.init_state(SEED)
+    set_attention_gamma(state.nets)
+    he_scale_kernels(state.nets, SEED + 8)
+    seed_renorm_state(state.nets, SEED + 8)
+    weights = {k: v.detach().cpu().clone() for k, v in state.nets.state_dict().items()}
+    rng = np.random.RandomState(SEED + 8)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    res = cfg.model.resolution
+    gp_noise = {d: {"alpha": torch.rand(TRAIN_BATCH, 1, 1, 1, generator=gen),
+                    "noise": torch.rand(TRAIN_BATCH, res, res, 3, generator=gen) * 2 - 1}
+                for d in ("s", "t")}
+    counts, restore = clip_counter()
+    try:
+        rows = compare_steps(cfg, weights, [_train_batch(rng, cfg, "cpu") for _ in range(2)],
+                             gp_noise, phase="recipe", step=RECIPE_STEP,
+                             held_buffers={"renorm_": None, "moving_": None})
+    finally:
+        restore()
+    for row in rows:
+        row["clip"] = trainer._renorm_clip(RECIPE_STEP)
+        emit(row)
+        if not row["ok"]:
+            fail("recipe", f"the card's {row['check']} disagrees beyond the limits")
+    row = {"phase": "recipe", "check": "the renorm clip bites in the compared steps",
+           **counts, "ok": counts["clipped"] > 0}
+    emit(row)
+    if not row["ok"]:
+        fail("recipe", "no r or d value was clipped: the seeded renorm state does not test "
+                       "the clip")
+
+    # 2. Timed rounds at 256 px, beside the train phase's batch-norm rate.
+    state = trainer.state_from_nets(trainer.build_nets())
+    state.nets.load_state_dict(weights)
+    rounds = [[_train_batch(rng, cfg, "cuda") for _ in range(cfg.n_critic)]
+              for _ in range(1 + TRAIN_TIMED_ROUNDS)]
+    state, _ = trainer.round_step(state, rounds[0], rng=SEED)  # warm-up
+    torch.cuda.synchronize()
+    attention.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    round_s = []
+    for batches in rounds[1:]:
+        t0 = time.perf_counter()
+        state, m = trainer.round_step(state, batches, rng=SEED)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+    per_step = expected_launches(trainer, state.nets)
+    expected = {k: TRAIN_TIMED_ROUNDS * (per_step["g_step"][k] + (cfg.n_critic - 1)
+                                         * per_step["d_step"][k]) for k in attention.launch_counts}
+    med = statistics.median(round_s)
+    row = {"phase": "recipe", "check": "timed rounds, 256 px, batch renorm",
+           "rounds": TRAIN_TIMED_ROUNDS, "batch": TRAIN_BATCH, "round_s": round_s,
+           "rounds_per_s": 1.0 / med, "images_per_s": cfg.n_critic * TRAIN_BATCH / med,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "batch_norm_rounds_per_s": MEASURED.get("train_rounds_per_s"),
+           "batch_norm_peak_memory_bytes": MEASURED.get("train_peak_memory_bytes"),
+           "timing": "as the train phase's: synchronized host clock around each round",
+           "launches": dict(attention.launch_counts), "expected_launches": expected,
+           "card": card, "nvidia_smi": smi_line,
+           "ok": bool(dict(attention.launch_counts) == expected
+                      and all(np.isfinite(float(v)) for v in m.values()))}
+    emit(row)
+    if not row["ok"]:
+        fail("recipe", "the recipe's timed rounds launched other than the passes imply, or a "
+                       "loss is not finite")
+    del trainer, state, rounds
+    torch.cuda.empty_cache()
+
+    # 3. The plan, 4 to 256 px, through the training command's main().
+    totals: dict = {}
+    train_dir = tempfile.mkdtemp(prefix="twingan_smoke_recipe_")
+    try:
+        stage_rows: list = []
+        runners: list = []
+        runner_cls = counting_runner_class(stage_rows)
+
+        def build_runner(run_cfg, device=None):
+            runners.append(runner_cls(run_cfg, device=device))
+            return runners[-1]
+
+        argv = RECIPE_FLAGS + [
+            f"--train_dir={train_dir}", "--use_synthetic_data=true", "--start_hw=4",
+            "--max_hw=256", f"--num_images_per_resolution={RECIPE_IMAGES}",
+            "--log_every_n_steps=1", "--log_image_every_n_iter=0", f"--seed={SEED}"]
+        real_runner = pggan_runner.StageRunner
+        pggan_runner.StageRunner = build_runner
+        t0 = time.perf_counter()
+        try:
+            summary = pggan_runner.main(argv)
+        finally:
+            pggan_runner.StageRunner = real_runner
+        plan_s = time.perf_counter() - t0
+        (runner,) = runners
+        for row in stage_rows:
+            trainer, _ = runner._build_trainer(row["resolution"], row["growing"], row["steps"])
+            per_step = expected_launches(trainer, trainer.build_nets())
+            expected = {k: row["rounds"] * (per_step["g_step"][k] + (trainer.cfg.n_critic - 1)
+                                            * per_step["d_step"][k])
+                        for k in per_step["g_step"]}
+            flat = CheckpointManager(os.path.join(train_dir, row["stage"])).restore_dict()
+            renorm = {k: v for k, v in flat.items() if "/renorm_" in k}
+            weights_moved = [float(v) > 0 for k, v in renorm.items() if "_weight_" in k]
+            row.update(phase="recipe", program="twingan", expected_attention=expected,
+                       renorm_buffers=len(renorm),
+                       renorm_finite=all(bool(torch.isfinite(v).all()) for v in renorm.values()),
+                       renorm_weights_moved=f"{sum(weights_moved)}/{len(weights_moved)}",
+                       card=card, nvidia_smi=smi_line)
+            row["ok"] = bool(row["attention_launches"] == expected
+                             and row["kernel_variants"] == {tc[k]: expected[k] for k in attn
+                                                            if expected[k]}
+                             and not any(row["b4_launches"].values())
+                             and row["nan_recoveries"] == 0 and renorm and row["renorm_finite"]
+                             and all(weights_moved))
+            emit(row)
+            for k in attn:
+                totals[k] = totals.get(k, 0) + row["attention_launches"][k]
+        stages = [r["stage"] for r in stage_rows]
+        plan = [stage_dir_name(r, g) for r, g in stage_plan(4, 256)]
+        with_attention = [r["stage"] for r in stage_rows if r["attention_launches"][attn[0]]]
+
+        # The final stage served (eval mode: the moving statistics the
+        # renorm EMAs set) on the card and in fp32 on the CPU.
+        images = [np.random.RandomState(SEED + 9).randint(0, 256, (256, 256, 3)).astype(np.uint8)
+                  for _ in range(TRAIN_BATCH)]
+        attention.reset_launch_counts()
+        out = ImageInferer(train_dir).infer_batch(images)
+        served_launches = attention.launch_counts[attention.KERNEL_NAME]
+        ref = ImageInferer(train_dir, device="cpu", dtype="float32").infer_batch(images)
+        std = float(ref.std())
+        diff = np.abs(out - ref)
+        mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+        totals[attention.KERNEL_NAME] += served_launches
+        ok = (stages == plan and all(r["ok"] for r in stage_rows)
+              and with_attention == plan[plan.index("32to64"):]
+              and runner_losses_ok(runner) and summary["256"]["steps"] == RECIPE_IMAGES // 3
+              and out.shape == (TRAIN_BATCH, 256, 256, 3) and bool(np.isfinite(out).all())
+              and served_launches == 2 and mean_err <= SERVE_MEAN_TOL
+              and max_err <= SERVE_MAX_TOL)
+        emit({"phase": "recipe", "check": "the recipe, 4 to 256 px through the training "
+                                          "command, the 256 stage served",
+              "stages": stages, "stages_with_attention": with_attention,
+              "stage_wall_s": {r["stage"]: r["stage_wall_s"] for r in stage_rows},
+              "plan_s": plan_s, "rounds_per_s_256": stage_rows[-1]["rounds_per_s"],
+              "served_launches": served_launches, "output_std": std,
+              "mean_abs_err_over_std": mean_err, "max_abs_err_over_std": max_err,
+              "mean_tolerance": SERVE_MEAN_TOL, "max_tolerance": SERVE_MAX_TOL,
+              "card": card, "nvidia_smi": smi_line, "ok": bool(ok)})
+        if not ok:
+            fail("recipe", "the recipe's plan did not train every stage with B1-B3's "
+                           "tensor-core launches as its passes imply (from 64 px), keep its "
+                           "losses and renorm state finite and moved, or serve its 256 stage "
+                           "within serving's limits of the CPU")
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+
+    # 4. pggan256 with spectral norm in the discriminator: a G and a D step
+    # against the CPU with every u held; then with spectral norm in the
+    # generator too, a sample on B4 (W / sigma folded in).
+    sn_cfg = spectral_generation_config()
+    trainer = GanTrainer(sn_cfg)
+    state = trainer.init_state(SEED)
+    randomize_biases(state.nets, SEED)
+    weights = {k: v.detach().cpu().clone() for k, v in state.nets.state_dict().items()}
+    batches, zs, gp_noise = generation_inputs(sn_cfg, GEN_COMPARE_BATCH, SEED + 10)
+    for row in compare_generation_steps(sn_cfg.replace(batch_size=GEN_COMPARE_BATCH), weights,
+                                        batches, zs, gp_noise, phase="recipe",
+                                        held_buffers={"u": SPECTRAL_U_ATOL}):
+        row.update(batch=GEN_COMPARE_BATCH, config="pggan256, spectral_norm")
+        emit(row)
+        if not row["ok"]:
+            fail("recipe", f"pggan256 with spectral norm: the card's {row['check']} "
+                           "disagrees beyond the limits")
+    sn_all = sn_cfg.replace(model=sn_cfg.model.replace(spectral_norm_in_non_discriminator=True))
+    trainer = GanTrainer(sn_all)
+    state = trainer.init_state(SEED + 1)
+    randomize_biases(state.nets, SEED + 1)
+    z = torch.randn(noise_shape(sn_all.model, GEN_BATCH),
+                    generator=torch.Generator().manual_seed(SEED + 11))
+    fused_conv.reset_launch_counts()
+    out = trainer.sample(state, z).float()
+    torch.cuda.synchronize()
+    sample_counts = dict(fused_conv.launch_counts)
+    sample_variants = {k: v for k, v in fused_conv.variant_counts.items() if v}
+    cpu = GanTrainer(sn_all.replace(model=sn_all.model.replace(dtype="float32")), device="cpu")
+    nets = cpu.build_nets()
+    nets.load_state_dict({k: v.cpu() for k, v in state.nets.state_dict().items()})
+    ref = cpu.sample(cpu.state_from_nets(nets), z)
+    out = out.cpu()
+    std = float(ref.std())
+    diff = (out - ref).abs()
+    mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+    b4_tc = f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[torch.bfloat16]}"
+    row = {"phase": "recipe", "check": "pggan256, spectral norm in the generator too: sample, "
+                                       "card bf16 vs CPU float32",
+           "images": GEN_BATCH, "output_shape": list(out.shape),
+           "finite": bool(torch.isfinite(out).all()), "launches": sample_counts,
+           "kernel_variants": sample_variants, "output_std": std,
+           "mean_abs_err_over_std": mean_err, "max_abs_err_over_std": max_err,
+           "mean_tolerance": SERVE_MEAN_TOL, "max_tolerance": SERVE_MAX_TOL,
+           "seconds": time.perf_counter() - t_phase, "card": card, "nvidia_smi": smi_line,
+           "ok": bool(tuple(out.shape) == (GEN_BATCH, 256, 256, 3)
+                      and bool(torch.isfinite(out).all())
+                      and sample_counts == {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS,
+                                            fused_conv.AUTOGRAD_ROUTE: 0}
+                      and sample_variants == {b4_tc: GEN_LAYERS_PER_PASS}
+                      and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
+    emit(row)
+    if not row["ok"]:
+        fail("recipe", "the spectral-norm generator's samples disagree with the fp32 CPU run, "
+                       "or sample did not launch B4's tensor-core variant once per "
+                       "conv-leaky-pixel-norm layer")
+    totals[fused_conv.KERNEL_NAME] = sample_counts[fused_conv.KERNEL_NAME]
+    return totals
+
+
 def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
                  plain_ms: float, bound_ms: float, bound_by: str, library_ms: float,
                  **extra) -> dict:
@@ -2086,11 +2498,12 @@ def main() -> int:
         eval_launches = eval_phase(card, smi_line, data, realdata["twingan_dir"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    recipe_launches = recipe_phase(card, smi_line)
     data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
     by_path = {"serving": serving_launches, "train": train_launches[fwd],
                "runner": runner_launches[fwd], "runner_data": data_launches[fwd],
-               "eval": eval_launches[fwd]}
+               "eval": eval_launches[fwd], "recipe": recipe_launches[fwd]}
     entries = [kernel_entry(
         fwd, sum(by_path.values()), by_path,
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
@@ -2098,7 +2511,8 @@ def main() -> int:
         variant=serving_row["variant"][0])]
     for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
         by_path = {"train": train_launches[name], "runner": runner_launches[name],
-                   "runner_data": data_launches[name], "eval": eval_launches[name]}
+                   "runner_data": data_launches[name], "eval": eval_launches[name],
+                   "recipe": recipe_launches[name]}
         entries.append(kernel_entry(
             name, sum(by_path.values()), by_path,
             max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
@@ -2107,7 +2521,8 @@ def main() -> int:
             variant=train_row["variant"][name][0]))
     entries.append(fused_conv_entry(b4_rows, generation_launches,
                                     {"runner": runner_launches["fused_conv"],
-                                     "runner_data": data_launches["fused_conv"]}))
+                                     "runner_data": data_launches["fused_conv"],
+                                     "recipe": recipe_launches["fused_conv"]}))
     emit({"kernels": entries})
     print(smi_line, flush=True)
     import torch

@@ -23,6 +23,7 @@ from twingan_tpu.train.optimizers import OptimizerConfig as JaxOptimizerConfig  
 from twingan_tpu.train.twingan_trainer import TwinGANConfig as JaxTwinGANConfig  # noqa: E402
 from twingan_tpu.train.twingan_trainer import TwinGANTrainer  # noqa: E402
 
+from twingan_tpu_torch.models import pggan  # noqa: E402
 from twingan_tpu_torch.models.config import PGGANConfig, require_ported  # noqa: E402
 from twingan_tpu_torch.runner.checkpoint import save_stage  # noqa: E402
 from twingan_tpu_torch.runner.config_io import (  # noqa: E402
@@ -170,18 +171,42 @@ def test_fade_alpha_matches(growing, step):
 
 
 @pytest.mark.parametrize("kw,name", [
-    ({"fused_scale": True}, "fused_scale"),
-    ({"spectral_norm": True, "spectral_norm_in_non_discriminator": True},
-     "spectral_norm_in_non_discriminator"),
-    ({"style_dim": 8}, "style_dim"),
     ({"quantized_inference": "int8"}, "quantized_inference"),
     ({"attention_context_parallel": True}, "attention_context_parallel"),
-    ({"norm_type": "batch_renorm"}, "batch_renorm"),
-    ({"norm_type": "layer_norm"}, "layer_norm"),
+    ({"norm_type": "none", "do_pixel_norm": True, "min_channels": 2048}, "min_channels"),
 ])
 def test_unported_options_raise(kw, name):
     with pytest.raises(NotImplementedError, match=name):
         require_ported(PGGANConfig(**kw))
+
+
+PORTED_OPTIONS = [
+    {"fused_scale": True},
+    {"fused_scale": True, "fused_scale_impl": "parity", "use_res_block": True},
+    {"spectral_norm": True, "spectral_norm_in_non_discriminator": True},
+    {"style_dim": 8},
+    {"norm_type": "batch_renorm"},
+    {"norm_type": "layer_norm"},
+]
+
+
+@pytest.mark.parametrize("kw", PORTED_OPTIONS)
+def test_ported_options_pass(kw):
+    """The modules take these options; a trainer still refuses the
+    conditional norms (``style_dim``), whose trainer wiring is not ported."""
+    from twingan_tpu_torch.train.base import require_trainable
+
+    cfg = PGGANConfig(resolution=8, max_channels=8, num_domains=2, **kw)
+    require_ported(cfg)
+    pggan.Encoder(cfg)
+    pggan.Generator(cfg, unet=True, conditional=True)
+    pggan.Discriminator(cfg)
+    tcfg = TwinGANConfig(model=cfg)
+    if cfg.style_dim:
+        with pytest.raises(NotImplementedError, match="style_dim"):
+            require_trainable(tcfg)
+    else:
+        require_trainable(tcfg)
 
 
 def test_discriminator_only_spectral_norm_is_allowed():

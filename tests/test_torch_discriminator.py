@@ -102,7 +102,6 @@ def test_discriminator_casts_to_the_config_dtype():
 @pytest.mark.parametrize("kw,call_kw,name", [
     ({}, {"cond_embed": torch.zeros(2, 4)}, "conditional"),
     ({}, {"cond_image": torch.zeros(2, 8, 8, 1)}, "conditional"),
-    ({"spectral_norm": True}, {}, "spectral_norm"),
     ({"quantized_inference": "int8"}, {}, "quantized_inference"),
 ])
 def test_discriminator_refuses_unported_options(kw, call_kw, name):

@@ -191,9 +191,9 @@ def test_generator_input_contract():
 
 
 @pytest.mark.parametrize("kw,name", [
-    ({"fused_scale": True}, "fused_scale"),
-    ({"style_dim": 4}, "style_dim"),
-    ({"norm_type": "batch_renorm"}, "batch_renorm"),
+    ({"quantized_inference": "int8"}, "quantized_inference"),
+    ({"attention_context_parallel": True}, "attention_context_parallel"),
+    ({"norm_type": "none", "do_pixel_norm": True, "min_channels": 2048}, "min_channels"),
 ])
 def test_modules_refuse_unported_options(kw, name):
     cfg = PGGANConfig(resolution=8, max_channels=8, num_domains=2, **kw)

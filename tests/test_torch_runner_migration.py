@@ -166,3 +166,71 @@ def test_port_runner_finishes_the_plan_from_the_converted_stage(stages):
     assert started["carried"] == len(jax_report["carried"])
     assert started["fresh"] == len(jax_report["fresh"])
     assert summary["4to8"]["steps"] == summary["8"]["steps"] == 3
+
+
+# A batch-renorm stage (the headline recipe's norm) with spectral norm in
+# the discriminators: the renorm EMAs (their 0-d weights included) and the
+# spectral vectors cross the conversion and both packages' migrations.
+RENORM_KW = dict(MODEL_KW, norm_type="batch_renorm", spectral_norm=True)
+
+
+@pytest.fixture(scope="module")
+def renorm_stages(tmp_path_factory):
+    root = tmp_path_factory.mktemp("migration_renorm")
+    jcfg = JaxRunConfig(train_dir=str(root / "jax"), num_devices=1, **dict(RUN_KW, max_hw=4),
+                        trainer=JaxTwinGANConfig(
+                            model=JaxPGGANConfig(**RENORM_KW), **TRAINER_KW,
+                            opt=JaxOptimizerConfig(learning_rate=1e-3)))
+    jrunner = JaxStageRunner(jcfg)
+    assert jrunner.run()["4"]["steps"] == 3
+    jax_stage = os.path.join(jcfg.train_dir, "4")
+    port_stage = str(root / "port" / "4")
+    load_tool().convert_stage(jax_stage, port_stage)
+    jtrainer, _ = jrunner._build_trainer(8, True, 3)
+    template = flax.serialization.to_state_dict(
+        jtrainer.init_state(jax.random.PRNGKey(jcfg.seed)))
+    return dict(jax_stage=jax_stage, port_stage=port_stage, template=jax.device_get(template))
+
+
+def test_renorm_migration_matches_jax(renorm_stages):
+    raw = JaxCheckpointManager(renorm_stages["jax_stage"]).restore_dict()
+    jax_out, jax_report = jax_migrate(renorm_stages["template"], raw)
+    template = bridge.torch_flat(bridge.flat_from_flax(renorm_stages["template"]))
+    port_out, port_report = migrate_state_dict(
+        template, CheckpointManager(renorm_stages["port_stage"]).restore_dict())
+    ref = bridge.flat_from_flax(jax_out)
+    got = bridge.flax_flat(port_out)
+    assert got.keys() == ref.keys()
+    for k in ref:
+        assert got[k].shape == ref[k].shape, k
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    for kind in ("carried", "fresh", "dropped", "shape_mismatch"):
+        assert set(port_report[kind]) == set(jax_report[kind]), kind
+    carried = set(port_report["carried"])
+    weight = "model_state/generator/batch_stats/block_4_conv0/norm/renorm_mean_weight_1"
+    assert weight in carried and got[weight].shape == ()
+    # Three G steps moved the weight EMA from 0: 1 - 0.99 ** (passes that updated).
+    assert 0 < float(got[weight]) < 1
+    assert "model_state/discriminator_s/spectral/block_4_conv0/conv/u" not in ref
+    assert any("/spectral/" in k and k.endswith("/u") for k in carried)
+    assert any("/spectral/" in k and "block_8" in k for k in port_report["fresh"])
+
+
+def test_renorm_stage_serves_what_jax_translates(renorm_stages):
+    """The converted renorm stage's ``model.pt`` in eval mode: the moving
+    statistics the renorm EMAs set."""
+    from twingan_tpu.runner.stage_runner import StageRunner as JaxRunner
+
+    raw = JaxCheckpointManager(renorm_stages["jax_stage"]).restore_dict()
+    jcfg = JaxRunConfig(train_dir="unused", num_devices=1, **dict(RUN_KW, max_hw=4),
+                        trainer=JaxTwinGANConfig(model=JaxPGGANConfig(**RENORM_KW),
+                                                 **TRAINER_KW))
+    jtrainer, _ = JaxRunner(jcfg)._build_trainer(4, False, 3)
+    jstate = flax.serialization.from_state_dict(jtrainer.init_state(jax.random.PRNGKey(0)), raw)
+    images = [np.random.RandomState(4).randint(0, 256, (4, 4, 3)).astype(np.uint8)
+              for _ in range(2)]
+    inferer = ImageInferer(renorm_stages["port_stage"], device="cpu")
+    out = inferer.infer_batch(images)
+    x = np.stack([inferer.preprocess(im) for im in images])
+    ref = np.asarray(jtrainer.translate(jstate, jnp.asarray(x), "s2t"))
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=2e-4)

@@ -425,7 +425,7 @@ def test_trained_state_serves_through_image_inferer(tmp_path):
     ({"do_encoder_distillation": True}, "do_encoder_distillation"),
     ({"remat": True}, "remat"),
     ({"use_gdrop": True}, "use_gdrop"),
-    ({"model": PGGANConfig(num_domains=2, norm_type="batch_renorm")}, "batch_renorm"),
+    ({"model": PGGANConfig(num_domains=2, style_dim=8)}, "style_dim"),
     ({"model": PGGANConfig(num_domains=2, sync_batch_norm_axis="data")}, "sync_batch_norm_axis"),
 ])
 def test_trainer_refuses_unported_options(kw, name):

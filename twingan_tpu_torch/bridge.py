@@ -1,16 +1,21 @@
 """Weight bridge between the JAX package's Flax trees and the port.
 
-A Flax ``params`` tree and its ``batch_stats`` collection, given as nested
-dicts of numpy arrays (``jax.device_get`` of the JAX state), become a
-PyTorch ``state_dict`` and back, for one network or for a whole train
-state (``params``/``model_state`` keyed by network name):
+A Flax ``params`` tree and its ``batch_stats`` and ``spectral``
+collections, given as nested dicts of numpy arrays (``jax.device_get`` of
+the JAX state), become a PyTorch ``state_dict`` and back, for one network
+or for a whole train state (``params``/``model_state`` keyed by network
+name):
 
 - the key is the Flax path joined with dots (``block_64_conv0.conv.kernel``,
   ``block_64_conv0.norm.gamma_1``, ``self_attention_64.sa_gamma``);
-  ``batch_stats`` leaves (``moving_mean_%d``/``moving_var_%d``) are buffers
+  ``batch_stats`` leaves (``moving_mean_%d``/``moving_var_%d`` and batch
+  renorm's ``renorm_mean_%d``, ``renorm_stddev_%d`` and their 0-d
+  ``*_weight_%d``) and the ``spectral`` collection's ``u`` (which the port
+  cannot redraw from JAX's PRNG, so the bridge carries it) are buffers
   under the same path;
-- conv kernels are HWIO in Flax and OIHW in PyTorch; dense kernels keep
-  the Flax [in, out] layout;
+- conv kernels are HWIO in Flax and OIHW in PyTorch; dense kernels,
+  the conditional norms' ``*_fc_kernel_%d`` included, keep the Flax
+  [in, out] layout;
 - every other leaf is copied as it is.
 
 A whole train state, of either trainer, crosses through the flat state
@@ -36,7 +41,12 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from twingan_tpu_torch.train.state import GanTrainState, state_from_dict, state_to_dict
+from twingan_tpu_torch.train.state import (
+    GanTrainState,
+    collection,
+    state_from_dict,
+    state_to_dict,
+)
 from twingan_tpu_torch.train.twingan_trainer import ENC, GEN, TwinGANTrainer
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
@@ -71,11 +81,14 @@ def _is_conv_kernel(key: str, arr: np.ndarray) -> bool:
 
 def state_dict_from_flax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any] | None = None,
-                         prefix: str = "") -> dict[str, torch.Tensor]:
-    """One Flax module's ``params`` (+ ``batch_stats``) -> state_dict."""
+                         prefix: str = "",
+                         spectral: Mapping[str, Any] | None = None) -> dict[str, torch.Tensor]:
+    """One Flax module's ``params`` (+ ``batch_stats``, ``spectral``) ->
+    state_dict."""
     sd = {}
     flat = _flatten(params)
     flat.update(_flatten(batch_stats or {}))
+    flat.update(_flatten(spectral or {}))
     for key, arr in flat.items():
         if _is_conv_kernel(key, arr):
             arr = arr.transpose(_HWIO_TO_OIHW)
@@ -83,10 +96,11 @@ def state_dict_from_flax(params: Mapping[str, Any],
     return sd
 
 
-def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor],
-                         prefix: str = "") -> tuple[dict, dict]:
-    """Inverse of ``state_dict_from_flax``: -> (params, batch_stats)."""
-    params, stats = {}, {}
+def flax_variables(state_dict: Mapping[str, torch.Tensor], prefix: str = "") -> dict:
+    """Inverse of ``state_dict_from_flax``: -> the Flax variables
+    ``{"params": ..., "batch_stats": ..., "spectral": ...}``, each
+    collection present when it has a leaf (``params`` always)."""
+    groups: dict[str, dict] = {"params": {}}
     for key, t in state_dict.items():
         if not key.startswith(prefix):
             continue
@@ -94,9 +108,16 @@ def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor],
         arr = t.detach().cpu().numpy()
         if _is_conv_kernel(key, arr):
             arr = np.ascontiguousarray(arr.transpose(_OIHW_TO_HWIO))
-        leaf = key.rsplit(".", 1)[-1]
-        (stats if leaf.startswith(("moving_mean_", "moving_var_")) else params)[key] = arr
-    return _unflatten(params), _unflatten(stats)
+        groups.setdefault(collection(key.rsplit(".", 1)[-1]), {})[key] = arr
+    return {k: _unflatten(v) for k, v in groups.items()}
+
+
+def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                         prefix: str = "") -> tuple[dict, dict]:
+    """``flax_variables`` as (params, batch_stats), for networks without a
+    spectral norm."""
+    variables = flax_variables(state_dict, prefix)
+    return variables["params"], variables.get("batch_stats", {})
 
 
 def train_state_dict(params: Mapping[str, Any], model_state: Mapping[str, Any],
@@ -105,20 +126,22 @@ def train_state_dict(params: Mapping[str, Any], model_state: Mapping[str, Any],
     one state_dict with the network name as the key prefix."""
     sd = {}
     for name in names or tuple(params):
-        stats = model_state.get(name, {}).get("batch_stats")
-        sd.update(state_dict_from_flax(params[name], stats, prefix=name + "."))
+        state = model_state.get(name, {})
+        sd.update(state_dict_from_flax(params[name], state.get("batch_stats"), name + ".",
+                                       state.get("spectral")))
     return sd
 
 
 def flax_train_state(state_dict: Mapping[str, torch.Tensor],
                      names: tuple[str, ...]) -> tuple[dict, dict]:
     """Inverse of ``train_state_dict``: -> (params, model_state) keyed by
-    network name, a network's ``model_state`` holding ``batch_stats`` when it
-    has moving statistics and empty otherwise, as the JAX state's."""
+    network name, a network's ``model_state`` holding ``batch_stats`` and
+    ``spectral`` where it has such leaves, as the JAX state's."""
     params, model_state = {}, {}
     for name in names:
-        params[name], stats = flax_from_state_dict(state_dict, prefix=name + ".")
-        model_state[name] = {"batch_stats": stats} if stats else {}
+        variables = flax_variables(state_dict, prefix=name + ".")
+        params[name] = variables.pop("params")
+        model_state[name] = variables
     return params, model_state
 
 

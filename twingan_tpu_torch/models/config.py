@@ -7,7 +7,10 @@ module's package pulls in flax.
 
 ``require_ported`` names the options whose code paths this port does not
 have yet; the modules call it and raise ``NotImplementedError`` rather than
-computing another function.
+computing another function. Every norm type, spectral norm (in and
+outside the discriminator), conditional norms (``style_dim``) and
+``fused_scale`` are ported; ``fused_scale`` runs the plain nearest-up2 and
+conv, which compute the same function as the JAX package's fused forms.
 """
 
 from __future__ import annotations
@@ -16,9 +19,6 @@ import dataclasses
 import math
 
 NORM_TYPES = ("none", "batch_norm", "instance_norm", "batch_renorm", "layer_norm")
-
-# Norm kinds the port's DomainNorm computes (eval statistics).
-PORTED_NORM_TYPES = ("none", "batch_norm", "instance_norm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,20 +99,15 @@ class PGGANConfig:
 
 def require_ported(cfg: PGGANConfig) -> None:
     """Raise ``NotImplementedError`` naming the first option set in ``cfg``
-    that the encoder/generator path of the port does not implement."""
+    that the modules of the port do not implement."""
     from twingan_tpu_torch.ops.fused_conv import MAX_COUT
 
     unported = [
-        ("fused_scale", cfg.fused_scale),
         (f"min_channels={cfg.min_channels} (pixel norm without a norm runs kernel B4, "
          f"which takes at most {MAX_COUT} channels)",
          cfg.norm_type == "none" and cfg.do_pixel_norm and cfg.min_channels > MAX_COUT),
-        ("spectral_norm_in_non_discriminator",
-         cfg.spectral_norm and cfg.spectral_norm_in_non_discriminator),
-        ("style_dim", cfg.style_dim > 0),
         ("quantized_inference", cfg.quantized_inference != ""),
         ("attention_context_parallel", cfg.attention_context_parallel),
-        (f"norm_type={cfg.norm_type}", cfg.norm_type not in PORTED_NORM_TYPES),
     ]
     for name, is_set in unported:
         if is_set:

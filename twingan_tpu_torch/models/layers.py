@@ -5,30 +5,45 @@ DomainNorm, ConvBlock, ResBlockAdd, SelfAttention) with the same parameter
 names, so a Flax tree maps onto ``state_dict`` keys one to one
 (``bridge.py``): ``conv.kernel`` (stored OIHW), ``conv.bias``,
 ``kernel``/``bias`` of a dense layer (stored [in, out] as in Flax),
-``norm.beta_%d``, ``norm.gamma_%d``, buffers
-``norm.moving_mean_%d``/``norm.moving_var_%d``, ``sa_gamma``.
+``norm.beta_%d``, ``norm.gamma_%d`` (or, for conditional norms,
+``norm.beta_fc_kernel_%d``/``beta_fc_bias_%d``/``gamma_fc_kernel_%d``/
+``gamma_fc_bias_%d``, the kernels [style_dim, C] as in Flax), buffers
+``norm.moving_mean_%d``/``norm.moving_var_%d`` (and batch renorm's
+``norm.renorm_mean_%d``, ``renorm_mean_weight_%d`` (0-d),
+``renorm_stddev_%d``, ``renorm_stddev_weight_%d`` (0-d)), the spectral
+norm's ``conv.u``/``u`` buffer, ``sa_gamma``.
 
 Modules take NCHW tensors (the NHWC inputs of the public functions arrive
 as NCHW views of the same memory). Parameters are fp32; activations are
 computed in ``cfg.dtype`` and norm statistics in fp32, as in the JAX layers.
 
-Norm statistics follow the module's mode, as the JAX ``train`` flag does:
-in eval mode batch norm uses the moving statistics; in train mode
-(``.train()``) it normalizes with the batch moments, and it moves the
-moving statistics only when the call passes ``update=True`` (the JAX
-``apply_model(update_state=True)``), never as a side effect of the mode.
+State follows the module's mode and the call, as the JAX ``train`` flag
+and ``apply_model(update_state=...)`` do: in eval mode batch norm and
+batch renorm use the moving statistics; in train mode (``.train()``) they
+normalize with the batch moments (renorm corrected by r and d against the
+bank's renorm state), and they move their statistics only when the call
+passes ``update=True``, never as a side effect of the mode. A spectral
+norm runs one power iteration in every call and stores the new ``u`` only
+under ``update=True``. Every write happens after the call has read the
+state it computes with, so passes that run one after another see the
+state each earlier updating pass left, as the JAX trainers thread it.
+
+The call-time context of the JAX ``NormCtx`` is passed as arguments:
+``domain`` (the bank), ``update``, ``style`` (the conditional norms'
+[B, style_dim] vector) and ``clip`` (batch renorm's rmax/rmin/dmax; the
+schedule's last values when None).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from twingan_tpu_torch.models.config import PGGANConfig
-from twingan_tpu_torch.ops import attention, basic, fused_conv, norms
+from twingan_tpu_torch.models.config import NORM_TYPES, PGGANConfig
+from twingan_tpu_torch.ops import attention, basic, fused_conv, norms, sn
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -44,18 +59,45 @@ def same_padding(kernel_size: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-class EqConv(nn.Module):
-    """Conv2D with optional equalized-lr input scaling.
+class _SpectralWeight:
+    """The kernel of a layer, divided by its largest singular value when
+    the layer has a spectral norm (``u`` buffer)."""
+
+    def _init_spectral(self, spectral_norm: bool, features: int) -> None:
+        self.spectral_norm = spectral_norm
+        if spectral_norm:
+            self.register_buffer("u", torch.full((features,), features ** -0.5))
+
+    def _reset_spectral(self, generator: torch.Generator) -> None:
+        if self.spectral_norm:
+            u = torch.randn(self.u.shape, generator=generator)
+            self.u.copy_(u / (torch.linalg.vector_norm(u) + 1e-12))
+
+    def weight(self, update: bool = False) -> torch.Tensor:
+        """The kernel to compute with: W, or W / sigma after one power
+        iteration from ``u``, whose result is stored under ``update``."""
+        if not self.spectral_norm:
+            return self.kernel
+        w, new_u = sn.spectral_normalize(self.kernel, self.u)
+        if update:
+            with torch.no_grad():
+                self.u.copy_(new_u)
+        return w
+
+
+class EqConv(nn.Module, _SpectralWeight):
+    """Conv2D with optional equalized-lr input scaling and spectral norm.
 
     Under equalized lr the kernel is drawn from N(0, 1) and the *input* is
     scaled by sqrt(2 / (in_channels * k^2)) at run time (the total fan-in,
     UNet skip channels included); otherwise the kernel is N(0, init_stddev).
+    With ``spectral_norm`` the kernel is divided by sigma (``weight``).
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  padding: str = "SAME", use_bias: bool = True,
                  equalized_lr: bool = False, init_stddev: float = 0.02,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, spectral_norm: bool = False):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"unknown padding {padding!r}")
@@ -67,12 +109,14 @@ class EqConv(nn.Module):
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(features, in_channels, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self._init_spectral(spectral_norm, features)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.kernel.normal_(0.0, self.init_stddev, generator=generator)
             if self.bias is not None:
                 self.bias.zero_()
+            self._reset_spectral(generator)
 
     @property
     def input_scale(self) -> float:
@@ -82,7 +126,8 @@ class EqConv(nn.Module):
             return 1.0
         return basic.equalized_lr_scale(self.in_channels, self.kernel_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update: bool = False) -> torch.Tensor:
+        kernel = self.weight(update)
         x = x.to(self.dtype)
         if self.equalized_lr:
             x = x * torch.tensor(self.input_scale, dtype=self.dtype, device=x.device)
@@ -93,20 +138,21 @@ class EqConv(nn.Module):
                 pad = before
             else:
                 x = F.pad(x, (before, after, before, after))
-        y = F.conv2d(x, self.kernel.to(self.dtype), padding=pad)
+        y = F.conv2d(x, kernel.to(self.dtype), padding=pad)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)[:, None, None]
         return y
 
 
-class EqDense(nn.Module):
-    """Dense layer with the same equalized-lr treatment as EqConv: the input
-    is scaled by sqrt(2 / in_features) at run time under equalized lr. The
-    kernel is stored [in_features, features], the Flax layout."""
+class EqDense(nn.Module, _SpectralWeight):
+    """Dense layer with the same equalized-lr and spectral-norm treatment
+    as EqConv: the input is scaled by sqrt(2 / in_features) at run time
+    under equalized lr. The kernel is stored [in_features, features], the
+    Flax layout."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  equalized_lr: bool = False, init_stddev: float = 0.02,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, spectral_norm: bool = False):
         super().__init__()
         self.in_features = in_features
         self.equalized_lr = equalized_lr
@@ -114,19 +160,22 @@ class EqDense(nn.Module):
         self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self._init_spectral(spectral_norm, features)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             self.kernel.normal_(0.0, self.init_stddev, generator=generator)
             if self.bias is not None:
                 self.bias.zero_()
+            self._reset_spectral(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update: bool = False) -> torch.Tensor:
+        kernel = self.weight(update)
         x = x.to(self.dtype)
         if self.equalized_lr:
             scale = basic.equalized_lr_scale(self.in_features, 1)
             x = x * torch.tensor(scale, dtype=self.dtype, device=x.device)
-        y = x @ self.kernel.to(self.dtype)
+        y = x @ kernel.to(self.dtype)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -134,65 +183,132 @@ class EqDense(nn.Module):
 
 BN_EPS = 1e-3
 BN_DECAY = 0.999
+RENORM_DECAY = 0.99
 
 
 class DomainNorm(nn.Module):
     """Normalization with one parameter/statistic bank per domain; the call
     selects the bank. kind: none | batch_norm (eps 1e-3) | instance_norm
-    (per-sample statistics, eps 1e-6).
+    (per-sample spatial statistics, eps 1e-6) | batch_renorm (eps 1e-3) |
+    layer_norm (per-sample statistics over C, H and W, eps 1e-6).
 
     Batch norm in train mode normalizes with the biased moments of each of
     ``num_groups`` contiguous batch groups (0 or 1: the whole batch) and,
     with ``update=True``, moves the bank's moving mean and variance toward
     the groups' mean moments (decay 0.999, no zero-debias). The moving
     variance is fed the same biased variance, which ``nn.BatchNorm2d`` would
-    not do. Eval mode uses the moving statistics."""
+    not do. Batch renorm multiplies each group's normalized values by r and
+    adds d, both computed against the bank's renorm state as it was before
+    the call; with ``update=True`` the renorm EMAs advance with the groups'
+    mean moments (decay 0.99) and the moving statistics follow the debiased
+    moments they imply (decay 0.99). Eval mode uses the moving statistics.
+
+    ``conditional`` (with ``style_dim``) takes beta and gamma from per-domain
+    FCs of the call's style vector, ``gamma = 1 + FC(style)``, in place of
+    the bank's vectors; the JAX module decides this by whether its first
+    call passed a style, so the code that builds it says so here."""
 
     def __init__(self, kind: str, num_features: int, num_domains: int = 1,
-                 num_groups: int = 0):
+                 num_groups: int = 0, style_dim: int = 0, conditional: bool = False):
         super().__init__()
-        if kind not in ("none", "batch_norm", "instance_norm"):
-            raise NotImplementedError(f"norm_type={kind} is not ported to twingan_tpu_torch yet")
+        if kind not in NORM_TYPES:
+            raise ValueError(f"unknown norm kind {kind!r}")
         self.kind = kind
         self.num_domains = num_domains
         self.num_groups = max(num_groups, 1)
+        self.conditional = conditional and style_dim > 0
         if kind == "none":
             return
         for d in range(num_domains):
-            self.register_parameter(f"beta_{d}", nn.Parameter(torch.zeros(num_features)))
-            self.register_parameter(f"gamma_{d}", nn.Parameter(torch.ones(num_features)))
-            if kind == "batch_norm":
+            if self.conditional:
+                for name in ("beta", "gamma"):
+                    self.register_parameter(f"{name}_fc_kernel_{d}", nn.Parameter(
+                        torch.zeros(style_dim, num_features)))
+                    self.register_parameter(f"{name}_fc_bias_{d}", nn.Parameter(
+                        torch.zeros(num_features)))
+            else:
+                self.register_parameter(f"beta_{d}", nn.Parameter(torch.zeros(num_features)))
+                self.register_parameter(f"gamma_{d}", nn.Parameter(torch.ones(num_features)))
+            if kind in ("batch_norm", "batch_renorm"):
                 self.register_buffer(f"moving_mean_{d}", torch.zeros(num_features))
                 self.register_buffer(f"moving_var_{d}", torch.ones(num_features))
+            if kind == "batch_renorm":
+                for name in norms.RENORM_STATE:
+                    shape = () if name.endswith("_weight") else (num_features,)
+                    self.register_buffer(f"{name}_{d}", torch.zeros(shape))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
             for name, t in list(self.named_parameters()) + list(self.named_buffers()):
-                t.fill_(1.0 if name.startswith(("gamma_", "moving_var_")) else 0.0)
+                if "_fc_kernel_" in name:  # xavier uniform, as Flax's
+                    limit = (6.0 / sum(t.shape)) ** 0.5
+                    t.uniform_(-limit, limit, generator=generator)
+                elif "_fc_bias_" in name:
+                    t.zero_()
+                else:
+                    t.fill_(1.0 if name.startswith(("gamma_", "moving_var_")) else 0.0)
 
-    def forward(self, x: torch.Tensor, domain: int, update: bool = False) -> torch.Tensor:
+    def _affine(self, domain: int, style: Optional[torch.Tensor]):
+        """(gamma, beta), broadcastable against NCHW: the bank's [C,1,1], or
+        the conditional [B,C,1,1] from the style vector."""
+        if not self.conditional:
+            return (getattr(self, f"gamma_{domain}")[:, None, None],
+                    getattr(self, f"beta_{domain}")[:, None, None])
+        if style is None:
+            raise ValueError("a conditional norm needs the call's style vector")
+        style = style.float()
+        fc = lambda name: (style @ getattr(self, f"{name}_fc_kernel_{domain}")  # noqa: E731
+                           + getattr(self, f"{name}_fc_bias_{domain}"))[:, :, None, None]
+        return 1.0 + fc("gamma"), fc("beta")
+
+    def _bank(self, name: str, domain: int) -> torch.Tensor:
+        return getattr(self, f"{name}_{domain}")
+
+    def forward(self, x: torch.Tensor, domain: int, update: bool = False,
+                style: Optional[torch.Tensor] = None,
+                clip: Optional[Mapping[str, float]] = None) -> torch.Tensor:
         if self.kind == "none":
             return x
-        gamma = getattr(self, f"gamma_{domain}")[:, None, None]
-        beta = getattr(self, f"beta_{domain}")[:, None, None]
+        gamma, beta = self._affine(domain, style)
         xf = x.float()
         if self.kind == "instance_norm":
             mean, var = norms.instance_moments(xf, nchw=True)
-            y = norms.normalize(xf, mean, var, gamma, beta, eps=1e-6)
-        elif self.training:
-            gmean, gvar = norms.group_batch_moments(xf, self.num_groups)  # [G, C]
-            xg = xf.reshape(self.num_groups, -1, *xf.shape[1:])
-            y = norms.normalize(xg, gmean[:, None, :, None, None], gvar[:, None, :, None, None],
-                                gamma, beta, eps=BN_EPS).reshape(xf.shape)
-            if update:
-                with torch.no_grad():
-                    for name, value in (("moving_mean", gmean), ("moving_var", gvar)):
-                        moving = getattr(self, f"{name}_{domain}")
-                        moving.copy_(norms.update_moving(moving, value.mean(dim=0), BN_DECAY))
-        else:
-            mean = getattr(self, f"moving_mean_{domain}")[:, None, None]
-            var = getattr(self, f"moving_var_{domain}")[:, None, None]
-            y = norms.normalize(xf, mean, var, gamma, beta, eps=BN_EPS)
+            return norms.normalize(xf, mean, var, gamma, beta, eps=1e-6).to(x.dtype)
+        if self.kind == "layer_norm":
+            mean = torch.mean(xf, dim=(1, 2, 3), keepdim=True)
+            var = torch.mean(torch.square(xf - mean), dim=(1, 2, 3), keepdim=True)
+            return norms.normalize(xf, mean, var, gamma, beta, eps=1e-6).to(x.dtype)
+        if not self.training:
+            mean = self._bank("moving_mean", domain)[:, None, None]
+            var = self._bank("moving_var", domain)[:, None, None]
+            return norms.normalize(xf, mean, var, gamma, beta, eps=BN_EPS).to(x.dtype)
+
+        renorm = self.kind == "batch_renorm"
+        gmean, gvar = norms.group_batch_moments(xf, self.num_groups)  # [G, C]
+        xg = xf.reshape(self.num_groups, -1, *xf.shape[1:])
+        y = norms.normalize(xg, gmean[:, None, :, None, None], gvar[:, None, :, None, None],
+                            None, None, eps=BN_EPS)
+        if renorm:
+            clip = clip or norms.last_renorm_clip()
+            state = {k: self._bank(k, domain) for k in norms.RENORM_STATE}
+            r, d, _ = norms.batch_renorm_correction(gmean, gvar, state, clip,
+                                                    momentum=RENORM_DECAY, eps=BN_EPS)
+            y = y * r[:, None, :, None, None] + d[:, None, :, None, None]
+        y = y.reshape(xf.shape) * gamma + beta
+        if update:
+            with torch.no_grad():
+                m_mean, m_var = gmean.mean(dim=0), gvar.mean(dim=0)
+                decay = BN_DECAY
+                if renorm:
+                    _, _, new_state = norms.batch_renorm_correction(
+                        m_mean, m_var, state, clip, momentum=RENORM_DECAY, eps=BN_EPS)
+                    m_mean, m_var = norms.renorm_moving_moments(new_state, eps=BN_EPS)
+                    for k, v in new_state.items():
+                        self._bank(k, domain).copy_(v)
+                    decay = RENORM_DECAY
+                for name, value in (("moving_mean", m_mean), ("moving_var", m_var)):
+                    moving = self._bank(name, domain)
+                    moving.copy_(norms.update_moving(moving, value, decay))
         return y.to(x.dtype)
 
 
@@ -202,27 +318,33 @@ _ACTIVATIONS = {None: None, "leaky": basic.leaky_relu, "tanh": torch.tanh}
 class ConvBlock(nn.Module):
     """conv -> norm -> activation; bias exactly when no norm runs.
     ``discriminator=True`` (the discriminator's layers) and ``norm=False``
-    (resblock shortcuts) run no norm.
+    (resblock shortcuts) run no norm. The conv has a spectral norm under
+    ``cfg.spectral_norm`` in the discriminator, and everywhere with
+    ``spectral_norm_in_non_discriminator``. ``conditional`` makes the norm
+    take beta and gamma from the style vector (``DomainNorm``).
 
     ``forward_pixel_norm`` is the block followed by the pixel norm, one
     conv-leaky-pixel-norm step. A block with kernel B4's structure
     (``fusable``: k3 SAME, no norm, a bias, leaky) runs
     ``ops.fused_conv.fused_conv`` (B4) where no gradient is needed, on its
-    weights with the equalized-lr scale folded in, and this block's layers,
-    counted under ``fused_conv.AUTOGRAD_ROUTE``, where one is."""
+    weights (divided by sigma under a spectral norm) with the equalized-lr
+    scale folded in, and this block's layers, counted under
+    ``fused_conv.AUTOGRAD_ROUTE``, where one is."""
 
     def __init__(self, cfg: PGGANConfig, in_channels: int, features: int,
                  kernel_size: int = 3, padding: str = "SAME",
                  activation: Optional[str] = "leaky", norm: bool = True,
-                 discriminator: bool = False):
+                 discriminator: bool = False, conditional: bool = False):
         super().__init__()
         norm_kind = "none" if (discriminator or not norm) else cfg.norm_type
+        use_sn = cfg.spectral_norm and (discriminator or cfg.spectral_norm_in_non_discriminator)
         self.conv = EqConv(
             in_channels, features, kernel_size, padding,
             use_bias=(norm_kind == "none"), equalized_lr=cfg.equalized_lr,
-            init_stddev=cfg.init_stddev, dtype=torch_dtype(cfg.dtype),
+            init_stddev=cfg.init_stddev, dtype=torch_dtype(cfg.dtype), spectral_norm=use_sn,
         )
-        self.norm = DomainNorm(norm_kind, features, cfg.num_domains, cfg.bn_num_groups)
+        self.norm = DomainNorm(norm_kind, features, cfg.num_domains, cfg.bn_num_groups,
+                               cfg.style_dim, conditional)
         self.activation = _ACTIVATIONS[activation]
 
     @property
@@ -231,22 +353,25 @@ class ConvBlock(nn.Module):
         return (conv.kernel_size == 3 and conv.padding == "SAME" and conv.bias is not None
                 and self.norm.kind == "none" and self.activation is basic.leaky_relu)
 
-    def forward(self, x: torch.Tensor, domain: int = 0, update: bool = False) -> torch.Tensor:
-        y = self.norm(self.conv(x), domain, update)
+    def forward(self, x: torch.Tensor, domain: int = 0, update: bool = False,
+                style: Optional[torch.Tensor] = None,
+                clip: Optional[Mapping[str, float]] = None) -> torch.Tensor:
+        y = self.norm(self.conv(x, update), domain, update, style, clip)
         return y if self.activation is None else self.activation(y)
 
-    def forward_pixel_norm(self, x: torch.Tensor, domain: int = 0,
-                           update: bool = False) -> torch.Tensor:
+    def forward_pixel_norm(self, x: torch.Tensor, domain: int = 0, update: bool = False,
+                           style: Optional[torch.Tensor] = None,
+                           clip: Optional[Mapping[str, float]] = None) -> torch.Tensor:
         conv = self.conv
         if self.fusable:
             x = x.to(conv.dtype)
             if not (torch.is_grad_enabled()
                     and any(t.requires_grad for t in (x, conv.kernel, conv.bias))):
                 return fused_conv.fused_conv(
-                    x.contiguous(), fused_conv.fold_weights(conv.kernel, conv.input_scale),
+                    x.contiguous(), fused_conv.fold_weights(conv.weight(update), conv.input_scale),
                     conv.bias.detach().float().contiguous())
             fused_conv.launch_counts[fused_conv.AUTOGRAD_ROUTE] += 1
-        return basic.pixel_norm(self(x, domain, update), dim=1)
+        return basic.pixel_norm(self(x, domain, update, style, clip), dim=1)
 
 
 class ResBlockAdd(nn.Module):
@@ -263,12 +388,13 @@ class ResBlockAdd(nn.Module):
         else:
             self.shortcut = None
 
-    def forward(self, inp: torch.Tensor, conv_out: torch.Tensor, domain: int = 0) -> torch.Tensor:
+    def forward(self, inp: torch.Tensor, conv_out: torch.Tensor, domain: int = 0,
+                update: bool = False) -> torch.Tensor:
         if not self.enabled:
             return conv_out
         if self.shortcut is None:
             return inp.to(conv_out.dtype) + conv_out
-        return self.shortcut(inp, domain) + conv_out
+        return self.shortcut(inp, domain, update) + conv_out
 
 
 class SelfAttention(nn.Module):
@@ -277,10 +403,11 @@ class SelfAttention(nn.Module):
     at 0, as in the JAX layer. The call's ``route`` picks the attention
     core (``ops.attention.self_attention``)."""
 
-    def __init__(self, cfg: PGGANConfig, channels: int, discriminator: bool = False):
+    def __init__(self, cfg: PGGANConfig, channels: int, discriminator: bool = False,
+                 conditional: bool = False):
         super().__init__()
         c_bar = max(channels // 8, 1)
-        kw = dict(discriminator=discriminator)
+        kw = dict(discriminator=discriminator, conditional=conditional)
         self.sa_f = ConvBlock(cfg, channels, c_bar, 1, activation="tanh", **kw)
         self.sa_g = ConvBlock(cfg, channels, c_bar, 1, activation="tanh", **kw)
         self.sa_h = ConvBlock(cfg, channels, channels, 1, activation=None, **kw)
@@ -291,15 +418,16 @@ class SelfAttention(nn.Module):
             self.sa_gamma.zero_()
 
     def forward(self, x: torch.Tensor, domain: int = 0, update: bool = False,
-                route: str = "kernel") -> torch.Tensor:
+                route: str = "kernel", style: Optional[torch.Tensor] = None,
+                clip: Optional[Mapping[str, float]] = None) -> torch.Tensor:
         b, c, hh, ww = x.shape
 
         def rows(t: torch.Tensor) -> torch.Tensor:  # NCHW -> [B, N, C'] contiguous
             return t.permute(0, 2, 3, 1).reshape(b, hh * ww, t.shape[1]).contiguous()
 
-        f = rows(self.sa_f(x, domain, update))
-        g = rows(self.sa_g(x, domain, update))
-        h = rows(self.sa_h(x, domain, update))
+        f = rows(self.sa_f(x, domain, update, style, clip))
+        g = rows(self.sa_g(x, domain, update, style, clip))
+        h = rows(self.sa_h(x, domain, update, style, clip))
         o = attention.self_attention(f, g, h, route)
         o = o.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return self.sa_gamma.to(x.dtype) * o + x
@@ -311,3 +439,15 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     for m in module.modules():
         if isinstance(m, (EqConv, EqDense, DomainNorm, SelfAttention)):
             m.reset_parameters(generator)
+
+
+@torch.no_grad()
+def advance_spectral_norm(module: nn.Module) -> None:
+    """One power iteration of every spectral norm in ``module``, stored:
+    what one updating pass writes, without the pass. The JAX D step reads
+    the discriminator's state from before the step in every pass, its one
+    updating pass included, and keeps that pass's new ``u``; the port runs
+    every pass without updates and then this, with the same weights."""
+    for m in module.modules():
+        if isinstance(m, _SpectralWeight) and m.spectral_norm:
+            m.weight(update=True)

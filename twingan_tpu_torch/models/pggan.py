@@ -19,18 +19,30 @@ Every conv -> leaky -> pixel-norm step of the generator goes through
 ``ConvBlock.forward_pixel_norm``, which runs kernel B4
 (``ops/fused_conv.py``) where no gradient is needed and the block has the
 structure B4 computes (``norm_type="none"``, k3 SAME, bias, leaky).
+``fused_scale`` takes the same route: the JAX package's fused nearest-up2
++ conv3x3 computes the function of the plain upsample and conv
+(``ops/fused_scale.py``), which the port runs; with ``use_res_block`` the
+JAX package keeps that unfused route too.
+
+Batch renorm's clip (``renorm_clip``, the JAX ``NormCtx.renorm_clip``) and
+the conditional norms' ``style`` are call arguments. A generator built with
+``conditional=True`` takes beta and gamma of its norms from ``style``
+(``cfg.style_dim``); the encoder's norms never do, as in the JAX package,
+whose encoders are never called with a style. ``EncoderClassifier`` and
+``StyleEncoder`` are the style and distillation heads.
 
 The modules take and return NHWC tensors and compute on NCHW views. The
 encoder and the generator are built in eval mode (norms use moving
 statistics); a trainer switches them to train mode, where norms take batch
-moments and ``update=True`` moves the moving statistics
-(``models/layers.py``). The discriminator has no norms.
+moments and ``update=True`` moves the moving statistics and the spectral
+norms' ``u`` (``models/layers.py``). The discriminator has no norms; its
+``update=True`` moves its spectral norms' ``u``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn as nn
@@ -44,6 +56,8 @@ from twingan_tpu_torch.models.layers import (
     SelfAttention,
     torch_dtype,
 )
+
+Clip = Optional[Mapping[str, float]]
 from twingan_tpu_torch.ops import basic
 
 
@@ -117,14 +131,15 @@ class Encoder(nn.Module):
         self.add_module(f"{name}_res", ResBlockAdd(self.cfg, c, features))
 
     def _apply_from_rgb(self, name: str, t: torch.Tensor, domain: int,
-                        update: bool) -> torch.Tensor:
-        y = getattr(self, f"{name}_conv")(t, domain, update)
+                        update: bool, clip: Clip) -> torch.Tensor:
+        y = getattr(self, f"{name}_conv")(t, domain, update, clip=clip)
         if self.cfg.do_pixel_norm:
             y = basic.pixel_norm(y, dim=1)
-        return getattr(self, f"{name}_res")(t, y, domain)
+        return getattr(self, f"{name}_res")(t, y, domain, update)
 
     def forward(self, x: torch.Tensor, *, alpha: float = 0.0, domain: int = 0,
-                update: bool = False) -> tuple[torch.Tensor, EncoderSkips]:
+                update: bool = False,
+                renorm_clip: Clip = None) -> tuple[torch.Tensor, EncoderSkips]:
         cfg = self.cfg
         skips = EncoderSkips()
         max_stage = cfg.max_stage
@@ -136,20 +151,22 @@ class Encoder(nn.Module):
         shrunk = None
         if cfg.is_growing:
             shrunk = basic.avg_pool_2x(x, nchw=True)
-            shrunk = self._apply_from_rgb(f"from_rgb_{src_hw // 2}", shrunk, domain, update)
-        net = self._apply_from_rgb(f"from_rgb_{src_hw}", x, domain, update)
+            shrunk = self._apply_from_rgb(f"from_rgb_{src_hw // 2}", shrunk, domain, update,
+                                          renorm_clip)
+        net = self._apply_from_rgb(f"from_rgb_{src_hw}", x, domain, update, renorm_clip)
 
         for stage in range(max_stage, 0, -1):
             hw = src_hw >> (max_stage - stage)
             if cfg.do_self_attention and hw == cfg.self_attention_hw:
-                net = getattr(self, f"self_attention_{hw}")(net, domain, update)
-            y = getattr(self, f"block_{hw}_conv0")(net, domain, update)
+                net = getattr(self, f"self_attention_{hw}")(net, domain, update,
+                                                            clip=renorm_clip)
+            y = getattr(self, f"block_{hw}_conv0")(net, domain, update, clip=renorm_clip)
             if cfg.do_pixel_norm:
                 y = basic.pixel_norm(y, dim=1)
-            y = getattr(self, f"block_{hw}_conv1")(y, domain, update)
+            y = getattr(self, f"block_{hw}_conv1")(y, domain, update, clip=renorm_clip)
             if cfg.do_pixel_norm:
                 y = basic.pixel_norm(y, dim=1)
-            net = getattr(self, f"block_{hw}_res")(net, y, domain)
+            net = getattr(self, f"block_{hw}_res")(net, y, domain, update)
             skips.blocks[hw] = _nhwc(net)
             net = basic.avg_pool_2x(net, nchw=True)
             if stage == max_stage and cfg.is_growing:
@@ -161,21 +178,26 @@ class Encoder(nn.Module):
 class Generator(nn.Module):
     """PGGAN generator: the [B,4,4,channels(0)] code (and UNet skips when
     ``unet``) -> [B,res,res,image_channels] for translation; with
-    ``noise_input``, [B,noise_dim] or [B,1,1,noise_dim] noise instead."""
+    ``noise_input``, [B,noise_dim] or [B,1,1,noise_dim] noise instead. With
+    ``conditional`` (and ``cfg.style_dim``) every norm takes the call's
+    ``style``."""
 
-    def __init__(self, cfg: PGGANConfig, unet: bool = False, noise_input: bool = False):
+    def __init__(self, cfg: PGGANConfig, unet: bool = False, noise_input: bool = False,
+                 conditional: bool = False):
         super().__init__()
         require_ported(cfg)
         self.cfg = cfg
         self.unet = unet
         self.noise_input = noise_input
+        self.conditional = conditional and cfg.style_dim > 0
         ch0 = cfg.channels(0)
+        block = self._block
         if noise_input:
-            self.add_module("block_4_conv0", ConvBlock(cfg, cfg.noise_dim, ch0, kernel_size=4,
-                                                       padding="VALID"))
+            self.add_module("block_4_conv0", block(cfg.noise_dim, ch0, kernel_size=4,
+                                                   padding="VALID"))
         else:
-            self.add_module("block_4_conv0", ConvBlock(cfg, ch0, ch0))
-        self.add_module("block_4_conv1", ConvBlock(cfg, ch0, ch0))
+            self.add_module("block_4_conv0", block(ch0, ch0))
+        self.add_module("block_4_conv1", block(ch0, ch0))
         self._maybe_attention(4, ch0)
         for stage in range(1, cfg.max_stage + 1):
             hw = 2 ** (stage + 2)
@@ -183,12 +205,15 @@ class Generator(nn.Module):
             if stage == cfg.max_stage and cfg.is_growing:
                 self._to_rgb(hw // 2, prev)
             in_ch = prev + (prev if self._has_skip(hw) else 0)
-            self.add_module(f"block_{hw}_conv0", ConvBlock(cfg, in_ch, ch))
-            self.add_module(f"block_{hw}_conv1", ConvBlock(cfg, ch, ch))
+            self.add_module(f"block_{hw}_conv0", block(in_ch, ch))
+            self.add_module(f"block_{hw}_conv1", block(ch, ch))
             self.add_module(f"block_{hw}_res", ResBlockAdd(cfg, in_ch, ch))
             self._maybe_attention(hw, ch)
         self._to_rgb(cfg.resolution, cfg.channels(cfg.max_stage))
         self.eval()
+
+    def _block(self, *args, **kw) -> ConvBlock:
+        return ConvBlock(self.cfg, *args, conditional=self.conditional, **kw)
 
     def _has_skip(self, hw: int) -> bool:
         limit = self.cfg.unet_max_concat_hw
@@ -196,28 +221,32 @@ class Generator(nn.Module):
 
     def _maybe_attention(self, hw: int, channels: int) -> None:
         if self.cfg.do_self_attention and hw == self.cfg.self_attention_hw:
-            self.add_module(f"self_attention_{hw}", SelfAttention(self.cfg, channels))
+            self.add_module(f"self_attention_{hw}", SelfAttention(
+                self.cfg, channels, conditional=self.conditional))
 
     def _rgb_kernel(self, hw: int) -> int:
         return min(7, hw // 2) if self.cfg.use_larger_filter_at_rgb_layer else 1
 
     def _to_rgb(self, hw: int, in_ch: int) -> None:
-        self.add_module(f"to_rgb_{hw}", ConvBlock(
-            self.cfg, in_ch, self.cfg.image_channels,
-            kernel_size=self._rgb_kernel(hw), activation=None))
-
-    def _conv(self, hw: int, i: int, x: torch.Tensor, domain: int,
-              update: bool) -> torch.Tensor:
-        """``block_{hw}_conv{i}``, then the pixel norm when it is on."""
-        block = getattr(self, f"block_{hw}_conv{i}")
-        if self.cfg.do_pixel_norm:
-            return block.forward_pixel_norm(x, domain, update)
-        return block(x, domain, update)
+        self.add_module(f"to_rgb_{hw}", self._block(
+            in_ch, self.cfg.image_channels, kernel_size=self._rgb_kernel(hw), activation=None))
 
     def forward(self, source: torch.Tensor, *, alpha: float = 0.0, domain: int = 0,
-                unet_skips: Optional[EncoderSkips] = None,
-                update: bool = False) -> torch.Tensor:
+                unet_skips: Optional[EncoderSkips] = None, update: bool = False,
+                style: Optional[torch.Tensor] = None,
+                renorm_clip: Clip = None) -> torch.Tensor:
         cfg = self.cfg
+        if self.conditional and style is None:
+            raise ValueError("a generator built with conditional=True takes a style vector")
+        ctx = dict(style=style if self.conditional else None, clip=renorm_clip)
+
+        def conv(hw: int, i: int, x: torch.Tensor) -> torch.Tensor:
+            """``block_{hw}_conv{i}``, then the pixel norm when it is on."""
+            block = getattr(self, f"block_{hw}_conv{i}")
+            if cfg.do_pixel_norm:
+                return block.forward_pixel_norm(x, domain, update, **ctx)
+            return block(x, domain, update, **ctx)
+
         if self.noise_input:
             if source.dim() == 2:
                 source = source[:, None, None, :]
@@ -235,27 +264,27 @@ class Generator(nn.Module):
         net = _nchw(source).to(torch_dtype(cfg.dtype))
         prev_rgb = None
 
-        net = self._conv(4, 0, net, domain, update)
-        net = self._conv(4, 1, net, domain, update)
+        net = conv(4, 0, net)
+        net = conv(4, 1, net)
         if cfg.do_self_attention and cfg.self_attention_hw == 4:
-            net = self.self_attention_4(net, domain, update)
+            net = self.self_attention_4(net, domain, update, **ctx)
 
         for stage in range(1, cfg.max_stage + 1):
             hw = 2 ** (stage + 2)
             if stage == cfg.max_stage and cfg.is_growing:
-                prev_rgb = getattr(self, f"to_rgb_{hw // 2}")(net, domain, update)
+                prev_rgb = getattr(self, f"to_rgb_{hw // 2}")(net, domain, update, **ctx)
                 prev_rgb = basic.upsample_nearest_2x(prev_rgb, nchw=True)
             inp = basic.upsample_nearest_2x(net, nchw=True)
             if self._has_skip(hw):
                 skip = unet_skips.lookup(hw, cfg.channels(stage - 1))
                 inp = torch.cat([inp, _nchw(skip).to(inp.dtype)], dim=1)
-            y = self._conv(hw, 0, inp, domain, update)
-            y = self._conv(hw, 1, y, domain, update)
-            net = getattr(self, f"block_{hw}_res")(inp, y, domain)
+            y = conv(hw, 0, inp)
+            y = conv(hw, 1, y)
+            net = getattr(self, f"block_{hw}_res")(inp, y, domain, update)
             if cfg.do_self_attention and hw == cfg.self_attention_hw:
-                net = getattr(self, f"self_attention_{hw}")(net, domain, update)
+                net = getattr(self, f"self_attention_{hw}")(net, domain, update, **ctx)
 
-        rgb = getattr(self, f"to_rgb_{cfg.resolution}")(net, domain, update)
+        rgb = getattr(self, f"to_rgb_{cfg.resolution}")(net, domain, update, **ctx)
         out = basic.blend(rgb, prev_rgb, alpha) if cfg.is_growing else rgb
         return _nhwc(out)
 
@@ -269,11 +298,13 @@ class Discriminator(nn.Module):
 
     ``attention`` is the self-attention route (``ops.attention``): "kernel"
     for the CUDA kernels, "plain" for the twice-differentiable plain version
-    that the gradient penalty needs."""
+    that the gradient penalty needs. Under ``cfg.spectral_norm`` every conv
+    and the prediction divide their kernels by sigma; ``update=True`` stores
+    each power iteration's ``u``."""
 
     def __init__(self, cfg: PGGANConfig, do_gdrop: bool = False):
         super().__init__()
-        unported = [("gdrop", do_gdrop), ("spectral_norm", cfg.spectral_norm),
+        unported = [("gdrop", do_gdrop),
                     ("quantized_inference", cfg.quantized_inference != ""),
                     ("attention_context_parallel", cfg.attention_context_parallel)]
         for name, is_set in unported:
@@ -300,7 +331,8 @@ class Discriminator(nn.Module):
         self.before_fc_conv1 = ConvBlock(cfg, mc, mc, kernel_size=4, padding="VALID",
                                          discriminator=True)
         self.prediction = EqDense(mc, 1, equalized_lr=cfg.equalized_lr,
-                                  init_stddev=cfg.init_stddev, dtype=torch_dtype(cfg.dtype))
+                                  init_stddev=cfg.init_stddev, dtype=torch_dtype(cfg.dtype),
+                                  spectral_norm=cfg.spectral_norm)
 
     def _channels(self, stage: int) -> int:
         return self.cfg.channels(stage, discriminator=True)
@@ -311,11 +343,9 @@ class Discriminator(nn.Module):
                                                   discriminator=True))
         self.add_module(f"{name}_res", ResBlockAdd(self.cfg, c, features, discriminator=True))
 
-    def _apply_from_rgb(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        return getattr(self, f"{name}_res")(t, getattr(self, f"{name}_conv")(t))
-
     def forward(self, x: torch.Tensor, *, alpha: float = 0.0, stddev_groups: int = 1,
-                attention: str = "kernel", cond_embed: Optional[torch.Tensor] = None,
+                attention: str = "kernel", update: bool = False,
+                cond_embed: Optional[torch.Tensor] = None,
                 cond_image: Optional[torch.Tensor] = None) -> torch.Tensor:
         if cond_embed is not None or cond_image is not None:
             raise NotImplementedError(
@@ -327,23 +357,74 @@ class Discriminator(nn.Module):
             raise ValueError(f"discriminator expects {cfg.resolution} px input, got {src_hw}")
         x = _nchw(x).to(torch_dtype(cfg.dtype))
 
+        def from_rgb(name: str, t: torch.Tensor) -> torch.Tensor:
+            y = getattr(self, f"{name}_conv")(t, update=update)
+            return getattr(self, f"{name}_res")(t, y, update=update)
+
         shrunk = None
         if cfg.is_growing:
-            shrunk = self._apply_from_rgb(f"from_rgb_{src_hw // 2}",
-                                          basic.avg_pool_2x(x, nchw=True))
-        net = self._apply_from_rgb(f"from_rgb_{src_hw}", x)
+            shrunk = from_rgb(f"from_rgb_{src_hw // 2}", basic.avg_pool_2x(x, nchw=True))
+        net = from_rgb(f"from_rgb_{src_hw}", x)
 
         for stage in range(max_stage, 0, -1):
             hw = src_hw >> (max_stage - stage)
             if cfg.do_self_attention and hw == cfg.self_attention_hw:
-                net = getattr(self, f"self_attention_{hw}")(net, route=attention)
-            y = getattr(self, f"block_{hw}_conv0")(net)
-            y = getattr(self, f"block_{hw}_conv1")(y)
-            net = getattr(self, f"block_{hw}_res")(net, y)
+                net = getattr(self, f"self_attention_{hw}")(net, update=update, route=attention)
+            y = getattr(self, f"block_{hw}_conv0")(net, update=update)
+            y = getattr(self, f"block_{hw}_conv1")(y, update=update)
+            net = getattr(self, f"block_{hw}_res")(net, y, update=update)
             net = basic.avg_pool_2x(net, nchw=True)
             if stage == max_stage and cfg.is_growing:
                 net = basic.blend(net, shrunk, alpha)
 
         net = basic.minibatch_stddev(net, num_groups=stddev_groups, nchw=True)
-        net = self.before_fc_conv1(self.before_fc_conv0(net))
-        return self.prediction(net.reshape(net.shape[0], -1))
+        net = self.before_fc_conv0(net, update=update)
+        net = self.before_fc_conv1(net, update=update)
+        return self.prediction(net.reshape(net.shape[0], -1), update)
+
+
+class EncoderClassifier(nn.Module):
+    """Classification head on the [B,4,4,C] encoding: a k3 conv, a k4
+    VALID conv and the linear ``prediction`` to ``output_dim``, with the
+    generator's norms (the style embedding's and distillation's head).
+    The prediction has a spectral norm only with
+    ``spectral_norm_in_non_discriminator``, as in the JAX module."""
+
+    def __init__(self, cfg: PGGANConfig, output_dim: int, conditional: bool = False):
+        super().__init__()
+        require_ported(cfg)
+        self.cfg = cfg
+        mc = cfg.max_channels
+        self.before_fc_conv0 = ConvBlock(cfg, cfg.channels(0), mc, conditional=conditional)
+        self.before_fc_conv1 = ConvBlock(cfg, mc, mc, kernel_size=4, padding="VALID",
+                                         conditional=conditional)
+        self.prediction = EqDense(
+            mc, output_dim, equalized_lr=cfg.equalized_lr, init_stddev=cfg.init_stddev,
+            dtype=torch_dtype(cfg.dtype),
+            spectral_norm=cfg.spectral_norm and cfg.spectral_norm_in_non_discriminator)
+        self.eval()
+
+    def forward(self, x: torch.Tensor, *, domain: int = 0, update: bool = False,
+                style: Optional[torch.Tensor] = None,
+                renorm_clip: Clip = None) -> torch.Tensor:
+        """NHWC [B,4,4,C] -> [B, output_dim] in the compute dtype."""
+        net = _nchw(x)
+        net = self.before_fc_conv0(net, domain, update, style, renorm_clip)
+        net = self.before_fc_conv1(net, domain, update, style, renorm_clip)
+        return self.prediction(net.reshape(net.shape[0], -1), update)
+
+
+class StyleEncoder(nn.Module):
+    """The whole encoder (``body``) and an ``EncoderClassifier`` (``head``):
+    images -> a style embedding [B, output_dim]."""
+
+    def __init__(self, cfg: PGGANConfig, output_dim: int):
+        super().__init__()
+        self.body = Encoder(cfg)
+        self.head = EncoderClassifier(cfg, output_dim)
+
+    def forward(self, x: torch.Tensor, *, alpha: float = 0.0, domain: int = 0,
+                update: bool = False, renorm_clip: Clip = None) -> torch.Tensor:
+        net, _ = self.body(x, alpha=alpha, domain=domain, update=update,
+                           renorm_clip=renorm_clip)
+        return self.head(net, domain=domain, update=update, renorm_clip=renorm_clip)

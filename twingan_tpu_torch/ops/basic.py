@@ -74,3 +74,22 @@ def minibatch_stddev(x: torch.Tensor, eps: float | None = None, num_groups: int 
     tiled = scalar[:, None, None, None, None].expand(groups, b // groups, 1, h, w)
     out = torch.cat([t, tiled.reshape(b, 1, h, w).to(x.dtype)], dim=1)
     return out if nchw else out.permute(0, 2, 3, 1)
+
+
+def gdrop(x: torch.Tensor, strength, generator: torch.Generator | None = None,
+          noise: torch.Tensor | None = None, mode: str = "prop",
+          nchw: bool = False) -> torch.Tensor:
+    """PGGAN's generalized multiplicative noise: x * (1 + strength *
+    sqrt(C) * n), one n ~ N(0, 1) per (example, channel), broadcast over
+    the spatial axes. ``noise`` [B, C] injects the draw (the tests pass the
+    JAX package's); otherwise it comes from ``generator``."""
+    if mode != "prop":
+        raise ValueError(f"unsupported gdrop mode: {mode}")
+    b, c = x.shape[0], x.shape[1 if nchw else -1]
+    if noise is None:
+        noise = torch.randn((b, c), generator=generator, device=x.device, dtype=x.dtype)
+    noise = noise.reshape(b, c).to(x.device, x.dtype)
+    rnd = noise[:, :, None, None] if nchw else noise[:, None, None, :]
+    coef = (torch.as_tensor(strength, dtype=x.dtype, device=x.device)
+            * torch.tensor(math.sqrt(c), dtype=x.dtype, device=x.device))
+    return x * (rnd * coef + torch.tensor(1, dtype=x.dtype, device=x.device))

@@ -1,15 +1,41 @@
 """Functional normalization cores.
 
-Counterpart of ``twingan_tpu/ops/norms.py`` for batch and instance norm:
-batch moments, per-group batch moments, instance moments, the normalize
-step and the moving-statistic update. Batch renorm is not ported yet.
+Counterpart of ``twingan_tpu/ops/norms.py``: batch moments, per-group
+batch moments, instance moments, the normalize step, the moving-statistic
+update, and batch renorm (the clipping schedule over the global step, the
+r/d correction with its debiased EMAs, and the moving moments those EMAs
+imply).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, Optional
 
 import torch
+
+# Piecewise-constant batch renorm clipping schedule over the global step
+# (which restarts at 0 each growth stage).
+RENORM_BOUNDARIES = (10000, 20000, 30000)
+RENORM_RMAX = (1.1, 1.5, 2.0, 4.0)
+RENORM_RMIN = (0.9, 0.66, 0.5, 0.25)
+RENORM_DMAX = (0.1, 0.3, 0.5, 1.0)
+RENORM_STATE = ("renorm_mean", "renorm_mean_weight", "renorm_stddev", "renorm_stddev_weight")
+
+
+def renorm_clipping_schedule(step: int) -> dict[str, float]:
+    """rmax/rmin/dmax at the host-int ``step``: ``values[i]`` while
+    ``step <= boundaries[i]`` (searchsorted side="left"), as fp32 values."""
+    idx = sum(step > b for b in RENORM_BOUNDARIES)
+
+    def pick(values):
+        return float(torch.tensor(values[idx], dtype=torch.float32))
+
+    return {"rmax": pick(RENORM_RMAX), "rmin": pick(RENORM_RMIN), "dmax": pick(RENORM_DMAX)}
+
+
+def last_renorm_clip() -> dict[str, float]:
+    """The schedule's last values, the clip of a call that passes none."""
+    return {"rmax": RENORM_RMAX[-1], "rmin": RENORM_RMIN[-1], "dmax": RENORM_DMAX[-1]}
 
 
 def moments(x: torch.Tensor, axes: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
@@ -62,3 +88,44 @@ def group_batch_moments(x: torch.Tensor, num_groups: int = 1) -> tuple[torch.Ten
 def update_moving(moving: torch.Tensor, value: torch.Tensor, decay: float) -> torch.Tensor:
     """assign_moving_average without zero-debias: m*decay + v*(1-decay)."""
     return moving * decay + value.to(moving.dtype) * (1 - decay)
+
+
+@torch.no_grad()
+def batch_renorm_correction(
+    batch_mean: torch.Tensor,
+    batch_var: torch.Tensor,
+    state: Mapping[str, torch.Tensor],
+    clipping: Mapping[str, float],
+    momentum: float = 0.99,
+    eps: float = 1e-3,
+) -> tuple[torch.Tensor, torch.Tensor, dict[str, torch.Tensor]]:
+    """Batch-renorm (r, d) corrections and the advanced renorm state.
+
+    ``state`` holds fp32 ``renorm_mean``, ``renorm_mean_weight`` (0-d),
+    ``renorm_stddev`` and ``renorm_stddev_weight`` (0-d): biased EMAs,
+    debiased by the weight EMAs. r and d carry no gradient; the caller
+    computes ``normalize(x, batch_mean, batch_var) * r + d``. The returned
+    state is new tensors: ``state`` is not written."""
+    mean = batch_mean.float()
+    stddev = torch.sqrt(batch_var.float() + eps)
+    mixed_mean = state["renorm_mean"] + (1.0 - state["renorm_mean_weight"]) * mean
+    mixed_stddev = state["renorm_stddev"] + (1.0 - state["renorm_stddev_weight"]) * stddev
+    r = torch.clamp(stddev / mixed_stddev, clipping["rmin"], clipping["rmax"])
+    d = torch.clamp((mean - mixed_mean) / mixed_stddev, -clipping["dmax"], clipping["dmax"])
+    decay = momentum
+    new_state = {
+        "renorm_mean": state["renorm_mean"] * decay + mean * (1 - decay),
+        "renorm_mean_weight": state["renorm_mean_weight"] * decay + (1 - decay),
+        "renorm_stddev": state["renorm_stddev"] * decay + stddev * (1 - decay),
+        "renorm_stddev_weight": state["renorm_stddev_weight"] * decay + (1 - decay),
+    }
+    return r, d, new_state
+
+
+def renorm_moving_moments(state: Mapping[str, torch.Tensor],
+                          eps: float = 1e-3) -> tuple[torch.Tensor, torch.Tensor]:
+    """The debiased mean and variance the renorm state implies (variance =
+    stddev^2 - eps), which the moving statistics track."""
+    new_mean = state["renorm_mean"] / state["renorm_mean_weight"]
+    new_stddev = state["renorm_stddev"] / state["renorm_stddev_weight"]
+    return new_mean, torch.square(new_stddev) - eps

@@ -19,7 +19,7 @@ from typing import Mapping, Optional
 import torch
 
 from twingan_tpu_torch.models.config import require_ported
-from twingan_tpu_torch.ops import basic
+from twingan_tpu_torch.ops import basic, norms
 
 
 def resolve_device(device: Optional[str | torch.device]) -> torch.device:
@@ -42,6 +42,14 @@ def fade_alpha(cfg, step: int) -> float:
     return float(step - cfg.grow_start_step) / denom
 
 
+def renorm_clip(cfg, step: int) -> Optional[dict]:
+    """Batch renorm's rmax/rmin/dmax at the global ``step`` (which restarts
+    at 0 each stage); None unless the model runs batch renorm."""
+    if cfg.model.norm_type != "batch_renorm":
+        return None
+    return norms.renorm_clipping_schedule(step)
+
+
 def step_generator(rng: int, critic_step: int, device: torch.device) -> torch.Generator:
     """The random stream of one step: seeded from (rng, critic_step)."""
     seed = (int(rng) * 1_000_003 + int(critic_step)) % (2**63)
@@ -50,9 +58,11 @@ def step_generator(rng: int, critic_step: int, device: torch.device) -> torch.Ge
 
 def require_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for the model options the port's
-    modules lack and the trainer options it lacks."""
+    modules lack and the trainer options it lacks: conditional norms
+    (``style_dim``) have their modules but no trainer wiring yet."""
     require_ported(cfg.model)
     unported = [
+        ("style_dim", cfg.model.style_dim > 0),
         ("remat", cfg.remat),
         ("sync_batch_norm_axis", cfg.model.sync_batch_norm_axis is not None),
         ("use_gdrop", cfg.use_gdrop),
@@ -69,6 +79,9 @@ class BaseGanTrainer:
 
     def _alpha(self, step: int) -> float:
         return fade_alpha(self.cfg, step)
+
+    def _renorm_clip(self, step: int) -> Optional[dict]:
+        return renorm_clip(self.cfg, step)
 
     def growing_image(self, x: torch.Tensor, alpha: float) -> torch.Tensor:
         """Fade-in blend of NHWC images with their low-res selves."""

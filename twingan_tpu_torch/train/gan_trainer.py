@@ -19,6 +19,13 @@ The steps follow the JAX ones:
 - ``sample``: eval mode, the Polyak-averaged parameters when
   ``moving_average_decay`` is set, no gradient (B4 again).
 
+Batch renorm's clip comes from the state's global step in both steps. The
+G step's generator pass moves its spectral norms' ``u`` (with
+``spectral_norm_in_non_discriminator``); the discriminator's ``u``
+advances once per D step, from the state before the step, which its fake,
+real and penalty passes all read (``layers.advance_spectral_norm``), as
+the JAX step's one updating pass does.
+
 As in the JAX package each side's optimizer is built over the network's
 own parameter paths, without the network's name (``block_4_conv0.conv.kernel``),
 so a frozen scope matches the path inside the network; the discriminator's
@@ -45,7 +52,7 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from twingan_tpu_torch.models.config import PGGANConfig
-from twingan_tpu_torch.models.layers import reset_parameters
+from twingan_tpu_torch.models.layers import advance_spectral_norm, reset_parameters
 from twingan_tpu_torch.models.pggan import Discriminator, Generator, noise_shape
 from twingan_tpu_torch.train.base import (
     BaseGanTrainer,
@@ -175,7 +182,8 @@ class GanTrainer(BaseGanTrainer):
         if z is None:
             z = self._gen_input(batch, step_generator(rng, state.critic_step, self.device),
                                 real.shape[0])
-        fake = gen(z.to(self.device), alpha=alpha, update=True)
+        fake = gen(z.to(self.device), alpha=alpha, update=True,
+                   renorm_clip=self._renorm_clip(state.step))
         loss = generator_gan_loss(cfg.loss, dis(fake, alpha=alpha))
         grads = self._grads(loss, state.gen_opt.params)
         grad_norm = global_norm(grads)
@@ -209,7 +217,8 @@ class GanTrainer(BaseGanTrainer):
         if z is None:
             z = self._gen_input(batch, generator, real.shape[0])
         with torch.no_grad():
-            fake = gen(z.to(self.device), alpha=alpha, update=False)
+            fake = gen(z.to(self.device), alpha=alpha, update=False,
+                       renorm_clip=self._renorm_clip(state.step))
         fake_pred = dis(fake, alpha=alpha)
         real_pred = dis(real, alpha=alpha)
         losses = discriminator_gan_loss(cfg.loss, fake_pred, real_pred)
@@ -219,6 +228,7 @@ class GanTrainer(BaseGanTrainer):
             alpha=noise.get("alpha"), noise=noise.get("noise"), generator=generator)
         total = sum(losses.values())
         grads = self._grads(total, state.dis_opt.params)
+        advance_spectral_norm(dis)
         grad_norm = global_norm(grads)
         state.dis_opt.step(grads)
         state.critic_step += 1

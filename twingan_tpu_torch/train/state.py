@@ -15,8 +15,10 @@ in place, and the state object carries them with the counters:
 ``state_to_dict`` and ``state_from_dict`` are the port's
 ``flax.serialization.to_state_dict``/``from_state_dict``: the whole state
 as one flat dict whose keys are the JAX state dict's paths joined with
-``/`` (``params/<net>/...``, ``model_state/<net>/batch_stats/...``,
-``gen_opt_state/0/mu/...`` as optax lays the chain out, the four counters,
+``/`` (``params/<net>/...``, ``model_state/<net>/batch_stats/...`` for the
+moving statistics and batch renorm's state, ``model_state/<net>/spectral/
+.../u`` for the spectral norms' vectors, ``gen_opt_state/0/mu/...`` as
+optax lays the chain out, the four counters,
 ``gen_ema_params/...``) and whose values are the port's tensors (conv
 kernels OIHW). Checkpoints, migration and the bridge work on it.
 """
@@ -68,12 +70,23 @@ def polyak_update(ema_params: dict[str, torch.Tensor], params: dict[str, torch.T
         e.mul_(decay).add_(params[k].detach(), alpha=1.0 - decay)
 
 
+BATCH_STATS_PREFIXES = ("moving_mean_", "moving_var_", "renorm_")
+
+
+def collection(leaf: str) -> str:
+    """The Flax collection a layer's leaf lives in: ``batch_stats`` for the
+    moving statistics and batch renorm's state, ``spectral`` for a spectral
+    norm's ``u``, else ``params``."""
+    if leaf.startswith(BATCH_STATS_PREFIXES):
+        return "batch_stats"
+    return "spectral" if leaf == "u" else "params"
+
+
 def _jax_path(key: str) -> str:
     """A ``nets.state_dict()`` key -> its path in the JAX state dict."""
     net, rest = key.split(".", 1)
-    leaf = rest.rsplit(".", 1)[-1]
-    group = ("model_state", net, "batch_stats") if leaf.startswith(
-        ("moving_mean_", "moving_var_")) else ("params", net)
+    kind = collection(rest.rsplit(".", 1)[-1])
+    group = ("params", net) if kind == "params" else ("model_state", net, kind)
     return "/".join(group + tuple(rest.split(".")))
 
 
@@ -82,7 +95,8 @@ def _port_key(path: str) -> Optional[str]:
     parts = path.split("/")
     if parts[0] == "params":
         return ".".join(parts[1:])
-    if parts[0] == "model_state" and len(parts) > 3 and parts[2] == "batch_stats":
+    if (parts[0] == "model_state" and len(parts) > 3
+            and parts[2] in ("batch_stats", "spectral")):
         return ".".join([parts[1]] + parts[3:])
     return None
 

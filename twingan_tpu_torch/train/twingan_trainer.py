@@ -23,6 +23,14 @@ The step follows the JAX one pass for pass:
   domain with aligned minibatch-stddev groups when ``cfg.fuse``), and the
   gradient penalty's pass takes the plain attention route
   (``ops/attention.py``), the one twice-differentiable path.
+- batch renorm's clip comes from the state's global step (which restarts
+  at 0 each stage) in both steps; the G step's updating passes write the
+  renorm EMAs in the order above, each pass computing r and d from what
+  the earlier ones left; ``fuse`` stays off under batch renorm;
+- spectral norms: the generator side's ``u`` advance in the G step's
+  updating passes, in the same order; each discriminator's ``u`` advances
+  once per D step, from the state before the step, which every one of the
+  step's discriminator passes reads (``layers.advance_spectral_norm``).
 Metric names are the JAX ones. Style embedding, encoder distillation,
 gdrop and remat are not ported yet and raise.
 """
@@ -37,7 +45,7 @@ import torch.nn as nn
 from torch.func import functional_call
 
 from twingan_tpu_torch.models.config import PGGANConfig
-from twingan_tpu_torch.models.layers import reset_parameters
+from twingan_tpu_torch.models.layers import advance_spectral_norm, reset_parameters
 from twingan_tpu_torch.models.pggan import Discriminator, Encoder, EncoderSkips, Generator
 from twingan_tpu_torch.train.base import (
     BaseGanTrainer,
@@ -256,18 +264,22 @@ class TwinGANTrainer(BaseGanTrainer):
     # Forward
     # ------------------------------------------------------------------ #
     def _forward(self, nets: nn.ModuleDict, sources: torch.Tensor, targets: torch.Tensor,
-                 alpha: float, update: bool, light: bool = False) -> dict[str, Any]:
+                 alpha: float, clip: Optional[dict], update: bool,
+                 light: bool = False) -> dict[str, Any]:
         """The four generator passes (and, unless ``light``, the prime
         re-encodes). Output names carry the OUTPUT domain."""
         cfg = self.cfg
         enc, gen = nets[ENC], nets[GEN]
 
         def gen_apply(code, domain, skips):
-            return gen(code, alpha=alpha, domain=domain,
+            return gen(code, alpha=alpha, domain=domain, renorm_clip=clip,
                        unet_skips=skips if cfg.use_unet else None, update=update)
 
-        enc_s, skips_s = enc(sources, alpha=alpha, domain=DOMAIN_S, update=update)
-        enc_t, skips_t = enc(targets, alpha=alpha, domain=DOMAIN_T, update=update)
+        def enc_apply(x, domain, update):
+            return enc(x, alpha=alpha, domain=domain, update=update, renorm_clip=clip)
+
+        enc_s, skips_s = enc_apply(sources, DOMAIN_S, update)
+        enc_t, skips_t = enc_apply(targets, DOMAIN_T, update)
         if cfg.fuse:
             cat = EncoderSkips.cat if cfg.use_unet else (lambda a, b: None)
             s_prime, s_cycle = gen_apply(torch.cat([enc_t, enc_s]), DOMAIN_S,
@@ -282,8 +294,8 @@ class TwinGANTrainer(BaseGanTrainer):
         outs = dict(sources=sources, targets=targets, enc_s=enc_s, enc_t=enc_t,
                     s_prime=s_prime, s_cycle=s_cycle, t_prime=t_prime, t_cycle=t_cycle)
         if not light:
-            outs["enc_t_prime"] = enc(t_prime, alpha=alpha, domain=DOMAIN_T)[0]
-            outs["enc_s_prime"] = enc(s_prime, alpha=alpha, domain=DOMAIN_S)[0]
+            outs["enc_t_prime"] = enc_apply(t_prime, DOMAIN_T, False)[0]
+            outs["enc_s_prime"] = enc_apply(s_prime, DOMAIN_S, False)[0]
         return outs
 
     def _need_cycle(self) -> bool:
@@ -323,7 +335,8 @@ class TwinGANTrainer(BaseGanTrainer):
         nets = state.nets
         alpha = self._alpha(state.step)
         sources, targets = self._images(batch, alpha)
-        outs = self._forward(nets, sources, targets, alpha, update=True)
+        outs = self._forward(nets, sources, targets, alpha, self._renorm_clip(state.step),
+                             update=True)
         kinds = ("prime", "cycle") if self._need_cycle() else ("prime",)
         preds = {}
         for domain, dis_name in (("s", DIS_S), ("t", DIS_T)):
@@ -366,7 +379,8 @@ class TwinGANTrainer(BaseGanTrainer):
         alpha = self._alpha(state.step)
         sources, targets = self._images(batch, alpha)
         with torch.no_grad():
-            outs = self._forward(nets, sources, targets, alpha, update=False, light=True)
+            outs = self._forward(nets, sources, targets, alpha, self._renorm_clip(state.step),
+                                 update=False, light=True)
         generator = None if gp_noise is not None else step_generator(
             rng, state.critic_step, self.device)
         need_cycle = self._need_cycle()
@@ -395,6 +409,8 @@ class TwinGANTrainer(BaseGanTrainer):
                 generator=generator)
         total = sum(losses.values())
         grads = self._grads(total, state.dis_opt.params)
+        for dis_name in self.discriminator_side_keys:
+            advance_spectral_norm(nets[dis_name])
         grad_norm = global_norm(grads)
         state.dis_opt.step(grads)
         state.critic_step += 1

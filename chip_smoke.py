@@ -136,7 +136,33 @@ result line is printed:
               SPECTRAL_U_ATOL, and, with spectral norm in the generator
               too, a 12-image ``sample`` on B4's tensor-core variant (13
               launches, W / sigma folded in) against the CPU.
-12. kernels - one line listing each kernel of the paths.
+12. options - the trainer options. The slice config with the style
+              embedding (16 wide: the generator's norms conditional),
+              distillation (512-wide unit embeddings), gdrop and remat,
+              batch 3: a G and a D step at global step 101 with gdrop
+              strength 0.05, the random style and every gdrop draw made on
+              the CPU and handed to both, on the card in fp32 against fp32
+              on the CPU (TRAIN_LIMITS' fp32 row; the style and
+              distillation losses among those compared; why not bf16:
+              OPTIONS_TWINGAN_LIMITS); 3 timed bf16 rounds
+              with remat and 3 without, in this call (rounds/s, peak
+              memory), B1-B3's launches held to the passes' count with
+              remat's recompute counted (2 forward launches a
+              differentiated pass). pggan256 with gdrop and conditional
+              labels (51 classes, 32 wide) under rmsprop: a G and a D step
+              against the CPU, the optimizer's update held too (cosine), a
+              round (13 B4 launches in its D step) and a labelled
+              12-image sample within serving's limits (13 B4 launches);
+              then one D step each under adagrad, adadelta and ftrl
+              against the CPU. Then the training command
+              (``pggan_runner.main``, what ``python -m
+              twingan_tpu_torch.runner.pggan_runner`` runs) with
+              --use_style_embedding --use_gdrop --remat from 128 to 256 px,
+              2 rounds a stage, B1-B3 launches per stage held to its
+              passes and its sample dump, the style-interpolation grid
+              written, and the 256 stage served with a given style within
+              serving's limits of the CPU and with its own.
+13. kernels - one line listing each kernel of the paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -373,6 +399,43 @@ RECIPE_STEP = 10001
 # in fp32 from the same u on the same fp32 weights (TF32 off), sums taken
 # in other orders; u is a unit vector.
 SPECTRAL_U_ATOL = 1e-5
+
+# The options phase: the trainer options on the slice config (the style
+# embedding 16 wide, so that the generator's norms are conditional;
+# distillation against 512-wide unit embeddings, as celeba_facenet's; gdrop;
+# remat) and on pggan256 (gdrop; conditional labels over anime_faces' 51
+# classes, embedded 32 wide; rmsprop, then adagrad, adadelta and ftrl). The
+# steps start at global step 101, past the schedule's gdrop switch, with the
+# strength 0.05 that the schedule reaches at most at its defaults (coef 0.2
+# x (1 - lim 0.5) ** 2). The CLI plan trains 2 rounds a stage from 128 to
+# 256 px and dumps its sample grids at the stages' last step.
+OPTIONS_STYLE_DIM = 16
+OPTIONS_EMBED_DIM = 512
+OPTIONS_STEP = 101
+OPTIONS_GDROP_STRENGTH = 0.05
+OPTIONS_NUM_CLASSES = 51
+OPTIONS_COND_DIM = 32
+OPTIONS_CLI_IMAGES = 8
+# The TwinGAN options' G and D step on the card in float32 against float32
+# on the CPU, at TRAIN_LIMITS' float32 row. bf16 against fp32 at random
+# init measures how far this config amplifies rounding, not the kernels
+# (whose bf16 variants the train phase holds): its style path doubles the
+# depth behind every conditional norm. On an NVIDIA H100 80GB HBM3 at
+# 700.00 W the bf16 step gave fool losses 40 % off (13.0 against 9.3) and
+# content and style encoder cosines of 0.78; on the CPU at 64 px the
+# generator's gradient norm moves 25 % and the content encoder's cosine
+# falls to 0.86. The options' bf16 rounds run in the timed rounds and the
+# CLI plan, held to finite losses and their launches, all tensor-core.
+OPTIONS_TWINGAN_LIMITS = {"float32": TRAIN_LIMITS["float32"]}
+OPTIONS_CLI_FLAGS = [
+    "--program_name=twingan", "--use_synthetic_data=true", "--start_hw=128", "--max_hw=256",
+    f"--num_images_per_resolution={OPTIONS_CLI_IMAGES}", "--pggan_max_num_channels=256",
+    "--generator_norm_type=batch_norm", "--equalized_learning_rate=true",
+    "--do_pixel_norm=true", "--use_unet=true", "--dtype=bfloat16", "--do_self_attention=true",
+    "--self_attention_hw=64", "--use_style_embedding=true",
+    f"--style_embed_size={OPTIONS_STYLE_DIM}", "--use_gdrop=true", "--remat=true",
+    "--log_every_n_steps=1", "--log_image_every_n_iter=2", "--save_every_n_steps=2",
+]
 
 # Numbers an earlier phase measured that a later one prints beside its own.
 MEASURED: dict = {}
@@ -979,29 +1042,36 @@ def expected_launches(trainer, nets) -> dict:
     each pass of a network with self-attention runs the forward kernel
     once, and dq and dkv once if the pass is differentiated.
     G step: 4 encoder passes (enc(s), enc(t), the two prime re-encodes),
-    4 generator passes (2 when fused), the discriminator on prime and
-    cycle per domain (one pass per domain when fused), all differentiated.
-    D step: enc(s), enc(t) and the generator passes under no_grad; the
-    discriminator on real, prime and cycle per domain (one pass per domain
-    when fused), differentiated; the two gradient-penalty passes on the
-    plain route."""
+    with the style embedding 4 style-encoder passes (the same images), 4
+    generator passes (2 when fused), the discriminator on prime and cycle
+    per domain (one pass per domain when fused), all differentiated.
+    D step: enc(s), enc(t) (and the two style passes) and the generator
+    passes under no_grad; the discriminator on real, prime and cycle per
+    domain (one pass per domain when fused), differentiated; the two
+    gradient-penalty passes on the plain route. Under remat every
+    differentiated pass runs its forward again in the backward (2 forward
+    launches, 1 dq, 1 dkv), and a penalty pass twice more (its first
+    backward, taken with create_graph, and the second-order one)."""
     from twingan_tpu_torch.models.layers import SelfAttention
     from twingan_tpu_torch.ops import attention
-    from twingan_tpu_torch.train.twingan_trainer import DIS_S, ENC, GEN
+    from twingan_tpu_torch.train.twingan_trainer import DIS_S, ENC, ENC_STYLE, GEN
 
     cfg = trainer.cfg
     sa = {k: sum(isinstance(m, SelfAttention) for m in nets[k].modules())
-          for k in (ENC, GEN, DIS_S)}
+          for k in (ENC, GEN, DIS_S, ENC_STYLE) if k in nets}
+    style = sa.get(ENC_STYLE, 0)
     kinds = 2 if (cfg.model.resolution >= 64 and cfg.do_l_cyc_gan) else 1
     gen_passes = 2 if cfg.fuse else 4
     g_dis = 2 if cfg.fuse else 2 * kinds
     d_dis = 2 if cfg.fuse else 2 * (1 + kinds)
-    g = 4 * sa[ENC] + gen_passes * sa[GEN] + g_dis * sa[DIS_S]
+    g = 4 * sa[ENC] + 4 * style + gen_passes * sa[GEN] + g_dis * sa[DIS_S]
     d = d_dis * sa[DIS_S]
-    d_light = 2 * sa[ENC] + gen_passes * sa[GEN]
+    d_light = 2 * sa[ENC] + 2 * style + gen_passes * sa[GEN]
+    twice, penalty = (2, 3) if cfg.remat else (1, 1)
     fwd, dq, dkv = attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL
-    return {"g_step": {fwd: g, dq: g, dkv: g, attention.PLAIN_ROUTE: 0},
-            "d_step": {fwd: d_light + d, dq: d, dkv: d, attention.PLAIN_ROUTE: 2 * sa[DIS_S]}}
+    return {"g_step": {fwd: twice * g, dq: g, dkv: g, attention.PLAIN_ROUTE: 0},
+            "d_step": {fwd: d_light + twice * d, dq: d, dkv: d,
+                       attention.PLAIN_ROUTE: penalty * 2 * sa[DIS_S]}}
 
 
 def _cosine(a, b) -> float:
@@ -1023,7 +1093,8 @@ def _held_leaf(key: str, held_buffers) -> bool:
 
 def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_cls=None,
                   zs=None, phase: str = "train", limits=None, grad_prefix=None,
-                  b4_steps=(), step: int = 0, held_buffers=None) -> list:
+                  b4_steps=(), step: int = 0, held_buffers=None, gdrop_strength: float = 0.0,
+                  step_kw=None, kinds=("g_step", "d_step"), check_updates: bool = False) -> list:
     """One G step and one D step, each from ``weights``, on the ``card`` in
     float32 and in bfloat16 against the same steps in fp32 on the CPU (plain
     attention), within ``limits`` (TRAIN_LIMITS by default). ``trainer_cls``
@@ -1033,10 +1104,16 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
     network's name. On the card, each step launches only the variants of
     its type: the three attention kernels where the networks have
     attention, and B4 in the steps named in ``b4_steps`` and in no other.
-    Each step starts at global ``step``. ``held_buffers`` maps buffer
-    leaves (``renorm_``, ``u``) to the absolute limit their values after
-    the step are held to against the CPU's, elementwise; None holds them
-    to the step's loss limits (rtol * |cpu| + atol).
+    Each step starts at global ``step`` with gdrop strength
+    ``gdrop_strength``; ``step_kw[kind]`` holds more arguments of the step
+    (the random style and gdrop draws, on the CPU, that both sides take).
+    ``kinds`` names the steps to run (``batches`` has one batch each).
+    ``held_buffers`` maps buffer leaves (``renorm_``, ``u``) to the
+    absolute limit their values after the step are held to against the
+    CPU's, elementwise; None holds them to the step's loss limits (rtol *
+    |cpu| + atol). With ``check_updates`` the optimizer's update of each
+    network (parameters after the step minus before) is held to the
+    gradients' cosine limit too.
     Returns one row per step and card type."""
     import torch
     from twingan_tpu_torch.models.layers import SelfAttention
@@ -1052,9 +1129,13 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
     def run(trainer, kind, batch):
         state = trainer.state_from_nets(trainer.build_nets(), step=step, critic_step=1)
         state.nets.load_state_dict(weights)
+        state.gdrop_strength = torch.tensor(gdrop_strength, device=trainer.device)
         side = "gen_opt" if kind == "g_step" else "dis_opt"
-        setattr(state, side, GradRecorder(getattr(state, side)))
+        recorder = GradRecorder(getattr(state, side))
+        setattr(state, side, recorder)
+        before = [p.detach().float().cpu().clone() for p in recorder.params]
         kw = {} if zs is None else {"z": zs[kind]}
+        kw.update((step_kw or {}).get(kind, {}))
         attention.reset_launch_counts()
         fused_conv.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1069,7 +1150,9 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
         grads = {prefix + n: g for n, g in getattr(state, side).grads.items()}
         buffers = {k: v.detach().float().cpu() for k, v in state.nets.state_dict().items()
                    if _held_leaf(k, held_buffers)}
-        return metrics, grads, seconds, sa_names, buffers
+        updates = {prefix + n: p.detach().float().cpu() - b
+                   for n, p, b in zip(recorder.names, recorder.params, before)}
+        return metrics, grads, seconds, sa_names, buffers, updates
 
     def flat(grads, prefix):
         return torch.cat([g.flatten() for n, g in grads.items() if n.startswith(prefix + ".")])
@@ -1079,10 +1162,10 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
 
     rows = []
     ref_trainer = on("cpu", "float32")
-    for kind, batch in zip(("g_step", "d_step"), batches):
-        ref_m, ref_grads, cpu_s, _, ref_buffers = run(ref_trainer, kind, batch)
+    for kind, batch in zip(kinds, batches):
+        ref_m, ref_grads, cpu_s, _, ref_buffers, ref_updates = run(ref_trainer, kind, batch)
         for dtype, (rtol, atol, min_cos, min_sa_cos) in limits.items():
-            m, grads, card_s, sa_names, buffers = run(on(card, dtype), kind, batch)
+            m, grads, card_s, sa_names, buffers, updates = run(on(card, dtype), kind, batch)
             # The kernels run the variant of the step's type only (on the
             # CPU, none runs).
             dt = getattr(torch, dtype)
@@ -1099,6 +1182,8 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
                         if k not in ("alpha", "gdrop_strength")}
             networks = sorted({n.split(".", 1)[0] for n in grads})
             net_cos = {net: _cosine(flat(grads, net), flat(ref_grads, net)) for net in networks}
+            update_cos = ({net: _cosine(flat(updates, net), flat(ref_updates, net))
+                           for net in networks} if check_updates else {})
             sa_cos = {f"{sa}.{proj}": _cosine(flat(grads, f"{sa}.{proj}"),
                                                flat(ref_grads, f"{sa}.{proj}"))
                       for sa in sa_names if sa.split(".", 1)[0] in networks
@@ -1116,11 +1201,13 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
                     bool((e <= b).all()) for e, b in zip(errs, bounds))
             ok = (all(loss_err[k] <= rtol * abs(ref_m[k]) + atol for k in loss_err)
                   and buffers_ok and min(net_cos.values()) >= min_cos
+                  and all(c >= min_cos for c in update_cos.values())
                   and (min_sa_cos is None or min(sa_cos.values()) >= min_sa_cos)
                   and not other and (not on_card or want <= set(variants)))
             rows.append({"phase": phase, "check": f"{kind}, card {dtype} vs CPU float32",
                          "losses": m, "cpu_losses": ref_m, "loss_abs_err": loss_err,
                          "grad_cosine": net_cos, "attention_projection_grad_cosine": sa_cos,
+                         "update_cosine": update_cos,
                          "kernel_variants": variants, "step": step,
                          "buffers_after_step": buffer_err,
                          "limits": {"loss_rtol": rtol, "loss_atol": atol,
@@ -2437,6 +2524,369 @@ def recipe_phase(card: str, smi_line: str) -> dict:
     return totals
 
 
+def options_config(remat: bool = True):
+    """The slice config at the training batch with the style embedding,
+    distillation, gdrop and ``remat``."""
+    cfg = train_config()
+    return cfg.replace(model=cfg.model.replace(style_dim=OPTIONS_STYLE_DIM),
+                       use_style_embedding=True, style_embed_size=OPTIONS_STYLE_DIM,
+                       do_encoder_distillation=True, source_embed_dim=OPTIONS_EMBED_DIM,
+                       target_embed_dim=OPTIONS_EMBED_DIM, use_gdrop=True, remat=remat)
+
+
+def options_generation_config(optimizer: str = "rmsprop", batch: int = GEN_BATCH):
+    """pggan256 with gdrop and conditional labels under ``optimizer``."""
+    from twingan_tpu_torch.train.optimizers import OptimizerConfig
+
+    cfg = generation_config(batch)
+    return cfg.replace(use_gdrop=True, use_conditional_labels=True,
+                       num_classes=OPTIONS_NUM_CLASSES, conditional_embed_dim=OPTIONS_COND_DIM,
+                       opt=OptimizerConfig(optimizer=optimizer))
+
+
+def _unit_rows(rng, n: int, dim: int):
+    import numpy as np
+    import torch
+
+    e = rng.randn(n, dim).astype("float32")
+    return torch.from_numpy(e / np.linalg.norm(e, axis=1, keepdims=True))
+
+
+def _options_batch(rng, cfg, device):
+    """A TwinGAN batch with the distillation embeddings."""
+    batch = _train_batch(rng, cfg, device)
+    for k in ("source_embedding", "target_embedding"):
+        batch[k] = _unit_rows(rng, TRAIN_BATCH, OPTIONS_EMBED_DIM).to(device)
+    return batch
+
+
+def twingan_option_draws(trainer, seed: int) -> dict:
+    """The random style and every discriminator pass's gdrop noise of one
+    G step and one D step, drawn on the CPU from ``seed``, by the names the
+    steps take them under."""
+    import torch
+    from twingan_tpu_torch.train.twingan_trainer import DIS_S
+
+    gen = torch.Generator().manual_seed(seed)
+    shapes = trainer.build_nets()[DIS_S].gdrop_shapes
+    draw = lambda n: [torch.randn(s, generator=gen) for s in shapes(n)]  # noqa: E731
+    kinds = ["prime"] + (["cycle"] if trainer._need_cycle() else [])
+    out = {}
+    for step, passes in (("g_step", kinds), ("d_step", ["real"] + kinds)):
+        style = torch.randn(TRAIN_BATCH, trainer.cfg.style_embed_size, generator=gen)
+        if trainer.cfg.fuse:
+            noise = {d: draw(len(passes) * TRAIN_BATCH) for d in "st"}
+        else:
+            noise = {f"{d}_{k}": draw(TRAIN_BATCH) for d in "st" for k in passes}
+        if step == "d_step":
+            noise.update({f"{d}_gp": draw(TRAIN_BATCH) for d in "st"})
+        out[step] = {"random_style": style, "gdrop_noise": noise}
+    return out
+
+
+def generation_option_draws(trainer, batch: int, seed: int) -> dict:
+    """The gdrop noise of a GanTrainer G step and D step, on the CPU."""
+    import torch
+    from twingan_tpu_torch.train.gan_trainer import DIS
+
+    gen = torch.Generator().manual_seed(seed)
+    shapes = trainer.build_nets()[DIS].gdrop_shapes(batch)
+    draw = lambda: [torch.randn(s, generator=gen) for s in shapes]  # noqa: E731
+    return {"g_step": {"gdrop_noise": {"fake": draw()}},
+            "d_step": {"gdrop_noise": {k: draw() for k in ("fake", "real", "gp")}}}
+
+
+def options_phase(card: str, smi_line: str) -> dict:
+    """The trainer options on the card; returns their main paths' launches
+    by kernel (the timed rounds, the pggan round and sample, the CLI plan
+    and its serving)."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.infer.translate import ImageInferer
+    from twingan_tpu_torch.models.layers import SelfAttention
+    from twingan_tpu_torch.models.pggan import noise_shape
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.runner import pggan_runner
+    from twingan_tpu_torch.runner.stage_runner import stage_dir_name, stage_plan
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+    from twingan_tpu_torch.train.twingan_trainer import ENC, ENC_STYLE, GEN, TwinGANTrainer
+
+    t_phase = time.perf_counter()
+    attn = (attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL)
+    tc = {k: f"{k}/{attention.VARIANTS[k][torch.bfloat16]}" for k in attn}
+    b4_tc = f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[torch.bfloat16]}"
+    totals = {k: 0 for k in attn + (fused_conv.KERNEL_NAME,)}
+
+    # 1. TwinGAN with the style embedding, distillation, gdrop and remat: a
+    # G and a D step on the card against the CPU, both in float32.
+    cfg = options_config(remat=True)
+    trainer = TwinGANTrainer(cfg)  # the card, by default
+    state = trainer.init_state(SEED)
+    set_attention_gamma(state.nets)
+    weights = {k: v.detach().cpu().clone() for k, v in state.nets.state_dict().items()}
+    rng = np.random.RandomState(SEED + 12)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    res = cfg.model.resolution
+    gp_noise = {d: {"alpha": torch.rand(TRAIN_BATCH, 1, 1, 1, generator=gen),
+                    "noise": torch.rand(TRAIN_BATCH, res, res, 3, generator=gen) * 2 - 1}
+                for d in ("s", "t")}
+    draws = twingan_option_draws(trainer, SEED + 12)
+    rows = compare_steps(cfg, weights, [_options_batch(rng, cfg, "cpu") for _ in range(2)],
+                         gp_noise, phase="options", limits=OPTIONS_TWINGAN_LIMITS,
+                         step=OPTIONS_STEP, gdrop_strength=OPTIONS_GDROP_STRENGTH,
+                         step_kw=draws)
+    want = {"l_s_style", "l_t_style", "l_source_distillation", "l_target_distillation",
+            "l_s_prime_distillation", "l_t_prime_distillation"}
+    for row in rows:
+        row["config"] = "slice + style 16, distillation 512, gdrop 0.05 at step 101, remat"
+        emit(row)
+        if not row["ok"] or (row["check"].startswith("g_step") and not want <= set(row["losses"])):
+            fail("options", f"the card's {row['check']} with the TwinGAN options disagrees "
+                            "beyond the limits, or lacks the style and distillation losses")
+
+    # 2. Timed rounds with and without remat, in this call: rounds/s, peak
+    # memory, and the launches the passes imply (the recompute counted).
+    timed = {}
+    for remat in (True, False):
+        rcfg = options_config(remat)
+        rtrainer = TwinGANTrainer(rcfg)
+        rstate = rtrainer.state_from_nets(rtrainer.build_nets(), step=OPTIONS_STEP,
+                                          critic_step=2 * OPTIONS_STEP)
+        rstate.nets.load_state_dict(weights)
+        rstate.gdrop_strength = torch.tensor(OPTIONS_GDROP_STRENGTH, device="cuda")
+        rounds = [[_options_batch(rng, rcfg, "cuda") for _ in range(rcfg.n_critic)]
+                  for _ in range(1 + TRAIN_TIMED_ROUNDS)]
+        rstate, _ = rtrainer.round_step(rstate, rounds[0], rng=SEED)  # warm-up
+        torch.cuda.synchronize()
+        attention.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        round_s, losses = [], []
+        for batches in rounds[1:]:
+            t0 = time.perf_counter()
+            rstate, m = rtrainer.round_step(rstate, batches, rng=SEED)
+            torch.cuda.synchronize()
+            round_s.append(time.perf_counter() - t0)
+            losses.append({k: float(v) for k, v in m.items()})
+        per_step = expected_launches(rtrainer, rstate.nets)
+        expected = {k: TRAIN_TIMED_ROUNDS * (per_step["g_step"][k] + (rcfg.n_critic - 1)
+                                             * per_step["d_step"][k])
+                    for k in attention.launch_counts}
+        counts = dict(attention.launch_counts)
+        variants = {k: v for k, v in attention.variant_counts.items() if v}
+        med = statistics.median(round_s)
+        row = {"phase": "options", "check": f"timed rounds, remat {remat}", "remat": remat,
+               "rounds": TRAIN_TIMED_ROUNDS, "batch": TRAIN_BATCH, "round_s": round_s,
+               "rounds_per_s": 1.0 / med, "images_per_s": rcfg.n_critic * TRAIN_BATCH / med,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "timing": "as the train phase's: synchronized host clock around each round",
+               "launches": counts, "expected_launches": expected,
+               "expected_per_step": per_step, "kernel_variants": variants,
+               "gdrop_strength": losses[-1]["gdrop_strength"],
+               "card": card, "nvidia_smi": smi_line,
+               "ok": bool(counts == expected
+                          and variants == {tc[k]: expected[k] for k in attn}
+                          and all(np.isfinite(v) for m in losses for v in m.values()))}
+        timed[remat] = row
+        emit(row)
+        if not row["ok"]:
+            fail("options", f"the timed rounds (remat {remat}) launched other than the passes "
+                            "imply, ran another variant than bf16's, or lost a finite loss")
+        for k in attn:
+            totals[k] += counts[k]
+        del rtrainer, rstate, rounds
+        torch.cuda.empty_cache()
+    emit({"phase": "options", "check": "remat against no remat, same config and call",
+          "rounds_per_s": {str(k): v["rounds_per_s"] for k, v in timed.items()},
+          "peak_memory_bytes": {str(k): v["peak_memory_bytes"] for k, v in timed.items()},
+          "peak_memory_ratio": timed[True]["peak_memory_bytes"]
+          / timed[False]["peak_memory_bytes"],
+          "time_ratio": timed[False]["rounds_per_s"] / timed[True]["rounds_per_s"],
+          "ok": True})
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    # 3. pggan256 with gdrop and conditional labels under rmsprop: a G and a
+    # D step against the CPU (B4 in the D step), a round, and a labelled
+    # sample within serving's limits; then a D step under each of adagrad,
+    # adadelta and ftrl. The optimizers' updates are held too.
+    gcfg = options_generation_config("rmsprop")
+    gtrainer = GanTrainer(gcfg)
+    gstate = gtrainer.init_state(SEED)
+    randomize_biases(gstate.nets, SEED)
+    gweights = {k: v.detach().cpu().clone() for k, v in gstate.nets.state_dict().items()}
+    batches, zs, gp = generation_inputs(gcfg, GEN_COMPARE_BATCH, SEED + 13)
+    for b in batches:
+        b["conditional_labels"] = torch.from_numpy(
+            rng.randint(0, OPTIONS_NUM_CLASSES, GEN_COMPARE_BATCH))
+    gdraws = generation_option_draws(gtrainer, GEN_COMPARE_BATCH, SEED + 13)
+    compare_kw = dict(phase="options", step=OPTIONS_STEP, gdrop_strength=OPTIONS_GDROP_STRENGTH,
+                      check_updates=True)
+    rows = compare_generation_steps(gcfg.replace(batch_size=GEN_COMPARE_BATCH), gweights,
+                                    batches, zs, gp, step_kw=gdraws, **compare_kw)
+    for optimizer in ("adagrad", "adadelta", "ftrl"):
+        rows += compare_generation_steps(
+            options_generation_config(optimizer, GEN_COMPARE_BATCH), gweights, batches[1:],
+            {"d_step": zs["d_step"]}, gp, step_kw={"d_step": gdraws["d_step"]},
+            kinds=("d_step",), **compare_kw)
+    for row, optimizer in zip(rows, ["rmsprop"] * 4 + ["adagrad", "adagrad", "adadelta",
+                                                        "adadelta", "ftrl", "ftrl"]):
+        row.update(batch=GEN_COMPARE_BATCH, config="pggan256 + gdrop 0.05 at step 101, "
+                   f"conditional labels (51 classes, 32 wide), {optimizer}")
+        emit(row)
+        if not row["ok"]:
+            fail("options", f"pggan256 with the options ({optimizer}): the card's "
+                            f"{row['check']} disagrees beyond the limits")
+    gstate.step, gstate.gdrop_strength = OPTIONS_STEP, torch.tensor(
+        OPTIONS_GDROP_STRENGTH, device="cuda")
+    round_batches = [{"target": torch.from_numpy(rng.rand(GEN_BATCH, 256, 256, 3)
+                                                 .astype("float32")).cuda(),
+                      "conditional_labels": torch.from_numpy(
+                          rng.randint(0, OPTIONS_NUM_CLASSES, GEN_BATCH)).cuda()}
+                     for _ in range(gcfg.n_critic)]
+    fused_conv.reset_launch_counts()
+    gstate, m = gtrainer.round_step(gstate, round_batches, rng=SEED)
+    torch.cuda.synchronize()
+    round_counts = dict(fused_conv.launch_counts)
+    z = torch.randn(noise_shape(gcfg.model, GEN_BATCH),
+                    generator=torch.Generator().manual_seed(SEED + 14))
+    labels = torch.nn.functional.one_hot(torch.arange(GEN_BATCH) % OPTIONS_NUM_CLASSES,
+                                         OPTIONS_NUM_CLASSES).float()
+    fused_conv.reset_launch_counts()
+    out = gtrainer.sample(gstate, z, labels=labels).float().cpu()
+    torch.cuda.synchronize()
+    sample_counts = dict(fused_conv.launch_counts)
+    sample_variants = {k: v for k, v in fused_conv.variant_counts.items() if v}
+    cpu = GanTrainer(gcfg.replace(model=gcfg.model.replace(dtype="float32")), device="cpu")
+    nets = cpu.build_nets()
+    nets.load_state_dict({k: v.cpu() for k, v in gstate.nets.state_dict().items()})
+    ref = cpu.sample(cpu.state_from_nets(nets, step=gstate.step), z, labels=labels)
+    unlabelled = cpu.sample(cpu.state_from_nets(nets, step=gstate.step), z)
+    std = float(ref.std())
+    diff = (out - ref).abs()
+    mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+    row = {"phase": "options", "check": "pggan256 options: a round, then a labelled sample, "
+                                        "card bf16 vs CPU float32",
+           "images": GEN_BATCH, "round_launches": round_counts,
+           "round_losses": {k: float(v) for k, v in m.items()}, "launches": sample_counts,
+           "kernel_variants": sample_variants, "output_std": std,
+           "mean_abs_err_over_std": mean_err, "max_abs_err_over_std": max_err,
+           "mean_tolerance": SERVE_MEAN_TOL, "max_tolerance": SERVE_MAX_TOL,
+           "labels_move_the_cpu_output_by": float((ref - unlabelled).abs().max()),
+           "card": card, "nvidia_smi": smi_line,
+           "ok": bool(round_counts == {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS
+                                       * (gcfg.n_critic - 1),
+                                       fused_conv.AUTOGRAD_ROUTE: GEN_LAYERS_PER_PASS}
+                      and all(np.isfinite(float(v)) for v in m.values())
+                      and tuple(out.shape) == (GEN_BATCH, 256, 256, 3)
+                      and sample_counts == {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS,
+                                            fused_conv.AUTOGRAD_ROUTE: 0}
+                      and sample_variants == {b4_tc: GEN_LAYERS_PER_PASS}
+                      and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
+    emit(row)
+    if not row["ok"]:
+        fail("options", "pggan256 with the options: the round or the labelled sample did not "
+                        "launch B4 13 times a D step and a sample, or the sample disagrees "
+                        "with the fp32 CPU run")
+    totals[fused_conv.KERNEL_NAME] += (round_counts[fused_conv.KERNEL_NAME]
+                                       + sample_counts[fused_conv.KERNEL_NAME])
+    del gtrainer, gstate, cpu, nets
+    torch.cuda.empty_cache()
+
+    # 4. The training command with --use_style_embedding --use_gdrop --remat,
+    # 128 to 256 px, then the 256 stage served with a style.
+    train_dir = tempfile.mkdtemp(prefix="twingan_smoke_options_")
+    try:
+        stage_rows: list = []
+        runners: list = []
+        runner_cls = counting_runner_class(stage_rows)
+
+        def build_runner(run_cfg, device=None):
+            runners.append(runner_cls(run_cfg, device=device))
+            return runners[-1]
+
+        real_runner = pggan_runner.StageRunner
+        pggan_runner.StageRunner = build_runner
+        t0 = time.perf_counter()
+        try:
+            summary = pggan_runner.main(OPTIONS_CLI_FLAGS + [f"--train_dir={train_dir}",
+                                                             f"--seed={SEED}"])
+        finally:
+            pggan_runner.StageRunner = real_runner
+        plan_s = time.perf_counter() - t0
+        (runner,) = runners
+        grids = {}
+        for row in stage_rows:
+            strainer, _ = runner._build_trainer(row["resolution"], row["growing"], row["steps"])
+            nets = strainer.build_nets()
+            per_step = expected_launches(strainer, nets)
+            sa = {k: sum(isinstance(mod, SelfAttention) for mod in nets[k].modules())
+                  for k in (ENC, ENC_STYLE, GEN)}
+            # One sample dump at the stage's last step: s2t and t2s with the
+            # style encoder's styles, and the style roll with given styles.
+            dump = 2 * (sa[ENC] + sa[ENC_STYLE] + sa[GEN]) + sa[ENC] + sa[GEN]
+            expected = {k: row["rounds"] * (per_step["g_step"][k] + (strainer.cfg.n_critic - 1)
+                                            * per_step["d_step"][k])
+                        for k in per_step["g_step"]}
+            expected[attention.KERNEL_NAME] += dump
+            samples = os.path.join(train_dir, row["stage"], "generated_samples")
+            grids[row["stage"]] = sorted(os.listdir(samples)) if os.path.isdir(samples) else []
+            row.update(phase="options", program="twingan", expected_attention=expected,
+                       sample_grids=grids[row["stage"]], card=card, nvidia_smi=smi_line)
+            row["ok"] = bool(row["attention_launches"] == expected
+                             and row["kernel_variants"] == {tc[k]: expected[k] for k in attn}
+                             and not any(row["b4_launches"].values())
+                             and row["nan_recoveries"] == 0
+                             and f"{row['steps']}_custom_t_style_roll.png" in grids[row["stage"]])
+            emit(row)
+            for k in attn:
+                totals[k] += row["attention_launches"][k]
+        stages = [r["stage"] for r in stage_rows]
+        plan = [stage_dir_name(r, g) for r, g in stage_plan(128, 256)]
+
+        images = [np.random.RandomState(SEED + 15).randint(0, 256, (256, 256, 3))
+                  .astype(np.uint8) for _ in range(TRAIN_BATCH)]
+        style = torch.randn(TRAIN_BATCH, OPTIONS_STYLE_DIM,
+                            generator=torch.Generator().manual_seed(SEED + 15))
+        inferer = ImageInferer(train_dir)
+        attention.reset_launch_counts()
+        out = inferer.infer_batch(images, style=style)
+        styled_launches = attention.launch_counts[attention.KERNEL_NAME]
+        attention.reset_launch_counts()
+        own = inferer.infer_batch(images)
+        own_launches = attention.launch_counts[attention.KERNEL_NAME]
+        totals[attention.KERNEL_NAME] += styled_launches + own_launches
+        cpu = ImageInferer(train_dir, device="cpu", dtype="float32")
+        ref = cpu.infer_batch(images, style=style)
+        std = float(ref.std())
+        diff = np.abs(out - ref)
+        mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+        ok = (stages == plan and all(r["ok"] for r in stage_rows) and runner_losses_ok(runner)
+              and summary["256"]["steps"] == OPTIONS_CLI_IMAGES // TRAIN_BATCH
+              and inferer.cfg.use_style_embedding and inferer.cfg.remat
+              and out.shape == (TRAIN_BATCH, 256, 256, 3) and bool(np.isfinite(out).all())
+              and bool(np.isfinite(own).all()) and styled_launches == 2 and own_launches == 3
+              and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)
+        emit({"phase": "options", "check": "the training command with --use_style_embedding "
+                                           "--use_gdrop --remat, 128 to 256 px; the 256 stage "
+                                           "served with a given style and with its own",
+              "stages": stages, "sample_grids": grids, "plan_s": plan_s,
+              "stage_wall_s": {r["stage"]: r["stage_wall_s"] for r in stage_rows},
+              "rounds_per_s_256": stage_rows[-1]["rounds_per_s"],
+              "served_launches": {"given style": styled_launches, "own style": own_launches},
+              "output_std": std, "mean_abs_err_over_std": mean_err,
+              "max_abs_err_over_std": max_err, "mean_tolerance": SERVE_MEAN_TOL,
+              "max_tolerance": SERVE_MAX_TOL, "seconds": time.perf_counter() - t_phase,
+              "card": card, "nvidia_smi": smi_line, "ok": bool(ok)})
+        if not ok:
+            fail("options", "the training command with the options did not train every stage "
+                            "with B1-B3's launches as its passes and dumps imply, write the "
+                            "style grids, keep its losses finite, or serve its 256 stage "
+                            "within serving's limits of the CPU")
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+    return totals
+
+
 def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
                  plain_ms: float, bound_ms: float, bound_by: str, library_ms: float,
                  **extra) -> dict:
@@ -2499,11 +2949,13 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     recipe_launches = recipe_phase(card, smi_line)
+    options_launches = options_phase(card, smi_line)
     data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
     by_path = {"serving": serving_launches, "train": train_launches[fwd],
                "runner": runner_launches[fwd], "runner_data": data_launches[fwd],
-               "eval": eval_launches[fwd], "recipe": recipe_launches[fwd]}
+               "eval": eval_launches[fwd], "recipe": recipe_launches[fwd],
+               "options": options_launches[fwd]}
     entries = [kernel_entry(
         fwd, sum(by_path.values()), by_path,
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
@@ -2512,7 +2964,7 @@ def main() -> int:
     for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
         by_path = {"train": train_launches[name], "runner": runner_launches[name],
                    "runner_data": data_launches[name], "eval": eval_launches[name],
-                   "recipe": recipe_launches[name]}
+                   "recipe": recipe_launches[name], "options": options_launches[name]}
         entries.append(kernel_entry(
             name, sum(by_path.values()), by_path,
             max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
@@ -2522,7 +2974,8 @@ def main() -> int:
     entries.append(fused_conv_entry(b4_rows, generation_launches,
                                     {"runner": runner_launches["fused_conv"],
                                      "runner_data": data_launches["fused_conv"],
-                                     "recipe": recipe_launches["fused_conv"]}))
+                                     "recipe": recipe_launches["fused_conv"],
+                                     "options": options_launches["fused_conv"]}))
     emit({"kernels": entries})
     print(smi_line, flush=True)
     import torch

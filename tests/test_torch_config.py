@@ -192,8 +192,9 @@ PORTED_OPTIONS = [
 
 @pytest.mark.parametrize("kw", PORTED_OPTIONS)
 def test_ported_options_pass(kw):
-    """The modules take these options; a trainer still refuses the
-    conditional norms (``style_dim``), whose trainer wiring is not ported."""
+    """The modules take these options, and so do the trainers (conditional
+    norms, ``style_dim``, through the style embedding or conditional
+    labels, ``test_torch_twingan_step_options.py``)."""
     from twingan_tpu_torch.train.base import require_trainable
 
     cfg = PGGANConfig(resolution=8, max_channels=8, num_domains=2, **kw)
@@ -201,12 +202,7 @@ def test_ported_options_pass(kw):
     pggan.Encoder(cfg)
     pggan.Generator(cfg, unet=True, conditional=True)
     pggan.Discriminator(cfg)
-    tcfg = TwinGANConfig(model=cfg)
-    if cfg.style_dim:
-        with pytest.raises(NotImplementedError, match="style_dim"):
-            require_trainable(tcfg)
-    else:
-        require_trainable(tcfg)
+    require_trainable(TwinGANConfig(model=cfg))
 
 
 def test_discriminator_only_spectral_norm_is_allowed():

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import flax.linen as nn  # noqa: E402
 
 from twingan_tpu.models import pggan as jpggan  # noqa: E402
 from twingan_tpu.models.config import PGGANConfig as JaxPGGANConfig  # noqa: E402
@@ -105,8 +106,78 @@ def test_discriminator_casts_to_the_config_dtype():
     ({"quantized_inference": "int8"}, {}, "quantized_inference"),
 ])
 def test_discriminator_refuses_unported_options(kw, call_kw, name):
-    cfg = PGGANConfig(resolution=8, max_channels=8, **kw)
-    with pytest.raises(NotImplementedError, match=name):
-        pggan.Discriminator(cfg)(torch.rand(2, 8, 8, 3), **call_kw)
-    with pytest.raises(NotImplementedError, match="gdrop"):
-        pggan.Discriminator(PGGANConfig(resolution=8, max_channels=8), do_gdrop=True)
+    """quantized_inference raises, naming its queue item. The conditional
+    inputs and gdrop are ported (``test_discriminator_gdrop_and_cond_embed_
+    match``): a discriminator built without an input refuses it, and one
+    built with gdrop takes its noise from the caller in train mode."""
+    cfg = PGGANConfig(resolution=8, max_channels=8)
+    if name == "conditional":
+        with pytest.raises(ValueError, match="width 0"):
+            pggan.Discriminator(cfg)(torch.rand(2, 8, 8, 3), **call_kw)
+    else:
+        with pytest.raises(NotImplementedError, match=f"{name}.*A12"):
+            pggan.Discriminator(cfg.replace(**kw))
+    dis = pggan.Discriminator(cfg, do_gdrop=True).train()
+    with pytest.raises(ValueError, match="gdrop_noise"):
+        dis(torch.rand(2, 8, 8, 3))
+    with torch.no_grad():  # eval mode: no gdrop, no noise needed
+        assert dis.eval()(torch.rand(2, 8, 8, 3)).shape == (2, 1)
+
+
+class _GdropKeys(nn.Module):
+    """The keys the Flax discriminator's ``maybe_gdrop`` draws with: the
+    i-th ``make_rng("gdrop")`` of the root scope folded with i."""
+
+    n: int
+
+    @nn.compact
+    def __call__(self):
+        return [jax.random.fold_in(self.make_rng("gdrop"), i) for i in range(self.n)]
+
+
+def jax_gdrop_noise(key, shapes):
+    """The JAX discriminator's gdrop draws under rng ``key`` for the sites
+    of ``shapes`` ([B, C] each, ``Discriminator.gdrop_shapes``), as the
+    [B, C] tensors the port's ``gdrop_noise`` takes (fp32)."""
+    keys = _GdropKeys(len(shapes)).apply({}, rngs={"gdrop": key})
+    return [torch.tensor(np.asarray(jax.random.normal(k, (b, 1, 1, c), jnp.float32))
+                         .reshape(b, c)) for k, (b, c) in zip(keys, shapes)]
+
+
+@pytest.mark.parametrize("growing", [False, True])
+def test_discriminator_gdrop_and_cond_embed_match(growing):
+    """gdrop (strength 0.3) on the inputs of every block's convs and the two
+    before_fc convs, with the Flax module's own draws injected, and a
+    label embedding concatenated at 4x4 before the minibatch stddev;
+    self-attention at 16 px, batch 6 in 3 stddev groups."""
+    res, dim, strength = 32, 5, 0.3
+    kw = dict(resolution=res, max_channels=16, equalized_lr=True, do_self_attention=True,
+              self_attention_hw=16, is_growing=growing, use_res_block=growing)
+    rs = np.random.RandomState(7)
+    x = rs.rand(6, res, res, 3).astype(np.float32)
+    embed = rs.randn(6, dim).astype(np.float32)
+    jdis = jpggan.Discriminator(JaxPGGANConfig(**kw), do_gdrop=True)
+    key = jax.random.PRNGKey(11)
+    variables = jax.device_get(jax.jit(
+        lambda k: jdis.init({"params": k, "gdrop": key}, jnp.asarray(x),
+                            cond_embed=jnp.asarray(embed)))(jax.random.PRNGKey(0)))
+    params = randomize(variables["params"], rs)
+    ref, _ = jdis.apply({"params": params}, jnp.asarray(x), alpha=0.3, train=True,
+                        gdrop_strength=strength, cond_embed=jnp.asarray(embed),
+                        stddev_groups=3, rngs={"gdrop": key})
+    plain, _ = jdis.apply({"params": params}, jnp.asarray(x), alpha=0.3,
+                          cond_embed=jnp.asarray(embed), stddev_groups=3)
+
+    dis = pggan.Discriminator(PGGANConfig(**kw), do_gdrop=True, cond_embed_dim=dim)
+    dis.load_state_dict(state_dict_from_flax(params), strict=True)
+    noise = jax_gdrop_noise(key, dis.gdrop_shapes(6))
+    assert len(noise) == 2 * 3 + 2
+    with torch.no_grad():
+        out = dis.train()(torch.from_numpy(x), alpha=0.3, gdrop_strength=strength,
+                          gdrop_noise=noise, cond_embed=torch.from_numpy(embed),
+                          stddev_groups=3)
+        off = dis.eval()(torch.from_numpy(x), alpha=0.3, cond_embed=torch.from_numpy(embed),
+                         stddev_groups=3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(off.numpy(), np.asarray(plain), **TOL)
+    assert np.abs(np.asarray(ref) - np.asarray(plain)).max() > 100 * TOL["atol"]

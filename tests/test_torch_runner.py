@@ -1,7 +1,8 @@
 """The port's stage runner on the CPU, both programs, 4 -> 8 px: stage
 directories and files, skipping, a split run bit-equal to an uninterrupted
 one, the resume refusal, the save cadence under a scan stride, NaN
-recovery, the options that raise, and the pieces it is built from
+recovery, the options that raise, the trainer options through the CLI with
+a resume, and the pieces it is built from
 (migration, checkpoints, the flat train state, summaries, sample grids,
 the CLI). Widths 8, batch 2, 3 steps a stage. No JAX function runs here
 but the optimizer factory whose state layout ``state_paths`` names; the
@@ -466,3 +467,59 @@ def test_cli_trains_on_the_cpu(tmp_path):
         "--equalized_learning_rate=true", "--log_image_every_n_iter=0"])
     assert [summary[s]["steps"] for s in STAGES] == [2, 2, 2]
     assert os.path.isfile(tmp_path / "cli" / "8" / "model.pt")
+
+
+OPTION_FLAGS = {
+    "twingan": ["--use_style_embedding=true", "--style_embed_size=4",
+                "--do_encoder_distillation=true", "--source_embed_dim=6", "--optimizer=rmsprop"],
+    "image_generation": ["--generator_norm_type=batch_norm", "--use_conditional_labels=true",
+                         "--num_classes=5", "--optimizer=adagrad"],
+}
+
+
+@pytest.mark.parametrize("program", PROGRAMS)
+def test_cli_trains_with_the_options_and_resumes(tmp_path, program):
+    """The trainer options' flags through the training command, 4 -> 8 px
+    on synthetic data, in two calls on one train dir (the second skips the
+    finished stages and grows 8 from disk): gdrop, remat, the style
+    embedding with distillation and rmsprop (TwinGAN), conditional labels
+    with conditional batch norm and adagrad (generation). Sample grids at
+    every step (the style-interpolation grid for TwinGAN), the gdrop
+    strength among the logged metrics, and the last stage served."""
+    train_dir = tmp_path / "opts"
+    flags = [f"--train_dir={train_dir}", "--device=cpu", "--use_synthetic_data=true",
+             f"--program_name={program}", "--start_hw=4", "--max_hw=8",
+             "--num_images_per_resolution=4", "--batch_size=2", "--pggan_max_num_channels=8",
+             "--use_gdrop=true", "--remat=true", "--log_image_every_n_iter=1",
+             "--save_every_n_steps=1", "--log_every_n_steps=1"] + OPTION_FLAGS[program]
+    first = pggan_runner.main(flags + ["--max_stages_per_run=2"])
+    assert first.get("_incomplete") and "8" not in first
+    second = pggan_runner.main(flags)
+    assert second["4"]["skipped"] and second["4to8"]["skipped"]
+    assert second["8"]["steps"] == 2 and second["8"]["started"]["carried"] > 0
+    _, tcfg = load_stage_config(str(train_dir / "8"))
+    assert tcfg.use_gdrop and tcfg.remat
+    for stage in STAGES:
+        records = [json.loads(ln) for ln in open(train_dir / stage / "logs" / "metrics.jsonl")]
+        assert all(np.isfinite(r["generator_loss"]) and "gdrop_strength" in r
+                   for r in records if "generator_loss" in r)
+        grids = os.listdir(train_dir / stage / "generated_samples")
+        assert len(grids) >= 2
+        if program == "twingan":
+            assert any(g.endswith("_custom_t_style_roll.png") for g in grids), grids
+    state_dict, step = load_model(str(train_dir / "8"))
+    if program == "twingan":
+        assert tcfg.use_style_embedding and tcfg.opt.optimizer == "rmsprop"
+        assert any(k.startswith("encoder_style.") for k in state_dict)
+        assert not any(k.startswith("distill_") for k in state_dict)
+        inferer = ImageInferer(str(train_dir / "8"), device="cpu")
+        images = [np.random.RandomState(1).randint(0, 256, (8, 8, 3)).astype(np.uint8)] * 2
+        out = inferer.infer_batch(images)
+        styled = inferer.infer_batch(images, style=torch.zeros(2, 4))
+        assert out.shape == (2, 8, 8, 3) and np.isfinite(out).all()
+        assert not np.allclose(out, styled)
+    else:
+        # The trainer takes style_dim from num_classes; the config keeps the
+        # flags' values, as the JAX runner writes it.
+        assert tcfg.use_conditional_labels and tcfg.num_classes == 5
+        assert any("beta_fc_kernel" in k for k in state_dict)

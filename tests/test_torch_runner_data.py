@@ -156,9 +156,15 @@ def test_augment_batch_eval_mode_and_resize_match_jax(hw, color_space):
 
 
 def test_shrinking_resize_raises():
-    cfg = ppre.PreprocessConfig(output_hw=4)
-    with pytest.raises(NotImplementedError, match="A5"):
-        ppre.augment_batch(torch.rand(1, 8, 8, 3), cfg)
+    """Shrinking raised until the antialiased resize was ported; it now
+    computes ``jax.image.resize``'s function, as the CPU tests of
+    ``tests/test_torch_resize.py`` hold it."""
+    x = np.random.RandomState(8).rand(2, 8, 8, 3).astype(np.float32)
+    kw = dict(output_hw=3, is_training=False)
+    ref = np.asarray(jpre.augment_batch(jax.random.PRNGKey(0), jnp.asarray(x),
+                                        jpre.PreprocessConfig(**kw)))
+    out = ppre.augment_batch(torch.from_numpy(x), ppre.PreprocessConfig(**kw)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("color_space,subtract_mean,channels", [

@@ -25,8 +25,11 @@ one) as ``flax.serialization.to_state_dict`` would, without importing
 flax or optax, and ``torch_flat``/``flax_flat`` convert its leaves'
 layout. ``state_from_flax`` and its inverse ``flax_state_dict`` carry
 every field: the networks' parameters and moving statistics, both
-optimizers' update counts and slots (Adam's mu and nu, momentum's trace),
-the counters, the gdrop state and the Polyak average.
+optimizers' update counts and slots (Adam's mu and nu, momentum's trace,
+and the slots of rmsprop, adagrad, adadelta and ftrl at optax's paths),
+the counters, the gdrop state and the Polyak average. A TwinGAN state
+with the style embedding or distillation carries ``encoder_style`` and
+``distill_s``/``distill_t`` as it carries the other networks.
 ``twingan_state_from_flax``/``flax_from_twingan_state`` carry a TwinGAN
 state's networks only, with fresh optimizers.
 
@@ -47,7 +50,7 @@ from twingan_tpu_torch.train.state import (
     state_from_dict,
     state_to_dict,
 )
-from twingan_tpu_torch.train.twingan_trainer import ENC, GEN, TwinGANTrainer
+from twingan_tpu_torch.train.twingan_trainer import ENC, ENC_STYLE, GEN, TwinGANTrainer
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
 _OIHW_TO_HWIO = (2, 3, 1, 0)
@@ -147,10 +150,12 @@ def flax_train_state(state_dict: Mapping[str, torch.Tensor],
 
 def translator_state_dict(params: Mapping[str, Any],
                           model_state: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """A JAX TwinGAN state's encoder and generator -> the state_dict of
-    ``TwinGANTranslator``. ``params``/``model_state`` are the trainer
-    state's dicts (pass the Polyak-averaged params for an EMA model)."""
-    return train_state_dict(params, model_state, (ENC, GEN))
+    """A JAX TwinGAN state's encoder and generator (and style encoder,
+    where the state has one) -> the state_dict of ``TwinGANTranslator``.
+    ``params``/``model_state`` are the trainer state's dicts (pass the
+    Polyak-averaged params for an EMA model)."""
+    return train_state_dict(params, model_state,
+                            (ENC, GEN) + ((ENC_STYLE,) if ENC_STYLE in params else ()))
 
 
 def flat_from_flax(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:

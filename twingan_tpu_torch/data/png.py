@@ -183,3 +183,25 @@ def decode_png(data: bytes) -> np.ndarray:
     if channels in (1, 2):
         return np.repeat(pixels[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(pixels[:, :, :3])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(image: np.ndarray, level: int = 6) -> bytes:
+    """A uint8 image ([H, W] gray, [H, W, 1|3|4]) as a PNG file: 8 bits,
+    every row unfiltered, deflated at zlib ``level``; no PIL needed."""
+    img = np.ascontiguousarray(image, np.uint8)
+    if img.ndim == 3 and img.shape[-1] == 1:
+        img = img[..., 0]
+    color = {2: 0, 3: {3: 2, 4: 6}.get(img.shape[-1] if img.ndim == 3 else 0)}[img.ndim]
+    if color is None:
+        raise ValueError(f"cannot encode an image of shape {img.shape} as PNG")
+    h, w = img.shape[:2]
+    rows = img.reshape(h, -1)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    header = struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw, level))
+            + _chunk(b"IEND", b""))

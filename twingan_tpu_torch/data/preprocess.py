@@ -27,9 +27,9 @@ ordering, the colour factors), which is how the parity tests hand both
 packages the same draws.
 
 ``jax.image.resize(..., "bilinear")`` antialiases when it shrinks an image
-and ``F.interpolate`` does not: the device resize here matches JAX where
-it enlarges and at the same size, and shrinking raises
-``NotImplementedError`` (queue item A5) rather than differ.
+and ``F.interpolate`` does not: the device resize enlarges with
+``F.interpolate`` (the same function there) and shrinks with
+``ops.basic.resize_bilinear``, the JAX formula.
 """
 
 from __future__ import annotations
@@ -40,6 +40,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from twingan_tpu_torch.ops import basic
 
 RESIZE_MODES = ("NONE", "PAD", "CROP", "RESHAPE", "RANDOM_CROP", "RANDOM_CROP_AND_RESHAPE")
 PORTED_RESIZE_MODES = RESIZE_MODES
@@ -334,13 +336,11 @@ def draw_augmentation(cfg: PreprocessConfig, shape: Sequence[int],
 
 def resize_bilinear(x: torch.Tensor, hw: int) -> torch.Tensor:
     """NHWC bilinear resize to (hw, hw) with half-pixel centres, as
-    ``jax.image.resize`` computes it when it enlarges."""
+    ``jax.image.resize`` computes it (antialiased where it shrinks)."""
     if x.shape[1] == hw and x.shape[2] == hw:
         return x
     if x.shape[1] > hw or x.shape[2] > hw:
-        raise NotImplementedError(
-            "shrinking resize is not ported to twingan_tpu_torch yet (queue item A5: "
-            "jax.image.resize antialiases when it shrinks, F.interpolate does not)")
+        return basic.resize_bilinear(x, hw, hw)
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(hw, hw), mode="bilinear",
                       align_corners=False)
     return y.permute(0, 2, 3, 1)

@@ -4,7 +4,9 @@ Counterpart of ``twingan_tpu/infer/translate.py`` with the same contract:
 uint8 image -> float [0,1] -> bilinear resize to image_hw (RESHAPE) ->
 batch -> encoder (source domain) -> generator (target domain), the output
 returned as float32 NHWC (clipped only when saved as an image). The model
-is rebuilt from the stage's config.json and model.pt.
+is rebuilt from the stage's config.json and model.pt; a stage trained with
+the style embedding holds its style encoder there too, and translates with
+the style of each source image unless a style is given.
 
 It runs on the CUDA card unless the caller passes ``device="cpu"``; with no
 card and no such request it raises, never falling back to the CPU.
@@ -29,7 +31,12 @@ from twingan_tpu_torch.data.preprocess import host_resize
 from twingan_tpu_torch.runner.checkpoint import load_model
 from twingan_tpu_torch.runner.config_io import find_latest_stage_dir, load_stage_config
 from twingan_tpu_torch.train.base import resolve_device
-from twingan_tpu_torch.train.twingan_trainer import TwinGANConfig, TwinGANTranslator, translate
+from twingan_tpu_torch.train.twingan_trainer import (
+    ENC_STYLE,
+    TwinGANConfig,
+    TwinGANTranslator,
+    translate,
+)
 from twingan_tpu_torch.utils.image_io import imread_rgb, imsave_float
 
 
@@ -64,15 +71,20 @@ class ImageInferer:
         """uint8 HWC -> float [0,1] at (image_hw, image_hw)."""
         return host_resize(image, "RESHAPE", self.image_hw)
 
-    def translate(self, x: torch.Tensor, direction: Optional[str] = None) -> torch.Tensor:
+    def translate(self, x: torch.Tensor, direction: Optional[str] = None,
+                  style: Optional[torch.Tensor] = None) -> torch.Tensor:
         """A float NHWC batch in [0,1] at image_hw -> the other domain, on
-        the inferer's device (``direction`` defaults to the inferer's)."""
+        the inferer's device (``direction`` defaults to the inferer's). A
+        stage trained with the style embedding takes ``style`` [B,
+        style_embed_size], by default its style encoder's of ``x``."""
         return translate(self.cfg, self.model.encoder_content, self.model.generator,
-                         x.to(self.device), direction or self.direction, step=self.step)
+                         x.to(self.device), direction or self.direction, step=self.step,
+                         style=style, enc_style=getattr(self.model, ENC_STYLE, None))
 
-    def infer_batch(self, images: Sequence[np.ndarray]) -> np.ndarray:
+    def infer_batch(self, images: Sequence[np.ndarray],
+                    style: Optional[torch.Tensor] = None) -> np.ndarray:
         batch = np.stack([self.preprocess(im) for im in images])
-        return self.translate(torch.from_numpy(batch)).float().cpu().numpy()
+        return self.translate(torch.from_numpy(batch), style=style).float().cpu().numpy()
 
 
 def _iter_images(path: str) -> Iterator[str]:

@@ -25,7 +25,12 @@ structure B4 computes (``norm_type="none"``, k3 SAME, bias, leaky).
 JAX package keeps that unfused route too.
 
 Batch renorm's clip (``renorm_clip``, the JAX ``NormCtx.renorm_clip``) and
-the conditional norms' ``style`` are call arguments. A generator built with
+the conditional norms' ``style`` are call arguments. A conditioning image
+(``cond_image``, bilinear-resized to each block's resolution and
+concatenated, the JAX ``_concat_cond_image``) widens the layers that take
+it, so the generator and the discriminator are told its channel count
+(``cond_image_channels``) when they are built, and the discriminator the
+width of the label embedding it concatenates at 4x4 (``cond_embed_dim``). A generator built with
 ``conditional=True`` takes beta and gamma of its norms from ``style``
 (``cfg.style_dim``); the encoder's norms never do, as in the JAX package,
 whose encoders are never called with a style. ``EncoderClassifier`` and
@@ -72,6 +77,21 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def _cond_at(cond_image: Optional[torch.Tensor], hw: int, dtype: torch.dtype):
+    """The NHWC conditioning image resized to hw (``jax.image.resize``'s
+    bilinear, antialiased when it shrinks) as an NCHW tensor of ``dtype``;
+    None without one."""
+    if cond_image is None:
+        return None
+    return _nchw(basic.resize_bilinear(cond_image, hw, hw).to(dtype))
+
+
+def _check_cond(name: str, built: int, t: Optional[torch.Tensor]) -> None:
+    given = 0 if t is None else t.shape[-1]
+    if given != built:
+        raise ValueError(f"built for a {name} of width {built}, called with width {given}")
 
 
 @dataclasses.dataclass
@@ -183,13 +203,14 @@ class Generator(nn.Module):
     ``style``."""
 
     def __init__(self, cfg: PGGANConfig, unet: bool = False, noise_input: bool = False,
-                 conditional: bool = False):
+                 conditional: bool = False, cond_image_channels: int = 0):
         super().__init__()
         require_ported(cfg)
         self.cfg = cfg
         self.unet = unet
         self.noise_input = noise_input
         self.conditional = conditional and cfg.style_dim > 0
+        self.cond_image_channels = cond_image_channels
         ch0 = cfg.channels(0)
         block = self._block
         if noise_input:
@@ -197,14 +218,14 @@ class Generator(nn.Module):
                                                    padding="VALID"))
         else:
             self.add_module("block_4_conv0", block(ch0, ch0))
-        self.add_module("block_4_conv1", block(ch0, ch0))
+        self.add_module("block_4_conv1", block(ch0 + cond_image_channels, ch0))
         self._maybe_attention(4, ch0)
         for stage in range(1, cfg.max_stage + 1):
             hw = 2 ** (stage + 2)
             ch, prev = cfg.channels(stage), cfg.channels(stage - 1)
             if stage == cfg.max_stage and cfg.is_growing:
                 self._to_rgb(hw // 2, prev)
-            in_ch = prev + (prev if self._has_skip(hw) else 0)
+            in_ch = prev + cond_image_channels + (prev if self._has_skip(hw) else 0)
             self.add_module(f"block_{hw}_conv0", block(in_ch, ch))
             self.add_module(f"block_{hw}_conv1", block(ch, ch))
             self.add_module(f"block_{hw}_res", ResBlockAdd(cfg, in_ch, ch))
@@ -234,10 +255,12 @@ class Generator(nn.Module):
     def forward(self, source: torch.Tensor, *, alpha: float = 0.0, domain: int = 0,
                 unet_skips: Optional[EncoderSkips] = None, update: bool = False,
                 style: Optional[torch.Tensor] = None,
-                renorm_clip: Clip = None) -> torch.Tensor:
+                renorm_clip: Clip = None,
+                cond_image: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         if self.conditional and style is None:
             raise ValueError("a generator built with conditional=True takes a style vector")
+        _check_cond("cond_image", self.cond_image_channels, cond_image)
         ctx = dict(style=style if self.conditional else None, clip=renorm_clip)
 
         def conv(hw: int, i: int, x: torch.Tensor) -> torch.Tensor:
@@ -265,6 +288,8 @@ class Generator(nn.Module):
         prev_rgb = None
 
         net = conv(4, 0, net)
+        if cond_image is not None:
+            net = torch.cat([net, _cond_at(cond_image, 4, net.dtype)], dim=1)
         net = conv(4, 1, net)
         if cfg.do_self_attention and cfg.self_attention_hw == 4:
             net = self.self_attention_4(net, domain, update, **ctx)
@@ -275,6 +300,8 @@ class Generator(nn.Module):
                 prev_rgb = getattr(self, f"to_rgb_{hw // 2}")(net, domain, update, **ctx)
                 prev_rgb = basic.upsample_nearest_2x(prev_rgb, nchw=True)
             inp = basic.upsample_nearest_2x(net, nchw=True)
+            if cond_image is not None:
+                inp = torch.cat([inp, _cond_at(cond_image, hw, inp.dtype)], dim=1)
             if self._has_skip(hw):
                 skip = unet_skips.lookup(hw, cfg.channels(stage - 1))
                 inp = torch.cat([inp, _nchw(skip).to(inp.dtype)], dim=1)
@@ -300,18 +327,32 @@ class Discriminator(nn.Module):
     for the CUDA kernels, "plain" for the twice-differentiable plain version
     that the gradient penalty needs. Under ``cfg.spectral_norm`` every conv
     and the prediction divide their kernels by sigma; ``update=True`` stores
-    each power iteration's ``u``."""
+    each power iteration's ``u``.
 
-    def __init__(self, cfg: PGGANConfig, do_gdrop: bool = False):
+    Built with ``do_gdrop``, a discriminator in train mode multiplies the
+    inputs of each block's two convs and of the two ``before_fc`` convs by
+    gdrop noise (``ops.basic.gdrop``), in the JAX draw order: one [B, C]
+    tensor per site in ``gdrop_noise`` (``gdrop_shapes`` gives them;
+    ``draw_gdrop_noise`` draws them), which the caller draws before the
+    call, so that a recompute under remat reads the same noise.
+    ``cond_embed`` [B, cond_embed_dim] is broadcast over the 4x4 map and
+    concatenated before the minibatch stddev; ``cond_image`` is resized to
+    the input and concatenated to it."""
+
+    def __init__(self, cfg: PGGANConfig, do_gdrop: bool = False, cond_embed_dim: int = 0,
+                 cond_image_channels: int = 0):
         super().__init__()
-        unported = [("gdrop", do_gdrop),
-                    ("quantized_inference", cfg.quantized_inference != ""),
-                    ("attention_context_parallel", cfg.attention_context_parallel)]
+        unported = [("quantized_inference (queue item A12)", cfg.quantized_inference != ""),
+                    ("attention_context_parallel (queue item A8)",
+                     cfg.attention_context_parallel)]
         for name, is_set in unported:
             if is_set:
                 raise NotImplementedError(
                     f"{name} in the discriminator is not ported to twingan_tpu_torch yet")
         self.cfg = cfg
+        self.do_gdrop = do_gdrop
+        self.cond_embed_dim = cond_embed_dim
+        self.cond_image_channels = cond_image_channels
         max_stage = cfg.max_stage
         res = cfg.resolution
         self._from_rgb(f"from_rgb_{res}", self._channels(max_stage))
@@ -327,7 +368,8 @@ class Discriminator(nn.Module):
             self.add_module(f"block_{hw}_conv1", ConvBlock(cfg, in_ch, ch_out, discriminator=True))
             self.add_module(f"block_{hw}_res", ResBlockAdd(cfg, in_ch, ch_out, discriminator=True))
         mc = cfg.dis_max_channels
-        self.before_fc_conv0 = ConvBlock(cfg, self._channels(0) + 1, mc, discriminator=True)
+        self.before_fc_conv0 = ConvBlock(cfg, self._channels(0) + cond_embed_dim + 1, mc,
+                                         discriminator=True)
         self.before_fc_conv1 = ConvBlock(cfg, mc, mc, kernel_size=4, padding="VALID",
                                          discriminator=True)
         self.prediction = EqDense(mc, 1, equalized_lr=cfg.equalized_lr,
@@ -337,8 +379,23 @@ class Discriminator(nn.Module):
     def _channels(self, stage: int) -> int:
         return self.cfg.channels(stage, discriminator=True)
 
+    def gdrop_shapes(self, batch: int) -> list[tuple[int, int]]:
+        """The [B, C] shape of each gdrop site's noise, in draw order."""
+        cfg = self.cfg
+        shapes = []
+        for stage in range(cfg.max_stage, 0, -1):
+            shapes += [(batch, self._channels(stage))] * 2
+        return shapes + [(batch, self._channels(0) + self.cond_embed_dim + 1),
+                         (batch, cfg.dis_max_channels)]
+
+    def draw_gdrop_noise(self, batch: int, generator: Optional[torch.Generator],
+                         device) -> list[torch.Tensor]:
+        """N(0, 1) noise for every gdrop site, from ``generator``."""
+        return [torch.randn(shape, generator=generator, device=device)
+                for shape in self.gdrop_shapes(batch)]
+
     def _from_rgb(self, name: str, features: int) -> None:
-        c = self.cfg.image_channels
+        c = self.cfg.image_channels + self.cond_image_channels
         self.add_module(f"{name}_conv", ConvBlock(self.cfg, c, features, kernel_size=1,
                                                   discriminator=True))
         self.add_module(f"{name}_res", ResBlockAdd(self.cfg, c, features, discriminator=True))
@@ -346,16 +403,31 @@ class Discriminator(nn.Module):
     def forward(self, x: torch.Tensor, *, alpha: float = 0.0, stddev_groups: int = 1,
                 attention: str = "kernel", update: bool = False,
                 cond_embed: Optional[torch.Tensor] = None,
-                cond_image: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if cond_embed is not None or cond_image is not None:
-            raise NotImplementedError(
-                "conditional discriminator inputs are not ported to twingan_tpu_torch yet")
+                cond_image: Optional[torch.Tensor] = None,
+                gdrop_strength=0.0,
+                gdrop_noise: Optional[list] = None) -> torch.Tensor:
         cfg = self.cfg
         max_stage = cfg.max_stage
         src_hw = x.shape[1]
         if src_hw != cfg.resolution:
             raise ValueError(f"discriminator expects {cfg.resolution} px input, got {src_hw}")
+        _check_cond("cond_embed", self.cond_embed_dim, cond_embed)
+        _check_cond("cond_image", self.cond_image_channels, cond_image)
+        if cond_image is not None:
+            resized = basic.resize_bilinear(cond_image, src_hw, src_hw).to(x.dtype)
+            x = torch.cat([x, resized], dim=-1)
         x = _nchw(x).to(torch_dtype(cfg.dtype))
+        if self.do_gdrop and self.training:
+            if gdrop_noise is None:
+                raise ValueError("a discriminator built with do_gdrop takes its noise as "
+                                 "gdrop_noise in train mode (draw_gdrop_noise)")
+            sites = iter(gdrop_noise)
+
+            def maybe_gdrop(t: torch.Tensor) -> torch.Tensor:
+                return basic.gdrop(t, gdrop_strength, noise=next(sites), nchw=True)
+        else:
+            def maybe_gdrop(t: torch.Tensor) -> torch.Tensor:
+                return t
 
         def from_rgb(name: str, t: torch.Tensor) -> torch.Tensor:
             y = getattr(self, f"{name}_conv")(t, update=update)
@@ -370,16 +442,20 @@ class Discriminator(nn.Module):
             hw = src_hw >> (max_stage - stage)
             if cfg.do_self_attention and hw == cfg.self_attention_hw:
                 net = getattr(self, f"self_attention_{hw}")(net, update=update, route=attention)
-            y = getattr(self, f"block_{hw}_conv0")(net, update=update)
-            y = getattr(self, f"block_{hw}_conv1")(y, update=update)
+            y = getattr(self, f"block_{hw}_conv0")(maybe_gdrop(net), update=update)
+            y = getattr(self, f"block_{hw}_conv1")(maybe_gdrop(y), update=update)
             net = getattr(self, f"block_{hw}_res")(net, y, update=update)
             net = basic.avg_pool_2x(net, nchw=True)
             if stage == max_stage and cfg.is_growing:
                 net = basic.blend(net, shrunk, alpha)
 
+        if cond_embed is not None:
+            b, _, h, w = net.shape
+            tiled = cond_embed.to(net.dtype)[:, :, None, None].expand(b, -1, h, w)
+            net = torch.cat([net, tiled], dim=1)
         net = basic.minibatch_stddev(net, num_groups=stddev_groups, nchw=True)
-        net = self.before_fc_conv0(net, update=update)
-        net = self.before_fc_conv1(net, update=update)
+        net = self.before_fc_conv0(maybe_gdrop(net), update=update)
+        net = self.before_fc_conv1(maybe_gdrop(net), update=update)
         return self.prediction(net.reshape(net.shape[0], -1), update)
 
 

@@ -93,3 +93,37 @@ def gdrop(x: torch.Tensor, strength, generator: torch.Generator | None = None,
     coef = (torch.as_tensor(strength, dtype=x.dtype, device=x.device)
             * torch.tensor(math.sqrt(c), dtype=x.dtype, device=x.device))
     return x * (rnd * coef + torch.tensor(1, dtype=x.dtype, device=x.device))
+
+
+def _resize_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """The [in, out] weights of ``jax.image.resize``'s "bilinear" along one
+    axis, in fp32 as it computes them: a triangle kernel at the half-pixel
+    sample positions, widened by 1 / scale when shrinking (antialiasing),
+    each column normalized to sum 1, zero where the sample lies outside."""
+    inv_scale = in_size / out_size
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(out_size, dtype=torch.float32, device=device) + 0.5)
+              * torch.tensor(inv_scale, dtype=torch.float32) - 0.5)
+    x = torch.abs(sample[None, :] - torch.arange(in_size, dtype=torch.float32,
+                                                 device=device)[:, None])
+    w = torch.clamp(1.0 - x / torch.tensor(kernel_scale, dtype=torch.float32), min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Differentiable bilinear resize of an NHWC tensor, the function of
+    ``jax.image.resize(x, ..., "bilinear")``: it antialiases when it
+    shrinks (the triangle kernel widened by the scale), which
+    ``F.interpolate`` does not. An axis of unchanged size is left alone."""
+    if x.shape[1] != height:
+        w = _resize_weights(x.shape[1], height, x.device).to(x.dtype)
+        x = torch.einsum("bhwc,hH->bHwc", x, w)
+    if x.shape[2] != width:
+        w = _resize_weights(x.shape[2], width, x.device).to(x.dtype)
+        x = torch.einsum("bhwc,wW->bhWc", x, w)
+    return x

@@ -111,8 +111,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused_scale_impl", default="dilated",
                    choices=["dilated", "parity"])
     p.add_argument("--remat", type=_bool, default=False,
-                   help="rematerialize each G/D pass in the backward (not ported "
-                        "yet: the trainers raise)")
+                   help="rematerialize each G/D pass in the backward "
+                        "(torch.utils.checkpoint): less memory, one more forward")
     # Loss flags (reference image_generation.py).
     p.add_argument("--loss_architecture", default="dragan",
                    choices=["gan", "dragan", "wgan", "wgan_gp", "hinge"])

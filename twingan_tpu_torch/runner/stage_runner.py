@@ -40,6 +40,13 @@ the rounds), ``rounds_s`` and ``saves_s`` (checkpoints and ``model.pt``,
 recoveries it took; and ``started``, where its state came from (the
 migration report's counts, or the step it resumed at).
 
+Every trainer option of both programs reaches the trainers: the style
+embedding (with a style-interpolation grid in the sample dumps,
+``<step>_custom_t_style_roll.png``), distillation (the batches'
+``source_embedding``/``target_embedding``), conditional labels (the
+sample grids and the in-training SWD under the fixed batch's labels),
+gdrop (its strength among the logged metrics) and remat.
+
 Not ported yet, raising ``NotImplementedError``: several devices
 (``num_devices > 1``; A9).
 """
@@ -77,7 +84,7 @@ from twingan_tpu_torch.runner.checkpoint import (
     save_model,
 )
 from twingan_tpu_torch.runner.migrate import migrate_state_dict
-from twingan_tpu_torch.train import gan_trainer, twingan_trainer
+from twingan_tpu_torch.train import gan_trainer
 from twingan_tpu_torch.train.base import resolve_device
 from twingan_tpu_torch.train.gan_trainer import GanTrainer, GanTrainerConfig
 from twingan_tpu_torch.train.state import serving_state_dict, state_from_dict, state_to_dict
@@ -314,7 +321,7 @@ class StageRunner:
         with the Polyak average where it is kept."""
         flat = state_to_dict(state)
         if isinstance(trainer, TwinGANTrainer):
-            return serving_state_dict(flat, (twingan_trainer.ENC, twingan_trainer.GEN))
+            return serving_state_dict(flat, trainer.translator_keys)
         return serving_state_dict(flat, (gan_trainer.GEN,), ema_net=gan_trainer.GEN)
 
     # ------------------------------------------------------------------ #
@@ -566,8 +573,11 @@ class StageRunner:
                     now = time.perf_counter()
                     rate = (cur - last_log_step) / max(now - last_log, 1e-9)
                     last_log_step, last_log = cur, now
-                    self.metrics_log.append({"stage": tag, "step": cur, "g_loss": g,
-                                             "d_loss": d, "rounds_per_sec": round(rate, 3)})
+                    rec = {"stage": tag, "step": cur, "g_loss": g, "d_loss": d,
+                           "rounds_per_sec": round(rate, 3)}
+                    if trainer.cfg.use_gdrop:
+                        rec["gdrop_strength"] = float(metrics["gdrop_strength"])
+                    self.metrics_log.append(rec)
                     writer.scalars(cur, {k: v for k, v in metrics.items() if np.ndim(v) == 0})
                     writer.scalars(cur, {"rounds_per_sec": rate})
                     print(f"[stage {tag}] step {cur}/{steps} g={g:.4f} d={d:.4f} "
@@ -661,7 +671,10 @@ class StageRunner:
                     rng = np.random.RandomState(9)
                     inp = rng.standard_normal(
                         noise_shape(trainer.cfg.model, len(real))).astype(np.float32)
-                fake = trainer.sample(state, torch.from_numpy(inp))
+                labels = fixed_batch.get("conditional_labels")
+                if labels is not None:
+                    labels = torch.from_numpy(np.asarray(labels)[:len(inp)])
+                fake = trainer.sample(state, torch.from_numpy(inp), labels=labels)
             fake = fake.float().cpu().numpy()
             out = os.path.join(stage_dir, f"swd_in_training_{step}.txt")
             # Display space, so scores compare across colour spaces.
@@ -735,6 +748,20 @@ class StageRunner:
                                 self._display(stack_comparison([src, t_prime])))
                 save_image_grid(os.path.join(out_dir, f"{step}_target_s_prime.png"),
                                 self._display(stack_comparison([tgt, s_prime])))
+                if trainer.cfg.use_style_embedding:
+                    # Style interpolation: one fixed source, the style lerped
+                    # between two fixed N(0, 1) embeddings across the columns.
+                    rng = np.random.RandomState(31415)
+                    dim = trainer.cfg.style_embed_size
+                    a = rng.standard_normal(dim).astype(np.float32)
+                    b = rng.standard_normal(dim).astype(np.float32)
+                    ts = np.linspace(0.0, 1.0, n_show, dtype=np.float32)[:, None]
+                    styles = torch.from_numpy(a[None] * ts + b[None] * (1 - ts))
+                    one_src = np.broadcast_to(src[:1], (n_show,) + src.shape[1:])
+                    rolled = as_np(trainer.translate(state, torch.from_numpy(one_src.copy()),
+                                                     "s2t", style=styles))
+                    save_image_grid(os.path.join(out_dir, f"{step}_custom_t_style_roll.png"),
+                                    self._display(stack_comparison([one_src, rolled])))
                 custom = self._fixed_custom_sources(res, n_show)
                 if custom is not None:
                     pp_eval = dataclasses.replace(self._preprocess_cfg(res), is_training=False)
@@ -743,14 +770,32 @@ class StageRunner:
                     save_image_grid(os.path.join(out_dir, f"{step}_sources_ph.png"), custom)
                     save_image_grid(os.path.join(out_dir, f"{step}_custom_t_style_rand.png"),
                                     self._display(cout))
+            elif fixed_batch.get("source") is not None:
+                # Conditional or paired generation: the fixed source, its
+                # output and the real target, in rows.
+                src = np.asarray(fixed_batch["source"], np.float32)[:n_show]
+                labels = fixed_batch.get("conditional_labels")
+                if labels is not None:
+                    labels = torch.from_numpy(np.asarray(labels)[:len(src)])
+                rows = [src, as_np(trainer.sample(state, torch.from_numpy(src), labels=labels))]
+                if fixed_batch.get("target") is not None:
+                    rows.append(np.asarray(fixed_batch["target"])[:n_show])
+                k = min(len(r) for r in rows)
+                save_image_grid(os.path.join(out_dir, f"{step}.png"),
+                                self._display(stack_comparison([r[:k] for r in rows])))
             else:
-                # Noise interpolation (seed 314, lerp z2 -> z1).
+                # Noise interpolation (seed 314, lerp z2 -> z1), under the
+                # first fixed example's labels for a conditional model.
                 rng = np.random.RandomState(314)
                 shape = noise_shape(trainer.cfg.model, 1)
                 z1 = rng.standard_normal(shape).astype(np.float32)
                 z2 = rng.standard_normal(shape).astype(np.float32)
                 ts = np.linspace(0.0, 1.0, n_show, dtype=np.float32).reshape(-1, 1, 1, 1)
-                img = as_np(trainer.sample(state, torch.from_numpy(z1 * ts + z2 * (1 - ts))))
+                labels = fixed_batch.get("conditional_labels")
+                if labels is not None:
+                    labels = torch.from_numpy(np.asarray(labels)[:1].repeat(n_show, 0))
+                img = as_np(trainer.sample(state, torch.from_numpy(z1 * ts + z2 * (1 - ts)),
+                                           labels=labels))
                 rows = [img]
                 if fixed_batch.get("target") is not None:
                     rows.append(np.asarray(fixed_batch["target"])[:n_show])

@@ -9,14 +9,25 @@ with the same counter semantics.
 The step functions take ``rng``, an integer seed; a step's random numbers
 come from ``step_generator(rng, critic_step)``, as the JAX steps fold the
 critic counter into their PRNG key.
+
+Remat (``cfg.remat``, the JAX ``apply_model(remat=True)``): each network
+pass of a step runs under ``torch.utils.checkpoint`` (``remat_call``), so
+the backward recomputes its activations instead of keeping them. The JAX
+remat is pure and the port's state is written in place, so the recompute
+reads the networks' buffers (moving statistics, renorm EMAs, spectral
+``u``) as the first call found them and writes none; the noise a pass
+takes (gdrop, the random style, the penalty's draws) is drawn before the
+pass and handed to it, so that the recompute sees the same numbers.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional, Sequence
 
 import torch
+import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from twingan_tpu_torch.models.config import require_ported
 from twingan_tpu_torch.ops import basic, norms
@@ -58,18 +69,43 @@ def step_generator(rng: int, critic_step: int, device: torch.device) -> torch.Ge
 
 def require_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for the model options the port's
-    modules lack and the trainer options it lacks: conditional norms
-    (``style_dim``) have their modules but no trainer wiring yet."""
+    modules lack and the trainer options it lacks, naming their queue
+    item."""
     require_ported(cfg.model)
-    unported = [
-        ("style_dim", cfg.model.style_dim > 0),
-        ("remat", cfg.remat),
-        ("sync_batch_norm_axis", cfg.model.sync_batch_norm_axis is not None),
-        ("use_gdrop", cfg.use_gdrop),
-    ]
-    for name, is_set in unported:
-        if is_set:
-            raise NotImplementedError(f"{name} is not ported to twingan_tpu_torch's trainers yet")
+    if cfg.model.sync_batch_norm_axis is not None:
+        raise NotImplementedError(
+            "sync_batch_norm_axis (cross-device batch norm; queue item A9) is not ported to "
+            "twingan_tpu_torch's trainers yet")
+
+
+def remat_call(fn: Callable, modules: Sequence[nn.Module], *args, **kwargs):
+    """``fn(*args, **kwargs)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) when autograd records it.
+    The recompute reads the buffers of ``modules`` as this call found them
+    and leaves them as it finds them: what the first call wrote stays, and
+    nothing is written twice."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    buffers = [b for m in modules for b in m.buffers()]
+    before = [b.detach().clone() for b in buffers]
+    calls = [0]
+
+    def run(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a, **kw)
+        after = [b.detach().clone() for b in buffers]
+        with torch.no_grad():
+            for b, v in zip(buffers, before):
+                b.copy_(v)
+        try:
+            return fn(*a, **kw)
+        finally:
+            with torch.no_grad():
+                for b, v in zip(buffers, after):
+                    b.copy_(v)
+
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
 
 
 class BaseGanTrainer:
@@ -82,6 +118,23 @@ class BaseGanTrainer:
 
     def _renorm_clip(self, step: int) -> Optional[dict]:
         return renorm_clip(self.cfg, step)
+
+    def _gdrop_noise(self, dis: nn.Module, batch_size: int, generator: torch.Generator,
+                     injected: Optional[Mapping[str, list]], key: str) -> Optional[list]:
+        """A discriminator pass's gdrop noise: ``injected[key]``, or drawn
+        now from ``generator``, before the pass (for remat); None without
+        gdrop."""
+        if not self.cfg.use_gdrop:
+            return None
+        if injected is not None:
+            return [t.to(self.device) for t in injected[key]]
+        return dis.draw_gdrop_noise(batch_size, generator, self.device)
+
+    def _apply(self, net: nn.Module, *args, **kwargs):
+        """One pass of ``net``; under ``cfg.remat`` through ``remat_call``."""
+        if self.cfg.remat:
+            return remat_call(net, (net,), *args, **kwargs)
+        return net(*args, **kwargs)
 
     def growing_image(self, x: torch.Tensor, alpha: float) -> torch.Tensor:
         """Fade-in blend of NHWC images with their low-res selves."""

@@ -37,9 +37,31 @@ noise of ``noise_shape`` drawn from ``step_generator(rng, critic_step)``.
 The gradient penalty's draws come from the same generator unless the D
 step is handed ``gp_noise``.
 
-Not ported yet, raising ``NotImplementedError``: ``use_gdrop``,
-``use_conditional_labels``, ``remat``, and ``generator_network``
-cyclegan/dcgan.
+gdrop (``use_gdrop``): the strength follows ``update_gdrop_state`` in the
+G step, and every discriminator pass (the G step's, and the D step's
+fake, real and penalty passes, each with noise of its own) multiplies its
+conv inputs by gdrop noise, drawn from the step's generator after z (and,
+in the D step, before the penalty's draws), or injected whole as
+``gdrop_noise`` ({"fake", "real", "gp"}: lists of [B, C] tensors in the
+discriminator's site order). The JAX package draws each pass's noise from
+``fold_in(k_gdrop, 0/1/2)``; the port's stream is its own.
+
+Conditional labels (``use_conditional_labels``): the batch's
+``"conditional_labels"`` (integer class ids, one-hot encoded, or
+multi-hot [B, num_classes] vectors) are the style vector of the
+generator's conditional norms (``style_dim`` is forced to
+``num_classes``), and their product with ``cond_lookup``, a fixed
+[num_classes, conditional_embed_dim] U(0, 1) matrix, is concatenated into
+the discriminator at 4x4. ``cond_lookup`` is not checkpointed: it is
+regenerated from the config as the JAX package draws it,
+``jax.random.uniform(PRNGKey(num_classes * 1000003 +
+conditional_embed_dim))``, bit for bit (``utils/threefry.py``).
+
+Remat (``remat``) runs each generator and discriminator pass through
+``base.remat_call``.
+
+Not ported yet, raising ``NotImplementedError``: ``generator_network``
+cyclegan/dcgan (queue item A15).
 """
 
 from __future__ import annotations
@@ -49,6 +71,7 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.func import functional_call
 
 from twingan_tpu_torch.models.config import PGGANConfig
@@ -68,9 +91,19 @@ from twingan_tpu_torch.train.losses import (
 )
 from twingan_tpu_torch.train.optimizers import OptimizerConfig, build_optimizer, global_norm
 from twingan_tpu_torch.train.state import GanTrainState, polyak_update, update_gdrop_state
+from twingan_tpu_torch.utils import threefry
 
 GEN = "generator"
 DIS = "discriminator"
+
+
+def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """One-hot rows of integer labels; out-of-range labels give all-zero
+    rows (the JAX ``safe_one_hot_encoding``)."""
+    labels = labels.long()
+    valid = (labels >= 0) & (labels < num_classes)
+    hot = F.one_hot(torch.where(valid, labels, torch.zeros_like(labels)), num_classes)
+    return hot.float() * valid.float()[..., None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,25 +140,38 @@ class GanTrainer(BaseGanTrainer):
     Runs on the CUDA card unless ``device="cpu"``."""
 
     def __init__(self, cfg: GanTrainerConfig, device: Optional[str | torch.device] = None):
-        if cfg.use_conditional_labels:
-            raise NotImplementedError(
-                "use_conditional_labels is not ported to twingan_tpu_torch yet")
         if cfg.generator_network in ("cyclegan", "dcgan"):
             raise NotImplementedError(
-                f"generator_network={cfg.generator_network} is not ported to "
-                "twingan_tpu_torch yet")
+                f"generator_network={cfg.generator_network} (queue item A15) is not ported "
+                "to twingan_tpu_torch yet")
         if cfg.generator_network != "pggan":
             raise NotImplementedError(
                 f"generator_network {cfg.generator_network!r} is not implemented")
+        if cfg.use_conditional_labels:
+            if cfg.num_classes <= 0:
+                raise ValueError("use_conditional_labels requires num_classes > 0")
+            if cfg.model.style_dim != cfg.num_classes:
+                # The conditional norms take the label vector as their style.
+                cfg = cfg.replace(model=cfg.model.replace(style_dim=cfg.num_classes))
         require_trainable(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dis_opt_cfg = (cfg.opt.replace(learning_rate=cfg.discriminator_learning_rate)
                             if cfg.use_ttur else cfg.opt)
+        self.cond_lookup = None
+        if cfg.use_conditional_labels:
+            seed = cfg.num_classes * 1000003 + cfg.conditional_embed_dim
+            self.cond_lookup = torch.from_numpy(threefry.uniform(
+                threefry.prng_key(seed), (cfg.num_classes, cfg.conditional_embed_dim)
+            )).to(self.device)
 
     def build_nets(self) -> nn.ModuleDict:
-        m = self.cfg.model
-        return nn.ModuleDict({GEN: Generator(m, noise_input=True), DIS: Discriminator(m)})
+        cfg = self.cfg
+        cond = cfg.use_conditional_labels
+        return nn.ModuleDict({
+            GEN: Generator(cfg.model, noise_input=True, conditional=cond),
+            DIS: Discriminator(cfg.model, do_gdrop=cfg.use_gdrop,
+                               cond_embed_dim=cfg.conditional_embed_dim if cond else 0)})
 
     def init_state(self, seed: int = 0) -> GanTrainState:
         """Networks drawn from ``seed`` with the JAX initializers (the same
@@ -170,21 +216,49 @@ class GanTrainer(BaseGanTrainer):
     def _real(self, batch: Mapping[str, torch.Tensor], alpha: float) -> torch.Tensor:
         return self.growing_image(batch["target"].to(self.device, torch.float32), alpha)
 
+    def _cond(self, batch: Mapping[str, torch.Tensor]):
+        """(the label vector for the generator's conditional norms, its
+        embedding for the discriminator), or (None, None) without
+        conditional labels."""
+        cfg = self.cfg
+        if not cfg.use_conditional_labels:
+            return None, None
+        labels = batch.get("conditional_labels")
+        if labels is None:
+            raise ValueError(
+                "use_conditional_labels=True but the batch has no 'conditional_labels' item; "
+                "check the dataset emits labels (text-tag datasets need a vocab_file)")
+        labels = torch.as_tensor(labels, device=self.device)
+        if labels.dim() == 2 and labels.shape[-1] != cfg.num_classes:
+            raise ValueError(f"conditional_labels width {labels.shape[-1]} != "
+                             f"num_classes {cfg.num_classes}")
+        if labels.dim() == 1:
+            labels = one_hot(labels, cfg.num_classes)
+        labels = labels.float()
+        return labels, labels @ self.cond_lookup
+
     def g_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0,
-               z: Optional[torch.Tensor] = None):
+               z: Optional[torch.Tensor] = None,
+               gdrop_noise: Optional[Mapping[str, list]] = None):
         """One generator update. ``batch``: NHWC "target" images in [0, 1]
-        (and optionally the generator's input as "source"). Returns (state,
+        (and optionally the generator's input as "source", and
+        "conditional_labels"). ``gdrop_noise`` injects the discriminator
+        pass's gdrop draws as ``{"fake": [...]}``. Returns (state,
         metrics); the state is updated in place."""
         cfg = self.cfg
         gen, dis = state.nets[GEN], state.nets[DIS]
         alpha = self._alpha(state.step)
         real = self._real(batch, alpha)
+        generator = step_generator(rng, state.critic_step, self.device)
         if z is None:
-            z = self._gen_input(batch, step_generator(rng, state.critic_step, self.device),
-                                real.shape[0])
-        fake = gen(z.to(self.device), alpha=alpha, update=True,
-                   renorm_clip=self._renorm_clip(state.step))
-        loss = generator_gan_loss(cfg.loss, dis(fake, alpha=alpha))
+            z = self._gen_input(batch, generator, real.shape[0])
+        labels, embed = self._cond(batch)
+        noise = self._gdrop_noise(dis, real.shape[0], generator, gdrop_noise, "fake")
+        fake = self._apply(gen, z.to(self.device), alpha=alpha, update=True,
+                           renorm_clip=self._renorm_clip(state.step), style=labels)
+        pred = self._apply(dis, fake, alpha=alpha, cond_embed=embed,
+                           gdrop_strength=state.gdrop_strength, gdrop_noise=noise)
+        loss = generator_gan_loss(cfg.loss, pred)
         grads = self._grads(loss, state.gen_opt.params)
         grad_norm = global_norm(grads)
         state.gen_opt.step(grads)
@@ -204,11 +278,13 @@ class GanTrainer(BaseGanTrainer):
 
     def d_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0,
                z: Optional[torch.Tensor] = None,
-               gp_noise: Optional[Mapping[str, torch.Tensor]] = None):
+               gp_noise: Optional[Mapping[str, torch.Tensor]] = None,
+               gdrop_noise: Optional[Mapping[str, list]] = None):
         """One discriminator update. ``gp_noise`` injects the gradient
         penalty's random numbers, ``{"alpha": [B,1,1,1], "noise": the
-        images' shape}``; otherwise they are drawn from
-        ``step_generator(rng, critic_step)``, as z is."""
+        images' shape}``, and ``gdrop_noise`` the gdrop draws of its fake,
+        real and penalty passes (``{"fake", "real", "gp"}``); otherwise
+        they are drawn from ``step_generator(rng, critic_step)``, as z is."""
         cfg = self.cfg
         gen, dis = state.nets[GEN], state.nets[DIS]
         alpha = self._alpha(state.step)
@@ -216,16 +292,21 @@ class GanTrainer(BaseGanTrainer):
         generator = step_generator(rng, state.critic_step, self.device)
         if z is None:
             z = self._gen_input(batch, generator, real.shape[0])
+        labels, embed = self._cond(batch)
+        noise = {k: self._gdrop_noise(dis, real.shape[0], generator, gdrop_noise, k)
+                 for k in ("fake", "real", "gp")}
         with torch.no_grad():
             fake = gen(z.to(self.device), alpha=alpha, update=False,
-                       renorm_clip=self._renorm_clip(state.step))
-        fake_pred = dis(fake, alpha=alpha)
-        real_pred = dis(real, alpha=alpha)
+                       renorm_clip=self._renorm_clip(state.step), style=labels)
+        dis_kw = dict(alpha=alpha, cond_embed=embed, gdrop_strength=state.gdrop_strength)
+        fake_pred = self._apply(dis, fake, gdrop_noise=noise["fake"], **dis_kw)
+        real_pred = self._apply(dis, real, gdrop_noise=noise["real"], **dis_kw)
         losses = discriminator_gan_loss(cfg.loss, fake_pred, real_pred)
-        noise = gp_noise or {}
+        gp = gp_noise or {}
         losses["gradient_penalty"] = gradient_penalty(
-            cfg.loss, lambda x: dis(x, alpha=alpha, attention="plain"), real, fake,
-            alpha=noise.get("alpha"), noise=noise.get("noise"), generator=generator)
+            cfg.loss, lambda x: self._apply(dis, x, attention="plain", gdrop_noise=noise["gp"],
+                                            **dis_kw),
+            real, fake, alpha=gp.get("alpha"), noise=gp.get("noise"), generator=generator)
         total = sum(losses.values())
         grads = self._grads(total, state.dis_opt.params)
         advance_spectral_norm(dis)
@@ -242,11 +323,13 @@ class GanTrainer(BaseGanTrainer):
     # ------------------------------------------------------------------ #
     # Sampling
     # ------------------------------------------------------------------ #
-    def sample(self, state: GanTrainState, z: torch.Tensor) -> torch.Tensor:
+    def sample(self, state: GanTrainState, z: torch.Tensor,
+               labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Inference-mode generation (moving statistics, no gradient) from
         noise ``z`` [B, noise_dim] or [B,1,1,noise_dim], with the
-        Polyak-averaged parameters when they are kept. Returns NHWC images
-        in the compute dtype."""
+        Polyak-averaged parameters when they are kept. ``labels`` is the
+        conditioning vector [B, num_classes] of a conditional model (zeros
+        when omitted). Returns NHWC images in the compute dtype."""
         gen = state.nets[GEN]
         was_training = gen.training
         gen.eval()
@@ -254,8 +337,13 @@ class GanTrainer(BaseGanTrainer):
             with torch.no_grad():
                 z = z.to(self.device, torch.float32)
                 alpha = self._alpha(state.step)
+                kw = {"alpha": alpha}
+                if self.cfg.use_conditional_labels:
+                    kw["style"] = (torch.zeros(z.shape[0], self.cfg.num_classes,
+                                               device=self.device) if labels is None
+                                   else torch.as_tensor(labels, device=self.device).float())
                 if state.gen_ema_params is None:
-                    return gen(z, alpha=alpha)
-                return functional_call(gen, state.gen_ema_params, (z,), {"alpha": alpha})
+                    return gen(z, **kw)
+                return functional_call(gen, state.gen_ema_params, (z,), kw)
         finally:
             gen.train(was_training)

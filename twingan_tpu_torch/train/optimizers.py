@@ -10,8 +10,22 @@ gradient) -> the optimizer -> frozen scopes (their params never move).
 Optimizers: ``adam``, ``sgd`` and ``momentum`` run on ``torch.optim``,
 whose update rules are optax's (Adam with bias-corrected moments and eps
 outside the root; heavy-ball momentum with the trace starting at the first
-gradient). ``rmsprop`` (optax adds eps inside the root, ``torch.optim``
-outside it), ``adagrad``, ``adadelta`` and ``ftrl`` are not ported yet.
+gradient). ``rmsprop``, ``adagrad``, ``adadelta`` and ``ftrl`` are hand
+updates (``HAND_UPDATES``), each the optax chain the JAX factory builds,
+line for line:
+
+- rmsprop: nu = (1 - decay) g^2 + decay nu; u = -lr g / sqrt(nu + eps)
+  (optax puts eps inside the root, ``torch.optim`` outside it); then the
+  momentum trace t = u + momentum t, which is the update;
+- adagrad: s = g^2 + s from ``adagrad_initial_accumulator_value``;
+  u = -lr g / sqrt(s + 1e-7) (0 where s is 0);
+- adadelta: e_g = (1 - rho) g^2 + rho e_g; d = sqrt(e_x + eps) /
+  sqrt(e_g + eps) g; e_x = (1 - rho) d^2 + rho e_x; u = -lr d;
+- ftrl: the JAX package's FTRL-Proximal (``train/optimizers.py:ftrl``),
+  the new weight a closed form of the accumulated (accum, linear).
+
+Their slots advance for every parameter, frozen ones included, and a frozen
+parameter never moves, as under optax's masked updates after the chain.
 
 As in optax, the schedule counts this optimizer's own updates, evaluated
 before each one; ``updates_per_step`` stretches it for an optimizer that
@@ -32,11 +46,28 @@ from typing import Callable, Mapping, Sequence
 
 import torch
 
-PORTED_OPTIMIZERS = ("adam", "sgd", "momentum")
-UNPORTED_OPTIMIZERS = ("rmsprop", "adagrad", "adadelta", "ftrl")
-# Each optimizer's per-parameter state: optax's field name -> torch.optim's.
+TORCH_OPTIMIZERS = ("adam", "sgd", "momentum")
+HAND_UPDATES = ("rmsprop", "adagrad", "adadelta", "ftrl")
+# Each torch.optim optimizer's per-parameter state: optax's field name ->
+# torch.optim's.
 SLOTS = {"adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
          "momentum": {"trace": "momentum_buffer"}, "sgd": {}}
+# Where each optimizer's optax chain keeps its update count and its slots,
+# before the prefixes of weight decay, clipping and frozen scopes.
+_STATE_PATHS = {
+    "adam": (("0/count", "1/count"), {"mu": "0/mu", "nu": "0/nu"}),
+    "momentum": (("1/count",), {"trace": "0/trace"}),
+    "sgd": (("1/count",), {}),
+    # ScaleByRmsState(nu), ScaleByScheduleState(count), TraceState(trace).
+    "rmsprop": (("1/count",), {"nu": "0/nu", "trace": "2/trace"}),
+    # ScaleByRssState(sum_of_squares), ScaleByScheduleState(count).
+    "adagrad": (("1/count",), {"sum_of_squares": "0/sum_of_squares"}),
+    # optax.adadelta chains an (empty) add_decayed_weights state first.
+    "adadelta": (("2/count",), {"e_g": "1/e_g", "e_x": "1/e_x"}),
+    # The JAX package's FtrlState(count, accum, linear), not a chain.
+    "ftrl": (("count",), {"accum": "accum", "linear": "linear"}),
+}
+ADAGRAD_EPS = 1e-7  # optax.adagrad's default; the JAX factory passes none
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,13 +105,9 @@ def state_paths(cfg: OptimizerConfig) -> tuple[tuple[str, ...], dict[str, str]]:
     (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count)); sgd and
     momentum (EmptyState or TraceState(trace), ScaleByScheduleState(count));
     weight decay and clipping chain an empty state before it, frozen scopes
-    a masked empty state after it."""
-    if cfg.optimizer == "adam":
-        counts, slots = ("0/count", "1/count"), {"mu": "0/mu", "nu": "0/nu"}
-    elif cfg.optimizer == "momentum":
-        counts, slots = ("1/count",), {"trace": "0/trace"}
-    else:
-        counts, slots = ("1/count",), {}
+    a masked empty state after it. The hand updates keep optax's layouts
+    (``_STATE_PATHS``)."""
+    counts, slots = _STATE_PATHS[cfg.optimizer]
     prefix = ""
     if cfg.weight_decay:
         prefix = "1/" + prefix
@@ -130,10 +157,7 @@ class Optimizer:
 
     def __init__(self, cfg: OptimizerConfig, params: Mapping[str, torch.nn.Parameter],
                  updates_per_step: int = 1):
-        if cfg.optimizer in UNPORTED_OPTIMIZERS:
-            raise NotImplementedError(
-                f"optimizer {cfg.optimizer!r} is not ported to twingan_tpu_torch yet")
-        if cfg.optimizer not in PORTED_OPTIMIZERS:
+        if cfg.optimizer not in TORCH_OPTIMIZERS + HAND_UPDATES:
             raise ValueError(f"unsupported optimizer {cfg.optimizer!r}")
         self.cfg = cfg
         self.schedule = build_schedule(cfg, updates_per_step)
@@ -144,6 +168,12 @@ class Optimizer:
         # updates after it, so they never move either way.
         self.trainable = [not any(s in scope_path(name) for s in cfg.frozen_scopes)
                           for name in self.names]
+        self.opt = None
+        self.hand: dict[str, list[torch.Tensor]] = {}
+        if cfg.optimizer in HAND_UPDATES:
+            self.hand = {slot: [torch.full_like(p, self._slot_init(slot)) for p in self.params]
+                         for slot in _STATE_PATHS[cfg.optimizer][1]}
+            return
         train = [p for p, t in zip(self.params, self.trainable) if t]
         lr = cfg.learning_rate
         if not train:
@@ -156,10 +186,22 @@ class Optimizer:
         else:
             self.opt = torch.optim.SGD(train, lr=lr, momentum=cfg.momentum)
 
+    def _slot_init(self, slot: str) -> float:
+        """A hand update's slot at init: optax's initial accumulators."""
+        if slot == "sum_of_squares":
+            return self.cfg.adagrad_initial_accumulator_value
+        if slot == "accum":
+            return self.cfg.ftrl_initial_accumulator_value
+        return 0.0
+
     def slots(self) -> dict[str, dict[str, torch.Tensor]]:
         """The per-parameter state under optax's names (``{"mu": {name:
-        tensor}, "nu": ...}`` for adam), zeros where torch.optim holds none:
-        frozen parameters, and every parameter before the first update."""
+        tensor}, "nu": ...}`` for adam). For ``torch.optim`` zeros where it
+        holds none: frozen parameters, and every parameter before the first
+        update."""
+        if self.hand:
+            return {slot: {name: t.detach().clone() for name, t in zip(self.names, tensors)}
+                    for slot, tensors in self.hand.items()}
         out = {}
         for slot, torch_slot in SLOTS[self.cfg.optimizer].items():
             out[slot] = {}
@@ -172,8 +214,14 @@ class Optimizer:
     @torch.no_grad()
     def load_slots(self, count: int, slots: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
         """Set the update count and the per-parameter state, the inverse of
-        ``slots``. Frozen parameters keep none (they never move)."""
+        ``slots``. ``torch.optim`` keeps none for frozen parameters (they
+        never move)."""
         self.count = int(count)
+        if self.hand:
+            for slot, tensors in self.hand.items():
+                for t, name in zip(tensors, self.names):
+                    t.copy_(slots[slot][name])
+            return
         if self.opt is None:
             return
         for p, name, trainable in zip(self.params, self.names, self.trainable):
@@ -195,6 +243,16 @@ class Optimizer:
             norm = float(global_norm(grads))
             if not norm < cfg.clip_global_norm:
                 grads = [g * (cfg.clip_global_norm / norm) for g in grads]
+        if self.hand:
+            lr = self.schedule(self.count)
+            for i, (p, g, t) in enumerate(zip(self.params, grads, self.trainable)):
+                if cfg.weight_decay:
+                    g = g + cfg.weight_decay * p
+                update = self._hand_update(i, g, p, lr)
+                if t:
+                    p.add_(update)
+            self.count += 1
+            return
         for p, g, t in zip(self.params, grads, self.trainable):
             if t:
                 p.grad = g + cfg.weight_decay * p if cfg.weight_decay else g
@@ -205,6 +263,41 @@ class Optimizer:
             self.opt.step()
             self.opt.zero_grad(set_to_none=True)
         self.count += 1
+
+    def _hand_update(self, i: int, g: torch.Tensor, w: torch.Tensor, lr: float) -> torch.Tensor:
+        """Parameter ``i``'s update from gradient ``g`` at learning rate
+        ``lr``, its slots advanced in place."""
+        cfg, s = self.cfg, {k: v[i] for k, v in self.hand.items()}
+        name = cfg.optimizer
+        if name == "rmsprop":
+            decay = cfg.rmsprop_decay
+            s["nu"].copy_((1 - decay) * g ** 2 + decay * s["nu"])
+            u = -lr * (torch.rsqrt(s["nu"] + cfg.opt_epsilon) * g)
+            s["trace"].copy_(u + cfg.rmsprop_momentum * s["trace"])
+            return s["trace"].clone()
+        if name == "adagrad":
+            s["sum_of_squares"].add_(g * g)
+            acc = s["sum_of_squares"]
+            inv = torch.where(acc > 0, torch.rsqrt(acc + ADAGRAD_EPS), torch.zeros_like(acc))
+            return -lr * (inv * g)
+        if name == "adadelta":
+            rho, eps = cfg.adadelta_rho, cfg.opt_epsilon
+            s["e_g"].copy_((1 - rho) * g ** 2 + rho * s["e_g"])
+            d = torch.sqrt(s["e_x"] + eps) / torch.sqrt(s["e_g"] + eps) * g
+            s["e_x"].copy_((1 - rho) * d ** 2 + rho * s["e_x"])
+            return -lr * d
+        # ftrl, with tf.train.FtrlOptimizer's semantics (p = -lr_power).
+        p = -cfg.ftrl_learning_rate_power
+        a, lin = s["accum"], s["linear"]
+        a_new = a + g * g
+        sigma = (a_new ** p - a ** p) / lr
+        lin.copy_(lin + g - sigma * w)
+        quad = a_new ** p / lr + 2.0 * cfg.ftrl_l2
+        l1 = cfg.ftrl_l1
+        w_new = torch.where(lin.abs() > l1, (torch.sign(lin) * l1 - lin) / quad,
+                            torch.zeros_like(w))
+        a.copy_(a_new)
+        return w_new - w
 
 
 def build_optimizer(cfg: OptimizerConfig, params: Mapping[str, torch.nn.Parameter],

@@ -31,8 +31,34 @@ The step follows the JAX one pass for pass:
   updating passes, in the same order; each discriminator's ``u`` advances
   once per D step, from the state before the step, which every one of the
   step's discriminator passes reads (``layers.advance_spectral_norm``).
-Metric names are the JAX ones. Style embedding, encoder distillation,
-gdrop and remat are not ported yet and raise.
+- the style embedding (``use_style_embedding``): ``encoder_style`` (a
+  ``StyleEncoder``) encodes each domain's images in every step (updating
+  in the G step, after the content encoder), the prime passes take a
+  random N(0, 1) style and the cycle passes each domain's own (one
+  concatenated style per fused pass, as the JAX step concatenates
+  (random_style, style)), the generator's norms are conditional on it,
+  and the G step adds ``l_{s,t}_style``, the L1 distance of the random
+  style to the primes' re-encoded styles, weighted by ``l_content_weight``;
+- encoder distillation (``do_encoder_distillation``): the heads
+  ``distill_s``/``distill_t`` (``EncoderClassifier``, one norm bank each)
+  on the content codes of the sources, the targets and the two primes'
+  re-encodes, updating in the G step, from ``distillation_start_hw`` on;
+  their cosine losses against the batch's ``source_embedding``/
+  ``target_embedding`` where the batch has them;
+- gdrop (``use_gdrop``): every discriminator pass multiplies its conv
+  inputs by gdrop noise of the state's strength, one draw per pass (per
+  fused pass: one for the concatenated batch, as the JAX step draws it);
+- remat (``remat``): every network pass through ``base.remat_call``.
+
+Random numbers: a step draws them from ``step_generator(rng,
+critic_step)``, in this order: the random style, then each
+discriminator pass's gdrop noise just before the pass, then (D step) the
+penalty's alpha and noise inside its domain's penalty. The JAX step
+folds its key per use (``fold_in(k_fwd, 7)`` for the style, ``fold_in(
+k_gdrop, i)`` per pass), so the port's numbers are its own; the steps
+take them injected (``random_style``, ``gdrop_noise``, ``gp_noise``)
+for parity.
+Metric names are the JAX ones.
 """
 
 from __future__ import annotations
@@ -46,7 +72,14 @@ from torch.func import functional_call
 
 from twingan_tpu_torch.models.config import PGGANConfig
 from twingan_tpu_torch.models.layers import advance_spectral_norm, reset_parameters
-from twingan_tpu_torch.models.pggan import Discriminator, Encoder, EncoderSkips, Generator
+from twingan_tpu_torch.models.pggan import (
+    Discriminator,
+    Encoder,
+    EncoderClassifier,
+    EncoderSkips,
+    Generator,
+    StyleEncoder,
+)
 from twingan_tpu_torch.train.base import (
     BaseGanTrainer,
     fade_alpha,
@@ -56,6 +89,7 @@ from twingan_tpu_torch.train.base import (
 )
 from twingan_tpu_torch.train.losses import (
     GanLossConfig,
+    cosine_distance_loss,
     discriminator_gan_loss,
     generator_gan_loss,
     gradient_penalty,
@@ -65,9 +99,12 @@ from twingan_tpu_torch.train.optimizers import OptimizerConfig, build_optimizer,
 from twingan_tpu_torch.train.state import GanTrainState, polyak_update, update_gdrop_state
 
 ENC = "encoder_content"
+ENC_STYLE = "encoder_style"
 GEN = "generator"
 DIS_S = "discriminator_s"
 DIS_T = "discriminator_t"
+DISTILL_S = "distill_s"
+DISTILL_T = "distill_t"
 
 DOMAIN_S = 0
 DOMAIN_T = 1
@@ -135,21 +172,26 @@ class TwinGANConfig:
 
 
 class TwinGANTranslator(nn.Module):
-    """The content encoder and the generator of a TwinGAN stage."""
+    """The content encoder and the generator of a TwinGAN stage, and its
+    style encoder when the stage was trained with the style embedding."""
 
     def __init__(self, cfg: TwinGANConfig):
         super().__init__()
-        if cfg.use_style_embedding:
-            raise NotImplementedError("use_style_embedding is not ported to twingan_tpu_torch yet")
         self.cfg = cfg
         self.add_module(ENC, Encoder(cfg.model))
-        self.add_module(GEN, Generator(cfg.model, unet=cfg.use_unet))
+        self.add_module(GEN, Generator(cfg.model, unet=cfg.use_unet,
+                                       conditional=cfg.use_style_embedding))
+        if cfg.use_style_embedding:
+            self.add_module(ENC_STYLE, StyleEncoder(cfg.model, cfg.style_embed_size))
 
 
 def translate(cfg: TwinGANConfig, enc: Encoder, gen: Generator, images: torch.Tensor,
-              direction: str = "s2t", step: int = 0) -> torch.Tensor:
+              direction: str = "s2t", step: int = 0, style: Optional[torch.Tensor] = None,
+              enc_style: Optional[StyleEncoder] = None) -> torch.Tensor:
     """Source-domain NHWC images in [0,1] -> target-domain images (or the
-    reverse for ``direction='t2s'``), as ``TwinGANTrainer.translate``."""
+    reverse for ``direction='t2s'``), as ``TwinGANTrainer.translate``. A
+    stage trained with the style embedding takes ``style`` [B,
+    style_embed_size], or computes it from the images with ``enc_style``."""
     if direction not in ("s2t", "t2s"):
         raise ValueError(f"unknown direction {direction!r}")
     src_domain = DOMAIN_S if direction == "s2t" else DOMAIN_T
@@ -157,36 +199,58 @@ def translate(cfg: TwinGANConfig, enc: Encoder, gen: Generator, images: torch.Te
     alpha = fade_alpha(cfg, step)
     with torch.inference_mode():
         code, skips = enc(images, alpha=alpha, domain=src_domain)
-        return gen(code, alpha=alpha, domain=out_domain,
+        if cfg.use_style_embedding and style is None:
+            if enc_style is None:
+                raise ValueError("a stage trained with the style embedding translates with "
+                                 "a style or its style encoder")
+            style = enc_style(images, alpha=alpha, domain=src_domain)
+        if style is not None:
+            style = style.to(images.device)
+        return gen(code, alpha=alpha, domain=out_domain, style=style,
                    unet_skips=skips if cfg.use_unet else None)
 
 
 class TwinGANTrainer(BaseGanTrainer):
     """One TwinGAN stage's training: networks ``encoder_content``,
-    ``generator``, ``discriminator_s`` and ``discriminator_t``, one
+    ``generator``, ``discriminator_s`` and ``discriminator_t`` (and
+    ``encoder_style``, ``distill_s``/``distill_t`` with their options), one
     optimizer per side. Runs on the CUDA card unless ``device="cpu"``."""
 
-    generator_side_keys = (ENC, GEN)
     discriminator_side_keys = (DIS_S, DIS_T)
 
     def __init__(self, cfg: TwinGANConfig, device: Optional[str | torch.device] = None):
-        unported = [("use_style_embedding", cfg.use_style_embedding),
-                    ("do_encoder_distillation", cfg.do_encoder_distillation)]
-        for name, is_set in unported:
-            if is_set:
-                raise NotImplementedError(f"{name} is not ported to twingan_tpu_torch yet")
         require_trainable(cfg)
+        self.distill_dims = {}
+        if cfg.do_encoder_distillation:
+            s_dim = cfg.source_embed_dim or cfg.target_embed_dim
+            t_dim = cfg.target_embed_dim or cfg.source_embed_dim
+            if not (s_dim and t_dim):
+                raise ValueError("do_encoder_distillation requires source_embed_dim or "
+                                 "target_embed_dim")
+            self.distill_dims = {DISTILL_S: s_dim, DISTILL_T: t_dim}
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.generator_side_keys = ((ENC, GEN) + ((ENC_STYLE,) if cfg.use_style_embedding
+                                                  else ()) + tuple(self.distill_dims))
         self.dis_opt_cfg = (cfg.opt.replace(learning_rate=cfg.discriminator_learning_rate)
                             if cfg.use_ttur else cfg.opt)
 
     def build_nets(self) -> nn.ModuleDict:
-        m = self.cfg.model
-        return nn.ModuleDict({
-            ENC: Encoder(m), GEN: Generator(m, unet=self.cfg.use_unet),
-            DIS_S: Discriminator(m), DIS_T: Discriminator(m),
+        cfg = self.cfg
+        m = cfg.model
+        nets = nn.ModuleDict({
+            ENC: Encoder(m), GEN: Generator(m, unet=cfg.use_unet,
+                                            conditional=cfg.use_style_embedding),
+            DIS_S: Discriminator(m, do_gdrop=cfg.use_gdrop),
+            DIS_T: Discriminator(m, do_gdrop=cfg.use_gdrop),
         })
+        if cfg.use_style_embedding:
+            nets[ENC_STYLE] = StyleEncoder(m, cfg.style_embed_size)
+        # One head per domain, each run on bank 0: a second bank would be
+        # built (and checkpointed) for nothing, as in the JAX trainer.
+        for name, dim in self.distill_dims.items():
+            nets[name] = EncoderClassifier(m.replace(num_domains=1), dim)
+        return nets
 
     def init_state(self, seed: int = 0) -> GanTrainState:
         """Networks drawn from ``seed`` with the JAX initializers (the same
@@ -221,28 +285,35 @@ class TwinGANTrainer(BaseGanTrainer):
     def _side_params(nets: nn.ModuleDict, keys) -> dict[str, nn.Parameter]:
         return {f"{k}.{n}": p for k in keys for n, p in nets[k].named_parameters()}
 
+    @property
+    def translator_keys(self) -> tuple:
+        """The networks a translation runs: ``TwinGANTranslator``'s."""
+        return (ENC, GEN) + ((ENC_STYLE,) if self.cfg.use_style_embedding else ())
+
     def translate(self, state: GanTrainState, images: torch.Tensor, direction: str = "s2t",
                   style: Optional[torch.Tensor] = None) -> torch.Tensor:
         """NHWC images of one domain -> the other (``direction`` s2t or
         t2s), the counterpart of the JAX method: eval-mode (moving)
         statistics, the fade-in alpha of ``state.step``, and the
-        Polyak-averaged parameters when they are kept. The runner's sample
-        dumps call it; the module-level ``translate`` serves a stage."""
-        if style is not None:
-            raise NotImplementedError("use_style_embedding is not ported to twingan_tpu_torch yet")
-        enc, gen = state.nets[ENC], state.nets[GEN]
-        modes = enc.training, gen.training
-        enc.eval()
-        gen.eval()
-        try:
+        Polyak-averaged parameters when they are kept. With the style
+        embedding, ``style`` [B, style_embed_size] or, when None, the
+        style encoder's of the images. The runner's sample dumps call it;
+        the module-level ``translate`` serves a stage."""
+        keys = self.translator_keys
+        modes = [state.nets[k].training for k in keys]
+        nets = {}
+        for k in keys:
+            state.nets[k].eval()
+            nets[k] = state.nets[k]
             if state.gen_ema_params is not None:
-                enc, gen = (self._with_params(net, name, state.gen_ema_params)
-                            for net, name in ((enc, ENC), (gen, GEN)))
-            return translate(self.cfg, enc, gen, images.to(self.device, torch.float32),
-                             direction, step=state.step)
+                nets[k] = self._with_params(state.nets[k], k, state.gen_ema_params)
+        try:
+            return translate(self.cfg, nets[ENC], nets[GEN],
+                             images.to(self.device, torch.float32), direction,
+                             step=state.step, style=style, enc_style=nets.get(ENC_STYLE))
         finally:
-            state.nets[ENC].train(modes[0])
-            state.nets[GEN].train(modes[1])
+            for k, mode in zip(keys, modes):
+                state.nets[k].train(mode)
 
     @staticmethod
     def _with_params(net: nn.Module, name: str, params: Mapping[str, torch.Tensor]):
@@ -251,51 +322,84 @@ class TwinGANTrainer(BaseGanTrainer):
         return lambda *args, **kw: functional_call(net, own, args, kw)
 
     def translator_state_dict(self, state: GanTrainState) -> dict[str, torch.Tensor]:
-        """The encoder and generator as ``TwinGANTranslator.state_dict()``
+        """The translation networks as ``TwinGANTranslator.state_dict()``
         (the Polyak-averaged parameters when they are kept), for
         ``runner.checkpoint.save_stage`` and ``ImageInferer``."""
-        sd = {k: v for k, v in state.nets.state_dict().items()
-              if k.split(".", 1)[0] in self.generator_side_keys}
+        keys = self.translator_keys
+        sd = {k: v for k, v in state.nets.state_dict().items() if k.split(".", 1)[0] in keys}
         if state.gen_ema_params is not None:
-            sd.update(state.gen_ema_params)
+            sd.update({k: v for k, v in state.gen_ema_params.items()
+                       if k.split(".", 1)[0] in keys})
         return sd
 
     # ------------------------------------------------------------------ #
     # Forward
     # ------------------------------------------------------------------ #
+    def _distill_on(self) -> bool:
+        cfg = self.cfg
+        return cfg.do_encoder_distillation and cfg.model.resolution >= cfg.distillation_start_hw
+
     def _forward(self, nets: nn.ModuleDict, sources: torch.Tensor, targets: torch.Tensor,
-                 alpha: float, clip: Optional[dict], update: bool,
-                 light: bool = False) -> dict[str, Any]:
+                 alpha: float, clip: Optional[dict], update: bool, light: bool = False,
+                 random_style: Optional[torch.Tensor] = None) -> dict[str, Any]:
         """The four generator passes (and, unless ``light``, the prime
-        re-encodes). Output names carry the OUTPUT domain."""
+        re-encodes, their styles and the distillation heads). Output names
+        carry the OUTPUT domain."""
         cfg = self.cfg
         enc, gen = nets[ENC], nets[GEN]
+        apply = self._apply
 
-        def gen_apply(code, domain, skips):
-            return gen(code, alpha=alpha, domain=domain, renorm_clip=clip,
-                       unet_skips=skips if cfg.use_unet else None, update=update)
+        def gen_apply(code, domain, style, skips):
+            return apply(gen, code, alpha=alpha, domain=domain, renorm_clip=clip, style=style,
+                         unet_skips=skips if cfg.use_unet else None, update=update)
 
         def enc_apply(x, domain, update):
-            return enc(x, alpha=alpha, domain=domain, update=update, renorm_clip=clip)
+            return apply(enc, x, alpha=alpha, domain=domain, update=update, renorm_clip=clip)
+
+        def style_apply(x, domain, update):
+            if not cfg.use_style_embedding:
+                return None
+            return apply(nets[ENC_STYLE], x, alpha=alpha, domain=domain, update=update,
+                         renorm_clip=clip)
 
         enc_s, skips_s = enc_apply(sources, DOMAIN_S, update)
         enc_t, skips_t = enc_apply(targets, DOMAIN_T, update)
+        style_s = style_apply(sources, DOMAIN_S, update)
+        style_t = style_apply(targets, DOMAIN_T, update)
+        if style_s is not None:
+            random_style = random_style.to(style_s.dtype)
         if cfg.fuse:
             cat = EncoderSkips.cat if cfg.use_unet else (lambda a, b: None)
+            cat_style = (lambda a, b: None) if style_s is None else (
+                lambda a, b: torch.cat([a, b]))
             s_prime, s_cycle = gen_apply(torch.cat([enc_t, enc_s]), DOMAIN_S,
+                                         cat_style(random_style, style_s),
                                          cat(skips_t, skips_s)).chunk(2)
             t_prime, t_cycle = gen_apply(torch.cat([enc_s, enc_t]), DOMAIN_T,
+                                         cat_style(random_style, style_t),
                                          cat(skips_s, skips_t)).chunk(2)
         else:
-            s_prime = gen_apply(enc_t, DOMAIN_S, skips_t)
-            s_cycle = gen_apply(enc_s, DOMAIN_S, skips_s)
-            t_prime = gen_apply(enc_s, DOMAIN_T, skips_s)
-            t_cycle = gen_apply(enc_t, DOMAIN_T, skips_t)
+            s_prime = gen_apply(enc_t, DOMAIN_S, random_style, skips_t)
+            s_cycle = gen_apply(enc_s, DOMAIN_S, style_s, skips_s)
+            t_prime = gen_apply(enc_s, DOMAIN_T, random_style, skips_s)
+            t_cycle = gen_apply(enc_t, DOMAIN_T, style_t, skips_t)
         outs = dict(sources=sources, targets=targets, enc_s=enc_s, enc_t=enc_t,
-                    s_prime=s_prime, s_cycle=s_cycle, t_prime=t_prime, t_cycle=t_cycle)
-        if not light:
-            outs["enc_t_prime"] = enc_apply(t_prime, DOMAIN_T, False)[0]
-            outs["enc_s_prime"] = enc_apply(s_prime, DOMAIN_S, False)[0]
+                    s_prime=s_prime, s_cycle=s_cycle, t_prime=t_prime, t_cycle=t_cycle,
+                    style_s=style_s, style_t=style_t, random_style=random_style)
+        if light:
+            return outs
+        outs["enc_t_prime"] = enc_apply(t_prime, DOMAIN_T, False)[0]
+        outs["enc_s_prime"] = enc_apply(s_prime, DOMAIN_S, False)[0]
+        outs["style_s_prime"] = style_apply(s_prime, DOMAIN_S, False)
+        outs["style_t_prime"] = style_apply(t_prime, DOMAIN_T, False)
+        if self._distill_on():
+            def distill_apply(name, code):
+                return apply(nets[name], code, update=update, renorm_clip=clip)
+
+            outs["distill_source"] = distill_apply(DISTILL_S, enc_s)
+            outs["distill_target"] = distill_apply(DISTILL_T, enc_t)
+            outs["distill_s_prime"] = distill_apply(DISTILL_S, outs["enc_s_prime"])
+            outs["distill_t_prime"] = distill_apply(DISTILL_T, outs["enc_t_prime"])
         return outs
 
     def _need_cycle(self) -> bool:
@@ -304,7 +408,7 @@ class TwinGANTrainer(BaseGanTrainer):
     # ------------------------------------------------------------------ #
     # Losses
     # ------------------------------------------------------------------ #
-    def _generator_losses(self, outs, preds) -> dict[str, torch.Tensor]:
+    def _generator_losses(self, outs, preds, batch) -> dict[str, torch.Tensor]:
         cfg = self.cfg
         losses: dict[str, torch.Tensor] = {}
         for domain, opposite in (("s", "t"), ("t", "s")):
@@ -318,6 +422,18 @@ class TwinGANTrainer(BaseGanTrainer):
             if cfg.l_content_weight:
                 losses[f"l_{domain}_content"] = l1_loss(
                     outs[f"enc_{domain}"], outs[f"enc_{opposite}_prime"], cfg.l_content_weight)
+                if cfg.use_style_embedding:
+                    losses[f"l_{domain}_style"] = l1_loss(
+                        outs["random_style"], outs[f"style_{domain}_prime"],
+                        cfg.l_content_weight)
+            full = "source" if domain == "s" else "target"
+            expected = batch.get(f"{full}_embedding")
+            if self._distill_on() and expected is not None:
+                expected = expected.to(self.device)
+                losses[f"l_{full}_distillation"] = cosine_distance_loss(
+                    expected, outs[f"distill_{full}"], cfg.distillation_weight)
+                losses[f"l_{opposite}_prime_distillation"] = cosine_distance_loss(
+                    expected, outs[f"distill_{opposite}_prime"], cfg.distillation_weight)
         return losses
 
     # ------------------------------------------------------------------ #
@@ -327,28 +443,52 @@ class TwinGANTrainer(BaseGanTrainer):
         return tuple(self.growing_image(batch[k].to(self.device, torch.float32), alpha)
                      for k in ("source", "target"))
 
-    def g_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0):
+    def _random_style(self, batch_size: int, generator: torch.Generator,
+                      injected: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """The prime passes' N(0, 1) style [B, style_embed_size], drawn
+        before the passes (or injected); None without the style embedding."""
+        if not self.cfg.use_style_embedding:
+            return None
+        if injected is not None:
+            return injected.to(self.device, torch.float32)
+        return torch.randn((batch_size, self.cfg.style_embed_size), generator=generator,
+                           device=self.device)
+
+    def g_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0,
+               random_style: Optional[torch.Tensor] = None,
+               gdrop_noise: Optional[Mapping[str, list]] = None):
         """One generator-side update. ``batch``: NHWC "source" and "target"
-        images in [0, 1]. Returns (state, metrics); the state is updated in
-        place."""
+        images in [0, 1] (and "source_embedding"/"target_embedding" for
+        distillation). ``random_style`` and ``gdrop_noise`` inject the
+        step's draws: the style [B, style_embed_size], and per
+        discriminator pass ("s_prime", "s_cycle", "t_prime", "t_cycle"; "s"
+        and "t" when fused) the list ``Discriminator.gdrop_shapes`` lays
+        out. Returns (state, metrics); the state is updated in place."""
         cfg = self.cfg
         nets = state.nets
         alpha = self._alpha(state.step)
         sources, targets = self._images(batch, alpha)
+        generator = step_generator(rng, state.critic_step, self.device)
+        style = self._random_style(sources.shape[0], generator, random_style)
         outs = self._forward(nets, sources, targets, alpha, self._renorm_clip(state.step),
-                             update=True)
+                             update=True, random_style=style)
         kinds = ("prime", "cycle") if self._need_cycle() else ("prime",)
         preds = {}
         for domain, dis_name in (("s", DIS_S), ("t", DIS_T)):
             dis = nets[dis_name]
+            kw = dict(alpha=alpha, gdrop_strength=state.gdrop_strength)
             if cfg.fuse:
-                pred = dis(torch.cat([outs[f"{domain}_{k}"] for k in kinds]), alpha=alpha,
-                           stddev_groups=len(kinds))
+                x = torch.cat([outs[f"{domain}_{k}"] for k in kinds])
+                noise = self._gdrop_noise(dis, x.shape[0], generator, gdrop_noise, domain)
+                pred = self._apply(dis, x, stddev_groups=len(kinds), gdrop_noise=noise, **kw)
                 preds.update({f"dis_{domain}_{k}": p for k, p in zip(kinds, pred.chunk(len(kinds)))})
             else:
                 for k in kinds:
-                    preds[f"dis_{domain}_{k}"] = dis(outs[f"{domain}_{k}"], alpha=alpha)
-        losses = self._generator_losses(outs, preds)
+                    x = outs[f"{domain}_{k}"]
+                    noise = self._gdrop_noise(dis, x.shape[0], generator, gdrop_noise,
+                                              f"{domain}_{k}")
+                    preds[f"dis_{domain}_{k}"] = self._apply(dis, x, gdrop_noise=noise, **kw)
+        losses = self._generator_losses(outs, preds, batch)
         total = sum(losses.values())
         grads = self._grads(total, state.gen_opt.params)
         grad_norm = global_norm(grads)
@@ -369,30 +509,43 @@ class TwinGANTrainer(BaseGanTrainer):
         return state, metrics
 
     def d_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0,
-               gp_noise: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None):
+               gp_noise: Optional[Mapping[str, Mapping[str, torch.Tensor]]] = None,
+               random_style: Optional[torch.Tensor] = None,
+               gdrop_noise: Optional[Mapping[str, list]] = None):
         """One discriminator-side update. ``gp_noise`` injects the gradient
         penalty's random numbers per domain, ``{"s": {"alpha": [B,1,1,1],
-        "noise": images' shape}, "t": {...}}``; otherwise they are drawn
-        from ``step_generator(rng, critic_step)``."""
+        "noise": images' shape}, "t": {...}}``; ``random_style`` the style
+        of the generator passes, and ``gdrop_noise`` each discriminator
+        pass's gdrop draws ("s_real", "s_prime", "s_cycle", "s_gp", ...;
+        "s", "s_gp", ... when fused). Otherwise they are drawn from
+        ``step_generator(rng, critic_step)``."""
         cfg = self.cfg
         nets = state.nets
         alpha = self._alpha(state.step)
         sources, targets = self._images(batch, alpha)
+        generator = step_generator(rng, state.critic_step, self.device)
+        style = self._random_style(sources.shape[0], generator, random_style)
         with torch.no_grad():
             outs = self._forward(nets, sources, targets, alpha, self._renorm_clip(state.step),
-                                 update=False, light=True)
-        generator = None if gp_noise is not None else step_generator(
-            rng, state.critic_step, self.device)
+                                 update=False, light=True, random_style=style)
         need_cycle = self._need_cycle()
         losses: dict[str, torch.Tensor] = {}
         for domain, dis_name, real in (("s", DIS_S, sources), ("t", DIS_T, targets)):
             dis = nets[dis_name]
+            kw = dict(alpha=alpha, gdrop_strength=state.gdrop_strength)
             fakes = [outs[f"{domain}_prime"]] + ([outs[f"{domain}_cycle"]] if need_cycle else [])
+
+            def noise(key: str, n: int = real.shape[0]):
+                return self._gdrop_noise(dis, n, generator, gdrop_noise, key)
+
             if cfg.fuse:
-                preds = dis(torch.cat([real, *fakes]), alpha=alpha,
-                            stddev_groups=1 + len(fakes)).chunk(1 + len(fakes))
+                x = torch.cat([real, *fakes])
+                preds = self._apply(dis, x, stddev_groups=1 + len(fakes),
+                                    gdrop_noise=noise(domain, x.shape[0]),
+                                    **kw).chunk(1 + len(fakes))
             else:
-                preds = [dis(x, alpha=alpha) for x in (real, *fakes)]
+                preds = [self._apply(dis, x, gdrop_noise=noise(f"{domain}_{kind}"), **kw)
+                         for kind, x in zip(("real", "prime", "cycle"), (real, *fakes))]
             for name, val in discriminator_gan_loss(cfg.loss, preds[1], preds[0]).items():
                 losses[f"{name}_prime_{domain}"] = val
             if need_cycle:
@@ -402,10 +555,12 @@ class TwinGANTrainer(BaseGanTrainer):
                              "discriminator_real_loss"):
                     if name in cyc:
                         losses[f"{name}_cycle_{domain}"] = cyc[name]
-            noise = (gp_noise or {}).get(domain, {})
+            gp_gdrop = noise(f"{domain}_gp")
+            gp = (gp_noise or {}).get(domain, {})
             losses[f"gradient_penalty_{domain}"] = gradient_penalty(
-                cfg.loss, lambda x, dis=dis: dis(x, alpha=alpha, attention="plain"),
-                real, fakes[0], alpha=noise.get("alpha"), noise=noise.get("noise"),
+                cfg.loss, lambda x, dis=dis, n=gp_gdrop: self._apply(
+                    dis, x, attention="plain", gdrop_noise=n, **kw),
+                real, fakes[0], alpha=gp.get("alpha"), noise=gp.get("noise"),
                 generator=generator)
         total = sum(losses.values())
         grads = self._grads(total, state.dis_opt.params)

@@ -1,9 +1,10 @@
 """Image file IO for the inference CLI and the runner's sample grids.
 
 Counterpart of ``imread_rgb``, ``imsave_float``, ``save_image_grid`` and
-``stack_comparison`` in ``twingan_tpu/utils/image_io.py``. PIL is imported
-inside each function that reads or writes a file, so importing this module
-(and the serving and training paths) needs no PIL.
+``stack_comparison`` in ``twingan_tpu/utils/image_io.py``. PNG files are
+written without PIL; PIL is imported inside the functions that read files
+or write other formats, so importing this module (and the serving and
+training paths) needs no PIL.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import os
 from typing import Sequence
 
 import numpy as np
+
+from twingan_tpu_torch.data.png import encode_png
 
 
 def imread_rgb(path: str) -> np.ndarray:
@@ -26,15 +29,21 @@ def imread_rgb(path: str) -> np.ndarray:
 
 def imsave_float(path: str, img: np.ndarray, fast: bool = False) -> None:
     """Save a float image in [0,1] (clipped) as 8-bit; ``fast`` trades file
-    size for encode time (zlib level 1)."""
-    from PIL import Image as PILImage
-
+    size for encode time (zlib level 1). PNG files are written by the
+    port's own encoder (``data/png.py``), so that sample grids need no PIL;
+    other formats by PIL."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     arr = np.asarray(img)
     if arr.ndim == 3 and arr.shape[-1] == 1:
         arr = arr[..., 0]
     arr = np.clip(arr * 255.0, 0, 255).astype(np.uint8)
-    PILImage.fromarray(arr).save(path, compress_level=1 if fast else 6)
+    if path.lower().endswith(".png"):
+        with open(path, "wb") as f:
+            f.write(encode_png(arr, level=1 if fast else 6))
+        return
+    from PIL import Image as PILImage
+
+    PILImage.fromarray(arr).save(path)
 
 
 def save_image_grid(path: str, images: np.ndarray, columns: int | None = None) -> None:

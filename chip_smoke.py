@@ -46,7 +46,24 @@ result line is printed:
               dispatched batch, all of them its tensor-core variant, and
               one request must agree with the same weights run in fp32 on
               the CPU with the plain attention.
-5. train    - the training path at full width: ``TwinGANTrainer`` on the
+5. http     - the serving front door: the serving phase's stage served by the port's
+              HTTP server (``serve/server.py``, built by ``build_service``
+              as its command line builds it) on 127.0.0.1 through
+              ``BatchingLocalClient`` (batches of 4), the Haar detector in
+              2 worker processes, at most 4 faces a request; the faces
+              image (``tests/data/real_faces_gallery.png``, 10 faces)
+              posted raw, as multipart and as base64 JSON, 8 requests at a
+              time, a warm-up round and a timed one. Every answer must
+              count the faces the detector finds in-process, every output
+              PNG must come back by GET and decode (the combine twice as
+              wide as high), each translated face must agree with the same
+              crop through the fp32 CPU inferer within serving's limits,
+              and B1 must run twice a dispatched batch, all tensor-core.
+              One line: latency p50, p90 and max, faces/s, and a
+              request's mean time in detection, translation and queued
+              writes. Where PIL is present, the ``detect_face`` preview
+              is posted too (its label text needs PIL).
+6. train    - the training path at full width: ``TwinGANTrainer`` on the
               same configuration (DRAGAN, Adam, n_critic 2, batch 3, seeded
               random weights with every sa_gamma 1). One G step and one D
               step on the card, in fp32 and in bf16, are held against the
@@ -61,7 +78,7 @@ result line is printed:
               state is written as a stage dir
               and ``ImageInferer`` serves a batch from it. Neither serving
               nor training may take a B4 route (they run batch norm).
-6. generation - the generation path at full width and depth:
+7. generation - the generation path at full width and depth:
               ``GanTrainer`` on pggan256 (256 px, max_channels 256, no
               norm, pixel norm, eq-lr, bf16; batch 12, DRAGAN, Adam,
               n_critic 2) with seeded random weights and biases. One G
@@ -73,7 +90,7 @@ result line is printed:
               and 13 autograd-route steps per G step; ``sample`` of 12
               images from the trained state (13 tensor-core B4 launches)
               against the same state in fp32 on the CPU.
-7. runner   - progressive training through the stage runner, the
+8. runner   - progressive training through the stage runner, the
               training entry point: pggan256 on synthetic data from 4 to
               256 px (13 stages, 48 images a resolution, a checkpoint every
               2 steps, 2 kept), in two calls on one train dir (7 stages,
@@ -89,7 +106,7 @@ result line is printed:
               the passes' count, and a batch served from the final
               ``model.pt``. One line per stage: steps, rounds/s, the
               stage's wall time and its parts, peak memory, launches.
-8. data     - a dataset of two domains, A and B, of 512 smooth random
+9. data     - a dataset of two domains, A and B, of 512 smooth random
               images each (half 256 x 256, half 320 x 272 so that PAD
               resamples), drawn from the seed and written as PNG (every row
               filter in turn, by the encoder here) in 4 tfrecord shards per
@@ -98,7 +115,7 @@ result line is printed:
               decode and host-resize ms per image (4, 32, 256 px), one
               256 px stage's decode-and-resize time and the bytes it puts
               on the card.
-9. runner_data - training on that dataset through the stage runner:
+10. runner_data - training on that dataset through the stage runner:
               pggan256 from 4 to 256 px on A (the CLI's flags, 48 images a
               resolution, device-resident), the in-training SWD every 3
               steps, so once a stage from 16 px on: B4's launches per stage
@@ -110,13 +127,13 @@ result line is printed:
               must equal the resident stage's bit for bit; the TwinGAN
               slice config from 128 to 256 px, A as source and B as target,
               B1-B3 launches per stage as in the runner phase.
-10. eval    - ``run_eval`` on that TwinGAN run's final stage: ``swd`` on
+11. eval    - ``run_eval`` on that TwinGAN run's final stage: ``swd`` on
               2048 images (the chunked path), ``msssim`` on 256, ``loss``
               and ``output`` on 64, each with its attention launches held
               to its translations' and passes' count (2 B1 a translated
               batch); then the SWD (both paths) and MS-SSIM of 128 fixed
               images on the card against the CPU with the same draws.
-11. recipe  - the reference's headline TwinGAN recipe (docs/USAGE.md:
+12. recipe  - the reference's headline TwinGAN recipe (docs/USAGE.md:
               batch renorm, UNet, pixel norm, max_channels 256, DRAGAN
               lambda 0.25, lr 1e-4, the recipe's batch schedule, bf16)
               with SAGAN attention at 64 px: one G and one D step at
@@ -136,7 +153,7 @@ result line is printed:
               SPECTRAL_U_ATOL, and, with spectral norm in the generator
               too, a 12-image ``sample`` on B4's tensor-core variant (13
               launches, W / sigma folded in) against the CPU.
-12. options - the trainer options. The slice config with the style
+13. options - the trainer options. The slice config with the style
               embedding (16 wide: the generator's norms conditional),
               distillation (512-wide unit embeddings), gdrop and remat,
               batch 3: a G and a D step at global step 101 with gdrop
@@ -162,7 +179,7 @@ result line is printed:
               passes and its sample dump, the style-interpolation grid
               written, and the 256 stage served with a given style within
               serving's limits of the CPU and with its own.
-13. kernels - one line listing each kernel of the paths.
+14. kernels - one line listing each kernel of the paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -298,6 +315,16 @@ SERVE_MEAN_TOL = 0.1
 SERVE_MAX_TOL = 0.5
 REQUESTS_PER_ROUND = 8
 TIMED_ROUNDS = 3
+# The http phase: the port's HTTP server on 127.0.0.1, the serving phase's
+# stage behind BatchingLocalClient (batches of 4), the Haar detector in 2
+# worker processes, at most 4 faces a request; the faces image (10 faces)
+# posted 8 at a time, the forms in turn, a warm-up round and a timed one.
+HTTP_FACES = "tests/data/real_faces_gallery.png"
+HTTP_REQUESTS = 8
+HTTP_MAX_FACES = 4
+HTTP_SERVE_BATCH = 4
+HTTP_DETECTOR_PROCS = 2
+HTTP_FORMS = ("raw", "multipart", "base64")
 
 # Training: TWINGAN_BATCH_SCHEDULE[256] of the JAX stage runner.
 TRAIN_BATCH = 3
@@ -1003,6 +1030,213 @@ def serving_phase(card: str, smi_line: str) -> int:
         return launches
     finally:
         shutil.rmtree(stage_dir, ignore_errors=True)
+
+
+def http_request(url: str, data=None, ctype=None, timeout: float = 120.0):
+    """(status, body) of a GET (data None) or POST to the phase's server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": ctype} if ctype else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_body(form: str, png: bytes):
+    """The faces image as one of the server's upload forms: (body, type)."""
+    import base64
+
+    if form == "raw":
+        return png, "image/png"
+    if form == "base64":
+        return json.dumps({"image": base64.b64encode(png).decode()}).encode(), "application/json"
+    boundary = "----chipsmoke"
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"faces.png\"\r\nContent-Type: image/png\r\n\r\n").encode()
+    return body + png + f"\r\n--{boundary}--\r\n".encode(), \
+        f"multipart/form-data; boundary={boundary}"
+
+
+def http_phase(card: str, smi_line: str) -> int:
+    """The serving front door: the port's server (``serve/server.py``, built
+    by ``build_service`` as its command line builds it) answering POSTs
+    through a real socket. Returns B1's launches."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.data.png import decode_png
+    from twingan_tpu_torch.infer.translate import ImageInferer
+    from twingan_tpu_torch.ops import attention
+    from twingan_tpu_torch.runner.checkpoint import save_stage
+    from twingan_tpu_torch.serve import server
+    from twingan_tpu_torch.serve.face_detection import FaceDetector
+    from http.server import ThreadingHTTPServer
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(REPO, HTTP_FACES), "rb") as f:
+        png = f.read()
+    image = decode_png(png)
+    crops = FaceDetector(max_faces=HTTP_MAX_FACES).crop_faces(image)  # in-process
+    try:
+        import PIL
+        pil_version = PIL.__version__
+    except ImportError:
+        pil_version = None
+
+    cfg = slice_config()
+    root = tempfile.mkdtemp(prefix="twingan_smoke_http_")
+    service = httpd = None
+    writes: list = []
+    real_imsave = server.imsave_float
+    try:
+        save_stage(root, cfg, random_translator(cfg).state_dict(), step=0)
+        args = server.parse_args([f"--model_path={root}",
+                                  f"--output_dir={os.path.join(root, 'outputs')}",
+                                  f"--serve_batch={HTTP_SERVE_BATCH}",
+                                  f"--detector_procs={HTTP_DETECTOR_PROCS}",
+                                  f"--max_faces={HTTP_MAX_FACES}"])
+        service = server.build_service(args)  # the card, by default
+
+        # Where a request's time goes: detection, translation and the writes
+        # it queues, per handler thread; the writer thread's PNG encodes.
+        local = threading.local()
+
+        def timed(fn, key):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    local.parts[key] += time.perf_counter() - t0
+            return wrapper
+
+        parts: list = []
+        handle = service.handle_image
+
+        def handle_timed(img):
+            local.parts = {"detect_s": 0.0, "translate_s": 0.0, "write_s": 0.0}
+            out = handle(img)
+            parts.append(local.parts)
+            return out
+
+        def imsave_timed(*a, **kw):
+            t0 = time.perf_counter()
+            real_imsave(*a, **kw)
+            writes.append(time.perf_counter() - t0)
+
+        service.detector.crop_faces = timed(service.detector.crop_faces, "detect_s")
+        service.client.do_inference = timed(service.client.do_inference, "translate_s")
+        service._save = timed(service._save, "write_s")
+        service.handle_image = handle_timed
+        server.imsave_float = imsave_timed
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), server.make_handler(service))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        def post(i):
+            body, ctype = http_body(HTTP_FORMS[i % len(HTTP_FORMS)], png)
+            t0 = time.perf_counter()
+            code, data = http_request(url, body, ctype)
+            return code, data, time.perf_counter() - t0
+
+        attention.reset_launch_counts()
+        rounds = []
+        with ThreadPoolExecutor(HTTP_REQUESTS) as pool:
+            for _ in range(2):  # a warm-up round, then the timed one
+                del parts[:]
+                t0 = time.perf_counter()
+                answers = list(pool.map(post, range(HTTP_REQUESTS)))
+                rounds.append((time.perf_counter() - t0, answers, list(parts)))
+        torch.cuda.synchronize()
+        launches = attention.launch_counts[attention.KERNEL_NAME]
+        variants = {k: v for k, v in attention.variant_counts.items() if v}
+        dispatches = service.client.dispatches
+
+        # Every answer, and every output fetched back through the socket.
+        cpu = ImageInferer(root, device="cpu", dtype="float32")
+        ref = cpu.infer_batch(crops)
+        std = float(ref.std())
+        ref_png = np.clip(ref * 255.0, 0, 255).astype(np.uint8)
+        mean_err = max_err = 0.0
+        problems = []
+        for r, (_, answers, _) in enumerate(rounds):
+            for i, (code, data, _) in enumerate(answers):
+                answer = json.loads(data) if code == 200 else {}
+                if answer.get("status") != "success" or answer["num_faces"] != len(crops):
+                    problems.append(f"round {r} request {i}: {code} {data[:200]!r}")
+                    continue
+                for k, out in enumerate(answer["outputs"]):
+                    c1, combined = http_request(url + out["combined"])
+                    c2, translated = http_request(url + out["translated"])
+                    if c1 != 200 or c2 != 200:
+                        problems.append(f"round {r} request {i} face {k}: GET {c1} {c2}")
+                        continue
+                    combined, translated = decode_png(combined), decode_png(translated)
+                    hw = cfg.model.resolution
+                    if combined.shape != (hw, 2 * hw, 3) or translated.shape != (hw, hw, 3):
+                        problems.append(f"round {r} request {i} face {k}: shapes "
+                                        f"{combined.shape} {translated.shape}")
+                        continue
+                    diff = np.abs(translated.astype(np.float32) - ref_png[k]) / 255.0
+                    mean_err = max(mean_err, float(diff.mean()) / std)
+                    max_err = max(max_err, float(diff.max()) / std)
+        preview = "not posted: PIL is missing here, and the preview's label text needs it"
+        if pil_version:
+            import base64
+
+            body = json.dumps({"image": base64.b64encode(png).decode(),
+                               "detect_face": True}).encode()
+            code, data = http_request(url, body, "application/json")
+            preview = {"status": code, "face_found": code == 200 and json.loads(data)["face_found"]}
+            if preview != {"status": 200, "face_found": True}:
+                problems.append(f"detect_face preview: {code} {data[:200]!r}")
+        service.writer.join()
+
+        wall, answers, timed_parts = rounds[1]
+        latencies = sorted(t for _, _, t in answers)
+        faces = sum(json.loads(d)["num_faces"] for c, d, _ in answers if c == 200)
+        fwd_tc = f"{attention.KERNEL_NAME}/{attention.TENSOR_CORE}"
+        pct = lambda q: latencies[min(len(latencies) - 1, int(q * len(latencies)))]  # noqa: E731
+        row = {"phase": "http", "requests": HTTP_REQUESTS * len(rounds),
+               "forms": list(HTTP_FORMS), "faces_per_request": len(crops),
+               "dispatches": dispatches, "kernel_launches": launches,
+               "kernel_variants": variants,
+               "timed_round": {"seconds": wall, "faces_per_s": faces / wall,
+                               "latency_p50_s": pct(0.5), "latency_p90_s": pct(0.9),
+                               "latency_max_s": latencies[-1],
+                               "mean_detect_s": statistics.mean(p["detect_s"] for p in timed_parts),
+                               "mean_translate_s": statistics.mean(p["translate_s"]
+                                                                   for p in timed_parts),
+                               "mean_write_s": statistics.mean(p["write_s"] for p in timed_parts)},
+               "warmup_round_s": rounds[0][0],
+               "png_write_ms_per_image": 1e3 * statistics.mean(writes),
+               "pil": pil_version, "detect_face_preview": preview,
+               "vs_cpu_fp32": {"mean_abs_err_over_std": mean_err,
+                               "max_abs_err_over_std": max_err, "output_std": std,
+                               "mean_tolerance": SERVE_MEAN_TOL, "max_tolerance": SERVE_MAX_TOL,
+                               "compared": "each translated face's PNG against the fp32 CPU "
+                                           "output of the same crop, written to 8 bits alike"},
+               "seconds": time.perf_counter() - t_phase, "card": card, "nvidia_smi": smi_line,
+               "problems": problems[:10]}
+        row["ok"] = bool(not problems and launches == 2 * dispatches and dispatches >= 1
+                         and variants == {fwd_tc: launches}
+                         and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)
+        emit(row)
+        if not row["ok"]:
+            fail("http", "the server's answers, its outputs, B1's launches (2 a dispatched "
+                         "batch, all tensor-core) or its faces against the fp32 CPU run")
+        return launches
+    finally:
+        server.imsave_float = real_imsave
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if service is not None:
+            service.client.close()
+            service.detector.close()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 class GradRecorder:
@@ -2936,6 +3170,8 @@ def main() -> int:
     fused_conv.reset_launch_counts()
     serving_launches = serving_phase(card, smi_line)
     require_no_b4("serving")
+    http_launches = http_phase(card, smi_line)
+    require_no_b4("http")
     train_launches = train_phase(card, smi_line)
     require_no_b4("train")
     generation_launches = generation_phase(card, smi_line)
@@ -2952,7 +3188,8 @@ def main() -> int:
     options_launches = options_phase(card, smi_line)
     data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
-    by_path = {"serving": serving_launches, "train": train_launches[fwd],
+    by_path = {"serving": serving_launches, "http": http_launches,
+               "train": train_launches[fwd],
                "runner": runner_launches[fwd], "runner_data": data_launches[fwd],
                "eval": eval_launches[fwd], "recipe": recipe_launches[fwd],
                "options": options_launches[fwd]}

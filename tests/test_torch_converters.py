@@ -2,10 +2,11 @@
 input folder each writes shards byte-identical to the JAX converter's (an
 image folder of JPEG and PNG files, with the size and ratio filters and
 with a resize at convert time; image pairs; SVHN from a ``.mat`` made with
-scipy; tagged images; a danbooru dump with its tags.xml; CelebA). The
-faces converter waits for the face detector (A13) and raises. PNG records
-written with ``encode_format="png"`` decode without PIL to the image PIL
-decodes.
+scipy; tagged images; a danbooru dump with its tags.xml; CelebA; faces
+cropped from a folder holding the faces image, with JPEG records, the
+safe/unsafe filters and tags). PNG records written with
+``encode_format="png"`` decode without PIL to the image PIL decodes, and
+the faces converter's PNG crops to the JAX detector's crops.
 """
 
 import os
@@ -154,8 +155,55 @@ def test_celeba_shards_are_identical(tmp_path, folder):
 
 
 def test_faces_converter_waits_for_the_detector(tmp_path, folder):
-    with pytest.raises(NotImplementedError, match="A13"):
-        converters.convert_faces_from_images(str(folder / "imgs"), str(tmp_path / "out"))
+    """The converter runs the detector on every image: on a folder of noise
+    it finds no face and writes the JAX converter's empty shards."""
+    _, count = same_shards(tmp_path, lambda pkg, out: pkg.convert_faces_from_images(
+        str(folder / "imgs"), out, num_shards=2, min_face_hw=8))
+    assert count == 0
+    with pytest.raises(ValueError, match="encode_format"):
+        converters.convert_faces_from_images(str(folder / "imgs"), str(tmp_path / "x"),
+                                             encode_format="gif")
+
+
+@pytest.fixture(scope="module")
+def faces_folder(tmp_path_factory):
+    root = tmp_path_factory.mktemp("faces")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, "tests", "data", "real_faces_gallery.png"), "rb") as f:
+        data = f.read()
+    for name in ("s - gallery.png", "e - gallery.png"):
+        (root / name).write_bytes(data)
+    Image.fromarray(np.zeros((40, 50, 3), np.uint8)).save(str(root / "s - blank.jpg"))
+    return root
+
+
+@pytest.mark.parametrize("kw,expected", [
+    (dict(), 20),  # 10 faces in each gallery, none in the blank image
+    (dict(safe_only=True, min_face_hw=66), 8),  # two crops are narrower
+    (dict(unsafe_only=True, tags_fn=lambda n: f"tag,{n[0]}"), 10),
+])
+def test_faces_converter_matches_jax(tmp_path, faces_folder, kw, expected):
+    _, count = same_shards(tmp_path, lambda pkg, out: pkg.convert_faces_from_images(
+        str(faces_folder), out, num_shards=2, **kw))
+    assert count == expected
+
+
+def test_faces_converter_png_records_are_the_jax_crops(tmp_path, faces_folder):
+    from twingan_tpu.serve.face_detection import FaceDetector as JaxFaceDetector
+
+    out = str(tmp_path / "png")
+    count = converters.convert_faces_from_images(str(faces_folder), out, num_shards=1,
+                                                 safe_only=True, encode_format="png")
+    img = np.asarray(Image.open(str(faces_folder / "s - gallery.png")).convert("RGB"))
+    crops = [img[y0:y1, x0:x1] for x0, y0, x1, y1 in JaxFaceDetector(max_faces=16).detect(img)
+             if x1 - x0 >= 48]
+    records = [decode_example(r) for shard in list_shards(out, "train")
+               for r in TFRecordReader(shard)]
+    assert count == len(records) == len(crops) == 10
+    for rec, crop in zip(records, crops):
+        assert rec["image/format"] == [b"png"]
+        np.testing.assert_array_equal(datasets._decode_image(rec["image/encoded"][0], b"png"),
+                                      crop)
 
 
 def test_list_images_and_shard_names_match(folder):

@@ -9,12 +9,15 @@ decoder against PIL.
 - crc32c: the native and pure-Python paths agree with each other and with
   the JAX package's;
 - ``decode_png`` equals ``PIL.Image.open(...).convert("RGB")`` on
-  PIL-written files of every mode it supports (gray, gray + alpha, RGB,
-  RGBA, palette at 8 bits and below, 1-bit), at odd sizes, with random and
-  smooth content, and on files written here with the five row filters
-  cycled row by row (PIL's encoder never picks some of them); the fixtures
-  are checked to cover all five filters, and the native unfilter equals the
-  numpy one on every fixture.
+  PIL-written files (gray, gray + alpha, RGB, RGBA, palette at 8 bits and
+  below, 1-bit, 16-bit gray), at odd sizes, with random and smooth
+  content, and on files written here with the five row filters cycled row
+  by row (PIL's encoder never picks some of them, and writes neither
+  interlaced files nor 16-bit colour): every colour type at every depth
+  PNG allows, plain and Adam7-interlaced (passes partly empty at the small
+  sizes); the fixtures are checked to cover all five filters and every
+  kind, invalid headers raise, and the native unfilter equals the numpy
+  one on every non-interlaced fixture.
 """
 
 import io
@@ -160,15 +163,26 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
         ">I", zlib.crc32(kind + body))
 
 
-def cycled_png(arr: np.ndarray, color_type: int, interlace: int = 0, depth: int = 8) -> bytes:
-    """An 8-bit PNG whose rows take the filter types 0-4 in turn."""
-    h, w = arr.shape[:2]
-    rows = arr.reshape(h, -1).astype(np.int64)
-    bpp = arr.shape[2] if arr.ndim == 3 else 1
+def _pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """[H, W, C] samples -> [H, stride] uint8 scanlines (big-endian at 16
+    bits; below 8 bits packed most significant first, rows byte-padded)."""
+    h = samples.shape[0]
+    if depth == 16:
+        return samples.astype(">u2").reshape(h, -1).view(np.uint8)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, -1)
+    bits = (samples.reshape(h, -1, 1).astype(np.uint8)
+            >> np.arange(depth - 1, -1, -1, dtype=np.uint8)) & 1
+    return np.packbits(bits.reshape(h, -1), axis=1)
+
+
+def _filtered(rows: np.ndarray, bpp: int, first_kind: int) -> bytes:
+    """Scanlines filtered with the types 0-4 in turn, from ``first_kind``."""
+    rows = rows.astype(np.int64)
     out = bytearray()
     prev = np.zeros(rows.shape[1], np.int64)
-    for r in range(h):
-        kind, cur = r % 5, rows[r]
+    for r in range(rows.shape[0]):
+        kind, cur = (first_kind + r) % 5, rows[r]
         left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
         upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
         if kind == 0:
@@ -185,9 +199,31 @@ def cycled_png(arr: np.ndarray, color_type: int, interlace: int = 0, depth: int 
         out.append(kind)
         out += ((cur - pred) % 256).astype(np.uint8).tobytes()
         prev = cur
+    return bytes(out)
+
+
+def cycled_png(arr: np.ndarray, color_type: int, interlace: int = 0, depth: int = 8,
+               palette=None) -> bytes:
+    """A PNG of the samples ``arr`` ([H, W] or [H, W, C]; uint16 at 16
+    bits) whose rows take the filter types 0-4 in turn; interlaced, each
+    Adam7 pass is filtered as an image of its own, the types running on
+    from the pass before."""
+    samples = arr.reshape(arr.shape[0], arr.shape[1], -1)
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    if interlace:
+        idat, kind = b"", 0
+        for x0, y0, dx, dy in png.ADAM7:
+            sub = samples[y0::dy, x0::dx]
+            if sub.size:
+                idat += _filtered(_pack(sub, depth), bpp, kind)
+                kind += sub.shape[0]
+    else:
+        idat = _filtered(_pack(samples, depth), bpp, 0)
     header = struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0, interlace)
-    return (png.SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(bytes(out)))
-            + _chunk(b"IEND", b""))
+    plte = b"" if palette is None else _chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    return (png.SIGNATURE + _chunk(b"IHDR", header) + plte
+            + _chunk(b"IDAT", zlib.compress(idat)) + _chunk(b"IEND", b""))
 
 
 def pil_fixtures():
@@ -220,7 +256,35 @@ def cycled_fixtures():
     )]
 
 
-FIXTURES = pil_fixtures() + cycled_fixtures()
+def wide_fixtures():
+    """16-bit files of every kind that has them, and interlaced files of
+    every kind and depth, at sizes whose Adam7 passes are partly empty."""
+    rng = np.random.RandomState(2)
+    out = []
+    for name, ct, c in (("gray", 0, 1), ("gray-alpha", 4, 2), ("rgb", 2, 3), ("rgba", 6, 4)):
+        for content in ("random", "low"):
+            # "low": gray values under 256 too, where PIL's I;16 clip shows.
+            high = 1 << 16 if content == "random" else 300
+            arr = rng.randint(0, high, (13, 11, c)).astype(np.uint16)
+            out.append((f"16bit-{name}-{content}", cycled_png(arr, ct, depth=16)))
+            out.append((f"16bit-{name}-{content}-adam7", cycled_png(arr, ct, 1, depth=16)))
+    kinds = [("gray", 0, 1, d) for d in (1, 2, 4, 8)] + [
+        ("gray-alpha", 4, 2, 8), ("rgb", 2, 3, 8), ("rgba", 6, 4, 8)] + [
+        ("palette", 3, 1, d) for d in (1, 2, 4, 8)]
+    for name, ct, c, depth in kinds:
+        for h, w in ((1, 1), (3, 2), (9, 5), (17, 23)):
+            arr = rng.randint(0, 1 << depth, (h, w, c)).astype(np.uint8)
+            # A palette shorter than the depth allows: PIL's gray ramp fills it.
+            palette = rng.randint(0, 256, (max(1, (1 << depth) - 3), 3)) if ct == 3 else None
+            out.append((f"adam7-{name}{depth}-{h}x{w}", cycled_png(arr, ct, 1, depth, palette)))
+        out.append((f"plain-{name}{depth}", cycled_png(arr, ct, 0, depth, palette)))
+    # PIL writes 16-bit gray itself (mode I;16).
+    out.append(("16bit-gray-pil", pil_png(Image.fromarray(
+        rng.randint(0, 1 << 16, (9, 14)).astype(np.uint16)))))
+    return out
+
+
+FIXTURES = pil_fixtures() + cycled_fixtures() + wide_fixtures()
 
 
 @pytest.mark.parametrize("name,data", FIXTURES, ids=[n for n, _ in FIXTURES])
@@ -242,6 +306,16 @@ def test_fixtures_cover_every_filter_and_mode():
     assert filters == {0, 1, 2, 3, 4}
     assert {(0, 8), (4, 8), (2, 8), (6, 8), (3, 8), (0, 1)} <= kinds
     assert kinds & {(3, 1), (3, 2), (3, 4)}
+    # Every kind and depth PNG allows, plain and interlaced.
+    valid = ({(0, d) for d in (1, 2, 4, 8, 16)} | {(3, d) for d in (1, 2, 4, 8)}
+             | {(ct, d) for ct in (2, 4, 6) for d in (8, 16)})
+    for interlace in (0, 1):
+        seen = set()
+        for _, data in FIXTURES:
+            info = png.read_header(data)
+            if info["interlace"] == interlace:
+                seen.add((info["color_type"], info["depth"]))
+        assert seen == valid, (interlace, valid - seen)
 
 
 @pytest.mark.parametrize("name,data", FIXTURES, ids=[n for n, _ in FIXTURES])
@@ -249,23 +323,37 @@ def test_native_unfilter_equals_numpy(name, data):
     assert native.load() is not None
     info = png.read_header(data)
     channels = png.CHANNELS[info["color_type"]]
-    stride = (info["width"] * channels * info["depth"] + 7) // 8
     bpp = max(1, channels * info["depth"] // 8)
     raw = zlib.decompress(info["idat"])
-    np.testing.assert_array_equal(
-        png.unfilter(raw, info["height"], stride, bpp),
-        png.unfilter_numpy(np.frombuffer(raw, np.uint8), info["height"], stride, bpp))
+    pos = 0
+    for *_, pw, ph in png.passes(info):
+        stride = (pw * channels * info["depth"] + 7) // 8
+        part = raw[pos: pos + ph * (stride + 1)]
+        np.testing.assert_array_equal(
+            png.unfilter(part, ph, stride, bpp),
+            png.unfilter_numpy(np.frombuffer(part, np.uint8), ph, stride, bpp))
+        pos += ph * (stride + 1)
+    assert pos == len(raw)
+
+
+def with_header(data: bytes, depth: int, color_type: int, interlace: int) -> bytes:
+    """``data`` with its IHDR's depth, colour type and interlace method
+    replaced (the chunk's CRC recomputed)."""
+    w, h = struct.unpack(">II", data[16:24])
+    return (data[:8] + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color_type, 0, 0,
+                                                   interlace)) + data[33:])
 
 
 def test_unsupported_pngs_raise():
     arr = np.zeros((4, 4, 3), np.uint8)
-    with pytest.raises(ValueError, match="interlaced"):
-        png.decode_png(cycled_png(arr, 2, interlace=1))
-    buf = io.BytesIO()
-    Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(buf, format="PNG")
-    assert png.read_header(buf.getvalue())["depth"] == 16
-    with pytest.raises(ValueError, match="16-bit"):
-        png.decode_png(buf.getvalue())
+    plain = cycled_png(arr, 2)
+    for ct, depth in ((2, 4), (6, 1), (4, 2), (3, 16), (0, 3), (5, 8)):
+        with pytest.raises(ValueError, match="not a valid|not valid"):
+            png.decode_png(with_header(plain, depth, ct, 0))
+    with pytest.raises(ValueError, match="interlace method"):
+        png.decode_png(with_header(plain, 8, 2, 2))
+    with pytest.raises(ValueError, match="shorter"):  # the passes' bytes outrun the data
+        png.decode_png(with_header(plain, 8, 2, 1))
     bad = bytearray(pil_png(Image.fromarray(arr)))
     bad[-20] ^= 0xFF  # inside IDAT: its CRC fails
     with pytest.raises(ValueError):

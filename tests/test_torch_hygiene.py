@@ -57,6 +57,9 @@ EXPECTED_MODULES = (
     "twingan_tpu_torch.ops.swd", "twingan_tpu_torch.ops.msssim",
     "twingan_tpu_torch.evals.metrics", "twingan_tpu_torch.evals.gallery",
     "twingan_tpu_torch.evals.run_eval",
+    "twingan_tpu_torch.data.resample", "twingan_tpu_torch.serve.haar",
+    "twingan_tpu_torch.serve.face_detection", "twingan_tpu_torch.serve.server",
+    "twingan_tpu_torch.utils.visualization", "twingan_tpu_torch.utils.image_io",
 )
 
 

@@ -7,8 +7,9 @@ every converter writes shards byte-identical to the JAX package's. PIL
 that need them, so the module imports on a machine without them. A dataset
 meant for such a machine is converted with ``encode_format="png"``: its
 PNG records decode there without PIL (``data/png.py``), JPEG ones do not.
-The faces converter needs the face detector of ``serve/face_detection.py``,
-which is not ported yet (queue item A13), and raises.
+The faces converter crops with the port's face detector
+(``serve/face_detection.py``); with ``encode_format="png"`` and PNG
+sources it runs without PIL.
 
 Reference parity: datasets/convert_general_image_data.py (threaded sharded
 writer base with size/ratio filters), convert_image_only.py,
@@ -292,6 +293,7 @@ def convert_faces_from_images(
     tags_fn: Optional[Callable[[str], str]] = None,
     safe_only: bool = False,
     unsafe_only: bool = False,
+    encode_format: str = "jpeg",
 ) -> int:
     """Detect + crop faces from raw photos into image records.
 
@@ -303,10 +305,58 @@ def convert_faces_from_images(
     anime_faces-style class text. safe_only / unsafe_only keep only images
     whose danbooru-style filename rating is 's' / is not 's' (reference
     do_safe_only/do_unsafe_only, :40-42,218 — it keys on the name prefix).
+    ``encode_format`` ("jpeg", the JAX converter's only choice, or "png")
+    is how each crop is stored; PNG is encoded without PIL.
     """
-    raise NotImplementedError(
-        "convert_faces_from_images needs the face detector of serve/face_detection.py, "
-        "which is not ported to twingan_tpu_torch yet (queue item A13)")
+    from twingan_tpu_torch.data.png import encode_png
+    from twingan_tpu_torch.serve.face_detection import FaceDetector
+    from twingan_tpu_torch.utils.image_io import imread_rgb
+
+    if encode_format not in ("jpeg", "png"):
+        raise ValueError(f"encode_format must be 'jpeg' or 'png', not {encode_format!r}")
+    detector = FaceDetector(max_faces=16)
+    paths = list_images(image_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    count = 0
+    per_shard = max(1, (len(paths) + num_shards - 1) // num_shards)
+    for shard in range(num_shards):
+        chunk = paths[shard * per_shard : (shard + 1) * per_shard]
+        if not chunk and shard > 0:
+            continue
+        with TFRecordWriter(shard_path(out_dir, dataset_name, split, shard, num_shards)) as w:
+            for path in chunk:
+                if safe_only or unsafe_only:
+                    is_safe = os.path.basename(path).startswith("s")
+                    if (safe_only and not is_safe) or (unsafe_only and is_safe):
+                        continue
+                try:
+                    img = imread_rgb(path)
+                except ImportError:
+                    raise  # a JPEG source without PIL: say so, do not skip it
+                except Exception:  # noqa: BLE001 - unreadable files are skipped
+                    continue
+                for i, (x0, y0, x1, y1) in enumerate(detector.detect(img)):
+                    if x1 - x0 < min_face_hw:
+                        continue
+                    crop = img[y0:y1, x0:x1]
+                    if encode_format == "png":
+                        encoded = encode_png(crop)
+                    else:
+                        from PIL import Image as PILImage
+
+                        buf = io.BytesIO()
+                        PILImage.fromarray(crop).save(buf, format="JPEG", quality=95)
+                        encoded = buf.getvalue()
+                    feats = {
+                        "image/encoded": encoded,
+                        "image/format": encode_format.encode(),
+                        "image/filename": f"{os.path.basename(path)}_{i}".encode(),
+                    }
+                    if tags_fn is not None:
+                        feats["image/class/text"] = tags_fn(os.path.basename(path)).encode()
+                    w.write(encode_example(feats))
+                    count += 1
+    return count
 
 
 def convert_tagged_images(

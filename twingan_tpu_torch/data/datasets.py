@@ -14,36 +14,21 @@ is missing.
 from __future__ import annotations
 
 import dataclasses
-import io
 from typing import Callable, Dict, Optional
 
 import numpy as np
 
 from twingan_tpu_torch.data.example import decode_example
-from twingan_tpu_torch.data.png import SIGNATURE, decode_png
+from twingan_tpu_torch.utils.image_io import decode_image
 
 
 def _decode_image(data: bytes, fmt: bytes | str = b"jpeg") -> np.ndarray:
-    """Encoded image -> uint8 [H, W, 3]. A PNG file is decoded without PIL
-    whatever ``fmt`` says, since its signature names it, as PIL's own
-    sniffing does; anything else goes to PIL."""
+    """Encoded image -> uint8 [H, W, 3] (``utils/image_io.decode_image``:
+    PNG without PIL whatever ``fmt`` says, anything else through PIL)."""
     fmt = fmt.decode() if isinstance(fmt, (bytes, bytearray)) else fmt
     if fmt == "raw":
         raise ValueError("raw format needs explicit shape; handled by the dataset")
-    data = bytes(data)
-    if data[:8] == SIGNATURE:
-        return decode_png(data)
-    try:
-        from PIL import Image as PILImage
-    except ImportError as e:
-        raise ImportError(
-            f"decoding a {fmt} image needs PIL, which is not installed here; only PNG "
-            "decodes without it (convert datasets for such a machine with "
-            "encode_format='png')") from e
-    img = PILImage.open(io.BytesIO(data))
-    if img.mode != "RGB":
-        img = img.convert("RGB")
-    return np.asarray(img, np.uint8)
+    return decode_image(data, fmt)
 
 
 class Vocabulary:

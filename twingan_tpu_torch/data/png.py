@@ -4,16 +4,21 @@ The card's machine has no PIL, and the JAX package decodes every image
 with it (``twingan_tpu/data/datasets.py:_decode_image``). ``decode_png``
 replaces that call for PNG: it returns the uint8 HWC array that
 ``PIL.Image.open(...).convert("RGB")`` gives, byte for byte, for
-non-interlaced images of these kinds:
+every valid image, interlaced (Adam7) or not:
 
 - gray (1, 2, 4 and 8 bits; the low depths scaled to 0-255 as PIL scales
   them), gray + alpha (8 bits; alpha dropped, as PIL's LA -> RGB drops it);
 - RGB and RGBA (8 bits; alpha dropped);
-- palette (1, 2, 4 and 8 bits; looked up in PLTE, whose missing entries
-  PIL fills with the gray ramp (i, i, i); tRNS ignored, as PIL's P -> RGB
-  ignores it).
+- palette (1, 2, 4 and 8 bits; looked up in PLTE, an index past its
+  entries black, as Pillow 12 gives it; tRNS ignored, as PIL's P -> RGB
+  ignores it);
+- 16 bits: gray as PIL converts its mode I;16, each sample clipped at 255
+  (not scaled); gray + alpha, RGB and RGBA by their high bytes, as PIL
+  reads them.
 
-Interlaced files and 16-bit samples raise ``ValueError``.
+An interlaced file's seven passes are each unfiltered as an image of its
+own and scattered into place. Invalid headers, chunks failing their CRC
+and short image data raise ``ValueError``.
 
 The data is inflated with ``zlib`` and its rows unfiltered by the port's
 native library (``twingan_tpu_torch/native``), or by ``unfilter_numpy``
@@ -137,14 +142,68 @@ def read_header(data: bytes) -> dict:
     return info
 
 
+# Adam7: each pass's first column and row, and its column and row steps.
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def passes(info: dict):
+    """(x0, y0, dx, dy, width, height) of each non-empty pass of the image:
+    the whole image when it is not interlaced, else its Adam7 passes (an
+    empty pass has no bytes, not even filter types)."""
+    width, height = info["width"], info["height"]
+    if not info["interlace"]:
+        yield 0, 0, 1, 1, width, height
+        return
+    for x0, y0, dx, dy in ADAM7:
+        pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if pw > 0 and ph > 0:
+            yield x0, y0, dx, dy, pw, ph
+
+
 def row_filters(data: bytes) -> list:
-    """The filter type of every row of a non-interlaced PNG file (the
-    tests use it to show which filters their fixtures cover)."""
+    """The filter type of every row of a PNG file, pass by pass (the tests
+    use it to show which filters their fixtures cover)."""
     info = read_header(data)
     channels = CHANNELS[info["color_type"]]
-    stride = (info["width"] * channels * info["depth"] + 7) // 8
     raw = zlib.decompress(info["idat"])
-    return [raw[r * (stride + 1)] for r in range(info["height"])]
+    out, pos = [], 0
+    for *_, pw, ph in passes(info):
+        stride = (pw * channels * info["depth"] + 7) // 8
+        out += [raw[pos + r * (stride + 1)] for r in range(ph)]
+        pos += ph * (stride + 1)
+    return out
+
+
+def _check_header(info: dict) -> int:
+    """The samples a pixel of a valid IHDR has; raises for invalid ones."""
+    color_type, depth = info["color_type"], info["depth"]
+    if color_type not in CHANNELS:
+        raise ValueError(f"PNG color type {color_type} is not a valid one")
+    valid = (1, 2, 4, 8, 16) if color_type == 0 else (1, 2, 4, 8) if color_type == 3 else (8, 16)
+    if depth not in valid:
+        raise ValueError(f"PNG color type {color_type} with bit depth {depth} is not valid")
+    if info["interlace"] not in (0, 1):
+        raise ValueError(f"PNG interlace method {info['interlace']} is not 0 or 1")
+    return CHANNELS[color_type]
+
+
+def _samples(raw: memoryview, width: int, height: int, channels: int, depth: int) -> tuple:
+    """Unfilter one image (or one Adam7 pass) from the front of ``raw``:
+    its samples [height, width, channels] (uint8 below 16 bits, unscaled;
+    uint16 at 16) and the bytes it took."""
+    stride = (width * channels * depth + 7) // 8
+    rows = unfilter(raw, height, stride, max(1, channels * depth // 8))
+    if depth < 8:
+        # Sub-byte samples, most significant first, each row padded to a byte.
+        bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(height, width, depth)
+        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        samples = (bits * weights).sum(axis=-1).astype(np.uint8)[:, :, None]
+    elif depth == 16:
+        samples = rows.view(">u2").astype(np.uint16).reshape(height, width, channels)
+    else:
+        samples = rows.reshape(height, width, channels)
+    return samples, height * (stride + 1)
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -152,34 +211,26 @@ def decode_png(data: bytes) -> np.ndarray:
     info = read_header(data)
     width, height, depth = info["width"], info["height"], info["depth"]
     color_type = info["color_type"]
-    if color_type not in CHANNELS:
-        raise ValueError(f"PNG color type {color_type} is not a valid one")
-    if info["interlace"]:
-        raise ValueError("interlaced PNG files are not supported")
-    if depth == 16:
-        raise ValueError("16-bit PNG files are not supported")
-    channels = CHANNELS[color_type]
-    if depth != 8 and color_type not in (0, 3):
-        raise ValueError(f"PNG color type {color_type} with bit depth {depth} is not valid")
-    stride = (width * channels * depth + 7) // 8
-    rows = unfilter(zlib.decompress(info["idat"]), height, stride, max(1, channels * depth // 8))
-    if depth < 8:
-        # Sub-byte samples, most significant first, each row padded to a byte.
-        bits = np.unpackbits(rows, axis=1)[:, : width * depth].reshape(height, width, depth)
-        weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        samples = (bits * weights).sum(axis=-1).astype(np.uint8)
-        if color_type == 0:
-            samples = samples * np.uint8(255 // ((1 << depth) - 1))
-        pixels = samples[:, :, None]
-    else:
-        pixels = rows.reshape(height, width, channels)
+    channels = _check_header(info)
+    raw = memoryview(zlib.decompress(info["idat"]))
+    pixels = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy, pw, ph in passes(info):
+        pixels[y0::dy, x0::dx], used = _samples(raw[pos:], pw, ph, channels, depth)
+        pos += used
     if color_type == 3:
         if "palette" not in info:
             raise ValueError("palette PNG file has no PLTE chunk")
-        table = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+        table = np.zeros((256, 3), np.uint8)
         pal = info["palette"][:256]
         table[: len(pal)] = pal
         return table[pixels[:, :, 0]]
+    if depth < 8:
+        pixels = pixels * np.uint8(255 // ((1 << depth) - 1))
+    elif depth == 16:
+        # PIL opens 16-bit gray as mode I;16 and converts it to RGB clipped
+        # at 255; every other 16-bit kind it reads as its high bytes.
+        pixels = (np.minimum(pixels, 255) if color_type == 0 else pixels >> 8).astype(np.uint8)
     if channels in (1, 2):
         return np.repeat(pixels[:, :, :1], 3, axis=2)
     return np.ascontiguousarray(pixels[:, :, :3])

@@ -7,11 +7,9 @@ Counterpart of ``twingan_tpu/data/preprocess.py``:
   CROP, RESHAPE, RANDOM_CROP, RANDOM_CROP_AND_RESHAPE) with the JAX
   signature (``rng``, ``initial_crop_hw``). The JAX package resizes with
   PIL's bilinear filter; the card's machine has no PIL, so
-  ``pil_bilinear_resize`` re-implements Pillow's 8-bit resampling
-  (``Resample.c``) in numpy to the bit: the same float64 coefficients
-  rounded to 22-bit fixed point, a horizontal pass into a uint8 image, then
-  a vertical one, each output ``clip8((1 << 21) + sum(in * k)) >> 22``, and
-  the support widened by the scale when shrinking (PIL's antialiasing).
+  ``pil_bilinear_resize`` (8-bit) and ``pil_bilinear_resize_f32`` (float32
+  grayscale, mode "F") re-implement Pillow's ``Resample.c`` in numpy to
+  the bit (``data/resample.py``, which imports no torch).
 - ``PreprocessConfig`` field for field, with ``host_hw``;
 - ``augment_batch``: the random crop, the per-image or shared horizontal
   flip, the colour distortion (fast: brightness and saturation, in one of
@@ -41,6 +39,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from twingan_tpu_torch.data.resample import (  # noqa: F401 - this module's host resizes
+    pil_bilinear_resize,
+    pil_bilinear_resize_f32,
+)
 from twingan_tpu_torch.ops import basic
 
 RESIZE_MODES = ("NONE", "PAD", "CROP", "RESHAPE", "RANDOM_CROP", "RANDOM_CROP_AND_RESHAPE")
@@ -94,63 +96,6 @@ class PreprocessConfig:
 # ------------------------------------------------------------------ #
 # Host side
 # ------------------------------------------------------------------ #
-
-# Pillow's fixed-point precision for 8-bit resampling (Resample.c).
-_PRECISION_BITS = 32 - 8 - 2
-
-
-def _bilinear_coeffs(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
-    """Pillow's ``precompute_coeffs`` for the bilinear filter (support 1)
-    and ``normalize_coeffs_8bpc``: each output's first input index [out]
-    and its int32 weights [out, ksize] (0 past the window's end)."""
-    scale = float(in_size) / out_size
-    filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
-    ksize = int(np.ceil(support)) * 2 + 1
-    center = (np.arange(out_size) + 0.5) * scale
-    # C's (int) truncates toward zero; negatives clamp to 0 just after.
-    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
-    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
-    x = np.arange(ksize)
-    inside = x[None, :] < xmax[:, None]
-    t = np.abs(((x[None, :] + xmin[:, None]) - center[:, None] + 0.5) * (1.0 / filterscale))
-    w = np.where(inside & (t < 1.0), 1.0 - t, 0.0)
-    # The weights' sum, accumulated left to right as the C loop does.
-    ww = np.cumsum(w, axis=1)[:, -1:]
-    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
-    k = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS)).astype(np.int64)
-    return xmin, np.where(inside, k, 0)
-
-
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One pass of Pillow's 8-bit resample along ``axis`` (0 rows, 1
-    columns) of a uint8 [H, W, C] image: each output gathers its window,
-    one tap at a time (whole lines of the image, the resampled axis moved
-    to the front), and sums in int32 (at most 255 x 2^22 plus the rounding
-    term, under 2^31)."""
-    lines = np.ascontiguousarray(np.moveaxis(img, axis, 0))
-    in_size = lines.shape[0]
-    xmin, k = _bilinear_coeffs(in_size, out_size)
-    idx = np.minimum(xmin[:, None] + np.arange(k.shape[1])[None, :], in_size - 1)
-    k = k.astype(np.int32).reshape(out_size, -1, *([1] * (lines.ndim - 1)))
-    acc = np.full((out_size,) + lines.shape[1:], 1 << (_PRECISION_BITS - 1), np.int32)
-    for tap in range(k.shape[1]):
-        acc += lines[idx[:, tap]] * k[:, tap]
-    return np.moveaxis(np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8), 0, axis)
-
-
-def pil_bilinear_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """uint8 [H, W, C] -> uint8 [out_h, out_w, C], equal to PIL's
-    ``Image.resize((out_w, out_h), BILINEAR)`` of the same image (mode L
-    for one channel, RGB for three); the same size is a copy, as in PIL."""
-    img = np.asarray(img, np.uint8)
-    h, w = img.shape[:2]
-    if w != out_w:  # Pillow skips a pass whose size does not change
-        img = _resample_axis(img, out_w, axis=1)
-    if h != out_h:
-        img = _resample_axis(img, out_h, axis=0)
-    return np.array(img, np.uint8)
-
 
 def host_resize_uint8(img: np.ndarray, mode: str, new_hw: int,
                       rng: Optional[np.random.RandomState] = None,

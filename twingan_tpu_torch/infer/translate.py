@@ -27,6 +27,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+from twingan_tpu_torch.data.converters import list_images
 from twingan_tpu_torch.data.preprocess import host_resize
 from twingan_tpu_torch.runner.checkpoint import load_model
 from twingan_tpu_torch.runner.config_io import find_latest_stage_dir, load_stage_config
@@ -86,16 +87,20 @@ class ImageInferer:
         batch = np.stack([self.preprocess(im) for im in images])
         return self.translate(torch.from_numpy(batch), style=style).float().cpu().numpy()
 
+    def infer(self, image_path: str, output_path: str, return_image: bool = False):
+        """Translate one image file and save the result (PNG needs no PIL)."""
+        out = self.infer_batch([imread_rgb(image_path)])[0]
+        imsave_float(output_path, out)
+        return out if return_image else None
+
 
 def _iter_images(path: str) -> Iterator[str]:
-    if not os.path.isdir(path):
+    """A folder's images in ``list_images``'s order (sorted paths), or the
+    one file."""
+    if os.path.isdir(path):
+        yield from list_images(path)
+    else:
         yield path
-        return
-    exts = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
-    for root, _, files in sorted(os.walk(path)):
-        for name in sorted(files):
-            if name.lower().endswith(exts):
-                yield os.path.join(root, name)
 
 
 def main(argv=None) -> None:

@@ -179,7 +179,34 @@ result line is printed:
               passes and its sample dump, the style-interpolation grid
               written, and the 256 stage served with a given style within
               serving's limits of the CPU and with its own.
-14. kernels - one line listing each kernel of the paths.
+14. classifiers - the classifier zoo (A14), fp32 with TF32 off: every
+              network at its reference input size (lenet 28, cifarnet 32,
+              alexnet/vgg/illust2vec/resnets/mobilenet/inception v1-v2/
+              nasnet_mobile 224, overfeat 231, inception v3/v4/resnet v2
+              299, nasnet_large 331; illust2vec's 1539 classes, 1000 the
+              others) with seeded weights, at batch 2 on the card against
+              the same weights on the CPU (logits within ZOO_RTOL), timed
+              at batch 32 (ms, peak memory), one line each; the reference
+              tagger through the classifier CLI (``classifier_runner.main``:
+              illust2vec, 224 px, 1539 classes, batch 32, rmsprop lr 0.01,
+              weight decay 4e-5, synthetic data, 20 steps; steps/s after
+              the first, peak memory), its eval, tags and gradcam modes on
+              the train dir (trained as 1 step and its resumption), one
+              more step from step 1's checkpoint on the card against the
+              CPU (loss, cosines of the gradient and of the update) and
+              the trained state's Grad-CAM maps against the CPU's; a
+              cifarnet FID classifier
+              through the CLI with ``artifacts/fid_classifier``'s config
+              (12 labels, 32 px, batch 64, adam lr 0.003, 200 steps); then
+              ``run_eval --mode=fid`` and ``--mode=inception_score`` on the
+              eval phase's TwinGAN stage (256 px, attention at 64 px), 256
+              images each, with the random InceptionV3 (``Mixed_5b``, 256
+              features) and with that classifier: B1 twice a translated
+              batch, all tensor-core, seconds per mode; and the card's
+              features and FID of fixed images against the CPU's with the
+              same weights (features within FEATURES_MEAN_TOL and
+              FEATURES_MAX_TOL of the std, FID within FID_CARD_RTOL).
+15. kernels - one line listing each kernel of the paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -463,6 +490,73 @@ OPTIONS_CLI_FLAGS = [
     f"--style_embed_size={OPTIONS_STYLE_DIM}", "--use_gdrop=true", "--remat=true",
     "--log_every_n_steps=1", "--log_image_every_n_iter=2", "--save_every_n_steps=2",
 ]
+
+# The classifiers phase: each network of the zoo at its reference input
+# size (the JAX nets' default_image_size), its logits at batch 2 on the card
+# held to ZOO_RTOL of the CPU's largest (fp32 both, TF32 off; the convs'
+# algorithms sum in other orders through up to 200 layers) and timed at
+# batch 32 over ZOO_TIMED_REPS launches after warm-ups. The largest error
+# measured was 3.57e-6 (overfeat), the same in five calls (NVIDIA H100 80GB
+# HBM3, 700.00 W).
+ZOO_SIZES = {"lenet": 28, "cifarnet": 32, "alexnet_v2": 224, "overfeat": 231, "vgg_a": 224,
+             "vgg_16": 224, "vgg_19": 224, "illust2vec": 224, "resnet_v1_50": 224,
+             "resnet_v1_101": 224, "resnet_v2_50": 224, "resnet_v2_101": 224,
+             "resnet_v2_layernorm": 224, "mobilenet_v1": 224, "inception_v1": 224,
+             "inception_v2": 224, "inception_v3": 299, "inception_v4": 299,
+             "inception_resnet_v2": 299, "nasnet_mobile": 224, "nasnet_large": 331}
+ZOO_CLASSES = {"illust2vec": 1539}
+ZOO_COMPARE_BATCH, ZOO_TIMED_BATCH, ZOO_TIMED_REPS = 2, 32, 5
+ZOO_RTOL = 1e-4
+# The reference tagger through the classifier CLI: its defaults (rmsprop,
+# lr 0.01, weight decay 4e-5, batch 32, 1539 classes) at 224 px on
+# synthetic data; 20 steps where a tagger trains 100k, as a run of
+# TAGGER_EARLY_STEP steps and its resumption to 20 (the resumed run draws
+# its synthetic batches from the seed again). The CLI builds a fixed
+# learning rate, as the JAX CLI does; the config's exponential decay (0.94
+# every 10000 steps) is the same rate for the first 10000.
+TAGGER_STEPS, TAGGER_EARLY_STEP = 20, 1
+TAGGER_FLAGS = ["--model_name=illust2vec", "--train_image_size=224", "--num_classes=1539",
+                "--batch_size=32", "--optimizer=rmsprop", "--learning_rate=0.01",
+                "--weight_decay=0.00004", "--use_synthetic_data",
+                f"--max_number_of_steps={TAGGER_STEPS}", "--log_every_n_steps=10",
+                "--num_eval_batches=4", "--gradcam_layer=conv5", f"--seed={SEED}"]
+# One more step from the checkpoint of TAGGER_EARLY_STEP, card against CPU
+# at batch 4 (the CPU's fp32 step at batch 32 takes tens of seconds): the
+# loss and the gradient's cosine within TRAIN_LIMITS' fp32 row, the
+# update's cosine at least TAGGER_UPDATE_COS. The step is taken that early
+# because the loss diverges from a random init at these defaults (0.693 to
+# 1e8-1e11 by step 20) and leaves units dead, whose rmsprop update (about
+# lr g / 1e-4) carries g's rounding. From step 20 the update's cosine
+# measured 0.99913 to 0.99992 in five calls, the gradients' 1 - 1e-12
+# (NVIDIA H100 80GB HBM3, 700.00 W). The Grad-CAM maps of the trained
+# state (normalized to [0, 1]) within CAM_ATOL: 4.2e-7 to 1.4e-6 measured
+# in the same five calls.
+TAGGER_COMPARE_BATCH = 4
+TAGGER_UPDATE_COS = 0.999
+CAM_ATOL = 1e-4
+# The FID classifier: artifacts/fid_classifier's config (cifarnet, 12
+# labels, 32 px, batch 64, adam lr 0.003, no weight decay) through the CLI,
+# 200 steps on synthetic data where the artifact trained 1500 on the
+# domain generator's labels.
+FID_CLASSIFIER_FLAGS = ["--model_name=cifarnet", "--train_image_size=32", "--num_classes=12",
+                        "--batch_size=64", "--optimizer=adam", "--learning_rate=0.003",
+                        "--weight_decay=0", "--use_synthetic_data",
+                        "--max_number_of_steps=200", "--log_every_n_steps=100",
+                        f"--seed={SEED}"]
+# FID and the inception score on the TwinGAN run's final stage: 256
+# images a mode where FID's protocol takes 50000 (and the reference's
+# inception score 50000 in 10 splits), batches of 16. The card's features
+# and FID of FID_COMPARE_IMAGES fixed real and as many fixed fake images
+# against the CPU's with the same weights (fp32 both, TF32 off): the
+# features' mean and largest errors within FEATURES_MEAN_TOL and
+# FEATURES_MAX_TOL of the CPU's std, FID within FID_CARD_RTOL. Measured in
+# four calls (NVIDIA H100 80GB HBM3, 700.00 W): the errors at most 3.3e-7
+# and 3.5e-6 of the std (inception), 3.6e-8 and 1.8e-6 (classifier); FID
+# 1.3e-6 and 5.1e-7 relative.
+FID_IMAGES, FID_BATCH = 256, 16
+FID_COMPARE_IMAGES = 32
+FEATURES_MEAN_TOL, FEATURES_MAX_TOL = 1e-5, 1e-4
+FID_CARD_RTOL = 1e-4
 
 # Numbers an earlier phase measured that a later one prints beside its own.
 MEASURED: dict = {}
@@ -3121,6 +3215,282 @@ def options_phase(card: str, smi_line: str) -> dict:
     return totals
 
 
+def seeded_zoo_network(name: str, seed: int):
+    """``name`` of the zoo at its reference size, in eval mode on the card,
+    its kernels drawn from ``seed`` with the port's initializers, then its
+    biases, batch-norm shifts and moving means moved to N(0, 0.1) and its
+    scales and moving variances to U(0.5, 1.5), so that every leaf counts."""
+    import torch
+    from twingan_tpu_torch.models.classifiers import get_network_fn, reset_parameters
+
+    net = get_network_fn(name, ZOO_CLASSES.get(name, 1000), image_hw=ZOO_SIZES[name]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    reset_parameters(net, gen)
+    with torch.no_grad():
+        for key, t in net.state_dict().items():
+            leaf = key.rsplit(".", 1)[-1]
+            if leaf in ("bias", "mean"):
+                t.normal_(0.0, 0.1, generator=gen)
+            elif leaf in ("scale", "var"):
+                t.uniform_(0.5, 1.5, generator=gen)
+    return net.eval()
+
+
+def _features_vs_cpu(fns: dict, real, fake) -> dict:
+    """Features and FID of fixed images by the card's and the CPU's feature
+    function (the same weights): the features' differences over the CPU
+    features' std, and the two FIDs."""
+    import numpy as np
+    from twingan_tpu_torch.evals.metrics import frechet_distance
+
+    out = {}
+    for dev, fn in fns.items():
+        f_r, f_f = (fn(x).float().cpu().numpy().astype(np.float64) for x in (real, fake))
+        out[dev] = {"feats": np.concatenate([f_r, f_f]),
+                    "fid": frechet_distance(f_r.mean(0), np.cov(f_r, rowvar=False),
+                                            f_f.mean(0), np.cov(f_f, rowvar=False))}
+    std = float(out["cpu"]["feats"].std())
+    diff = np.abs(out["cuda"]["feats"] - out["cpu"]["feats"])
+    return {"fid_card": out["cuda"]["fid"], "fid_cpu": out["cpu"]["fid"],
+            "fid_rel_diff": abs(out["cuda"]["fid"] - out["cpu"]["fid"]) / abs(out["cpu"]["fid"]),
+            "features_mean_abs_err_over_std": float(diff.mean()) / std,
+            "features_max_abs_err_over_std": float(diff.max()) / std, "features_std": std}
+
+
+def classifiers_phase(card: str, smi_line: str, data: dict, twingan_dir: str) -> int:
+    """The classifier zoo, the tagger and FID classifier through the CLI,
+    and FID and the inception score on the TwinGAN stage; returns B1's
+    launches (run_eval's translations)."""
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.data.preprocess import host_resize_uint8
+    from twingan_tpu_torch.evals import metrics, run_eval
+    from twingan_tpu_torch.models.grad_cam import grad_cam
+    from twingan_tpu_torch.ops import attention
+    from twingan_tpu_torch.runner import classifier_runner
+    from twingan_tpu_torch.train.classifier_trainer import ClassifierTrainer
+
+    t_phase = time.perf_counter()
+    root = os.path.join(data["root"], "classifiers")
+    os.makedirs(root, exist_ok=True)
+    fwd = attention.KERNEL_NAME
+    attention.reset_launch_counts()
+
+    # 1. The zoo at reference sizes: the card against the CPU, and timed.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for name, hw in ZOO_SIZES.items():
+        net = seeded_zoo_network(name, SEED)
+        x = torch.rand((ZOO_TIMED_BATCH, hw, hw, 3), generator=gen, device="cuda") * 2 - 1
+        small = x[:ZOO_COMPARE_BATCH]
+        with torch.no_grad():
+            logits = net(small)[0].float().cpu()
+            cpu_net = copy.deepcopy(net).cpu()
+            t0 = time.perf_counter()
+            ref = cpu_net(small.cpu())[0]
+            cpu_s = time.perf_counter() - t0
+            del cpu_net
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = time_ms(lambda: net(x), reps=ZOO_TIMED_REPS)
+        err = float((logits - ref).abs().max() / ref.abs().max())
+        row = {"phase": "classifiers", "network": name, "image_hw": hw,
+               "num_classes": ZOO_CLASSES.get(name, 1000),
+               "parameters": sum(p.numel() for p in net.parameters()),
+               "ms_per_batch_32": ms, "images_per_s": ZOO_TIMED_BATCH / ms * 1e3,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "logits_rel_err_vs_cpu": err, "rtol": ZOO_RTOL, "cpu_batch_2_s": cpu_s,
+               "ok": bool(err <= ZOO_RTOL and torch.isfinite(logits).all()
+                          and float(ref.abs().max()) > 0),
+               "card": card, "nvidia_smi": smi_line}
+        emit(row)
+        if not row["ok"]:
+            fail("classifiers", f"{name}: the card's logits differ from the CPU's by {err} of "
+                                f"their largest, over {ZOO_RTOL}")
+        del net, x, small
+        torch.cuda.empty_cache()
+
+    # 2. The reference tagger through the CLI.
+    tagger_dir = os.path.join(root, "tagger")
+    step_times = []
+    orig_step = ClassifierTrainer.train_step
+
+    def timed_step(self, state, batch, generator=None):
+        out = orig_step(self, state, batch, generator)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter())
+        return out
+
+    ClassifierTrainer.train_step = timed_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        early = classifier_runner.main(["--mode=train", f"--train_dir={tagger_dir}"] + TAGGER_FLAGS
+                                       + [f"--max_number_of_steps={TAGGER_EARLY_STEP}"])
+        step_times.clear()
+        trained = classifier_runner.main(["--mode=train", f"--train_dir={tagger_dir}"]
+                                         + TAGGER_FLAGS)
+        train_s = time.perf_counter() - t0
+    finally:
+        ClassifierTrainer.train_step = orig_step
+    peak = torch.cuda.max_memory_allocated()
+    lookup = os.path.join(root, "tags.txt")
+    with open(lookup, "w") as f:
+        f.write("".join(f"tag_{i}\n" for i in range(1539)))
+    seconds, modes = {}, {}
+    for mode, extra in (("eval", []), ("tags", [f"--tags_id_lookup_file={lookup}"]),
+                        ("gradcam", [])):
+        t0 = time.perf_counter()
+        modes[mode] = classifier_runner.main([f"--mode={mode}", f"--train_dir={tagger_dir}"]
+                                             + TAGGER_FLAGS + extra)
+        torch.cuda.synchronize()
+        seconds[mode] = time.perf_counter() - t0
+    overlays = modes["gradcam"]["overlays"]
+    # Grad-CAM of the trained state, and one more step from the early
+    # checkpoint, on the card and on the CPU.
+    rng = np.random.RandomState(SEED + 14)
+    batch = {"image": rng.rand(TAGGER_COMPARE_BATCH, 224, 224, 3).astype(np.float32),
+             "labels": (rng.rand(TAGGER_COMPARE_BATCH, 1539) > 0.9).astype(np.float32)}
+    steps, maps, grads = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        _, state = classifier_runner.load_trained_classifier(tagger_dir, device=dev)
+        net = state.net.eval()
+        maps[dev] = grad_cam(lambda imgs, probes=None, net=net: net(imgs, probes=probes),
+                             torch.from_numpy(batch["image"]).to(dev), "conv5").cpu()
+        trainer, state = classifier_runner.load_trained_classifier(
+            tagger_dir, device=dev, step=TAGGER_EARLY_STEP)
+        net = state.net.eval()
+        loss = trainer._loss(net(torch.from_numpy(batch["image"]).to(dev))[0],
+                             torch.from_numpy(batch["labels"]).to(dev))
+        grads[dev] = torch.cat([g.flatten().cpu() for g in torch.autograd.grad(
+            loss, list(net.parameters()))]).double()
+        before = [p.detach().cpu().clone() for p in net.parameters()]
+        state, m = trainer.train_step(state, batch)
+        delta = torch.cat([(p.detach().cpu() - b).flatten()
+                           for p, b in zip(state.net.parameters(), before)])
+        steps[dev] = (float(m["loss"]), delta.double())
+        del trainer, state, net
+    loss_rtol, loss_atol, cos_min, _ = TRAIN_LIMITS["float32"]
+    cos = float(steps["cuda"][1] @ steps["cpu"][1]
+                / (steps["cuda"][1].norm() * steps["cpu"][1].norm()))
+    grad_cos = float(grads["cuda"] @ grads["cpu"] / (grads["cuda"].norm() * grads["cpu"].norm()))
+    loss_diff = abs(steps["cuda"][0] - steps["cpu"][0])
+    cam_err = float((maps["cuda"] - maps["cpu"]).abs().max())
+    losses = early["losses"] + trained["losses"]
+    rate = (len(step_times) - 1) / (step_times[-1] - step_times[0])
+    tag_lines = len(open(modes["tags"]["path"]).read().splitlines())
+    row = {"phase": "classifiers", "check": "the tagger through the CLI",
+           "network": "illust2vec", "image_hw": 224, "num_classes": 1539, "batch": 32,
+           "steps": trained["step"], "steps_per_s_after_first": rate,
+           "images_per_s": rate * 32, "train_s": train_s, "peak_memory_bytes": peak,
+           "first_loss": losses[0], "last_loss": losses[-1], "mode_seconds": seconds,
+           "eval_metrics": modes["eval"]["metrics"], "tags_lines": tag_lines,
+           "tags_images": modes["tags"]["images"], "gradcam_shape": list(overlays.shape),
+           "step_vs_cpu": {"loss_card": steps["cuda"][0], "loss_cpu": steps["cpu"][0],
+                           "loss_abs_diff": loss_diff, "gradient_cosine": grad_cos,
+                           "update_cosine": cos, "update_cosine_min": TAGGER_UPDATE_COS,
+                           "from_step": TAGGER_EARLY_STEP, "batch": TAGGER_COMPARE_BATCH},
+           "gradcam_max_abs_diff_vs_cpu": cam_err, "cam_atol": CAM_ATOL,
+           "card": card, "nvidia_smi": smi_line}
+    row["ok"] = bool(early["step"] == TAGGER_EARLY_STEP and trained["step"] == TAGGER_STEPS
+                     and len(losses) == TAGGER_STEPS and all(map(math.isfinite, losses))
+                     and all(math.isfinite(v) for v in modes["eval"]["metrics"].values())
+                     and modes["tags"]["images"] == 4 * 32
+                     and overlays.shape == (32, 224, 224, 3) and np.isfinite(overlays).all()
+                     and loss_diff <= loss_rtol * abs(steps["cpu"][0]) + loss_atol
+                     and grad_cos >= cos_min and cos >= TAGGER_UPDATE_COS
+                     and cam_err <= CAM_ATOL)
+    emit(row)
+    if not row["ok"]:
+        fail("classifiers", "the tagger's CLI run gave no finite result, or its step or "
+                            "Grad-CAM maps on the card disagree with the CPU's")
+
+    # 3. The FID classifier through the CLI.
+    fid_dir = os.path.join(root, "fid_classifier")
+    t0 = time.perf_counter()
+    fid_trained = classifier_runner.main(["--mode=train", f"--train_dir={fid_dir}"]
+                                         + FID_CLASSIFIER_FLAGS)
+    torch.cuda.synchronize()
+    row = {"phase": "classifiers", "check": "the FID classifier through the CLI",
+           "network": "cifarnet", "steps": fid_trained["step"],
+           "seconds": time.perf_counter() - t0, "first_loss": fid_trained["losses"][0],
+           "last_loss": fid_trained["losses"][-1],
+           "ok": bool(fid_trained["step"] == 200
+                      and all(map(math.isfinite, fid_trained["losses"])))}
+    emit(row)
+    if not row["ok"]:
+        fail("classifiers", "the FID classifier's CLI run gave non-finite losses")
+    if attention.launch_counts[fwd]:
+        fail("classifiers", f"the classifiers launched B1 {attention.launch_counts[fwd]} times")
+
+    # 4. FID and the inception score on the TwinGAN stage.
+    tc = f"{fwd}/{attention.VARIANTS[fwd][torch.bfloat16]}"
+    expected = 2 * -(-FID_IMAGES // FID_BATCH)  # encoder + generator a batch
+    base = [f"--model_path={twingan_dir}", f"--dataset_dir={data['a']}",
+            f"--target_dataset_dir={data['b']}", f"--seed={SEED}",
+            f"--num_images={FID_IMAGES}", f"--batch_size={FID_BATCH}"]
+    total = 0
+    for i, (mode, extra) in enumerate((("fid", []), ("fid", [f"--classifier_path={fid_dir}"]),
+                                       ("inception_score", []),
+                                       ("inception_score", [f"--classifier_path={fid_dir}"]))):
+        attention.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run_eval.main([f"--mode={mode}", f"--eval_dir={root}/eval_{i}"] + base + extra)
+        torch.cuda.synchronize()
+        launches = {k: attention.launch_counts[k]
+                    for k in (fwd, attention.DQ_KERNEL, attention.DKV_KERNEL)}
+        value = result["fid"] if mode == "fid" else result["inception_score"]
+        row = {"phase": "classifiers", "mode": mode,
+               "features": "classifier" if extra else "random InceptionV3 (Mixed_5b)",
+               "value": value, "images": result["images"],
+               "seconds": time.perf_counter() - t0, "attention_launches": launches,
+               "expected_b1": expected, "b1_tensor_core": attention.variant_counts[tc],
+               "card": card, "nvidia_smi": smi_line}
+        row["ok"] = bool(math.isfinite(value) and result["images"] >= FID_IMAGES
+                         and launches == {fwd: expected, attention.DQ_KERNEL: 0,
+                                          attention.DKV_KERNEL: 0}
+                         and attention.variant_counts[tc] == expected)
+        emit(row)
+        if not row["ok"]:
+            fail("classifiers", f"run_eval --mode={mode} gave no finite result, or B1 did "
+                                "not run twice a translated batch, all tensor-core")
+        total += launches[fwd]
+
+    # 5. The card's features and FID of fixed images against the CPU's.
+    def fixed(domain):
+        names = sorted(data["images"][domain])[:FID_COMPARE_IMAGES]
+        return np.stack([host_resize_uint8(data["images"][domain][n], "PAD", 256)
+                         for n in names]).astype(np.float32) / 255.0
+
+    real, fake = fixed("b"), fixed("a")
+    for kind in ("inception", "classifier"):
+        t0 = time.perf_counter()
+        if kind == "inception":
+            fns = {dev: metrics.inception_pool_features_fn(256, SEED, device=dev)
+                   for dev in ("cuda", "cpu")}
+        else:
+            fns = {dev: metrics.classifier_features_fn(fid_dir, device=dev)
+                   for dev in ("cuda", "cpu")}
+        row = {"phase": "classifiers", "check": f"{kind} features and FID of "
+                                                f"{FID_COMPARE_IMAGES} + {FID_COMPARE_IMAGES} "
+                                                "fixed images, card vs CPU",
+               **_features_vs_cpu(fns, real, fake), "seconds": time.perf_counter() - t0,
+               "fid_rtol": FID_CARD_RTOL, "mean_tolerance": FEATURES_MEAN_TOL,
+               "max_tolerance": FEATURES_MAX_TOL}
+        row["ok"] = bool(row["fid_rel_diff"] <= FID_CARD_RTOL
+                         and row["features_mean_abs_err_over_std"] <= FEATURES_MEAN_TOL
+                         and row["features_max_abs_err_over_std"] <= FEATURES_MAX_TOL)
+        emit(row)
+        if not row["ok"]:
+            fail("classifiers", f"the card's {kind} features or FID disagree with the CPU's")
+    emit({"phase": "classifiers", "check": "the classifier zoo, its CLI, FID and IS",
+          "seconds": time.perf_counter() - t_phase, "ok": True})
+    return total
+
+
 def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
                  plain_ms: float, bound_ms: float, bound_by: str, library_ms: float,
                  **extra) -> dict:
@@ -3182,17 +3552,18 @@ def main() -> int:
         data["root"] = root
         realdata = runner_data_phase(card, smi_line, data)
         eval_launches = eval_phase(card, smi_line, data, realdata["twingan_dir"])
+        recipe_launches = recipe_phase(card, smi_line)
+        options_launches = options_phase(card, smi_line)
+        classifier_launches = classifiers_phase(card, smi_line, data, realdata["twingan_dir"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    recipe_launches = recipe_phase(card, smi_line)
-    options_launches = options_phase(card, smi_line)
     data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
     by_path = {"serving": serving_launches, "http": http_launches,
                "train": train_launches[fwd],
                "runner": runner_launches[fwd], "runner_data": data_launches[fwd],
                "eval": eval_launches[fwd], "recipe": recipe_launches[fwd],
-               "options": options_launches[fwd]}
+               "options": options_launches[fwd], "classifiers": classifier_launches}
     entries = [kernel_entry(
         fwd, sum(by_path.values()), by_path,
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],

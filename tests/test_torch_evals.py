@@ -14,8 +14,16 @@ package's, on the CPU.
   ``tools/orbax_to_torch_stage.py``, against the JAX CLI on the same data
   (``loss`` on synthetic batches: the JAX CLI's loss mode hands a real
   dataset's filename strings to ``jnp.asarray``, which raises);
-  ``eval_debug`` writes its gallery, and ``fid`` and ``inception_score``
-  raise naming A14.
+  ``eval_debug`` writes its gallery;
+- ``inception_pool_features_fn`` on the JAX package's InceptionV3 weights
+  bridged (within 1e-5 of the largest feature), and its own draws; the
+  ``fid`` and ``inception_score`` modes without a classifier against the
+  JAX CLI with those weights and the JAX random head injected (FID within
+  1e-4 relative, the score within 1e-4). The JAX InceptionV3's ``init``
+  returns weights drawn by ``jax.random`` in one call (see
+  ``tests/torch_classifier_parity.py``): its own per-leaf init compiles
+  for half a minute. ``test_torch_evals_fid.py`` has the modes with
+  ``--classifier_path``.
 """
 
 import csv
@@ -232,10 +240,45 @@ def test_frechet_distance_and_fid():
     np.testing.assert_allclose(ours, theirs, rtol=1e-5)
 
 
-def test_classifier_features_wait_for_a14():
-    for fn in (metrics.inception_pool_features_fn, metrics.classifier_features_fn):
-        with pytest.raises(NotImplementedError, match="A14"):
-            fn("x") if fn is metrics.classifier_features_fn else fn()
+FEATURES_RTOL = 1e-5
+FID_RTOL = 1e-4
+IS_ATOL = 1e-4
+IS_DISTINCT_MIN = 1e-3
+IS_EXCESS_RTOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def inception_weights():
+    """JAX-drawn InceptionV3 (1 class, 75 px) variables and their bridge."""
+    import torch_classifier_parity as parity
+
+    from twingan_tpu.models.inception import InceptionV3
+    from twingan_tpu_torch import bridge
+
+    variables = parity.jax_variables(InceptionV3(num_classes=1), 75)
+    return variables, bridge.classifier_state_dict_from_flax(variables["params"],
+                                                              variables["batch_stats"])
+
+
+def test_classifier_features_wait_for_a14(inception_weights, monkeypatch):
+    """The FID feature function that waited for the classifier zoo (A14):
+    the JAX function and the port's on the same weights, then the port's
+    own draws (fixed by the seed, other for another seed, not collapsed)."""
+    from twingan_tpu.models.inception import InceptionV3
+
+    variables, weights = inception_weights
+    monkeypatch.setattr(InceptionV3, "init", lambda self, *a, **kw: variables)
+    real, _ = image_sets(6, 16)
+    theirs = np.asarray(jmetrics.inception_pool_features_fn(image_hw=16, seed=0)(
+        jnp.asarray(real)))
+    ours = metrics.inception_pool_features_fn(16, 0, weights=weights, device="cpu")(
+        torch.from_numpy(real)).numpy()
+    assert ours.shape == theirs.shape == (6, 256)
+    assert np.abs(ours - theirs).max() <= FEATURES_RTOL * np.abs(theirs).max()
+    own = [metrics.inception_pool_features_fn(16, s, device="cpu")(torch.from_numpy(real))
+           for s in (0, 0, 1)]
+    assert torch.equal(own[0], own[1]) and not torch.allclose(own[0], own[2])
+    assert float(own[0].std(dim=0).mean()) > 1e-6
 
 
 def test_streaming_loss_eval_skips_strings():
@@ -364,15 +407,89 @@ def test_run_eval_output_matches_jax(eval_setup, tmp_path):
     np.testing.assert_allclose(vals, jvals, atol=1e-5, rtol=1e-4)
 
 
-def test_run_eval_gallery_and_the_modes_that_wait(eval_setup, tmp_path):
-    root, _, port_stage = eval_setup
+def read_score(path):
+    return [float(v) for v in open(path).read().split("\t")[1:-1] if " " not in v]
+
+
+IS_IMAGES = 40
+
+
+def score_the_sources(monkeypatch):
+    """Both CLIs' translations replaced by their sources. The tiny stage
+    translates every image to about 0 (1e-7), and a set of one image scores
+    exactly 1.0 whatever its logits: the scoring itself is held on
+    ``IS_IMAGES`` distinct synthetic images (4 a split), which the two CLIs
+    draw alike. Returns the flags, and the dict where the JAX CLI's score
+    lands unrounded (its file has 6 decimals)."""
+    from twingan_tpu_torch.infer.translate import ImageInferer
+
+    monkeypatch.setattr(JaxTwinGANTrainer, "translate",
+                        lambda self, state, images, *a, **kw: images)
+    monkeypatch.setattr(ImageInferer, "translate", lambda self, x, *a, **kw: x)
+    seen, orig = {}, jmetrics.inception_score
+
+    def spy(*a, **kw):
+        seen["score"] = orig(*a, **kw)
+        return seen["score"]
+
+    monkeypatch.setattr(jmetrics, "inception_score", spy)
+    return ["--use_synthetic_data", f"--num_images={IS_IMAGES}"], seen
+
+
+def assert_distinct_scores_agree(result, theirs):
+    """The port's (score, std) against the JAX CLI's, on distinct images:
+    within IS_ATOL, and the score's excess over 1 within IS_EXCESS_RTOL of
+    the JAX one's, which is itself over IS_DISTINCT_MIN."""
+    excess = theirs[0] - 1.0
+    assert result["images"] == IS_IMAGES and excess > IS_DISTINCT_MIN
+    assert abs(result["inception_score"] - theirs[0]) <= min(IS_ATOL, IS_EXCESS_RTOL * excess)
+    assert abs(result["inception_score_std"] - theirs[1]) <= IS_ATOL
+
+
+def test_run_eval_gallery_and_the_modes_that_wait(eval_setup, inception_weights, tmp_path,
+                                                 monkeypatch):
+    """``eval_debug``'s gallery, and the two modes that waited for the
+    classifier zoo (A14), ``fid`` and ``inception_score`` without a
+    classifier, against the JAX CLI on the same InceptionV3 weights and IS
+    head; then the port's own draws: a score that has not collapsed to 1."""
+    from twingan_tpu.models.inception import InceptionV3
+
+    root, jax_stage, port_stage = eval_setup
     result = run_eval.main(cli_args(root, "eval_debug", port_stage, tmp_path) + ["--device=cpu"])
     assert os.path.exists(result["path"])
     assert len([n for n in os.listdir(os.path.dirname(result["path"]))
                 if n.endswith(".jpg")]) == 12
-    for mode in ("fid", "inception_score"):
-        with pytest.raises(NotImplementedError, match="A14"):
-            run_eval.main(cli_args(root, mode, port_stage, tmp_path) + ["--device=cpu"])
+    variables, weights = inception_weights
+    monkeypatch.setattr(InceptionV3, "init", lambda self, *a, **kw: variables)
+    head = np.asarray(jax.random.normal(jax.random.PRNGKey(3 + 1), (256, 1000))) / np.sqrt(
+        np.float32(256))
+    for mode, name in (("fid", "fid.txt"), ("inception_score", "inception_score.txt")):
+        jrun_eval.main(cli_args(root, mode, jax_stage, tmp_path / "jax"))
+        result = run_eval.main(cli_args(root, mode, port_stage, tmp_path / "port")
+                               + ["--device=cpu"], inception_weights=weights,
+                               is_head=torch.from_numpy(head))
+        ours, theirs = read_score(tmp_path / "port" / name), read_score(tmp_path / "jax" / name)
+        assert result["images"] == 8 and len(ours) == len(theirs) == (1 if mode == "fid" else 2)
+        if mode == "fid":
+            assert abs(result["fid"] - theirs[0]) <= FID_RTOL * abs(theirs[0])
+            assert "given weights" in result["kind"]
+        else:
+            assert abs(result["inception_score"] - theirs[0]) <= IS_ATOL
+            assert abs(result["inception_score_std"] - theirs[1]) <= IS_ATOL
+    own = run_eval.main(cli_args(root, "fid", port_stage, tmp_path / "own") + ["--device=cpu"])
+    assert np.isfinite(own["fid"]) and "own draws from seed 3" in own["kind"]
+    # The scores above are 1.0 in both packages (see score_the_sources):
+    # the random head's logits of distinct images, then the port's own
+    # weights and head, neither collapsed to 1.
+    distinct, seen = score_the_sources(monkeypatch)
+    jrun_eval.main(cli_args(root, "inception_score", jax_stage, tmp_path / "jax_d") + distinct)
+    result = run_eval.main(cli_args(root, "inception_score", port_stage, tmp_path / "port_d")
+                           + distinct + ["--device=cpu"], inception_weights=weights,
+                           is_head=torch.from_numpy(head))
+    assert_distinct_scores_agree(result, seen["score"])
+    own = run_eval.main(cli_args(root, "inception_score", port_stage, tmp_path / "own_d")
+                        + distinct + ["--device=cpu"])
+    assert own["inception_score"] > 1.0 + IS_DISTINCT_MIN
     assert [a.dest for a in run_eval.build_parser()._actions if a.dest != "help"][:-1] == [
         "mode", "model_path", "classifier_path", "eval_dir", "dataset_name", "dataset_dir",
         "target_dataset_name", "target_dataset_dir", "dataset_split_name",

@@ -60,6 +60,10 @@ EXPECTED_MODULES = (
     "twingan_tpu_torch.data.resample", "twingan_tpu_torch.serve.haar",
     "twingan_tpu_torch.serve.face_detection", "twingan_tpu_torch.serve.server",
     "twingan_tpu_torch.utils.visualization", "twingan_tpu_torch.utils.image_io",
+    "twingan_tpu_torch.models.classifiers", "twingan_tpu_torch.models.inception",
+    "twingan_tpu_torch.models.nasnet", "twingan_tpu_torch.models.grad_cam",
+    "twingan_tpu_torch.data.preprocessing_factory", "twingan_tpu_torch.utils.misc",
+    "twingan_tpu_torch.train.classifier_trainer", "twingan_tpu_torch.runner.classifier_runner",
 )
 
 

@@ -12,6 +12,13 @@ conv kernels in PyTorch's OIHW layout); ``config.json`` is copied as it is
 is written from the latest checkpoint. The port's ``StageRunner`` resumes
 or grows from the result like from a stage it wrote itself.
 
+A classifier train dir of the JAX ``classifier_runner`` (its
+``config.json`` is a ``ClassifierConfig``) converts the same way
+(``convert_classifier``, chosen by the config): every checkpoint becomes
+the port's flat ``ClassifierTrainer`` state, dense kernels transposed to
+``nn.Linear``'s layout, and the port's ``classifier_runner`` and FID
+functions restore it. No ``model.pt`` is written for it.
+
 Runs on the CPU; it imports both packages, which the port itself never
 does.
 """
@@ -58,16 +65,43 @@ def convert_stage(src: str, dst: str) -> list[int]:
     return steps
 
 
+def is_classifier_dir(src: str) -> bool:
+    with open(os.path.join(src, "config.json")) as f:
+        return "network" in json.load(f)
+
+
+def convert_classifier(src: str, dst: str) -> list[int]:
+    """Convert every checkpoint of a JAX classifier train dir ``src`` into
+    ``dst``; returns the steps."""
+    from twingan_tpu.runner.checkpoint import CheckpointManager as JaxCheckpointManager
+
+    from twingan_tpu_torch import bridge
+    from twingan_tpu_torch.runner.checkpoint import CheckpointManager
+
+    jcm = JaxCheckpointManager(src)
+    steps = jcm.all_steps()
+    if not steps:
+        raise FileNotFoundError(f"no Orbax checkpoint under {src}")
+    cm = CheckpointManager(dst)
+    shutil.copyfile(os.path.join(src, "config.json"), os.path.join(dst, "config.json"))
+    for step in steps:
+        cm.save(step, bridge.classifier_torch_flat(bridge.flat_from_flax(jcm.restore_dict(step))),
+                keep=0)
+    return steps
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("src", help="a JAX runner's stage directory (ckpt-<step>/ by Orbax)")
+    p.add_argument("src", help="a JAX runner's stage directory, or a JAX classifier train "
+                               "dir (ckpt-<step>/ by Orbax)")
     p.add_argument("dst", help="the port's stage directory to write")
     args = p.parse_args(argv)
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    steps = convert_stage(args.src, args.dst)
+    convert = convert_classifier if is_classifier_dir(args.src) else convert_stage
+    steps = convert(args.src, args.dst)
     print(f"converted {len(steps)} checkpoints {steps} from {args.src} to {args.dst}")
 
 

@@ -33,6 +33,14 @@ with the style embedding or distillation carries ``encoder_style`` and
 ``twingan_state_from_flax``/``flax_from_twingan_state`` carry a TwinGAN
 state's networks only, with fresh optimizers.
 
+A classifier of the zoo (``models/classifiers.py``) crosses the same way
+with one more layout change: its dense kernels, (in, out) in Flax, are the
+(out, in) of ``nn.Linear`` in the port (``classifier_state_dict_from_flax``
+for one network's ``params`` and ``batch_stats``, and its inverse). A whole
+``ClassifierTrainer`` state (the step, ``params``, ``model_state/
+batch_stats`` and the optimizer's counts and slots) crosses through
+``classifier_state_from_flax`` and ``flax_classifier_state_dict``.
+
 The conversion is exact both ways. Imports numpy and torch only.
 """
 
@@ -241,3 +249,77 @@ def flax_from_twingan_state(state: GanTrainState) -> tuple[dict, dict]:
     """Inverse of ``twingan_state_from_flax``: the networks as the JAX
     (params, model_state)."""
     return flax_train_state(state.nets.state_dict(), tuple(state.nets.keys()))
+
+
+def _classifier_leaf(key: str, arr: np.ndarray, to_torch: bool) -> np.ndarray:
+    """A classifier leaf's layout change: conv kernels HWIO <-> OIHW (a
+    depthwise (kh, kw, 1, C) <-> (C, 1, kh, kw)), dense kernels transposed;
+    optimizer slots follow their parameter's path, so they change too."""
+    if key.endswith("kernel"):
+        if arr.ndim == 4:
+            return arr.transpose(_HWIO_TO_OIHW if to_torch else _OIHW_TO_HWIO)
+        if arr.ndim == 2:
+            return arr.T
+    return arr
+
+
+def classifier_torch_flat(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """JAX-layout classifier leaves (any key separator) -> the port's tensors."""
+    return {k: torch.from_numpy(np.array(_classifier_leaf(k, np.asarray(v), True)))
+            for k, v in flat.items()}
+
+
+def classifier_flax_flat(flat: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Inverse of ``classifier_torch_flat``."""
+    return {k: np.array(_classifier_leaf(k, t.detach().cpu().numpy(), False), order="C")
+            for k, t in flat.items()}
+
+
+def classifier_state_dict_from_flax(params: Mapping[str, Any],
+                                    batch_stats: Mapping[str, Any] | None = None
+                                    ) -> dict[str, torch.Tensor]:
+    """One Flax classifier's ``params`` (+ ``batch_stats``) -> the port
+    network's ``state_dict`` (the Flax paths joined with dots)."""
+    flat = _flatten(params)
+    flat.update(_flatten(batch_stats or {}))
+    return classifier_torch_flat(flat)
+
+
+def flax_from_classifier_state_dict(state_dict: Mapping[str, torch.Tensor]
+                                    ) -> tuple[dict, dict]:
+    """Inverse of ``classifier_state_dict_from_flax``: (params,
+    batch_stats) as nested dicts of numpy arrays."""
+    from twingan_tpu_torch.train.classifier_trainer import STATS_LEAVES
+
+    params, stats = {}, {}
+    for key, arr in classifier_flax_flat(state_dict).items():
+        (stats if key.rsplit(".", 1)[-1] in STATS_LEAVES else params)[key] = arr
+    return _unflatten(params), _unflatten(stats)
+
+
+def classifier_state_from_flax(trainer, jax_state: Any):
+    """A whole ``ClassifierTrainer`` state of the JAX package (numpy
+    leaves, or the nested dict of an Orbax restore) -> the port's
+    ``ClassifierState`` on the trainer's device: the network's parameters
+    and moving statistics, the optimizer's count and slots, the step."""
+    from twingan_tpu_torch.train.classifier_trainer import classifier_state_from_dict
+
+    state = trainer.init_state(0)
+    return classifier_state_from_dict(state, classifier_torch_flat(flat_from_flax(jax_state)))
+
+
+def flax_classifier_state_dict(state) -> dict:
+    """Inverse of ``classifier_state_from_flax``: the nested JAX state dict
+    (numpy leaves), every leaf of ``flax.serialization.to_state_dict`` of
+    the JAX ``ClassifierState`` at its path (the optimizer's empty states,
+    which have no leaf, are left out)."""
+    from twingan_tpu_torch.train.classifier_trainer import classifier_state_to_dict
+
+    tree: dict = {}
+    for key, arr in classifier_flax_flat(classifier_state_to_dict(state)).items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return tree

@@ -12,12 +12,13 @@ Counterpart of ``twingan_tpu/evals/metrics.py``:
 - ``inception_score``, ``frechet_distance``, ``activation_statistics`` and
   ``fid`` over a given logits or features function (called on torch
   tensors on ``device``);
+- ``inception_pool_features_fn``: random-init InceptionV3 features (the
+  port's own draws, or given weights) and ``classifier_features_fn``: a
+  trained classifier's, the feature functions of FID and the inception
+  score;
 - ``streaming_loss_eval``: the mean of every loss over eval batches.
 
-The feature extractors of the classifier zoo (``inception_pool_features_fn``,
-``classifier_features_fn``) wait for the classifiers' port (queue item
-A14) and raise. The metrics run on the card unless ``device`` says
-otherwise.
+The metrics run on the card unless ``device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from twingan_tpu_torch.ops.basic import resize_bilinear
 from twingan_tpu_torch.ops.msssim import msssim
 from twingan_tpu_torch.ops.swd import (
     SWDDraws,
@@ -150,18 +152,28 @@ def inception_score(logits_fn: Callable[[torch.Tensor], torch.Tensor],
     return float(np.mean(scores)), float(np.std(scores))
 
 
+def _sqrtm(m: np.ndarray) -> np.ndarray:
+    """``scipy.linalg.sqrtm`` without its printed accuracy warning: SciPy
+    up to 1.17 takes ``disp=False`` and returns (root, error estimate);
+    1.18 drops ``disp`` and returns the root alone."""
+    from scipy import linalg
+
+    try:
+        return linalg.sqrtm(m, disp=False)[0]
+    except TypeError:
+        return linalg.sqrtm(m)
+
+
 def frechet_distance(mu1: np.ndarray, sigma1: np.ndarray, mu2: np.ndarray,
                      sigma2: np.ndarray, eps: float = 1e-6) -> float:
     """Fréchet distance between two Gaussians:
     |mu1-mu2|^2 + tr(S1 + S2 - 2 sqrt(S1 S2))."""
-    from scipy import linalg
-
     diff = mu1 - mu2
-    covmean, _ = linalg.sqrtm(sigma1 @ sigma2, disp=False)
+    covmean = _sqrtm(sigma1 @ sigma2)
     if not np.isfinite(covmean).all():
         # Regularize singular covariances (small sample counts).
         offset = np.eye(sigma1.shape[0]) * eps
-        covmean, _ = linalg.sqrtm((sigma1 + offset) @ (sigma2 + offset), disp=False)
+        covmean = _sqrtm((sigma1 + offset) @ (sigma2 + offset))
     if np.iscomplexobj(covmean):
         covmean = covmean.real
     return float(diff @ diff + np.trace(sigma1) + np.trace(sigma2) - 2 * np.trace(covmean))
@@ -192,16 +204,89 @@ def fid(features_fn: Callable[[torch.Tensor], torch.Tensor],
     return frechet_distance(mu_r, sig_r, mu_f, sig_f)
 
 
-def inception_pool_features_fn(image_hw: int = 64, seed: int = 0, endpoint: str = "Mixed_5b"):
-    raise NotImplementedError(
-        "inception_pool_features_fn needs InceptionV3 of the classifier zoo, which is not "
-        "ported to twingan_tpu_torch yet (queue item A14)")
+def _pooled(eps: dict, endpoint: str, batch: int) -> torch.Tensor:
+    feat = eps[endpoint]
+    if feat.dim() == 4:
+        feat = torch.mean(feat, dim=(1, 2))
+    return feat.reshape(batch, -1)
 
 
-def classifier_features_fn(classifier_dir: str, layer: str = "PreLogits"):
-    raise NotImplementedError(
-        "classifier_features_fn needs the trained classifiers, which are not ported to "
-        "twingan_tpu_torch yet (queue item A14)")
+def inception_pool_features_fn(image_hw: int = 64, seed: int = 0, endpoint: str = "Mixed_5b",
+                               weights: Optional[Dict[str, torch.Tensor]] = None,
+                               device: Optional[torch.device | str] = None
+                               ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Images in [0, 1] -> InceptionV3 features at ``endpoint``, spatially
+    mean-pooled ([B, 256] at ``Mixed_5b``).
+
+    No pretrained weights are in the repo, so the network is randomly
+    initialized, as the JAX function's is: FID over these features is a
+    relative metric, not comparable to published numbers. With random init
+    the deep end points collapse, so the default is the first mixed block.
+    The port draws its weights from its own generator seeded by ``seed``,
+    not from JAX's PRNG: its numbers differ from the JAX package's at the
+    same seed. ``weights`` (an InceptionV3 ``state_dict``, such as the JAX
+    package's initialization bridged by ``bridge.classifier_state_dict_
+    from_flax``) replaces the draws. Images are resized (bilinear,
+    antialiased where it shrinks) to max(image_hw, 75) px, the least size
+    the stride stack takes, and scaled to [-1, 1]; the network stops at
+    ``endpoint`` when it is one of the first mixed blocks."""
+    from twingan_tpu_torch.models.classifiers import reset_parameters
+    from twingan_tpu_torch.models.inception import InceptionV3
+
+    device = resolve_device(device)
+    init_hw = max(image_hw, 75)
+    net = InceptionV3(num_classes=1, image_hw=init_hw)
+    if weights is None:
+        reset_parameters(net, torch.Generator().manual_seed(int(seed)))
+    else:
+        net.load_state_dict(weights, strict=True)
+    net.to(device).eval()
+
+    @torch.no_grad()
+    def features(images: torch.Tensor) -> torch.Tensor:
+        images = torch.as_tensor(images).to(device, torch.float32)
+        if images.shape[1] != init_hw:
+            images = resize_bilinear(images, init_hw, init_hw)
+        _, eps = net(images * 2.0 - 1.0, stop_at=endpoint)
+        return _pooled(eps, endpoint, images.shape[0])
+
+    return features
+
+
+def classifier_fn(classifier_dir: str, device: Optional[torch.device | str] = None
+                  ) -> Callable[[torch.Tensor], tuple]:
+    """Images in [0, 1] -> (logits, end_points) of a trained classifier's
+    train dir (the port's ``runner/classifier_runner.py`` writes one; a JAX
+    one converts with ``tools/orbax_to_torch_stage.py``), in eval mode.
+    Images are resized to the classifier's ``image_hw`` first: fixed heads
+    need it, and other sizes score off its training distribution."""
+    from twingan_tpu_torch.runner.classifier_runner import load_trained_classifier
+
+    trainer, state = load_trained_classifier(classifier_dir, device=device)
+    net, cls_hw, device = state.net.eval(), trainer.cfg.image_hw, trainer.device
+
+    @torch.no_grad()
+    def forward(images: torch.Tensor) -> tuple:
+        images = torch.as_tensor(images).to(device, torch.float32)
+        if images.shape[1] != cls_hw:
+            images = resize_bilinear(images, cls_hw, cls_hw)
+        return net(images)
+
+    return forward
+
+
+def classifier_features_fn(classifier_dir: str, layer: str = "PreLogits",
+                           device: Optional[torch.device | str] = None
+                           ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Images in [0, 1] -> the features at ``layer`` (mean-pooled if
+    spatial) of ``classifier_fn``'s classifier."""
+    forward = classifier_fn(classifier_dir, device)
+
+    def features(images: torch.Tensor) -> torch.Tensor:
+        _, eps = forward(images)
+        return _pooled(eps, layer, len(images))
+
+    return features
 
 
 def streaming_loss_eval(loss_fn: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]],

@@ -10,12 +10,22 @@ Counterpart of ``twingan_tpu/evals/run_eval.py``, every flag kept, plus
               fidelity translate(translate(s), t2s) vs s
 - eval_debug  HTML gallery of sources / targets / translations
 - output      embedding CSV dump (the content encoding of each image)
-- fid, inception_score  need the classifier zoo, which is not ported yet
-              (queue item A14), and raise.
+- fid         Fréchet distance of real vs translated images in the
+              features of a random-init InceptionV3 (``Mixed_5b``, pooled;
+              the port's own draws from ``--seed``: a relative metric whose
+              numbers differ from the JAX package's at the same seed), or
+              of the classifier at ``--classifier_path`` (``PreLogits``)
+- inception_score  the 10-split inception score of the translations: the
+              classifier's logits at ``--classifier_path``, or the same
+              random InceptionV3 features through a fixed random head
+              [features, 1000] / sqrt(features) drawn from ``--seed`` + 1
 
 Translations go through the port's ``ImageInferer`` (the stage's
 ``model.pt``); ``loss`` and ``output`` restore the stage's latest
-checkpoint into a ``TwinGANTrainer``, as the JAX CLI does.
+checkpoint into a ``TwinGANTrainer``, as the JAX CLI does. ``main`` takes
+``inception_weights`` (an InceptionV3 ``state_dict``) and ``is_head`` (the
+random head) in place of the port's draws, which is how the tests hand
+both packages the same numbers.
 
     python -m twingan_tpu_torch.evals.run_eval --mode=swd \\
         --model_path=/trained --dataset_dir=... --target_dataset_dir=... \\
@@ -70,7 +80,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", required=True)
     p.add_argument("--classifier_path", default="",
                    help="trained classifier dir for --mode=inception_score and "
-                        "--mode=fid (both wait for the classifier zoo, queue item A14)")
+                        "--mode=fid (default: random-init InceptionV3 features)")
     p.add_argument("--eval_dir", default="/tmp/twingan_eval")
     p.add_argument("--dataset_name", default="image_only")
     p.add_argument("--dataset_dir", default="")
@@ -100,12 +110,31 @@ def restore_trainer(inferer: ImageInferer, stage_dir: str, device: torch.device)
     return trainer, state
 
 
-def main(argv=None) -> dict:
+def random_is_head(features: int, seed: int) -> torch.Tensor:
+    """The inception score's random head without a classifier: N(0, 1)
+    [features, 1000] from a CPU generator seeded by ``seed``, / sqrt(features)."""
+    w = torch.randn((features, 1000), generator=torch.Generator().manual_seed(int(seed)))
+    return w / torch.sqrt(torch.tensor(float(features)))
+
+
+def random_head_logits_fn(feats, seed: int, head=None):
+    """The inception score's logits without a classifier: the batch's
+    features over their std, through ``head`` (``random_is_head`` of the
+    feature width and ``seed`` when None)."""
+    w = {}
+
+    def logits_fn(images: torch.Tensor) -> torch.Tensor:
+        f = feats(images)
+        if "w" not in w:
+            drawn = head if head is not None else random_is_head(f.shape[-1], seed)
+            w["w"] = torch.as_tensor(drawn).to(f.device, torch.float32)
+        return (f / (torch.std(f, correction=0) + 1e-6)) @ w["w"]
+
+    return logits_fn
+
+
+def main(argv=None, inception_weights=None, is_head=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.mode in ("fid", "inception_score"):
-        raise NotImplementedError(
-            f"--mode={args.mode} needs the classifier zoo (InceptionV3 or a trained "
-            "classifier), which is not ported to twingan_tpu_torch yet (queue item A14)")
     inferer = ImageInferer(args.model_path, device=args.device)
     device = inferer.device
     hw = inferer.image_hw
@@ -186,6 +215,74 @@ def main(argv=None) -> dict:
         print(f"translated-set MS-SSIM diversity (lower = more diverse): {diversity:.4f}")
         print(f"cycle fidelity MS-SSIM s vs s2t2s (higher = better): {fidelity:.4f}")
         result.update(diversity=diversity, fidelity=fidelity, images=n)
+
+    elif args.mode == "fid":
+        from twingan_tpu_torch.evals.metrics import (
+            classifier_features_fn,
+            fid,
+            inception_pool_features_fn,
+        )
+
+        if args.classifier_path:
+            feats = classifier_features_fn(args.classifier_path, device=device)
+            kind = "trained-classifier features"
+        else:
+            feats = inception_pool_features_fn(image_hw=hw, seed=args.seed,
+                                               weights=inception_weights, device=device)
+            draws = ("given weights" if inception_weights is not None
+                     else f"the port's own draws from seed {args.seed}")
+            kind = f"random-feature inception ({draws}), relative metric"
+        reals, fakes, n = [], [], 0
+        for batch in batches:
+            reals.append(np.asarray(batch["target"], np.float32))
+            fakes.append(translate(batch["source"]))
+            n += len(reals[-1])
+            if n >= args.num_images:
+                break
+        score = fid(feats, reals, fakes, device=device)
+        out = os.path.join(args.eval_dir, "fid.txt")
+        with open(out, "w") as f:
+            f.write(f"fid\t{score:.6f}\t{n} images\t{kind}\n")
+        print(f"FID ({kind}): {score:.4f} over {n} images")
+        print("written:", out)
+        result.update(fid=score, images=n, kind=kind, path=out)
+
+    elif args.mode == "inception_score":
+        # The reference protocol: softmax of logits over the translations,
+        # 10-split exp-KL.
+        from twingan_tpu_torch.evals.metrics import inception_score
+
+        if args.classifier_path:
+            from twingan_tpu_torch.evals.metrics import classifier_fn
+
+            forward = classifier_fn(args.classifier_path, device)
+
+            def logits_fn(images):
+                return forward(images)[0]
+        else:
+            # Random-init logits at the deep head collapse (the score would
+            # be exactly 1.0): Mixed_5b's pooled features through a fixed
+            # random head instead, a relative diversity measure.
+            from twingan_tpu_torch.evals.metrics import inception_pool_features_fn
+
+            feats = inception_pool_features_fn(image_hw=hw, seed=args.seed,
+                                               weights=inception_weights, device=device)
+            logits_fn = random_head_logits_fn(feats, args.seed + 1, is_head)
+
+        fakes, n = [], 0
+        for batch in batches:
+            fakes.append(translate(batch["source"]))
+            n += len(fakes[-1])
+            if n >= args.num_images:
+                break
+        mean, std = inception_score(logits_fn, fakes, device=device)
+        out = os.path.join(args.eval_dir, "inception_score.txt")
+        with open(out, "w") as f:
+            f.write(f"inception_score\t{mean:.6f}\t{std:.6f}\t{n} images\n")
+        print(f"inception score: {mean:.4f} +/- {std:.4f} over {n} images"
+              + ("" if args.classifier_path else " (random-init logits; relative)"))
+        print("written:", out)
+        result.update(inception_score=mean, inception_score_std=std, images=n, path=out)
 
     elif args.mode == "eval_debug":
         batch = next(batches)

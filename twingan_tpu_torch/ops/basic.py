@@ -127,3 +127,17 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
         w = _resize_weights(x.shape[2], width, x.device).to(x.dtype)
         x = torch.einsum("bhwc,wW->bhWc", x, w)
     return x
+
+
+def local_response_norm(x: torch.Tensor, depth_radius: int = 5, bias: float = 1.0,
+                        alpha: float = 1.0, beta: float = 0.5, dim: int = -1) -> torch.Tensor:
+    """``tf.nn.lrn`` over the channel axis ``dim`` (the last, NHWC, by
+    default; ``dim=1`` for NCHW): out_i = x_i / (bias + alpha *
+    sum_{j in [i-r, i+r]} x_j^2) ** beta, the windowed sum of squares as a
+    difference of cumulative sums over the zero-padded channels, as the JAX
+    function takes it."""
+    sq = torch.square(x).movedim(dim, -1)
+    csum = torch.cumsum(F.pad(sq, (depth_radius + 1, depth_radius)), dim=-1)
+    window = 2 * depth_radius + 1
+    sums = csum[..., window:] - csum[..., :-window]
+    return x / torch.pow(bias + alpha * sums.movedim(-1, dim), beta)

@@ -25,7 +25,7 @@ import json
 import os
 import re
 import shutil
-from typing import Any, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 
@@ -85,14 +85,19 @@ class CheckpointManager:
         return torch.load(os.path.join(self._path(step), STATE_FILE), map_location="cpu",
                           weights_only=True)
 
-    def restore(self, template_state: Any, step: Optional[int] = None) -> Optional[Any]:
+    def restore(self, template_state: Any, step: Optional[int] = None,
+                to_dict: Callable = state_to_dict,
+                from_dict: Callable = state_from_dict) -> Optional[Any]:
         """Restore into a fresh template state, in place (same-stage
         resume), matching leaves by path and shape; None if there is no
-        checkpoint. Refuses a checkpoint that carries no parameter."""
+        checkpoint. Refuses a checkpoint that carries no parameter.
+        ``to_dict``/``from_dict`` lay the state out flat and load it back
+        (a GAN train state's by default; a classifier's from
+        ``train/classifier_trainer.py``)."""
         raw = self.restore_dict(step)
         if raw is None:
             return None
-        template = state_to_dict(template_state)
+        template = to_dict(template_state)
         merged, report = migrate_state_dict(template, raw, reset_paths=())
         # A resume that carries nothing is a config/checkpoint mismatch:
         # fresh params under a carried step counter would train garbage
@@ -106,7 +111,7 @@ class CheckpointManager:
             print(f"[checkpoint] WARNING: {len(report['shape_mismatch'])} "
                   f"leaves shape-mismatched on restore and keep fresh init: "
                   f"{report['shape_mismatch'][:5]}...")
-        return state_from_dict(template_state, merged)
+        return from_dict(template_state, merged)
 
 
 def _jsonable(obj):

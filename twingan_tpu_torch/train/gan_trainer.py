@@ -71,7 +71,6 @@ from typing import Mapping, Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.func import functional_call
 
 from twingan_tpu_torch.models.config import PGGANConfig
@@ -92,18 +91,10 @@ from twingan_tpu_torch.train.losses import (
 from twingan_tpu_torch.train.optimizers import OptimizerConfig, build_optimizer, global_norm
 from twingan_tpu_torch.train.state import GanTrainState, polyak_update, update_gdrop_state
 from twingan_tpu_torch.utils import threefry
+from twingan_tpu_torch.utils.misc import safe_one_hot_encoding
 
 GEN = "generator"
 DIS = "discriminator"
-
-
-def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
-    """One-hot rows of integer labels; out-of-range labels give all-zero
-    rows (the JAX ``safe_one_hot_encoding``)."""
-    labels = labels.long()
-    valid = (labels >= 0) & (labels < num_classes)
-    hot = F.one_hot(torch.where(valid, labels, torch.zeros_like(labels)), num_classes)
-    return hot.float() * valid.float()[..., None]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,7 +224,7 @@ class GanTrainer(BaseGanTrainer):
             raise ValueError(f"conditional_labels width {labels.shape[-1]} != "
                              f"num_classes {cfg.num_classes}")
         if labels.dim() == 1:
-            labels = one_hot(labels, cfg.num_classes)
+            labels = safe_one_hot_encoding(labels, cfg.num_classes)
         labels = labels.float()
         return labels, labels @ self.cond_lookup
 

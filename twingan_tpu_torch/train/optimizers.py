@@ -238,7 +238,7 @@ class Optimizer:
         if len(grads) != len(self.params):
             raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
         cfg = self.cfg
-        grads = [g.float() for g in grads]
+        grads = [g.to(torch.promote_types(g.dtype, torch.float32)) for g in grads]
         if cfg.clip_global_norm:
             norm = float(global_norm(grads))
             if not norm < cfg.clip_global_norm:

@@ -12,11 +12,12 @@ result line is printed:
               the comparisons.
 2. build    - nvcc builds ``csrc/flash_attn_fwd.cu`` (the flash-attention
               forward kernel), ``csrc/flash_attn_bwd.cu`` (its two
-              backward kernels, dq and dkv) and ``csrc/fused_conv.cu``
+              backward kernels, dq and dkv), ``csrc/fused_conv.cu``
               (the fused conv3x3 + bias + leaky + pixel-norm kernel B4;
               each of the four kernels has a tensor-core variant for bf16
-              and a CUDA-core one for fp32) into ctypes libraries, the
-              three compiles started together, and prints each kernel's
+              and a CUDA-core one for fp32) and ``csrc/conv_i8.cu`` (the
+              int8 conv Q1 of W8A8 serving) into ctypes libraries, the
+              four compiles started together, and prints each kernel's
               registers and spills.
 3. kernel   - at each listed shape, the forward kernel against its plain
               PyTorch version on the same inputs (output and logsumexp);
@@ -206,7 +207,30 @@ result line is printed:
               features and FID of fixed images against the CPU's with the
               same weights (features within FEATURES_MEAN_TOL and
               FEATURES_MAX_TOL of the std, FID within FID_CARD_RTOL).
-15. kernels - one line listing each kernel of the paths.
+15. int8    - W8A8 int8 serving (kernel Q1, ``csrc/conv_i8.cu``) of the
+              serving phase's slice config (256 px, bf16, batch norm, UNet,
+              attention at 64 px): ``ImageInferer(quantize=True)`` behind
+              ``BatchingLocalClient``, warmed up past ``CALIB_MIN_IMAGES``
+              (each batch calibrated on, then served in int8), then 3
+              timed rounds of 8 requests (images/s beside the serving
+              phase's bf16 rate), B1 2 and Q1 34 launches a dispatched
+              batch (one a conv of the encoder and the generator), no B4.
+              Q1 against its plain version at every distinct conv of a
+              translated batch of 4 (read by hooks), the fused-scale up
+              conv (dilation 2) and a ragged Cin: int32 sums and fp32 and
+              bf16 outputs bit-equal; Q1's device time, the plain
+              version's, the bound and ``torch._int_mm`` on the unfolded
+              input. The card against the CPU in fp32 with the card's
+              scales: every conv given the CPU's input bit-equal, the
+              first layer's codes equal and the second's within
+              INT8_SECOND_FLIP_TOL, the output within INT8_CPU_* (the
+              share of flipped codes at every layer printed); int8
+              against bf16 on the card (L1, PSNR). Then ``export_torch``
+              of the bf16 and the calibrated int8 inferer, ``load_torch``
+              and a batch each: B1 2 and Q1 34 (int8) launches through
+              the custom ops, outputs equal to the eager ones bit for
+              bit, export and load seconds.
+16. kernels - one line listing each kernel of the paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -240,6 +264,9 @@ KERNELS = {
     "flash_attn_dkv": ("twingan_tpu_torch/csrc/flash_attn_bwd.cu",
                        "twingan_tpu/ops/attention.py:153"),
     "fused_conv": ("twingan_tpu_torch/csrc/fused_conv.cu", "tools/exp_fused_conv.py:76"),
+    # Q1 replaces no Pallas kernel: the JAX package's int8 conv is
+    # lax.conv_general_dilated(..., preferred_element_type=int32).
+    "conv_i8": ("twingan_tpu_torch/csrc/conv_i8.cu", "twingan_tpu/ops/quant.py:69"),
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of a call is
@@ -558,6 +585,35 @@ FID_COMPARE_IMAGES = 32
 FEATURES_MEAN_TOL, FEATURES_MAX_TOL = 1e-5, 1e-4
 FID_CARD_RTOL = 1e-4
 
+# W8A8 int8 serving (kernel Q1, csrc/conv_i8.cu). Q1 against its plain
+# version at every distinct conv of the slice config at the serving batch
+# (the shapes the int8 translate gives it, read by hooks), plus the
+# fused-scale up conv (dilation 2, 4x4, padding 2, which the slice config
+# does not run) and a ragged Cin: the int32 sums and the fp32 and bf16
+# outputs bit-equal. Then the slice config served in int8 through
+# BatchingLocalClient: a warm-up past CALIB_MIN_IMAGES, then timed rounds.
+# Card against CPU (fp32 both, the card's calibrated abs-maxima copied to
+# the CPU). Each conv given the CPU's input must give the CPU's output bit
+# for bit (the quantize, Q1 and its epilogue are exact or the same IEEE
+# operations on both). Free-running, the first conv's input is the image,
+# identical on both, so its codes must agree; the next input has been
+# through batch norm's rsqrt and the pixel norm's channel sum, whose last
+# bits differ, and flips a code that lies within them of a rounding
+# boundary: at most INT8_SECOND_FLIP_TOL of them. A flip moves the next
+# conv by a whole quantization step, so deeper layers decorrelate (my chip
+# run 1 of PR 15: 47 % of one layer's codes flipped): the output then
+# differs by about the int8 noise itself, and is held to
+# INT8_CPU_MEAN_NOISE_TOL times the CPU int8 output's mean distance from
+# its fp32 output, and its largest difference to INT8_CPU_MAX_TOL of the
+# std (serving's limit).
+INT8_CPU_BATCH = 2
+INT8_SECOND_FLIP_TOL = 1e-3
+INT8_CPU_MEAN_NOISE_TOL = 2.0
+INT8_CPU_MAX_TOL = 0.5
+INT8_UP_CASE = ("fused-scale up (dilation 2)", 4, 64, 64, 32, 4, (2, 2, 2, 2), 2)
+INT8_RAGGED_CASE = ("ragged Cin", 4, 32, 10, 24, 3, (1, 1, 1, 1), 1)
+INT8_OPS_PER_S = 1979e12
+
 # Numbers an earlier phase measured that a later one prints beside its own.
 MEASURED: dict = {}
 
@@ -667,9 +723,10 @@ def device_phase():
 
 
 def build_phase():
-    from twingan_tpu_torch.ops import attention, cuda_build, fused_conv
+    from twingan_tpu_torch.ops import attention, cuda_build, fused_conv, quant
 
-    names = (attention.KERNEL_NAME, attention.BWD_LIBRARY, fused_conv.KERNEL_NAME)
+    names = (attention.KERNEL_NAME, attention.BWD_LIBRARY, fused_conv.KERNEL_NAME,
+             quant.KERNEL_NAME)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, together
         list(pool.map(cuda_build.build, names))
@@ -714,6 +771,25 @@ def time_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     times = sorted(s.elapsed_time(e) for s, e in events)
     return times[len(times) // 2]
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn``'s launches, queued back to back: the
+    launches are enqueued while the card spins (``torch.cuda._sleep``), so
+    the events time the kernels and not the host's dispatch between them."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7))  # about 10 ms: longer than enqueueing reps calls
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
 
 
 def _bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0) -> tuple[float, str]:
@@ -806,12 +882,14 @@ def kernel_phase() -> dict:
         sdpa_err = (F.scaled_dot_product_attention(q, k, v, scale=1.0)[:, 0].float()
                     - ref.float()).abs().max().item()
         ms = time_ms(lambda: attention.flash_attention_forward(f, g, h))
+        dev_ms = device_ms(lambda: attention.flash_attention_forward(f, g, h))
         plain_ms = time_ms(lambda: attention.attention_core(f, g, h))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
         bound_ms, bound_by = bound(b, n, c_bar, c, dtype)
         row = {"phase": "kernel", "case": label, "B": b, "N": n, "c_bar": c_bar, "C": c,
                "dtype": dtype, "variant": variant, "max_abs_err": err, "tolerance": tol,
                "lse_err": lse_err, "lse_tolerance": lse_tol, "sdpa_err": sdpa_err, "ms": ms,
+               "device_ms": dev_ms,
                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by,
                "ok": bool(err <= tol and lse_err <= lse_tol
@@ -885,6 +963,7 @@ def fused_conv_phase() -> list:
                "shape_ok": tuple(y.shape) == (b, cout, hw, hw) and y.dtype == dt,
                "finite": bool(torch.isfinite(y).all()),
                "ms": time_ms(lambda: fused_conv.fused_conv(x, w9, bias)),
+               "device_ms": device_ms(lambda: fused_conv.fused_conv(x, w9, bias)),
                "plain_ms": time_ms(lambda: fused_conv.fused_conv_plain(x, w9, bias)),
                "library": "cuDNN F.conv2d alone, weights in x's type (no single PyTorch "
                           "call computes conv + bias + leaky + pixel norm)",
@@ -978,6 +1057,9 @@ def backward_kernel_phase() -> dict:
         args = (f, g, h, do, lse, delta)
         ms = {"flash_attn_dq": time_ms(lambda: attention.flash_attention_dq(*args), reps),
               "flash_attn_dkv": time_ms(lambda: attention.flash_attention_dkv(*args), reps)}
+        dev_ms = {"flash_attn_dq": device_ms(lambda: attention.flash_attention_dq(*args), reps),
+                  "flash_attn_dkv": device_ms(lambda: attention.flash_attention_dkv(*args),
+                                              reps)}
         plain_ms = None if chunked else {
             "flash_attn_dq": time_ms(lambda: attention.flash_attention_dq_plain(*args)),
             "flash_attn_dkv": time_ms(lambda: attention.flash_attention_dkv_plain(*args))}
@@ -990,7 +1072,8 @@ def backward_kernel_phase() -> dict:
         bounds = bwd_bounds(b, n, c_bar, c, dtype)
         row = {"phase": "kernel", "kernels": ["flash_attn_dq", "flash_attn_dkv"], "case": label,
                "B": b, "N": n, "c_bar": c_bar, "C": c, "dtype": dtype, "variant": variants,
-               "max_abs_err": errs, "tolerance": tols, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": errs, "tolerance": tols, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms,
                "library": f"SDPA forward + backward, scale 1.0, {backend_name} backend",
                "library_ms": library_ms,
                "bound_ms": {k_: v_[0] for k_, v_ in bounds.items()},
@@ -1106,6 +1189,7 @@ def serving_phase(card: str, smi_line: str) -> int:
                     m.sa_gamma.zero_()
         no_attention = float(np.abs(cpu.infer_batch([images[0]])[0] - ref).mean()) / std
         timed = sorted(round_s[1:])[len(round_s[1:]) // 2]
+        MEASURED["serving_images_per_s"] = REQUESTS_PER_ROUND / timed
         row = {"phase": "serving", "requests": REQUESTS_PER_ROUND * (1 + TIMED_ROUNDS),
                "dispatches": dispatches, "kernel_launches": launches,
                "kernel_variants": {k: v for k, v in variants.items() if v},
@@ -3491,6 +3575,335 @@ def classifiers_phase(card: str, smi_line: str, data: dict, twingan_dir: str) ->
     return total
 
 
+def int8_bound(b: int, h: int, w: int, cin: int, cout: int, k: int, padding, dil: int,
+               out_elt: int) -> tuple[float, str]:
+    """Least time of one Q1 call: x (int8, channels padded to 4) and the
+    weights read once, scale and bias (fp32) read once, the output written
+    once; against the products this input needs (a dilated input's zero
+    rows and columns need none: k^2 / dil^2 taps an output) at the int8
+    tensor-core peak."""
+    from twingan_tpu_torch.ops import quant
+
+    cp = -(-cin // 4) * 4
+    ho, wo = quant.output_hw((h, w), (k, k), padding, dil)
+    nbytes = b * h * w * cp + cout * k * k * cp + 8 * cout + out_elt * b * cout * ho * wo
+    ops = 2.0 * b * ho * wo * cout * cin * k * k / (dil * dil)
+    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / INT8_OPS_PER_S}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def int_mm_ms(xq, wq, padding, dil):
+    """``torch._int_mm`` (cuBLASLt's int8 GEMM) on the unfolded input: the
+    library time of one Q1 call, the unfold not timed; None where the
+    library refuses the shape."""
+    import torch
+    import torch.nn.functional as F
+
+    b, h, w, cp = xq.shape
+    cout, k = wq.shape[:2]
+    x = xq.permute(0, 3, 1, 2).half()
+    if dil > 1:
+        xd = x.new_zeros(b, cp, (h - 1) * dil + 1, (w - 1) * dil + 1)
+        xd[:, :, ::dil, ::dil] = x
+        x = xd
+    x = F.pad(x, (padding[2], padding[3], padding[0], padding[1]))
+    cols = F.unfold(x, k).transpose(1, 2).reshape(-1, cp * k * k)
+    kpad, npad = -cols.shape[1] % 16, -cout % 8
+    a = F.pad(cols, (0, kpad)).to(torch.int8).contiguous()
+    wm = wq.permute(0, 3, 1, 2).reshape(cout, -1).half()
+    bm = F.pad(wm, (0, kpad, 0, npad)).to(torch.int8)
+    for b_mat in (bm.t().contiguous(), bm.t()):
+        try:
+            torch._int_mm(a, b_mat)
+        except RuntimeError:
+            continue
+        return device_ms(lambda: torch._int_mm(a, b_mat))
+    return None
+
+
+def int8_kernel_rows(shapes: dict) -> list:
+    """Q1 against its plain version at each distinct conv shape: the int32
+    sums and the fp32 and bf16 outputs bit-equal; Q1's time in each, the
+    plain version's, the bound and torch._int_mm's."""
+    import torch
+    from twingan_tpu_torch.ops import quant
+
+    rows = []
+    cases = [(f"{name} x{n}", *shape) for shape, (name, n) in shapes.items()]
+    cases += [INT8_UP_CASE, INT8_RAGGED_CASE]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for label, b, hw, cin, cout, k, padding, dil in cases:
+        xq = torch.randint(-127, 128, (b, cin, hw, hw), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (cout, cin, k, k), device="cuda", generator=gen,
+                           dtype=torch.int8)
+        xw, ww = quant.nhwc_words(xq), quant.weight_words(wq)
+        scale = torch.rand(cout, device="cuda", generator=gen) * 1e-3 + 1e-5
+        bias = torch.randn(cout, device="cuda", generator=gen)
+        plain = quant.conv_i8_plain(xw, ww, padding, dil)
+        row = {"phase": "int8_kernel", "case": label, "B": b, "H": hw, "Cin": cin,
+               "Cout": cout, "k": k, "padding": list(padding), "dilation": dil,
+               "ms": {}, "launch_ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {},
+               "equal": {}}
+        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            sc = None if dtype == torch.int32 else scale.to(dtype).float()
+            bi = None if dtype == torch.int32 else bias.to(dtype).float()
+            quant.reset_launch_counts()
+            got = quant.conv_i8(xw, ww, sc, bi, padding, dil, dtype)
+            torch.cuda.synchronize()
+            want = quant.dequantize_plain(plain, sc, bi, dtype)
+            row["equal"][name] = bool(quant.launch_counts[quant.KERNEL_NAME] == 1
+                                      and got.dtype == want.dtype and torch.equal(got, want))
+            row["ms"][name] = device_ms(lambda: quant.conv_i8(xw, ww, sc, bi, padding, dil,
+                                                              dtype))
+            row["launch_ms"][name] = time_ms(lambda: quant.conv_i8(xw, ww, sc, bi, padding, dil,
+                                                                   dtype))
+            row["plain_ms"][name] = device_ms(lambda: quant.dequantize_plain(
+                quant.conv_i8_plain(xw, ww, padding, dil), sc, bi, dtype))
+            row["bound_ms"][name], row["bound_by"][name] = int8_bound(
+                b, hw, hw, cin, cout, k, padding, dil, got.element_size())
+        row["library_ms"] = int_mm_ms(xw, ww, padding, dil)
+        row["ok"] = all(row["equal"].values())
+        emit(row)
+        if not row["ok"]:
+            fail("int8", f"Q1 disagrees with its plain version at {label}: {row['equal']}")
+        rows.append((row, shapes.get((b, hw, cin, cout, k, padding, dil), ("", 0))[1]))
+    return rows
+
+
+def conv_shapes(inferer, x):
+    """{(B, H, Cin, Cout, k, padding, dilation): (first layer, count)} of
+    the int8 convs one translate of ``x`` runs, read by forward hooks."""
+    from twingan_tpu_torch.infer.quantize import quantized_convs
+
+    shapes, hooks = {}, []
+
+    def record(name):
+        def hook(conv, args):
+            xin = args[0]
+            key = (xin.shape[0], xin.shape[2], xin.shape[1], conv.kernel.shape[0],
+                   conv.kernel_size, conv.conv_padding(), 1)
+            first, n = shapes.get(key, (name, 0))
+            shapes[key] = (first, n + 1)
+        return hook
+
+    m = inferer.model
+    for name, conv in quantized_convs(m.encoder_content, m.generator):
+        hooks.append(conv.register_forward_pre_hook(record(name)))
+    try:
+        inferer.translate(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def int8_trace(inferer, x, keep_io: bool = False):
+    """One int8 translate of ``x``: the output on the CPU, and per conv call
+    in order (name, the int8 codes of its input on the CPU, and with
+    ``keep_io`` its arguments and output on the CPU)."""
+    import torch
+    from twingan_tpu_torch.infer.quantize import quantized_convs
+    from twingan_tpu_torch.ops import quant
+
+    calls, hooks = [], []
+
+    def on_cpu(t):
+        return t.detach().cpu() if isinstance(t, torch.Tensor) else t
+
+    def record(name):
+        def hook(conv, args, out):
+            codes = quant.quantize(args[0], quant.act_scale(conv.a_max[0])).cpu()
+            io = (tuple(on_cpu(a) for a in args), on_cpu(out)) if keep_io else None
+            calls.append((name, codes, io))
+        return hook
+
+    m = inferer.model
+    for name, conv in quantized_convs(m.encoder_content, m.generator):
+        hooks.append(conv.register_forward_hook(record(name)))
+    try:
+        out = inferer.translate(x).float().cpu()
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls, out
+
+
+def int8_phase(card: str, smi_line: str) -> dict:
+    """W8A8 serving of the slice config: Q1 at its shapes, the int8 path
+    through BatchingLocalClient, the card against the CPU, int8 against
+    bf16, and the exported programs. Returns the launches and Q1's line."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.infer.export import export_torch, load_torch
+    from twingan_tpu_torch.infer.quantize import CALIB_MIN_IMAGES, quantized_convs
+    from twingan_tpu_torch.infer.translate import ImageInferer
+    from twingan_tpu_torch.ops import attention, fused_conv, quant
+    from twingan_tpu_torch.runner.checkpoint import save_stage
+    from twingan_tpu_torch.serve.clients import BatchingLocalClient
+
+    t_phase = time.perf_counter()
+    cfg = slice_config()
+    root = tempfile.mkdtemp(prefix="twingan_smoke_int8_")
+    try:
+        stage_dir = os.path.join(root, "256")
+        save_stage(stage_dir, cfg, random_translator(cfg).state_dict(), step=0)
+        rng = np.random.RandomState(SEED + 8)
+        images = [rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)
+                  for _ in range(REQUESTS_PER_ROUND)]
+        inferer = ImageInferer(stage_dir, quantize=True)  # the card, by default
+        m = inferer.model
+        n_convs = len(list(quantized_convs(m.encoder_content, m.generator)))
+        client = BatchingLocalClient(inferer, max_batch=4, max_wait_ms=50.0)
+        round_s, warm_rounds = [], 0
+        try:
+            with ThreadPoolExecutor(REQUESTS_PER_ROUND) as pool:
+                while inferer.calibrated_images < CALIB_MIN_IMAGES:
+                    list(pool.map(client.do_inference, images))
+                    warm_rounds += 1
+                list(pool.map(client.do_inference, images))  # int8 only from here
+                torch.cuda.synchronize()
+                for counts in (attention, fused_conv, quant):
+                    counts.reset_launch_counts()
+                dispatched = client.dispatches
+                for _ in range(TIMED_ROUNDS):
+                    t0 = time.perf_counter()
+                    outs = list(pool.map(client.do_inference, images))
+                    torch.cuda.synchronize()
+                    round_s.append(time.perf_counter() - t0)
+        finally:
+            client.close()
+        dispatches = client.dispatches - dispatched
+        b1 = attention.launch_counts[attention.KERNEL_NAME]
+        b1_tc = attention.variant_counts[f"{attention.KERNEL_NAME}/{attention.TENSOR_CORE}"]
+        q1 = quant.launch_counts[quant.KERNEL_NAME]
+        for i, out in enumerate(outs):
+            if out.shape != (256, 256, 3) or not np.isfinite(out).all():
+                fail("int8", f"request {i}: shape {out.shape}, finite {np.isfinite(out).all()}")
+        if (b1 != 2 * dispatches or b1_tc != b1 or q1 != n_convs * dispatches
+                or any(fused_conv.launch_counts.values()) or dispatches < TIMED_ROUNDS * 2):
+            fail("int8", f"{dispatches} batches launched B1 {b1} times ({b1_tc} tensor-core) "
+                         f"and Q1 {q1} times; expected 2 and {n_convs} a batch, no B4: "
+                         f"{fused_conv.launch_counts}")
+        timed = sorted(round_s)[len(round_s) // 2]
+        emit({"phase": "int8_serving", "warm_up_rounds": warm_rounds,
+              "calibrated_images": inferer.calibrated_images, "dispatches": dispatches,
+              "b1_launches": b1, "q1_launches": q1, "quantized_convs": n_convs,
+              "images_per_s": REQUESTS_PER_ROUND / timed, "round_s": round_s,
+              "bf16_serving_images_per_s": MEASURED.get("serving_images_per_s"),
+              "card": card, "nvidia_smi": smi_line, "ok": True})
+        MEASURED["int8_images_per_s"] = REQUESTS_PER_ROUND / timed
+        launches = {"b1": b1, "q1": q1}
+
+        # Q1 at every distinct conv of a translated batch of 4.
+        x4 = torch.from_numpy(np.stack([inferer.preprocess(im) for im in images[:4]]))
+        shapes = conv_shapes(inferer, x4)
+        if sum(n for _, n in shapes.values()) != n_convs:
+            fail("int8", f"the hooks saw {shapes} for {n_convs} convs")
+        rows = int8_kernel_rows(shapes)
+
+        # The card against the CPU in fp32, the card's abs-maxima on both.
+        a_max = {k: v.clone() for k, v in m.state_dict().items() if k.endswith("a_max")}
+        x2 = x4[:INT8_CPU_BATCH]
+        traces, outs, convs = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            inf = ImageInferer(stage_dir, device=dev, dtype="float32", quantize=True)
+            inf.calibrate(x2)  # adds the buffers, switches to int8 ...
+            inf.model.load_state_dict(a_max, strict=False)  # ... at the card's scales
+            traces[dev], outs[dev] = int8_trace(inf, x2, keep_io=dev == "cpu")
+            convs[dev] = dict(quantized_convs(inf.model.encoder_content, inf.model.generator))
+        fp32 = ImageInferer(stage_dir, device="cpu", dtype="float32").translate(x2).numpy()
+        # Each conv on the card given the CPU's input: bit-equal outputs.
+        forced = []
+        with torch.no_grad():
+            for name, _, (args, want) in traces["cpu"]:
+                got = convs["cuda"][name](*(a.cuda() if isinstance(a, torch.Tensor) else a
+                                            for a in args))
+                forced.append(bool(torch.equal(got.cpu(), want)))
+        ref = outs["cpu"].numpy()
+        std = float(ref.std())
+        diff = np.abs(outs["cuda"].numpy() - ref)
+        noise = float(np.abs(ref - fp32).mean())
+        flips = [float((a[1] != b[1]).float().mean())
+                 for a, b in zip(traces["cuda"], traces["cpu"])]
+        vs_cpu = {"layers_bit_equal_given_the_cpu_input": sum(forced), "layers": len(forced),
+                  "first_layer_flipped_share": flips[0], "second_layer_flipped_share": flips[1],
+                  "flipped_share_by_layer": flips,
+                  "mean_abs_err_over_std": float(diff.mean()) / std,
+                  "max_abs_err_over_std": float(diff.max()) / std, "output_std": std,
+                  "cpu_int8_vs_fp32_mean_abs_over_std": noise / std,
+                  "second_layer_flip_tolerance": INT8_SECOND_FLIP_TOL,
+                  "mean_tolerance_of_the_int8_noise": INT8_CPU_MEAN_NOISE_TOL,
+                  "max_tolerance": INT8_CPU_MAX_TOL}
+        ok = (all(forced) and len(forced) == n_convs and flips[0] == 0.0
+              and flips[1] <= INT8_SECOND_FLIP_TOL
+              and float(diff.mean()) <= INT8_CPU_MEAN_NOISE_TOL * noise
+              and vs_cpu["max_abs_err_over_std"] <= INT8_CPU_MAX_TOL)
+        del traces
+
+        # int8 against bf16 on the card (information), and the exports.
+        fp = ImageInferer(stage_dir)
+        with torch.no_grad():
+            y8 = inferer.translate(x4).float()
+            y16 = fp.translate(x4).float()
+        mse = float(torch.mean((y8 - y16) ** 2))
+        vs_bf16 = {"l1": float(torch.mean(torch.abs(y8 - y16))),
+                   "psnr_db": 10 * float(np.log10(1.0 / max(mse, 1e-30)))}
+        exports = {}
+        for name, inf in (("bf16", fp), ("int8", inferer)):
+            t0 = time.perf_counter()
+            path = export_torch(inf, os.path.join(root, f"export_{name}"), batch_size=4)
+            t1 = time.perf_counter()
+            program = load_torch(path)
+            t2 = time.perf_counter()
+            for counts in (attention, quant):
+                counts.reset_launch_counts()
+            with torch.no_grad():
+                y = program(x4.cuda())
+            torch.cuda.synchronize()
+            got = {"b1": attention.launch_counts[attention.KERNEL_NAME],
+                   "q1": quant.launch_counts[quant.KERNEL_NAME]}
+            with torch.no_grad():
+                eager = inf.translate(x4)
+            want_q1 = n_convs if name == "int8" else 0
+            exports[name] = {"export_s": t1 - t0, "load_s": t2 - t1, "launches": got,
+                             "equal_to_eager": bool(torch.equal(y, eager))}
+            launches[f"export_{name}_b1"], launches[f"export_{name}_q1"] = got["b1"], got["q1"]
+            ok = ok and exports[name]["equal_to_eager"] and got == {"b1": 2, "q1": want_q1}
+        row = {"phase": "int8", "vs_cpu_fp32": vs_cpu, "int8_vs_bf16_on_card": vs_bf16,
+               "exports": exports, "seconds": time.perf_counter() - t_phase,
+               "card": card, "nvidia_smi": smi_line, "ok": bool(ok)}
+        emit(row)
+        if not ok:
+            fail("int8", "the card's int8 path disagrees with the CPU beyond the limits, or an "
+                         "exported program did not equal the eager one or missed a kernel")
+        return {"launches": launches, "rows": rows}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def conv_i8_entry(result: dict) -> dict:
+    """Q1's line: the sums over the convs of one int8 translated batch of 4
+    in bf16 (each distinct shape's row times its count)."""
+    rows = [(r, n) for r, n in result["rows"] if n]
+    total = lambda key: sum(r[key]["bfloat16"] * n for r, n in rows)  # noqa: E731
+    heaviest = max(rows, key=lambda rn: rn[0]["bound_ms"]["bfloat16"] * rn[1])[0]
+    library = [r["library_ms"] for r, _ in rows]
+    launches = result["launches"]
+    by_path = {"int8": launches["q1"], "export": launches["export_int8_q1"]}
+    return kernel_entry(
+        "conv_i8", sum(by_path.values()), by_path, 0.0, total("ms"), total("plain_ms"),
+        total("bound_ms"), heaviest["bound_by"]["bfloat16"],
+        None if None in library else sum(lib * n for (_, n), lib in zip(rows, library)),
+        variant="cuda_core (dp4a)",
+        times="per int8 translated batch of the slice config at batch 4, bf16 out: the sum "
+              "over its convs; library_ms is torch._int_mm on the unfolded input",
+        convs_per_batch=sum(n for _, n in rows))
+
+
+
 def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
                  plain_ms: float, bound_ms: float, bound_by: str, library_ms: float,
                  **extra) -> dict:
@@ -3516,7 +3929,8 @@ def fused_conv_entry(layer_rows: list, launches: dict, more: dict) -> dict:
         times="per generator pass of pggan256 at batch 12: the sum over its 13 "
               "conv-leaky-pixel-norm layers; library_ms is cuDNN's conv alone (NCHW), "
               "library_best_ms the same at its best (benchmark mode, channels-last)",
-        library_best_ms=total("library_best_ms"), eager_chain_ms=total("eager_chain_ms"))
+        library_best_ms=total("library_best_ms"), eager_chain_ms=total("eager_chain_ms"),
+        device_ms=total("device_ms"))
 
 
 def require_no_b4(phase: str) -> None:
@@ -3557,18 +3971,21 @@ def main() -> int:
         classifier_launches = classifiers_phase(card, smi_line, data, realdata["twingan_dir"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    int8 = int8_phase(card, smi_line)
     data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
     by_path = {"serving": serving_launches, "http": http_launches,
                "train": train_launches[fwd],
                "runner": runner_launches[fwd], "runner_data": data_launches[fwd],
                "eval": eval_launches[fwd], "recipe": recipe_launches[fwd],
-               "options": options_launches[fwd], "classifiers": classifier_launches}
+               "options": options_launches[fwd], "classifiers": classifier_launches,
+               "int8": int8["launches"]["b1"],
+               "export": int8["launches"]["export_bf16_b1"] + int8["launches"]["export_int8_b1"]}
     entries = [kernel_entry(
         fwd, sum(by_path.values()), by_path,
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
         serving_row["bound_ms"], serving_row["bound_by"], serving_row["library_ms"],
-        variant=serving_row["variant"][0])]
+        variant=serving_row["variant"][0], device_ms=serving_row["device_ms"])]
     for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
         by_path = {"train": train_launches[name], "runner": runner_launches[name],
                    "runner_data": data_launches[name], "eval": eval_launches[name],
@@ -3578,12 +3995,13 @@ def main() -> int:
             max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
             train_row["plain_ms"][name], train_row["bound_ms"][name],
             train_row["bound_by"][name], train_row["library_ms"],
-            variant=train_row["variant"][name][0]))
+            variant=train_row["variant"][name][0], device_ms=train_row["device_ms"][name]))
     entries.append(fused_conv_entry(b4_rows, generation_launches,
                                     {"runner": runner_launches["fused_conv"],
                                      "runner_data": data_launches["fused_conv"],
                                      "recipe": recipe_launches["fused_conv"],
                                      "options": options_launches["fused_conv"]}))
+    entries.append(conv_i8_entry(int8))
     emit({"kernels": entries})
     print(smi_line, flush=True)
     import torch

@@ -176,6 +176,15 @@ def test_fade_alpha_matches(growing, step):
     ({"norm_type": "none", "do_pixel_norm": True, "min_channels": 2048}, "min_channels"),
 ])
 def test_unported_options_raise(kw, name):
+    if name == "quantized_inference":
+        # Ported (W8A8 serving, A12) for the encoder and generator; it is
+        # inference-only, so the trainers refuse it instead.
+        from twingan_tpu_torch.train.base import require_trainable
+
+        require_ported(PGGANConfig(**kw))
+        with pytest.raises(ValueError, match=f"{name}.*inference-only"):
+            require_trainable(TwinGANConfig(model=PGGANConfig(num_domains=2, **kw)))
+        return
     with pytest.raises(NotImplementedError, match=name):
         require_ported(PGGANConfig(**kw))
 

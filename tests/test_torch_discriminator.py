@@ -106,7 +106,7 @@ def test_discriminator_casts_to_the_config_dtype():
     ({"quantized_inference": "int8"}, {}, "quantized_inference"),
 ])
 def test_discriminator_refuses_unported_options(kw, call_kw, name):
-    """quantized_inference raises, naming its queue item. The conditional
+    """quantized_inference raises, as inference-only. The conditional
     inputs and gdrop are ported (``test_discriminator_gdrop_and_cond_embed_
     match``): a discriminator built without an input refuses it, and one
     built with gdrop takes its noise from the caller in train mode."""
@@ -115,7 +115,7 @@ def test_discriminator_refuses_unported_options(kw, call_kw, name):
         with pytest.raises(ValueError, match="width 0"):
             pggan.Discriminator(cfg)(torch.rand(2, 8, 8, 3), **call_kw)
     else:
-        with pytest.raises(NotImplementedError, match=f"{name}.*A12"):
+        with pytest.raises(ValueError, match=f"{name}.*inference-only"):
             pggan.Discriminator(cfg.replace(**kw))
     dis = pggan.Discriminator(cfg, do_gdrop=True).train()
     with pytest.raises(ValueError, match="gdrop_noise"):

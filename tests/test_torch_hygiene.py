@@ -64,6 +64,8 @@ EXPECTED_MODULES = (
     "twingan_tpu_torch.models.nasnet", "twingan_tpu_torch.models.grad_cam",
     "twingan_tpu_torch.data.preprocessing_factory", "twingan_tpu_torch.utils.misc",
     "twingan_tpu_torch.train.classifier_trainer", "twingan_tpu_torch.runner.classifier_runner",
+    "twingan_tpu_torch.ops.quant", "twingan_tpu_torch.infer.quantize",
+    "twingan_tpu_torch.infer.export",
 )
 
 
@@ -81,10 +83,11 @@ def test_port_and_smoke_import_nothing_the_card_lacks():
 def test_every_kernel_source_is_built_by_the_package():
     csrc = os.path.join(PACKAGE, "csrc")
     sources = sorted(n[:-3] for n in os.listdir(csrc) if n.endswith(".cu"))
-    assert sources == ["flash_attn_bwd", "flash_attn_fwd", "fused_conv"]
-    from twingan_tpu_torch.ops import attention, fused_conv
+    assert sources == ["conv_i8", "flash_attn_bwd", "flash_attn_fwd", "fused_conv"]
+    from twingan_tpu_torch.ops import attention, fused_conv, quant
 
-    assert {attention.KERNEL_NAME, attention.BWD_LIBRARY, fused_conv.KERNEL_NAME} == set(sources)
+    assert {attention.KERNEL_NAME, attention.BWD_LIBRARY, fused_conv.KERNEL_NAME,
+            quant.KERNEL_NAME} == set(sources)
 
 
 def test_chip_smoke_fails_without_a_card():

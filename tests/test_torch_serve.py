@@ -10,7 +10,8 @@ ports of 127.0.0.1 and serving the same ``MockTwinGANClient`` output:
   pages answer the same;
 - a GET polls for an output written after it arrived; ``--sync_writes``
   writes before answering;
-- ``--quantize`` raises ``NotImplementedError`` naming A12, and without
+- ``--quantize`` reaches the local client (``test_torch_quantize_serve.py``
+  serves a stage with it) and a mock server takes it, and without
   PIL a JPEG upload or a labelled preview answers 500 naming PIL (never
   400 "no image found"), while PNG uploads still serve.
 """
@@ -244,8 +245,8 @@ def test_sync_writes_and_deferred_writes(tmp_path):
 
 
 def test_flags_that_raise_and_the_defaults():
-    with pytest.raises(NotImplementedError, match="A12"):
-        server.build_service(server.parse_args(["--debug", "--quantize"]))
+    mock = server.build_service(server.parse_args(["--debug", "--quantize"]))
+    assert isinstance(mock.client, clients.MockTwinGANClient)  # no model to quantize
     with pytest.raises(SystemExit):
         server.parse_args([])  # no model, no --debug, no --serving_url
     args = server.parse_args(["--model_path=/nowhere"])

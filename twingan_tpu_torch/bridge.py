@@ -1,6 +1,6 @@
 """Weight bridge between the JAX package's Flax trees and the port.
 
-A Flax ``params`` tree and its ``batch_stats`` and ``spectral``
+A Flax ``params`` tree and its ``batch_stats``, ``spectral`` and ``quant``
 collections, given as nested dicts of numpy arrays (``jax.device_get`` of
 the JAX state), become a PyTorch ``state_dict`` and back, for one network
 or for a whole train state (``params``/``model_state`` keyed by network
@@ -10,9 +10,10 @@ name):
   ``block_64_conv0.norm.gamma_1``, ``self_attention_64.sa_gamma``);
   ``batch_stats`` leaves (``moving_mean_%d``/``moving_var_%d`` and batch
   renorm's ``renorm_mean_%d``, ``renorm_stddev_%d`` and their 0-d
-  ``*_weight_%d``) and the ``spectral`` collection's ``u`` (which the port
-  cannot redraw from JAX's PRNG, so the bridge carries it) are buffers
-  under the same path;
+  ``*_weight_%d``), the ``spectral`` collection's ``u`` (which the port
+  cannot redraw from JAX's PRNG, so the bridge carries it) and the
+  ``quant`` collection's ``a_max`` (an int8 calibration's abs-maxima, so
+  that calibrated stages cross both ways) are buffers under the same path;
 - conv kernels are HWIO in Flax and OIHW in PyTorch; dense kernels,
   the conditional norms' ``*_fc_kernel_%d`` included, keep the Flax
   [in, out] layout;
@@ -93,13 +94,14 @@ def _is_conv_kernel(key: str, arr: np.ndarray) -> bool:
 def state_dict_from_flax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any] | None = None,
                          prefix: str = "",
-                         spectral: Mapping[str, Any] | None = None) -> dict[str, torch.Tensor]:
-    """One Flax module's ``params`` (+ ``batch_stats``, ``spectral``) ->
-    state_dict."""
+                         spectral: Mapping[str, Any] | None = None,
+                         quant: Mapping[str, Any] | None = None) -> dict[str, torch.Tensor]:
+    """One Flax module's ``params`` (+ ``batch_stats``, ``spectral``,
+    ``quant``) -> state_dict."""
     sd = {}
     flat = _flatten(params)
-    flat.update(_flatten(batch_stats or {}))
-    flat.update(_flatten(spectral or {}))
+    for group in (batch_stats, spectral, quant):
+        flat.update(_flatten(group or {}))
     for key, arr in flat.items():
         if _is_conv_kernel(key, arr):
             arr = arr.transpose(_HWIO_TO_OIHW)
@@ -109,8 +111,8 @@ def state_dict_from_flax(params: Mapping[str, Any],
 
 def flax_variables(state_dict: Mapping[str, torch.Tensor], prefix: str = "") -> dict:
     """Inverse of ``state_dict_from_flax``: -> the Flax variables
-    ``{"params": ..., "batch_stats": ..., "spectral": ...}``, each
-    collection present when it has a leaf (``params`` always)."""
+    ``{"params": ..., "batch_stats": ..., "spectral": ..., "quant": ...}``,
+    each collection present when it has a leaf (``params`` always)."""
     groups: dict[str, dict] = {"params": {}}
     for key, t in state_dict.items():
         if not key.startswith(prefix):
@@ -139,15 +141,16 @@ def train_state_dict(params: Mapping[str, Any], model_state: Mapping[str, Any],
     for name in names or tuple(params):
         state = model_state.get(name, {})
         sd.update(state_dict_from_flax(params[name], state.get("batch_stats"), name + ".",
-                                       state.get("spectral")))
+                                       state.get("spectral"), state.get("quant")))
     return sd
 
 
 def flax_train_state(state_dict: Mapping[str, torch.Tensor],
                      names: tuple[str, ...]) -> tuple[dict, dict]:
     """Inverse of ``train_state_dict``: -> (params, model_state) keyed by
-    network name, a network's ``model_state`` holding ``batch_stats`` and
-    ``spectral`` where it has such leaves, as the JAX state's."""
+    network name, a network's ``model_state`` holding ``batch_stats``,
+    ``spectral`` and ``quant`` where it has such leaves, as the JAX
+    state's."""
     params, model_state = {}, {}
     for name in names:
         variables = flax_variables(state_dict, prefix=name + ".")

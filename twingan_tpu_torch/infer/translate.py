@@ -11,10 +11,17 @@ the style of each source image unless a style is given.
 It runs on the CUDA card unless the caller passes ``device="cpu"``; with no
 card and no such request it raises, never falling back to the CPU.
 
+``quantize=True`` (the CLI's ``--quantize``) serves the W8A8 int8 path
+(``infer/quantize.py``, kernel Q1): the first batch calibrates the scales
+and is served in int8, as in the JAX package; then each batch is
+calibrated on before it is served, until ``CALIB_MIN_IMAGES`` images have
+been seen, and the scales freeze.
+
 Usage:
     python -m twingan_tpu_torch.infer.translate \\
         --model_path=/trained/256 --input_image_path=in.jpg \\
-        --output_image_path=out.jpg [--direction=s2t|t2s] [--batch_size=8]
+        --output_image_path=out.jpg [--direction=s2t|t2s] [--batch_size=8] \\
+        [--quantize] [--device=cpu]
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from twingan_tpu_torch.data.converters import list_images
 from twingan_tpu_torch.data.preprocess import host_resize
+from twingan_tpu_torch.infer.quantize import CALIB_MIN_IMAGES, calibrate
 from twingan_tpu_torch.runner.checkpoint import load_model
 from twingan_tpu_torch.runner.config_io import find_latest_stage_dir, load_stage_config
 from twingan_tpu_torch.train.base import resolve_device
@@ -45,10 +53,13 @@ class ImageInferer:
     """Loads a trained stage and translates images.
 
     ``dtype`` overrides the config's compute dtype (e.g. "float32" for an
-    exact reference run); parameters stay fp32 either way."""
+    exact reference run); parameters stay fp32 either way. ``quantize``
+    serves the int8 path, calibrating on the first ``CALIB_MIN_IMAGES``
+    images it translates (``calibrated_images`` counts them)."""
 
     def __init__(self, model_path: str, image_hw: int = 0, direction: str = "s2t",
-                 device: Optional[str | torch.device] = None, dtype: Optional[str] = None):
+                 device: Optional[str | torch.device] = None, dtype: Optional[str] = None,
+                 quantize: bool = False):
         self.device = resolve_device(device)
         stage_dir = model_path
         if not os.path.exists(os.path.join(stage_dir, "config.json")):
@@ -67,6 +78,8 @@ class ImageInferer:
         model = TwinGANTranslator(tcfg)
         model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device)
+        self.quantize = quantize
+        self.calibrated_images = 0
 
     def preprocess(self, image: np.ndarray) -> np.ndarray:
         """uint8 HWC -> float [0,1] at (image_hw, image_hw)."""
@@ -82,10 +95,21 @@ class ImageInferer:
                          x.to(self.device), direction or self.direction, step=self.step,
                          style=style, enc_style=getattr(self.model, ENC_STYLE, None))
 
+    def calibrate(self, x: torch.Tensor, style: Optional[torch.Tensor] = None) -> None:
+        """Raise the int8 scales on a float NHWC batch in [0, 1] (two calib
+        slices, as the JAX inferer's) and switch to int8."""
+        m = self.model
+        self.cfg = calibrate(self.cfg, m.encoder_content, m.generator, x.to(self.device),
+                             self.direction, step=self.step,
+                             enc_style=getattr(m, ENC_STYLE, None), style=style)
+        self.calibrated_images += x.shape[0]
+
     def infer_batch(self, images: Sequence[np.ndarray],
                     style: Optional[torch.Tensor] = None) -> np.ndarray:
-        batch = np.stack([self.preprocess(im) for im in images])
-        return self.translate(torch.from_numpy(batch), style=style).float().cpu().numpy()
+        x = torch.from_numpy(np.stack([self.preprocess(im) for im in images]))
+        if self.quantize and self.calibrated_images < CALIB_MIN_IMAGES:
+            self.calibrate(x, style)
+        return self.translate(x, style=style).float().cpu().numpy()
 
     def infer(self, image_path: str, output_path: str, return_image: bool = False):
         """Translate one image file and save the result (PNG needs no PIL)."""
@@ -112,10 +136,15 @@ def main(argv=None) -> None:
     p.add_argument("--output_image_path", required=True, help="output file or folder")
     p.add_argument("--direction", default="s2t", choices=["s2t", "t2s"])
     p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--quantize", action="store_true",
+                   help="serve the W8A8 int8 path (kernel Q1); the scales calibrate on the "
+                        f"first {CALIB_MIN_IMAGES} images translated, the first batch "
+                        "included")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    inferer = ImageInferer(args.model_path, args.image_hw, args.direction, device=args.device)
+    inferer = ImageInferer(args.model_path, args.image_hw, args.direction, device=args.device,
+                           quantize=args.quantize)
     paths = list(_iter_images(args.input_image_path))
     out_is_dir = os.path.isdir(args.input_image_path) or len(paths) > 1
     if out_is_dir:

@@ -11,6 +11,9 @@ computing another function. Every norm type, spectral norm (in and
 outside the discriminator), conditional norms (``style_dim``) and
 ``fused_scale`` are ported; ``fused_scale`` runs the plain nearest-up2 and
 conv, which compute the same function as the JAX package's fused forms.
+``quantized_inference`` (W8A8 int8 serving) is ported for the encoder,
+the generator and the heads; ``require_inference_only`` refuses it where
+a network trains or discriminates.
 """
 
 from __future__ import annotations
@@ -106,10 +109,20 @@ def require_ported(cfg: PGGANConfig) -> None:
         (f"min_channels={cfg.min_channels} (pixel norm without a norm runs kernel B4, "
          f"which takes at most {MAX_COUT} channels)",
          cfg.norm_type == "none" and cfg.do_pixel_norm and cfg.min_channels > MAX_COUT),
-        ("quantized_inference (queue item A12)", cfg.quantized_inference != ""),
         ("attention_context_parallel (queue item A8)", cfg.attention_context_parallel),
     ]
     for name, is_set in unported:
         if is_set:
             raise NotImplementedError(
                 f"{name} is not ported to twingan_tpu_torch yet")
+
+
+def require_inference_only(cfg: PGGANConfig, where: str) -> None:
+    """Raise ``ValueError`` where ``quantized_inference`` is set: it serves
+    a trained encoder and generator, and has no training or discriminator
+    path (as in the JAX package, whose config calls it inference-only)."""
+    if cfg.quantized_inference:
+        raise ValueError(
+            f"quantized_inference={cfg.quantized_inference!r} is inference-only: {where} "
+            "takes the fp model (calibrate a trained stage with "
+            "twingan_tpu_torch.infer.quantize.calibrate to serve it in int8)")

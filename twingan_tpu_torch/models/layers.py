@@ -11,7 +11,9 @@ names, so a Flax tree maps onto ``state_dict`` keys one to one
 ``norm.moving_mean_%d``/``norm.moving_var_%d`` (and batch renorm's
 ``norm.renorm_mean_%d``, ``renorm_mean_weight_%d`` (0-d),
 ``renorm_stddev_%d``, ``renorm_stddev_weight_%d`` (0-d)), the spectral
-norm's ``conv.u``/``u`` buffer, ``sa_gamma``.
+norm's ``conv.u``/``u`` buffer, the int8 calibration's ``conv.a_max``
+buffer (the Flax ``quant`` collection; only under a quantize mode),
+``sa_gamma``.
 
 Modules take NCHW tensors (the NHWC inputs of the public functions arrive
 as NCHW views of the same memory). Parameters are fp32; activations are
@@ -43,7 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from twingan_tpu_torch.models.config import NORM_TYPES, PGGANConfig
-from twingan_tpu_torch.ops import attention, basic, fused_conv, norms, sn
+from twingan_tpu_torch.ops import attention, basic, fused_conv, norms, quant, sn
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -57,6 +59,16 @@ def same_padding(kernel_size: int) -> tuple[int, int]:
     kernels, which the larger to_rgb filters can have."""
     total = kernel_size - 1
     return total // 2, total - total // 2
+
+
+QUANTIZE_MODES = ("", "calib", "int8")
+
+
+def upsample_concat(x: torch.Tensor, aux: Optional[torch.Tensor]) -> torch.Tensor:
+    """cat(nearest_up2(x), aux) along the channels (NCHW), aux in x's type:
+    the input of a fused-scale conv0."""
+    up = basic.upsample_nearest_2x(x, nchw=True)
+    return up if aux is None else torch.cat([up, aux.to(up.dtype)], dim=1)
 
 
 class _SpectralWeight:
@@ -92,12 +104,31 @@ class EqConv(nn.Module, _SpectralWeight):
     scaled by sqrt(2 / (in_channels * k^2)) at run time (the total fan-in,
     UNet skip channels included); otherwise the kernel is N(0, init_stddev).
     With ``spectral_norm`` the kernel is divided by sigma (``weight``).
+
+    ``quantize`` is the W8A8 serving mode (the JAX ``EqConv.quantize``,
+    ``ops/quant.py``): "" (off), "calib" or "int8". Under a mode the layer
+    has an fp32 buffer ``a_max`` [2], the running abs-max of its input and
+    of its aux input; under "" it has none, so the state-dict keys stay
+    those of the fp layer. "calib" records ``max|x|`` of the tensor as it
+    arrives (before the dtype cast and the eq-lr scale) and then runs the fp
+    path unchanged; "int8" folds the eq-lr scale into the fp32 kernel (after
+    spectral norm's W / sigma), quantizes kernel and input and runs kernel
+    Q1. ``set_quantize`` changes the mode, adding the buffer where needed.
+
+    ``up=True`` (quantize modes only: the generator's fused-scale conv0)
+    takes the pre-upsample tensor as ``x`` and the rest of the input
+    (conditioning image, UNet skip) as ``aux``, and computes the conv of
+    ``cat(nearest_up2(x), aux)``; under "int8" as the JAX layer does, an
+    input-dilated 4x4 conv of ``x`` on V = up2_conv_kernel(W[:, :cx]) with
+    V's own per-channel scales plus a 3x3 conv of ``aux``, each quantized
+    with its own activation scale (``a_max[0]``, ``a_max[1]``).
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  padding: str = "SAME", use_bias: bool = True,
                  equalized_lr: bool = False, init_stddev: float = 0.02,
-                 dtype: torch.dtype = torch.float32, spectral_norm: bool = False):
+                 dtype: torch.dtype = torch.float32, spectral_norm: bool = False,
+                 quantize: str = ""):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"unknown padding {padding!r}")
@@ -110,6 +141,19 @@ class EqConv(nn.Module, _SpectralWeight):
         self.kernel = nn.Parameter(torch.empty(features, in_channels, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self._init_spectral(spectral_norm, features)
+        self.quantize = ""
+        # The a_max slots a calib pass has written: 0, and 1 with an aux input.
+        self.calib_slots: set[int] = set()
+        self.set_quantize(quantize)
+
+    def set_quantize(self, mode: str) -> None:
+        """Switch the quantize mode; a mode needs the ``a_max`` buffer, which
+        starts at zero where the layer has none yet."""
+        if mode not in QUANTIZE_MODES:
+            raise ValueError(f"unknown quantize mode {mode!r}")
+        if mode and not hasattr(self, "a_max"):
+            self.register_buffer("a_max", torch.zeros(2, device=self.kernel.device))
+        self.quantize = mode
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -126,8 +170,34 @@ class EqConv(nn.Module, _SpectralWeight):
             return 1.0
         return basic.equalized_lr_scale(self.in_channels, self.kernel_size)
 
-    def forward(self, x: torch.Tensor, update: bool = False) -> torch.Tensor:
+    def conv_padding(self) -> tuple[int, int, int, int]:
+        """(top, bottom, left, right) of this layer's conv."""
+        if self.padding == "VALID":
+            return (0, 0, 0, 0)
+        before, after = same_padding(self.kernel_size)
+        return (before, after, before, after)
+
+    def observe(self, x: torch.Tensor, aux: Optional[torch.Tensor] = None) -> None:
+        """Under "calib", raise ``a_max`` to the abs-max of x (and aux)."""
+        if self.quantize != "calib":
+            return
+        with torch.no_grad():
+            zero = torch.zeros((), device=x.device)
+            cur = torch.stack([x.detach().abs().amax().float(),
+                               aux.detach().abs().amax().float() if aux is not None else zero])
+            self.a_max.copy_(torch.maximum(self.a_max, cur))
+        self.calib_slots |= {0} if aux is None else {0, 1}
+
+    def forward(self, x: torch.Tensor, update: bool = False,
+                aux: Optional[torch.Tensor] = None, up: bool = False) -> torch.Tensor:
+        if up and not self.quantize:
+            raise ValueError("EqConv(up=True) is the fused-scale route of a quantize mode")
+        if self.quantize == "int8":
+            return self._int8_forward(x, aux, up)
+        self.observe(x, aux)
         kernel = self.weight(update)
+        if up:
+            x = upsample_concat(x, aux)
         x = x.to(self.dtype)
         if self.equalized_lr:
             x = x * torch.tensor(self.input_scale, dtype=self.dtype, device=x.device)
@@ -141,6 +211,27 @@ class EqConv(nn.Module, _SpectralWeight):
         y = F.conv2d(x, kernel.to(self.dtype), padding=pad)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)[:, None, None]
+        return y
+
+    def _int8_forward(self, x: torch.Tensor, aux: Optional[torch.Tensor],
+                      up: bool) -> torch.Tensor:
+        dt = self.dtype
+        kernel = self.weight().float()
+        if self.equalized_lr:
+            # conv(s x, W) == conv(x, s W): the calibrated scale applies to x
+            # exactly as recorded.
+            kernel = kernel * self.input_scale
+        bias = self.bias
+        if not up:
+            return quant.quantized_conv(x, kernel, self.a_max[0], self.conv_padding(), 1, dt,
+                                        bias)
+        cx = x.shape[1]
+        y = quant.quantized_conv(x, quant.up2_conv_kernel(kernel[:, :cx]), self.a_max[0],
+                                 (2, 2, 2, 2), 2, dt, bias if aux is None else None)
+        if aux is not None:
+            y = y + quant.quantized_conv(aux, kernel[:, cx:], self.a_max[1], (1, 1, 1, 1), 1, dt)
+            if bias is not None:
+                y = y + bias.to(dt)[:, None, None]
         return y
 
 
@@ -329,7 +420,12 @@ class ConvBlock(nn.Module):
     ``ops.fused_conv.fused_conv`` (B4) where no gradient is needed, on its
     weights (divided by sigma under a spectral norm) with the equalized-lr
     scale folded in, and this block's layers, counted under
-    ``fused_conv.AUTOGRAD_ROUTE``, where one is."""
+    ``fused_conv.AUTOGRAD_ROUTE``, where one is.
+
+    The conv takes ``cfg.quantized_inference`` as its quantize mode; with
+    ``aux`` and ``up`` (the generator's fused-scale conv0 under a quantize
+    mode) it takes the pre-upsample tensor and the aux input apart
+    (``EqConv``)."""
 
     def __init__(self, cfg: PGGANConfig, in_channels: int, features: int,
                  kernel_size: int = 3, padding: str = "SAME",
@@ -342,6 +438,7 @@ class ConvBlock(nn.Module):
             in_channels, features, kernel_size, padding,
             use_bias=(norm_kind == "none"), equalized_lr=cfg.equalized_lr,
             init_stddev=cfg.init_stddev, dtype=torch_dtype(cfg.dtype), spectral_norm=use_sn,
+            quantize=cfg.quantized_inference,
         )
         self.norm = DomainNorm(norm_kind, features, cfg.num_domains, cfg.bn_num_groups,
                                cfg.style_dim, conditional)
@@ -355,23 +452,33 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, domain: int = 0, update: bool = False,
                 style: Optional[torch.Tensor] = None,
-                clip: Optional[Mapping[str, float]] = None) -> torch.Tensor:
-        y = self.norm(self.conv(x, update), domain, update, style, clip)
+                clip: Optional[Mapping[str, float]] = None,
+                aux: Optional[torch.Tensor] = None, up: bool = False) -> torch.Tensor:
+        y = self.norm(self.conv(x, update, aux, up), domain, update, style, clip)
         return y if self.activation is None else self.activation(y)
 
     def forward_pixel_norm(self, x: torch.Tensor, domain: int = 0, update: bool = False,
                            style: Optional[torch.Tensor] = None,
-                           clip: Optional[Mapping[str, float]] = None) -> torch.Tensor:
+                           clip: Optional[Mapping[str, float]] = None,
+                           aux: Optional[torch.Tensor] = None,
+                           up: bool = False) -> torch.Tensor:
+        """The block, then the pixel norm. Under "int8" the block's layers
+        run (Q1 in the conv), never B4, which computes the fp conv; under
+        "calib" B4 may run, after the input's abs-max is recorded."""
         conv = self.conv
-        if self.fusable:
-            x = x.to(conv.dtype)
+        if self.fusable and conv.quantize != "int8":
             if not (torch.is_grad_enabled()
-                    and any(t.requires_grad for t in (x, conv.kernel, conv.bias))):
+                    and any(t is not None and t.requires_grad
+                            for t in (x, aux, conv.kernel, conv.bias))):
+                conv.observe(x, aux)
+                if up:
+                    x = upsample_concat(x, aux)
                 return fused_conv.fused_conv(
-                    x.contiguous(), fused_conv.fold_weights(conv.weight(update), conv.input_scale),
+                    x.to(conv.dtype).contiguous(),
+                    fused_conv.fold_weights(conv.weight(update), conv.input_scale),
                     conv.bias.detach().float().contiguous())
             fused_conv.launch_counts[fused_conv.AUTOGRAD_ROUTE] += 1
-        return basic.pixel_norm(self(x, domain, update, style, clip), dim=1)
+        return basic.pixel_norm(self(x, domain, update, style, clip, aux, up), dim=1)
 
 
 class ResBlockAdd(nn.Module):

@@ -36,6 +36,14 @@ width of the label embedding it concatenates at 4x4 (``cond_embed_dim``). A gene
 whose encoders are never called with a style. ``EncoderClassifier`` and
 ``StyleEncoder`` are the style and distillation heads.
 
+Under ``quantized_inference`` (W8A8 serving, ``ops/quant.py``) every
+conv of the encoder, the generator and the heads records its input's
+abs-max ("calib") or runs the int8 kernel Q1 ("int8"); with
+``fused_scale`` the generator's conv0 then takes the pre-upsample tensor
+and the conditioning image and UNet skip apart, as the JAX generator's
+fused route does (``EqConv(up=True)``). The discriminator refuses the
+option: it is inference-only.
+
 The modules take and return NHWC tensors and compute on NCHW views. The
 encoder and the generator are built in eval mode (norms use moving
 statistics); a trainer switches them to train mode, where norms take batch
@@ -53,7 +61,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from twingan_tpu_torch.models.config import PGGANConfig, require_ported
+from twingan_tpu_torch.models.config import (
+    PGGANConfig,
+    require_inference_only,
+    require_ported,
+)
 from twingan_tpu_torch.models.layers import (
     ConvBlock,
     EqDense,
@@ -245,6 +257,15 @@ class Generator(nn.Module):
             self.add_module(f"self_attention_{hw}", SelfAttention(
                 self.cfg, channels, conditional=self.conditional))
 
+    def _split_up(self, block: ConvBlock) -> bool:
+        """Whether conv0 of a block takes the pre-upsample tensor and the
+        aux input apart: under a quantize mode with ``fused_scale`` (and no
+        residual blocks, which need the upsampled input), as the JAX
+        generator's fused route does, so that the int8 conv quantizes the
+        pre-upsample tensor and the aux input with their own scales."""
+        cfg = self.cfg
+        return cfg.fused_scale and not cfg.use_res_block and block.conv.quantize != ""
+
     def _rgb_kernel(self, hw: int) -> int:
         return min(7, hw // 2) if self.cfg.use_larger_filter_at_rgb_layer else 1
 
@@ -263,12 +284,12 @@ class Generator(nn.Module):
         _check_cond("cond_image", self.cond_image_channels, cond_image)
         ctx = dict(style=style if self.conditional else None, clip=renorm_clip)
 
-        def conv(hw: int, i: int, x: torch.Tensor) -> torch.Tensor:
+        def conv(hw: int, i: int, x: torch.Tensor, **kw) -> torch.Tensor:
             """``block_{hw}_conv{i}``, then the pixel norm when it is on."""
             block = getattr(self, f"block_{hw}_conv{i}")
             if cfg.do_pixel_norm:
-                return block.forward_pixel_norm(x, domain, update, **ctx)
-            return block(x, domain, update, **ctx)
+                return block.forward_pixel_norm(x, domain, update, **ctx, **kw)
+            return block(x, domain, update, **ctx, **kw)
 
         if self.noise_input:
             if source.dim() == 2:
@@ -299,13 +320,18 @@ class Generator(nn.Module):
             if stage == cfg.max_stage and cfg.is_growing:
                 prev_rgb = getattr(self, f"to_rgb_{hw // 2}")(net, domain, update, **ctx)
                 prev_rgb = basic.upsample_nearest_2x(prev_rgb, nchw=True)
-            inp = basic.upsample_nearest_2x(net, nchw=True)
+            aux = []
             if cond_image is not None:
-                inp = torch.cat([inp, _cond_at(cond_image, hw, inp.dtype)], dim=1)
+                aux.append(_cond_at(cond_image, hw, net.dtype))
             if self._has_skip(hw):
                 skip = unet_skips.lookup(hw, cfg.channels(stage - 1))
-                inp = torch.cat([inp, _nchw(skip).to(inp.dtype)], dim=1)
-            y = conv(hw, 0, inp)
+                aux.append(_nchw(skip).to(net.dtype))
+            if self._split_up(getattr(self, f"block_{hw}_conv0")):
+                inp = None
+                y = conv(hw, 0, net, aux=torch.cat(aux, dim=1) if aux else None, up=True)
+            else:
+                inp = torch.cat([basic.upsample_nearest_2x(net, nchw=True)] + aux, dim=1)
+                y = conv(hw, 0, inp)
             y = conv(hw, 1, y)
             net = getattr(self, f"block_{hw}_res")(inp, y, domain, update)
             if cfg.do_self_attention and hw == cfg.self_attention_hw:
@@ -342,13 +368,11 @@ class Discriminator(nn.Module):
     def __init__(self, cfg: PGGANConfig, do_gdrop: bool = False, cond_embed_dim: int = 0,
                  cond_image_channels: int = 0):
         super().__init__()
-        unported = [("quantized_inference (queue item A12)", cfg.quantized_inference != ""),
-                    ("attention_context_parallel (queue item A8)",
-                     cfg.attention_context_parallel)]
-        for name, is_set in unported:
-            if is_set:
-                raise NotImplementedError(
-                    f"{name} in the discriminator is not ported to twingan_tpu_torch yet")
+        require_inference_only(cfg, "the discriminator")
+        if cfg.attention_context_parallel:
+            raise NotImplementedError(
+                "attention_context_parallel (queue item A8) in the discriminator is not "
+                "ported to twingan_tpu_torch yet")
         self.cfg = cfg
         self.do_gdrop = do_gdrop
         self.cond_embed_dim = cond_embed_dim

@@ -14,6 +14,14 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
   versions (``attention_core``/``attention_lse`` and
   ``flash_attention_dq_plain``/``flash_attention_dkv_plain``) run on CPU
   tensors;
+- each kernel is a ``torch.library`` custom op,
+  ``twingan_tpu_torch::flash_attn_fwd`` (o and lse), ``::flash_attn_dq``
+  and ``::flash_attn_dkv``: its CUDA implementation launches the kernel,
+  its CPU implementation is the plain version, and a fake implementation
+  gives the output shapes, so that ``torch.export`` traces through it
+  (``infer/export.py``). The eager wrappers call the same ops, and only the
+  CUDA implementations add to the launch counts: the launches of an
+  exported program count too;
 - each of the three kernels has two variants, chosen by the input type
   in its C entry point (``VARIANTS`` names them): bf16 runs on the tensor
   cores (``mma.sync``), fp32 on the CUDA cores. ``variant_counts`` counts
@@ -28,8 +36,12 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
   second-order graph raises instead;
 - ``self_attention`` is the dispatch the SelfAttention layer calls. On a
   CUDA tensor the kernels run at any N (there is no TPU-style size
-  threshold); on a CPU tensor the plain version runs. ``route="plain"``
-  asks for the plain version on any device. The gradient penalty takes it:
+  threshold); on a CPU tensor the plain version runs. Where no gradient is
+  needed (serving, and the programs ``torch.export`` traces) it calls the
+  forward op on either device; where one is, ``FlashAttention`` on a CUDA
+  tensor and the plain version's autograd on a CPU tensor.
+  ``route="plain"`` asks for the plain version on any device. The gradient
+  penalty takes it:
   DRAGAN and WGAN-GP differentiate the discriminator twice, the backward
   kernels have no second-order rule, and neither has the JAX package's
   ``custom_vjp`` (on a TPU its penalty also runs the einsum path). Each such
@@ -157,11 +169,26 @@ def flash_attention_forward(
     A CUDA tensor goes to the kernel (or raises); a CPU tensor to the plain
     version."""
     _check(f, g, h)
-    if f.is_cuda:
-        return _launch(f, g, h)
-    if f.device.type != "cpu":
+    if f.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash_attention_forward runs on cuda or cpu, not {f.device}")
+    return torch.ops.twingan_tpu_torch.flash_attn_fwd(f, g, h)
+
+
+@torch.library.custom_op("twingan_tpu_torch::flash_attn_fwd", mutates_args=(),
+                         device_types="cpu")
+def _fwd_op(f: torch.Tensor, g: torch.Tensor,
+            h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return attention_core(f, g, h), attention_lse(f, g)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(f, g, h):
+    return _launch(f, g, h)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(f, g, h):
+    return torch.empty_like(h), f.new_empty(f.shape[:2], dtype=torch.float32)
 
 
 def flash_attention_dq_plain(f, g, h, do, lse, delta) -> torch.Tensor:
@@ -228,8 +255,25 @@ def flash_attention_dq(f, g, h, do, lse, delta) -> torch.Tensor:
     """df in f's dtype. A CUDA tensor goes to the dq kernel (or raises); a
     CPU tensor to ``flash_attention_dq_plain``."""
     _check_backward(f, g, h, do, lse, delta)
-    if not f.is_cuda:
-        return flash_attention_dq_plain(f, g, h, do, lse, delta)
+    return torch.ops.twingan_tpu_torch.flash_attn_dq(f, g, h, do, lse, delta)
+
+
+def flash_attention_dkv(f, g, h, do, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dg, dh) in the dtypes of g and h. A CUDA tensor goes to the dkv
+    kernel (or raises); a CPU tensor to ``flash_attention_dkv_plain``."""
+    _check_backward(f, g, h, do, lse, delta)
+    return torch.ops.twingan_tpu_torch.flash_attn_dkv(f, g, h, do, lse, delta)
+
+
+@torch.library.custom_op("twingan_tpu_torch::flash_attn_dq", mutates_args=(),
+                         device_types="cpu")
+def _dq_op(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, do: torch.Tensor,
+           lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    return flash_attention_dq_plain(f, g, h, do, lse, delta)
+
+
+@_dq_op.register_kernel("cuda")
+def _dq_cuda(f, g, h, do, lse, delta):
     df = torch.empty_like(f)
     ptrs, sizes, strides = _backward_args(f, g, h, do, lse, delta)
     err = _bwd_fn(cuda_build.load(BWD_LIBRARY), DQ_KERNEL, 7, 11)(
@@ -241,12 +285,20 @@ def flash_attention_dq(f, g, h, do, lse, delta) -> torch.Tensor:
     return df
 
 
-def flash_attention_dkv(f, g, h, do, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dg, dh) in the dtypes of g and h. A CUDA tensor goes to the dkv
-    kernel (or raises); a CPU tensor to ``flash_attention_dkv_plain``."""
-    _check_backward(f, g, h, do, lse, delta)
-    if not f.is_cuda:
-        return flash_attention_dkv_plain(f, g, h, do, lse, delta)
+@_dq_op.register_fake
+def _dq_fake(f, g, h, do, lse, delta):
+    return torch.empty_like(f)
+
+
+@torch.library.custom_op("twingan_tpu_torch::flash_attn_dkv", mutates_args=(),
+                         device_types="cpu")
+def _dkv_op(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, do: torch.Tensor,
+            lse: torch.Tensor, delta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_dkv_plain(f, g, h, do, lse, delta)
+
+
+@_dkv_op.register_kernel("cuda")
+def _dkv_cuda(f, g, h, do, lse, delta):
     dg, dh = torch.empty_like(g), torch.empty_like(h)
     ptrs, sizes, strides = _backward_args(f, g, h, do, lse, delta)
     err = _bwd_fn(cuda_build.load(BWD_LIBRARY), DKV_KERNEL, 8, 13)(
@@ -256,6 +308,11 @@ def flash_attention_dkv(f, g, h, do, lse, delta) -> tuple[torch.Tensor, torch.Te
         raise RuntimeError(f"{DKV_KERNEL} launch failed: cudaError_t {err}")
     _count(DKV_KERNEL, f.dtype)
     return dg, dh
+
+
+@_dkv_op.register_fake
+def _dkv_fake(f, g, h, do, lse, delta):
+    return torch.empty_like(g), torch.empty_like(h)
 
 
 def flash_attention_backward(f, g, h, do, lse, delta):
@@ -310,7 +367,8 @@ ROUTES = ("kernel", "plain")
 def self_attention(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                    route: str = "kernel") -> torch.Tensor:
     """The layer's dispatch. ``route="kernel"``: the CUDA kernels for CUDA
-    tensors at every N, the plain version for CPU tensors. ``route="plain"``:
+    tensors at every N, the plain version for CPU tensors (through the
+    forward op where no gradient is needed). ``route="plain"``:
     the twice-differentiable plain version on any device, counted under
     ``PLAIN_ROUTE`` (the gradient penalty's passes)."""
     if route not in ROUTES:
@@ -318,6 +376,6 @@ def self_attention(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     if route == "plain":
         launch_counts[PLAIN_ROUTE] += 1
         return attention_core(f, g, h)
-    if f.is_cuda:
-        return flash_attention_core(f, g, h)
-    return attention_core(f, g, h)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (f, g, h)):
+        return flash_attention_core(f, g, h) if f.is_cuda else attention_core(f, g, h)
+    return flash_attention_forward(f, g, h)[0]

@@ -23,6 +23,10 @@ activation, then ``pixel_norm`` (eps 1e-6).
   into a high and a low bf16 half, so the products stay those of the fp32
   weights), fp32 x on the CUDA cores. ``variant_counts`` counts each
   launch under its variant, beside ``launch_counts``' total;
+- the kernel is the ``torch.library`` custom op
+  ``twingan_tpu_torch::fused_conv``: the CUDA implementation launches it
+  and adds to the counts, the CPU implementation is the plain version, and
+  a fake implementation gives the output's shape for ``torch.export``;
 - ``fold_weights`` folds the equalized-lr scale into a conv's weights,
   ``w_eff = kernel * scale`` in fp32 as [9, Cin, Cout] (the Pallas layout).
 
@@ -131,12 +135,25 @@ def _launch(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return y
 
 
+@torch.library.custom_op("twingan_tpu_torch::fused_conv", mutates_args=(), device_types="cpu")
+def _fused_conv_op(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return fused_conv_plain(x, w9, b)
+
+
+@_fused_conv_op.register_kernel("cuda")
+def _fused_conv_cuda(x, w9, b):
+    return _launch(x, w9, b)
+
+
+@_fused_conv_op.register_fake
+def _fused_conv_fake(x, w9, b):
+    return x.new_empty((x.shape[0], w9.shape[2], *x.shape[2:]))
+
+
 def fused_conv(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """y = pn(leaky(conv3x3_same(x, w9) + b)) in x's dtype, NCHW. A CUDA
     tensor goes to the kernel (or raises); a CPU tensor to the plain
     version."""
     _check(x, w9, b)
-    if x.is_cuda:
-        return _launch(x, w9, b)
-    return fused_conv_plain(x, w9, b)
+    return torch.ops.twingan_tpu_torch.fused_conv(x, w9, b)
 

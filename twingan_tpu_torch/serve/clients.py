@@ -47,13 +47,15 @@ class MockTwinGANClient:
 
 
 class LocalTwinGANClient:
-    """Runs the translation in-process (on the card unless device='cpu')."""
+    """Runs the translation in-process (on the card unless device='cpu');
+    ``quantize`` serves the int8 path (``ImageInferer``)."""
 
     def __init__(self, model_path: str, image_hw: int = 0, direction: str = "s2t",
-                 device=None):
+                 device=None, quantize: bool = False):
         from twingan_tpu_torch.infer.translate import ImageInferer
 
-        self.inferer = ImageInferer(model_path, image_hw, direction, device=device)
+        self.inferer = ImageInferer(model_path, image_hw, direction, device=device,
+                                    quantize=quantize)
         self.image_hw = self.inferer.image_hw
 
     def do_inference(self, image: np.ndarray) -> np.ndarray:

@@ -16,7 +16,9 @@ imported when it is needed: where PIL is missing, the answer is a 500
 whose message names PIL (never the 400 "no image found" of an upload that
 is not an image), and so is a ``detect_face`` preview, whose label text
 needs PIL's font. The model runs on the card unless ``--device=cpu``.
-``--quantize`` raises ``NotImplementedError``: int8 serving is not ported.
+``--quantize`` serves the W8A8 int8 path (kernel Q1), its scales
+calibrated on the first ``CALIB_MIN_IMAGES`` images served (the first
+batch included, which is served in int8 already) and then frozen.
 
 Run:
     python -m twingan_tpu_torch.serve.server --model_path=/trained --port=8222
@@ -258,16 +260,14 @@ def make_handler(service: TranslationService):
 
 
 def build_service(args) -> TranslationService:
-    if getattr(args, "quantize", False):
-        raise NotImplementedError("--quantize (int8 serving, queue item A12) is not ported to "
-                                  "twingan_tpu_torch yet")
     if args.debug:
         client = MockTwinGANClient(image_hw=args.image_hw or 64)
     elif args.serving_url:
         client = RemoteTwinGANClient(args.serving_url, image_hw=args.image_hw or 256)
     else:
         local = LocalTwinGANClient(args.model_path, args.image_hw, args.direction,
-                                   device=getattr(args, "device", None))
+                                   device=getattr(args, "device", None),
+                                   quantize=getattr(args, "quantize", False))
         client = BatchingLocalClient(local.inferer, max_batch=args.serve_batch) \
             if args.serve_batch > 1 else local
     waifu2x = Waifu2xClient(args.waifu2x_url) if args.waifu2x_url else None
@@ -281,6 +281,10 @@ def build_service(args) -> TranslationService:
 
 
 def parse_args(argv=None):
+    # Imported here: it loads torch, which the detector's worker processes
+    # (spawned, re-importing this module) do not need.
+    from twingan_tpu_torch.infer.quantize import CALIB_MIN_IMAGES
+
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model_path", default="")
@@ -302,7 +306,9 @@ def parse_args(argv=None):
                    help="write output PNGs on the request thread before answering (default: "
                         "deferred to a writer thread; the GET side polls for late files)")
     p.add_argument("--quantize", action="store_true",
-                   help="int8 serving; not ported (raises)")
+                   help="serve the W8A8 int8 path (kernel Q1); the scales calibrate on the "
+                        f"first {CALIB_MIN_IMAGES} images served, the first request's batch "
+                        "included (that batch is already served in int8), then freeze")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--debug", action="store_true", help="mock model (no checkpoint needed)")
     args = p.parse_args(argv)

@@ -29,7 +29,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
-from twingan_tpu_torch.models.config import require_ported
+from twingan_tpu_torch.models.config import require_inference_only, require_ported
 from twingan_tpu_torch.ops import basic, norms
 
 
@@ -72,6 +72,7 @@ def require_trainable(cfg) -> None:
     modules lack and the trainer options it lacks, naming their queue
     item."""
     require_ported(cfg.model)
+    require_inference_only(cfg.model, "a trainer")
     if cfg.model.sync_batch_norm_axis is not None:
         raise NotImplementedError(
             "sync_batch_norm_axis (cross-device batch norm; queue item A9) is not ported to "

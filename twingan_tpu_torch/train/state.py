@@ -76,10 +76,11 @@ BATCH_STATS_PREFIXES = ("moving_mean_", "moving_var_", "renorm_")
 def collection(leaf: str) -> str:
     """The Flax collection a layer's leaf lives in: ``batch_stats`` for the
     moving statistics and batch renorm's state, ``spectral`` for a spectral
-    norm's ``u``, else ``params``."""
+    norm's ``u``, ``quant`` for an int8 calibration's ``a_max``, else
+    ``params``."""
     if leaf.startswith(BATCH_STATS_PREFIXES):
         return "batch_stats"
-    return "spectral" if leaf == "u" else "params"
+    return {"u": "spectral", "a_max": "quant"}.get(leaf, "params")
 
 
 def _jax_path(key: str) -> str:
@@ -96,7 +97,7 @@ def _port_key(path: str) -> Optional[str]:
     if parts[0] == "params":
         return ".".join(parts[1:])
     if (parts[0] == "model_state" and len(parts) > 3
-            and parts[2] in ("batch_stats", "spectral")):
+            and parts[2] in ("batch_stats", "spectral", "quant")):
         return ".".join([parts[1]] + parts[3:])
     return None
 

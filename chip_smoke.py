@@ -207,28 +207,34 @@ result line is printed:
               features and FID of fixed images against the CPU's with the
               same weights (features within FEATURES_MEAN_TOL and
               FEATURES_MAX_TOL of the std, FID within FID_CARD_RTOL).
-15. int8    - W8A8 int8 serving (kernel Q1, ``csrc/conv_i8.cu``) of the
-              serving phase's slice config (256 px, bf16, batch norm, UNet,
-              attention at 64 px): ``ImageInferer(quantize=True)`` behind
+15. int8    - W8A8 int8 serving (kernel Q1, ``csrc/conv_i8.cu``, on the
+              int8 tensor cores) of the serving phase's slice config (256
+              px, bf16, batch norm, UNet, attention at 64 px):
+              ``ImageInferer(quantize=True)`` behind
               ``BatchingLocalClient``, warmed up past ``CALIB_MIN_IMAGES``
               (each batch calibrated on, then served in int8), then 3
               timed rounds of 8 requests (images/s beside the serving
-              phase's bf16 rate), B1 2 and Q1 34 launches a dispatched
-              batch (one a conv of the encoder and the generator), no B4.
-              Q1 against its plain version at every distinct conv of a
+              phase's bf16 rate), B1 2 and Q1's fused entry ``conv_i8q``
+              34 launches a dispatched batch (one a conv of the encoder
+              and the generator), its int8 entry ``conv_i8`` none, no B4;
+              the kernels and copies the card runs for one frozen int8
+              batch of 4 and one bf16 batch (torch.profiler). Both entries
+              against their plain versions at every distinct conv of a
               translated batch of 4 (read by hooks), the fused-scale up
               conv (dilation 2) and a ragged Cin: int32 sums and fp32 and
-              bf16 outputs bit-equal; Q1's device time, the plain
-              version's, the bound and ``torch._int_mm`` on the unfolded
-              input. The card against the CPU in fp32 with the card's
+              bf16 outputs bit-equal, ``conv_i8q`` from bf16 and from fp32
+              x; each entry's device time, the plain versions', the old
+              path's quantize and NHWC copy, both bounds, ``torch._int_mm``
+              on the unfolded input, and the registers and spills of the
+              instances that ran. The card against the CPU in fp32 with the card's
               scales: every conv given the CPU's input bit-equal, the
               first layer's codes equal and the second's within
               INT8_SECOND_FLIP_TOL, the output within INT8_CPU_* (the
               share of flipped codes at every layer printed); int8
               against bf16 on the card (L1, PSNR). Then ``export_torch``
               of the bf16 and the calibrated int8 inferer, ``load_torch``
-              and a batch each: B1 2 and Q1 34 (int8) launches through
-              the custom ops, outputs equal to the eager ones bit for
+              and a batch each: B1 2 and ``conv_i8q`` 34 (int8) launches
+              through the custom ops, outputs equal to the eager ones bit for
               bit, export and load seconds.
 16. kernels - one line listing each kernel of the paths.
 Then the card as ``nvidia-smi`` names it, and the last line
@@ -265,8 +271,10 @@ KERNELS = {
                        "twingan_tpu/ops/attention.py:153"),
     "fused_conv": ("twingan_tpu_torch/csrc/fused_conv.cu", "tools/exp_fused_conv.py:76"),
     # Q1 replaces no Pallas kernel: the JAX package's int8 conv is
-    # lax.conv_general_dilated(..., preferred_element_type=int32).
+    # lax.conv_general_dilated(..., preferred_element_type=int32); its
+    # entry conv_i8q also takes in the activation's quantize.
     "conv_i8": ("twingan_tpu_torch/csrc/conv_i8.cu", "twingan_tpu/ops/quant.py:69"),
+    "conv_i8q": ("twingan_tpu_torch/csrc/conv_i8.cu", "twingan_tpu/ops/quant.py:54"),
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of a call is
@@ -585,12 +593,12 @@ FID_COMPARE_IMAGES = 32
 FEATURES_MEAN_TOL, FEATURES_MAX_TOL = 1e-5, 1e-4
 FID_CARD_RTOL = 1e-4
 
-# W8A8 int8 serving (kernel Q1, csrc/conv_i8.cu). Q1 against its plain
-# version at every distinct conv of the slice config at the serving batch
-# (the shapes the int8 translate gives it, read by hooks), plus the
-# fused-scale up conv (dilation 2, 4x4, padding 2, which the slice config
-# does not run) and a ragged Cin: the int32 sums and the fp32 and bf16
-# outputs bit-equal. Then the slice config served in int8 through
+# W8A8 int8 serving (kernel Q1, csrc/conv_i8.cu). Q1's two entries against
+# their plain versions at every distinct conv of the slice config at the
+# serving batch (the shapes the int8 translate gives it, read by hooks),
+# plus the fused-scale up conv (dilation 2, 4x4, padding 2, which the slice
+# config does not run) and a ragged Cin: the int32 sums and the fp32 and
+# bf16 outputs bit-equal. Then the slice config served in int8 through
 # BatchingLocalClient: a warm-up past CALIB_MIN_IMAGES, then timed rounds.
 # Card against CPU (fp32 both, the card's calibrated abs-maxima copied to
 # the CPU). Each conv given the CPU's input must give the CPU's output bit
@@ -3576,17 +3584,19 @@ def classifiers_phase(card: str, smi_line: str, data: dict, twingan_dir: str) ->
 
 
 def int8_bound(b: int, h: int, w: int, cin: int, cout: int, k: int, padding, dil: int,
-               out_elt: int) -> tuple[float, str]:
-    """Least time of one Q1 call: x (int8, channels padded to 4) and the
-    weights read once, scale and bias (fp32) read once, the output written
-    once; against the products this input needs (a dilated input's zero
-    rows and columns need none: k^2 / dil^2 taps an output) at the int8
-    tensor-core peak."""
+               out_elt: int, in_elt: int = 1) -> tuple[float, str]:
+    """Least time of one Q1 call: x read once (``conv_i8``: int8, channels
+    padded to 4; ``conv_i8q``: the float activation, ``in_elt`` bytes an
+    element, the reciprocal of its scale beside it), the weights read
+    once, scale and bias (fp32) read once, the output written once; against
+    the products this input needs (a dilated input's zero rows and columns
+    need none: k^2 / dil^2 taps an output) at the int8 tensor-core peak."""
     from twingan_tpu_torch.ops import quant
 
     cp = -(-cin // 4) * 4
     ho, wo = quant.output_hw((h, w), (k, k), padding, dil)
-    nbytes = b * h * w * cp + cout * k * k * cp + 8 * cout + out_elt * b * cout * ho * wo
+    x_bytes = b * h * w * cp if in_elt == 1 else b * h * w * cin * in_elt + 4
+    nbytes = x_bytes + cout * k * k * cp + 8 * cout + out_elt * b * cout * ho * wo
     ops = 2.0 * b * ho * wo * cout * cin * k * k / (dil * dil)
     times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": ops / INT8_OPS_PER_S}
     by = max(times, key=times.get)
@@ -3622,20 +3632,49 @@ def int_mm_ms(xq, wq, padding, dil):
     return None
 
 
+def kernel_ptxas(cout: int, in_dtype) -> list:
+    """The registers and spills nvcc gave the kernel instance that a conv
+    of ``cout`` output channels from ``in_dtype`` x launches
+    (``conv_i8_mma_kernel<NT, in_kind>``, NT 16, 32 or 64 by Cout; the
+    kernel halves NT only past 32 taps, which no conv here has), from the
+    build phase."""
+    from twingan_tpu_torch.ops import cuda_build, quant
+
+    log = cuda_build.build_info.get(quant.KERNEL_NAME, {}).get("log", "")
+    nt = 16 if cout <= 16 else 32 if cout <= 32 else 64
+    tag = f"ILi{nt}ELi{quant.KERNEL_IN_KINDS[in_dtype]}EE"
+    return [r for r in ptxas_usage(log) if "conv_i8_mma_kernel" in r["kernel"]
+            and tag in r["kernel"]]
+
+
 def int8_kernel_rows(shapes: dict) -> list:
-    """Q1 against its plain version at each distinct conv shape: the int32
-    sums and the fp32 and bf16 outputs bit-equal; Q1's time in each, the
-    plain version's, the bound and torch._int_mm's."""
+    """Q1's two entries against their plain versions at each distinct conv
+    shape, bit for bit: ``conv_i8`` (int8 NHWC in) and ``conv_i8q`` (the
+    float activation in, bf16 and fp32, quantized as it loads; the inputs
+    hold exact half-way points of x * (1 / s) and values past +-127 codes),
+    each to int32, fp32 and bf16. Each entry's device time, the plain
+    versions', the old path's quantize and NHWC copy (device time), both
+    bounds, torch._int_mm's time and the instances' registers and spills."""
     import torch
     from twingan_tpu_torch.ops import quant
 
     rows = []
-    cases = [(f"{name} x{n}", *shape) for shape, (name, n) in shapes.items()]
+    cases = [(f"{name} x{n}", *shape) for shape, (name, n, _) in shapes.items()]
     cases += [INT8_UP_CASE, INT8_RAGGED_CASE]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out_types = (torch.int32, torch.float32, torch.bfloat16)
     for label, b, hw, cin, cout, k, padding, dil in cases:
-        xq = torch.randint(-127, 128, (b, cin, hw, hw), device="cuda", generator=gen,
-                           dtype=torch.int8)
+        a_max = torch.tensor(3.0, device="cuda")
+        s_x = quant.act_scale(a_max)
+        rscale = torch.reciprocal(s_x)
+        xf = torch.randn((b, cin, hw, hw), device="cuda", generator=gen)
+        # Every 7th value on a half-way point (k + 0.5) s of the code grid,
+        # every 11th past the clip.
+        ties = (torch.randint(-127, 127, xf.shape, device="cuda", generator=gen) + 0.5) * s_x
+        xf = torch.where(torch.arange(xf.numel(), device="cuda").reshape(xf.shape) % 7 == 0,
+                         ties, xf)
+        xf.view(-1)[::11] *= 4.0
+        xq = quant.quantize(xf, s_x)
         wq = torch.randint(-127, 128, (cout, cin, k, k), device="cuda", generator=gen,
                            dtype=torch.int8)
         xw, ww = quant.nhwc_words(xq), quant.weight_words(wq)
@@ -3645,8 +3684,9 @@ def int8_kernel_rows(shapes: dict) -> list:
         row = {"phase": "int8_kernel", "case": label, "B": b, "H": hw, "Cin": cin,
                "Cout": cout, "k": k, "padding": list(padding), "dilation": dil,
                "ms": {}, "launch_ms": {}, "plain_ms": {}, "bound_ms": {}, "bound_by": {},
-               "equal": {}}
-        for dtype in (torch.int32, torch.float32, torch.bfloat16):
+               "equal": {}, "q_ms": {}, "q_plain_ms": {}, "q_bound_ms": {}, "q_bound_by": {},
+               "q_equal": {}}
+        for dtype in out_types:
             name = str(dtype).split(".")[1]
             sc = None if dtype == torch.int32 else scale.to(dtype).float()
             bi = None if dtype == torch.int32 else bias.to(dtype).float()
@@ -3664,18 +3704,47 @@ def int8_kernel_rows(shapes: dict) -> list:
                 quant.conv_i8_plain(xw, ww, padding, dil), sc, bi, dtype))
             row["bound_ms"][name], row["bound_by"][name] = int8_bound(
                 b, hw, hw, cin, cout, k, padding, dil, got.element_size())
+            for in_type in (torch.bfloat16, torch.float32):
+                x_in = xf.to(in_type)
+                key = f"{str(in_type).split('.')[1]}->{name}"
+                q_want = quant.dequantize_plain(quant.conv_i8_plain(
+                    quant.nhwc_words(quant.quantize_recip(x_in, rscale)), ww, padding, dil),
+                    sc, bi, dtype)
+                quant.reset_launch_counts()
+                q_got = quant.conv_i8q(x_in, rscale, ww, sc, bi, padding, dil, dtype)
+                torch.cuda.synchronize()
+                row["q_equal"][key] = bool(
+                    quant.launch_counts[quant.FUSED_NAME] == 1 and q_got.dtype == q_want.dtype
+                    and torch.equal(q_got, q_want))
+                row["q_ms"][key] = device_ms(lambda: quant.conv_i8q(
+                    x_in, rscale, ww, sc, bi, padding, dil, dtype))
+                if dtype == torch.bfloat16:
+                    row["q_plain_ms"][key] = device_ms(lambda: quant.dequantize_plain(
+                        quant.conv_i8_plain(quant.nhwc_words(quant.quantize_recip(
+                            x_in, rscale)), ww, padding, dil), sc, bi, dtype))
+                row["q_bound_ms"][key], row["q_bound_by"][key] = int8_bound(
+                    b, hw, hw, cin, cout, k, padding, dil, q_got.element_size(),
+                    x_in.element_size())
+        xb = xf.bfloat16()
+        row["old_quantize_ms"] = device_ms(lambda: quant.nhwc_words(quant.quantize(xb, s_x)))
         row["library_ms"] = int_mm_ms(xw, ww, padding, dil)
-        row["ok"] = all(row["equal"].values())
+        row["ptxas"] = {"conv_i8": kernel_ptxas(cout, torch.int8),
+                        **{f"conv_i8q {str(t).split('.')[1]}": kernel_ptxas(cout, t)
+                           for t in (torch.bfloat16, torch.float32)}}
+        row["variant"] = quant.VARIANT
+        row["ok"] = all(row["equal"].values()) and all(row["q_equal"].values())
         emit(row)
         if not row["ok"]:
-            fail("int8", f"Q1 disagrees with its plain version at {label}: {row['equal']}")
-        rows.append((row, shapes.get((b, hw, cin, cout, k, padding, dil), ("", 0))[1]))
+            fail("int8", f"Q1 disagrees with its plain version at {label}: {row['equal']}, "
+                         f"{row['q_equal']}")
+        rows.append((row, shapes.get((b, hw, cin, cout, k, padding, dil), ("", 0, None))[1:]))
     return rows
 
 
 def conv_shapes(inferer, x):
-    """{(B, H, Cin, Cout, k, padding, dilation): (first layer, count)} of
-    the int8 convs one translate of ``x`` runs, read by forward hooks."""
+    """{(B, H, Cin, Cout, k, padding, dilation): (first layer, count, the
+    input's dtype)} of the int8 convs one translate of ``x`` runs, read by
+    forward hooks."""
     from twingan_tpu_torch.infer.quantize import quantized_convs
 
     shapes, hooks = {}, []
@@ -3685,8 +3754,8 @@ def conv_shapes(inferer, x):
             xin = args[0]
             key = (xin.shape[0], xin.shape[2], xin.shape[1], conv.kernel.shape[0],
                    conv.kernel_size, conv.conv_padding(), 1)
-            first, n = shapes.get(key, (name, 0))
-            shapes[key] = (first, n + 1)
+            first, n, dtype = shapes.get(key, (name, 0, str(xin.dtype).split(".")[1]))
+            shapes[key] = (first, n + 1, dtype)
         return hook
 
     m = inferer.model
@@ -3698,6 +3767,33 @@ def conv_shapes(inferer, x):
         for h in hooks:
             h.remove()
     return shapes
+
+
+def profiled_kernels(fn, calls: int = 3) -> dict:
+    """The kernels and the copies the card ran per call of ``fn``, counted
+    by torch.profiler (device activities; memcpy and memset are copies),
+    after one call outside the window; None where it recorded none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for e in prof.events():
+        if (not str(getattr(e, "device_type", "")).endswith("CUDA")
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        if "memcpy" in e.name.lower() or "memset" in e.name.lower():
+            copies += 1
+        else:
+            kernels += 1
+    if kernels == 0:
+        return {"kernels": None, "copies": None}
+    return {"kernels": kernels / calls, "copies": copies / calls}
 
 
 def int8_trace(inferer, x, keep_io: bool = False):
@@ -3778,29 +3874,39 @@ def int8_phase(card: str, smi_line: str) -> dict:
         dispatches = client.dispatches - dispatched
         b1 = attention.launch_counts[attention.KERNEL_NAME]
         b1_tc = attention.variant_counts[f"{attention.KERNEL_NAME}/{attention.TENSOR_CORE}"]
-        q1 = quant.launch_counts[quant.KERNEL_NAME]
+        q1 = quant.launch_counts[quant.FUSED_NAME]
+        q1_int8_in = quant.launch_counts[quant.KERNEL_NAME]
         for i, out in enumerate(outs):
             if out.shape != (256, 256, 3) or not np.isfinite(out).all():
                 fail("int8", f"request {i}: shape {out.shape}, finite {np.isfinite(out).all()}")
-        if (b1 != 2 * dispatches or b1_tc != b1 or q1 != n_convs * dispatches
+        if (b1 != 2 * dispatches or b1_tc != b1 or q1 != n_convs * dispatches or q1_int8_in
                 or any(fused_conv.launch_counts.values()) or dispatches < TIMED_ROUNDS * 2):
-            fail("int8", f"{dispatches} batches launched B1 {b1} times ({b1_tc} tensor-core) "
-                         f"and Q1 {q1} times; expected 2 and {n_convs} a batch, no B4: "
-                         f"{fused_conv.launch_counts}")
+            fail("int8", f"{dispatches} batches launched B1 {b1} times ({b1_tc} tensor-core), "
+                         f"conv_i8q {q1} and conv_i8 {q1_int8_in} times; expected 2, "
+                         f"{n_convs} and 0 a batch, no B4: {fused_conv.launch_counts}")
         timed = sorted(round_s)[len(round_s) // 2]
+        # Kernels the card runs for one frozen int8 batch of 4 and one bf16
+        # batch (torch.profiler), the copies apart.
+        x4 = torch.from_numpy(np.stack([inferer.preprocess(im) for im in images[:4]]))
+        fp = ImageInferer(stage_dir)
+        with torch.no_grad():
+            per_batch = {"int8": profiled_kernels(lambda: inferer.translate(x4)),
+                         "bf16": profiled_kernels(lambda: fp.translate(x4))}
         emit({"phase": "int8_serving", "warm_up_rounds": warm_rounds,
               "calibrated_images": inferer.calibrated_images, "dispatches": dispatches,
               "b1_launches": b1, "q1_launches": q1, "quantized_convs": n_convs,
+              "q1_launches_by_entry": {f"{quant.FUSED_NAME}/{quant.VARIANT}": q1,
+                                       f"{quant.KERNEL_NAME}/{quant.VARIANT}": q1_int8_in},
+              "kernels_per_batch_of_4": per_batch,
               "images_per_s": REQUESTS_PER_ROUND / timed, "round_s": round_s,
               "bf16_serving_images_per_s": MEASURED.get("serving_images_per_s"),
               "card": card, "nvidia_smi": smi_line, "ok": True})
         MEASURED["int8_images_per_s"] = REQUESTS_PER_ROUND / timed
-        launches = {"b1": b1, "q1": q1}
+        launches = {"b1": b1, "q1": q1, "q1_int8_in": q1_int8_in}
 
         # Q1 at every distinct conv of a translated batch of 4.
-        x4 = torch.from_numpy(np.stack([inferer.preprocess(im) for im in images[:4]]))
         shapes = conv_shapes(inferer, x4)
-        if sum(n for _, n in shapes.values()) != n_convs:
+        if sum(n for _, n, _ in shapes.values()) != n_convs:
             fail("int8", f"the hooks saw {shapes} for {n_convs} convs")
         rows = int8_kernel_rows(shapes)
 
@@ -3844,7 +3950,6 @@ def int8_phase(card: str, smi_line: str) -> dict:
         del traces
 
         # int8 against bf16 on the card (information), and the exports.
-        fp = ImageInferer(stage_dir)
         with torch.no_grad():
             y8 = inferer.translate(x4).float()
             y16 = fp.translate(x4).float()
@@ -3864,14 +3969,17 @@ def int8_phase(card: str, smi_line: str) -> dict:
                 y = program(x4.cuda())
             torch.cuda.synchronize()
             got = {"b1": attention.launch_counts[attention.KERNEL_NAME],
-                   "q1": quant.launch_counts[quant.KERNEL_NAME]}
+                   "q1": quant.launch_counts[quant.FUSED_NAME],
+                   "q1_int8_in": quant.launch_counts[quant.KERNEL_NAME]}
             with torch.no_grad():
                 eager = inf.translate(x4)
             want_q1 = n_convs if name == "int8" else 0
             exports[name] = {"export_s": t1 - t0, "load_s": t2 - t1, "launches": got,
                              "equal_to_eager": bool(torch.equal(y, eager))}
-            launches[f"export_{name}_b1"], launches[f"export_{name}_q1"] = got["b1"], got["q1"]
-            ok = ok and exports[name]["equal_to_eager"] and got == {"b1": 2, "q1": want_q1}
+            for key, n in got.items():
+                launches[f"export_{name}_{key}"] = n
+            ok = ok and exports[name]["equal_to_eager"] and got == {"b1": 2, "q1": want_q1,
+                                                                    "q1_int8_in": 0}
         row = {"phase": "int8", "vs_cpu_fp32": vs_cpu, "int8_vs_bf16_on_card": vs_bf16,
                "exports": exports, "seconds": time.perf_counter() - t_phase,
                "card": card, "nvidia_smi": smi_line, "ok": bool(ok)}
@@ -3879,29 +3987,48 @@ def int8_phase(card: str, smi_line: str) -> dict:
         if not ok:
             fail("int8", "the card's int8 path disagrees with the CPU beyond the limits, or an "
                          "exported program did not equal the eager one or missed a kernel")
-        return {"launches": launches, "rows": rows}
+        return {"launches": launches, "rows": rows, "variant": quant.VARIANT}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def conv_i8_entry(result: dict) -> dict:
-    """Q1's line: the sums over the convs of one int8 translated batch of 4
-    in bf16 (each distinct shape's row times its count)."""
-    rows = [(r, n) for r, n in result["rows"] if n]
-    total = lambda key: sum(r[key]["bfloat16"] * n for r, n in rows)  # noqa: E731
-    heaviest = max(rows, key=lambda rn: rn[0]["bound_ms"]["bfloat16"] * rn[1])[0]
-    library = [r["library_ms"] for r, _ in rows]
+def conv_i8_entries(result: dict) -> list:
+    """Q1's lines, one an entry: the sums over the convs of one int8
+    translated batch of 4 (each distinct shape's row times its count), bf16
+    out; ``conv_i8`` from int8 NHWC codes (the int8 entry, timed like for
+    like with earlier versions of Q1), ``conv_i8q`` from each conv's own input type (what serving
+    launches). library_ms: torch._int_mm on the unfolded input."""
+    rows = [(r, n, dt) for r, (n, dt) in result["rows"] if n]
+    library = [r["library_ms"] for r, _, _ in rows]
+    library_ms = None if None in library else sum(r["library_ms"] * n for r, n, _ in rows)
+    # Each entry's launches as its own counter read them on the serving path
+    # and in the exported programs: serving and export go through conv_i8q
+    # (its float-input instances); conv_i8's int8-input instances run only
+    # where the kernel rows time them, so their count on the path is 0.
     launches = result["launches"]
-    by_path = {"int8": launches["q1"], "export": launches["export_int8_q1"]}
-    return kernel_entry(
-        "conv_i8", sum(by_path.values()), by_path, 0.0, total("ms"), total("plain_ms"),
-        total("bound_ms"), heaviest["bound_by"]["bfloat16"],
-        None if None in library else sum(lib * n for (_, n), lib in zip(rows, library)),
-        variant="cuda_core (dp4a)",
-        times="per int8 translated batch of the slice config at batch 4, bf16 out: the sum "
-              "over its convs; library_ms is torch._int_mm on the unfolded input",
-        convs_per_batch=sum(n for _, n in rows))
+    by_entry = {name: {"int8": launches[key],
+                       "export": launches[f"export_bf16_{key}"] + launches[f"export_int8_{key}"]}
+                for name, key in (("conv_i8", "q1_int8_in"), ("conv_i8q", "q1"))}
+    entries = []
+    for name, prefix in (("conv_i8", ""), ("conv_i8q", "q_")):
+        def field(row, dtype, key):
+            return row[prefix + key]["bfloat16" if not prefix else f"{dtype}->bfloat16"]
 
+        def total(key):
+            return sum(field(r, dt, key) * n for r, n, dt in rows)
+
+        heaviest, _, dtype = max(rows, key=lambda rnd: field(rnd[0], rnd[2], "bound_ms") * rnd[1])
+        entries.append(kernel_entry(
+            name, sum(by_entry[name].values()), by_entry[name], 0.0, total("ms"),
+            total("plain_ms"), total("bound_ms"), field(heaviest, dtype, "bound_by"), library_ms,
+            variant=result["variant"],
+            launches_by_entry={k: sum(v.values()) for k, v in by_entry.items()},
+            times="per int8 translated batch of the slice config at batch 4, bf16 out: the "
+                  "sum over its convs (device time); library_ms is torch._int_mm on the "
+                  "unfolded input",
+            convs_per_batch=sum(n for _, n, _ in rows),
+            old_quantize_ms=sum(r["old_quantize_ms"] * n for r, n, _ in rows)))
+    return entries
 
 
 def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
@@ -4001,7 +4128,7 @@ def main() -> int:
                                      "runner_data": data_launches["fused_conv"],
                                      "recipe": recipe_launches["fused_conv"],
                                      "options": options_launches["fused_conv"]}))
-    entries.append(conv_i8_entry(int8))
+    entries.extend(conv_i8_entries(int8))
     emit({"kernels": entries})
     print(smi_line, flush=True)
     import torch

@@ -13,7 +13,7 @@ UNet), its weights drawn in the port and bridged:
   ``test_torch_quantize_serve.py`` (15 of 6144 values past the fp32
   tolerance here, 1.6e-2 at most);
 - the exported graph calls the port's kernels as custom ops
-  (``twingan_tpu_torch::flash_attn_fwd``, ``::fused_conv``; ``::conv_i8``
+  (``twingan_tpu_torch::flash_attn_fwd``, ``::fused_conv``; ``::conv_i8q``
   after calibration), and the loaded program equals the eager inferer bit
   for bit, in fp32 and in int8;
 - the two ``params.npz`` files hold the same keys and values, the int8
@@ -102,7 +102,7 @@ def test_the_graph_calls_the_kernels_and_equals_eager(exported):
     assert exported["ops_fp"] == {"twingan_tpu_torch.flash_attn_fwd.default",
                                   "twingan_tpu_torch.fused_conv.default"}
     assert exported["ops_int8"] == {"twingan_tpu_torch.flash_attn_fwd.default",
-                                    "twingan_tpu_torch.conv_i8.default"}
+                                    "twingan_tpu_torch.conv_i8q.default"}
     for name in ("fp", "int8"):
         np.testing.assert_array_equal(exported[f"torch_{name}"], exported[f"eager_{name}"])
 

@@ -1,8 +1,10 @@
 // Tensor-core building blocks shared by the bf16 flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): 16-byte cp.async staging with
-// zero fill, ldmatrix (plain and transposed) from shared memory, and the
+// (flash_attn_fwd.cu, flash_attn_bwd.cu), the fused conv (fused_conv.cu)
+// and the int8 conv (conv_i8.cu): 16- and 4-byte cp.async staging with
+// zero fill, ldmatrix (plain and transposed) from shared memory, the
 // warp-level bf16 products mma.sync m16n8k16 and m16n8k8 with fp32
-// accumulators. Plain device functions over PTX; no PyTorch headers.
+// accumulators, and the int8 product m16n8k32 with int32 accumulators.
+// Plain device functions over PTX; no PyTorch headers.
 //
 // Fragment layout of mma.sync.m16n8k16 (PTX ISA, "Matrix fragments for
 // mma.m16n8k16"), lane = 4 * grp + tig:
@@ -13,7 +15,12 @@
 //     b1 (k 8 + 2 tig + {0,1}, n grp);
 //   C/D (16 x 8, fp32), 4 floats: c0, c1 (row grp, cols 2 tig + {0,1}),
 //     c2, c3 (row grp + 8, same cols).
-// m16n8k8 takes a0, a1 and b0 alone. Two C fragments side by side (16 x 16)
+// m16n8k8 takes a0, a1 and b0 alone. The int8 m16n8k32 has the same
+// layout by bytes: each register holds 4 int8 values where the bf16 one
+// holds 2 (A: a0 row grp, k 4 tig + {0..3}; a1 row grp + 8; a2, a3 the same
+// at k 16 + 4 tig; B: b0 k 4 tig + {0..3}, n grp; b1 k 16 + 4 tig), so
+// ldmatrix loads its fragments from rows of 32 int8 codes; C/D as above,
+// in int32. Two C fragments side by side (16 x 16)
 // are, rounded to bf16 in pairs, the A fragment of the next product: the
 // probabilities never leave registers.
 
@@ -35,6 +42,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // (all 16 when it is 0) are written as zeros. Both addresses 16-byte aligned.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously (through L1); zeros where
+// `src_bytes` is 0. Both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -65,6 +80,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
 }
 
 // Two matrices: lanes 0-15 give the addresses (the others' are ignored).
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
 __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -88,6 +109,17 @@ __device__ __forceinline__ void mma1688(float (&d)[4], uint32_t a0, uint32_t a1,
       "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// d += a b, 16 x 8 x 32, int8 operands, int32 accumulators: exact (no
+// saturation; the sums of the int8 convs stay far below 2^31).
+__device__ __forceinline__ void mma16832_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x on the special-function unit (MUFU.EX2; 2^-inf = 0).

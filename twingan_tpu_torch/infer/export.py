@@ -9,7 +9,7 @@ translated images, traces it with ``torch.export.export(strict=False)`` on
 the inferer's device and writes ``translate.pt2`` with
 ``torch.export.save``: the weights travel inside the program. The port's
 kernels are ``torch.library`` custom ops (``twingan_tpu_torch::
-flash_attn_fwd``, ``::fused_conv``, ``::conv_i8``, ...), so the program
+flash_attn_fwd``, ``::fused_conv``, ``::conv_i8q``, ...), so the program
 calls them by name; ``load_torch`` imports the modules that register them
 before it loads. An inferer exported after int8 calibration
 (``ImageInferer(quantize=True)`` after a batch, or ``calibrate``) exports

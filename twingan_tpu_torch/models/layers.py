@@ -122,6 +122,18 @@ class EqConv(nn.Module, _SpectralWeight):
     input-dilated 4x4 conv of ``x`` on V = up2_conv_kernel(W[:, :cx]) with
     V's own per-channel scales plus a 3x3 conv of ``aux``, each quantized
     with its own activation scale (``a_max[0]``, ``a_max[1]``).
+
+    Under "int8" the weight-only work (W / sigma, the eq-lr scale, the up
+    kernel, ``weight_quant`` and Q1's weight layout) and the per-activation
+    values (the reciprocal of the scale, ``(s_x * s_w).dtype``, the bias in
+    dtype) are kept between forwards while the tensors they come from are
+    unchanged: the same tensors at the same versions, device and dtype, so
+    an in-place copy (``load_state_dict``, ``bridge.py``), a raised
+    ``a_max``, a move to another device or type, or ``set_quantize`` takes
+    effect on the next forward (a write through ``.data``, which bypasses
+    the version counter, would not). The kept values are plain attributes,
+    not in ``state_dict``; under tracing (``torch.export``) the module's
+    tensors are others, so they are recomputed in the graph.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
@@ -144,6 +156,8 @@ class EqConv(nn.Module, _SpectralWeight):
         self.quantize = ""
         # The a_max slots a calib pass has written: 0, and 1 with an aux input.
         self.calib_slots: set[int] = set()
+        # name -> (key, sources, value) of the int8 path's kept values.
+        self._int8_kept: dict = {}
         self.set_quantize(quantize)
 
     def set_quantize(self, mode: str) -> None:
@@ -154,6 +168,7 @@ class EqConv(nn.Module, _SpectralWeight):
         if mode and not hasattr(self, "a_max"):
             self.register_buffer("a_max", torch.zeros(2, device=self.kernel.device))
         self.quantize = mode
+        self._int8_kept.clear()
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -213,25 +228,57 @@ class EqConv(nn.Module, _SpectralWeight):
             y = y + self.bias.to(self.dtype)[:, None, None]
         return y
 
-    def _int8_forward(self, x: torch.Tensor, aux: Optional[torch.Tensor],
-                      up: bool) -> torch.Tensor:
-        dt = self.dtype
+    def _int8_kept_value(self, name, sources: tuple, make):
+        """``make()``, kept while ``sources`` (tensors or None) are the same
+        tensors at the same versions, device and dtype. A traced forward
+        (``torch.export``) sees stand-ins of another tensor type: it makes
+        its values in the graph and keeps none."""
+        if any(type(t) not in (torch.Tensor, nn.Parameter) for t in sources if t is not None):
+            return make()
+        key = tuple(None if t is None else (id(t), t._version, t.device, t.dtype)
+                    for t in sources)
+        kept = self._int8_kept.get(name)
+        if kept is not None and kept[0] == key:
+            return kept[2]
+        with torch.no_grad():
+            value = make()
+        self._int8_kept[name] = (key, sources, value)  # sources held: their ids stay theirs
+        return value
+
+    def _int8_weights(self, up: bool, cx: int, aux: bool):
+        """(Q1's int8 weights, s_w) of the conv, or with ``up`` those of
+        V = up2_conv_kernel(W[:, :cx]) and, with ``aux``, of W[:, cx:]."""
         kernel = self.weight().float()
         if self.equalized_lr:
             # conv(s x, W) == conv(x, s W): the calibrated scale applies to x
             # exactly as recorded.
             kernel = kernel * self.input_scale
-        bias = self.bias
         if not up:
-            return quant.quantized_conv(x, kernel, self.a_max[0], self.conv_padding(), 1, dt,
-                                        bias)
-        cx = x.shape[1]
-        y = quant.quantized_conv(x, quant.up2_conv_kernel(kernel[:, :cx]), self.a_max[0],
-                                 (2, 2, 2, 2), 2, dt, bias if aux is None else None)
-        if aux is not None:
-            y = y + quant.quantized_conv(aux, kernel[:, cx:], self.a_max[1], (1, 1, 1, 1), 1, dt)
-            if bias is not None:
-                y = y + bias.to(dt)[:, None, None]
+            return (quant.conv_prep(kernel),)
+        v = quant.conv_prep(quant.up2_conv_kernel(kernel[:, :cx]))
+        return (v, quant.conv_prep(kernel[:, cx:])) if aux else (v,)
+
+    def _int8_forward(self, x: torch.Tensor, aux: Optional[torch.Tensor],
+                      up: bool) -> torch.Tensor:
+        dt = self.dtype
+        cx, has_aux = x.shape[1], up and aux is not None
+        w_sources = (self.kernel, self.u if self.spectral_norm else None)
+        prep = self._int8_kept_value(("weights", up, cx, has_aux), w_sources,
+                                     lambda: self._int8_weights(up, cx, has_aux))
+        bias = self.bias if not has_aux else None
+        scales = self._int8_kept_value(
+            ("scales", up, cx, has_aux, dt), (*w_sources, self.a_max, self.bias),
+            lambda: [quant.conv_scales(self.a_max[i], s_w, dt, bias if i == 0 else None)
+                     for i, (_, s_w) in enumerate(prep)])
+        (wq, _), (rscale, scale, b) = prep[0], scales[0]
+        if not up:
+            return quant.conv_i8q(x, rscale, wq, scale, b, self.conv_padding(), 1, dt)
+        y = quant.conv_i8q(x, rscale, wq, scale, b, (2, 2, 2, 2), 2, dt)
+        if has_aux:
+            (wq, _), (rscale, scale, _) = prep[1], scales[1]
+            y = y + quant.conv_i8q(aux, rscale, wq, scale, None, (1, 1, 1, 1), 1, dt)
+            if self.bias is not None:
+                y = y + self.bias.to(dt)[:, None, None]
         return y
 
 

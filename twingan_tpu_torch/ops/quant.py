@@ -17,25 +17,37 @@ Counterpart of ``twingan_tpu/ops/quant.py``, with the same numerics:
   (*) ones(2, 2) of the input-dilated conv that equals conv3x3 of the
   nearest 2x upsample, summed in the JAX order.
 
-The int8 conv is kernel Q1, ``csrc/conv_i8.cu`` (CUDA C++, ``__dp4a``
-into int32, the dequantize epilogue fused), registered as the custom op
-``twingan_tpu_torch::conv_i8``:
+The int8 conv is kernel Q1, ``csrc/conv_i8.cu`` (CUDA C++ on the int8
+tensor cores, ``mma.sync`` m16n8k32 into int32, the dequantize epilogue
+fused), with two entries, each a custom op:
 
-- ``conv_i8_plain`` is the plain version: the int8 values in float64
-  through ``F.conv2d`` and back to int32, exact (every partial sum is an
-  integer below 2^53); input dilation by zero-stuffing;
-- ``conv_i8`` is the wrapper. On a CUDA tensor the op launches Q1 or
-  raises; on a CPU tensor it runs the plain version. The op's CUDA
-  implementation adds one to ``launch_counts`` per launch, so the launches
-  of an exported program count too.
+- ``twingan_tpu_torch::conv_i8`` (``conv_i8``) takes x as int8 NHWC with
+  the channels padded with zeros to a multiple of 4 (``nhwc_words``);
+- ``twingan_tpu_torch::conv_i8q`` (``conv_i8q``, the serving path) takes
+  the layer's float NCHW activation and the float32 reciprocal of its
+  scale, and quantizes x as it loads it, as ``quantize`` does: the int8
+  tensor and its NHWC copy are never made.
 
-Q1 takes x as int8 NHWC with the channels padded with zeros to a multiple
-of 4 (``nhwc_words``) and the weights as int8 [Cout, kh, kw, Cin_pad]
-(``weight_words``), and writes NCHW: the int32 sums, or
-``float(acc) -> dtype``, times ``scale`` (already in the output type),
-plus ``bias`` (the same), each step rounded to the output type, as the JAX
-layer computes ``conv.astype(dt) * (s_x * s_w).astype(dt) +
-bias.astype(dt)``.
+Both take the weights as int8 [Cout, kh, kw, Cin_pad] (``weight_words``)
+and write NCHW: the int32 sums, or ``float(acc) -> dtype``, times
+``scale`` (already in the output type), plus ``bias`` (the same), each
+step rounded to the output type, as the JAX layer computes
+``conv.astype(dt) * (s_x * s_w).astype(dt) + bias.astype(dt)``.
+
+- ``conv_i8_plain`` is the plain version of the sums: the int8 values in
+  float64 through ``F.conv2d`` and back to int32, exact (every partial
+  sum is an integer below 2^53); input dilation by zero-stuffing;
+  ``dequantize_plain`` the epilogue's. ``conv_i8q``'s plain version is
+  ``quantize_recip`` -> ``nhwc_words`` -> ``conv_i8_plain`` ->
+  ``dequantize_plain``.
+- On a CUDA tensor each op launches Q1 or raises; on a CPU tensor it runs
+  the plain version. The ops' CUDA implementations add one to
+  ``launch_counts`` per launch, so the launches of an exported program
+  count too.
+- A layer's W8A8 conv is ``conv_prep`` (the weight-only part: quantized
+  weights in Q1's layout and their scales), ``conv_scales`` (the
+  per-activation part) and one ``conv_i8q``; ``models/layers.py:EqConv``
+  keeps the first two while their inputs are unchanged.
 """
 
 from __future__ import annotations
@@ -49,17 +61,28 @@ import torch.nn.functional as F
 from twingan_tpu_torch.ops import cuda_build
 
 QMAX = 127.0
-KERNEL_NAME = "conv_i8"
+KERNEL_NAME = "conv_i8"  # the library (csrc/conv_i8.cu) and its int8 entry
+FUSED_NAME = "conv_i8q"  # the entry that quantizes x as it loads it
+VARIANT = "tensor_core"  # mma.sync m16n8k32 s8: the kernel's one variant
 # The output types the kernel writes, by its out_kind code.
 KERNEL_OUT_KINDS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+# The types of x each entry reads, by its in_kind code.
+KERNEL_IN_KINDS = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 
-# Q1 launches since the last reset_launch_counts(); only the op's CUDA
-# implementation adds to it, once per launch.
-launch_counts = {KERNEL_NAME: 0}
+# The ctypes argument types of the library's C entry points, in order.
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+C_ARGTYPES = {
+    "conv_i8": [_VP, _I32, _VP, _VP, _VP, _VP, _VP] + [_I32] * 15 + [_I64] * 4 + [_VP],
+}
+
+# Q1's launches by entry since the last reset_launch_counts(); only the
+# ops' CUDA implementations add to them, once per launch.
+launch_counts = {KERNEL_NAME: 0, FUSED_NAME: 0}
 
 
 def reset_launch_counts() -> None:
-    launch_counts[KERNEL_NAME] = 0
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def _over_qmax(t: torch.Tensor) -> torch.Tensor:
@@ -75,10 +98,16 @@ def act_scale(a_max: torch.Tensor) -> torch.Tensor:
     return _over_qmax(torch.clamp(a_max.float(), min=1e-8))
 
 
+def quantize_recip(x: torch.Tensor, rscale: torch.Tensor) -> torch.Tensor:
+    """A float tensor -> int8 given the reciprocal of its scale:
+    round(x * rscale), half to even, clipped to [-127, 127]."""
+    q = torch.round(x.float() * rscale)
+    return torch.clamp(q, -QMAX, QMAX).to(torch.int8)
+
+
 def quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """A float tensor -> int8 with a static scale: round(x * (1 / scale))."""
-    q = torch.round(x.float() * torch.reciprocal(scale))
-    return torch.clamp(q, -QMAX, QMAX).to(torch.int8)
+    return quantize_recip(x, torch.reciprocal(scale))
 
 
 def weight_quant(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -154,34 +183,40 @@ def dequantize_plain(acc: torch.Tensor, scale: Optional[torch.Tensor],
     return y
 
 
-def _launch(xq, wq, scale, bias, padding, dilation, dtype) -> torch.Tensor:
+def _launch(name: str, x: torch.Tensor, rscale: Optional[torch.Tensor], wq: torch.Tensor,
+            scale, bias, padding, dilation, dtype) -> torch.Tensor:
+    """One launch of Q1: x int8 NHWC (``conv_i8``) or float NCHW with its
+    rscale (``conv_i8q``)."""
     if dtype not in KERNEL_OUT_KINDS:
-        raise ValueError(f"{KERNEL_NAME} writes {sorted(map(str, KERNEL_OUT_KINDS))}, "
-                         f"not {dtype}")
-    floats = [t for t in (scale, bias) if t is not None]
+        raise ValueError(f"{name} writes {sorted(map(str, KERNEL_OUT_KINDS))}, not {dtype}")
+    if x.dtype not in KERNEL_IN_KINDS:
+        raise ValueError(f"{name} reads int8, bfloat16 or float32 x on the card, not {x.dtype}")
+    floats = [t for t in (rscale, scale, bias) if t is not None]
     if dtype != torch.int32 and scale is None:
-        raise ValueError(f"{KERNEL_NAME} to {dtype} takes a scale")
+        raise ValueError(f"{name} to {dtype} takes a scale")
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in floats):
-        raise ValueError(f"{KERNEL_NAME} takes contiguous float32 scale and bias on the card")
-    if xq.data_ptr() % 4 or wq.data_ptr() % 4:
-        raise ValueError(f"{KERNEL_NAME} reads 4-byte words: x and w must be 4-byte aligned")
-    bsz, h, w, cp = xq.shape
-    cout, kh, kw = wq.shape[:3]
+        raise ValueError(f"{name} takes contiguous float32 scales and bias on the card")
+    if x.data_ptr() % 4 or wq.data_ptr() % 4:
+        raise ValueError(f"{name} reads 4-byte words: x and w must be 4-byte aligned")
+    cout, kh, kw, cp = wq.shape
+    if x.dtype == torch.int8:
+        bsz, h, w, cin = x.shape
+    else:
+        bsz, cin, h, w = x.shape
     ho, wo = output_hw((h, w), (kh, kw), padding, dilation)
     fn = cuda_build.load(KERNEL_NAME).conv_i8
     if fn.argtypes is None:
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 5 + [i32] * 14 + [vp]
-        fn.restype = ctypes.c_int
-    out = torch.empty((bsz, cout, ho, wo), dtype=dtype, device=xq.device)
-    err = fn(xq.data_ptr(), wq.data_ptr(), scale.data_ptr() if scale is not None else None,
-             bias.data_ptr() if bias is not None else None, out.data_ptr(),
-             KERNEL_OUT_KINDS[dtype], xq.device.index or 0, bsz, h, w, cp // 4, cout, kh, kw,
-             padding[0], padding[2], dilation, ho, wo,
-             torch.cuda.current_stream(xq.device).cuda_stream)
+        fn.argtypes, fn.restype = C_ARGTYPES["conv_i8"], ctypes.c_int
+    out = torch.empty((bsz, cout, ho, wo), dtype=dtype, device=x.device)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    err = fn(x.data_ptr(), KERNEL_IN_KINDS[x.dtype], ptr(rscale), wq.data_ptr(), ptr(scale),
+             ptr(bias), out.data_ptr(), KERNEL_OUT_KINDS[dtype], x.device.index or 0, bsz, h, w,
+             cin, cp, cout, kh, kw, padding[0], padding[2], dilation, ho, wo,
+             *(x.stride() if x.dtype != torch.int8 else (0, 0, 0, 0)),
+             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError_t {err}")
-    launch_counts[KERNEL_NAME] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
+    launch_counts[name] += 1
     return out
 
 
@@ -194,13 +229,28 @@ def _conv_i8_op(xq: torch.Tensor, wq: torch.Tensor, scale: Optional[torch.Tensor
 
 @_conv_i8_op.register_kernel("cuda")
 def _conv_i8_cuda(xq, wq, scale, bias, padding, dilation, dtype):
-    return _launch(xq, wq, scale, bias, padding, dilation, dtype)
+    return _launch(KERNEL_NAME, xq, None, wq, scale, bias, padding, dilation, dtype)
 
 
 @_conv_i8_op.register_fake
 def _conv_i8_fake(xq, wq, scale, bias, padding, dilation, dtype):
     ho, wo = output_hw(xq.shape[1:3], wq.shape[1:3], padding, dilation)
     return xq.new_empty((xq.shape[0], wq.shape[0], ho, wo), dtype=dtype)
+
+
+def _check_common(name: str, x: torch.Tensor, wq: torch.Tensor, tensors, padding,
+                  dilation: int, x_hw, x_contiguous: bool = True) -> None:
+    if len(padding) != 4 or min(padding) < 0 or dilation not in (1, 2):
+        raise ValueError(f"padding (top, bottom, left, right) >= 0 and dilation 1 or 2, got "
+                         f"{tuple(padding)} and {dilation}")
+    if min(output_hw(x_hw, wq.shape[1:3], padding, dilation)) < 1:
+        raise ValueError(f"no output for x {tuple(x.shape)}, w {tuple(wq.shape)}")
+    if not ((x.is_contiguous() or not x_contiguous) and wq.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous x and w")
+    if any(t.device != x.device for t in tensors if t is not None):
+        raise ValueError(f"{name}'s tensors must be on one device")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
 
 
 def conv_i8(xq: torch.Tensor, wq: torch.Tensor, scale: Optional[torch.Tensor] = None,
@@ -217,33 +267,70 @@ def conv_i8(xq: torch.Tensor, wq: torch.Tensor, scale: Optional[torch.Tensor] = 
     if xq.shape[3] != wq.shape[3] or xq.shape[3] % 4:
         raise ValueError(f"x {tuple(xq.shape)} and w {tuple(wq.shape)}: the channels must "
                          "agree and be padded to a multiple of 4")
-    if len(padding) != 4 or min(padding) < 0 or dilation not in (1, 2):
-        raise ValueError(f"padding (top, bottom, left, right) >= 0 and dilation 1 or 2, got "
-                         f"{tuple(padding)} and {dilation}")
-    if min(output_hw(xq.shape[1:3], wq.shape[1:3], padding, dilation)) < 1:
-        raise ValueError(f"no output for x {tuple(xq.shape)}, w {tuple(wq.shape)}")
-    if not (xq.is_contiguous() and wq.is_contiguous()):
-        raise ValueError("conv_i8 takes contiguous x and w")
-    tensors = [t for t in (xq, wq, scale, bias) if t is not None]
-    if any(t.device != xq.device for t in tensors):
-        raise ValueError("conv_i8's tensors must be on one device")
-    if xq.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"conv_i8 runs on cuda or cpu, not {xq.device}")
+    _check_common("conv_i8", xq, wq, (wq, scale, bias), padding, dilation, xq.shape[1:3])
     return torch.ops.twingan_tpu_torch.conv_i8(xq, wq, scale, bias, list(padding), dilation,
                                                dtype)
 
 
-def quantized_conv(x: torch.Tensor, kernel: torch.Tensor, a_max: torch.Tensor,
-                   padding: Sequence[int], dilation: int, dtype: torch.dtype,
-                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One W8A8 conv of a layer: x (NCHW, any float type) quantized with the
-    calibrated ``a_max``, the float kernel (OIHW, the eq-lr scale folded
-    in) per channel, Q1 with the epilogue in ``dtype``:
-    ``acc.dtype * (s_x * s_w).dtype (+ bias.dtype)``."""
-    s_x = act_scale(a_max)
+@torch.library.custom_op("twingan_tpu_torch::conv_i8q", mutates_args=(), device_types="cpu")
+def _conv_i8q_op(x: torch.Tensor, rscale: torch.Tensor, wq: torch.Tensor,
+                 scale: Optional[torch.Tensor], bias: Optional[torch.Tensor], padding: list[int],
+                 dilation: int, dtype: torch.dtype) -> torch.Tensor:
+    acc = conv_i8_plain(nhwc_words(quantize_recip(x, rscale)), wq, padding, dilation)
+    return dequantize_plain(acc, scale, bias, dtype)
+
+
+@_conv_i8q_op.register_kernel("cuda")
+def _conv_i8q_cuda(x, rscale, wq, scale, bias, padding, dilation, dtype):
+    return _launch(FUSED_NAME, x, rscale, wq, scale, bias, padding, dilation, dtype)
+
+
+@_conv_i8q_op.register_fake
+def _conv_i8q_fake(x, rscale, wq, scale, bias, padding, dilation, dtype):
+    ho, wo = output_hw(x.shape[2:], wq.shape[1:3], padding, dilation)
+    return x.new_empty((x.shape[0], wq.shape[0], ho, wo), dtype=dtype)
+
+
+def conv_i8q(x: torch.Tensor, rscale: torch.Tensor, wq: torch.Tensor,
+             scale: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+             padding: Sequence[int] = (0, 0, 0, 0), dilation: int = 1,
+             dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Q1 with the activation's quantize fused into its load: x float
+    [B, Cin, H, W], any strides (bfloat16 or float32 on the card),
+    ``rscale`` the reciprocal of x's scale (one float32 value on the card),
+    wq int8 [Cout, kh, kw, Cp] (Cp = Cin rounded up to 4); the rest as
+    ``conv_i8``. Equals
+    ``conv_i8(nhwc_words(quantize_recip(x, rscale)), wq, ...)``."""
+    if x.dim() != 4 or not x.dtype.is_floating_point:
+        raise ValueError(f"conv_i8q takes float x [B, Cin, H, W], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if wq.dim() != 4 or wq.dtype != torch.int8 or wq.shape[3] != -(-x.shape[1] // 4) * 4:
+        raise ValueError(f"conv_i8q takes int8 w [Cout, kh, kw, Cin rounded up to 4], got "
+                         f"{wq.dtype} {tuple(wq.shape)} for x {tuple(x.shape)}")
+    if rscale.numel() != 1 or not rscale.dtype.is_floating_point:
+        raise ValueError(f"conv_i8q takes one float rscale, got {rscale.dtype} "
+                         f"{tuple(rscale.shape)}")
+    _check_common("conv_i8q", x, wq, (rscale, wq, scale, bias), padding, dilation,
+                  x.shape[2:], x_contiguous=False)
+    if x.is_cuda and x.dtype not in (torch.bfloat16, torch.float32):
+        x = x.float()  # as the plain version reads it: float16 exactly, float64 rounded
+    return torch.ops.twingan_tpu_torch.conv_i8q(x, rscale.reshape(()), wq, scale, bias,
+                                                list(padding), dilation, dtype)
+
+
+def conv_prep(kernel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The weight-only part of a W8A8 conv: the float kernel (OIHW, the
+    eq-lr scale folded in) -> (Q1's int8 weights, per-channel scale s_w)."""
     wq, s_w = weight_quant(kernel)
+    return weight_words(wq), s_w
+
+
+def conv_scales(a_max: torch.Tensor, s_w: torch.Tensor, dtype: torch.dtype,
+                bias: Optional[torch.Tensor] = None):
+    """The per-activation part: (rscale, scale, bias) for ``conv_i8q`` from
+    the calibrated abs-max: 1 / s_x, (s_x * s_w) in ``dtype`` and the bias
+    in ``dtype``, both held as float32."""
+    s_x = act_scale(a_max)
     scale = (s_x * s_w).to(dtype).float()
-    if bias is not None:
-        bias = bias.to(dtype).float()
-    return conv_i8(nhwc_words(quantize(x, s_x)), weight_words(wq), scale, bias, padding,
-                   dilation, dtype)
+    return (torch.reciprocal(s_x), scale,
+            bias.to(dtype).float() if bias is not None else None)

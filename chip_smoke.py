@@ -236,7 +236,29 @@ result line is printed:
               and a batch each: B1 2 and ``conv_i8q`` 34 (int8) launches
               through the custom ops, outputs equal to the eager ones bit for
               bit, export and load seconds.
-16. kernels - one line listing each kernel of the paths.
+16. parallel - the multi-device training path over a real NCCL process
+              group of one process (tcp on a free local port, rank 0; its
+              failure fails the run): the context-parallel attention core
+              called directly at the serving and training shapes (bf16),
+              forward and backward through the all-to-all and all-gather,
+              bit-equal to the local ``self_attention`` with one B1, B2 and
+              B3 launch each, and its per-process core at two processes'
+              split of the keys (two launches of each) against the plain
+              version; one round of the TwinGAN slice config (256 px, batch
+              3) with ``attention_context_parallel`` and
+              ``sync_batch_norm_axis="data"`` (its attention on the local
+              path, which a group of one takes) and one pggan256 round (batch
+              12), each under the group bit-equal to the same round without
+              it (every parameter, statistic, optimizer slot and metric),
+              B1-B3 launches as ``expected_launches`` counts them and 13 B4
+              launches a D step; a ``StageRunner`` plan under the group
+              (pggan256 4 -> 16 px, ``num_devices=1``, two calls on one
+              train dir: the coordinator writes every stage, the second
+              call skips the first three and grows the rest from disk),
+              B4's launches per stage. One line per check, and a summary
+              line (NCCL version, world size, each check's largest
+              difference, the path's launches, seconds).
+17. kernels - one line listing each kernel of the paths.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -621,6 +643,17 @@ INT8_CPU_MAX_TOL = 0.5
 INT8_UP_CASE = ("fused-scale up (dilation 2)", 4, 64, 64, 32, 4, (2, 2, 2, 2), 2)
 INT8_RAGGED_CASE = ("ragged Cin", 4, 32, 10, 24, 3, (1, 1, 1, 1), 1)
 INT8_OPS_PER_S = 1979e12
+
+# The parallel phase: a real NCCL process group of one process on the card.
+# At one process every collective returns its input's values exactly, so
+# each path under the group must equal the same path without it bit for
+# bit. The context-parallel core at the serving and training shapes of
+# attention (bf16); then its per-process core at two processes' split of the
+# keys (two blocks, each through B1-B3) against the plain version.
+PARALLEL_CORE_CASES = [SERVING_CASE, TRAIN_CASE]
+PARALLEL_SPLIT = 2
+PARALLEL_PLAN_IMAGES = 32   # per resolution: 2 rounds at the schedule's batch 16 below 64 px
+PARALLEL_FIRST_CALL_STAGES = 3
 
 # Numbers an earlier phase measured that a later one prints beside its own.
 MEASURED: dict = {}
@@ -3992,6 +4025,312 @@ def int8_phase(card: str, smi_line: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _max_diff(a, b) -> float:
+    return float((a.detach().float() - b.detach().float()).abs().max())
+
+
+def _states_equal(a: dict, b: dict) -> tuple[bool, float]:
+    """Whether two flat states hold the same keys and bits, and their
+    largest difference."""
+    import torch
+
+    if set(a) != set(b):
+        return False, float("inf")
+    diff = max((_max_diff(a[k], b[k]) for k in a if a[k].is_floating_point()), default=0.0)
+    return all(torch.equal(a[k], b[k]) for k in a), diff
+
+
+def _under_group(group, fn):
+    """``fn()`` with ``group`` registered (None: no group)."""
+    from twingan_tpu_torch import parallel
+
+    prev = parallel.current_group()
+    parallel.set_current_group(group)
+    try:
+        return fn()
+    finally:
+        parallel.set_current_group(prev)
+
+
+def _parallel_core_checks(group) -> list:
+    """The context-parallel attention core on the card at one process
+    (all-to-all, all-gather, the core, all-to-all back; forward and
+    backward) bit-equal to the local ``self_attention``, B1-B3 once each;
+    then the per-process core at PARALLEL_SPLIT processes' split of the
+    keys, each block through B1-B3, against autograd of the plain version
+    in fp32."""
+    import torch
+    from twingan_tpu_torch.ops import attention
+
+    rows = []
+    one_each = {attention.KERNEL_NAME: 1, attention.DQ_KERNEL: 1, attention.DKV_KERNEL: 1,
+                attention.PLAIN_ROUTE: 0}
+    for label, b, n, c_bar, c, dtype in PARALLEL_CORE_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        dt = getattr(torch, dtype)
+        inputs = [torch.randn(b, n, k, generator=gen, device="cuda").to(dt)
+                  for k in (c_bar, c_bar, c)]
+        do = torch.randn(b, n, c, generator=gen, device="cuda").to(dt)
+
+        def run(fn):
+            leaves = [t.clone().requires_grad_(True) for t in inputs]
+            torch.cuda.synchronize()
+            attention.reset_launch_counts()
+            o = fn(*leaves)
+            o.backward(do)
+            torch.cuda.synchronize()
+            return o.detach(), [t.grad for t in leaves], dict(attention.launch_counts)
+
+        o_cp, g_cp, counts = run(lambda f, g, h: attention.context_parallel_attention(
+            f, g, h, group))
+        o_local, g_local, _ = run(attention.self_attention)
+        equal = torch.equal(o_cp, o_local) and all(map(torch.equal, g_cp, g_local))
+        rows.append({"check": f"context-parallel core, {label}", "shape": [b, n, c_bar, c],
+                     "dtype": dtype, "bit_equal": equal,
+                     "max_diff": max([_max_diff(o_cp, o_local)]
+                                     + [_max_diff(x, y) for x, y in zip(g_cp, g_local)]),
+                     "launches": counts, "expected_launches": one_each,
+                     "ok": bool(equal and counts == one_each)})
+
+        # PARALLEL_SPLIT processes' share: its query rows against every key,
+        # the keys in PARALLEL_SPLIT blocks.
+        q = n // PARALLEL_SPLIT
+        f, g, h = (t.clone().requires_grad_(True) for t in inputs)
+        fq = f[:, :q].contiguous()
+        torch.cuda.synchronize()
+        attention.reset_launch_counts()
+        o = attention.self_attention(fq, g, h, blocks=PARALLEL_SPLIT)
+        o.backward(do[:, :q])
+        torch.cuda.synchronize()
+        counts = dict(attention.launch_counts)
+        ref_in = [t.detach().float().requires_grad_(True) for t in (fq, g, h)]
+        o_ref = attention.attention_core(*ref_in)
+        df_ref, dg_ref, dh_ref = torch.autograd.grad(o_ref, ref_in, do[:, :q].float())
+        errs = {"o": _max_diff(o, o_ref), "df": _max_diff(f.grad[:, :q], df_ref),
+                "dg": _max_diff(g.grad, dg_ref), "dh": _max_diff(h.grad, dh_ref)}
+        limits = {"o": tolerance(dtype, float(o_ref.abs().max())),
+                  **{k: grad_tolerance(dtype, float(ref.abs().max()), n)
+                     for k, ref in (("df", df_ref), ("dg", dg_ref), ("dh", dh_ref))}}
+        split_counts = {k: PARALLEL_SPLIT * v for k, v in one_each.items()}
+        rows.append({"check": f"per-process core at {PARALLEL_SPLIT} processes, {label}",
+                     "shape": [b, q, n, c_bar, c], "dtype": dtype, "max_abs_err": errs,
+                     "limits": limits, "launches": counts, "expected_launches": split_counts,
+                     "ok": bool(all(errs[k] <= limits[k] for k in errs)
+                                and counts == split_counts)})
+    return rows
+
+
+def _parallel_round(trainer, make_state, batches, group):
+    """One round from a fresh state, with ``group`` registered or none:
+    (flat state after it, metrics, attention launches, B4 launches)."""
+    import torch
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.train.state import state_to_dict
+
+    def run():
+        state = make_state()
+        torch.cuda.synchronize()
+        attention.reset_launch_counts()
+        fused_conv.reset_launch_counts()
+        state, metrics = trainer.round_step(state, batches, rng=SEED)
+        torch.cuda.synchronize()
+        flat = {k: v.detach().clone() for k, v in state_to_dict(state).items()}
+        return (flat, {k: float(v) for k, v in metrics.items()},
+                dict(attention.launch_counts), dict(fused_conv.launch_counts))
+
+    return _under_group(group, run)
+
+
+def parallel_phase(card: str, smi_line: str) -> dict:
+    """The multi-device training path (``twingan_tpu_torch.parallel``) over
+    a real NCCL process group of one process on the card, which must
+    initialize (no gloo, no fallback): the context-parallel attention core
+    called directly; one round of the TwinGAN slice config (256 px, batch
+    3) with ``attention_context_parallel`` and synced batch norm (the
+    attention layers take the local path at one process, as the JAX layer
+    does on a mesh of one device: the core runs only in the direct
+    checks), and one
+    pggan256 round (batch 12), each under the group against the same round
+    without it (parameters, EMAs, optimizer slots and metrics bit-equal;
+    B1-B3 as ``expected_launches`` says, 13 B4 launches a D step); and a
+    ``StageRunner`` plan under the group (pggan256 4 -> 16 px,
+    ``num_devices=1``, in two calls on one train dir: the first process
+    writes as the coordinator, the second call resumes). Returns the
+    launches of the path's runs under the group, by kernel."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from twingan_tpu_torch import parallel
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.runner.checkpoint import CheckpointManager
+    from twingan_tpu_torch.runner.stage_runner import (
+        PGGAN_BATCH_SCHEDULE,
+        RunConfig,
+        stage_dir_name,
+        stage_plan,
+    )
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    t_phase = time.perf_counter()
+    try:
+        group = parallel.init_group("cuda", 0, 1, f"tcp://127.0.0.1:{_free_port()}",
+                                    timeout_s=300)
+    except Exception as e:  # the phase's own failure, named
+        fail("parallel", f"no NCCL process group on the card: {type(e).__name__}: {e}")
+    backend = dist.get_backend(group)
+    nccl = torch.cuda.nccl.version()
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    # Each round runs twice and the two must agree bit for bit: cuDNN's
+    # deterministic algorithms only.
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    launches: dict = {}
+    rows: list = []
+    try:
+        if backend != "nccl" or parallel.world_size(group) != 1:
+            fail("parallel", f"the group is {backend} over {parallel.world_size(group)} "
+                             "process(es), not NCCL over one")
+        t0 = time.perf_counter()
+        rows += _parallel_core_checks(group)
+        core_s = time.perf_counter() - t0
+
+        def add(counts: dict) -> None:
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+
+        # The TwinGAN slice config with both options, one round.
+        t0 = time.perf_counter()
+        base = slice_config()
+        cfg = train_config(base.replace(model=base.model.replace(
+            attention_context_parallel=True, sync_batch_norm_axis="data")))
+        trainer = TwinGANTrainer(cfg)
+        rng = np.random.RandomState(SEED + 11)
+        batches = [_train_batch(rng, cfg, "cuda") for _ in range(cfg.n_critic)]
+
+        def twingan_state():
+            state = trainer.init_state(SEED)
+            set_attention_gamma(state.nets)
+            return state
+
+        ref = _parallel_round(trainer, twingan_state, batches, None)
+        got = _parallel_round(trainer, twingan_state, batches, group)
+        per_step = expected_launches(trainer, trainer.build_nets())
+        expected = {k: per_step["g_step"][k] + (cfg.n_critic - 1) * per_step["d_step"][k]
+                    for k in per_step["g_step"]}
+        equal, diff = _states_equal(got[0], ref[0])
+        rows.append({"check": "TwinGAN slice round (synced batch norm, the gradient and "
+                              "metric all-reduces; attention_context_parallel set, "
+                              "attention on the local path at one process) under the "
+                              "group against no group",
+                     "batch": TRAIN_BATCH, "state_bit_equal": equal, "state_max_diff": diff,
+                     "metrics_equal": got[1] == ref[1], "launches": got[2],
+                     "expected_launches": expected, "b4_launches": got[3],
+                     "seconds": time.perf_counter() - t0,
+                     "ok": bool(equal and got[1] == ref[1] and got[2] == expected
+                                and ref[2] == expected and not any(got[3].values())
+                                and all(np.isfinite(v) for v in got[1].values()))})
+        add(got[2])
+
+        # pggan256, one round: B4 in the D step's generator pass.
+        t0 = time.perf_counter()
+        gcfg = generation_config()
+        gtrainer = GanTrainer(gcfg)
+        grng = np.random.RandomState(SEED + 12)
+        gbatches = [{"target": torch.from_numpy(grng.rand(GEN_BATCH, 256, 256, 3)
+                                                .astype("float32")).cuda()}
+                    for _ in range(gcfg.n_critic)]
+
+        def pggan_state():
+            state = gtrainer.init_state(SEED)
+            randomize_biases(state.nets, SEED)
+            return state
+
+        gref = _parallel_round(gtrainer, pggan_state, gbatches, None)
+        ggot = _parallel_round(gtrainer, pggan_state, gbatches, group)
+        gexpected = {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS * (gcfg.n_critic - 1),
+                     fused_conv.AUTOGRAD_ROUTE: GEN_LAYERS_PER_PASS}
+        equal, diff = _states_equal(ggot[0], gref[0])
+        rows.append({"check": "pggan256 round under the group against no group",
+                     "batch": GEN_BATCH, "state_bit_equal": equal, "state_max_diff": diff,
+                     "metrics_equal": ggot[1] == gref[1], "b4_launches": ggot[3],
+                     "expected_b4_launches": gexpected, "seconds": time.perf_counter() - t0,
+                     "ok": bool(equal and ggot[1] == gref[1] and ggot[3] == gexpected
+                                and gref[3] == gexpected)})
+        add(ggot[3])
+
+        # The stage runner under the group, in two calls on one train dir.
+        t0 = time.perf_counter()
+        train_dir = tempfile.mkdtemp(prefix="twingan_smoke_parallel_")
+        try:
+            run_cfg = RunConfig(program="image_generation", train_dir=train_dir, start_hw=4,
+                                max_hw=16, num_images_per_resolution=PARALLEL_PLAN_IMAGES,
+                                use_synthetic_data=True, trainer=gcfg, log_every_n_steps=1,
+                                save_every_n_steps=1, keep_checkpoints=2,
+                                log_image_every_n_iter=0, num_devices=1, seed=SEED)
+            plan = [stage_dir_name(r, g) for r, g in stage_plan(4, 16)]
+            stage_rows: list = []
+
+            def plan_run():
+                return [counting_runner(c, stage_rows).run() for c in (
+                    run_cfg.replace(max_stages_per_run=PARALLEL_FIRST_CALL_STAGES), run_cfg)]
+
+            summaries = _under_group(group, plan_run)
+            rounds = PARALLEL_PLAN_IMAGES // PGGAN_BATCH_SCHEDULE[16]
+            b4_expected = [rounds * (gcfg.n_critic - 1) * (1 + 2 * int(np.log2(r["resolution"]
+                                                                             // 4)))
+                           for r in stage_rows]
+            b4_seen = [r["b4_launches"][fused_conv.KERNEL_NAME] for r in stage_rows]
+            skipped = [t for t in plan if summaries[1].get(t, {}).get("skipped")]
+            written = all(os.path.isfile(os.path.join(train_dir, t, n)) for t in plan
+                          for n in ("config.json", "model.pt"))
+            final = [CheckpointManager(os.path.join(train_dir, t)).latest_step() for t in plan]
+            rows.append({"check": "StageRunner plan under the group, pggan256 4 -> 16 px, "
+                                  "two calls", "stages": [r["stage"] for r in stage_rows],
+                         "first_call_incomplete": bool(summaries[0].get("_incomplete")),
+                         "second_call_skipped": skipped, "files_written": written,
+                         "final_steps": final, "b4_launches": b4_seen,
+                         "expected_b4_launches": b4_expected,
+                         "seconds": time.perf_counter() - t0,
+                         "ok": bool(summaries[0].get("_incomplete") and written
+                                    and skipped == plan[:PARALLEL_FIRST_CALL_STAGES]
+                                    and [r["stage"] for r in stage_rows] == plan
+                                    and final == [rounds] * len(plan)
+                                    and b4_seen == b4_expected)})
+            for r in stage_rows:
+                add(r["attention_launches"])
+                add(r["b4_launches"])
+        finally:
+            shutil.rmtree(train_dir, ignore_errors=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        parallel.set_current_group(None)
+        dist.destroy_process_group()
+    for row in rows:
+        emit({"phase": "parallel", **row})
+    path = {k: launches.get(k, 0) for k in (attention.KERNEL_NAME, attention.DQ_KERNEL,
+                                             attention.DKV_KERNEL, fused_conv.KERNEL_NAME)}
+    emit({"phase": "parallel", "check": "summary", "backend": backend, "nccl": nccl,
+          "world_size": 1, "core_seconds": core_s,
+          "max_diff": {r["check"]: r.get("max_diff", r.get("state_max_diff",
+                                                            r.get("max_abs_err")))
+                       for r in rows if "core" in r["check"] or "round" in r["check"]},
+          "launches": path, "seconds": time.perf_counter() - t_phase, "card": card,
+          "nvidia_smi": smi_line, "ok": all(r["ok"] for r in rows)})
+    bad = [r["check"] for r in rows if not r["ok"]]
+    if bad:
+        fail("parallel", f"failed: {bad}")
+    return path
+
+
 def conv_i8_entries(result: dict) -> list:
     """Q1's lines, one an entry: the sums over the convs of one int8
     translated batch of 4 (each distinct shape's row times its count), bf16
@@ -4099,6 +4438,7 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     int8 = int8_phase(card, smi_line)
+    parallel_launches = parallel_phase(card, smi_line)
     data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
     by_path = {"serving": serving_launches, "http": http_launches,
@@ -4107,7 +4447,8 @@ def main() -> int:
                "eval": eval_launches[fwd], "recipe": recipe_launches[fwd],
                "options": options_launches[fwd], "classifiers": classifier_launches,
                "int8": int8["launches"]["b1"],
-               "export": int8["launches"]["export_bf16_b1"] + int8["launches"]["export_int8_b1"]}
+               "export": int8["launches"]["export_bf16_b1"] + int8["launches"]["export_int8_b1"],
+               "parallel": parallel_launches[fwd]}
     entries = [kernel_entry(
         fwd, sum(by_path.values()), by_path,
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
@@ -4116,7 +4457,8 @@ def main() -> int:
     for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
         by_path = {"train": train_launches[name], "runner": runner_launches[name],
                    "runner_data": data_launches[name], "eval": eval_launches[name],
-                   "recipe": recipe_launches[name], "options": options_launches[name]}
+                   "recipe": recipe_launches[name], "options": options_launches[name],
+                   "parallel": parallel_launches[name]}
         entries.append(kernel_entry(
             name, sum(by_path.values()), by_path,
             max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
@@ -4127,7 +4469,8 @@ def main() -> int:
                                     {"runner": runner_launches["fused_conv"],
                                      "runner_data": data_launches["fused_conv"],
                                      "recipe": recipe_launches["fused_conv"],
-                                     "options": options_launches["fused_conv"]}))
+                                     "options": options_launches["fused_conv"],
+                                     "parallel": parallel_launches["fused_conv"]}))
     entries.extend(conv_i8_entries(int8))
     emit({"kernels": entries})
     print(smi_line, flush=True)

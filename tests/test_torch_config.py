@@ -185,6 +185,14 @@ def test_unported_options_raise(kw, name):
         with pytest.raises(ValueError, match=f"{name}.*inference-only"):
             require_trainable(TwinGANConfig(model=PGGANConfig(num_domains=2, **kw)))
         return
+    if name == "attention_context_parallel":
+        # Ported (A8): the modules and the trainers take it
+        # (test_torch_parallel.py holds it on two processes).
+        from twingan_tpu_torch.train.base import require_trainable
+
+        require_ported(PGGANConfig(**kw))
+        require_trainable(TwinGANConfig(model=PGGANConfig(num_domains=2, **kw)))
+        return
     with pytest.raises(NotImplementedError, match=name):
         require_ported(PGGANConfig(**kw))
 

@@ -66,6 +66,8 @@ EXPECTED_MODULES = (
     "twingan_tpu_torch.train.classifier_trainer", "twingan_tpu_torch.runner.classifier_runner",
     "twingan_tpu_torch.ops.quant", "twingan_tpu_torch.infer.quantize",
     "twingan_tpu_torch.infer.export",
+    "twingan_tpu_torch.parallel", "twingan_tpu_torch.parallel.mesh",
+    "twingan_tpu_torch.parallel.multihost",
 )
 
 
@@ -75,9 +77,34 @@ def test_port_and_smoke_import_nothing_the_card_lacks():
     assert proc.returncode == 0, proc.stderr
     names, banned = proc.stdout.strip().splitlines()[-2:]
     names = names.split(",")
-    assert len(names) >= 37  # every module of the package was imported
+    assert len(names) >= 40  # every module of the package was imported
     assert set(EXPECTED_MODULES) <= set(names), set(EXPECTED_MODULES) - set(names)
     assert banned == "BANNED:", banned
+
+
+WORKER = os.path.join(REPO, "tests", "torch_parallel_worker.py")
+
+
+def test_parallel_package_and_worker_import_only_torch_numpy_and_the_port():
+    """The processes of the multi-process tests run the worker script,
+    which must not load JAX or the JAX package either."""
+    code = f"""
+import sys
+sys.path.insert(0, {os.path.dirname(WORKER)!r})
+import torch_parallel_worker
+import twingan_tpu_torch.parallel
+banned = sorted(m for m in sys.modules if m.split(".")[0] in {BANNED!r})
+print("BANNED:" + ",".join(banned))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=REPO, env=_no_card_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "BANNED:"
+    with open(WORKER) as fh:
+        text = fh.read()
+    for word in ("import jax", "import flax", "from twingan_tpu ", "from twingan_tpu.",
+                 "import twingan_tpu\n"):
+        assert word not in text, word
 
 
 def test_every_kernel_source_is_built_by_the_package():

@@ -27,6 +27,7 @@ from twingan_tpu_torch import bridge  # noqa: E402
 from twingan_tpu_torch.bridge import flax_from_state_dict, state_dict_from_flax  # noqa: E402
 from twingan_tpu_torch.models import pggan  # noqa: E402
 from twingan_tpu_torch.models.config import PGGANConfig  # noqa: E402
+from twingan_tpu_torch.models.layers import reset_parameters  # noqa: E402
 from twingan_tpu_torch.train.twingan_trainer import TwinGANConfig  # noqa: E402
 from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer as PortTrainer  # noqa: E402
 
@@ -204,6 +205,22 @@ def test_modules_refuse_unported_options(kw, name):
         pggan.Generator(cfg)
         with pytest.raises(ValueError, match=f"{name}.*inference-only"):
             pggan.Discriminator(cfg)
+        return
+    if name == "attention_context_parallel":
+        # Ported (A8): every module takes it, and without a process group
+        # the attention takes the local path, bit for bit
+        # (test_torch_parallel.py runs the split on two processes).
+        cfg = cfg.replace(do_self_attention=True, self_attention_hw=8)
+        pggan.Encoder(cfg)
+        pggan.Generator(cfg)
+        cp, local = pggan.Discriminator(cfg), pggan.Discriminator(
+            cfg.replace(attention_context_parallel=False))
+        reset_parameters(local, torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            local.self_attention_8.sa_gamma.fill_(1.0)
+        cp.load_state_dict(local.state_dict())
+        x = torch.rand(2, 8, 8, 3, generator=torch.Generator().manual_seed(1))
+        torch.testing.assert_close(cp(x), local(x), rtol=0, atol=0)
         return
     with pytest.raises(NotImplementedError, match=name):
         pggan.Encoder(cfg)

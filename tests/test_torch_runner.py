@@ -299,17 +299,21 @@ def test_async_probe_recovers_and_never_saves_a_nan(tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------- #
-# Options that are not ported
+# Several devices without their processes
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(num_devices=2), "A9"),
-    (dict(num_devices=4, dataset_dir="/data/records", eval_every_n_iter_in_training=100), "A9"),
+    (dict(num_devices=2), "torchrun --nproc_per_node 2"),
+    (dict(num_devices=4, dataset_dir="/data/records", eval_every_n_iter_in_training=100),
+     "torchrun --nproc_per_node 4"),
 ])
 def test_unported_options_raise(tmp_path, kw, item):
-    # Real data (A10) and the in-training SWD (A11) are ported: only
-    # several devices raise (test_torch_runner_realdata.py runs the others).
-    with pytest.raises(NotImplementedError, match=item):
+    # Several devices are ported (A9): one process each, which torchrun
+    # starts (test_torch_multihost.py runs two). A num_devices that the
+    # run's process group does not match, here none, raises naming
+    # torchrun. Real data (A10) and the in-training SWD (A11) run
+    # (test_torch_runner_realdata.py).
+    with pytest.raises(ValueError, match=item):
         StageRunner(run_cfg(tmp_path, use_synthetic_data=False, **kw), device="cpu")
 
 

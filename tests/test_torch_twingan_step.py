@@ -429,14 +429,25 @@ def test_trained_state_serves_through_image_inferer(tmp_path):
     ({"model": PGGANConfig(num_domains=2, sync_batch_norm_axis="data")}, "sync_batch_norm_axis"),
 ])
 def test_trainer_refuses_unported_options(kw, name):
-    """Of these options only sync_batch_norm_axis still raises, naming its
-    queue item (A9); the others train (``test_torch_twingan_step_options*``
-    and ``test_torch_remat.py`` hold them to the JAX package), and
+    """None of these options raises any more: they train
+    (``test_torch_twingan_step_options*`` and ``test_torch_remat.py`` hold
+    them to the JAX package; ``test_torch_parallel.py`` holds
+    sync_batch_norm_axis's synced moments on two processes), and
     distillation without an embedding width is refused as the JAX trainer
-    refuses it."""
+    refuses it. sync_batch_norm_axis reaches every batch norm, and a G
+    step runs with it on one process."""
     if name == "sync_batch_norm_axis":
-        with pytest.raises(NotImplementedError, match=f"{name}.*A9"):
-            TwinGANTrainer(TwinGANConfig(**kw), device="cpu")
+        from twingan_tpu_torch.models.layers import DomainNorm
+
+        trainer = TwinGANTrainer(TwinGANConfig(**kw), device="cpu")
+        state = trainer.init_state(0)
+        norms = [m for m in state.nets.modules()
+                 if isinstance(m, DomainNorm) and m.kind == "batch_norm"]
+        assert norms and all(m.sync for m in norms)
+        batch = {k: torch.rand(2, 4, 4, 3, generator=torch.Generator().manual_seed(i))
+                 for i, k in enumerate(("source", "target"))}
+        _, metrics = trainer.g_step(state, batch)
+        assert all(np.isfinite(float(v)) for v in metrics.values())
     elif name == "do_encoder_distillation":
         with pytest.raises(ValueError, match="embed_dim"):
             TwinGANTrainer(TwinGANConfig(**kw), device="cpu")

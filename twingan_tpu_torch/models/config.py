@@ -109,7 +109,6 @@ def require_ported(cfg: PGGANConfig) -> None:
         (f"min_channels={cfg.min_channels} (pixel norm without a norm runs kernel B4, "
          f"which takes at most {MAX_COUT} channels)",
          cfg.norm_type == "none" and cfg.do_pixel_norm and cfg.min_channels > MAX_COUT),
-        ("attention_context_parallel (queue item A8)", cfg.attention_context_parallel),
     ]
     for name, is_set in unported:
         if is_set:

@@ -44,6 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from twingan_tpu_torch import parallel
 from twingan_tpu_torch.models.config import NORM_TYPES, PGGANConfig
 from twingan_tpu_torch.ops import attention, basic, fused_conv, norms, quant, sn
 
@@ -344,16 +345,30 @@ class DomainNorm(nn.Module):
     ``conditional`` (with ``style_dim``) takes beta and gamma from per-domain
     FCs of the call's style vector, ``gamma = 1 + FC(style)``, in place of
     the bank's vectors; the JAX module decides this by whether its first
-    call passed a style, so the code that builds it says so here."""
+    call passed a style, so the code that builds it says so here.
+
+    Under a process group of W processes (``parallel.current_group()``)
+    each holds its rows of the batch, and ``num_groups`` counts the groups
+    of the whole batch, as in the JAX package's global view: W divides it,
+    each process normalizes its own num_groups / W groups, and the moving
+    statistics (and renorm EMAs) advance with the mean of every process's
+    group moments, one all-reduce. One group spans the processes: the
+    moments of the whole batch (the mean, then the squared deviations,
+    each averaged over the processes). ``sync`` (``sync_batch_norm_axis``)
+    with one group takes them in the E[x^2] - E[x]^2 form instead, synced
+    by one all-reduce of (mean, mean_sq) (``ops.norms.moments``); the JAX
+    trainer's plain jit cannot bind the mesh axis that its pmean names."""
 
     def __init__(self, kind: str, num_features: int, num_domains: int = 1,
-                 num_groups: int = 0, style_dim: int = 0, conditional: bool = False):
+                 num_groups: int = 0, style_dim: int = 0, conditional: bool = False,
+                 sync: bool = False):
         super().__init__()
         if kind not in NORM_TYPES:
             raise ValueError(f"unknown norm kind {kind!r}")
         self.kind = kind
         self.num_domains = num_domains
         self.num_groups = max(num_groups, 1)
+        self.sync = sync
         self.conditional = conditional and style_dim > 0
         if kind == "none":
             return
@@ -422,8 +437,21 @@ class DomainNorm(nn.Module):
             return norms.normalize(xf, mean, var, gamma, beta, eps=BN_EPS).to(x.dtype)
 
         renorm = self.kind == "batch_renorm"
-        gmean, gvar = norms.group_batch_moments(xf, self.num_groups)  # [G, C]
-        xg = xf.reshape(self.num_groups, -1, *xf.shape[1:])
+        group = parallel.current_group()
+        shards = parallel.world_size(group)
+        if self.num_groups == 1 and self.sync:
+            mean, var = norms.moments(xf, (0, 2, 3), group)
+            gmean, gvar, local, spanning = mean[None], var[None], 1, True
+        elif self.num_groups % shards == 0:
+            local, spanning = self.num_groups // shards, False
+            gmean, gvar = norms.group_batch_moments(xf, local)  # [G / W, C]
+        elif self.num_groups == 1:
+            local, spanning = 1, True
+            gmean, gvar = norms.group_batch_moments(xf, 1, group)
+        else:
+            raise ValueError(f"bn_num_groups {self.num_groups} is neither 1 nor a multiple "
+                             f"of the {shards} processes")
+        xg = xf.reshape(local, -1, *xf.shape[1:])
         y = norms.normalize(xg, gmean[:, None, :, None, None], gvar[:, None, :, None, None],
                             None, None, eps=BN_EPS)
         if renorm:
@@ -436,6 +464,10 @@ class DomainNorm(nn.Module):
         if update:
             with torch.no_grad():
                 m_mean, m_var = gmean.mean(dim=0), gvar.mean(dim=0)
+                if not spanning and group is not None:
+                    stacked = torch.stack([m_mean, m_var])
+                    parallel.all_reduce_mean_([stacked], group)
+                    m_mean, m_var = stacked.unbind(0)
                 decay = BN_DECAY
                 if renorm:
                     _, _, new_state = norms.batch_renorm_correction(
@@ -488,7 +520,8 @@ class ConvBlock(nn.Module):
             quantize=cfg.quantized_inference,
         )
         self.norm = DomainNorm(norm_kind, features, cfg.num_domains, cfg.bn_num_groups,
-                               cfg.style_dim, conditional)
+                               cfg.style_dim, conditional,
+                               sync=cfg.sync_batch_norm_axis is not None)
         self.activation = _ACTIVATIONS[activation]
 
     @property
@@ -555,7 +588,12 @@ class SelfAttention(nn.Module):
     """SAGAN self-attention: f/g 1x1 convs to C/8 channels with tanh, h 1x1
     conv to C channels, y = sa_gamma * softmax(f g^T) h + x. sa_gamma starts
     at 0, as in the JAX layer. The call's ``route`` picks the attention
-    core (``ops.attention.self_attention``)."""
+    core (``ops.attention.self_attention``). With
+    ``attention_context_parallel`` and a current process group of W > 1
+    processes that divides N = H*W, the positions are split over the group
+    (``ops.attention.context_parallel_attention``); without a group, with
+    one process or with N indivisible, the local path runs, as the JAX
+    layer degrades for a mesh of one device or indivisible N."""
 
     def __init__(self, cfg: PGGANConfig, channels: int, discriminator: bool = False,
                  conditional: bool = False):
@@ -566,6 +604,7 @@ class SelfAttention(nn.Module):
         self.sa_g = ConvBlock(cfg, channels, c_bar, 1, activation="tanh", **kw)
         self.sa_h = ConvBlock(cfg, channels, channels, 1, activation=None, **kw)
         self.sa_gamma = nn.Parameter(torch.zeros(1))
+        self.context_parallel = cfg.attention_context_parallel
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -582,7 +621,12 @@ class SelfAttention(nn.Module):
         f = rows(self.sa_f(x, domain, update, style, clip))
         g = rows(self.sa_g(x, domain, update, style, clip))
         h = rows(self.sa_h(x, domain, update, style, clip))
-        o = attention.self_attention(f, g, h, route)
+        group = parallel.current_group() if self.context_parallel else None
+        shards = parallel.world_size(group)
+        if shards > 1 and (hh * ww) % shards == 0:
+            o = attention.context_parallel_attention(f, g, h, group, route)
+        else:
+            o = attention.self_attention(f, g, h, route)
         o = o.reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         return self.sa_gamma.to(x.dtype) * o + x
 

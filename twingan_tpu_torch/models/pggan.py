@@ -75,6 +75,7 @@ from twingan_tpu_torch.models.layers import (
 )
 
 Clip = Optional[Mapping[str, float]]
+from twingan_tpu_torch import parallel
 from twingan_tpu_torch.ops import basic
 
 
@@ -347,7 +348,9 @@ class Discriminator(nn.Module):
     downsampling (fade-in blend on a growing stage, self-attention at
     ``self_attention_hw``) -> minibatch stddev -> k3 and k4 VALID convs ->
     the linear ``prediction``. No norms; every conv has a bias. Returns the
-    [B, 1] prediction in ``cfg.dtype``.
+    [B, 1] prediction in ``cfg.dtype``. Under a process group the
+    minibatch stddev spans every process's rows (``ops.basic``), and
+    context-parallel attention splits the positions (``SelfAttention``).
 
     ``attention`` is the self-attention route (``ops.attention``): "kernel"
     for the CUDA kernels, "plain" for the twice-differentiable plain version
@@ -358,9 +361,10 @@ class Discriminator(nn.Module):
     Built with ``do_gdrop``, a discriminator in train mode multiplies the
     inputs of each block's two convs and of the two ``before_fc`` convs by
     gdrop noise (``ops.basic.gdrop``), in the JAX draw order: one [B, C]
-    tensor per site in ``gdrop_noise`` (``gdrop_shapes`` gives them;
-    ``draw_gdrop_noise`` draws them), which the caller draws before the
-    call, so that a recompute under remat reads the same noise.
+    tensor per site in ``gdrop_noise`` (``gdrop_shapes`` gives them), which
+    the caller draws before the call (the trainers at the global batch,
+    ``train/base.py``), so that a recompute under remat reads the same
+    noise.
     ``cond_embed`` [B, cond_embed_dim] is broadcast over the 4x4 map and
     concatenated before the minibatch stddev; ``cond_image`` is resized to
     the input and concatenated to it."""
@@ -369,10 +373,6 @@ class Discriminator(nn.Module):
                  cond_image_channels: int = 0):
         super().__init__()
         require_inference_only(cfg, "the discriminator")
-        if cfg.attention_context_parallel:
-            raise NotImplementedError(
-                "attention_context_parallel (queue item A8) in the discriminator is not "
-                "ported to twingan_tpu_torch yet")
         self.cfg = cfg
         self.do_gdrop = do_gdrop
         self.cond_embed_dim = cond_embed_dim
@@ -412,12 +412,6 @@ class Discriminator(nn.Module):
         return shapes + [(batch, self._channels(0) + self.cond_embed_dim + 1),
                          (batch, cfg.dis_max_channels)]
 
-    def draw_gdrop_noise(self, batch: int, generator: Optional[torch.Generator],
-                         device) -> list[torch.Tensor]:
-        """N(0, 1) noise for every gdrop site, from ``generator``."""
-        return [torch.randn(shape, generator=generator, device=device)
-                for shape in self.gdrop_shapes(batch)]
-
     def _from_rgb(self, name: str, features: int) -> None:
         c = self.cfg.image_channels + self.cond_image_channels
         self.add_module(f"{name}_conv", ConvBlock(self.cfg, c, features, kernel_size=1,
@@ -444,7 +438,8 @@ class Discriminator(nn.Module):
         if self.do_gdrop and self.training:
             if gdrop_noise is None:
                 raise ValueError("a discriminator built with do_gdrop takes its noise as "
-                                 "gdrop_noise in train mode (draw_gdrop_noise)")
+                                 "gdrop_noise in train mode (one tensor of each of "
+                                 "gdrop_shapes)")
             sites = iter(gdrop_noise)
 
             def maybe_gdrop(t: torch.Tensor) -> torch.Tensor:
@@ -477,7 +472,8 @@ class Discriminator(nn.Module):
             b, _, h, w = net.shape
             tiled = cond_embed.to(net.dtype)[:, :, None, None].expand(b, -1, h, w)
             net = torch.cat([net, tiled], dim=1)
-        net = basic.minibatch_stddev(net, num_groups=stddev_groups, nchw=True)
+        net = basic.minibatch_stddev(net, num_groups=stddev_groups, nchw=True,
+                                     group=parallel.current_group())
         net = self.before_fc_conv0(maybe_gdrop(net), update=update)
         net = self.before_fc_conv1(maybe_gdrop(net), update=update)
         return self.prediction(net.reshape(net.shape[0], -1), update)

@@ -45,7 +45,17 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
   DRAGAN and WGAN-GP differentiate the discriminator twice, the backward
   kernels have no second-order rule, and neither has the JAX package's
   ``custom_vjp`` (on a TPU its penalty also runs the einsum path). Each such
-  call is counted under ``PLAIN_ROUTE``.
+  call is counted under ``PLAIN_ROUTE``;
+- ``context_parallel_attention`` splits the N positions over a process
+  group (the JAX ``sharded_attention_core``, which runs its einsum path):
+  an all-to-all from each process's batch rows to its share of the
+  positions of the whole batch, ``sharded_attention_core`` (g and h
+  all-gathered, this process's query rows against every key), an
+  all-to-all back. The kernels take as many keys as queries, so the core
+  runs them on one block of keys at a time and merges the blocks by their
+  logsumexps (``FlashAttention``'s ``blocks``): B1-B3 on a CUDA tensor, their
+  plain versions on a CPU tensor; ``route="plain"`` runs the plain version
+  on the gathered keys, twice differentiable with the collectives.
 """
 
 from __future__ import annotations
@@ -55,6 +65,8 @@ import ctypes
 import torch
 
 from twingan_tpu_torch.ops import cuda_build
+from twingan_tpu_torch.parallel.multihost import all_gather, all_to_all
+from twingan_tpu_torch.parallel.mesh import world_size
 
 KERNEL_NAME = "flash_attn_fwd"
 BWD_LIBRARY = "flash_attn_bwd"
@@ -337,15 +349,38 @@ def _first_order_only(backward):
     return wrapper
 
 
+def blocked_forward(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                    blocks: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) of f's rows against all of g and h, where g and h hold
+    ``blocks`` times f's N rows: the forward op on each block of keys,
+    whose partial outputs are merged by their logsumexps, o = sum_i
+    exp(lse_i - lse) o_i in fp32, lse = logsumexp_i lse_i. One block is the
+    op's own (o, lse)."""
+    outs = [flash_attention_forward(f, gi.contiguous(), hi.contiguous())
+            for gi, hi in zip(g.chunk(blocks, dim=1), h.chunk(blocks, dim=1))]
+    if blocks == 1:
+        return outs[0]
+    lse = torch.logsumexp(torch.stack([lse_i for _, lse_i in outs]), dim=0)
+    o = sum(torch.exp(lse_i - lse)[..., None] * o_i.float() for o_i, lse_i in outs)
+    return o.to(h.dtype), lse
+
+
 class FlashAttention(torch.autograd.Function):
     """Autograd boundary of the three kernels: the forward saves (o, lse),
     the backward computes delta = rowsum(do * o) as a plain fp32 reduction
     (as the JAX package does outside its kernels) and launches dq and dkv.
+    With ``blocks`` > 1, g and h hold ``blocks`` times f's N rows (the
+    context-parallel core's gathered keys) and the kernels, which take as
+    many keys as queries, run on one block of keys at a time
+    (``blocked_forward``); the backward runs dq and dkv on each block with
+    the merged lse and delta, which gives each block's exact share: df is
+    the fp32 sum of the blocks' dq, dg and dh the blocks' dkv side by side.
     Differentiable once only (see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, f, g, h):
-        o, lse = flash_attention_forward(f, g, h)
+    def forward(ctx, f, g, h, blocks):
+        o, lse = blocked_forward(f, g, h, blocks)
+        ctx.blocks = blocks
         ctx.save_for_backward(f, g, h, o, lse)
         return o
 
@@ -356,26 +391,89 @@ class FlashAttention(torch.autograd.Function):
         f, g, h, o, lse = ctx.saved_tensors
         do = do.to(h.dtype).contiguous()
         delta = torch.sum(do.float() * o.float(), dim=-1)
-        return flash_attention_backward(f, g, h, do, lse, delta)
+        parts = [flash_attention_backward(f, gi.contiguous(), hi.contiguous(), do, lse, delta)
+                 for gi, hi in zip(g.chunk(ctx.blocks, dim=1), h.chunk(ctx.blocks, dim=1))]
+        if ctx.blocks == 1:
+            return (*parts[0], None)
+        df = sum(p[0].float() for p in parts).to(f.dtype)
+        return (df, torch.cat([p[1] for p in parts], dim=1),
+                torch.cat([p[2] for p in parts], dim=1), None)
 
 
-flash_attention_core = FlashAttention.apply
+def flash_attention_core(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+                         blocks: int = 1) -> torch.Tensor:
+    return FlashAttention.apply(f, g, h, blocks)
+
 
 ROUTES = ("kernel", "plain")
 
 
 def self_attention(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
-                   route: str = "kernel") -> torch.Tensor:
+                   route: str = "kernel", blocks: int = 1) -> torch.Tensor:
     """The layer's dispatch. ``route="kernel"``: the CUDA kernels for CUDA
     tensors at every N, the plain version for CPU tensors (through the
     forward op where no gradient is needed). ``route="plain"``:
     the twice-differentiable plain version on any device, counted under
-    ``PLAIN_ROUTE`` (the gradient penalty's passes)."""
+    ``PLAIN_ROUTE`` (the gradient penalty's passes). ``blocks`` > 1: g and
+    h hold ``blocks`` times f's rows, and the kernel route takes them one
+    block at a time (``FlashAttention``), on the CPU too, so that the
+    blocks' merge runs there with the kernels' plain versions."""
     if route not in ROUTES:
         raise ValueError(f"unknown attention route {route!r}")
     if route == "plain":
         launch_counts[PLAIN_ROUTE] += 1
         return attention_core(f, g, h)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (f, g, h)):
-        return flash_attention_core(f, g, h) if f.is_cuda else attention_core(f, g, h)
-    return flash_attention_forward(f, g, h)[0]
+        if f.is_cuda or blocks > 1:
+            return flash_attention_core(f, g, h, blocks)
+        return attention_core(f, g, h)
+    return blocked_forward(f, g, h, blocks)[0]
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism: the N positions split over a process group
+
+
+def sharded_attention_core(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, group,
+                           route: str = "kernel") -> torch.Tensor:
+    """Context-parallel attention core, the JAX ``sharded_attention_core``:
+    f, g, h are [B, N / W, C'], this process's share of the N positions of
+    the whole batch over the W processes of ``group``. g and h are
+    all-gathered along N, and this process's query rows attend to every
+    key through ``self_attention`` with one block of keys per process
+    (``route="plain"``: the plain version, twice differentiable with the
+    collectives). The backward reduce-scatters dg and dh back to their
+    processes."""
+    g_all = all_gather(g, 1, group).contiguous()
+    h_all = all_gather(h, 1, group).contiguous()
+    return self_attention(f, g_all, h_all, route, blocks=world_size(group))
+
+
+def to_position_shards(x: torch.Tensor, group) -> torch.Tensor:
+    """[b, N, C] (this process's rows, every position) -> [W b, N / W, C]
+    (every process's rows in rank order, this process's share of the
+    positions): one all-to-all."""
+    w = world_size(group)
+    b, n, c = x.shape
+    chunks = x.reshape(b, w, n // w, c).transpose(0, 1)
+    return all_to_all(chunks, group).reshape(w * b, n // w, c)
+
+
+def to_batch_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """The inverse of ``to_position_shards``."""
+    w = world_size(group)
+    rows, part, c = x.shape
+    back = all_to_all(x.reshape(w, rows // w, part, c), group)
+    return back.transpose(0, 1).reshape(rows // w, w * part, c)
+
+
+def context_parallel_attention(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, group,
+                               route: str = "kernel") -> torch.Tensor:
+    """The attention of this process's rows [b, N, C'] computed with the
+    positions split over ``group``: an all-to-all from batch rows to
+    position shards of the whole batch, ``sharded_attention_core``, and an
+    all-to-all back (JAX ``models/layers.py``'s SelfAttention under
+    ``attention_context_parallel``, where ``shard_map`` reshards)."""
+    core = sharded_attention_core(*(to_position_shards(t, group) for t in (f, g, h)), group,
+                                  route)
+    return to_batch_rows(core, group)

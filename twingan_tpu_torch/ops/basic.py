@@ -12,6 +12,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from twingan_tpu_torch.parallel.multihost import all_reduce_mean
+
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
     """max(alpha*x, x), the default activation of every conv."""
@@ -50,7 +52,7 @@ def blend(new: torch.Tensor, old: torch.Tensor, alpha) -> torch.Tensor:
 
 
 def minibatch_stddev(x: torch.Tensor, eps: float | None = None, num_groups: int = 1,
-                     nchw: bool = False) -> torch.Tensor:
+                     nchw: bool = False, group=None) -> torch.Tensor:
     """Append the across-minibatch stddev as one constant feature map.
 
     The biased (population) variance over the batch axis at each location,
@@ -58,7 +60,11 @@ def minibatch_stddev(x: torch.Tensor, eps: float | None = None, num_groups: int 
     averaged to one scalar per group of ``num_groups`` contiguous equal
     sub-batches and tiled to [B, H, W, 1]. Groups aligned to the sub-batch
     boundaries make one pass over concatenated batches compute each pass's
-    own statistic."""
+    own statistic. Under a process group (``group``; each process holding
+    its rows of every sub-batch, in the same layout) each group's mean and
+    then its variance are averaged over the processes, differentiably: the
+    statistic of the whole batch, as the JAX package's global view takes
+    it."""
     if eps is None:
         eps = 1e-8 if x.dtype == torch.float32 else 1e-6
     t = x if nchw else x.permute(0, 3, 1, 2)
@@ -67,8 +73,8 @@ def minibatch_stddev(x: torch.Tensor, eps: float | None = None, num_groups: int 
     if b % groups:
         raise ValueError(f"batch {b} not divisible by num_groups {num_groups}")
     tg = t.reshape(groups, b // groups, c, h, w)
-    mean = torch.mean(tg, dim=1, keepdim=True)
-    var = torch.mean(torch.square(tg - mean), dim=1, keepdim=True)
+    mean = all_reduce_mean(torch.mean(tg, dim=1, keepdim=True), group)
+    var = all_reduce_mean(torch.mean(torch.square(tg - mean), dim=1, keepdim=True), group)
     std = torch.sqrt(var + torch.tensor(eps, dtype=x.dtype, device=x.device))
     scalar = torch.mean(std, dim=(1, 2, 3, 4))  # [groups]
     tiled = scalar[:, None, None, None, None].expand(groups, b // groups, 1, h, w)

@@ -4,7 +4,9 @@ Counterpart of ``twingan_tpu/ops/norms.py``: batch moments, per-group
 batch moments, instance moments, the normalize step, the moving-statistic
 update, and batch renorm (the clipping schedule over the global step, the
 r/d correction with its debiased EMAs, and the moving moments those EMAs
-imply).
+imply). ``moments`` and ``group_batch_moments`` take a process group
+(``twingan_tpu_torch.parallel``) over whose processes' rows they reduce;
+without one they are the single-process moments.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ from __future__ import annotations
 from typing import Mapping, Optional
 
 import torch
+
+from twingan_tpu_torch.parallel.multihost import all_reduce_mean
 
 # Piecewise-constant batch renorm clipping schedule over the global step
 # (which restarts at 0 each growth stage).
@@ -38,10 +42,16 @@ def last_renorm_clip() -> dict[str, float]:
     return {"rmax": RENORM_RMAX[-1], "rmin": RENORM_RMIN[-1], "dmax": RENORM_DMAX[-1]}
 
 
-def moments(x: torch.Tensor, axes: tuple[int, ...]) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mean/variance over ``axes`` in the E[x^2] - E[x]^2 form."""
+def moments(x: torch.Tensor, axes: tuple[int, ...],
+            group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean/variance over ``axes`` in the E[x^2] - E[x]^2 form, synced over
+    the processes of ``group`` (each holding an equal share of the rows)
+    by one all-reduce of the stacked (mean, mean_sq), as the JAX function
+    pmeans them over a mesh axis."""
     mean = torch.mean(x, dim=axes)
     mean_sq = torch.mean(torch.square(x), dim=axes)
+    if group is not None:
+        mean, mean_sq = all_reduce_mean(torch.stack([mean, mean_sq]), group).unbind(0)
     var = torch.clamp(mean_sq - torch.square(mean), min=0)
     return mean, var
 
@@ -72,16 +82,22 @@ def instance_moments(x: torch.Tensor, nchw: bool = False) -> tuple[torch.Tensor,
     return mean, var
 
 
-def group_batch_moments(x: torch.Tensor, num_groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+def group_batch_moments(x: torch.Tensor, num_groups: int = 1,
+                        group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Biased batch moments of NCHW ``x`` per contiguous batch group:
     ([G, C] mean, [G, C] variance), the variance as the mean of squared
-    deviations. One group is the full-batch moments."""
+    deviations. One group is the full-batch moments. With ``group`` (one
+    batch group spanning the processes' equal shares of the rows) the mean
+    and then the squared deviations' mean are averaged over the processes:
+    the moments of the whole batch, as the JAX package's global view takes
+    them."""
     b = x.shape[0]
     if b % num_groups:
         raise ValueError(f"batch {b} not divisible by bn_num_groups {num_groups}")
     xg = x.reshape(num_groups, b // num_groups, *x.shape[1:])
-    mean = torch.mean(xg, dim=(1, 3, 4))
-    var = torch.mean(torch.square(xg - mean[:, None, :, None, None]), dim=(1, 3, 4))
+    mean = all_reduce_mean(torch.mean(xg, dim=(1, 3, 4)), group)
+    var = all_reduce_mean(
+        torch.mean(torch.square(xg - mean[:, None, :, None, None]), dim=(1, 3, 4)), group)
     return mean, var
 
 

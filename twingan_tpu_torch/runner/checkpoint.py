@@ -29,6 +29,7 @@ from typing import Any, Callable, Mapping, Optional
 
 import torch
 
+from twingan_tpu_torch import parallel
 from twingan_tpu_torch.runner.migrate import migrate_state_dict
 from twingan_tpu_torch.train.state import state_from_dict, state_to_dict
 
@@ -62,17 +63,24 @@ class CheckpointManager:
     def save(self, step: int, state: Any, keep: int = 3) -> str:
         """Save ``state`` (a ``GanTrainState`` or a flat dict) at ``step``;
         keeps ``keep`` checkpoints (all for keep <= 0), never pruning the
-        one just written even when it sorts below the others."""
+        one just written even when it sorts below the others. Under a
+        process group (``parallel.current_group()``) every process calls
+        it, the first alone writes and prunes (every process holds the same
+        state), and all wait at a barrier after it, so none reads a
+        checkpoint that is still being written."""
         path = self._path(step)
-        flat = state if isinstance(state, Mapping) else state_to_dict(state)
-        os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, STATE_FILE + ".tmp")
-        torch.save({k: v.detach().cpu() for k, v in flat.items()}, tmp)
-        os.replace(tmp, os.path.join(path, STATE_FILE))
-        if keep > 0:
-            prunable = [s for s in self.all_steps() if s != step]
-            for old in prunable[: -(keep - 1)] if keep > 1 else prunable:
-                shutil.rmtree(self._path(old), ignore_errors=True)
+        group = parallel.current_group()
+        if parallel.rank(group) == 0:
+            flat = state if isinstance(state, Mapping) else state_to_dict(state)
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, STATE_FILE + ".tmp")
+            torch.save({k: v.detach().cpu() for k, v in flat.items()}, tmp)
+            os.replace(tmp, os.path.join(path, STATE_FILE))
+            if keep > 0:
+                prunable = [s for s in self.all_steps() if s != step]
+                for old in prunable[: -(keep - 1)] if keep > 1 else prunable:
+                    shutil.rmtree(self._path(old), ignore_errors=True)
+        parallel.barrier(group)
         return path
 
     def restore_dict(self, step: Optional[int] = None) -> Optional[dict]:

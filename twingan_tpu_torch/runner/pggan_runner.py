@@ -21,14 +21,25 @@ Synthetic data:
         --train_dir=/tmp/run --start_hw=4 --max_hw=256 \\
         --generator_norm_type=none --do_pixel_norm=true \\
         --equalized_learning_rate=true --dtype=bfloat16
+
+Data parallel, one process per card (the batch schedule is per card):
+    torchrun --nproc_per_node 4 -m twingan_tpu_torch.runner.pggan_runner \\
+        --num_devices=4 ...
+and on the CPU, two gloo processes:
+    torchrun --nproc_per_node 2 -m twingan_tpu_torch.runner.pggan_runner \\
+        --device=cpu --use_synthetic_data=true --train_dir=/tmp/run ...
 """
 
 from __future__ import annotations
 
 import argparse
 
+import torch
+
+from twingan_tpu_torch import parallel
 from twingan_tpu_torch.data.datasets import get_dataset
 from twingan_tpu_torch.models.config import PGGANConfig
+from twingan_tpu_torch.parallel import initialize_from_env
 from twingan_tpu_torch.runner.stage_runner import RunConfig, StageRunner
 from twingan_tpu_torch.train.gan_trainer import GanTrainerConfig
 from twingan_tpu_torch.train.losses import GanLossConfig
@@ -202,7 +213,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "steady-state training transfers only int32 sample "
                         "indices. 0 = always stream from host")
     p.add_argument("--num_devices", type=int, default=0,
-                   help="data-parallel mesh size (0 = all local devices); "
+                   help="data-parallel world size: the processes torchrun "
+                        "starts, one per device (0 = whatever it started); "
                         "the batch schedule is per device")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
@@ -331,9 +343,21 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
+    # Several processes: join the group torchrun describes (RANK,
+    # WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; NCCL on the card,
+    # gloo with --device=cpu); a single process runs as it is.
+    if initialize_from_env(args.device):
+        print(f"multi-host: process {process_info(args.device)}")
     summary = StageRunner(config_from_args(args), device=args.device).run()
     print("run complete:", summary)
     return summary
+
+
+def process_info(device) -> str:
+    """``rank/world (device)`` of this process."""
+    group = parallel.current_group()
+    where = (f"cuda:{torch.cuda.current_device()}" if device in (None, "cuda") else str(device))
+    return f"{parallel.rank(group)}/{parallel.world_size(group)} ({where})"
 
 
 if __name__ == "__main__":

@@ -47,8 +47,21 @@ embedding (with a style-interpolation grid in the sample dumps,
 sample grids and the in-training SWD under the fixed batch's labels),
 gdrop (its strength among the logged metrics) and remat.
 
-Not ported yet, raising ``NotImplementedError``: several devices
-(``num_devices > 1``; A9).
+Several devices: one runner per process of a ``torch.distributed`` group
+(``pggan_runner`` joins the group torchrun describes; ``num_devices``,
+when set, must be its size). The batch schedule is per device, so the
+global batch is the entry times the processes; every process runs the
+same seeded source and augmentation at the global batch and keeps its
+rows, batch norm takes one group per device unless ``bn_num_groups`` says
+otherwise, and the trainers all-reduce the gradients and the metrics.
+Only the first process (``is_coordinator``) writes checkpoints,
+``config.json``, ``model.pt``, summaries, sample grids and histograms,
+and the others wait for it at a barrier after each write, at a NaN
+recovery and at the stage's end. The coordinator's sample grids run
+without the group (``parallel.local_only``). The fixed batch of the
+grids and the in-training SWD is a single process's, so several
+processes skip that SWD (with the JAX runner's message) and draw the
+grids' sources at random; they never hold the dataset on the device.
 """
 
 from __future__ import annotations
@@ -60,7 +73,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from twingan_tpu_torch import parallel
 from twingan_tpu_torch.data.datasets import get_dataset
 from twingan_tpu_torch.data.pipeline import (
     DevicePrefetcher,
@@ -72,6 +87,7 @@ from twingan_tpu_torch.data.pipeline import (
 from twingan_tpu_torch.data.preprocess import (
     PreprocessConfig,
     augment_batch,
+    draw_augmentation,
     postprocess_image,
     resize_bilinear,
 )
@@ -164,20 +180,62 @@ class RunConfig:
         return dataclasses.replace(self, **kw)
 
 
+def run_group():
+    """The process group a run spans: the registered one, else the default
+    group where one is initialized, else None."""
+    group = parallel.current_group()
+    if group is None and dist.is_available() and dist.is_initialized():
+        group = dist.group.WORLD
+    return group
+
+
+def augment_rows(x: torch.Tensor, global_shape, cfg: PreprocessConfig,
+                 generator: torch.Generator, parts: int = 1, group=None) -> torch.Tensor:
+    """``x``, this process's rows of images of ``global_shape`` (``parts``
+    global batches end to end), augmented with its rows of the draws made
+    for all of them (``parallel.local_rows``; a shared draw, a 0-dim flip
+    or the colour ordering, stays whole): every process draws what one
+    process draws for the whole batch, and augments only its own rows."""
+    draws = draw_augmentation(cfg, tuple(global_shape), generator)
+
+    def rows(t):
+        return t if t is None or t.dim() == 0 else parallel.local_rows(t, parts, group)
+
+    draws = dataclasses.replace(draws, crop_y=rows(draws.crop_y), crop_x=rows(draws.crop_x),
+                                flip=rows(draws.flip),
+                                color=tuple(rows(f) for f in draws.color))
+    return augment_batch(x, cfg, draws=draws)
+
+
 def require_ported_run(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for the runner options whose modules
-    the port lacks, naming their queue item."""
-    unported = [
-        ("num_devices > 1 (data parallelism; queue item A9)", cfg.num_devices > 1),
-    ]
-    for name, is_set in unported:
-        if is_set:
-            raise NotImplementedError(f"{name} is not ported to twingan_tpu_torch yet")
+    """Raise ``ValueError`` where ``num_devices`` is not the run's process
+    count (``run_group``; 0 takes it): the port runs one process per
+    device, which torchrun starts."""
+    processes = parallel.world_size(run_group())
+    if cfg.num_devices and cfg.num_devices != processes:
+        raise ValueError(
+            f"num_devices={cfg.num_devices} but the run has {processes} process(es): the "
+            "port runs one process per device; start them with torchrun --nproc_per_node "
+            f"{cfg.num_devices} -m twingan_tpu_torch.runner.pggan_runner ...")
+
+
+class _NullWriter:
+    """The summary sink of the processes other than the coordinator."""
+
+    def scalars(self, step, values) -> None:
+        pass
+
+    def histograms(self, step, values) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 class StageRunner:
     """Runs the stage plan of ``cfg`` on the CUDA card unless ``device`` says
-    otherwise (``device="cpu"``)."""
+    otherwise (``device="cpu"``), as one process of the run's process
+    group when there is one (``run_group``)."""
 
     def __init__(self, cfg: RunConfig, device: Optional[str | torch.device] = None):
         require_ported_run(cfg)
@@ -187,11 +245,28 @@ class StageRunner:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.metrics_log: list = []
+        # The group the attention layers and the trainers look up.
+        self.group = run_group()
+        parallel.set_current_group(self.group)
+        self.n_devices = parallel.world_size(self.group)
+
+    @property
+    def is_coordinator(self) -> bool:
+        """Only the first process writes checkpoints, summaries and samples:
+        every process holds the same replicated state."""
+        return parallel.rank(self.group) == 0
+
+    def _barrier(self) -> None:
+        """Every process waits here, so none reads what another still
+        writes."""
+        parallel.barrier(self.group)
 
     def batch_size(self, res: int) -> int:
+        """The global batch: the per-device schedule entry times the
+        processes."""
         sched = self.cfg.batch_schedule or (
             TWINGAN_BATCH_SCHEDULE if self.cfg.program == "twingan" else PGGAN_BATCH_SCHEDULE)
-        return sched.get(res) or sched[max(sched)]
+        return (sched.get(res) or sched[max(sched)]) * self.n_devices
 
     def steps_for_stage(self, res: int) -> int:
         images = self.cfg.num_images_per_resolution
@@ -201,6 +276,10 @@ class StageRunner:
 
     def _build_trainer(self, res: int, growing: bool, steps: int):
         model = self.cfg.trainer.model.replace(resolution=res, is_growing=growing)
+        if self.n_devices > 1 and model.bn_num_groups == 0:
+            # Batch norm's moments per device, as the reference's clones
+            # take them.
+            model = model.replace(bn_num_groups=self.n_devices)
         tcfg = self.cfg.trainer.replace(model=model, batch_size=self.batch_size(res),
                                         max_steps=steps, grow_start_step=0)
         if self.cfg.program == "twingan":
@@ -244,7 +323,8 @@ class StageRunner:
         host resize, ragged, oversized or undecodable datasets): the caller
         then streams."""
         cfg = self.cfg
-        if not cfg.device_resident_gb or cfg.use_synthetic_data or not cfg.dataset_dir:
+        if (not cfg.device_resident_gb or cfg.use_synthetic_data or not cfg.dataset_dir
+                or self.n_devices > 1):
             return None
         budget = int(cfg.device_resident_gb * (1 << 30))
         a, b = self._build_sources(res, batch)
@@ -370,9 +450,14 @@ class StageRunner:
         tag = stage_dir_name(res, growing)
         t_build = time.perf_counter()
         trainer, tcfg = self._build_trainer(res, growing, steps)
-        save_config_snapshot(stage_dir, {"run": cfg.replace(trainer=None), "trainer": tcfg})
+        if self.is_coordinator:
+            save_config_snapshot(stage_dir, {"run": cfg.replace(trainer=None), "trainer": tcfg})
         state = trainer.init_state(cfg.seed)
-        writer = SummaryWriter(os.path.join(stage_dir, "logs"))
+        writer = (SummaryWriter(os.path.join(stage_dir, "logs")) if self.is_coordinator
+                  else _NullWriter())
+        if self.n_devices > 1:
+            print(f"[stage {tag}] data parallel over {self.n_devices} processes, global "
+                  f"batch {tcfg.batch_size}")
         t_restore = time.perf_counter()
 
         start_step = 0
@@ -397,6 +482,7 @@ class StageRunner:
                 print(f"[stage {tag}] warm start from {source}: "
                       f"{len(report['carried'])} carried, {len(report['fresh'])} fresh, "
                       f"{len(report['shape_mismatch'])} shape-mismatched")
+        state = parallel.replicate(state, self.group)
         t_start = time.perf_counter()
         times = {"build_s": t_restore - t_build, "restore_s": t_start - t_restore,
                  "saves_s": 0.0, "saves": 0}
@@ -414,14 +500,20 @@ class StageRunner:
         if resident is not None:
             data_iter, close_data = None, (lambda: None)
         else:
-            data_iter, close_data = self._build_data(res, trainer.cfg.batch_size,
-                                                     to_device=cfg.rounds_per_scan <= 1)
+            # Under a group the host arrays come as they are, so that each
+            # process copies only its rows.
+            data_iter, close_data = self._build_data(
+                res, trainer.cfg.batch_size,
+                to_device=cfg.rounds_per_scan <= 1 and self.n_devices == 1)
         times["data_s"] = time.perf_counter() - t_data
         pp = self._preprocess_cfg(res)
         aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 13)
         rng = cfg.seed + 17
         n_critic = trainer.cfg.n_critic
-        want_fixed = bool(cfg.log_image_every_n_iter or cfg.eval_every_n_iter_in_training)
+        # The fixed batch of the sample grids and the in-training SWD is a
+        # single process's (each process holds only its rows of a batch).
+        want_fixed = (bool(cfg.log_image_every_n_iter or cfg.eval_every_n_iter_in_training)
+                      and self.n_devices == 1)
         fixed_batch: Dict[str, np.ndarray] = {}
         # Bytes this stage copied to the device for its batches: images, or
         # only sample indices on the device-resident path.
@@ -436,10 +528,12 @@ class StageRunner:
             return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
         def prepare(raw) -> Dict[str, torch.Tensor]:
-            # sorted: the draw order must not depend on dict order.
-            return {k: (augment_batch(put(raw[k]), pp, generator=aug_gen)
-                        if k in IMAGE_KEYS else put(raw[k]))
-                    for k in sorted(raw) if k in BATCH_KEYS}
+            # sorted: the draw order must not depend on dict order. Each
+            # process copies and augments only its rows of the global batch.
+            keys = [k for k in sorted(raw) if k in BATCH_KEYS]
+            local = parallel.shard_batch({k: raw[k] for k in keys}, self.group)
+            return {k: (augment_rows(put(local[k]), raw[k].shape, pp, aug_gen, group=self.group)
+                        if k in IMAGE_KEYS else put(local[k])) for k in keys}
 
         def next_batches():
             if resident is not None:
@@ -461,15 +555,20 @@ class StageRunner:
                 staged["bytes"] += resident.last_index_bytes
             else:
                 raw = [[next(data_iter) for _ in range(n_critic)] for _ in range(n_rounds)]
-                stacked_raw = {k: put(np.stack([np.stack([np.asarray(raw[r][c][k])
-                                                          for c in range(n_critic)])
-                                                for r in range(n_rounds)]))
+                stacked_raw = {k: np.stack([np.stack([np.asarray(raw[r][c][k])
+                                                      for c in range(n_critic)])
+                                            for r in range(n_rounds)])
                                for k in sorted(raw[0][0]) if k in BATCH_KEYS}
             stacked = {}
             for k in sorted(stacked_raw):
-                x = stacked_raw[k]
+                # Each process copies and augments only its rows of each batch.
+                full = stacked_raw[k]
+                x = put(full[:, :, parallel.local_batch_slice(full.shape[2], self.group)])
                 if k in IMAGE_KEYS:
-                    flat = augment_batch(x.reshape((-1,) + x.shape[3:]), pp, generator=aug_gen)
+                    parts = full.shape[0] * full.shape[1]
+                    flat = augment_rows(x.reshape((-1,) + x.shape[3:]),
+                                        (parts * full.shape[2],) + full.shape[3:], pp, aug_gen,
+                                        parts, self.group)
                     x = flat.reshape(x.shape[:3] + flat.shape[1:])
                 stacked[k] = x
             if want_fixed and not fixed_batch:
@@ -498,9 +597,10 @@ class StageRunner:
             if nan_recoveries > cfg.max_nan_recoveries:
                 raise FloatingPointError(
                     f"[stage {tag}] non-finite loss at step {at_step}; recovery budget exhausted")
+            self._barrier()
             fresh = trainer.init_state(cfg.seed + nan_recoveries)
             restored = cm.restore(fresh)
-            st = restored if restored is not None else fresh
+            st = parallel.replicate(restored if restored is not None else fresh, self.group)
             print(f"[stage {tag}] non-finite loss; restored checkpoint at step {st.step} "
                   f"(recovery {nan_recoveries}/{cfg.max_nan_recoveries})")
             return st, st.step
@@ -509,6 +609,7 @@ class StageRunner:
             step = start_step
             while step < steps:
                 if (cfg.profile_stage_steps and not profiled and profiler is None
+                        and self.is_coordinator
                         and step >= start_step + 2):  # past the first rounds' warm-up
                     activities = [torch.profiler.ProfilerActivity.CPU]
                     if self.device.type == "cuda":
@@ -584,14 +685,18 @@ class StageRunner:
                           f"{rate:.2f} rounds/s")
                 if due(cfg.save_every_n_steps, "save"):
                     save(cur, state)
-                if due(cfg.log_image_every_n_iter, "image"):
-                    self._dump_samples(trainer, state, stage_dir, cur, fixed_batch)
-                if due(cfg.eval_every_n_iter_in_training, "swd_train"):
-                    self._in_training_swd(trainer, state, stage_dir, cur, fixed_batch, writer)
-                if due(cfg.log_histograms_every_n_iter, "hist"):
-                    writer.histograms(cur, {k[len("params/"):]: v.float().cpu().numpy()
-                                            for k, v in state_to_dict(state).items()
-                                            if k.startswith("params/")})
+                # The coordinator's own work, on its own: no collective.
+                with parallel.local_only():
+                    if due(cfg.log_image_every_n_iter, "image") and self.is_coordinator:
+                        self._dump_samples(trainer, state, stage_dir, cur, fixed_batch)
+                    if (due(cfg.eval_every_n_iter_in_training, "swd_train")
+                            and self.is_coordinator):
+                        self._in_training_swd(trainer, state, stage_dir, cur, fixed_batch,
+                                              writer)
+                    if due(cfg.log_histograms_every_n_iter, "hist") and self.is_coordinator:
+                        writer.histograms(cur, {k[len("params/"):]: v.float().cpu().numpy()
+                                                for k, v in state_to_dict(state).items()
+                                                if k.startswith("params/")})
                 if (cfg.max_transfer_gb_per_run
                         and staged["bytes"] >= cfg.max_transfer_gb_per_run * 1e9
                         and cur < steps):
@@ -609,9 +714,11 @@ class StageRunner:
                 save(state.step, state)
             if not paused:
                 t0 = time.perf_counter()
-                save_model(stage_dir, self._serving_state_dict(trainer, state), state.step)
+                if self.is_coordinator:
+                    save_model(stage_dir, self._serving_state_dict(trainer, state), state.step)
                 times["saves_s"] += time.perf_counter() - t0
                 times["saves"] += 1
+            self._barrier()  # the stage's files are whole for every process
         finally:
             if profiler is not None:
                 self._stop_profiler(profiler, stage_dir)
@@ -653,6 +760,11 @@ class StageRunner:
         try:
             real = (fixed_batch or {}).get("target")
             if real is None:
+                if self.n_devices > 1 and not getattr(self, "_warned_swd_multihost", False):
+                    # The fixed batch is a single process's: say so once.
+                    print("[in-training swd skipped on multi-host: run "
+                          "evals.run_eval against checkpoints instead]")
+                    self._warned_swd_multihost = True
                 return
             real = np.asarray(real, np.float32)
             if real.shape[1] < 16:

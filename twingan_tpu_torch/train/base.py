@@ -10,6 +10,15 @@ The step functions take ``rng``, an integer seed; a step's random numbers
 come from ``step_generator(rng, critic_step)``, as the JAX steps fold the
 critic counter into their PRNG key.
 
+Data parallelism (``twingan_tpu_torch.parallel``): under a current process
+group each process's step runs on its rows of the global batch, its
+draws with a batch axis are made at the global batch and sliced
+(``parallel.draw_rows``; injected draws are global too), the gradients
+and the step's metrics are averaged over the processes (``_grads``,
+``_global_metrics``), and the model's batch reductions are collectives.
+The processes' states stay equal, as the JAX package's replicated state
+on a mesh does.
+
 Remat (``cfg.remat``, the JAX ``apply_model(remat=True)``): each network
 pass of a step runs under ``torch.utils.checkpoint`` (``remat_call``), so
 the backward recomputes its activations instead of keeping them. The JAX
@@ -29,6 +38,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from twingan_tpu_torch import parallel
 from twingan_tpu_torch.models.config import require_inference_only, require_ported
 from twingan_tpu_torch.ops import basic, norms
 
@@ -69,14 +79,9 @@ def step_generator(rng: int, critic_step: int, device: torch.device) -> torch.Ge
 
 def require_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for the model options the port's
-    modules lack and the trainer options it lacks, naming their queue
-    item."""
+    modules lack, and the ``ValueError`` of an inference-only model."""
     require_ported(cfg.model)
     require_inference_only(cfg.model, "a trainer")
-    if cfg.model.sync_batch_norm_axis is not None:
-        raise NotImplementedError(
-            "sync_batch_norm_axis (cross-device batch norm; queue item A9) is not ported to "
-            "twingan_tpu_torch's trainers yet")
 
 
 def remat_call(fn: Callable, modules: Sequence[nn.Module], *args, **kwargs):
@@ -121,15 +126,19 @@ class BaseGanTrainer:
         return renorm_clip(self.cfg, step)
 
     def _gdrop_noise(self, dis: nn.Module, batch_size: int, generator: torch.Generator,
-                     injected: Optional[Mapping[str, list]], key: str) -> Optional[list]:
+                     injected: Optional[Mapping[str, list]], key: str,
+                     parts: int = 1) -> Optional[list]:
         """A discriminator pass's gdrop noise: ``injected[key]``, or drawn
         now from ``generator``, before the pass (for remat); None without
-        gdrop."""
+        gdrop. Under a process group both are of the global batch (``parts``
+        of them end to end for a fused pass) and this process takes its
+        rows."""
         if not self.cfg.use_gdrop:
             return None
         if injected is not None:
-            return [t.to(self.device) for t in injected[key]]
-        return dis.draw_gdrop_noise(batch_size, generator, self.device)
+            return [parallel.local_rows(t, parts=parts).to(self.device) for t in injected[key]]
+        return [parallel.draw_rows(torch.randn, shape, parts=parts, generator=generator,
+                                   device=self.device) for shape in dis.gdrop_shapes(batch_size)]
 
     def _apply(self, net: nn.Module, *args, **kwargs):
         """One pass of ``net``; under ``cfg.remat`` through ``remat_call``."""
@@ -146,9 +155,29 @@ class BaseGanTrainer:
 
     @staticmethod
     def _grads(total: torch.Tensor, params) -> list[torch.Tensor]:
-        """d total / d params, zeros for a parameter the loss does not reach."""
+        """d total / d params, zeros for a parameter the loss does not reach.
+        Under a process group each process's ``total`` is its rows' share
+        of the loss, and the gradients are averaged over the processes, one
+        flat all-reduce: the gradient of the whole batch's loss. The step
+        takes them with ``torch.autograd.grad`` (and the penalty's double
+        backward), which ``DistributedDataParallel``'s hooks on
+        ``.backward()`` would not see."""
         grads = torch.autograd.grad(total, params, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        parallel.all_reduce_mean_(grads, parallel.current_group())
+        return grads
+
+    @staticmethod
+    def _global_metrics(values: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """``values`` (each process's means over its rows) averaged over the
+        processes of the current group, one all-reduce, each in its own
+        dtype: the means of the whole batch. Unchanged without a group."""
+        group = parallel.current_group()
+        if group is None:
+            return dict(values)
+        stacked = torch.stack([v.detach().float() for v in values.values()])
+        parallel.all_reduce_mean_([stacked], group)
+        return {k: m.to(v.dtype) for (k, v), m in zip(values.items(), stacked.unbind(0))}
 
     def eval_metrics(self, state, batch, rng: int = 0, **step_kw):
         """The G step's metrics with the caller's state left untouched: the

@@ -73,6 +73,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from twingan_tpu_torch import parallel
 from twingan_tpu_torch.models.config import PGGANConfig
 from twingan_tpu_torch.models.layers import advance_spectral_norm, reset_parameters
 from twingan_tpu_torch.models.pggan import Discriminator, Generator, noise_shape
@@ -201,8 +202,8 @@ class GanTrainer(BaseGanTrainer):
         src = batch.get("source")
         if src is not None:
             return src.to(self.device, torch.float32)
-        return torch.randn(noise_shape(self.cfg.model, batch_size), generator=generator,
-                           device=self.device)
+        return parallel.draw_rows(torch.randn, noise_shape(self.cfg.model, batch_size),
+                                  generator=generator, device=self.device)
 
     def _real(self, batch: Mapping[str, torch.Tensor], alpha: float) -> torch.Tensor:
         return self.growing_image(batch["target"].to(self.device, torch.float32), alpha)
@@ -241,8 +242,8 @@ class GanTrainer(BaseGanTrainer):
         alpha = self._alpha(state.step)
         real = self._real(batch, alpha)
         generator = step_generator(rng, state.critic_step, self.device)
-        if z is None:
-            z = self._gen_input(batch, generator, real.shape[0])
+        z = (self._gen_input(batch, generator, real.shape[0]) if z is None
+             else parallel.local_rows(z))
         labels, embed = self._cond(batch)
         noise = self._gdrop_noise(dis, real.shape[0], generator, gdrop_noise, "fake")
         fake = self._apply(gen, z.to(self.device), alpha=alpha, update=True,
@@ -251,6 +252,7 @@ class GanTrainer(BaseGanTrainer):
                            gdrop_strength=state.gdrop_strength, gdrop_noise=noise)
         loss = generator_gan_loss(cfg.loss, pred)
         grads = self._grads(loss, state.gen_opt.params)
+        loss = self._global_metrics({"loss": loss})["loss"]
         grad_norm = global_norm(grads)
         state.gen_opt.step(grads)
         state.gen_loss_ema, strength = update_gdrop_state(
@@ -281,8 +283,8 @@ class GanTrainer(BaseGanTrainer):
         alpha = self._alpha(state.step)
         real = self._real(batch, alpha)
         generator = step_generator(rng, state.critic_step, self.device)
-        if z is None:
-            z = self._gen_input(batch, generator, real.shape[0])
+        z = (self._gen_input(batch, generator, real.shape[0]) if z is None
+             else parallel.local_rows(z))
         labels, embed = self._cond(batch)
         noise = {k: self._gdrop_noise(dis, real.shape[0], generator, gdrop_noise, k)
                  for k in ("fake", "real", "gp")}
@@ -297,18 +299,20 @@ class GanTrainer(BaseGanTrainer):
         losses["gradient_penalty"] = gradient_penalty(
             cfg.loss, lambda x: self._apply(dis, x, attention="plain", gdrop_noise=noise["gp"],
                                             **dis_kw),
-            real, fake, alpha=gp.get("alpha"), noise=gp.get("noise"), generator=generator)
+            real, fake, alpha=parallel.local_rows(gp.get("alpha")),
+            noise=parallel.local_rows(gp.get("noise")), generator=generator)
         total = sum(losses.values())
         grads = self._grads(total, state.dis_opt.params)
         advance_spectral_norm(dis)
         grad_norm = global_norm(grads)
         state.dis_opt.step(grads)
         state.critic_step += 1
-        metrics = {"discriminator_loss": total.detach(),
-                   "real_pred_mean": real_pred.detach().float().mean(),
-                   "fake_pred_mean": fake_pred.detach().float().mean(),
-                   "discriminator_grad_norm": grad_norm,
-                   **{k: v.detach() for k, v in losses.items()}}
+        metrics = self._global_metrics({
+            "discriminator_loss": total.detach(),
+            "real_pred_mean": real_pred.detach().float().mean(),
+            "fake_pred_mean": fake_pred.detach().float().mean(),
+            **{k: v.detach() for k, v in losses.items()}})
+        metrics["discriminator_grad_norm"] = grad_norm
         return state, metrics
 
     # ------------------------------------------------------------------ #

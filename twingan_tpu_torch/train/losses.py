@@ -27,6 +27,9 @@ from typing import Callable, Optional
 
 import torch
 
+from twingan_tpu_torch import parallel
+from twingan_tpu_torch.parallel.multihost import all_reduce_mean
+
 ARCHITECTURES = ("gan", "dragan", "wgan", "wgan_gp", "hinge")
 
 
@@ -78,12 +81,16 @@ def discriminator_gan_loss(cfg: GanLossConfig, fake_pred: torch.Tensor,
     return losses
 
 
-def perturbed_batch(x: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+def perturbed_batch(x: torch.Tensor, noise: torch.Tensor, group=None) -> torch.Tensor:
     """DRAGAN perturbation x + 0.5 * std(x) * noise, the std the population
     one over the whole minibatch and ``noise`` U(-1, 1) of x's shape (the
     JAX package's deliberate use of the std, where the TF original took the
-    variance)."""
-    return x + 0.5 * torch.std(x, correction=0) * noise
+    variance). Under a process group ``group`` the mean and then the
+    squared deviations' mean are averaged over the processes' equal shares
+    of the minibatch."""
+    mean = all_reduce_mean(torch.mean(x), group)
+    std = torch.sqrt(all_reduce_mean(torch.mean(torch.square(x - mean)), group))
+    return x + 0.5 * std * noise
 
 
 def gradient_penalty(cfg: GanLossConfig, dis_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -97,22 +104,24 @@ def gradient_penalty(cfg: GanLossConfig, dis_fn: Callable[[torch.Tensor], torch.
     wgan_gp interpolates between ``real`` and ``fake``; dragan between
     ``real`` and its perturbation. ``alpha`` ([B,1,1,1], U(0,1)) and, for
     dragan, ``noise`` (U(-1,1), real's shape) are drawn from ``generator``
-    when not given. The penalty is lambda * mean((|grad|_2 - 1)^2) with
-    |grad|_2 = sqrt(sum grad^2 + 1e-12) per example."""
+    when not given, at the global batch under a process group
+    (``parallel.draw_rows``). The penalty is lambda * mean((|grad|_2 - 1)^2)
+    with |grad|_2 = sqrt(sum grad^2 + 1e-12) per example."""
     if cfg.architecture not in ("wgan_gp", "dragan"):
         return torch.zeros((), device=real.device)
     real = real.float()
     if alpha is None:
-        alpha = torch.rand((real.shape[0],) + (1,) * (real.dim() - 1), generator=generator,
-                           device=real.device)
+        alpha = parallel.draw_rows(torch.rand, (real.shape[0],) + (1,) * (real.dim() - 1),
+                                   generator=generator, device=real.device)
     if cfg.architecture == "wgan_gp":
         if fake is None:
             raise ValueError("wgan_gp needs the generated batch")
         endpoint = fake.float()
     else:
         if noise is None:
-            noise = torch.rand(real.shape, generator=generator, device=real.device) * 2 - 1
-        endpoint = perturbed_batch(real, noise.to(real.device))
+            noise = parallel.draw_rows(torch.rand, real.shape, generator=generator,
+                                       device=real.device) * 2 - 1
+        endpoint = perturbed_batch(real, noise.to(real.device), parallel.current_group())
     interpolates = (real + alpha.to(real.device) * (endpoint - real)).detach().requires_grad_(True)
     pred_sum = torch.sum(dis_fn(interpolates).float())
     (grads,) = torch.autograd.grad(pred_sum, interpolates, create_graph=True)

@@ -70,6 +70,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from twingan_tpu_torch import parallel
 from twingan_tpu_torch.models.config import PGGANConfig
 from twingan_tpu_torch.models.layers import advance_spectral_norm, reset_parameters
 from twingan_tpu_torch.models.pggan import (
@@ -450,9 +451,9 @@ class TwinGANTrainer(BaseGanTrainer):
         if not self.cfg.use_style_embedding:
             return None
         if injected is not None:
-            return injected.to(self.device, torch.float32)
-        return torch.randn((batch_size, self.cfg.style_embed_size), generator=generator,
-                           device=self.device)
+            return parallel.local_rows(injected).to(self.device, torch.float32)
+        return parallel.draw_rows(torch.randn, (batch_size, self.cfg.style_embed_size),
+                                  generator=generator, device=self.device)
 
     def g_step(self, state: GanTrainState, batch: Mapping[str, torch.Tensor], rng: int = 0,
                random_style: Optional[torch.Tensor] = None,
@@ -479,7 +480,8 @@ class TwinGANTrainer(BaseGanTrainer):
             kw = dict(alpha=alpha, gdrop_strength=state.gdrop_strength)
             if cfg.fuse:
                 x = torch.cat([outs[f"{domain}_{k}"] for k in kinds])
-                noise = self._gdrop_noise(dis, x.shape[0], generator, gdrop_noise, domain)
+                noise = self._gdrop_noise(dis, x.shape[0], generator, gdrop_noise, domain,
+                                          parts=len(kinds))
                 pred = self._apply(dis, x, stddev_groups=len(kinds), gdrop_noise=noise, **kw)
                 preds.update({f"dis_{domain}_{k}": p for k, p in zip(kinds, pred.chunk(len(kinds)))})
             else:
@@ -491,6 +493,8 @@ class TwinGANTrainer(BaseGanTrainer):
         losses = self._generator_losses(outs, preds, batch)
         total = sum(losses.values())
         grads = self._grads(total, state.gen_opt.params)
+        losses = self._global_metrics({"generator_loss": total, **losses})
+        total = losses.pop("generator_loss")
         grad_norm = global_norm(grads)
         state.gen_opt.step(grads)
         state.gen_loss_ema, strength = update_gdrop_state(
@@ -535,13 +539,14 @@ class TwinGANTrainer(BaseGanTrainer):
             kw = dict(alpha=alpha, gdrop_strength=state.gdrop_strength)
             fakes = [outs[f"{domain}_prime"]] + ([outs[f"{domain}_cycle"]] if need_cycle else [])
 
-            def noise(key: str, n: int = real.shape[0]):
-                return self._gdrop_noise(dis, n, generator, gdrop_noise, key)
+            def noise(key: str, parts: int = 1):
+                return self._gdrop_noise(dis, parts * real.shape[0], generator, gdrop_noise,
+                                         key, parts)
 
             if cfg.fuse:
                 x = torch.cat([real, *fakes])
                 preds = self._apply(dis, x, stddev_groups=1 + len(fakes),
-                                    gdrop_noise=noise(domain, x.shape[0]),
+                                    gdrop_noise=noise(domain, 1 + len(fakes)),
                                     **kw).chunk(1 + len(fakes))
             else:
                 preds = [self._apply(dis, x, gdrop_noise=noise(f"{domain}_{kind}"), **kw)
@@ -560,8 +565,8 @@ class TwinGANTrainer(BaseGanTrainer):
             losses[f"gradient_penalty_{domain}"] = gradient_penalty(
                 cfg.loss, lambda x, dis=dis, n=gp_gdrop: self._apply(
                     dis, x, attention="plain", gdrop_noise=n, **kw),
-                real, fakes[0], alpha=gp.get("alpha"), noise=gp.get("noise"),
-                generator=generator)
+                real, fakes[0], alpha=parallel.local_rows(gp.get("alpha")),
+                noise=parallel.local_rows(gp.get("noise")), generator=generator)
         total = sum(losses.values())
         grads = self._grads(total, state.dis_opt.params)
         for dis_name in self.discriminator_side_keys:
@@ -569,6 +574,7 @@ class TwinGANTrainer(BaseGanTrainer):
         grad_norm = global_norm(grads)
         state.dis_opt.step(grads)
         state.critic_step += 1
-        metrics = {"discriminator_loss": total.detach(), "discriminator_grad_norm": grad_norm,
-                   **{k: v.detach() for k, v in losses.items()}}
+        metrics = self._global_metrics({"discriminator_loss": total.detach(),
+                                        **{k: v.detach() for k, v in losses.items()}})
+        metrics["discriminator_grad_norm"] = grad_norm
         return state, metrics

@@ -655,6 +655,38 @@ PARALLEL_SPLIT = 2
 PARALLEL_PLAN_IMAGES = 32   # per resolution: 2 rounds at the schedule's batch 16 below 64 px
 PARALLEL_FIRST_CALL_STAGES = 3
 
+# The alt_gans phase: the alternative networks at published widths, fp32 on
+# the card (TF32 off) against the same calls on the CPU with the same
+# weights and injected noise. DCGAN (Radford et al. 2016) at 64 px: depth
+# 64, latent 100, batch 128; CycleGAN (Zhu et al. 2017) at 256 px: 64
+# filters, batch 1, the trainer's 6 residual blocks (the generator alone at
+# 9 in each decoder); pix2pix (Isola et al. 2017): the U-Net-256 of base 64
+# and the 70x70 PatchGAN on the 6-channel pair, batch 1. The steps are held
+# to TRAIN_LIMITS["float32"] (losses 1e-3 relative + 1e-4, gradient
+# cosines 0.999; these networks have no attention projections). A forward
+# (sample, the generators alone, pix2pix) is held to ALT_FORWARD_TOL of the
+# output's magnitude (at least 1): fp32 on both sides, 20-50 convs each
+# summing in its own order, and pix2pix's train-mode batch norm over batch
+# 1 at 2x2 divides by the deviation of four values. The TF1 import mapping runs without TensorFlow over the
+# TwinGAN slice config's weights; its 256 px batch must be bit-equal.
+ALT_DCGAN = {"resolution": 64, "depth": 64, "latent": 100, "batch": 128}
+ALT_CYCLEGAN = {"resolution": 256, "filters": 64, "batch": 1, "blocks_alone": 9}
+ALT_PIX2PIX = {"resolution": 256, "base": 64, "batch": 1}
+ALT_TIMED_ROUNDS = 20
+ALT_RUNNER_ROUNDS = 4
+ALT_RUNNER_EVERY = 2
+ALT_IMPORT_BATCH = 4
+ALT_FORWARD_TOL = 1e-3
+# CycleGAN's discriminator pools its trunk by a spatial mean, and the mean
+# of an instance-normalized residual branch is its norm's bias alone: in
+# the D loss (and the penalty) the gradients of every residual block's
+# first conv and norm (``block_<b>_conv0``) are 0 in exact arithmetic,
+# rounding noise on both sides (cosines near 0 between an H100 and the
+# CPU). Those modules, and no others, are held by their largest absolute
+# difference from the CPU's gradient, at most ZERO_GRAD_ATOL (about 30x the
+# 3.6e-8 an H100 showed, where the D step's gradient norm is about 1).
+ZERO_GRAD_ATOL = 1e-6
+
 # Numbers an earlier phase measured that a later one prints beside its own.
 MEASURED: dict = {}
 
@@ -1547,7 +1579,8 @@ def _held_leaf(key: str, held_buffers) -> bool:
 def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_cls=None,
                   zs=None, phase: str = "train", limits=None, grad_prefix=None,
                   b4_steps=(), step: int = 0, held_buffers=None, gdrop_strength: float = 0.0,
-                  step_kw=None, kinds=("g_step", "d_step"), check_updates: bool = False) -> list:
+                  step_kw=None, kinds=("g_step", "d_step"), check_updates: bool = False,
+                  zero_grads=None) -> list:
     """One G step and one D step, each from ``weights``, on the ``card`` in
     float32 and in bfloat16 against the same steps in fp32 on the CPU (plain
     attention), within ``limits`` (TRAIN_LIMITS by default). ``trainer_cls``
@@ -1566,7 +1599,12 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
     CPU's, elementwise; None holds them to the step's loss limits (rtol *
     |cpu| + atol). With ``check_updates`` the optimizer's update of each
     network (parameters after the step minus before) is held to the
-    gradients' cosine limit too.
+    gradients' cosine limit too. ``zero_grads[kind]`` names the modules
+    whose gradient in that step is 0 in exact arithmetic: each is held by
+    its largest absolute difference from the CPU's (at most
+    ``ZERO_GRAD_ATOL``) instead of a cosine, since such a gradient is
+    rounding noise on both sides, and the cosine of two noises says
+    nothing.
     Returns one row per step and card type."""
     import torch
     from twingan_tpu_torch.models.layers import SelfAttention
@@ -1634,7 +1672,14 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
             loss_err = {k: abs(m[k] - ref_m[k]) for k in ref_m
                         if k not in ("alpha", "gdrop_strength")}
             networks = sorted({n.split(".", 1)[0] for n in grads})
-            net_cos = {net: _cosine(flat(grads, net), flat(ref_grads, net)) for net in networks}
+            zero = (zero_grads or {}).get(kind, ())
+            zero_err = {net: {"cpu_max_abs": float(flat(ref_grads, net).abs().max()),
+                              "max_abs_diff": float((flat(grads, net)
+                                                     - flat(ref_grads, net)).abs().max()),
+                              "limit": ZERO_GRAD_ATOL}
+                        for net in zero}
+            net_cos = {net: _cosine(flat(grads, net), flat(ref_grads, net)) for net in networks
+                       if net not in zero}
             update_cos = ({net: _cosine(flat(updates, net), flat(ref_updates, net))
                            for net in networks} if check_updates else {})
             sa_cos = {f"{sa}.{proj}": _cosine(flat(grads, f"{sa}.{proj}"),
@@ -1654,12 +1699,14 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
                     bool((e <= b).all()) for e, b in zip(errs, bounds))
             ok = (all(loss_err[k] <= rtol * abs(ref_m[k]) + atol for k in loss_err)
                   and buffers_ok and min(net_cos.values()) >= min_cos
+                  and all(v["max_abs_diff"] <= v["limit"] for v in zero_err.values())
                   and all(c >= min_cos for c in update_cos.values())
                   and (min_sa_cos is None or min(sa_cos.values()) >= min_sa_cos)
                   and not other and (not on_card or want <= set(variants)))
             rows.append({"phase": phase, "check": f"{kind}, card {dtype} vs CPU float32",
                          "losses": m, "cpu_losses": ref_m, "loss_abs_err": loss_err,
                          "grad_cosine": net_cos, "attention_projection_grad_cosine": sa_cos,
+                         **({"zero_grads": zero_err} if zero else {}),
                          "update_cosine": update_cos,
                          "kernel_variants": variants, "step": step,
                          "buffers_after_step": buffer_err,
@@ -4331,6 +4378,312 @@ def parallel_phase(card: str, smi_line: str) -> dict:
     return path
 
 
+def _alt_seed_norms(nets, seed: int) -> None:
+    """Biases, norm scales and biases and running moments drawn from
+    ``seed``, so that eval mode reads moments other than 0 and 1."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for key, t in nets.state_dict().items():
+            leaf = key.rsplit(".", 1)[-1]
+            if leaf in ("scale", "var"):
+                t.copy_(torch.rand(t.shape, generator=gen) + 0.5)
+            elif leaf in ("bias", "mean"):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+
+
+def _alt_forward_row(check: str, card_out, cpu_out, **more) -> dict:
+    import torch
+
+    card_out, cpu_out = card_out.float().cpu(), cpu_out.float()
+    ref_max = float(cpu_out.abs().max())
+    diff = float((card_out - cpu_out).abs().max())
+    limit = ALT_FORWARD_TOL * max(1.0, ref_max)
+    return {"phase": "alt_gans", "check": check, "max_abs_diff": diff, "limit": limit,
+            "ref_max": ref_max, "shape": list(card_out.shape), **more,
+            "ok": bool(torch.isfinite(card_out).all()) and diff <= limit}
+
+
+def _alt_timed_rounds(trainer, state, batches) -> dict:
+    """rounds/s of ``ALT_TIMED_ROUNDS`` rounds on the card after one warm-up
+    round (the trainer's own draws), and the peak memory they held. The
+    losses stay on the card until the window has ended."""
+    import torch
+
+    losses = []
+    for i in range(ALT_TIMED_ROUNDS + 1):
+        if i == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+        state, metrics = trainer.round_step(state, batches, rng=i)
+        losses += [metrics["generator_loss"], metrics["discriminator_loss"]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"rounds": ALT_TIMED_ROUNDS, "seconds": seconds,
+            "rounds_per_s": ALT_TIMED_ROUNDS / seconds,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "losses_finite": bool(torch.isfinite(torch.stack(
+                [torch.as_tensor(v, dtype=torch.float32).reshape(()).cpu()
+                 for v in losses])).all())}
+
+
+def _alt_trainer_rows(device: str, cfg, batches, zs, gp_noise, sample_input, name: str,
+                      zero_grads=None):
+    """One network through ``GanTrainer``: its G and D step on the card
+    against the CPU (``compare_steps``, with ``zero_grads``), ``sample`` of
+    the seeded weights on both, and its timed rounds on the card."""
+    import torch
+    from twingan_tpu_torch.models.layers import reset_parameters
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+
+    nets = GanTrainer(cfg, device="cpu").build_nets()
+    reset_parameters(nets, torch.Generator().manual_seed(SEED))
+    _alt_seed_norms(nets, SEED + 1)
+    weights = {k: v.clone() for k, v in nets.state_dict().items()}
+    rows = compare_steps(cfg, weights, batches, gp_noise, card=device, trainer_cls=GanTrainer,
+                         zs=zs, phase="alt_gans",
+                         limits={"float32": TRAIN_LIMITS["float32"][:3] + (None,)},
+                         zero_grads=zero_grads)
+    for r in rows:
+        r["check"] = f"{name}: {r['check']}"
+    outs = {}
+    for where in ("cpu", device):
+        trainer = GanTrainer(cfg, device=where)
+        state = trainer.state_from_nets(trainer.build_nets())
+        state.nets.load_state_dict(weights)
+        outs[where] = trainer.sample(state, sample_input)
+    rows.append(_alt_forward_row(f"{name}: sample (eval mode), card vs CPU", outs[device],
+                                 outs["cpu"]))
+    trainer = GanTrainer(cfg, device=device)
+    state = trainer.state_from_nets(trainer.build_nets())
+    state.nets.load_state_dict(weights)
+    card_batches = [{k: v.to(device) for k, v in b.items()} for b in batches]
+    timed = _alt_timed_rounds(trainer, state, card_batches)
+    rows.append({"phase": "alt_gans", "check": f"{name}: timed rounds on the card", **timed,
+                 "batch": cfg.batch_size, "ok": timed["losses_finite"]})
+    return rows, timed
+
+
+def _alt_module_rows(device: str) -> list:
+    """The CycleGAN generator alone at 9 blocks in each decoder, and
+    pix2pix's G and D in eval and train mode (given dropout masks), each
+    on the card against the CPU."""
+    import torch
+    from twingan_tpu_torch.models.cyclegan import UPSAMPLE_METHODS, CycleGANGenerator
+    from twingan_tpu_torch.models.layers import reset_parameters
+    from twingan_tpu_torch.models.pix2pix import Pix2PixDiscriminator, Pix2PixGenerator
+
+    rows = []
+    gen = torch.Generator().manual_seed(SEED + 2)
+    c = ALT_CYCLEGAN
+    x = torch.rand(c["batch"], c["resolution"], c["resolution"], 3, generator=gen)
+    for method in UPSAMPLE_METHODS:
+        net = CycleGANGenerator(num_filters=c["filters"], num_resnet_blocks=c["blocks_alone"],
+                                upsample_method=method)
+        reset_parameters(net, torch.Generator().manual_seed(SEED))
+        _alt_seed_norms(net, SEED + 1)
+        with torch.no_grad():
+            cpu_out = net(x)
+            card_out = net.to(device)(x.to(device))
+        rows.append(_alt_forward_row(f"cyclegan generator, {c['blocks_alone']} blocks, "
+                                     f"{method}", card_out, cpu_out))
+    p = ALT_PIX2PIX
+    x = torch.rand(p["batch"], p["resolution"], p["resolution"], 3, generator=gen) * 2 - 1
+    g = Pix2PixGenerator(base_filters=p["base"], input_size=p["resolution"])
+    d = Pix2PixDiscriminator(base_filters=p["base"])
+    for net in (g, d):
+        reset_parameters(net, torch.Generator().manual_seed(SEED))
+        _alt_seed_norms(net, SEED + 1)
+    masks = [torch.rand(s, generator=gen) < 0.5 for s in g.dropout_shapes(p["batch"])]
+    for mode in ("eval", "train"):
+        outs = {}
+        for where in ("cpu", device):
+            g.to(where).train(mode == "train")
+            d.to(where).train(mode == "train")
+            kw = {"dropout_masks": [m.to(where) for m in masks]} if mode == "train" else {}
+            with torch.no_grad():
+                fake = g(x.to(where), **kw)
+                pred = d(torch.cat([x.to(where), fake], dim=-1))
+            outs[where] = (fake, pred)
+        rows.append(_alt_forward_row(f"pix2pix generator, {mode} mode", outs[device][0],
+                                     outs["cpu"][0]))
+        rows.append(_alt_forward_row(f"pix2pix discriminator, {mode} mode", outs[device][1],
+                                     outs["cpu"][1]))
+    return rows
+
+
+def _alt_runner_row(cfg) -> dict:
+    """The DCGAN through ``StageRunner``: one fixed 64 px stage of
+    ``ALT_RUNNER_ROUNDS`` rounds on synthetic data, with its sample grid and
+    in-training SWD every ``ALT_RUNNER_EVERY`` steps."""
+    from twingan_tpu_torch.runner.stage_runner import RunConfig
+
+    res, batch = cfg.model.resolution, cfg.batch_size
+    train_dir = tempfile.mkdtemp(prefix="twingan_smoke_dcgan_")
+    try:
+        run_cfg = RunConfig(program="image_generation", train_dir=train_dir, start_hw=res,
+                            max_hw=res, num_images_per_resolution=ALT_RUNNER_ROUNDS * batch,
+                            batch_schedule={res: batch}, use_synthetic_data=True, trainer=cfg,
+                            log_every_n_steps=1, save_every_n_steps=ALT_RUNNER_ROUNDS,
+                            log_image_every_n_iter=ALT_RUNNER_EVERY,
+                            eval_every_n_iter_in_training=ALT_RUNNER_EVERY)
+        stage_rows: list = []
+        t0 = time.perf_counter()
+        runner = counting_runner(run_cfg, stage_rows)
+        summary = runner.run()
+        stage_dir = os.path.join(train_dir, str(res))
+        steps = list(range(ALT_RUNNER_EVERY, ALT_RUNNER_ROUNDS + 1, ALT_RUNNER_EVERY))
+        grids = all(os.path.isfile(os.path.join(stage_dir, "generated_samples", f"{s}.png"))
+                    for s in steps)
+        row = stage_rows[0] if stage_rows else {}
+        return {"phase": "alt_gans", "check": f"dcgan StageRunner, one {res} px stage",
+                "steps": summary.get(str(res), {}).get("steps"), "sample_grids": grids,
+                "swd_in_training": swd_files_ok(stage_dir, steps),
+                "model_pt": os.path.isfile(os.path.join(stage_dir, "model.pt")),
+                "rounds_per_s": row.get("rounds_per_s"),
+                "peak_memory_bytes": row.get("peak_memory_bytes"),
+                "parts_s": row.get("parts_s"), "seconds": time.perf_counter() - t0,
+                "ok": bool(summary.get(str(res), {}).get("steps") == ALT_RUNNER_ROUNDS
+                           and grids and swd_files_ok(stage_dir, steps)
+                           and runner_losses_ok(runner))}
+    finally:
+        shutil.rmtree(train_dir, ignore_errors=True)
+
+
+def _alt_import_row(device: str) -> dict:
+    """The TF1 import mapping without TensorFlow: every name of
+    ``export_var_names`` over the TwinGAN slice config's weights maps back
+    to its leaf; the arrays, routed through ``map_tf_arrays`` into a fresh
+    translator, give the original weights bit for bit and serve one 256 px
+    batch bit-equal to the original's on the card."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch import bridge
+    from twingan_tpu_torch.infer import import_tf
+    from twingan_tpu_torch.train.twingan_trainer import ENC, GEN, translate
+
+    cfg = slice_config()
+    original = random_translator(cfg)
+    params, model_state = bridge.flax_train_state(original.state_dict(), (ENC, GEN))
+    names = import_tf.export_var_names({"params": params, "model_state": model_state})
+    round_trip = all(import_tf.map_var_name(n) == t for n, t in names.items())
+    arrays = {}
+    for name, (net, path, collection) in names.items():
+        node = params[net] if collection is None else model_state[net][collection]
+        for k in path:
+            node = node[k]
+        arrays[name] = node.reshape(1, -1) if name.endswith("/u") else node
+    fresh = type(original)(cfg)
+    fresh_params, fresh_state = bridge.flax_train_state(fresh.state_dict(), (ENC, GEN))
+    tree, report = import_tf.map_tf_arrays(arrays, {"params": fresh_params,
+                                                    "model_state": fresh_state}, strict=True)
+    fresh.load_state_dict(bridge.train_state_dict(tree["params"], tree["model_state"],
+                                                  (ENC, GEN)), strict=True)
+    weights_equal = all(torch.equal(a, fresh.state_dict()[k])
+                        for k, a in original.state_dict().items())
+    x = torch.from_numpy(np.random.RandomState(SEED).rand(
+        ALT_IMPORT_BATCH, cfg.model.resolution, cfg.model.resolution, 3).astype("float32"))
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        outs = []
+        for model in (original, fresh):
+            model.to(device).eval()
+            outs.append(translate(cfg, model.encoder_content, model.generator, x.to(device)))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    served_equal = bool(torch.equal(outs[0], outs[1]))
+    return {"phase": "alt_gans", "check": "TF1 import mapping of the TwinGAN slice config "
+            "(no TensorFlow), served at 256 px", "names": len(names),
+            "mapped": len(report["mapped"]), "names_map_back": round_trip,
+            "weights_bit_equal": weights_equal, "served_bit_equal": served_equal,
+            "batch": ALT_IMPORT_BATCH,
+            "ok": bool(round_trip and weights_equal and served_equal
+                       and len(report["mapped"]) == len(names))}
+
+
+def alt_gans_phase(card: str, smi_line: str, device: str = "cuda") -> dict:
+    """DCGAN and CycleGAN through ``GanTrainer`` (a G and a D step against
+    the CPU, ``sample``, timed rounds), DCGAN through ``StageRunner``, the
+    CycleGAN generator alone in its three decoders, pix2pix, then the TF1
+    import mapping (module constants above). The alternative networks run
+    none of the kernels: every launch count stays 0 through them. The
+    import check serves the slice config, whose attention runs B1; its
+    launches are returned. ``card`` is the card's name, ``device`` where
+    the card's side runs."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.models.config import PGGANConfig
+    from twingan_tpu_torch.ops import attention, fused_conv, quant
+    from twingan_tpu_torch.train.gan_trainer import DIS, GanTrainer, GanTrainerConfig
+
+    def counts():
+        return {**attention.launch_counts, **fused_conv.launch_counts, **quant.launch_counts}
+
+    def reset():
+        for m in (attention, fused_conv, quant):
+            m.reset_launch_counts()
+
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(SEED)
+    rows, timed = [], {}
+    reset()
+    d = ALT_DCGAN
+    dcgan = GanTrainerConfig(model=PGGANConfig(resolution=d["resolution"]),
+                             generator_network="dcgan", dcgan_depth=d["depth"],
+                             dcgan_latent_dim=d["latent"], batch_size=d["batch"])
+    hw, b = d["resolution"], d["batch"]
+    images = lambda n, h: torch.from_numpy(rs.rand(n, h, h, 3).astype("float32"))  # noqa: E731
+    latents = {k: torch.from_numpy(rs.randn(b, d["latent"]).astype("float32"))
+               for k in ("g_step", "d_step")}
+    gp = {"alpha": torch.from_numpy(rs.rand(b, 1, 1, 1).astype("float32")),
+          "noise": torch.from_numpy((rs.rand(b, hw, hw, 3) * 2 - 1).astype("float32"))}
+    new, timed["dcgan"] = _alt_trainer_rows(
+        device, dcgan, [{"target": images(b, hw)} for _ in range(2)], latents, gp,
+        torch.from_numpy(rs.randn(16, d["latent"]).astype("float32")), "dcgan")
+    rows += new
+    c = ALT_CYCLEGAN
+    cyclegan = GanTrainerConfig(model=PGGANConfig(resolution=c["resolution"]),
+                                generator_network="cyclegan",
+                                cyclegan_num_channels=c["filters"], batch_size=c["batch"])
+    hw, b = c["resolution"], c["batch"]
+    gp = {"alpha": torch.from_numpy(rs.rand(b, 1, 1, 1).astype("float32")),
+          "noise": torch.from_numpy((rs.rand(b, hw, hw, 3) * 2 - 1).astype("float32"))}
+    blocks = GanTrainer(cyclegan, device="cpu").build_nets()[DIS].num_blocks
+    new, timed["cyclegan"] = _alt_trainer_rows(
+        device, cyclegan, [{"source": images(b, hw), "target": images(b, hw)} for _ in range(2)],
+        None, gp, images(b, hw), "cyclegan",
+        zero_grads={"d_step": tuple(f"block_{i}_conv0" for i in range(blocks))})
+    rows += new
+    rows += _alt_module_rows(device)
+    rows.append(_alt_runner_row(dcgan))
+    alt_counts = counts()
+    rows.append({"phase": "alt_gans", "check": "no kernel launched by the alternative "
+                 "networks", "launches": alt_counts,
+                 "ok": not any(alt_counts.values())})
+    reset()
+    rows.append(_alt_import_row(device))
+    import_counts = counts()
+    for row in rows:
+        emit(row)
+    summary = {
+        "phase": "alt_gans", "check": "summary", "seconds": time.perf_counter() - t_phase,
+        "rounds_per_s": {k: v["rounds_per_s"] for k, v in timed.items()},
+        "peak_memory_bytes": {k: v["peak_memory_bytes"] for k, v in timed.items()},
+        "max_diff": {r["check"]: r.get("max_abs_diff", r.get("loss_abs_err"))
+                     for r in rows if "max_abs_diff" in r or "loss_abs_err" in r},
+        "grad_cosine": {r["check"]: r["grad_cosine"] for r in rows if "grad_cosine" in r},
+        "import_serving_launches": import_counts, "card": card, "nvidia_smi": smi_line,
+        "ok": all(r["ok"] for r in rows)}
+    emit(summary)
+    bad = [r["check"] for r in rows if not r["ok"]]
+    if bad:
+        fail("alt_gans", f"failed: {bad}")
+    return import_counts
+
+
 def conv_i8_entries(result: dict) -> list:
     """Q1's lines, one an entry: the sums over the convs of one int8
     translated batch of 4 (each distinct shape's row times its count), bf16
@@ -4439,6 +4792,7 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     int8 = int8_phase(card, smi_line)
     parallel_launches = parallel_phase(card, smi_line)
+    alt_launches = alt_gans_phase(card, smi_line)
     data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
     by_path = {"serving": serving_launches, "http": http_launches,
@@ -4448,7 +4802,7 @@ def main() -> int:
                "options": options_launches[fwd], "classifiers": classifier_launches,
                "int8": int8["launches"]["b1"],
                "export": int8["launches"]["export_bf16_b1"] + int8["launches"]["export_int8_b1"],
-               "parallel": parallel_launches[fwd]}
+               "parallel": parallel_launches[fwd], "alt_gans_import": alt_launches[fwd]}
     entries = [kernel_entry(
         fwd, sum(by_path.values()), by_path,
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],

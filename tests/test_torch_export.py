@@ -19,9 +19,11 @@ UNet), its weights drawn in the port and bridged:
 - the two ``params.npz`` files hold the same keys and values, the int8
   calibration's ``quant`` collection included (its abs-maxima within
   float32's rounding of each other);
-- ``--format savedmodel`` raises, naming what it needs.
+- ``--format savedmodel`` raises where TensorFlow cannot be imported,
+  naming it (``test_torch_savedmodel.py`` checks what it writes).
 """
 
+import sys
 import types
 
 import numpy as np
@@ -121,7 +123,11 @@ def test_params_npz_has_the_jax_keys_and_values(exported, name):
             np.testing.assert_array_equal(ours[k], v, err_msg=k)
 
 
-def test_cli_exports_and_savedmodel_raises(exported, tmp_path, capsys):
+def test_cli_exports_and_savedmodel_raises(exported, tmp_path, capsys, monkeypatch):
+    """The CLI's torch export loads back equal to the eager inferer; its
+    ``--format=savedmodel`` raises only where TensorFlow cannot be
+    imported, naming it (``test_torch_savedmodel.py`` holds the SavedModel
+    it writes to the JAX package's)."""
     out_dir = str(tmp_path / "cli")
     export.main([f"--model_path={exported['stage_dir']}", f"--output_dir={out_dir}",
                  "--batch_size=2", "--device=cpu"])
@@ -129,6 +135,7 @@ def test_cli_exports_and_savedmodel_raises(exported, tmp_path, capsys):
     with torch.no_grad():
         got = export.load_torch(f"{out_dir}/translate.pt2")(torch.from_numpy(exported["x"]))
     np.testing.assert_array_equal(got.numpy(), exported["eager_fp"])
-    with pytest.raises(NotImplementedError, match="TensorFlow"):
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+    with pytest.raises(ImportError, match="tensorflow"):
         export.main([f"--model_path={exported['stage_dir']}", f"--output_dir={out_dir}",
                      "--format=savedmodel", "--device=cpu"])

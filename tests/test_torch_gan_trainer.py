@@ -348,13 +348,21 @@ def test_sample_without_a_polyak_average_uses_the_parameters(steps):
     ({"generator_network": "dcgan"}, "dcgan"),
 ])
 def test_trainer_refuses_unported_options(kw, name):
-    """The cyclegan and dcgan networks still raise, naming their queue item
-    (A15); gdrop, conditional labels and remat train
+    """No option of the trainer raises any more: the cyclegan and dcgan
+    networks build their CycleGAN and DCGAN pairs
+    (``test_torch_alt_trainer.py`` holds their steps to the JAX package);
+    gdrop, conditional labels and remat train
     (``test_torch_gan_trainer_options.py`` and ``test_torch_remat.py`` hold
     them to the JAX package)."""
     if name in ("cyclegan", "dcgan"):
-        with pytest.raises(NotImplementedError, match=f"{name}.*A15"):
-            GanTrainer(GanTrainerConfig(**kw), device="cpu")
+        # DCGAN's generator ends at the model's resolution, at least 8 px.
+        trainer = GanTrainer(GanTrainerConfig(model=PGGANConfig(resolution=8), **kw),
+                             device="cpu")
+        nets = trainer.build_nets()
+        assert not trainer.is_pggan
+        prefix = "CycleGAN" if name == "cyclegan" else "DCGAN"
+        assert [type(nets[n]).__name__ for n in (GEN, DIS)] == [f"{prefix}Generator",
+                                                                 f"{prefix}Discriminator"]
     else:
         trainer = GanTrainer(GanTrainerConfig(**kw), device="cpu")
         nets = trainer.build_nets()

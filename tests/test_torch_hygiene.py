@@ -1,9 +1,10 @@
 """What the port may import and run where there is no card.
 
 The card's machine has torch, numpy and the CUDA toolkit but no jax, flax,
-PIL or cv2, so neither twingan_tpu_torch nor chip_smoke.py may load them
-(PIL only inside the functions that read or write image files or decode
-JPEG, cv2 only inside the converters' blur filter); the data path decodes
+PIL, cv2 or tensorflow, so neither twingan_tpu_torch nor chip_smoke.py may
+load them (PIL only inside the functions that read or write image files or
+decode JPEG, cv2 only inside the converters' blur filter, tensorflow only
+inside the TF checkpoint reader and the SavedModel export); the data path decodes
 PNG and resizes without them. Without a
 card, chip_smoke.py and the port's entry points fail instead of falling
 back to the CPU; and the port never routes attention to a library kernel.
@@ -19,7 +20,7 @@ torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "twingan_tpu_torch")
-BANNED = ("jax", "jaxlib", "flax", "twingan_tpu", "PIL", "cv2")
+BANNED = ("jax", "jaxlib", "flax", "twingan_tpu", "PIL", "cv2", "tensorflow")
 
 _IMPORT_ALL = f"""
 import importlib, pkgutil, sys
@@ -68,6 +69,9 @@ EXPECTED_MODULES = (
     "twingan_tpu_torch.infer.export",
     "twingan_tpu_torch.parallel", "twingan_tpu_torch.parallel.mesh",
     "twingan_tpu_torch.parallel.multihost",
+    "twingan_tpu_torch.models.plain_layers", "twingan_tpu_torch.models.dcgan",
+    "twingan_tpu_torch.models.cyclegan", "twingan_tpu_torch.models.pix2pix",
+    "twingan_tpu_torch.infer.import_tf", "twingan_tpu_torch.infer.savedmodel",
 )
 
 

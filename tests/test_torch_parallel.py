@@ -5,8 +5,9 @@ discriminator (``tests/test_parallel.py:101-228``'s generator: 16 px,
 max_channels 16, instance norm, attention at 8 px, batch 8, every
 sa_gamma 1 so that attention shows), the local-path cases, synced moments
 (``tests/test_ops.py:132-150``'s shape), grouped and synced batch norm
-with its moving statistics and renorm EMAs, cross-process minibatch
-stddev, and a data-parallel ``GanTrainer`` G step
+with its moving statistics and renorm EMAs, the alternative networks'
+batch norm (a DCGAN discriminator, 8 px, depth 4) on the global batch,
+cross-process minibatch stddev, and a data-parallel ``GanTrainer`` G step
 (``test_sharded_equals_single_device``'s configuration, its z injected).
 
 The two processes (``tests/torch_parallel_worker.py``, torch and the port
@@ -40,6 +41,7 @@ from flax import serialization  # noqa: E402
 
 import torch_parallel_worker as worker  # noqa: E402
 from twingan_tpu import ops as jops  # noqa: E402
+from twingan_tpu.models import dcgan as jdcgan  # noqa: E402
 from twingan_tpu.models import layers as jlayers  # noqa: E402
 from twingan_tpu.models import pggan as jpggan  # noqa: E402
 from twingan_tpu.models.config import PGGANConfig as JaxPGGANConfig  # noqa: E402
@@ -51,7 +53,7 @@ from twingan_tpu.train.losses import GanLossConfig as JaxGanLossConfig  # noqa: 
 from twingan_tpu.train.optimizers import OptimizerConfig as JaxOptimizerConfig  # noqa: E402
 
 from twingan_tpu_torch import bridge, parallel  # noqa: E402
-from twingan_tpu_torch.models import pggan  # noqa: E402
+from twingan_tpu_torch.models import dcgan, pggan  # noqa: E402
 from twingan_tpu_torch.models.config import PGGANConfig  # noqa: E402
 from twingan_tpu_torch.models.layers import DomainNorm, SelfAttention  # noqa: E402
 from twingan_tpu_torch.models.layers import reset_parameters  # noqa: E402
@@ -116,7 +118,23 @@ def make_inputs() -> dict:
         "dp_z": torch.from_numpy(rs.randn(8, 1, 1, 16).astype(np.float32)),
         "aug_images": torch.from_numpy(np.random.RandomState(5).randint(
             0, 256, (8, 10, 10, 3)).astype(np.uint8)),
+        "dcgan_images": t(8, 8, 8, 3), "dcgan_weights": _dcgan_weights(7),
     }
+
+
+def _dcgan_weights(seed: int) -> dict:
+    """A DCGAN discriminator (depth 4, 8 px) with every parameter and
+    running moment drawn."""
+    net = dcgan.DCGANDiscriminator(depth=4, input_size=8)
+    reset_parameters(net, torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, t in net.state_dict().items():
+            if name.endswith(("scale", "var")):
+                t.uniform_(0.5, 1.5, generator=gen)
+            elif name.endswith(("bias", "mean")):
+                t.normal_(0.0, 0.3, generator=gen)
+    return {k: v.clone() for k, v in net.state_dict().items()}
 
 
 def _on_mesh(fn):
@@ -184,6 +202,21 @@ def jax_references(inputs: dict) -> dict:
         grad = jax.jit(jax.grad(lambda a, w=w, groups=groups: jnp.sum(
             jops.minibatch_stddev(a, num_groups=groups) * w)))(xs)
         ref[key], ref[f"{key}_grad"] = np.asarray(y), np.asarray(grad)
+
+    variables = bridge.flax_variables(inputs["dcgan_weights"])
+    jdis = jdcgan.DCGANDiscriminator(depth=4)
+
+    def dcgan_loss(params, x):
+        (y, _), new = jdis.apply(dict(variables, params=params), x, train=True,
+                                 mutable=["batch_stats"])
+        return jnp.sum(jnp.square(y)), (y, new)
+
+    grads, (y, new) = jax.jit(jax.grad(dcgan_loss, has_aux=True))(
+        variables["params"], jnp.asarray(inputs["dcgan_images"].numpy()))
+    ref["dcgan_dis"] = np.asarray(y)
+    ref["dcgan_dis_grads"] = _jax_grads_as_port(grads)
+    ref["dcgan_dis_stats"] = {k: v.numpy() for k, v in bridge.state_dict_from_flax(
+        {}, jax.device_get(new["batch_stats"])).items()}
 
     jtrainer = JaxGanTrainer(JaxGanTrainerConfig(
         model=JaxPGGANConfig(**DP_MODEL), batch_size=8, opt=JaxOptimizerConfig(learning_rate=1e-3),
@@ -332,6 +365,29 @@ def test_batch_norm_and_its_statistics_match_jax(runs, case):
     for k in ranks[0][f"norm_{case}_stats"]:
         torch.testing.assert_close(ranks[0][f"norm_{case}_stats"][k],
                                    ranks[1][f"norm_{case}_stats"][k], rtol=0, atol=0)
+
+
+def test_dcgan_batch_norm_takes_the_global_moments(runs):
+    """The alternative networks' batch norm (``models/plain_layers.py``, a
+    DCGAN discriminator here) in train mode under the group: the whole
+    batch's moments, as JAX's global view takes them (outputs rtol 1e-5 /
+    atol 1e-5), the running moments after an updating call equal on both
+    processes and to JAX's (atol 1e-6), and the whole batch's gradient,
+    the processes' sum, within the gradient tolerance."""
+    ranks, ref, _ = runs
+    np.testing.assert_allclose(_joined(ranks, "dcgan_dis"), ref["dcgan_dis"], rtol=1e-5,
+                               atol=1e-5)
+    for r in ranks:
+        stats = {k: v.numpy() for k, v in r["dcgan_dis_stats"].items()}
+        assert set(stats) == set(ref["dcgan_dis_stats"]) and stats
+        for k, v in ref["dcgan_dis_stats"].items():
+            np.testing.assert_allclose(stats[k], v, rtol=1e-5, atol=1e-6, err_msg=k)
+    ours, theirs = _grad_sum(ranks, "dcgan_dis_grads"), ref["dcgan_dis_grads"]
+    assert set(ours) == set(theirs)
+    scale = max(float(np.max(np.abs(v))) for v in theirs.values())
+    for k in ours:
+        np.testing.assert_allclose(ours[k], theirs[k], rtol=1e-2, atol=2e-3 * scale,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("case", ["stddev", "stddev_fused"])

@@ -161,4 +161,4 @@ def test_factory_names_and_planned():
     with pytest.raises(ValueError, match="unknown network"):
         classifiers.get_network_fn("nope", 3)
     net = classifiers.get_network_fn("illust2vec", 1539)
-    assert net.logits.kernel.shape == (1539, 1024)
+    assert net.logits.kernel.shape == (1024, 1539)  # Flax's [in, out]

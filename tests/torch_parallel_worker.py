@@ -116,7 +116,7 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 def parallel_suite(inputs: dict) -> dict:
     from twingan_tpu_torch import parallel
-    from twingan_tpu_torch.models import pggan
+    from twingan_tpu_torch.models import dcgan, pggan
     from twingan_tpu_torch.models.config import PGGANConfig
     from twingan_tpu_torch.models.layers import DomainNorm
     from twingan_tpu_torch.ops import basic, norms
@@ -168,6 +168,18 @@ def parallel_suite(inputs: dict) -> dict:
         y = norm(xl.permute(0, 3, 1, 2), 0, update=True).permute(0, 2, 3, 1)
         out[f"norm_{key}"] = y.detach()
         out[f"norm_{key}_stats"] = {k: v.clone() for k, v in norm.state_dict().items()}
+
+    # The alternative networks' stock batch norm (DCGAN's discriminator) in
+    # train mode on each process's rows: the global batch's moments, the
+    # running moments after an updating call, the gradient of a sum.
+    dis = dcgan.DCGANDiscriminator(depth=4, input_size=inputs["dcgan_images"].shape[1])
+    dis.load_state_dict(inputs["dcgan_weights"])
+    dis.train()
+    y = dis(_rows(inputs["dcgan_images"]), update=True)
+    torch.sum(torch.square(y)).backward()
+    out["dcgan_dis"] = y.detach()
+    out["dcgan_dis_grads"] = _grads(dis)
+    out["dcgan_dis_stats"] = {k: v.clone() for k, v in dis.named_buffers()}
 
     # Minibatch stddev: one group, and three sub-batches end to end as the
     # fused discriminator pass lays them out (each process its rows of

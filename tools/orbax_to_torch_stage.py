@@ -15,8 +15,8 @@ or grows from the result like from a stage it wrote itself.
 A classifier train dir of the JAX ``classifier_runner`` (its
 ``config.json`` is a ``ClassifierConfig``) converts the same way
 (``convert_classifier``, chosen by the config): every checkpoint becomes
-the port's flat ``ClassifierTrainer`` state, dense kernels transposed to
-``nn.Linear``'s layout, and the port's ``classifier_runner`` and FID
+the port's flat ``ClassifierTrainer`` state, conv kernels in OIHW as
+above, and the port's ``classifier_runner`` and FID
 functions restore it. No ``model.pt`` is written for it.
 
 Runs on the CPU; it imports both packages, which the port itself never

@@ -34,10 +34,10 @@ with the style embedding or distillation carries ``encoder_style`` and
 ``twingan_state_from_flax``/``flax_from_twingan_state`` carry a TwinGAN
 state's networks only, with fresh optimizers.
 
-A classifier of the zoo (``models/classifiers.py``) crosses the same way
-with one more layout change: its dense kernels, (in, out) in Flax, are the
-(out, in) of ``nn.Linear`` in the port (``classifier_state_dict_from_flax``
-for one network's ``params`` and ``batch_stats``, and its inverse). A whole
+A classifier of the zoo (``models/classifiers.py``) crosses the same way,
+its conv kernels HWIO <-> OIHW and its dense kernels [in, out] on both
+sides (``classifier_state_dict_from_flax`` for one network's ``params``
+and ``batch_stats``, and its inverse). A whole
 ``ClassifierTrainer`` state (the step, ``params``, ``model_state/
 batch_stats`` and the optimizer's counts and slots) crosses through
 ``classifier_state_from_flax`` and ``flax_classifier_state_dict``.
@@ -225,8 +225,13 @@ def state_from_flax(trainer, jax_state: Any) -> GanTrainState:
 def flax_state_dict(state: GanTrainState) -> dict:
     """Inverse of ``state_from_flax``: the nested JAX state dict (numpy
     leaves), as ``flax.serialization.to_state_dict`` of the JAX state;
-    ``flax.serialization.from_state_dict`` loads it into a JAX template."""
-    tree: dict = {}
+    ``flax.serialization.from_state_dict`` loads it into a JAX template.
+    Every network has its ``model_state`` entry, empty for a network
+    without statistics (a CycleGAN's), and a state without a Polyak average
+    has ``gen_ema_params`` None, as the JAX state has."""
+    tree: dict = {"model_state": {name: {} for name in state.nets}}
+    if state.gen_ema_params is None:
+        tree["gen_ema_params"] = None
     for key, arr in flax_flat(state_to_dict(state)).items():
         node = tree
         *parents, leaf = key.split("/")
@@ -256,13 +261,11 @@ def flax_from_twingan_state(state: GanTrainState) -> tuple[dict, dict]:
 
 def _classifier_leaf(key: str, arr: np.ndarray, to_torch: bool) -> np.ndarray:
     """A classifier leaf's layout change: conv kernels HWIO <-> OIHW (a
-    depthwise (kh, kw, 1, C) <-> (C, 1, kh, kw)), dense kernels transposed;
-    optimizer slots follow their parameter's path, so they change too."""
-    if key.endswith("kernel"):
-        if arr.ndim == 4:
-            return arr.transpose(_HWIO_TO_OIHW if to_torch else _OIHW_TO_HWIO)
-        if arr.ndim == 2:
-            return arr.T
+    depthwise (kh, kw, 1, C) <-> (C, 1, kh, kw)); dense kernels keep Flax's
+    [in, out]. Optimizer slots follow their parameter's path, so they
+    change too."""
+    if _is_conv_kernel(key, arr):
+        return arr.transpose(_HWIO_TO_OIHW if to_torch else _OIHW_TO_HWIO)
     return arr
 
 

@@ -21,14 +21,20 @@ batch_stats/...``, ``model_state/<net>/quant/...`` where calibrated),
 written by the port's own inverse bridge, for the networks the program
 serves.
 
-The ``savedmodel`` format (a TF SavedModel through ``jax2tf``) needs
-TensorFlow and JAX, which the port does not use: it raises
-``NotImplementedError``.
+``export_savedmodel`` (``--format=savedmodel``) writes the JAX export's
+SavedModel contract: one ``serving_default`` signature on a float32 input
+``sources_ph`` [batch, hw, hw, 3] (batch None, dynamic, when
+``batch_size`` is 0) whose output is the translated images. It traces the
+same program as ``export_torch`` (with a dynamic batch dimension when
+``batch_size`` is 0) and converts its graph to TF ops
+(``infer/savedmodel.py``), the weights as constants. It needs TensorFlow
+(imported inside it; the card's machine has none) and maps the fp32
+program only: an int8 inferer's program raises ``NotImplementedError``.
 
 Usage:
     python -m twingan_tpu_torch.infer.export --model_path=... --output_dir=... \\
-        [--format=torch] [--image_hw=256] [--direction=s2t|t2s] [--batch_size=1] \\
-        [--device=cpu]
+        [--format=torch|savedmodel] [--image_hw=256] [--direction=s2t|t2s] \\
+        [--batch_size=1] [--device=cpu]
 """
 
 from __future__ import annotations
@@ -94,22 +100,45 @@ def export_params(inferer) -> dict[str, np.ndarray]:
     return {**_flat(params, "params/"), **_flat(model_state, "model_state/")}
 
 
+def trace(inferer, batch_size: int = 1):
+    """``torch.export`` of the inferer's translate for [batch_size, hw, hw,
+    3] float32 images on its device; batch_size 0 makes the batch dynamic
+    (2 to 65535 in the program's guards, B4's grid limit; the traced graph
+    computes any batch)."""
+    m = inferer.model
+    program = TranslateProgram(inferer.cfg, m.encoder_content, m.generator,
+                               getattr(m, ENC_STYLE, None), inferer.direction, inferer.step)
+    hw = inferer.image_hw
+    example = torch.zeros(batch_size or 2, hw, hw, 3, device=inferer.device)
+    dynamic = None
+    if not batch_size:
+        dynamic = ({0: torch.export.Dim("batch", min=2, max=65535)},)
+    with torch.no_grad():
+        return torch.export.export(program, (example,), dynamic_shapes=dynamic, strict=False)
+
+
 def export_torch(inferer, output_dir: str, batch_size: int = 1) -> str:
     """Trace the inferer's translate for [batch_size, hw, hw, 3] float32
     images on its device, write ``translate.pt2`` and ``params.npz`` to
     ``output_dir``; returns the program's path."""
     os.makedirs(output_dir, exist_ok=True)
-    m = inferer.model
-    program = TranslateProgram(inferer.cfg, m.encoder_content, m.generator,
-                               getattr(m, ENC_STYLE, None), inferer.direction, inferer.step)
-    hw = inferer.image_hw
-    example = torch.zeros(batch_size, hw, hw, 3, device=inferer.device)
-    with torch.no_grad():
-        exported = torch.export.export(program, (example,), strict=False)
+    exported = trace(inferer, batch_size)
     path = os.path.join(output_dir, PROGRAM_FILE)
     torch.export.save(exported, path)
     np.savez(os.path.join(output_dir, PARAMS_FILE), **export_params(inferer))
     return path
+
+
+def export_savedmodel(inferer, output_dir: str, batch_size: int = 0) -> str:
+    """The translate function as a TF SavedModel in ``output_dir``, with
+    the JAX export's serving signature (module docstring). Needs
+    TensorFlow."""
+    from twingan_tpu_torch.infer import savedmodel
+
+    savedmodel._tf()  # ImportError naming tensorflow before any tracing
+    hw = inferer.image_hw
+    return savedmodel.save(trace(inferer, batch_size), output_dir,
+                           [batch_size or None, hw, hw, 3], input_name="sources_ph")
 
 
 def load_torch(path: str):
@@ -135,13 +164,11 @@ def main(argv=None) -> None:
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    if args.format == "savedmodel":
-        raise NotImplementedError(
-            "--format=savedmodel writes a TF SavedModel through jax2tf, which needs "
-            "TensorFlow and JAX; the port uses neither (queue item A15, with import_tf). "
-            "Export --format=torch")
     inferer = ImageInferer(args.model_path, args.image_hw, args.direction, device=args.device)
-    path = export_torch(inferer, args.output_dir, args.batch_size)
+    if args.format == "savedmodel":
+        path = export_savedmodel(inferer, args.output_dir, args.batch_size)
+    else:
+        path = export_torch(inferer, args.output_dir, args.batch_size)
     print(f"exported to {path}")
 
 

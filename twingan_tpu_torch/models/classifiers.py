@@ -14,22 +14,10 @@ end point, as the JAX ``_ep`` does (Grad-CAM's d(score)/d(probe) at 0);
 a probe given as None is created there as a zero tensor that requires a
 gradient, so one forward pass serves ``models/grad_cam.py``.
 
-The layer vocabulary follows Flax's, with its parameter names, so a Flax
-tree maps onto ``state_dict`` keys one to one (``bridge.py``):
-
-- ``Conv``: ``kernel`` stored OIHW (a depthwise kernel (C, 1, kh, kw)),
-  ``bias``; ``SAME`` pads as XLA does, asymmetric where the total is odd
-  (stride 2 on an even input pads (0, 1)), through ``F.pad``;
-- ``Dense``: ``kernel`` stored (out, in), the ``nn.Linear`` layout, and
-  ``bias``;
-- ``BatchNorm``: ``scale``, ``bias``, buffers ``mean`` and ``var``. In train
-  mode it normalizes with the biased batch moments (E[x^2] - E[x]^2) and
-  moves both buffers toward them, ``var`` with the biased variance, by
-  ``momentum`` (Flax's; ``nn.BatchNorm2d``'s would be 1 - it, fed the
-  unbiased variance); in eval mode it uses the buffers;
-- ``LayerNorm``: Flax's, over the channel axis only;
-- ``max_pool`` pads ``SAME`` with -inf, ``avg_pool`` with zeros that count
-  (Flax's ``count_include_pad``).
+The layers are Flax's stock layers of ``models/plain_layers.py``, with
+Flax's parameter names, so a Flax tree maps onto ``state_dict`` keys one
+to one (``bridge.py``). ``max_pool`` pads ``SAME`` with -inf, ``avg_pool``
+with zeros that count (Flax's ``count_include_pad``).
 
 The JAX nets flatten NHWC before a dense layer (lenet, cifarnet); the port
 flattens the same order. Parameter shapes that depend on the input size
@@ -50,53 +38,29 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from twingan_tpu_torch.ops import basic, norms
-
-# Flax's lecun_normal: a unit normal truncated to [-2, 2], whose stddev is
-# this; the kernel's is 1 / sqrt(fan_in).
-_TRUNC_STD = 0.87962566103423978
-
-
-def _pair(v) -> tuple[int, int]:
-    return (v, v) if isinstance(v, int) else tuple(v)
-
-
-def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
-    """(before, after) of XLA's ``SAME`` padding along one axis."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
-    return total // 2, total - total // 2
-
-
-def out_size(size: int, kernel: int, stride: int, padding: str) -> int:
-    """The output size along one axis of a conv or pool."""
-    if padding == "SAME":
-        return -(-size // stride)
-    return (size - kernel) // stride + 1
-
-
-def _pad(x: torch.Tensor, kernel, stride, padding: str, value: float = 0.0) -> torch.Tensor:
-    """``x`` (NCHW) padded for a ``SAME`` window, as XLA pads it."""
-    if padding == "VALID":
-        return x
-    (kh, kw), (sh, sw) = _pair(kernel), _pair(stride)
-    top, bottom = same_pads(x.shape[2], kh, sh)
-    left, right = same_pads(x.shape[3], kw, sw)
-    if top == bottom == left == right == 0:
-        return x
-    return F.pad(x, (left, right, top, bottom), value=value)
+from twingan_tpu_torch.models.plain_layers import (  # noqa: F401 (re-exported)
+    BatchNorm,
+    Conv,
+    Dense,
+    LayerNorm,
+    out_size,
+    pad_same,
+    reset_parameters,
+    same_pads,
+)
+from twingan_tpu_torch.ops import basic
 
 
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2,
              padding: str = "VALID") -> torch.Tensor:
     """Flax ``max_pool`` on NCHW: ``SAME`` pads with -inf."""
-    return F.max_pool2d(_pad(x, window, stride, padding, -math.inf), window, stride)
+    return F.max_pool2d(pad_same(x, window, stride, padding, -math.inf), window, stride)
 
 
 def avg_pool(x: torch.Tensor, window: int = 3, stride: int = 1,
              padding: str = "SAME") -> torch.Tensor:
     """Flax ``avg_pool`` on NCHW: the padded zeros count in every mean."""
-    return F.avg_pool2d(_pad(x, window, stride, padding), window, stride)
+    return F.avg_pool2d(pad_same(x, window, stride, padding), window, stride)
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -116,115 +80,6 @@ def _ep(eps: Dict[str, Any], probes: Optional[dict], name: str,
     return x
 
 
-def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
-    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    t.mul_(std)
-
-
-class Conv(nn.Module):
-    """Flax ``nn.Conv`` on NCHW: ``groups`` is its ``feature_group_count``;
-    ``stride`` may be overridden per call (NASNet's fitting squeeze)."""
-
-    def __init__(self, in_channels: int, features: int, kernel, strides=1,
-                 padding: str = "SAME", use_bias: bool = True, groups: int = 1):
-        super().__init__()
-        self.kernel_size, self.strides, self.padding = _pair(kernel), _pair(strides), padding
-        self.groups = groups
-        self.kernel = nn.Parameter(torch.empty(features, in_channels // groups,
-                                               *self.kernel_size))
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        _lecun_normal_(self.kernel, self.kernel[0].numel(), generator)
-        if self.bias is not None:
-            self.bias.zero_()
-
-    def forward(self, x: torch.Tensor, stride=None) -> torch.Tensor:
-        stride = _pair(stride) if stride is not None else self.strides
-        x = _pad(x, self.kernel_size, stride, self.padding)
-        return F.conv2d(x, self.kernel, self.bias, stride, groups=self.groups)
-
-
-class Dense(nn.Module):
-    """Flax ``nn.Dense``, its kernel stored (out, in) as ``nn.Linear``'s."""
-
-    def __init__(self, in_features: int, features: int, use_bias: bool = True):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        _lecun_normal_(self.kernel, self.kernel.shape[1], generator)
-        if self.bias is not None:
-            self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.kernel, self.bias)
-
-
-def _stats_dtype(x: torch.Tensor) -> torch.Tensor:
-    """Norm statistics in at least fp32, as Flax computes them."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
-
-
-class BatchNorm(nn.Module):
-    """Flax ``nn.BatchNorm`` over the channels of NCHW input; train mode
-    (``.train()``) normalizes with the batch moments and moves the buffers,
-    as a Flax call with ``use_running_average=False`` and ``batch_stats``
-    mutable does."""
-
-    def __init__(self, features: int, momentum: float, epsilon: float):
-        super().__init__()
-        self.momentum, self.epsilon = momentum, epsilon
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-        self.register_buffer("mean", torch.zeros(features))
-        self.register_buffer("var", torch.ones(features))
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self.scale.fill_(1.0)
-        self.bias.zero_()
-        self.mean.zero_()
-        self.var.fill_(1.0)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            mean, var = norms.moments(_stats_dtype(x), (0, 2, 3))
-            with torch.no_grad():
-                self.mean.copy_(norms.update_moving(self.mean, mean, self.momentum))
-                self.var.copy_(norms.update_moving(self.var, var, self.momentum))
-        else:
-            mean, var = self.mean, self.var
-        return norms.normalize(x, mean[:, None, None], var[:, None, None],
-                               self.scale[:, None, None], self.bias[:, None, None],
-                               self.epsilon)
-
-
-class LayerNorm(nn.Module):
-    """Flax ``nn.LayerNorm``: each pixel's channels normalized (the NHWC
-    last axis)."""
-
-    def __init__(self, features: int, epsilon: float = 1e-5):
-        super().__init__()
-        self.epsilon = epsilon
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self.scale.fill_(1.0)
-        self.bias.zero_()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean, var = norms.moments(_stats_dtype(x), (1,))
-        mul = torch.rsqrt(var + self.epsilon)[:, None] * self.scale[:, None, None]
-        return (x - mean[:, None]) * mul + self.bias[:, None, None]
-
-
 class _BN(nn.Module):
     """The JAX ``_BN``: a batch norm (momentum 0.997, eps 1e-5), or a layer
     norm for ``kind="layer"``, under Flax's automatic child name."""
@@ -238,14 +93,6 @@ class _BN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return next(iter(self.children()))(x)
-
-
-def reset_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Draw every layer's parameters of ``module`` from ``generator``."""
-    for m in module.modules():
-        if m is not module and hasattr(m, "reset_parameters"):
-            m.reset_parameters(generator)
-    return module
 
 
 def _flat_nhwc(x: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from twingan_tpu_torch import parallel
 from twingan_tpu_torch.models.config import NORM_TYPES, PGGANConfig
+from twingan_tpu_torch.models.plain_layers import PLAIN_LAYERS
 from twingan_tpu_torch.ops import attention, basic, fused_conv, norms, quant, sn
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -635,7 +636,7 @@ def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every layer's parameters from ``generator`` with the JAX
     package's initializers (same distributions, not the same numbers)."""
     for m in module.modules():
-        if isinstance(m, (EqConv, EqDense, DomainNorm, SelfAttention)):
+        if isinstance(m, (EqConv, EqDense, DomainNorm, SelfAttention) + PLAIN_LAYERS):
             m.reset_parameters(generator)
 
 

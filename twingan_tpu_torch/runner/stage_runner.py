@@ -40,6 +40,13 @@ the rounds), ``rounds_s`` and ``saves_s`` (checkpoints and ``model.pt``,
 recoveries it took; and ``started``, where its state came from (the
 migration report's counts, or the step it resumed at).
 
+The generation program's ``generator_network`` (pggan, cyclegan, dcgan)
+reaches ``GanTrainer``: a CycleGAN or DCGAN trains one fixed-resolution
+stage (``start_hw == max_hw``). DCGAN's sample grids and in-training SWD
+draw [B, dcgan_latent_dim] latents (seeds 314 and 9, as for PGGAN's
+noise); CycleGAN's synthetic batches carry a source image, which its
+grids and SWD translate as a paired PGGAN's.
+
 Every trainer option of both programs reaches the trainers: the style
 embedding (with a style-interpolation grid in the sample dumps,
 ``<step>_custom_t_style_roll.png``), distillation (the batches'
@@ -367,7 +374,10 @@ class StageRunner:
         cfg = self.cfg
         needs_pair = cfg.program == "twingan"
         if cfg.use_synthetic_data or not cfg.dataset_dir:
-            keys = ("source", "target") if needs_pair else ("target",)
+            # CycleGAN translates a source image: synthetic data gives it
+            # one, as a paired dataset does.
+            paired = getattr(cfg.trainer, "generator_network", "pggan") == "cyclegan"
+            keys = ("source", "target") if needs_pair or paired else ("target",)
             num_classes = 0
             if getattr(cfg.trainer, "use_conditional_labels", False):
                 keys = keys + ("conditional_labels",)
@@ -775,6 +785,11 @@ class StageRunner:
                     return
                 fake = trainer.translate(state, torch.from_numpy(np.asarray(src, np.float32)),
                                          "s2t")
+            elif trainer.cfg.generator_network == "dcgan":
+                # DCGAN takes [B, dcgan_latent_dim] latents, never an image.
+                rng = np.random.RandomState(9)
+                z = rng.standard_normal((len(real), trainer.cfg.dcgan_latent_dim))
+                fake = trainer.sample(state, torch.from_numpy(z.astype(np.float32)))
             else:
                 src = fixed_batch.get("source")
                 if src is not None:
@@ -836,7 +851,8 @@ class StageRunner:
     def _dump_samples(self, trainer, state, stage_dir: str, step: int,
                       fixed_batch=None) -> None:
         """Sample grids of the fixed batch: TwinGAN translations both ways
-        (and of the custom sources), or a PGGAN noise interpolation. A
+        (and of the custom sources), a PGGAN noise interpolation, or a
+        DCGAN latent interpolation. A
         failure is printed and never stops training."""
         try:
             out_dir = os.path.join(stage_dir, "generated_samples")
@@ -882,6 +898,20 @@ class StageRunner:
                     save_image_grid(os.path.join(out_dir, f"{step}_sources_ph.png"), custom)
                     save_image_grid(os.path.join(out_dir, f"{step}_custom_t_style_rand.png"),
                                     self._display(cout))
+            elif trainer.cfg.generator_network == "dcgan":
+                # DCGAN: the interpolation between two fixed latents (seed
+                # 314, lerp z2 -> z1), as for PGGAN's noise.
+                rng = np.random.RandomState(314)
+                dim = trainer.cfg.dcgan_latent_dim
+                z1 = rng.standard_normal((1, dim)).astype(np.float32)
+                z2 = rng.standard_normal((1, dim)).astype(np.float32)
+                ts = np.linspace(0.0, 1.0, n_show, dtype=np.float32)[:, None]
+                rows = [as_np(trainer.sample(state, torch.from_numpy(z1 * ts + z2 * (1 - ts))))]
+                if fixed_batch.get("target") is not None:
+                    rows.append(np.asarray(fixed_batch["target"])[:n_show])
+                k = min(len(r) for r in rows)
+                save_image_grid(os.path.join(out_dir, f"{step}.png"),
+                                self._display(stack_comparison([r[:k] for r in rows])))
             elif fixed_batch.get("source") is not None:
                 # Conditional or paired generation: the fixed source, its
                 # output and the real target, in rows.

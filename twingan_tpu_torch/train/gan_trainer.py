@@ -5,7 +5,8 @@ field for field (same names, order and defaults, so the JAX
 ``config.json`` loads), and ``GanTrainer`` with the JAX entry points
 (``init_state``, ``g_step``, ``d_step``, ``sample``, and from the base
 ``round_step``, ``scan_rounds`` and ``eval_metrics``). Networks
-``generator`` (the noise-input PGGAN generator) and ``discriminator``.
+``generator`` (the noise-input PGGAN generator, or the CycleGAN or DCGAN
+one) and ``discriminator``.
 
 The steps follow the JAX ones:
 - the G step: z -> generator (train mode, moving statistics updated) ->
@@ -60,8 +61,19 @@ conditional_embed_dim))``, bit for bit (``utils/threefry.py``).
 Remat (``remat``) runs each generator and discriminator pass through
 ``base.remat_call``.
 
-Not ported yet, raising ``NotImplementedError``: ``generator_network``
-cyclegan/dcgan (queue item A15).
+The other networks (``generator_network``, as the JAX trainer selects
+them): ``cyclegan``, the CycleGAN ResNet generator and discriminator of
+``cyclegan_num_channels`` filters (``models/cyclegan.py``), translating
+the batch's ``"source"`` images, with the paired L1 term |target - fake|
+added to the generator's loss; ``dcgan``, the DCGAN pair of depth
+``dcgan_depth`` (``models/dcgan.py``), the generator ending at the model's
+resolution and taking [B, dcgan_latent_dim] normal latents (an image
+``"source"`` is ignored, a 2-D one is the latent). Their passes take no
+alpha, gdrop, attention route or conditioning. Their batch norms
+(DCGAN's) follow the JAX steps: every pass in train mode on its batch's
+moments; the G step's generator pass moves the generator's running
+moments, and the D step's fake pass the discriminator's. ``sample`` runs
+the generator in eval mode (running moments).
 """
 
 from __future__ import annotations
@@ -75,6 +87,8 @@ from torch.func import functional_call
 
 from twingan_tpu_torch import parallel
 from twingan_tpu_torch.models.config import PGGANConfig
+from twingan_tpu_torch.models.cyclegan import CycleGANDiscriminator, CycleGANGenerator
+from twingan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
 from twingan_tpu_torch.models.layers import advance_spectral_norm, reset_parameters
 from twingan_tpu_torch.models.pggan import Discriminator, Generator, noise_shape
 from twingan_tpu_torch.train.base import (
@@ -88,6 +102,7 @@ from twingan_tpu_torch.train.losses import (
     discriminator_gan_loss,
     generator_gan_loss,
     gradient_penalty,
+    l1_loss,
 )
 from twingan_tpu_torch.train.optimizers import OptimizerConfig, build_optimizer, global_norm
 from twingan_tpu_torch.train.state import GanTrainState, polyak_update, update_gdrop_state
@@ -96,6 +111,7 @@ from twingan_tpu_torch.utils.misc import safe_one_hot_encoding
 
 GEN = "generator"
 DIS = "discriminator"
+NETWORKS = ("pggan", "cyclegan", "dcgan")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,18 +144,16 @@ class GanTrainerConfig:
 
 
 class GanTrainer(BaseGanTrainer):
-    """One PGGAN generation stage's training, one optimizer per network.
-    Runs on the CUDA card unless ``device="cpu"``."""
+    """One generation stage's training, one optimizer per network. Runs on
+    the CUDA card unless ``device="cpu"``."""
 
     def __init__(self, cfg: GanTrainerConfig, device: Optional[str | torch.device] = None):
-        if cfg.generator_network in ("cyclegan", "dcgan"):
-            raise NotImplementedError(
-                f"generator_network={cfg.generator_network} (queue item A15) is not ported "
-                "to twingan_tpu_torch yet")
-        if cfg.generator_network != "pggan":
+        if cfg.generator_network not in NETWORKS:
             raise NotImplementedError(
                 f"generator_network {cfg.generator_network!r} is not implemented")
         if cfg.use_conditional_labels:
+            if cfg.generator_network != "pggan":
+                raise ValueError("conditional labels require the pggan network")
             if cfg.num_classes <= 0:
                 raise ValueError("use_conditional_labels requires num_classes > 0")
             if cfg.model.style_dim != cfg.num_classes:
@@ -147,6 +161,7 @@ class GanTrainer(BaseGanTrainer):
                 cfg = cfg.replace(model=cfg.model.replace(style_dim=cfg.num_classes))
         require_trainable(cfg)
         self.cfg = cfg
+        self.is_pggan = cfg.generator_network == "pggan"
         self.device = resolve_device(device)
         self.dis_opt_cfg = (cfg.opt.replace(learning_rate=cfg.discriminator_learning_rate)
                             if cfg.use_ttur else cfg.opt)
@@ -159,6 +174,20 @@ class GanTrainer(BaseGanTrainer):
 
     def build_nets(self) -> nn.ModuleDict:
         cfg = self.cfg
+        channels = cfg.model.image_channels
+        if cfg.generator_network == "cyclegan":
+            filters = cfg.cyclegan_num_channels
+            return nn.ModuleDict({
+                GEN: CycleGANGenerator(num_filters=filters, num_outputs=channels,
+                                       input_channels=channels),
+                DIS: CycleGANDiscriminator(num_filters=filters, input_channels=channels)})
+        if cfg.generator_network == "dcgan":
+            res = cfg.model.resolution
+            return nn.ModuleDict({
+                GEN: DCGANGenerator(depth=cfg.dcgan_depth, final_size=res,
+                                    num_outputs=channels, latent_dim=cfg.dcgan_latent_dim),
+                DIS: DCGANDiscriminator(depth=cfg.dcgan_depth, input_size=res,
+                                        input_channels=channels)})
         cond = cfg.use_conditional_labels
         return nn.ModuleDict({
             GEN: Generator(cfg.model, noise_input=True, conditional=cond),
@@ -198,12 +227,35 @@ class GanTrainer(BaseGanTrainer):
     # ------------------------------------------------------------------ #
     def _gen_input(self, batch: Mapping[str, torch.Tensor], generator: torch.Generator,
                    batch_size: int) -> torch.Tensor:
-        """The batch's "source" item when present, else fresh noise."""
+        """The batch's "source" item when present, else fresh noise. DCGAN
+        takes [B, dcgan_latent_dim] latents: a 2-D source is one, an image
+        source (an image dataset's, equal to its target) is ignored."""
         src = batch.get("source")
+        shape = noise_shape(self.cfg.model, batch_size)
+        if self.cfg.generator_network == "dcgan":
+            if src is not None and src.dim() != 2:
+                src = None
+            shape = (batch_size, self.cfg.dcgan_latent_dim)
         if src is not None:
             return src.to(self.device, torch.float32)
-        return parallel.draw_rows(torch.randn, noise_shape(self.cfg.model, batch_size),
-                                  generator=generator, device=self.device)
+        return parallel.draw_rows(torch.randn, shape, generator=generator, device=self.device)
+
+    def _gen_pass(self, gen: nn.Module, z: torch.Tensor, alpha: float, update: bool,
+                  step: int, labels: Optional[torch.Tensor]) -> torch.Tensor:
+        """One generator pass in train mode; the other networks take no
+        alpha, renorm clip or style."""
+        if not self.is_pggan:
+            return self._apply(gen, z, update=update)
+        return self._apply(gen, z, alpha=alpha, update=update,
+                           renorm_clip=self._renorm_clip(step), style=labels)
+
+    def _dis_pass(self, dis: nn.Module, x: torch.Tensor, update: bool = False,
+                  **pggan_kw) -> torch.Tensor:
+        """One discriminator pass; ``pggan_kw`` (alpha, gdrop, conditioning,
+        the attention route) reach the PGGAN discriminator only."""
+        if not self.is_pggan:
+            return self._apply(dis, x, update=update)
+        return self._apply(dis, x, update=update, **pggan_kw)
 
     def _real(self, batch: Mapping[str, torch.Tensor], alpha: float) -> torch.Tensor:
         return self.growing_image(batch["target"].to(self.device, torch.float32), alpha)
@@ -245,12 +297,14 @@ class GanTrainer(BaseGanTrainer):
         z = (self._gen_input(batch, generator, real.shape[0]) if z is None
              else parallel.local_rows(z))
         labels, embed = self._cond(batch)
-        noise = self._gdrop_noise(dis, real.shape[0], generator, gdrop_noise, "fake")
-        fake = self._apply(gen, z.to(self.device), alpha=alpha, update=True,
-                           renorm_clip=self._renorm_clip(state.step), style=labels)
-        pred = self._apply(dis, fake, alpha=alpha, cond_embed=embed,
-                           gdrop_strength=state.gdrop_strength, gdrop_noise=noise)
+        noise = (self._gdrop_noise(dis, real.shape[0], generator, gdrop_noise, "fake")
+                 if self.is_pggan else None)
+        fake = self._gen_pass(gen, z.to(self.device), alpha, True, state.step, labels)
+        pred = self._dis_pass(dis, fake, alpha=alpha, cond_embed=embed,
+                              gdrop_strength=state.gdrop_strength, gdrop_noise=noise)
         loss = generator_gan_loss(cfg.loss, pred)
+        if cfg.generator_network == "cyclegan":
+            loss = loss + l1_loss(real, fake)  # the paired term
         grads = self._grads(loss, state.gen_opt.params)
         loss = self._global_metrics({"loss": loss})["loss"]
         grad_norm = global_norm(grads)
@@ -286,19 +340,21 @@ class GanTrainer(BaseGanTrainer):
         z = (self._gen_input(batch, generator, real.shape[0]) if z is None
              else parallel.local_rows(z))
         labels, embed = self._cond(batch)
-        noise = {k: self._gdrop_noise(dis, real.shape[0], generator, gdrop_noise, k)
-                 for k in ("fake", "real", "gp")}
+        noise = {k: (self._gdrop_noise(dis, real.shape[0], generator, gdrop_noise, k)
+                     if self.is_pggan else None) for k in ("fake", "real", "gp")}
         with torch.no_grad():
-            fake = gen(z.to(self.device), alpha=alpha, update=False,
-                       renorm_clip=self._renorm_clip(state.step), style=labels)
+            fake = self._gen_pass(gen, z.to(self.device), alpha, False, state.step, labels)
         dis_kw = dict(alpha=alpha, cond_embed=embed, gdrop_strength=state.gdrop_strength)
-        fake_pred = self._apply(dis, fake, gdrop_noise=noise["fake"], **dis_kw)
-        real_pred = self._apply(dis, real, gdrop_noise=noise["real"], **dis_kw)
+        # The fake pass moves the other networks' running moments (the JAX
+        # step's one updating pass); the PGGAN discriminator has none.
+        fake_pred = self._dis_pass(dis, fake, update=not self.is_pggan,
+                                   gdrop_noise=noise["fake"], **dis_kw)
+        real_pred = self._dis_pass(dis, real, gdrop_noise=noise["real"], **dis_kw)
         losses = discriminator_gan_loss(cfg.loss, fake_pred, real_pred)
         gp = gp_noise or {}
         losses["gradient_penalty"] = gradient_penalty(
-            cfg.loss, lambda x: self._apply(dis, x, attention="plain", gdrop_noise=noise["gp"],
-                                            **dis_kw),
+            cfg.loss, lambda x: self._dis_pass(dis, x, attention="plain",
+                                               gdrop_noise=noise["gp"], **dis_kw),
             real, fake, alpha=parallel.local_rows(gp.get("alpha")),
             noise=parallel.local_rows(gp.get("noise")), generator=generator)
         total = sum(losses.values())
@@ -321,7 +377,8 @@ class GanTrainer(BaseGanTrainer):
     def sample(self, state: GanTrainState, z: torch.Tensor,
                labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Inference-mode generation (moving statistics, no gradient) from
-        noise ``z`` [B, noise_dim] or [B,1,1,noise_dim], with the
+        noise ``z`` [B, noise_dim] or [B,1,1,noise_dim] (DCGAN: [B,
+        dcgan_latent_dim]; CycleGAN: the NHWC source images), with the
         Polyak-averaged parameters when they are kept. ``labels`` is the
         conditioning vector [B, num_classes] of a conditional model (zeros
         when omitted). Returns NHWC images in the compute dtype."""
@@ -331,8 +388,7 @@ class GanTrainer(BaseGanTrainer):
         try:
             with torch.no_grad():
                 z = z.to(self.device, torch.float32)
-                alpha = self._alpha(state.step)
-                kw = {"alpha": alpha}
+                kw = {"alpha": self._alpha(state.step)} if self.is_pggan else {}
                 if self.cfg.use_conditional_labels:
                     kw["style"] = (torch.zeros(z.shape[0], self.cfg.num_classes,
                                                device=self.device) if labels is None

@@ -71,14 +71,17 @@ def polyak_update(ema_params: dict[str, torch.Tensor], params: dict[str, torch.T
 
 
 BATCH_STATS_PREFIXES = ("moving_mean_", "moving_var_", "renorm_")
+# The running moments of a stock Flax ``nn.BatchNorm`` (the alternative
+# GANs, ``models/plain_layers.py``).
+BATCH_STATS_LEAVES = ("mean", "var")
 
 
 def collection(leaf: str) -> str:
     """The Flax collection a layer's leaf lives in: ``batch_stats`` for the
-    moving statistics and batch renorm's state, ``spectral`` for a spectral
-    norm's ``u``, ``quant`` for an int8 calibration's ``a_max``, else
-    ``params``."""
-    if leaf.startswith(BATCH_STATS_PREFIXES):
+    moving statistics, batch renorm's state and a stock batch norm's
+    ``mean``/``var``, ``spectral`` for a spectral norm's ``u``, ``quant``
+    for an int8 calibration's ``a_max``, else ``params``."""
+    if leaf.startswith(BATCH_STATS_PREFIXES) or leaf in BATCH_STATS_LEAVES:
         return "batch_stats"
     return {"u": "spectral", "a_max": "quant"}.get(leaf, "params")
 

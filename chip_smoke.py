@@ -316,6 +316,13 @@ exp_per_s = 3.9e12  # replaced by device_phase with the card's SMs x 16 x top cl
 # client pads every batch to 4, and attention sits at 64 px (N = 4096) with
 # C = 64 and c_bar = C / 8 in both the encoder and the generator.
 SERVING_CASE = ("serving batch", 4, 4096, 8, 64, "bfloat16")
+# (label, B, N, c_bar, C) of the widths past the register-held kernels.
+WIDE_ATTENTION_CASES = [
+    ("C 512, 8 px", 4, 64, 64, 512),
+    ("C 1024, 4 px", 4, 16, 128, 1024),
+    ("C 2048, 16 px", 2, 256, 256, 2048),
+    ("ragged N, C 512", 2, 1000, 64, 512),
+]
 KERNEL_CASES = [
     ("slice", 8, 4096, 8, 64, "bfloat16"),
     ("slice", 8, 4096, 8, 64, "float32"),
@@ -328,6 +335,16 @@ KERNEL_CASES = [
     ("docs/PERFORMANCE.md", 4, 16384, 32, 64, "float32"),
     # The tensor-core variant's per-tile sums of l over 256 tiles of keys.
     ("long N", 2, 16384, 8, 64, "bfloat16"),
+] + [
+    # Every width the JAX layers produce: past c_bar 64 and (fp32) C 256
+    # the entry point takes csrc/flash_wide.cuh's kernels. C 512 at 8 px
+    # (the published PGGAN width), C 1024 at 4 px (c_bar 128), C 2048 at
+    # 16 px (c_bar 256), a ragged N at C 512, in both types.
+    (label, b, n, c_bar, c, dtype)
+    for label, b, n, c_bar, c in WIDE_ATTENTION_CASES for dtype in ("bfloat16", "float32")
+] + [
+    # min_channels 512 with attention at 64 px: C 512 at N 4096, for its time.
+    ("C 512 at 64 px", 4, 4096, 64, 512, "bfloat16"),
 ]
 
 # (label, B, N, c_bar, C, dtype) for the backward kernels. The training
@@ -346,7 +363,10 @@ BWD_CASES = [
     ("docs/PERFORMANCE.md", 4, 65536, 32, 64, "float32"),
     # The tensor-core dkv's fp32 sums of dh and dg over 128 query tiles.
     ("long N", 2, 16384, 8, 64, "bfloat16"),
-]
+] + [
+    (label, b, n, c_bar, c, dtype)
+    for label, b, n, c_bar, c in WIDE_ATTENTION_CASES for dtype in ("bfloat16", "float32")
+] + [("C 512 at 64 px", 4, 4096, 64, 512, "bfloat16")]
 # Above this N the plain version's N^2 matrices (68 GB at N 65536, B 4)
 # do not fit: such a case is checked against a reference chunked over query
 # rows, the plain versions are not timed, and the kernels are timed over
@@ -385,6 +405,11 @@ FUSED_CONV_CASES = [
     ("1024 channels, block_4_conv1", GEN_BATCH, 4, 1024, 1024, "bfloat16", 0),
     ("wide ragged, 2 groups a thread", 2, 20, 24, 300, "bfloat16", 0),
     ("wide, 3 of 4 groups a thread", 2, 8, 16, 520, "float32", 0),
+] + [
+    # Past one block's 1024 channels (min_channels above 1024): two passes,
+    # a ragged second tile of 8 channels, 1.5 and 2 tiles.
+    (f"Cout {cout}, {hw} px", 2, hw, cout, cout, dtype, 0)
+    for cout, hw in ((1032, 4), (1536, 16), (2048, 32)) for dtype in ("bfloat16", "float32")
 ]
 GEN_LAYERS_PER_PASS = 13
 
@@ -686,6 +711,20 @@ ALT_FORWARD_TOL = 1e-3
 # difference from the CPU's gradient, at most ZERO_GRAD_ATOL (about 30x the
 # 3.6e-8 an H100 showed, where the D step's gradient norm is about 1).
 ZERO_GRAD_ATOL = 1e-6
+
+# The wide phase: every channel width the JAX package runs (wide_configs).
+# The 512-channel config's G and D steps are held against the CPU at 16 px
+# (the attention layer's shape, C 512 at 8 px, is the same; the CPU's
+# 256 px steps would take most of the phase); the 2048-channel pggan256 is
+# cut to 32 px (7 B4 layers a generator pass) for its counted D step and
+# its sample, held against the CPU at batch 2, and its D step is held
+# against the CPU at 16 px (the same 2048-channel layers; at 32 px the
+# CPU's step alone took 23 s of the minute).
+WIDE_SERVE_BATCHES = 2
+WIDE_COMPARE_RESOLUTION = 16
+WIDE_GEN_RESOLUTION = 32
+WIDE_GEN_BATCH = 2
+WIDE_GEN_LAYERS_PER_PASS = 7
 
 # Numbers an earlier phase measured that a later one prints beside its own.
 MEASURED: dict = {}
@@ -4684,6 +4723,305 @@ def alt_gans_phase(card: str, smi_line: str, device: str = "cuda") -> dict:
     return import_counts
 
 
+def wide_configs():
+    """The configurations of the wide phase: (the TwinGAN slice config at
+    the published PGGAN's 512 channels with attention at 8 px; the same at
+    1024 channels with attention at 4 px in the generator; pggan256 with
+    every layer 2048 channels wide, cut to 32 px)."""
+    cfg = slice_config()
+    w512 = cfg.replace(model=cfg.model.replace(max_channels=512, self_attention_hw=8))
+    w1024 = cfg.replace(model=cfg.model.replace(max_channels=1024, self_attention_hw=4))
+    gen = generation_config(WIDE_GEN_BATCH)
+    w2048 = gen.replace(model=gen.model.replace(min_channels=2048,
+                                                resolution=WIDE_GEN_RESOLUTION))
+    return w512, w1024, w2048
+
+
+def _serve_vs_cpu(phase: str, cfg, root: str, name: str, batches: int, per_batch: int,
+                  images) -> dict:
+    """Serve ``batches`` batches of 4 of a random translator of ``cfg`` on
+    the card, counting B1's launches (``per_batch`` a batch, tensor-core
+    only), and hold the first image against fp32 on the CPU within the
+    serving phase's tolerances."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.infer.translate import ImageInferer
+    from twingan_tpu_torch.ops import attention
+    from twingan_tpu_torch.runner.checkpoint import save_stage
+
+    stage_dir = os.path.join(root, name)
+    save_stage(stage_dir, cfg, random_translator(cfg).state_dict(), step=0)
+    inferer = ImageInferer(stage_dir)  # the card, by default
+    attention.reset_launch_counts()
+    outs = [inferer.infer_batch(images) for _ in range(batches)]
+    torch.cuda.synchronize()
+    launches = attention.launch_counts[attention.KERNEL_NAME]
+    variants = {k: v for k, v in attention.variant_counts.items() if v}
+    ref = ImageInferer(stage_dir, device="cpu", dtype="float32").infer_batch(images[:1])[0]
+    std = float(ref.std())
+    diff = np.abs(outs[0][0] - ref)
+    mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+    fwd_tc = f"{attention.KERNEL_NAME}/{attention.TENSOR_CORE}"
+    row = {"phase": phase, "check": f"serve {name}, card bf16 vs CPU float32",
+           "batches": batches, "batch": len(images), "kernel_launches": launches,
+           "expected_launches": per_batch * batches, "kernel_variants": variants,
+           "output_std": std, "mean_abs_err_over_std": mean_err,
+           "max_abs_err_over_std": max_err, "mean_tolerance": SERVE_MEAN_TOL,
+           "max_tolerance": SERVE_MAX_TOL,
+           "ok": bool(all(o.shape == (len(images), *ref.shape) and np.isfinite(o).all()
+                          for o in outs)
+                      and launches == per_batch * batches and variants == {fwd_tc: launches}
+                      and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
+    emit(row)
+    if not row["ok"]:
+        fail(phase, f"serving {name} disagrees with the CPU or launched B1 other than "
+                    f"{per_batch} times a batch on its tensor-core variant")
+    return {"launches": launches, "stage_dir": stage_dir}
+
+
+def wide_phase(card: str, smi_line: str) -> dict:
+    """Every channel width the JAX package runs, on the kernels (depths
+    as listed; widths as the configurations give them):
+    - the slice config at 512 channels, attention at 8 px (C 512, c_bar 64,
+      N 64 in the encoder, the generator and both discriminators): 2
+      batches of 4 served (B1), one training round at batch 3 on the card
+      (B1-B3) with its launches counted, a G and a D step against fp32 on
+      the CPU (cut to 16 px: the attention layer's shape is the same), and
+      one batch served in int8 (Q1's conv_i8q at 512 channels), each conv
+      given the CPU's input bit-equal to the CPU's;
+    - the slice config at 1024 channels, attention at 4 px in the
+      generator (C 1024, c_bar 128, N 16): one batch of 4 served;
+    - pggan256 with min_channels 2048, cut to 32 px: a D step and a
+      ``sample``, each generator pass 7 launches of B4 at Cout 2048 (two
+      passes each: two tiles of 1024 channels), the sample against fp32 on
+      the CPU, and a bf16 D step against the CPU at 16 px.
+    Returns each kernel's launches on these paths."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.infer.quantize import quantized_convs
+    from twingan_tpu_torch.infer.translate import ImageInferer
+    from twingan_tpu_torch.models.pggan import noise_shape
+    from twingan_tpu_torch.ops import attention, fused_conv, quant
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    t_phase = time.perf_counter()
+    w512, w1024, w2048 = wide_configs()
+    fwd, dq, dkv = attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL
+    launches = {fwd: 0, dq: 0, dkv: 0, fused_conv.KERNEL_NAME: 0, quant.FUSED_NAME: 0}
+    rows, seconds = [], {}
+    rng = np.random.RandomState(SEED + 11)
+    res = w512.model.resolution
+    images = [rng.randint(0, 256, (res, res, 3)).astype(np.uint8) for _ in range(4)]
+    root = tempfile.mkdtemp(prefix="twingan_smoke_wide_")
+    try:
+        # 512 channels: serving.
+        t0 = time.perf_counter()
+        served = _serve_vs_cpu("wide", w512, root, "512", WIDE_SERVE_BATCHES, 2, images)
+        launches[fwd] += served["launches"]
+        seconds["serve_512"] = time.perf_counter() - t0
+
+        # 512 channels: a G and a D step against the CPU (16 px), then one
+        # round on the card at 256 px with its launches counted.
+        t0 = time.perf_counter()
+        small = train_config(w512.replace(model=w512.model.replace(
+            resolution=WIDE_COMPARE_RESOLUTION)))
+        trainer = TwinGANTrainer(small, device="cpu")
+        state = trainer.init_state(SEED)
+        set_attention_gamma(state.nets)
+        weights = {k: v.detach().clone() for k, v in state.nets.state_dict().items()}
+        gen = torch.Generator().manual_seed(SEED + 12)
+        cres = small.model.resolution
+        gp_noise = {d: {"alpha": torch.rand(TRAIN_BATCH, 1, 1, 1, generator=gen),
+                        "noise": torch.rand(TRAIN_BATCH, cres, cres, 3, generator=gen) * 2 - 1}
+                    for d in ("s", "t")}
+        for row in compare_steps(small, weights, [_train_batch(rng, small, "cpu")
+                                                  for _ in range(2)], gp_noise, phase="wide"):
+            row["resolution"] = cres
+            emit(row)
+            rows.append(row)
+            if not row["ok"]:
+                fail("wide", f"512 channels: the card's {row['check']} disagrees beyond the "
+                             "limits")
+        seconds["train_512_vs_cpu"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        cfg = train_config(w512)
+        trainer = TwinGANTrainer(cfg)  # the card, by default
+        state = trainer.init_state(SEED)
+        set_attention_gamma(state.nets)
+        batches = [_train_batch(rng, cfg, "cuda") for _ in range(cfg.n_critic)]
+        attention.reset_launch_counts()
+        state, metrics = trainer.round_step(state, batches, rng=SEED)
+        torch.cuda.synchronize()
+        counts = {k: attention.launch_counts[k] for k in (fwd, dq, dkv, attention.PLAIN_ROUTE)}
+        variants = {k: v for k, v in attention.variant_counts.items() if v}
+        per_step = expected_launches(trainer, state.nets)
+        expected = {k: per_step["g_step"][k] + (cfg.n_critic - 1) * per_step["d_step"][k]
+                    for k in counts}
+        expected_variants = {f"{k}/{attention.VARIANTS[k][torch.bfloat16]}": expected[k]
+                             for k in (fwd, dq, dkv)}
+        losses = {k: float(v) for k, v in metrics.items()}
+        row = {"phase": "wide", "check": "512 channels: one training round at 256 px",
+               "batch": TRAIN_BATCH, "launches": counts, "expected_launches": expected,
+               "kernel_variants": variants, "losses": losses,
+               "round_s": time.perf_counter() - t0,
+               "ok": bool(counts == expected and variants == expected_variants
+                          and all(np.isfinite(v) for v in losses.values()))}
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            fail("wide", "512 channels: the round's launches differ from the passes' count, "
+                         "ran another variant than the bf16 one, or a loss is not finite")
+        for k in (fwd, dq, dkv):
+            launches[k] += counts[k]
+        del trainer, state, batches
+        seconds["round_512"] = time.perf_counter() - t0
+
+        # 512 channels in int8: Q1's conv_i8q at 512 channels.
+        t0 = time.perf_counter()
+        stage_dir = served["stage_dir"]
+        inferer = ImageInferer(stage_dir, quantize=True)
+        x = torch.from_numpy(np.stack([inferer.preprocess(im) for im in images]))
+        inferer.calibrate(x)
+        m = inferer.model
+        n_convs = len(list(quantized_convs(m.encoder_content, m.generator)))
+        for counts in (attention, quant):
+            counts.reset_launch_counts()
+        with torch.no_grad():
+            y = inferer.translate(x).float()
+        torch.cuda.synchronize()
+        b1, q1 = attention.launch_counts[fwd], quant.launch_counts[quant.FUSED_NAME]
+        widest = max(conv.kernel.shape[0] for _, conv in quantized_convs(m.encoder_content,
+                                                                          m.generator))
+        # As the int8 phase holds it: fp32 inferers on the card and the CPU
+        # at the served inferer's scales, each card conv given the CPU's input.
+        a_max = {k: v.clone() for k, v in m.state_dict().items() if k.endswith("a_max")}
+        x2 = x[:INT8_CPU_BATCH]
+        infs = {}
+        for dev in ("cuda", "cpu"):
+            infs[dev] = ImageInferer(stage_dir, device=dev, dtype="float32", quantize=True)
+            infs[dev].calibrate(x2)  # adds the buffers, switches to int8 ...
+            infs[dev].model.load_state_dict(a_max, strict=False)  # ... at the card's scales
+        trace, _ = int8_trace(infs["cpu"], x2, keep_io=True)
+        mc = infs["cuda"].model
+        card_convs = dict(quantized_convs(mc.encoder_content, mc.generator))
+        forced = []
+        with torch.no_grad():
+            for name, _, (args, want) in trace:
+                got = card_convs[name](*(a.cuda() if isinstance(a, torch.Tensor) else a
+                                         for a in args))
+                forced.append(bool(torch.equal(got.cpu(), want)))
+        row = {"phase": "wide", "check": "512 channels: int8 serving, each conv given the "
+                                         "CPU's input bit-equal",
+               "b1_launches": b1, "q1_launches": q1, "quantized_convs": n_convs,
+               "widest_conv_channels": widest, "layers_bit_equal": sum(forced),
+               "layers": len(forced), "finite": bool(torch.isfinite(y).all()),
+               "ok": bool(b1 == 2 and q1 == n_convs and widest == 512 and all(forced)
+                          and len(forced) == n_convs and torch.isfinite(y).all())}
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            fail("wide", "512 channels in int8: a conv differs from the CPU's given its input, "
+                         "or Q1 did not run once a conv")
+        launches[fwd] += b1
+        launches[quant.FUSED_NAME] += q1
+        del inferer, infs, trace, card_convs
+        seconds["int8_512"] = time.perf_counter() - t0
+
+        # 1024 channels, attention at 4 px: c_bar 128.
+        t0 = time.perf_counter()
+        served = _serve_vs_cpu("wide", w1024, root, "1024", 1, 1, images)
+        launches[fwd] += served["launches"]
+        seconds["serve_1024"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # Cout 2048 past one block: a bf16 D step against the CPU (at 16 px:
+    # the same 2048-channel layers, B4's two passes in its generator pass,
+    # a quarter of the CPU's work), then at 32 px B4's launches in a D step
+    # and a sample, and the sample against the CPU.
+    t0 = time.perf_counter()
+    small = w2048.replace(model=w2048.model.replace(resolution=WIDE_COMPARE_RESOLUTION))
+    trainer = GanTrainer(small)  # the card, by default
+    state = trainer.init_state(SEED)
+    randomize_biases(state.nets, SEED)
+    weights = {k: v.detach().cpu().clone() for k, v in state.nets.state_dict().items()}
+    del trainer, state
+    batches, zs, gp_noise = generation_inputs(small, WIDE_GEN_BATCH, SEED + 13)
+    limits = {"bfloat16": (*TRAIN_LIMITS["bfloat16"][:3], None)}
+    for row in compare_steps(small, weights, batches[1:], gp_noise, "cuda", GanTrainer, zs,
+                             "wide", limits, {"d_step": "discriminator."},
+                             b4_steps=("d_step",), kinds=("d_step",)):
+        row["check"] = "Cout 2048: " + row["check"]
+        row["resolution"] = small.model.resolution
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            fail("wide", f"the card's {row['check']} disagrees beyond the limits")
+    del weights
+    seconds["d_step_2048_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer = GanTrainer(w2048)  # the card, by default
+    state = trainer.init_state(SEED)
+    randomize_biases(state.nets, SEED)
+    batches, zs, gp_noise = generation_inputs(w2048, WIDE_GEN_BATCH, SEED + 13)
+    batch = {"target": batches[1]["target"].cuda()}
+    fused_conv.reset_launch_counts()
+    state, _ = trainer.d_step(state, batch, z=zs["d_step"].cuda(), gp_noise=gp_noise)
+    torch.cuda.synchronize()
+    d_counts = dict(fused_conv.launch_counts)
+    d_variants = {k: v for k, v in fused_conv.variant_counts.items() if v}
+    z = torch.randn(noise_shape(w2048.model, WIDE_GEN_BATCH),
+                    generator=torch.Generator().manual_seed(SEED + 14))
+    fused_conv.reset_launch_counts()
+    out = trainer.sample(state, z).float()
+    torch.cuda.synchronize()
+    s_counts = dict(fused_conv.launch_counts)
+    s_variants = {k: v for k, v in fused_conv.variant_counts.items() if v}
+    cpu = GanTrainer(w2048.replace(model=w2048.model.replace(dtype="float32")), device="cpu")
+    nets = cpu.build_nets()
+    nets.load_state_dict({k: v.cpu() for k, v in state.nets.state_dict().items()})
+    ref = cpu.sample(cpu.state_from_nets(nets, step=state.step), z)
+    out = out.cpu()
+    std = float(ref.std())
+    diff = (out - ref).abs()
+    mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+    layers = WIDE_GEN_LAYERS_PER_PASS
+    b4_tc = f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[torch.bfloat16]}"
+    widths = {p.shape[0] for n, p in state.nets.named_parameters()
+              if n.startswith("generator.block_") and n.endswith("kernel")}
+    row = {"phase": "wide", "check": "Cout 2048: B4 in a D step and a sample, the sample "
+                                     "card bf16 vs CPU float32",
+           "resolution": w2048.model.resolution, "batch": WIDE_GEN_BATCH,
+           "generator_widths": sorted(widths), "d_step_launches": d_counts,
+           "d_step_variants": d_variants, "sample_launches": s_counts,
+           "sample_variants": s_variants, "output_std": std, "mean_abs_err_over_std": mean_err,
+           "max_abs_err_over_std": max_err, "mean_tolerance": SERVE_MEAN_TOL,
+           "max_tolerance": SERVE_MAX_TOL, "seconds": time.perf_counter() - t0,
+           "ok": bool(widths == {2048} and tuple(out.shape) == tuple(ref.shape)
+                      and bool(torch.isfinite(out).all())
+                      and d_counts == s_counts == {fused_conv.KERNEL_NAME: layers,
+                                                   fused_conv.AUTOGRAD_ROUTE: 0}
+                      and d_variants == s_variants == {b4_tc: layers}
+                      and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
+    emit(row)
+    rows.append(row)
+    if not row["ok"]:
+        fail("wide", f"Cout 2048: B4 did not run {layers} times a generator pass on its "
+                     "tensor-core variant, or the sample disagrees with the CPU")
+    launches[fused_conv.KERNEL_NAME] += d_counts[fused_conv.KERNEL_NAME] + s_counts[
+        fused_conv.KERNEL_NAME]
+    seconds["b4_2048"] = time.perf_counter() - t0
+    del trainer, state, cpu, nets
+    torch.cuda.empty_cache()
+    summary = {"phase": "wide", "check": "summary", "launches": launches,
+               "seconds": time.perf_counter() - t_phase, "seconds_by_part": seconds,
+               "card": card, "nvidia_smi": smi_line, "ok": all(r["ok"] for r in rows)}
+    emit(summary)
+    return launches
+
+
 def conv_i8_entries(result: dict) -> list:
     """Q1's lines, one an entry: the sums over the convs of one int8
     translated batch of 4 (each distinct shape's row times its count), bf16
@@ -4699,7 +5037,8 @@ def conv_i8_entries(result: dict) -> list:
     # where the kernel rows time them, so their count on the path is 0.
     launches = result["launches"]
     by_entry = {name: {"int8": launches[key],
-                       "export": launches[f"export_bf16_{key}"] + launches[f"export_int8_{key}"]}
+                       "export": launches[f"export_bf16_{key}"] + launches[f"export_int8_{key}"],
+                       "wide": launches.get(f"wide_{key}", 0)}
                 for name, key in (("conv_i8", "q1_int8_in"), ("conv_i8q", "q1"))}
     entries = []
     for name, prefix in (("conv_i8", ""), ("conv_i8q", "q_")):
@@ -4793,6 +5132,8 @@ def main() -> int:
     int8 = int8_phase(card, smi_line)
     parallel_launches = parallel_phase(card, smi_line)
     alt_launches = alt_gans_phase(card, smi_line)
+    wide_launches = wide_phase(card, smi_line)
+    int8["launches"]["wide_q1"] = wide_launches["conv_i8q"]
     data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
     by_path = {"serving": serving_launches, "http": http_launches,
@@ -4802,7 +5143,8 @@ def main() -> int:
                "options": options_launches[fwd], "classifiers": classifier_launches,
                "int8": int8["launches"]["b1"],
                "export": int8["launches"]["export_bf16_b1"] + int8["launches"]["export_int8_b1"],
-               "parallel": parallel_launches[fwd], "alt_gans_import": alt_launches[fwd]}
+               "parallel": parallel_launches[fwd], "alt_gans_import": alt_launches[fwd],
+               "wide": wide_launches[fwd]}
     entries = [kernel_entry(
         fwd, sum(by_path.values()), by_path,
         serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
@@ -4812,7 +5154,7 @@ def main() -> int:
         by_path = {"train": train_launches[name], "runner": runner_launches[name],
                    "runner_data": data_launches[name], "eval": eval_launches[name],
                    "recipe": recipe_launches[name], "options": options_launches[name],
-                   "parallel": parallel_launches[name]}
+                   "parallel": parallel_launches[name], "wide": wide_launches[name]}
         entries.append(kernel_entry(
             name, sum(by_path.values()), by_path,
             max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
@@ -4824,7 +5166,8 @@ def main() -> int:
                                      "runner_data": data_launches["fused_conv"],
                                      "recipe": recipe_launches["fused_conv"],
                                      "options": options_launches["fused_conv"],
-                                     "parallel": parallel_launches["fused_conv"]}))
+                                     "parallel": parallel_launches["fused_conv"],
+                                     "wide": wide_launches["fused_conv"]}))
     entries.extend(conv_i8_entries(int8))
     emit({"kernels": entries})
     print(smi_line, flush=True)

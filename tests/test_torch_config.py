@@ -11,6 +11,7 @@ import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -24,7 +25,7 @@ from twingan_tpu.train.twingan_trainer import TwinGANConfig as JaxTwinGANConfig 
 from twingan_tpu.train.twingan_trainer import TwinGANTrainer  # noqa: E402
 
 from twingan_tpu_torch.models import pggan  # noqa: E402
-from twingan_tpu_torch.models.config import PGGANConfig, require_ported  # noqa: E402
+from twingan_tpu_torch.models.config import PGGANConfig  # noqa: E402
 from twingan_tpu_torch.runner.checkpoint import save_stage  # noqa: E402
 from twingan_tpu_torch.runner.config_io import (  # noqa: E402
     find_latest_stage_dir,
@@ -176,25 +177,42 @@ def test_fade_alpha_matches(growing, step):
     ({"norm_type": "none", "do_pixel_norm": True, "min_channels": 2048}, "min_channels"),
 ])
 def test_unported_options_raise(kw, name):
+    """Each option that once raised here is ported now: the modules build
+    it and the trainers take it (or, for int8, refuse it as inference-only)."""
+    from twingan_tpu_torch.train.base import require_trainable
+
     if name == "quantized_inference":
         # Ported (W8A8 serving, A12) for the encoder and generator; it is
         # inference-only, so the trainers refuse it instead.
-        from twingan_tpu_torch.train.base import require_trainable
-
-        require_ported(PGGANConfig(**kw))
+        cfg = PGGANConfig(resolution=8, max_channels=8, **kw)
+        pggan.Encoder(cfg)
+        pggan.Generator(cfg)
         with pytest.raises(ValueError, match=f"{name}.*inference-only"):
             require_trainable(TwinGANConfig(model=PGGANConfig(num_domains=2, **kw)))
         return
     if name == "attention_context_parallel":
         # Ported (A8): the modules and the trainers take it
         # (test_torch_parallel.py holds it on two processes).
-        from twingan_tpu_torch.train.base import require_trainable
-
-        require_ported(PGGANConfig(**kw))
+        cfg = PGGANConfig(resolution=8, max_channels=8, num_domains=2, **kw)
+        pggan.Encoder(cfg)
+        pggan.Discriminator(cfg)
         require_trainable(TwinGANConfig(model=PGGANConfig(num_domains=2, **kw)))
         return
-    with pytest.raises(NotImplementedError, match=name):
-        require_ported(PGGANConfig(**kw))
+    # Cout 2048 past what one block of B4 holds: B4 takes it in two passes,
+    # so every module builds and a generator runs (B4's route, here its plain
+    # version, with no gradient).
+    from twingan_tpu_torch.models.layers import reset_parameters
+
+    cfg = PGGANConfig(resolution=4, **kw)
+    gen = pggan.Generator(cfg, noise_input=True)
+    reset_parameters(gen, torch.Generator().manual_seed(0))
+    pggan.Discriminator(cfg)
+    require_trainable(GanTrainerConfig(model=cfg))
+    z = torch.from_numpy(np.random.RandomState(0).randn(*pggan.noise_shape(cfg, 1))
+                         .astype(np.float32))
+    with torch.no_grad():
+        out = gen(z)
+    assert out.shape == (1, 4, 4, 3) and bool(torch.isfinite(out).all())
 
 
 PORTED_OPTIONS = [
@@ -215,7 +233,6 @@ def test_ported_options_pass(kw):
     from twingan_tpu_torch.train.base import require_trainable
 
     cfg = PGGANConfig(resolution=8, max_channels=8, num_domains=2, **kw)
-    require_ported(cfg)
     pggan.Encoder(cfg)
     pggan.Generator(cfg, unet=True, conditional=True)
     pggan.Discriminator(cfg)
@@ -225,4 +242,7 @@ def test_ported_options_pass(kw):
 def test_discriminator_only_spectral_norm_is_allowed():
     # spectral_norm alone touches only the discriminator, which translation
     # does not run.
-    require_ported(PGGANConfig(spectral_norm=True))
+    cfg = PGGANConfig(resolution=8, max_channels=8, spectral_norm=True)
+    pggan.Encoder(cfg)
+    pggan.Generator(cfg)
+    pggan.Discriminator(cfg)

@@ -257,12 +257,34 @@ def test_wide_generator_takes_the_b4_route(max_channels, monkeypatch):
                                atol=1e-4)
 
 
-def test_generator_wider_than_b4_is_refused_when_built():
-    cfg = PGGANConfig(resolution=8, min_channels=fused_conv.MAX_COUT + 8, norm_type="none",
+def test_generator_wider_than_b4_is_refused_when_built(monkeypatch):
+    """Once refused, now run: a generator wider than one block of B4 holds
+    (Cout 1032, a ragged second tile of 8 channels) builds, and with no
+    gradient its three conv-leaky-pixel-norm steps take B4's route (the
+    plain version here), which agrees with the autograd route."""
+    cout = fused_conv.COUT_TILE + 8
+    cfg = PGGANConfig(resolution=8, min_channels=cout, norm_type="none",
                       do_pixel_norm=True, equalized_lr=True)
-    with pytest.raises(NotImplementedError, match="min_channels"):
-        pggan.Generator(cfg, noise_input=True)
-    pggan.Generator(cfg.replace(do_pixel_norm=False), noise_input=True)
+    gen = pggan.Generator(cfg, noise_input=True)
+    reset_parameters(gen, torch.Generator().manual_seed(10))
+    z = torch.from_numpy(np.random.RandomState(11).randn(*pggan.noise_shape(cfg, 1))
+                         .astype(np.float32))
+    couts = []
+    plain = fused_conv.fused_conv_plain
+
+    def recording_plain(x, w9, b):
+        couts.append(w9.shape[2])
+        return plain(x, w9, b)
+
+    monkeypatch.setattr(fused_conv, "fused_conv_plain", recording_plain)
+    fused_conv.reset_launch_counts()
+    with torch.no_grad():
+        no_grad = gen(z)
+    assert couts == [cout] * 3
+    with_grad = gen(z)
+    assert fused_conv.launch_counts == {fused_conv.KERNEL_NAME: 0, fused_conv.AUTOGRAD_ROUTE: 3}
+    np.testing.assert_allclose(no_grad.numpy(), with_grad.detach().numpy(), rtol=1e-4,
+                               atol=1e-4)
 
 
 def _args(b=2, cin=4, cout=8, h=5, w=6, dtype=torch.float32):
@@ -274,7 +296,7 @@ def _args(b=2, cin=4, cout=8, h=5, w=6, dtype=torch.float32):
     (_args(dtype=torch.float16), "float32 or bfloat16"),
     ((_args()[0], _args()[1].double(), _args()[2]), "float32 w9"),
     ((_args()[0].permute(0, 1, 3, 2), *_args()[1:]), "contiguous"),
-    (_args(cout=fused_conv.MAX_COUT + 1), "Cout"),
+    (_args(cout=0), "Cout"),
     ((_args()[0], torch.zeros(9, 3, 8), _args()[2]), "shape mismatch"),
     ((_args()[0], _args()[1], torch.zeros(7)), "shape mismatch"),
     ((_args()[0][0], *_args()[1:]), "takes x"),

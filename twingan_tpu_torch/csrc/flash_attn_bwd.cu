@@ -11,8 +11,12 @@
 // and delta[b,i] = do[b,i] . o[b,i], which the caller computes (a plain
 // fp32 row reduction, as the JAX package does outside its kernels).
 // f, g, df, dg: [B, N, cbar]; h, do, dh: [B, N, C], fp32 or bf16; lse,
-// delta: [B, N] fp32. cbar may be 1..64 and C 1..256; N is any size (the
-// last tile of either side is masked). Outputs are in the input dtype.
+// delta: [B, N] fp32. Any cbar, C and N (the last tile of either side is
+// masked); the batch is at most 65535 (the grid's y). Outputs are in the
+// input dtype. The kernels below take cbar up to 64 and C up to 256, whose
+// fragments and accumulators they hold in registers; past those the entry
+// points launch flash_wide.cuh's kernels, which cut every operand into
+// chunks of 64 columns.
 //
 // What bounds them on the H100. dq does 2*B*N^2*(2*cbar + C) and dkv
 // 2*B*N^2*(2*cbar + 2*C) FLOPs of products plus B*N^2 exponentials each, on
@@ -109,13 +113,14 @@
 #include <stdint.h>
 
 #include "flash_mma.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
 constexpr int kTile = 16;           // rows of the other side per shared-memory tile
 constexpr int kColsPerThread = 32;  // C columns each thread handles
-constexpr int kMaxCbar = 64;
-constexpr int kMaxC = 256;
+constexpr int kRegCbar = 64;        // the widest cbar held in registers
+constexpr int kRegC = 256;          // the widest C held in registers (CK; 8 slices of 32)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -957,22 +962,41 @@ cudaError_t launch_dkv(const void* const* in, void* dg, void* dh, int batch, int
   } while (0)
 
 cudaError_t check(int dtype, int device, int batch, int n, int cbar, int c) {
-  if (batch < 1 || n < 1 || cbar < 1 || cbar > kMaxCbar || c < 1 || c > kMaxC ||
-      batch > 65535 || (dtype != 0 && dtype != 1)) {
+  if (batch < 1 || n < 1 || cbar < 1 || c < 1 || batch > 65535 || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
   return cudaSetDevice(device);
 }
 
+// Past the widths the kernels above hold in registers: flash_wide.cuh.
+bool wide(int cbar, int c) { return cbar > kRegCbar || c > kRegC; }
+
+const int64_t* wide_strides(const Strides& st, int64_t (&w)[14]) {
+  const int64_t v[14] = {st.f_sb, st.f_sn, st.g_sb, st.g_sn, st.h_sb, st.h_sn, st.do_sb,
+                         st.do_sn, st.row_sb, st.o0_sb, st.o0_sn, st.o1_sb, st.o1_sn, 0};
+  for (int i = 0; i < 14; ++i) w[i] = v[i];
+  return w;
+}
+
 // bf16 runs the tensor-core variant, fp32 the CUDA-core one.
 cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int cbar, int c,
                const Strides& st, cudaStream_t s) {
+  if (wide(cbar, c)) {
+    int64_t w[14];
+    return flash_wide::launch<flash_wide::kDq>(in, df, nullptr, nullptr, dtype, batch, n, cbar,
+                                               c, wide_strides(st, w), s);
+  }
   if (dtype == 1) return dq_mma(in, df, batch, n, cbar, c, st, s);
   DISPATCH_CBAR(float, cbar, launch_dq, in, df, batch, n, cbar, c, st, s);
 }
 
 cudaError_t dkv(const void* const* in, void* dg, void* dh, int dtype, int batch, int n,
                 int cbar, int c, const Strides& st, cudaStream_t s) {
+  if (wide(cbar, c)) {
+    int64_t w[14];
+    return flash_wide::launch<flash_wide::kDkv>(in, dg, dh, nullptr, dtype, batch, n, cbar, c,
+                                                wide_strides(st, w), s);
+  }
   if (dtype == 1) return dkv_mma(in, dg, dh, batch, n, cbar, c, st, s);
   DISPATCH_CBAR(float, cbar, launch_dkv, in, dg, dh, batch, n, cbar, c, st, s);
 }

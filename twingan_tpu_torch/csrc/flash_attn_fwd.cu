@@ -6,8 +6,12 @@
 //   lse[b,i] = log sum_j exp(f[b,i] . g[b,j])              (fp32, kept for the
 //                                                           blockwise backward)
 // f, g: [B, N, cbar] and h, o: [B, N, C], fp32 or bf16; lse: [B, N] fp32.
-// cbar may be 1..64 and C 1..256; N is any size (the last key tile and the
-// last query tile are masked).
+// Any cbar, C and N (the last key tile and the last query tile are
+// masked); the batch is at most 65535 (the grid's y). The two variants below
+// take cbar up to 64, the fp32 one C up to 256; past those the entry point
+// launches flash_wide.cuh's kernels, which cut every operand into chunks of
+// 64 columns (SAGAN's cbar = C / 8 reaches 64 at C 512, the published
+// PGGAN's widest layer).
 //
 // The entry point picks the variant by type: bf16 runs on the tensor
 // cores, fp32 on the CUDA cores (the wrapper's VARIANTS table names them). The
@@ -54,7 +58,7 @@
 //    to h's dtype) and the port's plain version do too;
 //  - o = O / l is written once in bf16, lse once in fp32. For C > 64 the
 //    grid's third dimension takes 64-column slices of h, each recomputing S
-//    (rare: no model of the repo has C > 64 at an attention layer).
+//    (C 512 at the published PGGAN width: 8 slices).
 // Each output row is owned by one warp: no atomics, deterministic.
 //
 // CUDA-core variant (fp32): exact fp32 online softmax, one query row per
@@ -80,14 +84,15 @@
 #include <stdint.h>
 
 #include "flash_mma.cuh"
+#include "flash_wide.cuh"
 
 namespace {
 
 constexpr int kBlockK = 32;         // keys per shared-memory tile
 constexpr int kChunk = 16;          // keys per online-softmax update
 constexpr int kColsPerThread = 32;  // output columns each thread accumulates
-constexpr int kMaxCbar = 64;
-constexpr int kMaxC = 256;
+constexpr int kRegCbar = 64;         // the widest cbar both variants hold in registers
+constexpr int kRegCudaCoreC = 256;   // fp32: 8 column slices of 32, a thread each
 
 // ---------------------------------------------------------------------------
 // Tensor-core variant (bf16).
@@ -503,14 +508,20 @@ extern "C" int flash_attn_fwd(const void* f, const void* g, const void* h, void*
                               int cbar, int c, int64_t f_sb, int64_t f_sn, int64_t g_sb,
                               int64_t g_sn, int64_t h_sb, int64_t h_sn, int64_t o_sb,
                               int64_t o_sn, int64_t lse_sb, void* stream) {
-  if (batch < 1 || n < 1 || cbar < 1 || cbar > kMaxCbar || c < 1 || c > kMaxC ||
-      batch > 65535 || (dtype != 0 && dtype != 1)) {
+  if (batch < 1 || n < 1 || cbar < 1 || c < 1 || batch > 65535 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t st[9] = {f_sb, f_sn, g_sb, g_sn, h_sb, h_sn, o_sb, o_sn, lse_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cbar > kRegCbar || (dtype == 0 && c > kRegCudaCoreC)) {
+    const void* in[6] = {f, g, h, nullptr, nullptr, nullptr};
+    const int64_t wst[14] = {f_sb, f_sn, g_sb, g_sn, h_sb, h_sn, 0, 0, 0, o_sb, o_sn, 0, 0,
+                             lse_sb};
+    return static_cast<int>(flash_wide::launch<flash_wide::kFwd>(
+        in, o, nullptr, lse, dtype, batch, n, cbar, c, wst, s));
+  }
   if (dtype == 1) {
     // 16-byte staging copies and paired stores need every row to start on a
     // 16-byte boundary; other layouts are staged element by element.

@@ -10,8 +10,23 @@
 // [9, Cin, Cout] fp32 with the caller's equalized-lr scale folded in, bias
 // [Cout] fp32. x is exact in fp32, the TPU kernel multiplies it by the fp32
 // weights and sums in fp32, and y is rounded once, on the store. Any H, W
-// >= 1 and Cin >= 1; Cout 1..1024, every width of the PGGAN generator
-// (1024 // 2^stage channels at most).
+// >= 1, Cin >= 1 and Cout >= 1.
+//
+// Any Cout. The TPU kernel holds all of Cout in one block, bounded only by
+// VMEM; here a block holds up to kCoutTile = 1024 output channels (every
+// width of the PGGAN generator's schedule, 1024 // 2^stage). The pixel norm
+// needs the sum of squares over every channel of a pixel before any channel
+// is written, so a wider layer (min_channels above 1024) takes two passes:
+//  1. the grid also runs over tiles of kCoutTile channels; each block
+//     applies bias and leaky to its tile and writes the fp32 values to a
+//     workspace and its pixels' sums of squares over the tile to `ssq`
+//     [tiles][B][H W], both allocated by the caller (the workspace is y
+//     itself when y is fp32);
+//  2. `pixel_norm_pass` adds each pixel's tile sums in tile order (fixed:
+//     deterministic), scales the fp32 values and rounds y once.
+// The products and sums are those of the one-pass kernel: only the order of
+// the sum of squares' additions differs. The second pass reads and writes
+// the layer's output once more (bytes, not products).
 //
 // Two variants, chosen by x's type:
 //
@@ -99,7 +114,9 @@ constexpr int kPixels = 32;            // pixels per block (threadIdx.x)
 constexpr int kChannelsPerThread = 8;  // output channels of one group
 constexpr int kMaxWarps = 32;          // groups side by side (threadIdx.y)
 constexpr int kMaxGroupsPerThread = 4;
-constexpr int kMaxCout = kChannelsPerThread * kMaxWarps * kMaxGroupsPerThread;
+// Output channels a block holds: both variants' widest block (here 8 x 32 x
+// 4, and the tensor-core config 8's N). Wider layers take two passes.
+constexpr int kCoutTile = kChannelsPerThread * kMaxWarps * kMaxGroupsPerThread;
 constexpr float kSlope = 0.2f;
 constexpr float kEps = 1e-6f;
 
@@ -114,8 +131,8 @@ constexpr float kEps = 1e-6f;
 template <bool kFull, int kGroups>
 __global__ void __launch_bounds__(kPixels * kMaxWarps)
 fused_conv_kernel(const float* __restrict__ x, const float* __restrict__ w9,
-                  const float* __restrict__ bias, float* __restrict__ y, int cin, int cout,
-                  int height, int width) {
+                  const float* __restrict__ bias, float* __restrict__ y,
+                  float* __restrict__ ssq, int cin, int cout, int height, int width) {
   __shared__ float partial[kMaxWarps][kPixels];
   const int hw = height * width;
   const int p = blockIdx.x * kPixels + threadIdx.x;
@@ -125,7 +142,7 @@ fused_conv_kernel(const float* __restrict__ x, const float* __restrict__ w9,
   int co0[kGroups], n_ch[kGroups];
 #pragma unroll
   for (int k = 0; k < kGroups; ++k) {
-    co0[k] = (threadIdx.y + k * blockDim.y) * kChannelsPerThread;
+    co0[k] = blockIdx.z * kCoutTile + (threadIdx.y + k * blockDim.y) * kChannelsPerThread;
     n_ch[k] = max(0, min(kChannelsPerThread, cout - co0[k]));
   }
 
@@ -155,7 +172,7 @@ fused_conv_kernel(const float* __restrict__ x, const float* __restrict__ w9,
       const float* wtap = w9 + (static_cast<int64_t>(t) * cin + ci) * cout;
 #pragma unroll
       for (int k = 0; k < kGroups; ++k) {
-        if (k > 0 && n_ch[k] == 0) continue;  // group threadIdx.y always exists
+        if (n_ch[k] == 0) continue;  // past Cout: uniform over the warp
         const float* wt = wtap + co0[k];
         if (kFull) {
           const float4 lo = __ldg(reinterpret_cast<const float4*>(wt));
@@ -195,8 +212,13 @@ fused_conv_kernel(const float* __restrict__ x, const float* __restrict__ w9,
   __syncthreads();
   float total = 0.f;
   for (int g = 0; g < blockDim.y; ++g) total += partial[g][threadIdx.x];
-  const float scale = rsqrtf(total / static_cast<float>(cout) + kEps);
   if (!valid) return;
+  // Two passes (ssq set): this tile's sum of squares, and the values before
+  // the norm in y, which pixel_norm_pass scales in place.
+  const float scale = ssq ? 1.f : rsqrtf(total / static_cast<float>(cout) + kEps);
+  if (ssq && threadIdx.y == 0) {
+    ssq[(static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) * hw + p] = total;
+  }
 #pragma unroll
   for (int k = 0; k < kGroups; ++k) {
     float* out = y + (static_cast<int64_t>(blockIdx.y) * cout + co0[k]) * hw + p;
@@ -209,26 +231,28 @@ fused_conv_kernel(const float* __restrict__ x, const float* __restrict__ w9,
 
 template <int kGroups>
 void launch_groups(dim3 grid, dim3 block, bool full, const float* x, const float* w9,
-                   const float* bias, float* y, int cin, int cout, int height, int width,
-                   cudaStream_t stream) {
+                   const float* bias, float* y, float* ssq, int cin, int cout, int height,
+                   int width, cudaStream_t stream) {
   if (full) {
-    fused_conv_kernel<true, kGroups><<<grid, block, 0, stream>>>(x, w9, bias, y, cin, cout,
-                                                                 height, width);
+    fused_conv_kernel<true, kGroups><<<grid, block, 0, stream>>>(x, w9, bias, y, ssq, cin,
+                                                                 cout, height, width);
   } else {
-    fused_conv_kernel<false, kGroups><<<grid, block, 0, stream>>>(x, w9, bias, y, cin, cout,
-                                                                  height, width);
+    fused_conv_kernel<false, kGroups><<<grid, block, 0, stream>>>(x, w9, bias, y, ssq, cin,
+                                                                  cout, height, width);
   }
 }
 
+// blockIdx.z: the tile of kCoutTile channels (one tile, and ssq null, up to
+// kCoutTile).
 cudaError_t launch_cuda_core(const void* x, const void* w9, const void* bias, void* y,
-                             int batch, int cin, int cout, int height, int width,
+                             float* ssq, int batch, int cin, int cout, int height, int width,
                              cudaStream_t stream) {
   const int hw = height * width;
-  const int groups = (cout + kChannelsPerThread - 1) / kChannelsPerThread;
+  const int groups = (min(cout, kCoutTile) + kChannelsPerThread - 1) / kChannelsPerThread;
   const int warps = min(groups, kMaxWarps);
   const int per_thread = (groups + warps - 1) / warps;  // 1..4
   const dim3 block(kPixels, warps);
-  const dim3 grid((hw + kPixels - 1) / kPixels, batch);
+  const dim3 grid((hw + kPixels - 1) / kPixels, batch, (cout + kCoutTile - 1) / kCoutTile);
   const float* xt = static_cast<const float*>(x);
   const float* wt = static_cast<const float*>(w9);
   const float* bt = static_cast<const float*>(bias);
@@ -236,12 +260,53 @@ cudaError_t launch_cuda_core(const void* x, const void* w9, const void* bias, vo
   const bool full =
       cout % kChannelsPerThread == 0 && reinterpret_cast<uintptr_t>(w9) % 16 == 0;
   if (per_thread == 1) {
-    launch_groups<1>(grid, block, full, xt, wt, bt, yt, cin, cout, height, width, stream);
+    launch_groups<1>(grid, block, full, xt, wt, bt, yt, ssq, cin, cout, height, width, stream);
   } else if (per_thread == 2) {
-    launch_groups<2>(grid, block, full, xt, wt, bt, yt, cin, cout, height, width, stream);
+    launch_groups<2>(grid, block, full, xt, wt, bt, yt, ssq, cin, cout, height, width, stream);
   } else {
-    launch_groups<4>(grid, block, full, xt, wt, bt, yt, cin, cout, height, width, stream);
+    launch_groups<4>(grid, block, full, xt, wt, bt, yt, ssq, cin, cout, height, width, stream);
   }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The second pass of a layer wider than kCoutTile: y = ws * rsqrt(mean_c +
+// eps) per pixel, the mean from the tiles' sums of squares added in tile
+// order. A thread owns one pixel (along W: coalesced) and kNormChannels
+// channels of it. ws and y may be one buffer (fp32): each element is read
+// and written by the same thread, so neither pointer is __restrict__.
+
+constexpr int kNormPixels = 128;
+constexpr int kNormChannels = 64;
+
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename T>
+__global__ void __launch_bounds__(kNormPixels) pixel_norm_pass(const float* ws,
+                                                               const float* __restrict__ ssq,
+                                                               T* y, int tiles, int cout,
+                                                               int hw) {
+  const int p = blockIdx.x * kNormPixels + threadIdx.x;
+  if (p >= hw) return;
+  const int b = blockIdx.z;
+  float total = 0.f;
+  for (int t = 0; t < tiles; ++t) total += ssq[(static_cast<int64_t>(t) * gridDim.z + b) * hw + p];
+  const float scale = rsqrtf(total / static_cast<float>(cout) + kEps);
+  const int c1 = min(cout, static_cast<int>(blockIdx.y + 1) * kNormChannels);
+  for (int co = blockIdx.y * kNormChannels; co < c1; ++co) {
+    const int64_t i = (static_cast<int64_t>(b) * cout + co) * hw + p;
+    store_as(y + i, ws[i] * scale);
+  }
+}
+
+template <typename T>
+cudaError_t launch_pixel_norm_pass(const float* ws, const float* ssq, void* y, int batch,
+                                   int cout, int hw, cudaStream_t stream) {
+  const dim3 grid((hw + kNormPixels - 1) / kNormPixels,
+                  (cout + kNormChannels - 1) / kNormChannels, batch);
+  pixel_norm_pass<T><<<grid, kNormPixels, 0, stream>>>(
+      ws, ssq, static_cast<T*>(y), (cout + kCoutTile - 1) / kCoutTile, cout, hw);
   return cudaGetLastError();
 }
 
@@ -288,17 +353,19 @@ struct Cfg {
 };
 
 // How a launch cuts the work: TH x TW pixel tiles, tiles_w of them along
-// W; Cin in nchunks chunks of 16, chunks_per_split of them a block along
-// blockIdx.z.
+// W and tiles_img in an image; Cin in nchunks chunks of 16,
+// chunks_per_split of them a block along blockIdx.z. blockIdx.x is the
+// pixel tile plus tiles_img times the tile of N output channels (one tile
+// up to kCoutTile).
 struct Tile {
-  int th, tw, tiles_w, nchunks, chunks_per_split;
+  int th, tw, tiles_w, tiles_img, nchunks, chunks_per_split;
 };
 
 template <int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
     const bf16* __restrict__ x, const float* __restrict__ w9, const float* __restrict__ bias,
-    bf16* __restrict__ y, int cin, int cout, int height, int width, Tile tile, bool vec_w,
-    bool vec_y) {
+    bf16* __restrict__ y, float* __restrict__ ws, float* __restrict__ ssq, int cin, int cout,
+    int height, int width, Tile tile, bool vec_w, bool vec_y) {
   using namespace flash_mma;
   using C = Cfg<MT, NT, WM, WN, TAPS, STAGES, MINB>;
   constexpr int M = C::M, N = C::N, NS = C::NS, kRows = C::kRows;
@@ -313,8 +380,10 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   const int grp = lane / 4, tig = lane % 4, mi = lane / 8, mr = lane % 8;
   const int warp_m = warp % WM, warp_n = warp / WM;
   const int b = blockIdx.y;
-  const int h0 = (blockIdx.x / tile.tiles_w) * tile.th;
-  const int w0 = (blockIdx.x % tile.tiles_w) * tile.tw;
+  const int ptile = blockIdx.x % tile.tiles_img;
+  const int n0 = (blockIdx.x / tile.tiles_img) * N;  // the block's first output channel
+  const int h0 = (ptile / tile.tiles_w) * tile.th;
+  const int w0 = (ptile % tile.tiles_w) * tile.tw;
   const int hw = height * width;
   const int halo_w = tile.tw + 2;
   const int npos = (tile.th + 2) * halo_w;
@@ -386,14 +455,15 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
       if ((kRows * N / 4) % kThreads != 0 && item >= kRows * N / 4) break;
       const int row = item / (N / 4), col = 4 * (item % (N / 4));
       const int ci = chunk * kKC + row % kKC;
-      const float* src = w9 + (static_cast<int64_t>(tap0 + row / kKC) * cin + ci) * cout + col;
+      const float* src =
+          w9 + (static_cast<int64_t>(tap0 + row / kKC) * cin + ci) * cout + n0 + col;
       float* dst = stage + row * N + col;
       if (vec_w) {  // Cout % 4 == 0: a chunk is all in or all out
-        const bool in = ci < cin && col < cout;
+        const bool in = ci < cin && n0 + col < cout;
         cp_async16(dst, in ? src : w9, in ? 16 : 0);
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dst[e] = ci < cin && col + e < cout ? src[e] : 0.f;
+        for (int e = 0; e < 4; ++e) dst[e] = ci < cin && n0 + col + e < cout ? src[e] : 0.f;
       }
     }
   };
@@ -493,6 +563,12 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   }
 
   bf16* yb = y + static_cast<int64_t>(b) * cout * hw;
+  // Two passes (ssq set): the tile's fp32 values go to ws and its pixels'
+  // sums of squares to ssq; pixel_norm_pass scales and rounds them.
+  const int ncols = min(N, cout - n0);  // the block's output channels
+  float* wsb = ws ? ws + (static_cast<int64_t>(b) * cout + n0) * hw : nullptr;
+  float* ssqb = ssq ? ssq + (static_cast<int64_t>(blockIdx.x / tile.tiles_img) * gridDim.y + b) * hw
+                    : nullptr;
   // Split K: the gridDim.z blocks of a tile are one cluster. Each puts its
   // partial sums in its shared memory (the staging buffers are retired),
   // then sums one slice of the tile's rows over the cluster's blocks in
@@ -527,7 +603,7 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
       const int m = r0 + i / N, col = i % N;
       float v = 0.f;
       for (int sp = 0; sp < splits; ++sp) v += cluster.map_shared_rank(part, sp)[m * PS + col];
-      v += col < cout ? __ldg(bias + col) : 0.f;  // past Cout: 0
+      v += col < ncols ? __ldg(bias + n0 + col) : 0.f;  // past Cout: 0
       sum[(m - r0) * PS + col] = fmaxf(kSlope * v, v);
     }
     cluster.sync();  // no block reads another's partial sums after this
@@ -536,15 +612,20 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
       for (int col = lane; col < N; col += 32) t = fmaf(sum[i * PS + col], sum[i * PS + col], t);
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) t += __shfl_xor_sync(0xffffffffu, t, off);
-      if (lane == 0) scale[i] = rsqrtf(t / static_cast<float>(cout) + kEps);
+      if (lane == 0) scale[i] = ssq ? t : rsqrtf(t / static_cast<float>(cout) + kEps);
     }
     __syncthreads();
-    for (int i = tid; i < cout * nrows; i += kThreads) {  // along the rows: along W
+    for (int i = tid; i < ncols * nrows; i += kThreads) {  // along the rows: along W
       const int mm = i % nrows, co = i / nrows, m = r0 + mm;
       const int hh = h0 + m / tile.tw, ww = w0 + m % tile.tw;
       if (m < tile_px && hh < height && ww < width) {
-        yb[static_cast<int64_t>(co) * hw + hh * width + ww] =
-            __float2bfloat16(sum[mm * PS + co] * scale[mm]);
+        const int64_t at = static_cast<int64_t>(co) * hw + hh * width + ww;
+        if (ssq) {
+          wsb[at] = sum[mm * PS + co];
+          if (co == 0) ssqb[hh * width + ww] = scale[mm];
+        } else {
+          yb[at] = __float2bfloat16(sum[mm * PS + co] * scale[mm]);
+        }
       }
     }
     return;
@@ -558,8 +639,8 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int col = warp_n * 8 * NT + nt * 8 + 2 * tig;
-    const float b0 = col < cout ? __ldg(bias + col) : 0.f;
-    const float b1 = col + 1 < cout ? __ldg(bias + col + 1) : 0.f;
+    const float b0 = col < ncols ? __ldg(bias + n0 + col) : 0.f;
+    const float b1 = col + 1 < ncols ? __ldg(bias + n0 + col + 1) : 0.f;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -584,6 +665,31 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
     }
   }
   __syncthreads();  // the loop's last barrier retired the staging buffers
+  if (ssq) {  // the first pass of two: fp32 values and the tile's sums, unscaled
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = warp_m * 16 * MT + mt * 16 + grp + 8 * r;
+        const int hh = h0 + m / tile.tw, ww = w0 + m % tile.tw;
+        if (m >= tile_px || hh >= height || ww >= width) continue;
+        const int at = hh * width + ww;
+        if (warp_n == 0 && tig == 0) {
+          float total = 0.f;
+#pragma unroll
+          for (int wn = 0; wn < WN; ++wn) total += red[wn * M + m];
+          ssqb[at] = total;
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = warp_n * 8 * NT + nt * 8 + 2 * tig;
+          if (col < ncols) wsb[static_cast<int64_t>(col) * hw + at] = acc[mt][nt][2 * r];
+          if (col + 1 < ncols) wsb[static_cast<int64_t>(col + 1) * hw + at] = acc[mt][nt][2 * r + 1];
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -635,7 +741,7 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   X(5, 1, 4, 1, 8, 1, 4, 3)  /* M 16,  N 256: images of 16 pixels or fewer */ \
   X(6, 1, 8, 1, 8, 1, 3, 2)  /* M 16,  N 512: the same */                   \
   X(7, 2, 8, 1, 8, 1, 3, 1)  /* M 32,  N 512  */                            \
-  X(8, 1, 16, 1, 8, 1, 1, 1) /* M 16,  N 1024 */
+  X(8, 1, 16, 1, 8, 1, 1, 1) /* M 16,  N 1024 = kCoutTile: every wider layer */
 
 constexpr int kConfigM[] = {256, 256, 128, 128, 64, 16, 16, 32, 16};
 
@@ -653,6 +759,7 @@ struct Plan {
   int config, splits;
   Tile tile;
   int64_t tiles;  // pixel tiles of the whole batch
+  int ctiles;     // tiles of kCoutTile output channels (1 up to kCoutTile)
 };
 
 // The pixel tile for a block of M pixels: TW a power of two from 8 below W,
@@ -660,7 +767,7 @@ struct Plan {
 // positions; the least (M + halo positions) per pixel wins, powers of two
 // (16-byte stores) on a tie. Then the split of Cin: the fewest
 // power-of-two splits (at most the chunks and kMaxSplits, a cluster's
-// blocks) that give every SM a block.
+// blocks) that give every SM a block, counting the channel tiles.
 Plan make_plan(int batch, int cin, int cout, int height, int width, int sms) {
   Plan plan;
   plan.config = pick_config(cout, height * width);
@@ -681,11 +788,13 @@ Plan make_plan(int batch, int cin, int cout, int height, int width, int sms) {
   for (int tw = 8; tw < width; tw *= 2) consider(tw);
   consider(width);  // W <= 8 always fits; past 8, tw = 8 does
   plan.tile.tiles_w = (width + plan.tile.tw - 1) / plan.tile.tw;
-  plan.tiles = static_cast<int64_t>(batch) * plan.tile.tiles_w *
-               ((height + plan.tile.th - 1) / plan.tile.th);
+  plan.tile.tiles_img = plan.tile.tiles_w * ((height + plan.tile.th - 1) / plan.tile.th);
+  plan.tiles = static_cast<int64_t>(batch) * plan.tile.tiles_img;
+  plan.ctiles = (cout + kCoutTile - 1) / kCoutTile;
   plan.tile.nchunks = (cin + kKC - 1) / kKC;
   int splits = 1;
-  while (plan.tiles * splits < sms && 2 * splits <= min(plan.tile.nchunks, kMaxSplits)) {
+  while (plan.tiles * plan.ctiles * splits < sms &&
+         2 * splits <= min(plan.tile.nchunks, kMaxSplits)) {
     splits *= 2;
   }
   plan.tile.chunks_per_split = (plan.tile.nchunks + splits - 1) / splits;
@@ -695,9 +804,11 @@ Plan make_plan(int batch, int cin, int cout, int height, int width, int sms) {
 
 template <int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
 cudaError_t launch_mma_config(const Plan& plan, const bf16* x, const float* w9,
-                              const float* bias, bf16* y, int batch, int cin, int cout,
-                              int height, int width, cudaStream_t stream) {
+                              const float* bias, bf16* y, float* ws, float* ssq, int batch,
+                              int cin, int cout, int height, int width, cudaStream_t stream) {
   using C = Cfg<MT, NT, WM, WN, TAPS, STAGES, MINB>;
+  static_assert(C::N <= kCoutTile, "a block holds at most kCoutTile channels");
+  if (plan.ctiles > 1 && C::N != kCoutTile) return cudaErrorInvalidValue;
   auto kernel = fused_conv_mma_kernel<MT, NT, WM, WN, TAPS, STAGES, MINB>;
   const int npos = (plan.tile.th + 2) * (plan.tile.tw + 2);
   const size_t smem = C::smem(npos, plan.tile.chunks_per_split > 1 ? 2 : 1, plan.splits);
@@ -709,7 +820,8 @@ cudaError_t launch_mma_config(const Plan& plan, const bf16* x, const float* w9,
   const bool vec_y = plan.tile.tw % 8 == 0 && width % 8 == 0 &&
                      reinterpret_cast<uintptr_t>(y) % 16 == 0;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(plan.tiles / batch), batch, plan.splits);
+  config.gridDim =
+      dim3(static_cast<unsigned>(plan.tiles / batch * plan.ctiles), batch, plan.splits);
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = smem;
   config.stream = stream;
@@ -720,13 +832,13 @@ cudaError_t launch_mma_config(const Plan& plan, const bf16* x, const float* w9,
   cluster[0].val.clusterDim.z = plan.splits;  // a tile's splits, one cluster
   config.attrs = cluster;
   config.numAttrs = plan.splits > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&config, kernel, x, w9, bias, y, cin, cout, height, width,
-                            plan.tile, vec_w, vec_y);
+  return cudaLaunchKernelEx(&config, kernel, x, w9, bias, y, ws, ssq, cin, cout, height,
+                            width, plan.tile, vec_w, vec_y);
 }
 
 cudaError_t launch_tensor_core(const void* x, const void* w9, const void* bias, void* y,
-                               int batch, int cin, int cout, int height, int width, int sms,
-                               cudaStream_t stream) {
+                               float* ws, float* ssq, int batch, int cin, int cout, int height,
+                               int width, int sms, cudaStream_t stream) {
   const Plan plan = make_plan(batch, cin, cout, height, width, sms);
   const bf16* xt = static_cast<const bf16*>(x);
   const float* wt = static_cast<const float*>(w9);
@@ -736,9 +848,8 @@ cudaError_t launch_tensor_core(const void* x, const void* w9, const void* bias, 
   switch (plan.config) {
 #define FUSED_CONV_CASE(id, MT, NT, WM, WN, TAPS, STAGES, MINB)                         \
   case id:                                                                              \
-    err = launch_mma_config<MT, NT, WM, WN, TAPS, STAGES, MINB>(plan, xt, wt, bt, yt,   \
-                                                                batch, cin, cout,       \
-                                                                height, width, stream); \
+    err = launch_mma_config<MT, NT, WM, WN, TAPS, STAGES, MINB>(                        \
+        plan, xt, wt, bt, yt, ws, ssq, batch, cin, cout, height, width, stream);        \
     break;
     FUSED_CONV_CONFIGS(FUSED_CONV_CASE)
 #undef FUSED_CONV_CASE
@@ -748,10 +859,10 @@ cudaError_t launch_tensor_core(const void* x, const void* w9, const void* bias, 
 }
 
 cudaError_t check(int dtype, int device, int batch, int cin, int cout, int height, int width,
-                  int* sms) {
-  if (batch < 1 || batch > 65535 || cin < 1 || cout < 1 || cout > kMaxCout || height < 1 ||
-      width < 1 || static_cast<int64_t>(height) * width > INT_MAX - kPixels ||
-      (dtype != 0 && dtype != 1)) {
+                  bool two_pass, int* sms) {
+  if (batch < 1 || batch > 65535 || cin < 1 || cout < 1 || height < 1 || width < 1 ||
+      static_cast<int64_t>(height) * width > INT_MAX - kNormPixels ||
+      (cout > kCoutTile) != two_pass || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -763,20 +874,31 @@ cudaError_t check(int dtype, int device, int batch, int cin, int cout, int heigh
 
 // dtype: 0 = float32 (the CUDA-core variant), 1 = bfloat16 (the
 // tensor-core one), for x and y. x, w9, bias and y are contiguous (see the
-// top of the file). Launches on `stream` and returns the cudaError_t of
-// cudaGetLastError() after the launch (0 on success).
+// top of the file). Past kCoutTile output channels (and only there) ws and
+// ssq are the two passes' scratch: ws fp32 [B, Cout, H, W] (y itself for
+// fp32), ssq fp32 [ceil(Cout / kCoutTile), B, H W]; else both are null.
+// Launches on `stream` (one kernel, or the two passes) and returns the
+// cudaError_t of cudaGetLastError() after the launches (0 on success).
 extern "C" int fused_conv3x3_leaky_pixel_norm(const void* x, const void* w9, const void* bias,
-                                              void* y, int dtype, int device, int batch,
-                                              int cin, int cout, int height, int width,
-                                              void* stream) {
+                                              void* y, void* ws, void* ssq, int dtype,
+                                              int device, int batch, int cin, int cout,
+                                              int height, int width, void* stream) {
   int sms = 0;
-  cudaError_t err = check(dtype, device, batch, cin, cout, height, width, &sms);
+  const bool two_pass = ws != nullptr && ssq != nullptr;
+  cudaError_t err = check(dtype, device, batch, cin, cout, height, width, two_pass, &sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* wsf = static_cast<float*>(ws);
+  float* ssqf = static_cast<float*>(ssq);
   if (dtype == 0) {
-    err = launch_cuda_core(x, w9, bias, y, batch, cin, cout, height, width, s);
+    err = launch_cuda_core(x, w9, bias, y, ssqf, batch, cin, cout, height, width, s);
   } else {
-    err = launch_tensor_core(x, w9, bias, y, batch, cin, cout, height, width, sms, s);
+    err = launch_tensor_core(x, w9, bias, y, wsf, ssqf, batch, cin, cout, height, width, sms,
+                             s);
   }
+  if (err != cudaSuccess || !two_pass) return static_cast<int>(err);
+  const int hw = height * width;
+  err = dtype == 0 ? launch_pixel_norm_pass<float>(wsf, ssqf, y, batch, cout, hw, s)
+                   : launch_pixel_norm_pass<bf16>(wsf, ssqf, y, batch, cout, hw, s);
   return static_cast<int>(err);
 }

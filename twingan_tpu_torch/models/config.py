@@ -5,12 +5,11 @@ Field for field the same dataclass as ``twingan_tpu/models/config.py``
 JAX runner loads here unchanged. It is a copy, not an import: the JAX
 module's package pulls in flax.
 
-``require_ported`` names the options whose code paths this port does not
-have yet; the modules call it and raise ``NotImplementedError`` rather than
-computing another function. Every norm type, spectral norm (in and
-outside the discriminator), conditional norms (``style_dim``) and
-``fused_scale`` are ported; ``fused_scale`` runs the plain nearest-up2 and
-conv, which compute the same function as the JAX package's fused forms.
+Every option of the JAX config is ported, at every channel width: every
+norm type, spectral norm (in and outside the discriminator), conditional
+norms (``style_dim``) and ``fused_scale``; ``fused_scale`` runs the plain
+nearest-up2 and conv, which compute the same function as the JAX
+package's fused forms.
 ``quantized_inference`` (W8A8 int8 serving) is ported for the encoder,
 the generator and the heads; ``require_inference_only`` refuses it where
 a network trains or discriminates.
@@ -98,22 +97,6 @@ class PGGANConfig:
 
     def replace(self, **kw) -> "PGGANConfig":
         return dataclasses.replace(self, **kw)
-
-
-def require_ported(cfg: PGGANConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first option set in ``cfg``
-    that the modules of the port do not implement."""
-    from twingan_tpu_torch.ops.fused_conv import MAX_COUT
-
-    unported = [
-        (f"min_channels={cfg.min_channels} (pixel norm without a norm runs kernel B4, "
-         f"which takes at most {MAX_COUT} channels)",
-         cfg.norm_type == "none" and cfg.do_pixel_norm and cfg.min_channels > MAX_COUT),
-    ]
-    for name, is_set in unported:
-        if is_set:
-            raise NotImplementedError(
-                f"{name} is not ported to twingan_tpu_torch yet")
 
 
 def require_inference_only(cfg: PGGANConfig, where: str) -> None:

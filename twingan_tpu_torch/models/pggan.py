@@ -61,11 +61,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from twingan_tpu_torch.models.config import (
-    PGGANConfig,
-    require_inference_only,
-    require_ported,
-)
+from twingan_tpu_torch.models.config import PGGANConfig, require_inference_only
 from twingan_tpu_torch.models.layers import (
     ConvBlock,
     EqDense,
@@ -141,7 +137,6 @@ class Encoder(nn.Module):
 
     def __init__(self, cfg: PGGANConfig):
         super().__init__()
-        require_ported(cfg)
         self.cfg = cfg
         max_stage = cfg.max_stage
         res = cfg.resolution
@@ -218,7 +213,6 @@ class Generator(nn.Module):
     def __init__(self, cfg: PGGANConfig, unet: bool = False, noise_input: bool = False,
                  conditional: bool = False, cond_image_channels: int = 0):
         super().__init__()
-        require_ported(cfg)
         self.cfg = cfg
         self.unet = unet
         self.noise_input = noise_input
@@ -488,7 +482,6 @@ class EncoderClassifier(nn.Module):
 
     def __init__(self, cfg: PGGANConfig, output_dim: int, conditional: bool = False):
         super().__init__()
-        require_ported(cfg)
         self.cfg = cfg
         mc = cfg.max_channels
         self.before_fc_conv0 = ConvBlock(cfg, cfg.channels(0), mc, conditional=conditional)

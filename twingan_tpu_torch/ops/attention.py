@@ -25,7 +25,11 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
 - each of the three kernels has two variants, chosen by the input type
   in its C entry point (``VARIANTS`` names them): bf16 runs on the tensor
   cores (``mma.sync``), fp32 on the CUDA cores. ``variant_counts`` counts
-  each launch under its variant, beside ``launch_counts``' total;
+  each launch under its variant, beside ``launch_counts``' total. Every
+  c_bar and C is taken: past c_bar 64, or C 256 (where the register-held
+  kernels stop), the entry points launch ``csrc/flash_wide.cuh``'s
+  kernels, which cut every operand into chunks of 64 columns, in the same
+  two variants;
 - ``FlashAttention`` is the autograd boundary. Its backward is
   ``once_differentiable`` and refuses to run under ``create_graph=True``:
   the kernels' outputs carry no graph, and a second-order pass through
@@ -73,8 +77,6 @@ BWD_LIBRARY = "flash_attn_bwd"
 DQ_KERNEL = "flash_attn_dq"
 DKV_KERNEL = "flash_attn_dkv"
 PLAIN_ROUTE = "attention_core_double_backward"
-MAX_CBAR = 64
-MAX_C = 256
 
 CUDA_CORE = "cuda_core"
 TENSOR_CORE = "tensor_core"
@@ -134,15 +136,15 @@ def _check(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> None:
 
 
 def _check_kernel_args(name: str, f: torch.Tensor, h: torch.Tensor, *tensors: torch.Tensor) -> None:
-    """What the CUDA kernels take: fp32 or bf16, c_bar and C in range,
+    """What the CUDA kernels take: fp32 or bf16, non-empty tensors of at
+    most 65535 batch rows (the grid's y) and any c_bar and C (past c_bar 64
+    or C 256 the entry points launch ``csrc/flash_wide.cuh``'s kernels),
     contiguous tensors."""
     if f.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"{name} takes float32 or bfloat16, got {f.dtype}")
-    c_bar, c = f.shape[-1], h.shape[-1]
-    if not 1 <= c_bar <= MAX_CBAR or not 1 <= c <= MAX_C:
-        raise ValueError(
-            f"{name} takes c_bar in [1, {MAX_CBAR}] and C in [1, {MAX_C}], "
-            f"got {c_bar} and {c}")
+    if min(*f.shape, h.shape[-1]) < 1 or f.shape[0] > 65535:
+        raise ValueError(f"{name} takes non-empty tensors and B <= 65535, got f "
+                         f"{tuple(f.shape)} and h {tuple(h.shape)}")
     if not all(t.is_contiguous() for t in (f, h, *tensors)):
         raise ValueError(f"{name} takes contiguous tensors")
 

@@ -38,6 +38,14 @@ layers (cuDNN conv, bias, leaky, pixel norm), counted under
 Tensors are NCHW, the modules' layout, read in place: the kernel handles
 the 1-pixel halo with bounds checks, where the Pallas version materializes
 halo-duplicated row tiles because BlockSpec windows cannot overlap.
+
+Any Cout: the Pallas kernel holds all of Cout in one block (VMEM is its
+only bound), and so does B4 up to ``COUT_TILE`` channels. The pixel norm
+needs every channel of a pixel before any can be written, so a wider layer
+runs in two passes of the one call: the conv, bias and leaky on tiles of
+``COUT_TILE`` channels, each writing its fp32 values and its per-pixel sum
+of squares to scratch that this wrapper allocates, then the normalize,
+which adds each pixel's tile sums in a fixed order and rounds y once.
 """
 
 from __future__ import annotations
@@ -52,7 +60,9 @@ from twingan_tpu_torch.ops.attention import CUDA_CORE, TENSOR_CORE
 
 KERNEL_NAME = "fused_conv"
 AUTOGRAD_ROUTE = "fused_conv_autograd"
-MAX_COUT = 1024  # every generator width: 1024 // 2**stage at most
+# Output channels one block of the kernel holds (csrc/fused_conv.cu's
+# kCoutTile); a wider layer takes two passes (see above).
+COUT_TILE = 1024
 LEAKY_SLOPE = 0.2
 PIXEL_NORM_EPS = 1e-6
 
@@ -101,9 +111,9 @@ def _check(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> None:
     if w9.shape[0] != 9 or x.shape[1] != cin or b.shape[0] != cout:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w9 {tuple(w9.shape)}, "
                          f"b {tuple(b.shape)}")
-    if not 1 <= cout <= MAX_COUT or min(x.shape) < 1 or x.shape[0] > 65535:
-        raise ValueError(f"fused_conv takes 1 <= Cout <= {MAX_COUT}, non-empty x and "
-                         f"B <= 65535, got x {tuple(x.shape)}, Cout {cout}")
+    if cout < 1 or min(x.shape) < 1 or x.shape[0] > 65535:
+        raise ValueError(f"fused_conv takes Cout >= 1, non-empty x and B <= 65535, "
+                         f"got x {tuple(x.shape)}, Cout {cout}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"fused_conv takes float32 or bfloat16 x, got {x.dtype}")
     if w9.dtype != torch.float32 or b.dtype != torch.float32:
@@ -122,10 +132,20 @@ def _launch(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     fn = cuda_build.load(KERNEL_NAME).fused_conv3x3_leaky_pixel_norm
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 4 + [i32] * 7 + [vp]
+        fn.argtypes = [vp] * 6 + [i32] * 7 + [vp]
         fn.restype = ctypes.c_int
     y = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=x.device)
+    # Two passes past one block's channels: the fp32 values before the norm
+    # (y itself when y is fp32) and each channel tile's per-pixel sum of
+    # squares.
+    ws = ssq = None
+    if cout > COUT_TILE:
+        ws = y if x.dtype == torch.float32 else torch.empty(
+            y.shape, dtype=torch.float32, device=x.device)
+        ssq = torch.empty((-(-cout // COUT_TILE), bsz, h * w), dtype=torch.float32,
+                          device=x.device)
     err = fn(x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(),
+             None if ws is None else ws.data_ptr(), None if ssq is None else ssq.data_ptr(),
              0 if x.dtype == torch.float32 else 1, x.device.index or 0, bsz, cin, cout, h, w,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -39,7 +39,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from twingan_tpu_torch import parallel
-from twingan_tpu_torch.models.config import require_inference_only, require_ported
+from twingan_tpu_torch.models.config import require_inference_only
 from twingan_tpu_torch.ops import basic, norms
 
 
@@ -78,9 +78,7 @@ def step_generator(rng: int, critic_step: int, device: torch.device) -> torch.Ge
 
 
 def require_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` for the model options the port's
-    modules lack, and the ``ValueError`` of an inference-only model."""
-    require_ported(cfg.model)
+    """Raise the ``ValueError`` of an inference-only model."""
     require_inference_only(cfg.model, "a trainer")
 
 

@@ -14,8 +14,10 @@ result line is printed:
               forward kernel), ``csrc/flash_attn_bwd.cu`` (its two
               backward kernels, dq and dkv), ``csrc/fused_conv.cu``
               (the fused conv3x3 + bias + leaky + pixel-norm kernel B4;
-              each of the four kernels has a tensor-core variant for bf16
-              and a CUDA-core one for fp32) and ``csrc/conv_i8.cu`` (the
+              each of the four kernels has a tensor-core variant for bf16;
+              for fp32, B1 and B3 run on the TF32 tensor cores with each
+              product split into three, 3xTF32, and B2 and B4 on the CUDA
+              cores) and ``csrc/conv_i8.cu`` (the
               int8 conv Q1 of W8A8 serving) into ctypes libraries, the
               four compiles started together, and prints each kernel's
               registers and spills.
@@ -27,8 +29,10 @@ result line is printed:
               f, g, h and output gradient (above N 16384 against a
               reference chunked over query rows, which also checks the
               forward kernel there). Each row names the variant that ran
-              (bf16: tensor cores; fp32: CUDA cores) and fails on the
-              other, and has the kernels', the plain versions' and SDPA's
+              (``attention.variant``: bf16 on the tensor cores; fp32 B1
+              and B3 on the TF32 tensor cores, 3xTF32, B2 on the CUDA
+              cores; past c_bar 64 or C 256 the wide kernels) and fails on
+              another, and has the kernels', the plain versions' and SDPA's
               times (CUDA events, median) beside the card's bound for the
               same work. Then B4 against its plain version at the TPU
               script's shape, at every distinct
@@ -71,14 +75,17 @@ result line is printed:
               same weights, batch and injected noise in fp32 on the CPU
               with the plain attention (losses, and the cosine similarity
               of each network's gradient and of every attention
-              projection's), the fp32 steps on the CUDA-core variants of
-              the three attention kernels only, the bf16 steps on the
-              tensor-core ones only; then one warm-up and 3 timed bf16
-              rounds, whose kernel launches must be what the passes of the
-              step imply, on the tensor-core variants; then the trained
-              state is written as a stage dir
-              and ``ImageInferer`` serves a batch from it. Neither serving
-              nor training may take a B4 route (they run batch norm).
+              projection's), each step on the fp32 or the bf16 variants of
+              the three attention kernels only; then one warm-up and 3
+              timed bf16 rounds, whose kernel launches must be what the
+              passes of the step imply, on the tensor-core variants; then
+              the trained state is written as a stage dir
+              and ``ImageInferer`` serves a batch from it. Then the fp32
+              phase, the JAX package's default type end to end: the
+              serving phase in fp32 (B1 on its 3xTF32 variant only) and one
+              warm-up and 3 timed fp32 rounds at batch 3 (B1 and B3 on the
+              3xTF32 variants, B2 on the CUDA cores). Neither serving nor
+              training may take a B4 route (they run batch norm).
 7. generation - the generation path at full width and depth:
               ``GanTrainer`` on pggan256 (256 px, max_channels 256, no
               norm, pixel norm, eq-lr, bf16; batch 12, DRAGAN, Adam,
@@ -258,7 +265,9 @@ result line is printed:
               B4's launches per stage. One line per check, and a summary
               line (NCCL version, world size, each check's largest
               difference, the path's launches, seconds).
-17. kernels - one line listing each kernel of the paths.
+17. kernels - one line listing each kernel of the paths, with its
+              variants, its numbers at the main shape in bf16 and (B1-B3)
+              in fp32.
 Then the card as ``nvidia-smi`` names it, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -301,14 +310,17 @@ KERNELS = {
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the bound of a call is
 # the largest of its bytes over the memory rate, its FLOPs over the peak of
-# its input type (bf16 on the tensor cores, fp32 outside them) and, for
+# its route (the kernel variant that ran: bf16 products on the tensor cores,
+# fp32 products on the CUDA cores, or, for the 3xTF32 variants, three TF32
+# products a multiply-add on the tensor cores: PRODUCTS) and, for
 # attention, its exponentials over the special-function units' rate: 16
 # base-2 exponentials a clock on each SM (the CUDA C++ Programming Guide's
 # instruction throughput table, compute capability 9.0; the
 # FlashAttention-3 paper gives 3.9 T/s for the H100 SXM), at the card's top
 # SM clock, which the device phase reads from nvidia-smi.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"tensor_core": 989e12, "cuda_core": 67e12, "tensor_core_tf32x3": 494.5e12}
+PRODUCTS = {"tensor_core_tf32x3": 3}  # hi hi + hi lo + lo hi
 EXP_PER_SM_CLOCK = 16
 exp_per_s = 3.9e12  # replaced by device_phase with the card's SMs x 16 x top clock
 
@@ -316,6 +328,8 @@ exp_per_s = 3.9e12  # replaced by device_phase with the card's SMs x 16 x top cl
 # client pads every batch to 4, and attention sits at 64 px (N = 4096) with
 # C = 64 and c_bar = C / 8 in both the encoder and the generator.
 SERVING_CASE = ("serving batch", 4, 4096, 8, 64, "bfloat16")
+# The same shape in the JAX package's default type, fp32 (the fp32 phase).
+FP32_SERVING_CASE = ("serving batch", 4, 4096, 8, 64, "float32")
 # (label, B, N, c_bar, C) of the widths past the register-held kernels.
 WIDE_ATTENTION_CASES = [
     ("C 512, 8 px", 4, 64, 64, 512),
@@ -327,10 +341,13 @@ KERNEL_CASES = [
     ("slice", 8, 4096, 8, 64, "bfloat16"),
     ("slice", 8, 4096, 8, 64, "float32"),
     SERVING_CASE,
+    FP32_SERVING_CASE,
     ("ragged N", 2, 1000, 8, 64, "float32"),
     ("ragged N", 2, 1000, 8, 64, "bfloat16"),
     ("c_bar 1, C 8", 2, 4096, 1, 8, "float32"),
     ("c_bar 32, C 256", 2, 4096, 32, 256, "bfloat16"),
+    # The widest register-held fp32 instantiation (4 slices of 64 columns).
+    ("c_bar 64, C 256", 2, 4096, 64, 256, "float32"),
     ("docs/PERFORMANCE.md", 4, 4096, 32, 64, "float32"),
     ("docs/PERFORMANCE.md", 4, 16384, 32, 64, "float32"),
     # The tensor-core variant's per-tile sums of l over 256 tiles of keys.
@@ -351,13 +368,15 @@ KERNEL_CASES = [
 # shape is the main path's: batch 3 (TWINGAN_BATCH_SCHEDULE[256]), attention
 # at 64 px in the encoder, the generator and both discriminators.
 TRAIN_CASE = ("train batch", 3, 4096, 8, 64, "bfloat16")
+FP32_TRAIN_CASE = ("train batch", 3, 4096, 8, 64, "float32")
 BWD_CASES = [
     TRAIN_CASE,
-    ("train batch", 3, 4096, 8, 64, "float32"),
+    FP32_TRAIN_CASE,
     ("ragged N", 2, 1000, 8, 64, "float32"),
     ("ragged N", 2, 1000, 8, 64, "bfloat16"),
     ("c_bar 1, C 8", 2, 4096, 1, 8, "float32"),
     ("c_bar 32, C 256", 2, 4096, 32, 256, "bfloat16"),
+    ("c_bar 64, C 256", 2, 4096, 64, 256, "float32"),
     ("docs/PERFORMANCE.md", 4, 4096, 32, 64, "float32"),
     ("docs/PERFORMANCE.md", 4, 16384, 32, 64, "float32"),
     ("docs/PERFORMANCE.md", 4, 65536, 32, 64, "float32"),
@@ -422,6 +441,13 @@ GEN_LAYERS_PER_PASS = 13
 # than the mean tolerance, so it can tell a wrong attention from a right one.
 SERVE_MEAN_TOL = 0.1
 SERVE_MAX_TOL = 0.5
+# fp32 serving (the serving phase's second run) against the same CPU run:
+# both sum fp32 products in other orders, B1 as 3xTF32 (about 2^-21 a
+# product), so the card read 9.3e-7 (mean) and 1.0e-5 (max) of the std on
+# an H100. One TF32 product (2^-11) in cuDNN and the matmuls read 3.9e-4
+# and 3.7e-3 (bf16: 0.012 and 0.087); the phase runs that too and requires
+# it to exceed these limits, so that they tell fp32 from TF32.
+SERVE_TOLS = {"bfloat16": (SERVE_MEAN_TOL, SERVE_MAX_TOL), "float32": (1e-4, 1e-3)}
 REQUESTS_PER_ROUND = 8
 TIMED_ROUNDS = 3
 # The http phase: the port's HTTP server on 127.0.0.1, the serving phase's
@@ -904,35 +930,56 @@ def device_ms(fn, reps: int = 20) -> float:
     return s.elapsed_time(e) / reps
 
 
-def _bound(nbytes: float, flops: float, dtype: str, exps: float = 0.0) -> tuple[float, str]:
-    """The largest of the three times, and which it is."""
-    times = {"bytes": nbytes / HBM_BYTES_PER_S, "operations": flops / PEAK_FLOPS[dtype],
+def _bound(nbytes: float, flops: float, route: str, exps: float = 0.0) -> tuple[float, str]:
+    """The largest of the three times, and which it is: ``flops`` are the
+    call's multiply-adds times 2, taken ``PRODUCTS[route]`` times."""
+    times = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "operations": PRODUCTS.get(route, 1) * flops / PEAK_FLOPS[route],
              "exponentials": exps / exp_per_s}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
 
 
-def bound(b: int, n: int, c_bar: int, c: int, dtype: str) -> tuple[float, str]:
-    """Least time of the forward on the card: each input read once, each
-    output written once, the two products' FLOPs at the type's peak, and
-    the B N^2 exponentials at the special-function units' rate."""
+def bound(b: int, n: int, c_bar: int, c: int, dtype: str, route: str) -> tuple[float, str]:
+    """Least time of the forward on the card by ``route``: each input read
+    once, each output written once, the two products' FLOPs at the route's
+    peak, and the B N^2 exponentials at the special-function units' rate."""
     elt = 4 if dtype == "float32" else 2
     nbytes = elt * (2 * b * n * c_bar + b * n * c) + elt * b * n * c + 4 * b * n
-    return _bound(nbytes, 2.0 * b * n * n * (c_bar + c), dtype, b * n * n)
+    return _bound(nbytes, 2.0 * b * n * n * (c_bar + c), route, b * n * n)
 
 
-def bwd_bounds(b: int, n: int, c_bar: int, c: int, dtype: str) -> dict:
-    """Least times of the dq and the dkv kernel: f, g, h, do read once, lse
-    and delta (fp32) read once, the outputs written once. dq recomputes
-    s = f g^T and dp = do h^T and forms df = ds g: 2 B N^2 (2 c_bar + C)
-    FLOPs; dkv adds dh = p^T do and dg = ds^T f: 2 B N^2 (2 c_bar + 2 C).
-    Each recomputes the B N^2 probabilities: as many exponentials."""
+def bwd_bounds(b: int, n: int, c_bar: int, c: int, dtype: str, routes: dict) -> dict:
+    """Least times of the dq and the dkv kernel, each by its route
+    (``routes[name]``): f, g, h, do read once, lse and delta (fp32) read
+    once, the outputs written once. dq recomputes s = f g^T and dp = do h^T
+    and forms df = ds g: 2 B N^2 (2 c_bar + C) FLOPs; dkv adds dh = p^T do
+    and dg = ds^T f: 2 B N^2 (2 c_bar + 2 C). Each recomputes the B N^2
+    probabilities: as many exponentials."""
     elt = 4 if dtype == "float32" else 2
     inputs = elt * (2 * b * n * c_bar + 2 * b * n * c) + 8 * b * n
     return {"flash_attn_dq": _bound(inputs + elt * b * n * c_bar,
-                                    2.0 * b * n * n * (2 * c_bar + c), dtype, b * n * n),
+                                    2.0 * b * n * n * (2 * c_bar + c), routes["flash_attn_dq"],
+                                    b * n * n),
             "flash_attn_dkv": _bound(inputs + elt * b * n * (c_bar + c),
-                                     2.0 * b * n * n * (2 * c_bar + 2 * c), dtype, b * n * n)}
+                                     2.0 * b * n * n * (2 * c_bar + 2 * c),
+                                     routes["flash_attn_dkv"], b * n * n)}
+
+
+FP32_ROUTES = ("cuda_core", "tensor_core_tf32x3")
+
+
+def expected_variant(kernel: str, dt, c_bar: int, c: int) -> str:
+    """The variant a kernel row expects the C entry point of ``kernel`` to
+    report (the entry points pick it; this is the check's own statement):
+    the register-held kernels up to c_bar 64 and C 256, csrc/flash_wide.cuh's
+    past them (for the bf16 forward, whose kernel takes any C in 64-column
+    slices, both are the tensor-core variant)."""
+    from twingan_tpu_torch.ops import attention
+
+    if c_bar > 64 or c > 256:
+        return attention.WIDE_VARIANTS[dt]
+    return attention.VARIANTS[kernel][dt]
 
 
 def ran_variants(kernel: str) -> list:
@@ -954,8 +1001,9 @@ def fused_conv_bound(b: int, hw: int, cin: int, cout: int, dtype: str) -> tuple[
     elt = 4 if dtype == "float32" else 2
     pixels = b * hw * hw
     nbytes = elt * pixels * (cin + cout) + 4 * (9 * cin * cout + cout)
-    products = 1 if dtype == "float32" else 2
-    return _bound(nbytes, products * 2.0 * pixels * 9 * cin * cout, dtype)
+    if dtype == "float32":
+        return _bound(nbytes, 2.0 * pixels * 9 * cin * cout, "cuda_core")
+    return _bound(nbytes, 2 * 2.0 * pixels * 9 * cin * cout, "tensor_core")
 
 
 def fused_conv_tolerance(dtype: str, ref_max: float) -> float:
@@ -967,6 +1015,8 @@ def fused_conv_tolerance(dtype: str, ref_max: float) -> float:
 
 
 def kernel_phase() -> dict:
+    """B1 at every listed shape against its plain version; returns the
+    serving shape's rows by type."""
     import torch
     import torch.nn.functional as F
     from twingan_tpu_torch.ops import attention
@@ -978,6 +1028,7 @@ def kernel_phase() -> dict:
         f = torch.randn(b, n, c_bar, device="cuda", generator=gen).to(dt)
         g = torch.randn(b, n, c_bar, device="cuda", generator=gen).to(dt)
         h = torch.randn(b, n, c, device="cuda", generator=gen).to(dt)
+        want = expected_variant(attention.KERNEL_NAME, dt, c_bar, c)
         attention.reset_launch_counts()
         o, lse = attention.flash_attention_forward(f, g, h)
         torch.cuda.synchronize()
@@ -997,21 +1048,22 @@ def kernel_phase() -> dict:
         dev_ms = device_ms(lambda: attention.flash_attention_forward(f, g, h))
         plain_ms = time_ms(lambda: attention.attention_core(f, g, h))
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
-        bound_ms, bound_by = bound(b, n, c_bar, c, dtype)
+        bound_ms, bound_by = bound(b, n, c_bar, c, dtype, want)
         row = {"phase": "kernel", "case": label, "B": b, "N": n, "c_bar": c_bar, "C": c,
                "dtype": dtype, "variant": variant, "max_abs_err": err, "tolerance": tol,
                "lse_err": lse_err, "lse_tolerance": lse_tol, "sdpa_err": sdpa_err, "ms": ms,
                "device_ms": dev_ms,
                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by,
-               "ok": bool(err <= tol and lse_err <= lse_tol
-                          and variant == [attention.VARIANTS[attention.KERNEL_NAME][dt]])}
+               **({"bound_ms_by_route": {r: bound(b, n, c_bar, c, dtype, r)[0]
+                                         for r in FP32_ROUTES}} if dtype == "float32" else {}),
+               "ok": bool(err <= tol and lse_err <= lse_tol and variant == [want])}
         emit(row)
         if not row["ok"]:
             fail("kernel", f"flash_attn_fwd disagrees with the plain version at {label} "
                            f"B={b} N={n} c_bar={c_bar} C={c} {dtype}")
         results[(label, b, n, c_bar, c, dtype)] = row
-    return results[SERVING_CASE]
+    return {case[-1]: results[case] for case in (SERVING_CASE, FP32_SERVING_CASE)}
 
 
 def eager_conv_chain(x, w, b):
@@ -1122,7 +1174,8 @@ def sdpa_backend(q, k, v, do):
 
 
 def backward_kernel_phase() -> dict:
-    """B2 and B3 at every listed shape; returns the training shape's row.
+    """B2 and B3 at every listed shape; returns the training shape's rows
+    by type.
     At N above PLAIN_MAX_N the reference is ``chunked_reference``, which
     also checks the forward kernel's output and logsumexp there."""
     import torch
@@ -1181,7 +1234,8 @@ def backward_kernel_phase() -> dict:
             library_ms = time_ms(lambda: torch.autograd.grad(
                 F.scaled_dot_product_attention(q, k, v, scale=1.0), (q, k, v), do[:, None]),
                 reps)
-        bounds = bwd_bounds(b, n, c_bar, c, dtype)
+        want = {k_: expected_variant(k_, dt, c_bar, c) for k_ in variants}
+        bounds = bwd_bounds(b, n, c_bar, c, dtype, want)
         row = {"phase": "kernel", "kernels": ["flash_attn_dq", "flash_attn_dkv"], "case": label,
                "B": b, "N": n, "c_bar": c_bar, "C": c, "dtype": dtype, "variant": variants,
                "max_abs_err": errs, "tolerance": tols, "ms": ms, "device_ms": dev_ms,
@@ -1190,8 +1244,12 @@ def backward_kernel_phase() -> dict:
                "library_ms": library_ms,
                "bound_ms": {k_: v_[0] for k_, v_ in bounds.items()},
                "bound_by": {k_: v_[1] for k_, v_ in bounds.items()}, **extra,
+               **({"bound_ms_by_route": {
+                   r: {k_: v_[0] for k_, v_ in bwd_bounds(
+                       b, n, c_bar, c, dtype, dict.fromkeys(want, r)).items()}
+                   for r in FP32_ROUTES}} if dtype == "float32" else {}),
                "ok": bool(all(errs[k_] <= tols[k_] for k_ in errs)
-                          and all(v_ == [attention.VARIANTS[k_][dt]] for k_, v_ in variants.items())
+                          and all(v_ == [want[k_]] for k_, v_ in variants.items())
                           and (not chunked or (extra["forward_err"] <= extra["forward_tolerance"]
                                                and extra["lse_err"] <= extra["lse_tolerance"])))}
         emit(row)
@@ -1201,7 +1259,7 @@ def backward_kernel_phase() -> dict:
         results[(label, b, n, c_bar, c, dtype)] = row
         del o, lse, delta, args, q, k, v
         torch.cuda.empty_cache()
-    return results[TRAIN_CASE]
+    return {case[-1]: results[case] for case in (TRAIN_CASE, FP32_TRAIN_CASE)}
 
 
 def slice_config():
@@ -1243,8 +1301,10 @@ def random_translator(cfg):
     return model
 
 
-def serving_phase(card: str, smi_line: str) -> int:
-    """Returns the forward kernel's launches while serving."""
+def serving_phase(card: str, smi_line: str, dtype: str = "bfloat16") -> int:
+    """The slice config served in ``dtype`` (its own bf16, or the JAX
+    package's default fp32) against fp32 on the CPU; B1 must run on the
+    variant of ``dtype`` only. Returns the forward kernel's launches."""
     import numpy as np
     import torch
     from twingan_tpu_torch.infer.translate import ImageInferer
@@ -1261,7 +1321,7 @@ def serving_phase(card: str, smi_line: str) -> int:
         images = [rng.randint(0, 256, (256, 256, 3)).astype(np.uint8)
                   for _ in range(REQUESTS_PER_ROUND)]
 
-        inferer = ImageInferer(stage_dir)  # the card, by default
+        inferer = ImageInferer(stage_dir, dtype=dtype)  # the card, by default
         client = BatchingLocalClient(inferer, max_batch=4, max_wait_ms=50.0)
         attention.reset_launch_counts()
         round_s = []
@@ -1286,37 +1346,53 @@ def serving_phase(card: str, smi_line: str) -> int:
         if launches != 2 * dispatches or dispatches < 2 * (1 + TIMED_ROUNDS):
             fail("serving", f"{launches} kernel launches for {dispatches} dispatched batches "
                             "(expected 2 per batch: encoder and generator)")
-        fwd_tc = f"{attention.KERNEL_NAME}/{attention.TENSOR_CORE}"
-        if variants[fwd_tc] != launches or sum(variants.values()) != launches:
-            fail("serving", f"bf16 serving launched other variants than {fwd_tc}: {variants}")
+        fwd = attention.KERNEL_NAME
+        want = f"{fwd}/{attention.VARIANTS[fwd][getattr(torch, dtype)]}"
+        if variants[want] != launches or sum(variants.values()) != launches:
+            fail("serving", f"{dtype} serving launched other variants than {want}: {variants}")
 
         cpu = ImageInferer(stage_dir, device="cpu", dtype="float32")
         ref = cpu.infer_batch([images[0]])[0]
         std = float(ref.std())
         diff = np.abs(outs[0] - ref)
         mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+        mean_tol, max_tol = SERVE_TOLS[dtype]
+        tf32, tf32_ok = {}, True
+        if dtype == "float32":
+            # The same request with TF32 products in cuDNN and the matmuls.
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:
+                t = np.abs(inferer.infer_batch([images[0]])[0] - ref)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            tf32 = {"tf32_mean_abs_err_over_std": float(t.mean()) / std,
+                    "tf32_max_abs_err_over_std": float(t.max()) / std}
+            tf32_ok = (tf32["tf32_mean_abs_err_over_std"] > mean_tol
+                       and tf32["tf32_max_abs_err_over_std"] > max_tol)
         with torch.no_grad():
             for m in cpu.model.modules():
                 if hasattr(m, "sa_gamma"):
                     m.sa_gamma.zero_()
         no_attention = float(np.abs(cpu.infer_batch([images[0]])[0] - ref).mean()) / std
         timed = sorted(round_s[1:])[len(round_s[1:]) // 2]
-        MEASURED["serving_images_per_s"] = REQUESTS_PER_ROUND / timed
-        row = {"phase": "serving", "requests": REQUESTS_PER_ROUND * (1 + TIMED_ROUNDS),
+        MEASURED[f"serving_images_per_s_{dtype}"] = REQUESTS_PER_ROUND / timed
+        row = {"phase": "serving", "dtype": dtype,
+               "requests": REQUESTS_PER_ROUND * (1 + TIMED_ROUNDS),
                "dispatches": dispatches, "kernel_launches": launches,
                "kernel_variants": {k: v for k, v in variants.items() if v},
                "images_per_s": REQUESTS_PER_ROUND / timed, "round_s": round_s,
                "card": card, "nvidia_smi": smi_line,
                "vs_cpu_fp32": {"mean_abs_err_over_std": mean_err, "max_abs_err_over_std": max_err,
-                               "mean_tolerance": SERVE_MEAN_TOL, "max_tolerance": SERVE_MAX_TOL,
+                               "mean_tolerance": mean_tol, "max_tolerance": max_tol,
                                "output_std": std,
-                               "attention_off_mean_diff_over_std": no_attention},
-               "ok": bool(mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL
-                          and no_attention > SERVE_MEAN_TOL)}
+                               "attention_off_mean_diff_over_std": no_attention, **tf32},
+               "ok": bool(mean_err <= mean_tol and max_err <= max_tol
+                          and no_attention > mean_tol and tf32_ok)}
         emit(row)
         if not row["ok"]:
-            fail("serving", "the card's output disagrees with the fp32 CPU run, or "
-                            "attention does not change the output beyond the tolerance")
+            fail("serving", "the card's output disagrees with the fp32 CPU run, attention "
+                            "does not change the output beyond the tolerance, or TF32 "
+                            "products stay within the fp32 tolerances")
         return launches
     finally:
         shutil.rmtree(stage_dir, ignore_errors=True)
@@ -1675,14 +1751,15 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
             _, metrics = trainer.d_step(state, batch, gp_noise=gp_noise, **kw)
         metrics = {k: float(v) for k, v in metrics.items()}
         seconds = time.perf_counter() - t0
-        sa_names = [n for n, m in state.nets.named_modules() if isinstance(m, SelfAttention)]
+        sa_widths = {n: m.sa_h.conv.in_channels for n, m in state.nets.named_modules()
+                     if isinstance(m, SelfAttention)}
         prefix = grad_prefix.get(kind, "")
         grads = {prefix + n: g for n, g in getattr(state, side).grads.items()}
         buffers = {k: v.detach().float().cpu() for k, v in state.nets.state_dict().items()
                    if _held_leaf(k, held_buffers)}
         updates = {prefix + n: p.detach().float().cpu() - b
                    for n, p, b in zip(recorder.names, recorder.params, before)}
-        return metrics, grads, seconds, sa_names, buffers, updates
+        return metrics, grads, seconds, sa_widths, buffers, updates
 
     def flat(grads, prefix):
         return torch.cat([g.flatten() for n, g in grads.items() if n.startswith(prefix + ".")])
@@ -1695,13 +1772,15 @@ def compare_steps(cfg, weights, batches, gp_noise, card: str = "cuda", trainer_c
     for kind, batch in zip(kinds, batches):
         ref_m, ref_grads, cpu_s, _, ref_buffers, ref_updates = run(ref_trainer, kind, batch)
         for dtype, (rtol, atol, min_cos, min_sa_cos) in limits.items():
-            m, grads, card_s, sa_names, buffers, updates = run(on(card, dtype), kind, batch)
-            # The kernels run the variant of the step's type only (on the
-            # CPU, none runs).
+            m, grads, card_s, sa_widths, buffers, updates = run(on(card, dtype), kind, batch)
+            sa_names = list(sa_widths)
+            # The kernels run the variants of the step's type at its
+            # attention widths only (on the CPU, none runs).
             dt = getattr(torch, dtype)
             variants = {k: v for counts in (attention.variant_counts, fused_conv.variant_counts)
                         for k, v in counts.items() if v}
-            attn = {f"{k}/{attention.VARIANTS[k][dt]}"
+            attn = {f"{k}/{expected_variant(k, dt, max(c // 8, 1), c)}"
+                    for c in sa_widths.values()
                     for k in (attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL)}
             b4 = ({f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[dt]}"} if kind in b4_steps
                   else set())
@@ -1763,32 +1842,17 @@ def _train_batch(rng, cfg, device):
             for k in ("source", "target")}
 
 
-def train_phase(card: str, smi_line: str) -> dict:
-    """Returns the kernel launches of the timed rounds, by kernel."""
+def timed_rounds(trainer, state, rng, card: str, smi_line: str):
+    """One warm-up and TRAIN_TIMED_ROUNDS timed rounds of ``trainer`` on the
+    card; their kernel launches must be what the passes of the step imply,
+    each of the three attention kernels on the variant of the trainer's type
+    only. Returns (state, launches by kernel)."""
     import numpy as np
     import torch
-    from twingan_tpu_torch.infer.translate import ImageInferer
     from twingan_tpu_torch.ops import attention
-    from twingan_tpu_torch.runner.checkpoint import load_model, save_stage
-    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
 
-    cfg = train_config()
-    trainer = TwinGANTrainer(cfg)  # the card, by default
-    state = trainer.init_state(SEED)
-    set_attention_gamma(state.nets)
-    weights = {k: v.detach().cpu().clone() for k, v in state.nets.state_dict().items()}
-    rng = np.random.RandomState(SEED)
-    gen = torch.Generator().manual_seed(SEED)
-    res = cfg.model.resolution
-    gp_noise = {d: {"alpha": torch.rand(TRAIN_BATCH, 1, 1, 1, generator=gen),
-                    "noise": torch.rand(TRAIN_BATCH, res, res, 3, generator=gen) * 2 - 1}
-                for d in ("s", "t")}
-    for row in compare_steps(cfg, weights, [_train_batch(rng, cfg, "cpu") for _ in range(2)],
-                             gp_noise):
-        emit(row)
-        if not row["ok"]:
-            fail("train", f"the card's {row['check']} disagrees beyond the limits")
-
+    cfg = trainer.cfg
+    dtype = cfg.model.dtype
     rounds = [[_train_batch(rng, cfg, "cuda") for _ in range(cfg.n_critic)]
               for _ in range(1 + TRAIN_TIMED_ROUNDS)]
     state, _ = trainer.round_step(state, rounds[0], rng=SEED)  # warm-up
@@ -1810,14 +1874,14 @@ def train_phase(card: str, smi_line: str) -> dict:
                                          * per_step["d_step"][k]) for k in counts}
     losses = [{k: float(v) for k, v in m.items()} for m in metrics]
     finite = all(np.isfinite(v) for m in losses for v in m.values())
-    # bf16 rounds: the three attention kernels on their tensor-core variants only.
-    expected_variants = {f"{k}/{attention.VARIANTS[k][torch.bfloat16]}": expected[k]
+    expected_variants = {f"{k}/{attention.VARIANTS[k][getattr(torch, dtype)]}": expected[k]
                          for k in (attention.KERNEL_NAME, attention.DQ_KERNEL,
                                    attention.DKV_KERNEL)}
     med = statistics.median(round_s)
-    MEASURED["train_rounds_per_s"] = 1.0 / med
-    MEASURED["train_peak_memory_bytes"] = peak
-    row = {"phase": "train", "check": "timed rounds", "rounds": TRAIN_TIMED_ROUNDS,
+    MEASURED[f"train_rounds_per_s_{dtype}"] = 1.0 / med
+    MEASURED[f"train_peak_memory_bytes_{dtype}"] = peak
+    row = {"phase": "train", "check": "timed rounds", "dtype": dtype,
+           "rounds": TRAIN_TIMED_ROUNDS,
            "batch": TRAIN_BATCH, "n_critic": cfg.n_critic, "fused": cfg.fuse,
            "round_s": round_s, "rounds_per_s": 1.0 / med,
            "images_per_s": cfg.n_critic * TRAIN_BATCH / med,
@@ -1829,8 +1893,37 @@ def train_phase(card: str, smi_line: str) -> dict:
            "ok": bool(counts == expected and variants == expected_variants and finite)}
     emit(row)
     if not row["ok"]:
-        fail("train", "the timed rounds' launches differ from the passes' count or ran "
-                      "another variant than the bf16 one, or a loss is not finite")
+        fail("train", f"the timed {dtype} rounds' launches differ from the passes' count or "
+                      f"ran another variant than the {dtype} one, or a loss is not finite")
+    return state, counts
+
+
+def train_phase(card: str, smi_line: str) -> dict:
+    """Returns the kernel launches of the timed rounds, by kernel."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.infer.translate import ImageInferer
+    from twingan_tpu_torch.runner.checkpoint import load_model, save_stage
+    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    cfg = train_config()
+    trainer = TwinGANTrainer(cfg)  # the card, by default
+    state = trainer.init_state(SEED)
+    set_attention_gamma(state.nets)
+    weights = {k: v.detach().cpu().clone() for k, v in state.nets.state_dict().items()}
+    rng = np.random.RandomState(SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    res = cfg.model.resolution
+    gp_noise = {d: {"alpha": torch.rand(TRAIN_BATCH, 1, 1, 1, generator=gen),
+                    "noise": torch.rand(TRAIN_BATCH, res, res, 3, generator=gen) * 2 - 1}
+                for d in ("s", "t")}
+    for row in compare_steps(cfg, weights, [_train_batch(rng, cfg, "cpu") for _ in range(2)],
+                             gp_noise):
+        emit(row)
+        if not row["ok"]:
+            fail("train", f"the card's {row['check']} disagrees beyond the limits")
+
+    state, counts = timed_rounds(trainer, state, rng, card, smi_line)
 
     stage_dir = tempfile.mkdtemp(prefix="twingan_smoke_train_")
     try:
@@ -1851,6 +1944,27 @@ def train_phase(card: str, smi_line: str) -> dict:
                           "are not the ones the rounds updated")
     finally:
         shutil.rmtree(stage_dir, ignore_errors=True)
+    return counts
+
+
+def fp32_phase(card: str, smi_line: str) -> dict:
+    """The JAX package's default type, fp32, end to end on the slice config:
+    ``serving_phase`` in fp32 (batches of 4 against the CPU's fp32
+    inferer, B1 on its fp32 variant only), then one warm-up and
+    TRAIN_TIMED_ROUNDS timed fp32 rounds at batch 3 from seeded weights
+    (``timed_rounds``: the passes' launches, each kernel on its fp32
+    variant only). Returns the launches by kernel."""
+    import numpy as np
+    from twingan_tpu_torch.ops import attention
+    from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
+
+    served = serving_phase(card, smi_line, "float32")
+    cfg = train_config()
+    trainer = TwinGANTrainer(cfg.replace(model=cfg.model.replace(dtype="float32")))
+    state = trainer.init_state(SEED)
+    set_attention_gamma(state.nets)
+    _, counts = timed_rounds(trainer, state, np.random.RandomState(SEED + 20), card, smi_line)
+    counts[attention.KERNEL_NAME] += served
     return counts
 
 
@@ -2902,8 +3016,8 @@ def recipe_phase(card: str, smi_line: str) -> dict:
            "rounds": TRAIN_TIMED_ROUNDS, "batch": TRAIN_BATCH, "round_s": round_s,
            "rounds_per_s": 1.0 / med, "images_per_s": cfg.n_critic * TRAIN_BATCH / med,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           "batch_norm_rounds_per_s": MEASURED.get("train_rounds_per_s"),
-           "batch_norm_peak_memory_bytes": MEASURED.get("train_peak_memory_bytes"),
+           "batch_norm_rounds_per_s": MEASURED.get("train_rounds_per_s_bfloat16"),
+           "batch_norm_peak_memory_bytes": MEASURED.get("train_peak_memory_bytes_bfloat16"),
            "timing": "as the train phase's: synchronized host clock around each round",
            "launches": dict(attention.launch_counts), "expected_launches": expected,
            "card": card, "nvidia_smi": smi_line,
@@ -4018,7 +4132,7 @@ def int8_phase(card: str, smi_line: str) -> dict:
                                        f"{quant.KERNEL_NAME}/{quant.VARIANT}": q1_int8_in},
               "kernels_per_batch_of_4": per_batch,
               "images_per_s": REQUESTS_PER_ROUND / timed, "round_s": round_s,
-              "bf16_serving_images_per_s": MEASURED.get("serving_images_per_s"),
+              "bf16_serving_images_per_s": MEASURED.get("serving_images_per_s_bfloat16"),
               "card": card, "nvidia_smi": smi_line, "ok": True})
         MEASURED["int8_images_per_s"] = REQUESTS_PER_ROUND / timed
         launches = {"b1": b1, "q1": q1, "q1_int8_in": q1_int8_in}
@@ -5072,10 +5186,33 @@ def kernel_entry(name: str, launches: int, by_path: dict, err: float, ms: float,
             "library_ms": library_ms, **extra}
 
 
+def kernel_variants(name: str) -> list:
+    """The variants an attention kernel's entry point launches."""
+    from twingan_tpu_torch.ops import attention
+
+    return [k.split("/", 1)[1] for k in attention.variant_counts if k.startswith(name + "/")]
+
+
+def fp32_entry(row: dict, name: str = "", grads=()) -> dict:
+    """An attention kernel's fp32 numbers at the main shape (the kernel
+    row ``row``; ``name`` and ``grads`` pick a backward kernel's): its
+    variant, error, times, bound by its route and by both fp32 routes."""
+    pick = (lambda v: v[name]) if name else (lambda v: v)  # noqa: E731
+    err = max(row["max_abs_err"][g] for g in grads) if name else row["max_abs_err"]
+    return {"variant": pick(row["variant"])[0], "max_abs_err": err, "ms": pick(row["ms"]),
+            "device_ms": pick(row["device_ms"]), "plain_ms": pick(row["plain_ms"]),
+            "library_ms": row["library_ms"], "bound_ms": pick(row["bound_ms"]),
+            "bound_by": pick(row["bound_by"]),
+            "bound_ms_by_route": {r: pick(v) for r, v in row["bound_ms_by_route"].items()},
+            "shape": {k: row[k] for k in ("B", "N", "c_bar", "C")}}
+
+
 def fused_conv_entry(layer_rows: list, launches: dict, more: dict) -> dict:
     """B4's line: the sums over the 13 layers of one pggan256 generator
     pass at batch 12 (each distinct layer's row times its count);
     ``more`` holds the launches of the paths after the generation phase."""
+    from twingan_tpu_torch.ops import fused_conv
+
     total = lambda key: sum(r[key] * r["layers_per_pass"] for r in layer_rows)  # noqa: E731
     heaviest = max(layer_rows, key=lambda r: r["bound_ms"] * r["layers_per_pass"])
     by_path = {"generation": sum(launches.values()), **more}
@@ -5084,6 +5221,7 @@ def fused_conv_entry(layer_rows: list, launches: dict, more: dict) -> dict:
         max(r["max_abs_err"] for r in layer_rows), total("ms"), total("plain_ms"),
         total("bound_ms"), heaviest["bound_by"], total("library_ms"),
         launches_in_generation=launches, variant=heaviest["variant"][0],
+        variants=sorted(set(fused_conv.VARIANTS.values())),
         times="per generator pass of pggan256 at batch 12: the sum over its 13 "
               "conv-leaky-pixel-norm layers; library_ms is cuDNN's conv alone (NCHW), "
               "library_best_ms the same at its best (benchmark mode, channels-last)",
@@ -5106,8 +5244,8 @@ def main() -> int:
     from twingan_tpu_torch.ops import fused_conv
 
     build_phase()
-    serving_row = kernel_phase()
-    train_row = backward_kernel_phase()
+    serving_rows = kernel_phase()
+    train_rows = backward_kernel_phase()
     b4_rows = fused_conv_phase()
     fused_conv.reset_launch_counts()
     serving_launches = serving_phase(card, smi_line)
@@ -5116,6 +5254,8 @@ def main() -> int:
     require_no_b4("http")
     train_launches = train_phase(card, smi_line)
     require_no_b4("train")
+    fp32_launches = fp32_phase(card, smi_line)
+    require_no_b4("fp32")
     generation_launches = generation_phase(card, smi_line)
     runner_launches = runner_phase(card, smi_line)
     root = tempfile.mkdtemp(prefix="twingan_smoke_data_")
@@ -5137,7 +5277,7 @@ def main() -> int:
     data_launches = realdata["launches"]
     fwd = "flash_attn_fwd"
     by_path = {"serving": serving_launches, "http": http_launches,
-               "train": train_launches[fwd],
+               "train": train_launches[fwd], "fp32": fp32_launches[fwd],
                "runner": runner_launches[fwd], "runner_data": data_launches[fwd],
                "eval": eval_launches[fwd], "recipe": recipe_launches[fwd],
                "options": options_launches[fwd], "classifiers": classifier_launches,
@@ -5145,22 +5285,25 @@ def main() -> int:
                "export": int8["launches"]["export_bf16_b1"] + int8["launches"]["export_int8_b1"],
                "parallel": parallel_launches[fwd], "alt_gans_import": alt_launches[fwd],
                "wide": wide_launches[fwd]}
+    row = serving_rows["bfloat16"]
     entries = [kernel_entry(
-        fwd, sum(by_path.values()), by_path,
-        serving_row["max_abs_err"], serving_row["ms"], serving_row["plain_ms"],
-        serving_row["bound_ms"], serving_row["bound_by"], serving_row["library_ms"],
-        variant=serving_row["variant"][0], device_ms=serving_row["device_ms"])]
+        fwd, sum(by_path.values()), by_path, row["max_abs_err"], row["ms"], row["plain_ms"],
+        row["bound_ms"], row["bound_by"], row["library_ms"], variant=row["variant"][0],
+        variants=kernel_variants(fwd), device_ms=row["device_ms"],
+        fp32=fp32_entry(serving_rows["float32"]))]
     for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
-        by_path = {"train": train_launches[name], "runner": runner_launches[name],
+        by_path = {"train": train_launches[name], "fp32": fp32_launches[name],
+                   "runner": runner_launches[name],
                    "runner_data": data_launches[name], "eval": eval_launches[name],
                    "recipe": recipe_launches[name], "options": options_launches[name],
                    "parallel": parallel_launches[name], "wide": wide_launches[name]}
+        row = train_rows["bfloat16"]
         entries.append(kernel_entry(
             name, sum(by_path.values()), by_path,
-            max(train_row["max_abs_err"][g] for g in grads), train_row["ms"][name],
-            train_row["plain_ms"][name], train_row["bound_ms"][name],
-            train_row["bound_by"][name], train_row["library_ms"],
-            variant=train_row["variant"][name][0], device_ms=train_row["device_ms"][name]))
+            max(row["max_abs_err"][g] for g in grads), row["ms"][name], row["plain_ms"][name],
+            row["bound_ms"][name], row["bound_by"][name], row["library_ms"],
+            variant=row["variant"][name][0], variants=kernel_variants(name),
+            device_ms=row["device_ms"][name], fp32=fp32_entry(train_rows["float32"], name, grads)))
     entries.append(fused_conv_entry(b4_rows, generation_launches,
                                     {"runner": runner_launches["fused_conv"],
                                      "runner_data": data_launches["fused_conv"],

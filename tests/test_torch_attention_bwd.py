@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_twingan_step import _two_torch_threads  # noqa: E402,F401
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

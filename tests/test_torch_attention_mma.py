@@ -20,8 +20,10 @@ their plain versions there). What can be held here, before any card time:
 - the routing on the CPU: the plain versions, no launch counted.
 """
 
+import ctypes
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -254,14 +256,45 @@ def test_dq_kernel_runs_on_mma():
 
 
 def test_variants_by_type():
-    """bf16 takes the tensor-core variant of each of the three kernels,
-    fp32 the CUDA-core one."""
+    """bf16 takes the tensor-core variant of each of the three kernels; fp32
+    takes the 3xTF32 tensor-core variant of the forward and dkv and the
+    CUDA-core dq; past the register-held widths, the wide kernels (bf16 on
+    the tensor cores, fp32 on the CUDA cores). The C entry points pick the
+    variant and report it by the ids of ``VARIANT_IDS``, which the counts
+    record."""
     v = attention.VARIANTS
-    assert v[attention.KERNEL_NAME] == v[attention.DQ_KERNEL] == v[attention.DKV_KERNEL] == {
+    assert v[attention.KERNEL_NAME] == v[attention.DKV_KERNEL] == {
+        torch.float32: attention.TF32X3, torch.bfloat16: attention.TENSOR_CORE}
+    assert v[attention.DQ_KERNEL] == {
+        torch.float32: attention.CUDA_CORE, torch.bfloat16: attention.TENSOR_CORE}
+    assert attention.WIDE_VARIANTS == {
         torch.float32: attention.CUDA_CORE, torch.bfloat16: attention.TENSOR_CORE}
     assert set(attention.variant_counts) == {
-        "flash_attn_fwd/cuda_core", "flash_attn_fwd/tensor_core", "flash_attn_dq/cuda_core",
-        "flash_attn_dq/tensor_core", "flash_attn_dkv/cuda_core", "flash_attn_dkv/tensor_core"}
+        "flash_attn_fwd/tensor_core_tf32x3", "flash_attn_fwd/cuda_core",
+        "flash_attn_fwd/tensor_core", "flash_attn_dq/cuda_core", "flash_attn_dq/tensor_core",
+        "flash_attn_dkv/tensor_core_tf32x3", "flash_attn_dkv/cuda_core",
+        "flash_attn_dkv/tensor_core"}
+    enum = re.search(r"enum Variant : int \{([^}]*)\}", _source("flash_mma.cuh")).group(1)
+    ids = dict(re.findall(r"(k\w+) = (\d+)", enum))
+    assert {attention.VARIANT_IDS[int(i)]: k for k, i in ids.items()} == {
+        attention.CUDA_CORE: "kCudaCore", attention.TENSOR_CORE: "kTensorCore",
+        attention.TF32X3: "kTf32x3"}
+    fwd, bwd = _source("flash_attn_fwd.cu"), _source("flash_attn_bwd.cu")
+    for src, entry in ((fwd, "flash_attn_fwd("), (bwd, "flash_attn_dq("),
+                       (bwd, "flash_attn_dkv(")):
+        head = src[src.index(f'extern "C" int {entry}'):]
+        assert "void* stream, int* variant)" in head[:head.index("{")]
+    assert fwd.count("*variant = ") == 2 and bwd.count("*variant = ") == 3
+    attention.reset_launch_counts()
+    try:
+        attention._count(attention.DKV_KERNEL, ctypes.c_int(2))
+        assert attention.variant_counts["flash_attn_dkv/tensor_core_tf32x3"] == 1
+        assert attention.launch_counts[attention.DKV_KERNEL] == 1
+        with pytest.raises(RuntimeError, match="reported no variant"):
+            attention._count(attention.KERNEL_NAME, ctypes.c_int(-1))
+        assert attention.launch_counts[attention.KERNEL_NAME] == 0
+    finally:
+        attention.reset_launch_counts()
 
 
 def test_bf16_on_the_cpu_runs_the_plain_versions():

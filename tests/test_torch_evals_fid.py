@@ -32,7 +32,7 @@ from test_torch_evals import (  # noqa: E402,F401
     read_score,
     score_the_sources,
 )
-from test_torch_twingan_step import _two_torch_threads  # noqa: E402,F401
+from test_torch_twingan_step import _two_torch_threads, _unoptimized_jax_reference  # noqa: E402,F401,E501
 
 from twingan_tpu.evals import metrics as jmetrics  # noqa: E402
 from twingan_tpu.evals import run_eval as jrun_eval  # noqa: E402

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_twingan_step import _two_torch_threads  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402

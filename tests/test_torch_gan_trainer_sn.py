@@ -23,7 +23,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import test_torch_gan_trainer as base  # noqa: E402
-from test_torch_twingan_step import _two_torch_threads  # noqa: E402,F401
+from test_torch_twingan_step import _two_torch_threads, _unoptimized_jax_reference  # noqa: E402,F401,E501
 from twingan_tpu.train.gan_trainer import GanTrainer as JaxGanTrainer  # noqa: E402
 
 from twingan_tpu_torch import bridge  # noqa: E402

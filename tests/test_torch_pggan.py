@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from test_torch_twingan_step import _two_torch_threads, _unoptimized_jax_reference  # noqa: E402,F401,E501
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

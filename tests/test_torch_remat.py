@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_twingan_step import _unoptimized_jax_reference  # noqa: E402,F401
+
 from twingan_tpu_torch.models.config import PGGANConfig  # noqa: E402
 from twingan_tpu_torch.ops import attention  # noqa: E402
 from twingan_tpu_torch.train import base  # noqa: E402

@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_twingan_step import _unoptimized_jax_reference  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

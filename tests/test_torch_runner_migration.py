@@ -24,7 +24,7 @@ torch = pytest.importorskip("torch")
 import flax.serialization  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from test_torch_twingan_step import _two_torch_threads  # noqa: E402,F401
+from test_torch_twingan_step import _two_torch_threads, _unoptimized_jax_reference  # noqa: E402,F401,E501
 
 from twingan_tpu.models.config import PGGANConfig as JaxPGGANConfig  # noqa: E402
 from twingan_tpu.runner.checkpoint import CheckpointManager as JaxCheckpointManager  # noqa: E402

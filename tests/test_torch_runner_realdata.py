@@ -25,7 +25,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 from PIL import Image  # noqa: E402
-from test_torch_twingan_step import _two_torch_threads  # noqa: E402,F401
+from test_torch_twingan_step import _two_torch_threads, _unoptimized_jax_reference  # noqa: E402,F401,E501
 
 from twingan_tpu.data import converters as jconverters  # noqa: E402
 from twingan_tpu.models.config import PGGANConfig as JaxPGGANConfig  # noqa: E402

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from test_torch_twingan_step import _unoptimized_jax_reference  # noqa: E402,F401
+
 from test_torch_runner_realdata import (  # noqa: E402
     _two_torch_threads,  # noqa: F401
     jax_run,

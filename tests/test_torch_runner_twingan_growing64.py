@@ -32,7 +32,7 @@ torch = pytest.importorskip("torch")
 
 import test_torch_runner_twingan_growing as growing  # noqa: E402
 import test_torch_twingan_step as base  # noqa: E402
-from test_torch_twingan_step import _two_torch_threads  # noqa: E402,F401
+from test_torch_twingan_step import _two_torch_threads, _unoptimized_jax_reference  # noqa: E402,F401,E501
 
 sys.path.insert(0, os.path.join(base.REPO, "tools"))
 import twingan_step_rounding as rounding  # noqa: E402

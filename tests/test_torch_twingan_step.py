@@ -87,6 +87,25 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _unoptimized_jax_reference():
+    """The JAX reference compiled without XLA's optimization passes
+    (``jax_disable_most_optimizations``): the same function on the same
+    inputs, whose trace and compile dominate these modules' time and take
+    about half as long. The flag is not part of JAX's jit cache key, so the
+    caches are cleared after the module: no later module runs what it
+    compiled. A module whose tolerances sit near the rounding that XLA's
+    fusions change (``test_torch_twingan_step_fused.py``'s instance norm
+    gradients) keeps the default."""
+    before = jax.config.values["jax_disable_most_optimizations"]
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", before)
+        jax.clear_caches()
+
+
 def randomize(tree, rng):
     out = {}
     for k, v in tree.items():

@@ -3,8 +3,9 @@
 
 Times the bf16 forward (B1, ``csrc/flash_attn_fwd.cu``) at the serving
 shape (B 4, N 4096, c_bar 8, C 64) and the bf16 dq and dkv kernels (B2
-and B3, ``csrc/flash_attn_bwd.cu``) at the training shape (B 3), each
-beside copies of its source with one part taken out:
+and B3, ``csrc/flash_attn_bwd.cu``) at the training shape (B 3), and the
+fp32 (3xTF32) forward and dkv at the same shapes, each beside copies of
+its source with one part taken out:
 
 - ``no_exp``: the exponentials (each ex2 replaced by its argument);
 - ``no_scores``: the score product S = f g^T (S^T = g f^T in dkv);
@@ -12,6 +13,11 @@ beside copies of its source with one part taken out:
 - ``no_dp`` (dq, dkv): the product dP = do h^T (dP^T = h do^T in dkv);
 - ``no_grads``: the products dh += P^T do and dg += dS^T f (dkv), df +=
   dS g (dq);
+- ``no_lo`` (fp32): the two small TF32 products of each 3xTF32 product
+  (lo hi and hi lo; the large one stays), with the splits only they use;
+- ``no_split`` (fp32): the hi/lo split of every operand (cvt.rna, the
+  subtraction and the cut of lo; both halves take the unsplit bits, the
+  products stay);
 - ``no_staging``: the copies of every tile after the first (the kernel
   reads the first tile's shared memory again).
 
@@ -22,7 +28,7 @@ turns (kernel, copies, kernel, ...) three times: CUDA events, the median
 of 30 launches after 5 warm-ups. Prints one JSON line per timing, with the
 card's name and power limit. Run from the repository root:
 
-    python3 tools/flash_split.py
+    python3 tools/flash_split.py [--dtype bfloat16|float32]
 """
 
 from __future__ import annotations
@@ -42,8 +48,10 @@ sys.path.insert(0, REPO)
 from twingan_tpu_torch.ops import attention, cuda_build  # noqa: E402
 
 REPEATS = 3
+HEADER = "flash_mma.cuh"
 
-# The text each copy replaces (it must occur in the source), by library.
+# The text each copy replaces (it must occur in the source), by library; a
+# cut of three strings names the file of csrc/ it applies to.
 FWD_CUTS = {
     "no_exp": [("s[j][e] = ex2(fmaf(s[j][e], kLog2e, -msc[e / 2]));",
                 "s[j][e] = fmaf(s[j][e], kLog2e, -msc[e / 2]);")],
@@ -85,11 +93,49 @@ DQ_CUTS = {
                   "        dfa[0][0] += __uint_as_float(bf[0] ^ da[0]);")],
     "no_staging": DKV_CUTS["no_staging"],
 }
-# kernel -> (library, cuts, shape B, N, c_bar, C)
+# The 3xTF32 variants' cuts: the products' lines of the fp32 kernels, and
+# the split and the small products in flash_mma.cuh.
+TF32_CUTS = {
+    "no_lo": [(HEADER, "  mma1688_tf32(d, a.lo, s0.hi, s1.hi);\n"
+                       "  mma1688_tf32(d, a.hi, s0.lo, s1.lo);\n", "")],
+    "no_split": [(HEADER, "  const uint32_t hi = to_tf32(x);\n"
+                          "  return {hi, __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u};",
+                  "  return {__float_as_uint(x), __float_as_uint(x)};")],
+}
+FWD_TF32_CUTS = {
+    "no_exp": FWD_CUTS["no_exp"],
+    "no_scores": [("for (int ks = 0; ks < KS; ++ks) mma1688_tf32x3(s[j], fa[ks], gr[8 * ks], "
+                   "gr[8 * ks + 4]);", "s[j][0] += gr[0];")],
+    "no_value": [("for (int j = 0; j < 8; ++j) mma1688_tf32x3(pv[j], pa, hr[8 * j], "
+                  "hr[HS + 8 * j]);",
+                  "pv[kk][0] += hr[0] + __uint_as_float(pa.hi[0] ^ pa.lo[3]);")],
+    **TF32_CUTS,
+    "no_staging": FWD_CUTS["no_staging"],
+}
+DKV_TF32_CUTS = {
+    "no_exp": DKV_CUTS["no_exp"],
+    "no_scores": [("for (int ks = 0; ks < KS; ++ks) mma1688_tf32x3(p[j], ga[ks], fr[8 * ks], "
+                   "fr[8 * ks + 4]);", "p[j][0] += fr[0];")],
+    "no_dp": [("        mma1688_tf32x3(ds[j], ha, dr[0], dr[4]);",
+               "        ds[j][0] += dr[0] + __uint_as_float(ha.hi[0] ^ ha.lo[3]);")],
+    "no_grads": [("for (int j = 0; j < 8; ++j) mma1688_tf32x3(th[j], pa, dr[8 * j], "
+                  "dr[DS + 8 * j]);",
+                  "th[kk][0] += dr[0] + __uint_as_float(pa.hi[0] ^ pa.lo[3]);"),
+                 ("for (int j = 0; j < NG; ++j) mma1688_tf32x3(tg[j], da, fr[8 * j], "
+                  "fr[FS + 8 * j]);",
+                  "tg[0][0] += fr[0] + __uint_as_float(da.hi[0] ^ da.lo[3]);")],
+    **TF32_CUTS,
+    "no_staging": DKV_CUTS["no_staging"],
+}
+# (kernel, dtype) -> (library, cuts, shape B, N, c_bar, C)
 KERNELS = {
-    attention.KERNEL_NAME: (attention.KERNEL_NAME, FWD_CUTS, (4, 4096, 8, 64)),
-    attention.DQ_KERNEL: (attention.BWD_LIBRARY, DQ_CUTS, (3, 4096, 8, 64)),
-    attention.DKV_KERNEL: (attention.BWD_LIBRARY, DKV_CUTS, (3, 4096, 8, 64)),
+    (attention.KERNEL_NAME, "bfloat16"): (attention.KERNEL_NAME, FWD_CUTS, (4, 4096, 8, 64)),
+    (attention.DQ_KERNEL, "bfloat16"): (attention.BWD_LIBRARY, DQ_CUTS, (3, 4096, 8, 64)),
+    (attention.DKV_KERNEL, "bfloat16"): (attention.BWD_LIBRARY, DKV_CUTS, (3, 4096, 8, 64)),
+    (attention.KERNEL_NAME, "float32"): (attention.KERNEL_NAME, FWD_TF32_CUTS,
+                                         (4, 4096, 8, 64)),
+    (attention.DKV_KERNEL, "float32"): (attention.BWD_LIBRARY, DKV_TF32_CUTS,
+                                        (3, 4096, 8, 64)),
 }
 
 
@@ -98,14 +144,14 @@ def build_copy(library: str, name: str, cuts, workdir: str) -> tuple[str, str]:
     src_dir = os.path.join(workdir, name)
     shutil.copytree(cuda_build.CSRC_DIR, src_dir)
     path = os.path.join(src_dir, f"{library}.cu")
-    with open(path) as fh:
-        text = fh.read()
-    for old, new in cuts:
+    for cut in cuts:
+        file, old, new = cut if len(cut) == 3 else (f"{library}.cu", *cut)
+        with open(os.path.join(src_dir, file)) as fh:
+            text = fh.read()
         if old not in text:
-            raise RuntimeError(f"{library}.cu no longer holds the text {name} cuts: {old!r}")
-        text = text.replace(old, new)
-    with open(path, "w") as fh:
-        fh.write(text)
+            raise RuntimeError(f"{file} no longer holds the text {name} cuts: {old!r}")
+        with open(os.path.join(src_dir, file), "w") as fh:
+            fh.write(text.replace(old, new))
     out = os.path.join(src_dir, f"lib{library}.so")
     proc = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o", out, path],
                           capture_output=True, text=True)
@@ -132,8 +178,15 @@ def time_ms(fn, reps: int = 30) -> float:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
+                        help="time only the kernels of this type (default: both)")
+    args = parser.parse_args()
+    kernels = {k: v for k, v in KERNELS.items() if args.dtype in (None, k[1])}
     if not torch.cuda.is_available():
         print(json.dumps({"ok": False, "error": "no CUDA device"}))
         return 1
@@ -141,16 +194,17 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     workdir = tempfile.mkdtemp(prefix="flash_split_")
     try:
-        jobs = [(kernel, name, cuts) for kernel, (_, all_cuts, _) in KERNELS.items()
+        jobs = [(key, name, cuts) for key, (_, all_cuts, _) in kernels.items()
                 for name, cuts in [("kernel", []), *all_cuts.items()]]
-        with ThreadPoolExecutor(len(jobs)) as pool:
+        with ThreadPoolExecutor(min(len(jobs), os.cpu_count() or 8)) as pool:
             built = list(pool.map(lambda j: (j[0], *build_copy(
-                KERNELS[j[0]][0], j[1], j[2], os.path.join(workdir, j[0]))), jobs))
+                kernels[j[0]][0], j[1], j[2], os.path.join(workdir, *j[0]))), jobs))
         gen = torch.Generator(device="cuda").manual_seed(0)
-        for kernel, (library, _, (b, n, c_bar, c)) in KERNELS.items():
-            f, g = (torch.randn(b, n, c_bar, device="cuda", generator=gen).bfloat16()
+        for (kernel, dtype), (library, _, (b, n, c_bar, c)) in kernels.items():
+            dt = getattr(torch, dtype)
+            f, g = (torch.randn(b, n, c_bar, device="cuda", generator=gen).to(dt)
                     for _ in range(2))
-            h, do = (torch.randn(b, n, c, device="cuda", generator=gen).bfloat16()
+            h, do = (torch.randn(b, n, c, device="cuda", generator=gen).to(dt)
                      for _ in range(2))
             o, lse = attention.flash_attention_forward(f, g, h)
             delta = torch.sum(do.float() * o.float(), dim=-1)
@@ -159,7 +213,7 @@ def main() -> int:
                 attention.DQ_KERNEL: lambda: attention.flash_attention_dq(f, g, h, do, lse, delta),
                 attention.DKV_KERNEL: lambda: attention.flash_attention_dkv(f, g, h, do, lse, delta),
             }[kernel]
-            copies = [(name, ctypes.CDLL(so)) for k, name, so in built if k == kernel]
+            copies = [(name, ctypes.CDLL(so)) for k, name, so in built if k == (kernel, dtype)]
             real = cuda_build.load(library)
             for rep in range(REPEATS):
                 for name, lib in copies:
@@ -169,7 +223,7 @@ def main() -> int:
                     finally:
                         cuda_build._loaded[library] = real
                     print(json.dumps({"kernel": kernel, "B": b, "N": n, "c_bar": c_bar,
-                                      "C": c, "dtype": "bfloat16", "copy": name, "repeat": rep,
+                                      "C": c, "dtype": dtype, "copy": name, "repeat": rep,
                                       "ms": ms, "card": smi}), flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -24,7 +24,9 @@
 // device memory. At the training shape (B 3, N 4096, cbar 8, C 64) dkv's
 // 14.5 GFLOP take 14.7 us at the bf16 tensor-core peak and its 50 M
 // exponentials 12.9 us at the special-function unit's rate: its products
-// bound it, closely followed by the exponentials.
+// bound it, closely followed by the exponentials. In fp32 the dkv
+// variant's products are three TF32 products each: 88 us at the TF32
+// peak.
 //
 // The TPU kernels carry their fp32 accumulators across a sequential grid
 // axis in VMEM. CUDA blocks run in no order, so that axis becomes a loop
@@ -91,21 +93,40 @@
 //    thread; that instantiation has its own launch bound (one block an
 //    SM, up to 255 registers) instead of 3 blocks an SM.
 //
-// The CUDA-core variants (fp32):
-//  - dq: a block owns `rows` query rows of one batch element and loops over
-//    key tiles (g and h staged in shared memory as fp32);
-//  - dkv: a block owns `rows` key rows and loops over query tiles (f, do,
-//    lse and delta staged in shared memory).
-// blockDim = (rows, groups): threadIdx.x picks the owned row, threadIdx.y a
-// slice of 32 of the C columns (zero padded), as in flash_attn_fwd.cu. A
-// thread keeps its row's do (dq) or h (dkv) slice in registers, computes a
-// partial dp over its 32 columns for each of the tile's 16 rows, and the
-// partials of the row's `groups` threads are summed through shared memory.
-// Each thread then recomputes s and p itself (cbar is small), and the
-// cbar-wide accumulator (df or dg) is split across the row's threads by
-// column (k % groups == ty). Threads of one warp share threadIdx.y,
-// so every read of a staged tile is a shared-memory broadcast. These run on
-// fp32 CUDA cores.
+// dkv, TF32 tensor-core variant (fp32): the bf16 variant's warps and
+// order of sums, with every product to fp32 accuracy as three TF32
+// products of split operands (3xTF32, flash_mma.cuh):
+//  - a warp owns 16 key rows with g's A fragment (tf32 hi and lo) in
+//    registers; two warps split each key row's queries and sum in a fixed
+//    order at the end; fp32 accumulators for dg and dh;
+//  - h's A fragments would take 2 x C/2 registers a thread in hi and lo:
+//    instead the block's 32 h rows (all of C) stay in shared memory, and
+//    dP^T reads each k step's fragment once for the warp's 4 query blocks;
+//  - query tiles of 64 (32 for each half): f, do (all of C), lse and delta,
+//    fp32, double-buffered by 16-byte cp.async copies, rows padded by 4
+//    words so that the lanes' 32-bit B-fragment reads fall in 32 banks; 50
+//    KB a block at cbar 8, C 64 (3 blocks an SM, all 384 blocks of the
+//    training shape resident), 202 KB at cbar 64, C 256;
+//  - per tile: S^T = g f^T, P^T = 2^(S^T log2e - lse log2e), dP^T = h do^T,
+//    dS^T = P^T (dP^T - delta), dh += P^T do and dg += dS^T f, each product
+//    x_lo y_hi + x_hi y_lo + x_hi y_hi; P^T's and dS^T's C fragments are
+//    the A fragments of the last two in permuted k order (do and f read
+//    in that order). A tile's dh and dg are summed apart and added by fp32
+//    adds (the tensor cores' own sums cut toward zero and would drift over
+//    every tile of a long N). For C > 64 the grid's third dimension takes
+//    64-column slices of dh, as in the bf16 variant.
+//
+// dq, CUDA-core variant (fp32): a block owns `rows` query rows of one
+// batch element and loops over key tiles (g and h staged in shared memory
+// as fp32). blockDim = (rows, groups): threadIdx.x picks the owned row,
+// threadIdx.y a slice of 32 of the C columns (zero padded). A thread keeps
+// its row's do slice in registers, computes a partial dp over its 32
+// columns for each of the tile's 16 keys, and the partials of the row's
+// `groups` threads are summed through shared memory. Each thread then
+// recomputes s and p itself (cbar is small), and df's cbar-wide
+// accumulator is split across the row's threads by column (k % groups ==
+// ty). Threads of one warp share threadIdx.y, so every read of a staged
+// tile is a shared-memory broadcast.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -460,6 +481,305 @@ cudaError_t dkv_mma(const void* const* in, void* dg, void* dh, int batch, int n,
 }
 
 // ---------------------------------------------------------------------------
+// dkv, TF32 tensor-core variant (fp32, 3xTF32).
+
+constexpr int kTfQ = 32;                      // queries per warp and tile
+constexpr int kTfStageQ = kTfQ * kMmaSplit;   // queries per staged tile
+
+// Shared memory: f [2][kTfStageQ][CB + 4], do [2][kTfStageQ][CK + 4], lse
+// and delta [2][kTfStageQ] each, and the block's h rows [kMmaKeys][CK + 4],
+// all fp32 (rows padded by 4 words: flash_mma.cuh).
+template <int CB, int CK>
+__host__ __device__ constexpr size_t dkv_tf32_smem_bytes() {
+  return sizeof(float) * (2 * kTfStageQ * ((CB + 4) + (CK + 4) + 2) + kMmaKeys * (CK + 4));
+}
+
+// CB: cbar padded to 8, 16, 32 or 64; CK: C padded to 64 or 256 (dP's depth).
+template <int CB, int CK>
+__global__ void __launch_bounds__(kMmaThreads, CK == 64 ? (CB <= 16 ? 3 : 2) : 1)
+    flash_attn_dkv_tf32_kernel(const float* __restrict__ f, const float* __restrict__ g,
+                               const float* __restrict__ h, const float* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               float* __restrict__ dg, float* __restrict__ dh, int n, int cbar,
+                               int c, Strides st, bool vec) {
+  using namespace flash_mma;
+  constexpr int FS = CB + 4;       // f tile row stride
+  constexpr int DS = CK + 4;       // do tile and h row stride
+  constexpr int KS = CB / 8;       // k steps of S^T = g f^T
+  constexpr int HK = CK / 8;       // k steps of dP^T = h do^T
+  constexpr int NG = CB / 8;       // 8-column blocks of dg
+  constexpr int NQ = kTfQ / 8;     // 8-query blocks of a warp's tile
+  constexpr int kMerge = 4 * (8 + NG);  // per lane: dh's and dg's accumulators
+  static_assert(kMmaRowWarps * kMerge * 32 * sizeof(float) <= dkv_tf32_smem_bytes<CB, CK>(),
+                "the merge reuses the staging buffers");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* fs = reinterpret_cast<float*>(smem_raw);  // [2][kTfStageQ][FS]
+  float* dos = fs + 2 * kTfStageQ * FS;            // [2][kTfStageQ][DS]
+  float* ls = dos + 2 * kTfStageQ * DS;            // [2][kTfStageQ] lse
+  float* dls = ls + 2 * kTfStageQ;                 // [2][kTfStageQ] delta
+  float* hs = dls + 2 * kTfStageQ;                 // [kMmaKeys][DS] the block's h rows
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int row_warp = warp % kMmaRowWarps, split = warp / kMmaRowWarps;
+  const int b = blockIdx.y;
+  const int kb = blockIdx.x * kMmaKeys;  // the block's first key row
+  const int k0 = kb + 16 * row_warp;     // the warp's first key row
+  const int c0 = blockIdx.z * kMmaCols;  // the block's dh columns
+  const bool with_dg = blockIdx.z == 0;
+  f += b * st.f_sb;
+  g += b * st.g_sb;
+  h += b * st.h_sb;
+  dout += b * st.do_sb;
+  lse += b * st.row_sb;
+  delta += b * st.row_sb;
+
+  Tf32Frag ga[KS];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) ga[ks] = load_a_frag_tf32(g, k0, 8 * ks, n, cbar, st.g_sn, lane);
+  float dga[NG][4], dha[8][4];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) dga[j][0] = dga[j][1] = dga[j][2] = dga[j][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) dha[j][0] = dha[j][1] = dha[j][2] = dha[j][3] = 0.f;
+
+  const TileCopier<kTfStageQ, CB, FS, kMmaThreads, float> f_copier(f, 0, cbar, st.f_sn, tid);
+  const TileCopier<kTfStageQ, CK, DS, kMmaThreads, float> do_copier(dout, 0, c, st.do_sn, tid);
+  auto stage = [&](int t, int buf) {
+    const int q0 = t * kTfStageQ;
+    float* ft = fs + buf * kTfStageQ * FS;
+    float* dt = dos + buf * kTfStageQ * DS;
+    if (vec) {
+      f_copier.copy(ft, q0, n, st.f_sn);
+      do_copier.copy(dt, q0, n, st.do_sn);
+    } else {
+      stage_tile_elements<kTfStageQ, CB, FS, kMmaThreads>(ft, f, q0, 0, n, cbar, st.f_sn, tid);
+      stage_tile_elements<kTfStageQ, CK, DS, kMmaThreads>(dt, dout, q0, 0, n, c, st.do_sn, tid);
+    }
+    stage_row<kTfStageQ, kMmaThreads>(ls + buf * kTfStageQ, lse, q0, n, vec, tid);
+    stage_row<kTfStageQ, kMmaThreads>(dls + buf * kTfStageQ, delta, q0, n, vec, tid);
+  };
+
+  // The block's h rows (all of C) stay in shared memory: dP^T = h do^T
+  // reads its A fragments from them, a k step at a time. They land with
+  // the first tile.
+  if (vec) {
+    const TileCopier<kMmaKeys, CK, DS, kMmaThreads, float> h_copier(h, 0, c, st.h_sn, tid);
+    h_copier.copy(hs, kb, n, st.h_sn);
+  } else {
+    stage_tile_elements<kMmaKeys, CK, DS, kMmaThreads>(hs, h, kb, 0, n, c, st.h_sn, tid);
+  }
+  const float* hr = hs + (16 * row_warp + grp) * DS + tig;  // A fragment rows grp, grp + 8
+
+  // The bf16 variant's pipeline, at 32 queries a warp and tile.
+  const int ntiles = (n + kTfStageQ - 1) / kTfStageQ;
+  stage(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();  // tile t has landed (this thread's copies)
+    __syncthreads();     // ... and every thread's; tile t - 1 is retired
+    if (t + 1 < ntiles) stage(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const int q0 = t * kTfStageQ + split * kTfQ;
+    if (q0 >= n) continue;  // the last tile holds no query of this warp
+    const int sub = (t & 1) * kTfStageQ + split * kTfQ;
+    const float* ft = fs + sub * FS;
+    const float* dt = dos + sub * DS;
+    const float* lt = ls + sub;
+    const float* dlt = dls + sub;
+
+    // S^T = g f^T: 16 keys x 32 queries, 4 blocks of 8 queries; b0, b1 of
+    // block j are f[query 8 j + grp][k tig, tig + 4].
+    float p[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+      const float* fr = ft + (8 * j + grp) * FS + tig;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) mma1688_tf32x3(p[j], ga[ks], fr[8 * ks], fr[8 * ks + 4]);
+    }
+
+    // P^T = 2^(S^T log2e - lse log2e); queries past N get 0.
+    const bool ragged = q0 + kTfQ > n;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(lt + 8 * j + 2 * tig);
+      const float l0 = lq.x * kLog2e, l1 = lq.y * kLog2e;
+      p[j][0] = ex2(fmaf(p[j][0], kLog2e, -l0));
+      p[j][1] = ex2(fmaf(p[j][1], kLog2e, -l1));
+      p[j][2] = ex2(fmaf(p[j][2], kLog2e, -l0));
+      p[j][3] = ex2(fmaf(p[j][3], kLog2e, -l1));
+      if (ragged) {
+        const int q = q0 + 8 * j + 2 * tig;
+        if (q >= n) p[j][0] = p[j][2] = 0.f;
+        if (q + 1 >= n) p[j][1] = p[j][3] = 0.f;
+      }
+    }
+
+    // dP^T = h do^T: 16 keys x 32 queries, over C; h's fragment of a k
+    // step is split once for the 4 query blocks.
+    float ds[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HK; ++ks) {
+      const Tf32Frag ha = split_frag(hr[8 * ks], hr[8 * DS + 8 * ks], hr[8 * ks + 4],
+                                     hr[8 * DS + 8 * ks + 4]);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const float* dr = dt + (8 * j + grp) * DS + 8 * ks + tig;
+        mma1688_tf32x3(ds[j], ha, dr[0], dr[4]);
+      }
+    }
+    // dS^T = P^T (dP^T - delta)
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const float2 dq = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * tig);
+      ds[j][0] = p[j][0] * (ds[j][0] - dq.x);
+      ds[j][1] = p[j][1] * (ds[j][1] - dq.y);
+      ds[j][2] = p[j][2] * (ds[j][2] - dq.x);
+      ds[j][3] = p[j][3] * (ds[j][3] - dq.y);
+    }
+
+    // P^T's and dS^T's block kk (queries 8 kk ..) are A fragments in
+    // permuted k order, so do and f are read at queries 8 kk + 2 tig and + 1.
+    // The tile's products are summed apart and added to dh and dg by fp32
+    // adds, as the forward does (the tensor cores' sums cut toward zero).
+    float th[8][4], tg[NG][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) th[j][0] = th[j][1] = th[j][2] = th[j][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) tg[j][0] = tg[j][1] = tg[j][2] = tg[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NQ; ++kk) {
+      // dh += P^T do: the slice's 64 columns of do.
+      const Tf32Frag pa = split_frag(p[kk][0], p[kk][2], p[kk][1], p[kk][3]);
+      const float* dr = dt + (8 * kk + 2 * tig) * DS + c0 + grp;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma1688_tf32x3(th[j], pa, dr[8 * j], dr[DS + 8 * j]);
+      // dg += dS^T f
+      if (with_dg) {
+        const Tf32Frag da = split_frag(ds[kk][0], ds[kk][2], ds[kk][1], ds[kk][3]);
+        const float* fr = ft + (8 * kk + 2 * tig) * FS + grp;
+#pragma unroll
+        for (int j = 0; j < NG; ++j) mma1688_tf32x3(tg[j], da, fr[8 * j], fr[FS + 8 * j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dha[j][e] += th[j][e];
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dga[j][e] += tg[j][e];
+    }
+  }
+
+  // Sum the two query halves of each key row in a fixed order
+  // (deterministic), as the bf16 variant does.
+  float* xs = reinterpret_cast<float*>(smem_raw) + row_warp * kMerge * 32 + lane;
+  __syncthreads();  // every warp is done with the staged tiles
+  if (split == 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * j + e) * 32] = dha[j][e];
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(32 + 4 * j + e) * 32] = dga[j][e];
+    }
+  }
+  __syncthreads();
+  if (split == 1) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dha[j][e] += xs[(4 * j + e) * 32];
+  }
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dga[j][e] += xs[(32 + 4 * j + e) * 32];
+  }
+
+  // Epilogue: dh's slice and (first slice) dg, each written once in fp32.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + grp + 8 * r;
+    if (row >= n) continue;
+    float* hrow = dh + b * st.o1_sb + row * st.o1_sn;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + 8 * j + 2 * tig;
+      if (vec && col < c) {  // c a multiple of 4: col + 1 < c too, the pair 8-byte aligned
+        *reinterpret_cast<float2*>(hrow + col) = make_float2(dha[j][2 * r], dha[j][2 * r + 1]);
+      } else {
+        if (col < c) hrow[col] = dha[j][2 * r];
+        if (col + 1 < c) hrow[col + 1] = dha[j][2 * r + 1];
+      }
+    }
+    if (!with_dg) continue;
+    float* grow = dg + b * st.o0_sb + row * st.o0_sn;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int col = 8 * j + 2 * tig;
+      if (vec && col < cbar) {
+        *reinterpret_cast<float2*>(grow + col) = make_float2(dga[j][2 * r], dga[j][2 * r + 1]);
+      } else {
+        if (col < cbar) grow[col] = dga[j][2 * r];
+        if (col + 1 < cbar) grow[col + 1] = dga[j][2 * r + 1];
+      }
+    }
+  }
+}
+
+template <int CB, int CK>
+cudaError_t launch_dkv_tf32(const void* const* in, void* dg, void* dh, int batch, int n,
+                            int cbar, int c, const Strides& st, bool vec, cudaStream_t stream) {
+  const dim3 grid((n + kMmaKeys - 1) / kMmaKeys, batch, (c + kMmaCols - 1) / kMmaCols);
+  constexpr size_t smem = dkv_tf32_smem_bytes<CB, CK>();  // 50 KB at cbar 8, C 64
+  auto kernel = flash_attn_dkv_tf32_kernel<CB, CK>;
+  if (smem > 48 * 1024) {  // up to 202 KB at cbar 64, C 256
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
+      static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
+      static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
+      static_cast<float*>(dg), static_cast<float*>(dh), n, cbar, c, st, vec);
+  return cudaGetLastError();
+}
+
+template <int CB>
+cudaError_t dispatch_dkv_tf32(const void* const* in, void* dg, void* dh, int batch, int n,
+                              int cbar, int c, const Strides& st, bool vec, cudaStream_t s) {
+  if (c <= 64) return launch_dkv_tf32<CB, 64>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+  return launch_dkv_tf32<CB, 256>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+}
+
+cudaError_t dkv_tf32(const void* const* in, void* dg, void* dh, int batch, int n, int cbar,
+                     int c, const Strides& st, cudaStream_t s) {
+  // 16-byte staging copies (4 floats) and paired stores need every row of
+  // f, h, do, dg and dh to start on a 16-byte boundary (and lse, delta on
+  // 4 floats); other layouts are staged element by element.
+  bool vec = cbar % 4 == 0 && c % 4 == 0 && st.row_sb % 4 == 0 && aligned16(dg) && aligned16(dh);
+  for (int i = 0; i < 6; ++i) vec = vec && aligned16(in[i]);
+  const int64_t strides[12] = {st.f_sb, st.f_sn, st.g_sb, st.g_sn, st.h_sb, st.h_sn,
+                               st.do_sb, st.do_sn, st.o0_sb, st.o0_sn, st.o1_sb, st.o1_sn};
+  for (int i = 0; i < 12; ++i) vec = vec && strides[i] % 4 == 0;
+  if (cbar <= 8) return dispatch_dkv_tf32<8>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+  if (cbar <= 16) return dispatch_dkv_tf32<16>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+  if (cbar <= 32) return dispatch_dkv_tf32<32>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+  return dispatch_dkv_tf32<64>(in, dg, dh, batch, n, cbar, c, st, vec, s);
+}
+
+// ---------------------------------------------------------------------------
 // dq, tensor-core variant (bf16).
 
 template <int CB, int CK>
@@ -714,7 +1034,7 @@ cudaError_t dq_mma(const void* const* in, void* df, int batch, int n, int cbar, 
 }
 
 // ---------------------------------------------------------------------------
-// The CUDA-core variants (fp32).
+// dq, CUDA-core variant (fp32).
 
 // Stage the kTile rows starting at `r0` of a [N, width] row-major matrix
 // (row stride `sn`) into a zero-padded [kTile][padded] fp32 tile.
@@ -809,113 +1129,14 @@ __global__ void __launch_bounds__(256) flash_attn_dq_kernel(
   }
 }
 
-template <typename T, int CB>
-__global__ void __launch_bounds__(256) flash_attn_dkv_kernel(
-    const T* __restrict__ f, const T* __restrict__ g, const T* __restrict__ h,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dg, T* __restrict__ dh, int n,
-    int cbar, int c, Strides st) {
-  extern __shared__ float smem[];
-  const int rows = blockDim.x;
-  const int groups = blockDim.y;
-  const int hc = groups * kColsPerThread;
-  float* fs = smem;                            // [kTile][CB]
-  float* dos = fs + kTile * CB;                // [kTile][hc]
-  float* ls = dos + kTile * hc;                // [kTile] lse
-  float* dls = ls + kTile;                     // [kTile] delta
-  float* red = dls + kTile;                    // [groups][kTile][rows]
-
-  const int b = blockIdx.y;
-  const int row = blockIdx.x * rows + threadIdx.x;  // key row
-  const int ty = threadIdx.y;
-  const int col0 = ty * kColsPerThread;
-  const int tid = ty * rows + threadIdx.x;
-  const int nthreads = rows * groups;
-  const bool valid = row < n;
-  f += b * st.f_sb;
-  g += b * st.g_sb;
-  h += b * st.h_sb;
-  dout += b * st.do_sb;
-  lse += b * st.row_sb;
-  delta += b * st.row_sb;
-
-  float gr[CB];
-#pragma unroll
-  for (int k = 0; k < CB; ++k) gr[k] = (valid && k < cbar) ? to_float(g[row * st.g_sn + k]) : 0.f;
-  float hr[kColsPerThread];
-#pragma unroll
-  for (int j = 0; j < kColsPerThread; ++j) {
-    hr[j] = (valid && col0 + j < c) ? to_float(h[row * st.h_sn + col0 + j]) : 0.f;
-  }
-  float dg_acc[CB];
-#pragma unroll
-  for (int k = 0; k < CB; ++k) dg_acc[k] = 0.f;
-  float dh_acc[kColsPerThread];
-#pragma unroll
-  for (int j = 0; j < kColsPerThread; ++j) dh_acc[j] = 0.f;
-
-  for (int q0 = 0; q0 < n; q0 += kTile) {
-    __syncthreads();
-    stage(fs, f, q0, n, cbar, CB, st.f_sn, tid, nthreads);
-    stage(dos, dout, q0, n, c, hc, st.do_sn, tid, nthreads);
-    if (tid < kTile) {
-      const int q = q0 + tid;
-      ls[tid] = q < n ? lse[q] : 0.f;
-      dls[tid] = q < n ? delta[q] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ii = 0; ii < kTile; ++ii) {
-      const float* doi = dos + ii * hc + col0;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) part = fmaf(doi[j], hr[j], part);
-      red[(ty * kTile + ii) * rows + threadIdx.x] = part;
-    }
-    __syncthreads();
-    const int qmax = min(kTile, n - q0);  // queries of this tile inside N
-#pragma unroll 4
-    for (int ii = 0; ii < kTile; ++ii) {
-      float dp = 0.f;
-      for (int y = 0; y < groups; ++y) dp += red[(y * kTile + ii) * rows + threadIdx.x];
-      const float* fi = fs + ii * CB;
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < CB; ++k) s = fmaf(gr[k], fi[k], s);
-      const float p = ii < qmax ? __expf(s - ls[ii]) : 0.f;
-      const float* doi = dos + ii * hc + col0;
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) dh_acc[j] = fmaf(p, doi[j], dh_acc[j]);
-      const float ds = p * (dp - dls[ii]);
-#pragma unroll
-      for (int k = 0; k < CB; ++k) {
-        if (k % groups == ty) dg_acc[k] = fmaf(ds, fi[k], dg_acc[k]);
-      }
-    }
-  }
-
-  if (valid) {
-    T* grow = dg + b * st.o0_sb + row * st.o0_sn;
-#pragma unroll
-    for (int k = 0; k < CB; ++k) {
-      if (k < cbar && k % groups == ty) grow[k] = from_float<T>(dg_acc[k]);
-    }
-    T* hrow = dh + b * st.o1_sb + row * st.o1_sn;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      if (col0 + j < c) hrow[col0 + j] = from_float<T>(dh_acc[j]);
-    }
-  }
-}
-
 struct Launch {
   dim3 grid, block;
   size_t smem;
 };
 
-// About 128 threads a block, never fewer than one warp of rows (as the
-// forward); the shared memory stays under the 48 KB of a default launch:
-// at most 4 * (16*64 + 16*256 + 32 + 8*16*32) bytes = 36.9 KB.
+// About 128 threads a block, never fewer than one warp of rows; the
+// shared memory stays under the 48 KB of a default launch: at most
+// 4 * (16*64 + 16*256 + 8*16*32) bytes = 36.8 KB.
 template <int CB>
 Launch config(int batch, int n, int c) {
   const int groups = (c + kColsPerThread - 1) / kColsPerThread;
@@ -924,7 +1145,7 @@ Launch config(int batch, int n, int c) {
   l.block = dim3(rows, groups);
   l.grid = dim3((n + rows - 1) / rows, batch);
   l.smem = sizeof(float) *
-           (kTile * (CB + groups * kColsPerThread) + 2 * kTile + groups * kTile * rows);
+           (kTile * (CB + groups * kColsPerThread) + groups * kTile * rows);
   return l;
 }
 
@@ -937,18 +1158,6 @@ cudaError_t launch_dq(const void* const* in, void* df, int batch, int n, int cba
       static_cast<const T*>(in[2]), static_cast<const T*>(in[3]),
       static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
       static_cast<T*>(df), n, cbar, c, st);
-  return cudaGetLastError();
-}
-
-template <typename T, int CB>
-cudaError_t launch_dkv(const void* const* in, void* dg, void* dh, int batch, int n, int cbar,
-                       int c, const Strides& st, cudaStream_t stream) {
-  const Launch l = config<CB>(batch, n, c);
-  flash_attn_dkv_kernel<T, CB><<<l.grid, l.block, l.smem, stream>>>(
-      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]),
-      static_cast<const T*>(in[2]), static_cast<const T*>(in[3]),
-      static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
-      static_cast<T*>(dg), static_cast<T*>(dh), n, cbar, c, st);
   return cudaGetLastError();
 }
 
@@ -978,9 +1187,13 @@ const int64_t* wide_strides(const Strides& st, int64_t (&w)[14]) {
   return w;
 }
 
-// bf16 runs the tensor-core variant, fp32 the CUDA-core one.
+// bf16 runs the tensor-core variants; fp32 dq the CUDA-core one, fp32 dkv
+// the TF32 tensor-core one; past the register-held widths, flash_wide.cuh's
+// (bf16 on the tensor cores, fp32 on the CUDA cores). Each writes the
+// variant it launches to `variant`.
 cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int cbar, int c,
-               const Strides& st, cudaStream_t s) {
+               const Strides& st, cudaStream_t s, int* variant) {
+  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kCudaCore;
   if (wide(cbar, c)) {
     int64_t w[14];
     return flash_wide::launch<flash_wide::kDq>(in, df, nullptr, nullptr, dtype, batch, n, cbar,
@@ -991,38 +1204,41 @@ cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int
 }
 
 cudaError_t dkv(const void* const* in, void* dg, void* dh, int dtype, int batch, int n,
-                int cbar, int c, const Strides& st, cudaStream_t s) {
+                int cbar, int c, const Strides& st, cudaStream_t s, int* variant) {
+  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kCudaCore;
   if (wide(cbar, c)) {
     int64_t w[14];
     return flash_wide::launch<flash_wide::kDkv>(in, dg, dh, nullptr, dtype, batch, n, cbar, c,
                                                 wide_strides(st, w), s);
   }
   if (dtype == 1) return dkv_mma(in, dg, dh, batch, n, cbar, c, st, s);
-  DISPATCH_CBAR(float, cbar, launch_dkv, in, dg, dh, batch, n, cbar, c, st, s);
+  *variant = flash_mma::kTf32x3;
+  return dkv_tf32(in, dg, dh, batch, n, cbar, c, st, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (the CUDA-core variants), 1 = bfloat16 (the
-// tensor-core ones). Strides are in elements: batch and row strides of
+// dtype: 0 = float32 (dq's CUDA-core variant, dkv's 3xTF32 one), 1 =
+// bfloat16 (the bf16 tensor-core ones). Strides are in elements: batch and row strides of
 // f, g, h, do, the batch stride of lse and delta (which share it), then the
 // batch and row strides of each output. The last dimension of
 // every tensor must be contiguous. Each function launches one kernel on
-// `stream` and returns the cudaError_t of cudaGetLastError() after the
-// launch (0 on success).
+// `stream`, writes the flash_mma::Variant it launched to `variant`, and
+// returns the cudaError_t of cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int flash_attn_dq(const void* f, const void* g, const void* h, const void* dout,
                              const void* lse, const void* delta, void* df, int dtype,
                              int device, int batch, int n, int cbar, int c, int64_t f_sb,
                              int64_t f_sn, int64_t g_sb, int64_t g_sn, int64_t h_sb,
                              int64_t h_sn, int64_t do_sb, int64_t do_sn, int64_t row_sb,
-                             int64_t df_sb, int64_t df_sn, void* stream) {
+                             int64_t df_sb, int64_t df_sn, void* stream, int* variant) {
   cudaError_t err = check(dtype, device, batch, n, cbar, c);
   if (err != cudaSuccess) return static_cast<int>(err);
   const void* in[6] = {f, g, h, dout, lse, delta};
   const Strides st = {f_sb, f_sn, g_sb, g_sn, h_sb, h_sn, do_sb, do_sn, row_sb,
                       df_sb, df_sn, 0, 0};
   return static_cast<int>(
-      dq(in, df, dtype, batch, n, cbar, c, st, static_cast<cudaStream_t>(stream)));
+      dq(in, df, dtype, batch, n, cbar, c, st, static_cast<cudaStream_t>(stream), variant));
 }
 
 extern "C" int flash_attn_dkv(const void* f, const void* g, const void* h, const void* dout,
@@ -1031,12 +1247,13 @@ extern "C" int flash_attn_dkv(const void* f, const void* g, const void* h, const
                               int64_t f_sb, int64_t f_sn, int64_t g_sb, int64_t g_sn,
                               int64_t h_sb, int64_t h_sn, int64_t do_sb, int64_t do_sn,
                               int64_t row_sb, int64_t dg_sb, int64_t dg_sn, int64_t dh_sb,
-                              int64_t dh_sn, void* stream) {
+                              int64_t dh_sn, void* stream, int* variant) {
   cudaError_t err = check(dtype, device, batch, n, cbar, c);
   if (err != cudaSuccess) return static_cast<int>(err);
   const void* in[6] = {f, g, h, dout, lse, delta};
   const Strides st = {f_sb, f_sn, g_sb, g_sn, h_sb, h_sn, do_sb, do_sn, row_sb,
                       dg_sb, dg_sn, dh_sb, dh_sn};
   return static_cast<int>(
-      dkv(in, dg, dh, dtype, batch, n, cbar, c, st, static_cast<cudaStream_t>(stream)));
+      dkv(in, dg, dh, dtype, batch, n, cbar, c, st, static_cast<cudaStream_t>(stream),
+          variant));
 }

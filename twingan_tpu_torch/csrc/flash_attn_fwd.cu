@@ -13,11 +13,12 @@
 // 64 columns (SAGAN's cbar = C / 8 reaches 64 at C 512, the published
 // PGGAN's widest layer).
 //
-// The entry point picks the variant by type: bf16 runs on the tensor
-// cores, fp32 on the CUDA cores (the wrapper's VARIANTS table names them). The
-// TPU kernel runs its key-block grid axis in sequence and carries the
-// online-softmax state in VMEM scratch between grid steps; CUDA blocks run
-// in no order, so in both variants that axis is a loop inside one block.
+// The entry point picks the variant by type: bf16 runs on the bf16 tensor
+// cores, fp32 on the TF32 tensor cores with every product split into three
+// (3xTF32; the wrapper's VARIANTS table names them). The TPU kernel runs
+// its key-block grid axis in sequence and carries the online-softmax state
+// in VMEM scratch between grid steps; CUDA blocks run in no order, so in
+// both variants that axis is a loop inside one block.
 //
 // What bounds it on the H100. A call does 2*B*N^2*(cbar + C) FLOPs of
 // products and B*N^2 exponentials on O(B*N*(cbar + C)) bytes, so the N^2
@@ -25,8 +26,9 @@
 // cheap per score: at the serving shape (B 4, N 4096, cbar 8, C 64) they
 // take 9.8 us at the bf16 tensor-core peak, while the 67 M exponentials take
 // 17 us at the special-function unit's 16 a clock per SM. The exponentials
-// bound the bf16 variant; the fp32 variant, on CUDA cores, is bound by its
-// FMAs (4.8 G of them, 0.14 ms at the fp32 peak).
+// bound the bf16 variant. The fp32 variant's products are three TF32
+// products each, 3 x 9.7 GFLOP at the serving shape: 59 us at the TF32
+// peak (one product each on the CUDA cores would take 0.14 ms).
 //
 // Tensor-core variant (bf16, `mma`), the FlashAttention-2 layout:
 //  - a warp owns 16 query rows and a block 64 rows (256 blocks at the
@@ -61,22 +63,31 @@
 //    (C 512 at the published PGGAN width: 8 slices).
 // Each output row is owned by one warp: no atomics, deterministic.
 //
-// CUDA-core variant (fp32): exact fp32 online softmax, one query row per
-// thread:
-//  - a block owns `rows` query rows of one batch element (blockIdx.x, .y);
-//    each thread holds one row's f vector and a slice of 32 columns of its
-//    output accumulator in registers, with its running max m and denominator
-//    l (all fp32). Threads of one warp share the same column slice, so every
-//    shared-memory read in the inner loops is a broadcast;
-//  - key tiles of 32 rows of g and h are staged through shared memory as
-//    fp32 (zero padded to the compile-time cbar bound CB and to the column
-//    groups), loaded with coalesced reads by the whole block;
-//  - scores are taken 16 keys at a time: one max, then the chunk's 16
-//    probabilities and weighted values are summed apart, and (l, acc) are
-//    rescaled and take the chunk's sums once. Added one key at a time, the
-//    positive terms of l are lost against the growing total (0.02 % of lse's
-//    denominator at N = 65536, a bias every backward probability inherits);
-//    chunk sums cut the additions into (l, acc) 16-fold.
+// TF32 tensor-core variant (fp32), the bf16 variant's layout with fp32
+// products to fp32 accuracy (3xTF32, flash_mma.cuh):
+//  - the same warps, blocks and pipeline: a warp owns 16 query rows, two
+//    warps split each row's 64-key tiles and merge at the end in a fixed
+//    order; f's A fragment, split into tf32 hi and lo halves, stays in
+//    registers;
+//  - g and h tiles are staged in fp32 by 16-byte cp.async copies (4
+//    floats a copy), rows padded by 4 words so that the 32 lanes' 32-bit
+//    reads of a B fragment fall in 32 banks (ldmatrix moves 16-bit
+//    elements and cannot transpose fp32 ones);
+//  - S = f_lo g_hi + f_hi g_lo + f_hi g_hi with m16n8k8 tf32 products and
+//    fp32 accumulators; the B operands are split as they are read;
+//  - the online softmax is the bf16 variant's, l summed from the unsplit
+//    fp32 probabilities, so lse stays exact;
+//  - O += P_lo h_hi + P_hi h_lo + P_hi h_hi: a C fragment of S is an A
+//    fragment of the tf32 product in a permuted k order (flash_mma.cuh), so
+//    P never leaves registers, and h's rows are read in that order. Each
+//    tile's product is summed in fresh accumulators and added to O by fp32
+//    FMAs: the tensor cores' own sums cut toward zero, which over every
+//    tile of a long N drifts;
+//  - o and lse are written once in fp32; for C > 64 the grid's third
+//    dimension takes 64-column slices, each recomputing S, up to C 256.
+// The split costs three products where one TF32 product would lose the
+// fp32 accuracy the JAX package's default type promises (2^-11 relative
+// per product against about 2^-21).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -88,11 +99,8 @@
 
 namespace {
 
-constexpr int kBlockK = 32;         // keys per shared-memory tile
-constexpr int kChunk = 16;          // keys per online-softmax update
-constexpr int kColsPerThread = 32;  // output columns each thread accumulates
-constexpr int kRegCbar = 64;         // the widest cbar both variants hold in registers
-constexpr int kRegCudaCoreC = 256;   // fp32: 8 column slices of 32, a thread each
+constexpr int kRegCbar = 64;   // the widest cbar both variants hold in registers
+constexpr int kRegTf32C = 256;  // fp32 past this C: flash_wide.cuh's kernels
 
 // ---------------------------------------------------------------------------
 // Tensor-core variant (bf16).
@@ -363,151 +371,254 @@ cudaError_t launch_mma(const void* f, const void* g, const void* h, void* o, voi
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // ---------------------------------------------------------------------------
-// CUDA-core variant.
+// TF32 tensor-core variant (fp32, 3xTF32).
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+constexpr int kTfHStride = kMmaCols + 4;  // h tile row stride in words (flash_mma.cuh)
 
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// Row stride of the staged g tile, in words: cbar padded, plus 4.
+template <int CB>
+__host__ __device__ constexpr int tf32_g_stride() {
+  return CB + 4;
 }
 
-// blockDim = (rows, groups): threadIdx.x picks the query row, threadIdx.y the
-// 32-column slice of the output. rows is a multiple of 32.
-template <typename T, int CB>
-__global__ void __launch_bounds__(256) flash_attn_fwd_kernel(
-    const T* __restrict__ f, const T* __restrict__ g, const T* __restrict__ h,
-    T* __restrict__ o, float* __restrict__ lse, int n, int cbar, int c,
-    int64_t f_sb, int64_t f_sn, int64_t g_sb, int64_t g_sn, int64_t h_sb,
-    int64_t h_sn, int64_t o_sb, int64_t o_sn, int64_t lse_sb) {
-  extern __shared__ float smem[];
-  const int rows = blockDim.x;
-  const int hc = blockDim.y * kColsPerThread;  // padded value width
-  float* gs = smem;                             // [kBlockK][CB]
-  float* hs = smem + kBlockK * CB;              // [kBlockK][hc]
+template <int CB>
+__host__ __device__ constexpr size_t tf32_smem_bytes() {
+  return sizeof(float) * 2 * kMmaStageKeys * (tf32_g_stride<CB>() + kTfHStride);
+}
 
+template <int CB>
+__global__ void __launch_bounds__(kMmaThreads, CB <= 32 ? 2 : 1) flash_attn_fwd_tf32_kernel(
+    const float* __restrict__ f, const float* __restrict__ g, const float* __restrict__ h,
+    float* __restrict__ o, float* __restrict__ lse, int n, int cbar, int c, int64_t f_sb,
+    int64_t f_sn, int64_t g_sb, int64_t g_sn, int64_t h_sb, int64_t h_sn, int64_t o_sb,
+    int64_t o_sn, int64_t lse_sb, bool vec) {
+  using namespace flash_mma;
+  constexpr int GS = tf32_g_stride<CB>();
+  constexpr int HS = kTfHStride;
+  constexpr int KS = CB / 8;  // k steps of S = f g^T
+  static_assert(kMmaRowWarps * kMergeFloats * 32 * sizeof(float) <= tf32_smem_bytes<CB>(),
+                "the merge reuses the staging buffers");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* gs = reinterpret_cast<float*>(smem_raw);  // [2][kMmaStageKeys][GS]
+  float* hs = gs + 2 * kMmaStageKeys * GS;         // [2][kMmaStageKeys][HS]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int row_warp = warp % kMmaRowWarps, split = warp / kMmaRowWarps;
   const int b = blockIdx.y;
-  const int row = blockIdx.x * rows + threadIdx.x;
-  const int col0 = threadIdx.y * kColsPerThread;
-  const int tid = threadIdx.y * rows + threadIdx.x;
-  const int nthreads = rows * blockDim.y;
-  const bool valid = row < n;
+  const int q0 = blockIdx.x * kMmaRows + 16 * row_warp;  // the warp's first query row
+  const int c0 = blockIdx.z * kMmaCols;                  // the block's value columns
   f += b * f_sb;
   g += b * g_sb;
   h += b * h_sb;
 
-  float fr[CB];
+  Tf32Frag fa[KS];
 #pragma unroll
-  for (int k = 0; k < CB; ++k) {
-    fr[k] = (valid && k < cbar) ? to_float(f[row * f_sn + k]) : 0.f;
-  }
-  float acc[kColsPerThread];
-#pragma unroll
-  for (int j = 0; j < kColsPerThread; ++j) acc[j] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
+  for (int ks = 0; ks < KS; ++ks) fa[ks] = load_a_frag_tf32(f, q0, 8 * ks, n, cbar, f_sn, lane);
 
-  for (int k0 = 0; k0 < n; k0 += kBlockK) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int i = tid; i < kBlockK * CB; i += nthreads) {
-      const int key = k0 + i / CB;
-      const int k = i % CB;
-      gs[i] = (key < n && k < cbar) ? to_float(g[key * g_sn + k]) : 0.f;
-    }
-    for (int i = tid; i < kBlockK * hc; i += nthreads) {
-      const int key = k0 + i / hc;
-      const int col = i % hc;
-      hs[i] = (key < n && col < c) ? to_float(h[key * h_sn + col]) : 0.f;
-    }
-    __syncthreads();
+  float acc[8][4];  // O: 16 rows x 64 columns, 8 blocks of 8 columns
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows grp and grp + 8
+  float l_run[2] = {0.f, 0.f};              // this lane's share of l
 
-    const int kmax = min(kBlockK, n - k0);  // keys of this tile inside N
-    for (int j0 = 0; j0 < kmax; j0 += kChunk) {
-      float s[kChunk];
-      float mx = -INFINITY;
+  const TileCopier<kMmaStageKeys, CB, GS, kMmaThreads, float> g_copier(g, 0, cbar, g_sn, tid);
+  const TileCopier<kMmaStageKeys, kMmaCols, HS, kMmaThreads, float> h_copier(h, c0, c, h_sn,
+                                                                             tid);
+  auto stage = [&](int t, int buf) {
+    float* gt = gs + buf * kMmaStageKeys * GS;
+    float* ht = hs + buf * kMmaStageKeys * HS;
+    if (vec) {
+      g_copier.copy(gt, t * kMmaStageKeys, n, g_sn);
+      h_copier.copy(ht, t * kMmaStageKeys, n, h_sn);
+    } else {
+      stage_tile_elements<kMmaStageKeys, CB, GS, kMmaThreads>(gt, g, t * kMmaStageKeys, 0, n,
+                                                              cbar, g_sn, tid);
+      stage_tile_elements<kMmaStageKeys, kMmaCols, HS, kMmaThreads>(ht, h, t * kMmaStageKeys,
+                                                                    c0, n, c, h_sn, tid);
+    }
+  };
+
+  // The bf16 variant's pipeline: two warps per row group take alternate
+  // 64-key halves of each staged tile; one barrier a tile.
+  const int ntiles = (n + kMmaStageKeys - 1) / kMmaStageKeys;
+  stage(0, 0);
+  cp_async_commit();
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();  // tile t has landed (this thread's copies)
+    __syncthreads();     // ... and every thread's; tile t - 1 is retired
+    if (t + 1 < ntiles) stage(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const int k0 = t * kMmaStageKeys + split * kMmaKeys;
+    if (k0 >= n) continue;  // the last tile holds no key of this warp
+    const int sub = (t & 1) * kMmaStageKeys + split * kMmaKeys;
+    const float* gt = gs + sub * GS;
+    const float* ht = hs + sub * HS;
+
+    // S = f g^T: 16 rows x 64 keys, 8 blocks of 8 keys; b0, b1 of block j
+    // are g[key 8 j + grp][k tig, tig + 4].
+    float s[8][4];
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float* gj = gs + (j0 + jj) * CB;
-        float dot = 0.f;
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const float* gr = gt + (8 * j + grp) * GS + tig;
 #pragma unroll
-        for (int k = 0; k < CB; ++k) dot = fmaf(fr[k], gj[k], dot);
-        s[jj] = (j0 + jj < kmax) ? dot : -INFINITY;
-        mx = fmaxf(mx, s[jj]);
+      for (int ks = 0; ks < KS; ++ks) mma1688_tf32x3(s[j], fa[ks], gr[8 * ks], gr[8 * ks + 4]);
+    }
+    if (k0 + kMmaKeys > n) {  // the last keys: those past N score -inf
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (k0 + 8 * j + 2 * tig + (e & 1) >= n) s[j][e] = -INFINITY;
+        }
       }
-      // The chunk holds at least one key inside N, so m_new is finite and
-      // exp(-inf - m_new) = 0 covers both the first chunk and masked keys.
-      const float m_new = fmaxf(m, mx);
-      const float scale = __expf(m - m_new);
-      float lsum = 0.f;
-      float part[kColsPerThread];
+    }
+
+    // Online softmax, as the bf16 variant's: l from the fp32 probabilities.
+    float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) part[j] = 0.f;
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float scale[2], msc[2], tsum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float p = __expf(s[jj] - m_new);
-        lsum += p;
-        const float* hj = hs + (j0 + jj) * hc + col0;
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      scale[r] = ex2((m_run[r] - mx[r]) * kLog2e);
+      msc[r] = mx[r] * kLog2e;
+      m_run[r] = mx[r];
+    }
 #pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j) part[j] = fmaf(p, hj[j], part[j]);
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(fmaf(s[j][e], kLog2e, -msc[e / 2]));
+        tsum[e / 2] += s[j][e];
       }
-      l = fmaf(l, scale, lsum);
+    }
 #pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) acc[j] = fmaf(acc[j], scale, part[j]);
-      m = m_new;
+    for (int r = 0; r < 2; ++r) l_run[r] = fmaf(l_run[r], scale[r], tsum[r]);
+
+    // O = O scale + P h. The tile's product is summed apart, then added to
+    // O by fp32 FMAs: the tensor cores cut the addends of their sums
+    // toward zero, and a sum that took every tile drifted with N (on an
+    // H100: 6 % of the fp32 tolerance at N 4096, 23 % at 16384, 76 % at
+    // 65536).
+    // P's block kk (keys 8 kk ..) is the A fragment in permuted k order,
+    // so h is read at keys 8 kk + 2 tig (b0) and + 1 (b1).
+    float pv[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) pv[j][0] = pv[j][1] = pv[j][2] = pv[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const Tf32Frag pa = split_frag(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const float* hr = ht + (8 * kk + 2 * tig) * HS + grp;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma1688_tf32x3(pv[j], pa, hr[8 * j], hr[HS + 8 * j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = fmaf(acc[j][e], scale[e / 2], pv[j][e]);
     }
   }
 
-  if (valid) {
-    T* orow = o + b * o_sb + row * o_sn;
+  // Merge the two key halves of each row in a fixed order (deterministic),
+  // as the bf16 variant does.
 #pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      if (col0 + j < c) orow[col0 + j] = from_float<T>(acc[j] / l);
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  float* xs = reinterpret_cast<float*>(smem_raw) + row_warp * kMergeFloats * 32 + lane;
+  __syncthreads();  // every warp is done with the staged tiles
+  if (split == 1) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * j + e) * 32] = acc[j][e];
     }
-    if (threadIdx.y == 0) lse[b * lse_sb + row] = m + logf(l);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      xs[(32 + r) * 32] = m_run[r];
+      xs[(34 + r) * 32] = l_run[r];
+    }
+  }
+  __syncthreads();
+  if (split == 1) return;
+  float a0[2], a1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = xs[(32 + r) * 32], m = fmaxf(m_run[r], m1);
+    a0[r] = ex2((m_run[r] - m) * kLog2e);
+    a1[r] = ex2((m1 - m) * kLog2e);
+    l_run[r] = a0[r] * l_run[r] + a1[r] * xs[(34 + r) * 32];
+    m_run[r] = m;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = a0[e / 2] * acc[j][e] + a1[e / 2] * xs[(4 * j + e) * 32];
+  }
+
+  // Epilogue: o = O / l and lse, once, in fp32.
+  float* ob = o + b * o_sb;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + grp + 8 * r;
+    if (row >= n) continue;
+    const float inv = 1.f / l_run[r];
+    float* orow = ob + row * o_sn;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = c0 + 8 * j + 2 * tig;
+      const float v0 = acc[j][2 * r] * inv, v1 = acc[j][2 * r + 1] * inv;
+      if (vec && col < c) {  // c a multiple of 4: col + 1 < c too, the pair 8-byte aligned
+        *reinterpret_cast<float2*>(orow + col) = make_float2(v0, v1);
+      } else {
+        if (col < c) orow[col] = v0;
+        if (col + 1 < c) orow[col + 1] = v1;
+      }
+    }
+    if (blockIdx.z == 0 && tig == 0) lse[b * lse_sb + row] = m_run[r] + logf(l_run[r]);
   }
 }
 
-template <typename T, int CB>
-cudaError_t launch(const void* f, const void* g, const void* h, void* o, void* lse,
-                   int batch, int n, int cbar, int c, const int64_t* st,
-                   cudaStream_t stream) {
-  const int groups = (c + kColsPerThread - 1) / kColsPerThread;
-  // About 128 threads a block, never fewer than one warp of rows.
-  const int rows = groups >= 4 ? 32 : 128 / groups / 32 * 32;
-  const dim3 block(rows, groups);
-  const dim3 grid((n + rows - 1) / rows, batch);
-  const size_t smem = sizeof(float) * kBlockK * (CB + groups * kColsPerThread);
-  flash_attn_fwd_kernel<T, CB><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(f), static_cast<const T*>(g), static_cast<const T*>(h),
-      static_cast<T*>(o), static_cast<float*>(lse), n, cbar, c, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8]);
+template <int CB>
+cudaError_t launch_tf32(const void* f, const void* g, const void* h, void* o, void* lse,
+                        int batch, int n, int cbar, int c, const int64_t* st, bool vec,
+                        cudaStream_t stream) {
+  const dim3 grid((n + kMmaRows - 1) / kMmaRows, batch, (c + kMmaCols - 1) / kMmaCols);
+  constexpr size_t smem = tf32_smem_bytes<CB>();  // 80 KB at cbar 8, 136 KB at 64
+  auto kernel = flash_attn_fwd_tf32_kernel<CB>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const float*>(f), static_cast<const float*>(g), static_cast<const float*>(h),
+      static_cast<float*>(o), static_cast<float*>(lse), n, cbar, c, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], vec);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_cbar(const void* f, const void* g, const void* h, void* o,
-                          void* lse, int batch, int n, int cbar, int c,
-                          const int64_t* st, cudaStream_t stream) {
-  if (cbar <= 8) return launch<T, 8>(f, g, h, o, lse, batch, n, cbar, c, st, stream);
-  if (cbar <= 16) return launch<T, 16>(f, g, h, o, lse, batch, n, cbar, c, st, stream);
-  if (cbar <= 32) return launch<T, 32>(f, g, h, o, lse, batch, n, cbar, c, st, stream);
-  return launch<T, 64>(f, g, h, o, lse, batch, n, cbar, c, st, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (the CUDA-core variant), 1 = bfloat16 (the tensor-core
-// variant). Strides are in elements: batch and row strides of f, g, h, o,
+// dtype: 0 = float32 (the 3xTF32 tensor-core variant), 1 = bfloat16 (the
+// bf16 tensor-core variant); past cbar 64, or C 256 for float32,
+// flash_wide.cuh's kernels (bf16 on the tensor cores, fp32 on the CUDA
+// cores). Strides are in elements: batch and row strides of f, g, h, o,
 // then the batch stride of lse; the last dimension of f, g, h and o must be
-// contiguous. Launches on `stream` and returns the cudaError_t of
-// cudaGetLastError() after the launch (0 on success).
+// contiguous. Launches on `stream`, writes the flash_mma::Variant it
+// launched to `variant`, and returns the cudaError_t of cudaGetLastError()
+// after the launch (0 on success).
 extern "C" int flash_attn_fwd(const void* f, const void* g, const void* h, void* o,
                               void* lse, int dtype, int device, int batch, int n,
                               int cbar, int c, int64_t f_sb, int64_t f_sn, int64_t g_sb,
                               int64_t g_sn, int64_t h_sb, int64_t h_sn, int64_t o_sb,
-                              int64_t o_sn, int64_t lse_sb, void* stream) {
+                              int64_t o_sn, int64_t lse_sb, void* stream, int* variant) {
   if (batch < 1 || n < 1 || cbar < 1 || c < 1 || batch > 65535 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -515,19 +626,22 @@ extern "C" int flash_attn_fwd(const void* f, const void* g, const void* h, void*
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t st[9] = {f_sb, f_sn, g_sb, g_sn, h_sb, h_sn, o_sb, o_sn, lse_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cbar > kRegCbar || (dtype == 0 && c > kRegCudaCoreC)) {
+  if (cbar > kRegCbar || (dtype == 0 && c > kRegTf32C)) {
+    *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kCudaCore;
     const void* in[6] = {f, g, h, nullptr, nullptr, nullptr};
     const int64_t wst[14] = {f_sb, f_sn, g_sb, g_sn, h_sb, h_sn, 0, 0, 0, o_sb, o_sn, 0, 0,
                              lse_sb};
     return static_cast<int>(flash_wide::launch<flash_wide::kFwd>(
         in, o, nullptr, lse, dtype, batch, n, cbar, c, wst, s));
   }
+  // 16-byte staging copies and paired stores need every row to start on a
+  // 16-byte boundary; other layouts are staged element by element.
+  const int per16 = dtype == 1 ? 8 : 4;  // elements in 16 bytes
+  bool vec = cbar % per16 == 0 && c % per16 == 0 && aligned16(f) && aligned16(g) &&
+             aligned16(h) && aligned16(o);
+  for (int i = 0; i < 8; ++i) vec = vec && st[i] % per16 == 0;
+  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kTf32x3;
   if (dtype == 1) {
-    // 16-byte staging copies and paired stores need every row to start on a
-    // 16-byte boundary; other layouts are staged element by element.
-    bool vec = cbar % 8 == 0 && c % 8 == 0 && aligned16(f) && aligned16(g) && aligned16(h) &&
-               aligned16(o);
-    for (int i = 0; i < 8; ++i) vec = vec && st[i] % 8 == 0;
     if (cbar <= 8) {
       err = launch_mma<8>(f, g, h, o, lse, batch, n, cbar, c, st, vec, s);
     } else if (cbar <= 16) {
@@ -537,7 +651,14 @@ extern "C" int flash_attn_fwd(const void* f, const void* g, const void* h, void*
     } else {
       err = launch_mma<64>(f, g, h, o, lse, batch, n, cbar, c, st, vec, s);
     }
-    return static_cast<int>(err);
+  } else if (cbar <= 8) {
+    err = launch_tf32<8>(f, g, h, o, lse, batch, n, cbar, c, st, vec, s);
+  } else if (cbar <= 16) {
+    err = launch_tf32<16>(f, g, h, o, lse, batch, n, cbar, c, st, vec, s);
+  } else if (cbar <= 32) {
+    err = launch_tf32<32>(f, g, h, o, lse, batch, n, cbar, c, st, vec, s);
+  } else {
+    err = launch_tf32<64>(f, g, h, o, lse, batch, n, cbar, c, st, vec, s);
   }
-  return static_cast<int>(dispatch_cbar<float>(f, g, h, o, lse, batch, n, cbar, c, st, s));
+  return static_cast<int>(err);
 }

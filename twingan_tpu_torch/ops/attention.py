@@ -22,14 +22,18 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
   (``infer/export.py``). The eager wrappers call the same ops, and only the
   CUDA implementations add to the launch counts: the launches of an
   exported program count too;
-- each of the three kernels has two variants, chosen by the input type
-  in its C entry point (``VARIANTS`` names them): bf16 runs on the tensor
-  cores (``mma.sync``), fp32 on the CUDA cores. ``variant_counts`` counts
-  each launch under its variant, beside ``launch_counts``' total. Every
+- each kernel's C entry point picks its variant by the input type and
+  the widths, and reports the one it launched (``VARIANT_IDS``): bf16 runs
+  on the tensor cores
+  (``mma.sync`` m16n8k16); fp32 B1 and B3 run on the TF32 tensor cores,
+  each product as three TF32 products of the operands' high and low
+  halves (3xTF32, fp32-accurate), and fp32 B2 on the CUDA cores. Every
   c_bar and C is taken: past c_bar 64, or C 256 (where the register-held
   kernels stop), the entry points launch ``csrc/flash_wide.cuh``'s
-  kernels, which cut every operand into chunks of 64 columns, in the same
-  two variants;
+  kernels, which cut every operand into chunks of 64 columns: bf16 on the
+  tensor cores, fp32 on the CUDA cores (``WIDE_VARIANTS``).
+  ``variant_counts`` counts each launch under the variant its entry point
+  reported, beside ``launch_counts``' total;
 - ``FlashAttention`` is the autograd boundary. Its backward is
   ``once_differentiable`` and refuses to run under ``create_graph=True``:
   the kernels' outputs carry no graph, and a second-order pass through
@@ -80,12 +84,21 @@ PLAIN_ROUTE = "attention_core_double_backward"
 
 CUDA_CORE = "cuda_core"
 TENSOR_CORE = "tensor_core"
-# The variant each kernel's C entry point launches for each input type.
+TF32X3 = "tensor_core_tf32x3"
+# The variants by the id a C entry point writes to its ``variant`` argument
+# (csrc/flash_mma.cuh's ``Variant``). The entry points alone pick them.
+VARIANT_IDS = (CUDA_CORE, TENSOR_CORE, TF32X3)
+# The variant each kernel's entry point launches for each input type at
+# the widths of its register-held kernels (c_bar <= 64; C <= 256 for fp32
+# and for the backward).
 VARIANTS = {
-    KERNEL_NAME: {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE},
+    KERNEL_NAME: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE},
     DQ_KERNEL: {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE},
-    DKV_KERNEL: {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE},
+    DKV_KERNEL: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE},
 }
+# Past those widths, csrc/flash_wide.cuh's kernels, by input type.
+WIDE_VARIANTS = {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE}
+
 
 # Kernel launches since the last reset_launch_counts(), by kernel name. Only
 # a wrapper adds to it, once per launch of its kernel; PLAIN_ROUTE counts the
@@ -93,7 +106,7 @@ VARIANTS = {
 launch_counts = {KERNEL_NAME: 0, DQ_KERNEL: 0, DKV_KERNEL: 0, PLAIN_ROUTE: 0}
 # The same launches by "<kernel>/<variant>".
 variant_counts = {f"{k}/{v}": 0 for k, by_type in VARIANTS.items()
-                  for v in dict.fromkeys(by_type.values())}
+                  for v in dict.fromkeys([*by_type.values(), *WIDE_VARIANTS.values()])}
 
 
 def reset_launch_counts() -> None:
@@ -102,9 +115,14 @@ def reset_launch_counts() -> None:
             counts[k] = 0
 
 
-def _count(name: str, dtype: torch.dtype) -> None:
+def _count(name: str, variant_id: ctypes.c_int) -> None:
+    """One launch of kernel ``name``, under the variant its entry point
+    reported (a variant outside the tables gets a count of its own)."""
+    if not 0 <= variant_id.value < len(VARIANT_IDS):
+        raise RuntimeError(f"{name} reported no variant ({variant_id.value})")
     launch_counts[name] += 1
-    variant_counts[f"{name}/{VARIANTS[name][dtype]}"] += 1
+    key = f"{name}/{VARIANT_IDS[variant_id.value]}"
+    variant_counts[key] = variant_counts.get(key, 0) + 1
 
 
 def attention_core(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -158,20 +176,21 @@ def _launch(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor) -> tuple[torch.Te
     fn = lib.flash_attn_fwd
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [vp] * 5 + [i32] * 6 + [i64] * 9 + [vp]
+        fn.argtypes = [vp] * 5 + [i32] * 6 + [i64] * 9 + [vp, ctypes.POINTER(i32)]
         fn.restype = ctypes.c_int
     o = torch.empty_like(h)
+    vid = ctypes.c_int(-1)
     lse = torch.empty((b, n), dtype=torch.float32, device=f.device)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     err = fn(
         f.data_ptr(), g.data_ptr(), h.data_ptr(), o.data_ptr(), lse.data_ptr(),
         0 if f.dtype == torch.float32 else 1, f.device.index or 0, b, n, c_bar, c,
         f.stride(0), f.stride(1), g.stride(0), g.stride(1), h.stride(0), h.stride(1),
-        o.stride(0), o.stride(1), lse.stride(0), stream,
+        o.stride(0), o.stride(1), lse.stride(0), stream, ctypes.byref(vid),
     )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError_t {err}")
-    _count(KERNEL_NAME, f.dtype)
+    _count(KERNEL_NAME, vid)
     return o, lse
 
 
@@ -232,7 +251,7 @@ def _bwd_fn(lib, name: str, n_ptrs: int, n_strides: int):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        fn.argtypes = [vp] * n_ptrs + [i32] * 6 + [i64] * n_strides + [vp]
+        fn.argtypes = [vp] * n_ptrs + [i32] * 6 + [i64] * n_strides + [vp, ctypes.POINTER(i32)]
         fn.restype = ctypes.c_int
     return fn
 
@@ -289,13 +308,14 @@ def _dq_op(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, do: torch.Tensor,
 @_dq_op.register_kernel("cuda")
 def _dq_cuda(f, g, h, do, lse, delta):
     df = torch.empty_like(f)
+    vid = ctypes.c_int(-1)
     ptrs, sizes, strides = _backward_args(f, g, h, do, lse, delta)
     err = _bwd_fn(cuda_build.load(BWD_LIBRARY), DQ_KERNEL, 7, 11)(
         *ptrs, df.data_ptr(), *sizes, *strides, df.stride(0), df.stride(1),
-        torch.cuda.current_stream(f.device).cuda_stream)
+        torch.cuda.current_stream(f.device).cuda_stream, ctypes.byref(vid))
     if err != 0:
         raise RuntimeError(f"{DQ_KERNEL} launch failed: cudaError_t {err}")
-    _count(DQ_KERNEL, f.dtype)
+    _count(DQ_KERNEL, vid)
     return df
 
 
@@ -314,13 +334,15 @@ def _dkv_op(f: torch.Tensor, g: torch.Tensor, h: torch.Tensor, do: torch.Tensor,
 @_dkv_op.register_kernel("cuda")
 def _dkv_cuda(f, g, h, do, lse, delta):
     dg, dh = torch.empty_like(g), torch.empty_like(h)
+    vid = ctypes.c_int(-1)
     ptrs, sizes, strides = _backward_args(f, g, h, do, lse, delta)
     err = _bwd_fn(cuda_build.load(BWD_LIBRARY), DKV_KERNEL, 8, 13)(
         *ptrs, dg.data_ptr(), dh.data_ptr(), *sizes, *strides, dg.stride(0), dg.stride(1),
-        dh.stride(0), dh.stride(1), torch.cuda.current_stream(f.device).cuda_stream)
+        dh.stride(0), dh.stride(1), torch.cuda.current_stream(f.device).cuda_stream,
+        ctypes.byref(vid))
     if err != 0:
         raise RuntimeError(f"{DKV_KERNEL} launch failed: cudaError_t {err}")
-    _count(DKV_KERNEL, f.dtype)
+    _count(DKV_KERNEL, vid)
     return dg, dh
 
 

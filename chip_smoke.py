@@ -398,35 +398,46 @@ SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "FLASH_ATTENTION", "CUDNN_ATTENTION", "M
 # H = W, Cin, Cout, dtype, layers of one generator pass at this shape).
 # The TPU script's shape (tools/exp_fused_conv.py defaults), every distinct
 # conv-leaky-pixel-norm layer of pggan256 at its batch of 12 (block_4_conv1,
-# then conv0 and conv1 at 8 to 256 px: 13 layers a pass), one fp32 case and
-# a ragged one (20 x 20, Cout not a multiple of 8). Then the widths past
-# 256 channels, where a thread takes several groups of 8 channels: the
-# published PGGAN width (fmap_max 512) at 4 and 8 px, the widest the config
-# gives (1024 at 4 px), and two with groups past Cout (300 and 520).
+# then conv0 and conv1 at 8 to 256 px: 13 layers a pass) in bf16 and in
+# fp32 (the JAX package's default type: the fp32 phase's generation and
+# sample run them), a ragged case (20 x 20, Cout not a multiple of 8) in
+# each type and a ragged Cin at 5 x 5 in fp32. Then the widths past
+# 256 channels: the published PGGAN width (fmap_max 512) at 4 and 8 px,
+# the widest the config gives (1024 at 4 px), and two with n8 tiles past
+# Cout (300 and 520).
 GEN_BATCH = 12
+# (label, H = W, Cin, Cout, layers a pass) of pggan256's generator.
+GEN_LAYERS = [
+    ("pggan256 block_4_conv1", 4, 256, 256, 1),
+    ("pggan256 block_8_conv0/1", 8, 256, 256, 2),
+    ("pggan256 block_16_conv0/1", 16, 256, 256, 2),
+    ("pggan256 block_32_conv0", 32, 256, 128, 1),
+    ("pggan256 block_32_conv1", 32, 128, 128, 1),
+    ("pggan256 block_64_conv0", 64, 128, 64, 1),
+    ("pggan256 block_64_conv1", 64, 64, 64, 1),
+    ("pggan256 block_128_conv0", 128, 64, 32, 1),
+    ("pggan256 block_128_conv1", 128, 32, 32, 1),
+    ("pggan256 block_256_conv0", 256, 32, 16, 1),
+    ("pggan256 block_256_conv1", 256, 16, 16, 1),
+]
 FUSED_CONV_CASES = [
     ("exp_fused_conv.py", 8, 256, 16, 16, "bfloat16", 0),
-    ("pggan256 block_4_conv1", GEN_BATCH, 4, 256, 256, "bfloat16", 1),
-    ("pggan256 block_8_conv0/1", GEN_BATCH, 8, 256, 256, "bfloat16", 2),
-    ("pggan256 block_16_conv0/1", GEN_BATCH, 16, 256, 256, "bfloat16", 2),
-    ("pggan256 block_32_conv0", GEN_BATCH, 32, 256, 128, "bfloat16", 1),
-    ("pggan256 block_32_conv1", GEN_BATCH, 32, 128, 128, "bfloat16", 1),
-    ("pggan256 block_64_conv0", GEN_BATCH, 64, 128, 64, "bfloat16", 1),
-    ("pggan256 block_64_conv1", GEN_BATCH, 64, 64, 64, "bfloat16", 1),
-    ("pggan256 block_128_conv0", GEN_BATCH, 128, 64, 32, "bfloat16", 1),
-    ("pggan256 block_128_conv1", GEN_BATCH, 128, 32, 32, "bfloat16", 1),
-    ("pggan256 block_256_conv0", GEN_BATCH, 256, 32, 16, "bfloat16", 1),
-    ("pggan256 block_256_conv1", GEN_BATCH, 256, 16, 16, "bfloat16", 1),
-    ("fp32", GEN_BATCH, 32, 256, 128, "float32", 0),
+] + [
+    (label, GEN_BATCH, hw, cin, cout, dtype, per_pass)
+    for dtype in ("bfloat16", "float32") for label, hw, cin, cout, per_pass in GEN_LAYERS
+] + [
     ("ragged", 4, 20, 40, 20, "bfloat16", 0),
+    ("ragged", 4, 20, 40, 20, "float32", 0),
+    ("ragged Cin, 5 px", 3, 5, 19, 13, "float32", 0),
     ("fmap_max 512, block_4_conv1", GEN_BATCH, 4, 512, 512, "bfloat16", 0),
     ("fmap_max 512, block_8_conv0/1", GEN_BATCH, 8, 512, 512, "bfloat16", 0),
     ("1024 channels, block_4_conv1", GEN_BATCH, 4, 1024, 1024, "bfloat16", 0),
-    ("wide ragged, 2 groups a thread", 2, 20, 24, 300, "bfloat16", 0),
-    ("wide, 3 of 4 groups a thread", 2, 8, 16, 520, "float32", 0),
+    ("wide ragged, Cout 300", 2, 20, 24, 300, "bfloat16", 0),
+    ("wide, Cout 520", 2, 8, 16, 520, "float32", 0),
 ] + [
     # Past one block's 1024 channels (min_channels above 1024): two passes,
-    # a ragged second tile of 8 channels, 1.5 and 2 tiles.
+    # in bf16 over tiles of 1024 channels (a ragged second tile of 8, 1.5
+    # and 2 tiles), in fp32 over tiles of 256.
     (f"Cout {cout}, {hw} px", 2, hw, cout, cout, dtype, 0)
     for cout, hw in ((1032, 4), (1536, 16), (2048, 32)) for dtype in ("bfloat16", "float32")
 ]
@@ -990,20 +1001,23 @@ def ran_variants(kernel: str) -> list:
             if v and k.startswith(kernel + "/")]
 
 
-def fused_conv_bound(b: int, hw: int, cin: int, cout: int, dtype: str) -> tuple[float, str]:
-    """Least time of B4 on the card by the route of its variant: x read and
-    y written once in their type, the fp32 weights and bias read once,
-    against the conv's FLOPs at the rate of the variant's products. fp32
-    (CUDA cores): 67 TFLOP/s. bf16 (tensor cores): each multiply-add by an
-    fp32 weight is two bf16 products (the weight's high and low halves), so
-    twice the FLOPs at 989 TFLOP/s, 494.5 effective (TF32's 495 would give
-    the same)."""
+def fused_conv_bound(b: int, hw: int, cin: int, cout: int, dtype: str,
+                     route: str = "") -> tuple[float, str]:
+    """Least time of B4 on the card by ``route`` (default: the route of the
+    variant x's type runs, ``fused_conv.VARIANTS``): x read and y written
+    once in their type, the fp32 weights and bias read once, against the
+    conv's FLOPs at the rate of the route's products. fp32 (TF32 tensor
+    cores): three TF32 products a multiply-add at 494.5 TFLOP/s
+    (``PRODUCTS``); on the CUDA cores one FMA at 67. bf16 (tensor cores):
+    each multiply-add by an fp32 weight is two bf16 products (the weight's
+    high and low halves), so twice the FLOPs at 989 TFLOP/s, 494.5
+    effective."""
     elt = 4 if dtype == "float32" else 2
     pixels = b * hw * hw
     nbytes = elt * pixels * (cin + cout) + 4 * (9 * cin * cout + cout)
-    if dtype == "float32":
-        return _bound(nbytes, 2.0 * pixels * 9 * cin * cout, "cuda_core")
-    return _bound(nbytes, 2 * 2.0 * pixels * 9 * cin * cout, "tensor_core")
+    route = route or ("tensor_core_tf32x3" if dtype == "float32" else "tensor_core")
+    flops = 2.0 * pixels * 9 * cin * cout
+    return _bound(nbytes, (2 if route == "tensor_core" else 1) * flops, route)
 
 
 def fused_conv_tolerance(dtype: str, ref_max: float) -> float:
@@ -1094,9 +1108,9 @@ def cudnn_best_ms(x, w) -> float:
         torch.backends.cudnn.benchmark = before
 
 
-def fused_conv_phase() -> list:
+def fused_conv_phase() -> dict:
     """B4 at every listed shape against its plain version; returns the rows
-    of the generator's layers."""
+    of the generator's layers by type."""
     import torch
     import torch.nn.functional as F
     from twingan_tpu_torch.ops import fused_conv
@@ -1136,7 +1150,9 @@ def fused_conv_phase() -> list:
                                "channels-last in x's type",
                "library_best_ms": cudnn_best_ms(x, w_lib),
                "eager_chain_ms": time_ms(lambda: eager_conv_chain(x, w, bias)),
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               **({"bound_ms_by_route": {r: fused_conv_bound(b, hw, cin, cout, dtype, r)[0]
+                                         for r in FP32_ROUTES}} if dtype == "float32" else {})}
         row["ok"] = bool(err <= tol and row["shape_ok"] and row["finite"]
                          and variant == [fused_conv.VARIANTS[dt]])
         emit(row)
@@ -1147,7 +1163,8 @@ def fused_conv_phase() -> list:
         rows.append(row)
         del x, kernel, w9, bias, y, ref, w, w_lib
         torch.cuda.empty_cache()
-    return [r for r in rows if r["layers_per_pass"]]
+    return {dtype: [r for r in rows if r["layers_per_pass"] and r["dtype"] == dtype]
+            for dtype in ("bfloat16", "float32")}
 
 
 def sdpa_backend(q, k, v, do):
@@ -1948,16 +1965,22 @@ def train_phase(card: str, smi_line: str) -> dict:
 
 
 def fp32_phase(card: str, smi_line: str) -> dict:
-    """The JAX package's default type, fp32, end to end on the slice config:
-    ``serving_phase`` in fp32 (batches of 4 against the CPU's fp32
+    """The JAX package's default type, fp32, end to end: on the slice
+    config, ``serving_phase`` in fp32 (batches of 4 against the CPU's fp32
     inferer, B1 on its fp32 variant only), then one warm-up and
     TRAIN_TIMED_ROUNDS timed fp32 rounds at batch 3 from seeded weights
     (``timed_rounds``: the passes' launches, each kernel on its fp32
-    variant only). Returns the launches by kernel."""
+    variant only; no B4); then pggan256 generation in fp32
+    (``generation_rounds``: a warm-up, GEN_TIMED_ROUNDS timed rounds at
+    batch 12 with 13 B4 launches a D step on its fp32 variant, and a
+    ``sample`` of 12 against the CPU's fp32). Returns the launches by
+    kernel."""
     import numpy as np
-    from twingan_tpu_torch.ops import attention
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
     from twingan_tpu_torch.train.twingan_trainer import TwinGANTrainer
 
+    fused_conv.reset_launch_counts()
     served = serving_phase(card, smi_line, "float32")
     cfg = train_config()
     trainer = TwinGANTrainer(cfg.replace(model=cfg.model.replace(dtype="float32")))
@@ -1965,6 +1988,14 @@ def fp32_phase(card: str, smi_line: str) -> dict:
     set_attention_gamma(state.nets)
     _, counts = timed_rounds(trainer, state, np.random.RandomState(SEED + 20), card, smi_line)
     counts[attention.KERNEL_NAME] += served
+    require_no_b4("fp32")
+    del trainer, state
+    gen_cfg = generation_config()
+    gen = GanTrainer(gen_cfg.replace(model=gen_cfg.model.replace(dtype="float32")))
+    gen_state = gen.init_state(SEED)
+    randomize_biases(gen_state.nets, SEED)
+    launches = generation_rounds(card, smi_line, gen, gen_state, "fp32")
+    counts[fused_conv.KERNEL_NAME] = launches["rounds"] + launches["sample"]
     return counts
 
 
@@ -2039,10 +2070,6 @@ def compare_generation_steps(cfg, weights, batches, zs, gp_noise, card: str = "c
 
 def generation_phase(card: str, smi_line: str) -> dict:
     """Returns B4's launches in the timed rounds and in ``sample``."""
-    import numpy as np
-    import torch
-    from twingan_tpu_torch.models.pggan import noise_shape
-    from twingan_tpu_torch.ops import attention, fused_conv
     from twingan_tpu_torch.train.gan_trainer import GanTrainer
 
     cfg = generation_config()
@@ -2057,7 +2084,24 @@ def generation_phase(card: str, smi_line: str) -> dict:
         emit(row)
         if not row["ok"]:
             fail("generation", f"the card's {row['check']} disagrees beyond the limits")
+    return generation_rounds(card, smi_line, trainer, state, "generation")
 
+
+def generation_rounds(card: str, smi_line: str, trainer, state, phase: str) -> dict:
+    """One warm-up and GEN_TIMED_ROUNDS timed rounds of ``trainer`` (pggan256
+    at batch GEN_BATCH, in its config's type) from ``state``, with B4's
+    launches asserted (13 a D step, all on the variant of the type; the G
+    step's 13 on the autograd route), then a ``sample`` of GEN_BATCH images
+    held against the CPU's fp32 within ``SERVE_TOLS`` of the type. Returns
+    B4's launches in the rounds and in ``sample``."""
+    import numpy as np
+    import torch
+    from twingan_tpu_torch.models.pggan import noise_shape
+    from twingan_tpu_torch.ops import attention, fused_conv
+    from twingan_tpu_torch.train.gan_trainer import GanTrainer
+
+    cfg = trainer.cfg
+    dtype = cfg.model.dtype
     rng = np.random.RandomState(SEED + 4)
     res = cfg.model.resolution
     rounds = [[{"target": torch.from_numpy(rng.rand(GEN_BATCH, res, res, 3).astype("float32"))
@@ -2081,15 +2125,16 @@ def generation_phase(card: str, smi_line: str) -> dict:
     d_steps = GEN_TIMED_ROUNDS * (cfg.n_critic - 1)
     expected = {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS * d_steps,
                 fused_conv.AUTOGRAD_ROUTE: GEN_LAYERS_PER_PASS * GEN_TIMED_ROUNDS}
-    # bf16 rounds: B4 on its tensor-core variant only.
-    b4_tc = f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[torch.bfloat16]}"
+    # B4 on the variant of the type only.
+    want = f"{fused_conv.KERNEL_NAME}/{fused_conv.VARIANTS[getattr(torch, dtype)]}"
 
-    def only_tensor_core(launches: int) -> dict:
-        return {k: (launches if k == b4_tc else 0) for k in fused_conv.variant_counts}
+    def only(launches: int) -> dict:
+        return {k: (launches if k == want else 0) for k in fused_conv.variant_counts}
 
     finite = all(np.isfinite(v) for m in losses for v in m.values())
     med = statistics.median(round_s)
-    row = {"phase": "generation", "check": "timed rounds", "rounds": GEN_TIMED_ROUNDS,
+    row = {"phase": phase, "check": "timed rounds", "dtype": dtype,
+           "rounds": GEN_TIMED_ROUNDS,
            "batch": GEN_BATCH, "n_critic": cfg.n_critic, "round_s": round_s,
            "rounds_per_s": 1.0 / med, "images_per_s": cfg.n_critic * GEN_BATCH / med,
            "timing": "synchronized host clock around each round; images/s counts "
@@ -2097,14 +2142,13 @@ def generation_phase(card: str, smi_line: str) -> dict:
            "peak_memory_bytes": peak, "launches": counts, "expected_launches": expected,
            "kernel_variants": variants, "attention_launches": attention_counts,
            "losses": losses, "card": card, "nvidia_smi": smi_line,
-           "ok": bool(counts == expected and variants == only_tensor_core(expected[
-               fused_conv.KERNEL_NAME]) and not any(attention_counts.values()) and finite)}
-    MEASURED["generation_rounds_per_s"] = row["rounds_per_s"]
+           "ok": bool(counts == expected and variants == only(expected[fused_conv.KERNEL_NAME])
+                      and not any(attention_counts.values()) and finite)}
+    MEASURED[f"generation_rounds_per_s_{dtype}"] = row["rounds_per_s"]
     emit(row)
     if not row["ok"]:
-        fail("generation", "the timed rounds' B4 launches differ from 13 per D step, all "
-                           "tensor-core, and 13 autograd-route steps per G step, or a loss is "
-                           "not finite")
+        fail(phase, f"the timed rounds' B4 launches differ from 13 per D step, all {want}, "
+                    "and 13 autograd-route steps per G step, or a loss is not finite")
 
     z = torch.randn(noise_shape(cfg.model, GEN_BATCH),
                     generator=torch.Generator().manual_seed(SEED + 5))
@@ -2121,23 +2165,23 @@ def generation_phase(card: str, smi_line: str) -> dict:
     std = float(ref.std())
     diff = (out - ref).abs()
     mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
-    row = {"phase": "generation", "check": "sample, card bf16 vs CPU float32",
+    mean_tol, max_tol = SERVE_TOLS[dtype]
+    row = {"phase": phase, "check": f"sample, card {dtype} vs CPU float32",
            "images": GEN_BATCH, "output_shape": list(out.shape),
            "finite": bool(torch.isfinite(out).all()), "step": state.step,
            "launches": sample_counts, "kernel_variants": sample_variants, "output_std": std,
            "mean_abs_err_over_std": mean_err, "max_abs_err_over_std": max_err,
-           "mean_tolerance": SERVE_MEAN_TOL, "max_tolerance": SERVE_MAX_TOL,
+           "mean_tolerance": mean_tol, "max_tolerance": max_tol,
            "ok": bool(tuple(out.shape) == (GEN_BATCH, res, res, cfg.model.image_channels)
                       and bool(torch.isfinite(out).all())
                       and sample_counts == {fused_conv.KERNEL_NAME: GEN_LAYERS_PER_PASS,
                                             fused_conv.AUTOGRAD_ROUTE: 0}
-                      and sample_variants == only_tensor_core(GEN_LAYERS_PER_PASS)
-                      and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
+                      and sample_variants == only(GEN_LAYERS_PER_PASS)
+                      and mean_err <= mean_tol and max_err <= max_tol)}
     emit(row)
     if not row["ok"]:
-        fail("generation", "the card's samples disagree with the fp32 CPU run, or sample "
-                           "did not launch B4's tensor-core variant once per "
-                           "conv-leaky-pixel-norm layer")
+        fail(phase, f"the card's samples disagree with the fp32 CPU run, or sample did not "
+                    f"launch {want} once per conv-leaky-pixel-norm layer")
     return {"rounds": counts[fused_conv.KERNEL_NAME],
             "sample": sample_counts[fused_conv.KERNEL_NAME]}
 
@@ -2652,10 +2696,10 @@ def runner_data_phase(card: str, smi_line: str, data: dict) -> dict:
         if key == "resident":
             row["synthetic_long_stage_rounds_per_s"] = MEASURED.get(
                 "synthetic_long_stage_rounds_per_s")
-            row["generation_phase_rounds_per_s"] = MEASURED.get("generation_rounds_per_s")
+            row["generation_phase_rounds_per_s"] = MEASURED.get("generation_rounds_per_s_bfloat16")
             row["ms_per_round_beyond_generation"] = (
-                1e3 / row["rounds_per_s"] - 1e3 / MEASURED["generation_rounds_per_s"]
-                if MEASURED.get("generation_rounds_per_s") else None)
+                1e3 / row["rounds_per_s"] - 1e3 / MEASURED["generation_rounds_per_s_bfloat16"]
+                if MEASURED.get("generation_rounds_per_s_bfloat16") else None)
         emit(row)
         long_rows[key] = row
         totals[fused_conv.KERNEL_NAME] += row["b4_launches"][fused_conv.KERNEL_NAME]
@@ -5207,26 +5251,44 @@ def fp32_entry(row: dict, name: str = "", grads=()) -> dict:
             "shape": {k: row[k] for k in ("B", "N", "c_bar", "C")}}
 
 
-def fused_conv_entry(layer_rows: list, launches: dict, more: dict) -> dict:
+def fused_conv_entry(rows_by_type: dict, launches: dict, more: dict) -> dict:
     """B4's line: the sums over the 13 layers of one pggan256 generator
-    pass at batch 12 (each distinct layer's row times its count);
+    pass at batch 12 (each distinct layer's row times its count), bf16, and
+    the same for fp32 under ``fp32`` (with its bound by both fp32 routes);
     ``more`` holds the launches of the paths after the generation phase."""
     from twingan_tpu_torch.ops import fused_conv
 
-    total = lambda key: sum(r[key] * r["layers_per_pass"] for r in layer_rows)  # noqa: E731
+    def total(key, rows):
+        return sum(r[key] * r["layers_per_pass"] for r in rows)
+
+    f32 = rows_by_type["float32"]
+    fp32 = {"variant": f32[0]["variant"][0],
+            "max_abs_err": max(r["max_abs_err"] for r in f32),
+            **{k: total(k, f32) for k in ("ms", "device_ms", "plain_ms", "library_ms",
+                                          "library_best_ms", "bound_ms")},
+            "bound_ms_by_route": {r: sum(row["bound_ms_by_route"][r] * row["layers_per_pass"]
+                                         for row in f32) for r in FP32_ROUTES},
+            "layers": [{k: r[k] for k in ("case", "H", "Cin", "Cout", "layers_per_pass",
+                                          "device_ms", "library_ms", "bound_ms")} for r in f32]}
+    layer_rows = rows_by_type["bfloat16"]
+
+    def total_bf16(key):
+        return total(key, layer_rows)
+
     heaviest = max(layer_rows, key=lambda r: r["bound_ms"] * r["layers_per_pass"])
     by_path = {"generation": sum(launches.values()), **more}
     return kernel_entry(
         "fused_conv", sum(by_path.values()), by_path,
-        max(r["max_abs_err"] for r in layer_rows), total("ms"), total("plain_ms"),
-        total("bound_ms"), heaviest["bound_by"], total("library_ms"),
+        max(r["max_abs_err"] for r in layer_rows), total_bf16("ms"), total_bf16("plain_ms"),
+        total_bf16("bound_ms"), heaviest["bound_by"], total_bf16("library_ms"),
         launches_in_generation=launches, variant=heaviest["variant"][0],
         variants=sorted(set(fused_conv.VARIANTS.values())),
         times="per generator pass of pggan256 at batch 12: the sum over its 13 "
               "conv-leaky-pixel-norm layers; library_ms is cuDNN's conv alone (NCHW), "
               "library_best_ms the same at its best (benchmark mode, channels-last)",
-        library_best_ms=total("library_best_ms"), eager_chain_ms=total("eager_chain_ms"),
-        device_ms=total("device_ms"))
+        library_best_ms=total_bf16("library_best_ms"),
+        eager_chain_ms=total_bf16("eager_chain_ms"), device_ms=total_bf16("device_ms"),
+        fp32=fp32)
 
 
 def require_no_b4(phase: str) -> None:
@@ -5255,7 +5317,6 @@ def main() -> int:
     train_launches = train_phase(card, smi_line)
     require_no_b4("train")
     fp32_launches = fp32_phase(card, smi_line)
-    require_no_b4("fp32")
     generation_launches = generation_phase(card, smi_line)
     runner_launches = runner_phase(card, smi_line)
     root = tempfile.mkdtemp(prefix="twingan_smoke_data_")
@@ -5305,7 +5366,8 @@ def main() -> int:
             variant=row["variant"][name][0], variants=kernel_variants(name),
             device_ms=row["device_ms"][name], fp32=fp32_entry(train_rows["float32"], name, grads)))
     entries.append(fused_conv_entry(b4_rows, generation_launches,
-                                    {"runner": runner_launches["fused_conv"],
+                                    {"fp32": fp32_launches["fused_conv"],
+                                     "runner": runner_launches["fused_conv"],
                                      "runner_data": data_launches["fused_conv"],
                                      "recipe": recipe_launches["fused_conv"],
                                      "options": options_launches["fused_conv"],

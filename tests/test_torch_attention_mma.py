@@ -257,21 +257,19 @@ def test_dq_kernel_runs_on_mma():
 
 def test_variants_by_type():
     """bf16 takes the tensor-core variant of each of the three kernels; fp32
-    takes the 3xTF32 tensor-core variant of the forward and dkv and the
-    CUDA-core dq; past the register-held widths, the wide kernels (bf16 on
-    the tensor cores, fp32 on the CUDA cores). The C entry points pick the
-    variant and report it by the ids of ``VARIANT_IDS``, which the counts
-    record."""
+    the 3xTF32 tensor-core variant of each; past the register-held widths,
+    the wide kernels (bf16 on the tensor cores, fp32 on the CUDA cores). The
+    C entry points pick the variant and report it by the ids of
+    ``VARIANT_IDS``, which the counts record."""
     v = attention.VARIANTS
-    assert v[attention.KERNEL_NAME] == v[attention.DKV_KERNEL] == {
+    assert v[attention.KERNEL_NAME] == v[attention.DQ_KERNEL] == v[attention.DKV_KERNEL] == {
         torch.float32: attention.TF32X3, torch.bfloat16: attention.TENSOR_CORE}
-    assert v[attention.DQ_KERNEL] == {
-        torch.float32: attention.CUDA_CORE, torch.bfloat16: attention.TENSOR_CORE}
     assert attention.WIDE_VARIANTS == {
         torch.float32: attention.CUDA_CORE, torch.bfloat16: attention.TENSOR_CORE}
     assert set(attention.variant_counts) == {
         "flash_attn_fwd/tensor_core_tf32x3", "flash_attn_fwd/cuda_core",
-        "flash_attn_fwd/tensor_core", "flash_attn_dq/cuda_core", "flash_attn_dq/tensor_core",
+        "flash_attn_fwd/tensor_core", "flash_attn_dq/tensor_core_tf32x3",
+        "flash_attn_dq/cuda_core", "flash_attn_dq/tensor_core",
         "flash_attn_dkv/tensor_core_tf32x3", "flash_attn_dkv/cuda_core",
         "flash_attn_dkv/tensor_core"}
     enum = re.search(r"enum Variant : int \{([^}]*)\}", _source("flash_mma.cuh")).group(1)
@@ -284,7 +282,7 @@ def test_variants_by_type():
                        (bwd, "flash_attn_dkv(")):
         head = src[src.index(f'extern "C" int {entry}'):]
         assert "void* stream, int* variant)" in head[:head.index("{")]
-    assert fwd.count("*variant = ") == 2 and bwd.count("*variant = ") == 3
+    assert fwd.count("*variant = ") == 2 and bwd.count("*variant = ") == 4
     attention.reset_launch_counts()
     try:
         attention._count(attention.DKV_KERNEL, ctypes.c_int(2))

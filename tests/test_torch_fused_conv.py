@@ -21,15 +21,21 @@ the same input. Tolerances, as a share of the output's largest magnitude:
 
 The CUDA kernel runs only on the card (``chip_smoke.py`` holds it against
 this plain version); here the wrapper's checks and the dispatch's routes
-are tested, and a model of the tensor-core variant's arithmetic: each fp32
+are tested, and models of the two variants' arithmetic. bf16: each fp32
 weight split into hi = bf16(w) and lo = bf16(w - hi), bf16 x times each
 half summed in fp32, the Cin chunks of 16 split across blocks and their
-partial sums added in a fixed order, one rounding of the output. Fed the
-same bf16-valued inputs, the model stays within ``chip_smoke.py``'s
-``fused_conv_tolerance("bfloat16", ...)`` of ``pallas_block`` (interpret
-mode) and of ``fused_conv_plain``.
+partial sums added in a fixed order, one rounding of the output. fp32
+(3xTF32): x and w each split into hi = tf32(v) (cvt.rna) and lo = v - hi
+cut to TF32, each product lo hi + hi lo + hi hi, each chunk of 8 input
+channels summed apart (fresh accumulators) and added in fp32, the chunks
+split across blocks as in bf16. Fed the same bf16-valued inputs, each
+model stays within ``chip_smoke.py``'s ``fused_conv_tolerance`` of its
+type of ``pallas_block`` (interpret mode) and of ``fused_conv_plain``; the
+fp32 model also on x that bf16 does not hold, and one TF32 product in
+place of three misses the fp32 tolerance.
 """
 
+import ctypes
 import importlib.util
 import os
 
@@ -46,10 +52,12 @@ from twingan_tpu_torch.models import pggan  # noqa: E402
 from twingan_tpu_torch.models.config import PGGANConfig  # noqa: E402
 from twingan_tpu_torch.models.layers import ConvBlock, reset_parameters  # noqa: E402
 from twingan_tpu_torch.ops import basic, fused_conv  # noqa: E402
+from test_torch_attention_tf32 import split as split_tf32, tf32_rna  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(2, 16, 16, 16), (1, 8, 32, 16), (2, 4, 8, 8)]
 CHUNK = 16  # input channels of one K chunk of the tensor-core variant
+TF32_CHUNK = 8  # and of the TF32 variant
 BF16_ULP = 2.0 ** -7
 XLA_BF16_SHARE = 2.0 ** -6
 
@@ -343,24 +351,73 @@ def mma_model(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor, splits: int) -
     return y.to(torch.bfloat16).float()
 
 
-@pytest.mark.parametrize("shape,splits", [
-    ((2, 8, 40, 20, 1), 3),   # Cout not a multiple of 8; three chunks, one a split
-    ((1, 16, 16, 16, 2), 1),  # one chunk, the fused epilogue
-    ((2, 4, 48, 12, 3), 2),   # 4 px, a ragged Cout, chunks split 2 + 1
-], ids=["8px_40to20", "16px_16to16", "4px_48to12"])
-def test_mma_model_within_chip_tolerance(exp, smoke, shape, splits):
+def tf32_model(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor, splits: int,
+               products: int = 3) -> torch.Tensor:
+    """y as the TF32 variant rounds it: x (NCHW, fp32) and the weights each
+    split into TF32 hi and lo halves, each product lo hi + hi lo + hi hi
+    (``products=1``: one product of the TF32-rounded operands), each chunk
+    of 8 input channels (all 9 taps) summed apart and added in fp32; Cin's
+    chunks cut into ``splits`` ranges whose partial sums are added in order;
+    the fp32 epilogue, y in fp32."""
+    cin, cout = w9.shape[1:]
+    (xh, xl), (wh, wl) = split_tf32(x), split_tf32(w9)
+    chunks = -(-cin // TF32_CHUNK)
+    per_split = -(-chunks // splits)
+
+    def conv(xs, ws, ci):
+        return F.conv2d(xs[:, ci], ws[:, ci].reshape(3, 3, -1, cout).permute(3, 2, 0, 1),
+                        padding=1)
+
+    total = None
+    for c0 in range(0, chunks, per_split):
+        for c in range(c0, min(c0 + per_split, chunks)):
+            ci = slice(c * TF32_CHUNK, (c + 1) * TF32_CHUNK)
+            part = ((conv(xl, wh, ci) + conv(xh, wl, ci)) + conv(xh, wh, ci) if products == 3
+                    else conv(tf32_rna(x), tf32_rna(w9), ci))
+            total = part if total is None else total + part
+    y = total + b[:, None, None]
+    y = torch.maximum(y * fused_conv.LEAKY_SLOPE, y)
+    return y * torch.rsqrt(torch.mean(torch.square(y), dim=1, keepdim=True)
+                           + fused_conv.PIXEL_NORM_EPS)
+
+
+@pytest.mark.parametrize("shape,splits,dtype", [
+    ((2, 8, 40, 20, 1), 3, torch.bfloat16),   # Cout not a multiple of 8; three chunks, one a split
+    ((1, 16, 16, 16, 2), 1, torch.bfloat16),  # one chunk, the fused epilogue
+    ((2, 4, 48, 12, 3), 2, torch.bfloat16),   # 4 px, a ragged Cout, chunks split 2 + 1
+    ((2, 8, 40, 20, 4), 3, torch.float32),    # five chunks of 8, split 2 + 2 + 1
+    ((1, 16, 16, 16, 5), 1, torch.float32),   # two chunks, the fused epilogue
+    ((2, 4, 19, 13, 6), 2, torch.float32),    # 4 px, ragged Cin (a last chunk of 3) and Cout
+], ids=["8px_40to20", "16px_16to16", "4px_48to12", "tf32_8px_40to20", "tf32_16px_16to16",
+        "tf32_4px_19to13"])
+def test_mma_model_within_chip_tolerance(exp, smoke, shape, splits, dtype):
     b, hw, cin, cout, seed = shape
+    name = "float32" if dtype == torch.float32 else "bfloat16"
     x, w, bias = _inputs(b, hw, cin, cout, seed=seed)
-    ref = _jax(exp.pallas_block, x, w, bias, torch.bfloat16)
-    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
-    w9 = torch.from_numpy(w.reshape(9, cin, cout))
-    y = mma_model(xt, w9, torch.from_numpy(bias), splits).permute(0, 2, 3, 1).numpy()
-    tol = smoke.fused_conv_tolerance("bfloat16", float(np.abs(ref).max()))
+    ref = _jax(exp.pallas_block, x, w, bias, dtype)
+    w9, bt = torch.from_numpy(w.reshape(9, cin, cout)), torch.from_numpy(bias)
+
+    def model(x_nhwc, **kw):
+        xt = torch.from_numpy(x_nhwc).permute(0, 3, 1, 2).contiguous()
+        y = (tf32_model(xt, w9, bt, splits, **kw) if dtype == torch.float32
+             else mma_model(xt, w9, bt, splits))
+        return y.permute(0, 2, 3, 1).numpy()
+
+    y = model(x)
+    tol = smoke.fused_conv_tolerance(name, float(np.abs(ref).max()))
     err = float(np.abs(y - ref).max())
     assert err <= tol, (err, tol)
-    plain = _plain(x, w, bias, torch.bfloat16)
+    plain = _plain(x, w, bias, dtype)
     assert float(np.abs(y - plain).max()) <= smoke.fused_conv_tolerance(
-        "bfloat16", float(np.abs(plain).max()))
+        name, float(np.abs(plain).max()))
+    if dtype == torch.float32:
+        # x that neither bf16 nor TF32 holds (its lo halves are not 0),
+        # against the plain version; one TF32 product misses.
+        x = np.random.RandomState(seed + 10).randn(*x.shape).astype(np.float32)
+        plain = _plain(x, w, bias, dtype)
+        tol = smoke.fused_conv_tolerance(name, float(np.abs(plain).max()))
+        assert float(np.abs(model(x) - plain).max()) <= tol
+        assert float(np.abs(model(x, products=1) - plain).max()) > 4 * tol
 
 
 def test_split_weights_reconstruct_fp32():
@@ -395,9 +452,46 @@ def test_tensor_core_source():
     assert "launch_tensor_core(" in src and "if (dtype == 0)" in src
 
 
+def test_tf32_source():
+    """The fp32 variant is the same implicit GEMM on the TF32 tensor cores:
+    x and the weights split once each in shared memory, three tf32 mma.sync
+    a fragment pair, each chunk's products in fresh accumulators added in
+    fp32; the C entry point sends fp32 to it and reports it, and the
+    CUDA-core kernel is gone."""
+    with open(os.path.join(REPO, "twingan_tpu_torch", "csrc", "fused_conv.cu")) as fh:
+        src = fh.read()
+    body = src[src.index("fused_conv_mma_kernel("):src.index("#define FUSED_CONV_CONFIGS")]
+    assert body.count("mma1688_tf32(cacc[mt][j + e], a[mt].") == 3
+    for op in ("split_tf32(xraw[j * npos + pos])", "cp_async4(xraw", "split_tf32(v.x)",
+               "acc[mt][nt][e] += cacc[mt][nt][e]", "*reinterpret_cast<const float2*>(xh"):
+        assert op in body, op
+    assert "#define FUSED_CONV_TF32_CONFIGS" in src
+    assert "*variant = flash_mma::kTf32x3;" in src and "launch_tensor_core<float>(" in src
+    for gone in ("fused_conv_kernel", "launch_cuda_core", "kChannelsPerThread"):
+        assert gone not in src, gone
+
+
 def test_variants_by_type():
-    assert fused_conv.VARIANTS == {torch.float32: "cuda_core", torch.bfloat16: "tensor_core"}
-    assert set(fused_conv.variant_counts) == {"fused_conv/cuda_core", "fused_conv/tensor_core"}
+    """fp32 x takes the TF32 variant, bf16 the tensor-core one; the C entry
+    point reports the variant it launched by the ids of VARIANT_IDS, which
+    the counts record."""
+    assert fused_conv.VARIANTS == {torch.float32: "tensor_core_tf32x3",
+                                   torch.bfloat16: "tensor_core"}
+    assert set(fused_conv.variant_counts) == {"fused_conv/tensor_core_tf32x3",
+                                              "fused_conv/tensor_core"}
+    with open(os.path.join(REPO, "twingan_tpu_torch", "csrc", "fused_conv.cu")) as fh:
+        head = fh.read().split('extern "C" int fused_conv3x3_leaky_pixel_norm(')[1]
+    assert "void* stream,\n" in head[:head.index("{")] and "int* variant)" in head[:head.index("{")]
+    fused_conv.reset_launch_counts()
+    try:
+        fused_conv._count(ctypes.c_int(2))
+        assert fused_conv.variant_counts["fused_conv/tensor_core_tf32x3"] == 1
+        assert fused_conv.launch_counts[fused_conv.KERNEL_NAME] == 1
+        with pytest.raises(RuntimeError, match="reported no variant"):
+            fused_conv._count(ctypes.c_int(3))
+        assert fused_conv.launch_counts[fused_conv.KERNEL_NAME] == 1
+    finally:
+        fused_conv.reset_launch_counts()
 
 
 def test_bf16_on_the_cpu_runs_the_plain_version():

@@ -402,9 +402,12 @@ def test_chip_smoke_generation_comparison_on_the_cpu():
         if "float32 vs" in row["check"]:
             assert max(row["loss_abs_err"].values()) == 0.0
     # B4's bound at the TPU script's shape, by the route of each variant:
-    # fp32, its FLOPs at the CUDA cores' fp32 rate; bf16, on the tensor
-    # cores (two bf16 products a multiply-add), its bytes.
+    # fp32 on the TF32 tensor cores (three TF32 products a multiply-add),
+    # its bytes, and its FLOPs at the CUDA cores' fp32 rate by that route;
+    # bf16, on the tensor cores (two bf16 products a multiply-add), its bytes.
     bound_ms, by = smoke.fused_conv_bound(8, 256, 16, 16, "float32")
+    assert by == "bytes" and bound_ms == pytest.approx(0.020035, rel=1e-3)
+    bound_ms, by = smoke.fused_conv_bound(8, 256, 16, 16, "float32", "cuda_core")
     assert by == "operations" and bound_ms == pytest.approx(0.03606, rel=1e-3)
     bound_ms, by = smoke.fused_conv_bound(8, 256, 16, 16, "bfloat16")
     assert by == "bytes" and bound_ms == pytest.approx(0.010019, rel=1e-3)

@@ -4,8 +4,8 @@
 Times the bf16 forward (B1, ``csrc/flash_attn_fwd.cu``) at the serving
 shape (B 4, N 4096, c_bar 8, C 64) and the bf16 dq and dkv kernels (B2
 and B3, ``csrc/flash_attn_bwd.cu``) at the training shape (B 3), and the
-fp32 (3xTF32) forward and dkv at the same shapes, each beside copies of
-its source with one part taken out:
+fp32 (3xTF32) forward, dq and dkv at the same shapes, each beside copies
+of its source with one part taken out:
 
 - ``no_exp``: the exponentials (each ex2 replaced by its argument);
 - ``no_scores``: the score product S = f g^T (S^T = g f^T in dkv);
@@ -14,7 +14,8 @@ its source with one part taken out:
 - ``no_grads``: the products dh += P^T do and dg += dS^T f (dkv), df +=
   dS g (dq);
 - ``no_lo`` (fp32): the two small TF32 products of each 3xTF32 product
-  (lo hi and hi lo; the large one stays), with the splits only they use;
+  (lo hi and hi lo; the large one stays), with the splits only they use
+  (dq splits each staged tile into both halves whatever it multiplies);
 - ``no_split`` (fp32): the hi/lo split of every operand (cvt.rna, the
   subtraction and the cut of lo; both halves take the unsplit bits, the
   products stay);
@@ -127,6 +128,37 @@ DKV_TF32_CUTS = {
     **TF32_CUTS,
     "no_staging": DKV_CUTS["no_staging"],
 }
+# fp32 dq issues its three TF32 products itself, each over its independent
+# accumulators in turn: (accumulator, A fragment, B registers) of S, dP and
+# df.
+DQ_TF32_PRODUCTS = {
+    "no_scores": ("p[j]", "fa[ks]", "[j]"),
+    "no_dp": ("ds[i][j]", "da[i]", "[i][j]"),
+    "no_grads": ("tq[kk][j]", "sa[kk]", "[kk]"),
+}
+
+
+def _dq_tf32_cut(acc: str, a: str, b: str, parts=("lo", "hi_lo", "hi")) -> list:
+    """The lines of one dq product's TF32 products (``parts`` of them),
+    each replaced by a use of its operands."""
+    calls = {"lo": f"mma1688_tf32({acc}, {a}.lo, bh{b}[0], bh{b}[1]);",
+             "hi_lo": f"mma1688_tf32({acc}, {a}.hi, bl{b}[0], bl{b}[1]);",
+             "hi": f"mma1688_tf32({acc}, {a}.hi, bh{b}[0], bh{b}[1]);"}
+    uses = {"lo": f"{acc}[0] += __uint_as_float(bh{b}[0] ^ bh{b}[1] ^ {a}.lo[0]);",
+            "hi_lo": f"{acc}[1] += __uint_as_float(bl{b}[0] ^ bl{b}[1]);",
+            "hi": f"{acc}[2] += __uint_as_float({a}.hi[0]);"}
+    return [(calls[k], uses[k] if len(parts) == 3 else ";") for k in parts]
+
+
+DQ_TF32_CUTS = {
+    "no_exp": DQ_CUTS["no_exp"],
+    **{name: _dq_tf32_cut(*ops) for name, ops in DQ_TF32_PRODUCTS.items()},
+    "no_lo": [cut for ops in DQ_TF32_PRODUCTS.values()
+              for cut in _dq_tf32_cut(*ops, parts=("lo", "hi_lo"))],
+    "no_split": TF32_CUTS["no_split"],
+    "no_staging": [("    if (t + 2 < ntiles) copy(t + 2, buf);",
+                    "    if (t + 2 < ntiles && t < 0) copy(t + 2, buf);")],
+}
 # (kernel, dtype) -> (library, cuts, shape B, N, c_bar, C)
 KERNELS = {
     (attention.KERNEL_NAME, "bfloat16"): (attention.KERNEL_NAME, FWD_CUTS, (4, 4096, 8, 64)),
@@ -134,6 +166,7 @@ KERNELS = {
     (attention.DKV_KERNEL, "bfloat16"): (attention.BWD_LIBRARY, DKV_CUTS, (3, 4096, 8, 64)),
     (attention.KERNEL_NAME, "float32"): (attention.KERNEL_NAME, FWD_TF32_CUTS,
                                          (4, 4096, 8, 64)),
+    (attention.DQ_KERNEL, "float32"): (attention.BWD_LIBRARY, DQ_TF32_CUTS, (3, 4096, 8, 64)),
     (attention.DKV_KERNEL, "float32"): (attention.BWD_LIBRARY, DKV_TF32_CUTS,
                                         (3, 4096, 8, 64)),
 }

@@ -65,12 +65,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "fused_conv" in low:  # B4: the tensor-core kernel and its split-K sum, or CUDA cores
-        cores = "CUDA cores" if "fused_conv_kernel" in low else "tensor cores"
+    if "fused_conv" in low:  # B4: the implicit GEMM (fp32 x: its float instance) or pass 2
+        cores = ("second pass" if "pixel_norm_pass" in low
+                 else "TF32 tensor cores" if "mma_kernelif" in low else "tensor cores")
         return f"fused conv kernel (B4, {cores})"
     for kernel in ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv"):
-        if kernel in low:  # the tensor-core variants' kernels are named *_mma_kernel
-            cores = "tensor cores" if f"{kernel}_mma" in low else "CUDA cores"
+        if kernel in low:  # the variants' kernels are named *_mma_kernel and *_tf32_kernel
+            cores = ("tensor cores" if f"{kernel}_mma" in low
+                     else "TF32 tensor cores" if f"{kernel}_tf32" in low else "CUDA cores")
             return f"attention kernel ({kernel}, {cores})"
     if "conv_i8" in low:
         return "int8 conv kernel (Q1, tensor cores)"

@@ -30,9 +30,9 @@
 //
 // The TPU kernels carry their fp32 accumulators across a sequential grid
 // axis in VMEM. CUDA blocks run in no order, so that axis becomes a loop
-// inside one block, and each output row is owned by one warp (tensor-core
-// variants) or one block (CUDA-core variants): no atomics, so the results
-// are deterministic, as the two TPU kernels' are.
+// inside one block, and each output row is owned by one warp (its sums
+// over the split halves added in a fixed order): no atomics, so the
+// results are deterministic, as the two TPU kernels' are.
 //
 // dkv, tensor-core variant (bf16), the key-owning
 // FlashAttention-2 backward:
@@ -116,17 +116,38 @@
 //    every tile of a long N). For C > 64 the grid's third dimension takes
 //    64-column slices of dh, as in the bf16 variant.
 //
-// dq, CUDA-core variant (fp32): a block owns `rows` query rows of one
-// batch element and loops over key tiles (g and h staged in shared memory
-// as fp32). blockDim = (rows, groups): threadIdx.x picks the owned row,
-// threadIdx.y a slice of 32 of the C columns (zero padded). A thread keeps
-// its row's do slice in registers, computes a partial dp over its 32
-// columns for each of the tile's 16 keys, and the partials of the row's
-// `groups` threads are summed through shared memory. Each thread then
-// recomputes s and p itself (cbar is small), and df's cbar-wide
-// accumulator is split across the row's threads by column (k % groups ==
-// ty). Threads of one warp share threadIdx.y, so every read of a staged
-// tile is a shared-memory broadcast.
+// dq, TF32 tensor-core variant (fp32): dkv_tf32's transposed twin, as the
+// bf16 dq is the bf16 dkv's. Its products are three TF32 products each:
+// 0.049 ms at the TF32 peak at the training shape.
+//  - a warp owns 16 query rows with f's and (C 64) do's A fragments, tf32
+//    hi and lo, in registers, the rows' lse log2e and delta, and an fp32
+//    accumulator for df; two warps split each query row's keys, taking
+//    alternate 16-key halves of each staged tile, and sum df in a fixed
+//    order at the end. A block is 2 query warps x 2 key halves (32 query
+//    rows, 4 warps): 384 blocks at the training shape, 3 an SM. At C 256
+//    do's fragments would take 256 registers a thread: the block's 32 do
+//    rows stay in shared memory instead, and dP reads and splits each k
+//    step's A fragment once for the warp's key blocks;
+//  - key tiles of 32 (16 for each half): g [32, cbar] and h [32, C] by
+//    16-byte cp.async, double-buffered (a third buffer was no faster). The
+//    B operands' split was a third of fp32 B1 and B3, where every warp
+//    repeats it (tools/flash_split.py): here each thread splits the chunks
+//    it copied, in place (hi over the copy, lo beside it), once for the
+//    block's four warps, and waits only for its own copies to do so; one
+//    barrier a tile. g's rows are padded by 4 words and h's 16-byte chunks
+//    swizzled by the row (chunk ^ row % 8): both read orders of the B
+//    fragments fall in 32 banks. 38 KB a block at cbar 8, C 64, 195 KB at
+//    cbar 64, C 256;
+//  - per tile: S = f g^T, P = 2^(S log2e - lse log2e), dP = do h^T, dS =
+//    P (dP - delta), df += dS g, each product x_lo y_hi + x_hi y_lo + x_hi
+//    y_hi; dS's C fragments are the A fragments of the last in permuted k
+//    order (g read at keys 2 tig and 2 tig + 1). Each 8-key block's df
+//    products are summed apart and added by fp32 adds (the tensor cores'
+//    sums cut toward zero: with one accumulator dq's error at N 65536
+//    reached 98 % of its tolerance). A 16-key tile gives a warp only two
+//    independent accumulators a product, too few to cover the mma's
+//    latency: dP sums its even and odd k steps apart, and the three TF32
+//    products of each are issued across the accumulators in turn.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -138,19 +159,8 @@
 
 namespace {
 
-constexpr int kTile = 16;           // rows of the other side per shared-memory tile
-constexpr int kColsPerThread = 32;  // C columns each thread handles
 constexpr int kRegCbar = 64;        // the widest cbar held in registers
-constexpr int kRegC = 256;          // the widest C held in registers (CK; 8 slices of 32)
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int kRegC = 256;          // the widest C held in registers (CK)
 
 struct Strides {
   // Element strides: batch and row of f, g, h, do; batch of lse and delta;
@@ -1034,141 +1044,421 @@ cudaError_t dq_mma(const void* const* in, void* df, int batch, int n, int cbar, 
 }
 
 // ---------------------------------------------------------------------------
-// dq, CUDA-core variant (fp32).
+// dq, TF32 tensor-core variant (fp32, 3xTF32).
 
-// Stage the kTile rows starting at `r0` of a [N, width] row-major matrix
-// (row stride `sn`) into a zero-padded [kTile][padded] fp32 tile.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, int r0, int n, int width,
-                                      int padded, int64_t sn, int tid, int nthreads) {
-  for (int i = tid; i < kTile * padded; i += nthreads) {
-    const int r = r0 + i / padded;
-    const int k = i % padded;
-    dst[i] = (r < n && k < width) ? to_float(src[r * sn + k]) : 0.f;
-  }
+constexpr int kTfK = 16;                      // keys per warp and tile
+constexpr int kTfStageK = kTfK * kMmaSplit;   // keys per staged tile
+
+// Shared memory: two staged key tiles, each split: g hi and lo
+// [kTfStageK][CB + 4], then h hi and lo [kTfStageK][CK] (h's rows unpadded,
+// their 16-byte chunks swizzled by the row: chunk ^ (row % 8)); at CK 256
+// also the block's do rows [kMmaKeys][CK + 4], unsplit. All fp32.
+template <int CB, int CK>
+__host__ __device__ constexpr size_t dq_tf32_smem_bytes() {
+  return sizeof(float) *
+         (2 * 2 * kTfStageK * ((CB + 4) + CK) + (CK == 64 ? 0 : kMmaKeys * (CK + 4)));
 }
 
-template <typename T, int CB>
-__global__ void __launch_bounds__(256) flash_attn_dq_kernel(
-    const T* __restrict__ f, const T* __restrict__ g, const T* __restrict__ h,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ df, int n, int cbar, int c,
-    Strides st) {
-  extern __shared__ float smem[];
-  const int rows = blockDim.x;
-  const int groups = blockDim.y;
-  const int hc = groups * kColsPerThread;     // padded value width
-  float* gs = smem;                            // [kTile][CB]
-  float* hs = gs + kTile * CB;                 // [kTile][hc]
-  float* red = hs + kTile * hc;                // [groups][kTile][rows]
+// The 16-byte chunks of a staged [kTfStageK, COLS] tile of an fp32 matrix
+// that one thread copies (cp.async, zero filled past N and the width; or
+// element by element) and then splits in place: hi over the copy, lo `lo`
+// floats further on. A thread keeps one column chunk of rows row, row +
+// kRowStep, ..., its source address set up once (a tile then costs it one
+// 64-bit multiply-add, as TileCopier's). With kSwizzle, a row's chunks are
+// permuted by the row: chunk ^ (row % 8).
+template <int COLS, int STRIDE, bool kSwizzle>
+struct SplitTileCopier {
+  static constexpr int kChunks = COLS / 4;
+  static_assert(kMmaThreads % kChunks == 0, "a thread keeps one column chunk");
+  static constexpr int kRowStep = kMmaThreads / kChunks;
+  static constexpr int kPerThread = (kTfStageK + kRowStep - 1) / kRowStep;
 
+  const float* base;  // the matrix: a valid address for zero fills
+  const float* src;   // this thread's chunk in row `row` of tile 0
+  int64_t step;       // kRowStep rows of the source
+  int row, chunk;
+
+  __device__ __forceinline__ SplitTileCopier(const float* matrix, int64_t sn, int tid)
+      : base(matrix), step(kRowStep * sn), row(tid / kChunks), chunk(tid % kChunks) {
+    src = matrix + row * sn + 4 * chunk;
+  }
+  __device__ __forceinline__ bool has(int k) const {
+    return kTfStageK % kRowStep == 0 || row + k * kRowStep < kTfStageK;
+  }
+  __device__ __forceinline__ int offset(int k) const {
+    const int r = row + k * kRowStep;
+    return r * STRIDE + 4 * (kSwizzle ? chunk ^ (r % 8) : chunk);
+  }
+  // Rows [r0, r0 + kTfStageK) into tile, in the current cp.async group.
+  __device__ __forceinline__ void copy(float* tile, int r0, int n, int width, int64_t sn,
+                                       bool vec) const {
+    const float* s = src + r0 * sn;
+    const int col = 4 * chunk;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (!has(k)) break;
+      const bool in = r0 + row + k * kRowStep < n;
+      float* d = tile + offset(k);
+      if (vec) {  // width a multiple of 4: a chunk is all in or all out
+        const bool any = in && col < width;
+        flash_mma::cp_async16(d, any ? s + k * step : base, any ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] = in && col + e < width ? s[k * step + e] : 0.f;
+      }
+    }
+  }
+  __device__ __forceinline__ void split(float* tile, int lo) const {
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      if (!has(k)) break;
+      float* d = tile + offset(k);
+      const float4 v = *reinterpret_cast<const float4*>(d);
+      const flash_mma::Tf32Split s0 = flash_mma::split_tf32(v.x), s1 = flash_mma::split_tf32(v.y),
+                                 s2 = flash_mma::split_tf32(v.z), s3 = flash_mma::split_tf32(v.w);
+      *reinterpret_cast<uint4*>(d) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
+      *reinterpret_cast<uint4*>(d + lo) = make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
+    }
+  }
+};
+
+// CB: cbar padded to 8, 16, 32 or 64; CK: C padded to 64 or 256 (dP's depth).
+// As in the bf16 dq, kMmaKeys names the query rows a block owns.
+template <int CB, int CK>
+__global__ void __launch_bounds__(kMmaThreads, CK == 64 ? (CB <= 16 ? 3 : 2) : 1)
+    flash_attn_dq_tf32_kernel(const float* __restrict__ f, const float* __restrict__ g,
+                              const float* __restrict__ h, const float* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              float* __restrict__ df, int n, int cbar, int c, Strides st,
+                              bool vec) {
+  using namespace flash_mma;
+  constexpr int GS = CB + 4;       // g tile row stride
+  constexpr int DS = CK + 4;       // do row stride (CK 256)
+  constexpr int KS = CB / 8;       // k steps of S = f g^T
+  constexpr int DK = CK / 8;       // k steps of dP = do h^T
+  constexpr int NG = CB / 8;       // 8-column blocks of df
+  constexpr int NK = kTfK / 8;     // 8-key blocks of a warp's tile
+  constexpr bool kDoRegs = CK == 64;  // do's A fragments in registers, else its rows in smem
+  constexpr int kGTile = kTfStageK * GS, kHTile = kTfStageK * CK;  // one half (hi or lo)
+  constexpr int kBuf = 2 * (kGTile + kHTile);  // a staged tile: g hi, g lo, h hi, h lo
+  constexpr int kMerge = 4 * NG;   // per lane: df's accumulators
+  static_assert(CK >= 32, "the swizzle permutes 8 chunks of a row");
+  static_assert(kMmaRowWarps * kMerge * 32 * sizeof(float) <= dq_tf32_smem_bytes<CB, CK>(),
+                "the merge reuses the staging buffers");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* tiles = reinterpret_cast<float*>(smem_raw);  // [2][kBuf]
+  float* dos = tiles + 2 * kBuf;                      // CK 256: [kMmaKeys][DS]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int grp = lane / 4, tig = lane % 4;
+  const int row_warp = warp % kMmaRowWarps, split = warp / kMmaRowWarps;
   const int b = blockIdx.y;
-  const int row = blockIdx.x * rows + threadIdx.x;
-  const int ty = threadIdx.y;
-  const int col0 = ty * kColsPerThread;
-  const int tid = ty * rows + threadIdx.x;
-  const int nthreads = rows * groups;
-  const bool valid = row < n;
+  const int qb = blockIdx.x * kMmaKeys;  // the block's first query row
+  const int q0 = qb + 16 * row_warp;     // the warp's
   f += b * st.f_sb;
   g += b * st.g_sb;
   h += b * st.h_sb;
   dout += b * st.do_sb;
 
-  float fr[CB];
+  Tf32Frag fa[KS];
 #pragma unroll
-  for (int k = 0; k < CB; ++k) fr[k] = (valid && k < cbar) ? to_float(f[row * st.f_sn + k]) : 0.f;
-  float dor[kColsPerThread];
+  for (int ks = 0; ks < KS; ++ks) fa[ks] = load_a_frag_tf32(f, q0, 8 * ks, n, cbar, st.f_sn, lane);
+  Tf32Frag doa[kDoRegs ? DK : 1];
+  if constexpr (kDoRegs) {
 #pragma unroll
-  for (int j = 0; j < kColsPerThread; ++j) {
-    dor[j] = (valid && col0 + j < c) ? to_float(dout[row * st.do_sn + col0 + j]) : 0.f;
-  }
-  const float lse_i = valid ? lse[b * st.row_sb + row] : 0.f;
-  const float delta_i = valid ? delta[b * st.row_sb + row] : 0.f;
-  float acc[CB];
-#pragma unroll
-  for (int k = 0; k < CB; ++k) acc[k] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kTile) {
-    __syncthreads();  // every thread is done with the previous tile and partials
-    stage(gs, g, k0, n, cbar, CB, st.g_sn, tid, nthreads);
-    stage(hs, h, k0, n, c, hc, st.h_sn, tid, nthreads);
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < kTile; ++jj) {
-      const float* hj = hs + jj * hc + col0;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) part = fmaf(dor[j], hj[j], part);
-      red[(ty * kTile + jj) * rows + threadIdx.x] = part;
+    for (int ks = 0; ks < DK; ++ks) {
+      doa[ks] = load_a_frag_tf32(dout, q0, 8 * ks, n, c, st.do_sn, lane);
     }
-    __syncthreads();
-    const int kmax = min(kTile, n - k0);  // keys of this tile inside N
-#pragma unroll 4
-    for (int jj = 0; jj < kTile; ++jj) {
-      float dp = 0.f;
-      for (int y = 0; y < groups; ++y) dp += red[(y * kTile + jj) * rows + threadIdx.x];
-      const float* gj = gs + jj * CB;
-      float s = 0.f;
+  }
+  // The thread's two rows (grp and grp + 8): lse log2e and delta. A row
+  // past N has f = do = 0, so its dS is 0 whatever p is.
+  const int r0 = q0 + grp, r1 = r0 + 8;
+  const float l0 = r0 < n ? lse[b * st.row_sb + r0] * kLog2e : 0.f;
+  const float l1 = r1 < n ? lse[b * st.row_sb + r1] * kLog2e : 0.f;
+  const float d0 = r0 < n ? delta[b * st.row_sb + r0] : 0.f;
+  const float d1 = r1 < n ? delta[b * st.row_sb + r1] : 0.f;
+  float dfa[NG][4];
 #pragma unroll
-      for (int k = 0; k < CB; ++k) s = fmaf(fr[k], gj[k], s);
-      const float p = jj < kmax ? __expf(s - lse_i) : 0.f;
-      const float ds = p * (dp - delta_i);
+  for (int j = 0; j < NG; ++j) dfa[j][0] = dfa[j][1] = dfa[j][2] = dfa[j][3] = 0.f;
+
+  // Each staged tile of g and h: a thread copies its chunks (16-byte
+  // cp.async, zero filled past N and the widths) and then splits them in
+  // place, so each tile is split once for the block's four warps, and a
+  // thread waits only for its own copies to do so.
+  const SplitTileCopier<CB, GS, false> g_copier(g, st.g_sn, tid);
+  const SplitTileCopier<CK, CK, true> h_copier(h, st.h_sn, tid);
+  auto copy = [&](int t, int buf) {
+    float* base = tiles + buf * kBuf;
+    g_copier.copy(base, t * kTfStageK, n, cbar, st.g_sn, vec);
+    h_copier.copy(base + 2 * kGTile, t * kTfStageK, n, c, st.h_sn, vec);
+  };
+  auto split_tile = [&](int buf) {
+    float* base = tiles + buf * kBuf;
+    g_copier.split(base, kGTile);
+    h_copier.split(base + 2 * kGTile, kHTile);
+  };
+
+  // At CK 256 the block's do rows (all of C) stay in shared memory, and
+  // dP reads each k step's A fragment from them, split once for the warp's
+  // key blocks. They land with the first tile.
+  if constexpr (!kDoRegs) {
+    if (vec) {
+      const TileCopier<kMmaKeys, CK, DS, kMmaThreads, float> do_copier(dout, 0, c, st.do_sn, tid);
+      do_copier.copy(dos, qb, n, st.do_sn);
+    } else {
+      stage_tile_elements<kMmaKeys, CK, DS, kMmaThreads>(dos, dout, qb, 0, n, c, st.do_sn, tid);
+    }
+  }
+  const float* dr = dos + (16 * row_warp + grp) * DS + tig;  // A fragment rows grp, grp + 8
+
+  // Tile t computes from buffer t & 1 while tile t + 1 lands in the other;
+  // then each thread splits its own copies of t + 1, and after the one
+  // barrier of a tile, tile t + 2 is copied into the retired buffer.
+  const int ntiles = (n + kTfStageK - 1) / kTfStageK;
+  copy(0, 0);
+  cp_async_commit();
+  if (ntiles > 1) copy(1, 1);
+  cp_async_commit();
+  cp_async_wait<1>();  // tile 0 (and do's rows) have landed: this thread's copies
+  split_tile(0);
+  __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    const int buf = t & 1;
+    const int k0 = t * kTfStageK + split * kTfK;  // the warp's first key
+    if (k0 < n) {
+      const float* ghi = tiles + buf * kBuf + split * kTfK * GS;
+      const float* glo = ghi + kGTile;
+      const float* hhi = tiles + buf * kBuf + 2 * kGTile + split * kTfK * CK;
+      const float* hlo = hhi + kHTile;
+
+      // The three TF32 products of each 3xTF32 product (lo hi, hi lo, hi
+      // hi) are issued for every independent accumulator in turn, so that
+      // no mma waits on the one before it.
+      // S = f g^T: 16 queries x 16 keys, 2 blocks of 8 keys; b0, b1 of
+      // block j are g[key 8 j + grp][k tig, tig + 4].
+      float p[NK][4];
 #pragma unroll
-      for (int k = 0; k < CB; ++k) {
-        if (k % groups == ty) acc[k] = fmaf(ds, gj[k], acc[k]);
+      for (int j = 0; j < NK; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t bh[NK][2], bl[NK][2];
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const int r = (8 * j + grp) * GS + 8 * ks + tig;
+          bh[j][0] = __float_as_uint(ghi[r]);
+          bh[j][1] = __float_as_uint(ghi[r + 4]);
+          bl[j][0] = __float_as_uint(glo[r]);
+          bl[j][1] = __float_as_uint(glo[r + 4]);
+        }
+#pragma unroll
+        for (int j = 0; j < NK; ++j) mma1688_tf32(p[j], fa[ks].lo, bh[j][0], bh[j][1]);
+#pragma unroll
+        for (int j = 0; j < NK; ++j) mma1688_tf32(p[j], fa[ks].hi, bl[j][0], bl[j][1]);
+#pragma unroll
+        for (int j = 0; j < NK; ++j) mma1688_tf32(p[j], fa[ks].hi, bh[j][0], bh[j][1]);
+      }
+
+      // P = 2^(S log2e - lse log2e); keys past N get 0.
+      const bool ragged = k0 + kTfK > n;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        p[j][0] = ex2(fmaf(p[j][0], kLog2e, -l0));
+        p[j][1] = ex2(fmaf(p[j][1], kLog2e, -l0));
+        p[j][2] = ex2(fmaf(p[j][2], kLog2e, -l1));
+        p[j][3] = ex2(fmaf(p[j][3], kLog2e, -l1));
+        if (ragged) {
+          const int key = k0 + 8 * j + 2 * tig;
+          if (key >= n) p[j][0] = p[j][2] = 0.f;
+          if (key + 1 >= n) p[j][1] = p[j][3] = 0.f;
+        }
+      }
+
+      // dP = do h^T: 16 queries x 16 keys, over C, the even and odd k steps
+      // into two sets of accumulators (four independent chains), added at
+      // the end. h[key 8 j + grp][k tig, tig + 4] sits at word (k ^ 4 grp)
+      // of its row (the swizzle), so the 32 lanes' reads fall in 32 banks.
+      float ds[2][NK][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j) ds[i][j][0] = ds[i][j][1] = ds[i][j][2] = ds[i][j][3] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < DK; ks += 2) {
+        Tf32Frag da[2];
+        uint32_t bh[2][NK][2], bl[2][NK][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if constexpr (kDoRegs) {
+            da[i] = doa[ks + i];
+          } else {
+            const float* d = dr + 8 * (ks + i);
+            da[i] = split_frag(d[0], d[8 * DS], d[4], d[8 * DS + 4]);
+          }
+          const int col = (8 * (ks + i) + tig) ^ (4 * grp);
+#pragma unroll
+          for (int j = 0; j < NK; ++j) {
+            const int r = (8 * j + grp) * CK;
+            bh[i][j][0] = __float_as_uint(hhi[r + col]);
+            bh[i][j][1] = __float_as_uint(hhi[r + (col ^ 4)]);
+            bl[i][j][0] = __float_as_uint(hlo[r + col]);
+            bl[i][j][1] = __float_as_uint(hlo[r + (col ^ 4)]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < NK; ++j) mma1688_tf32(ds[i][j], da[i].lo, bh[i][j][0], bh[i][j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < NK; ++j) mma1688_tf32(ds[i][j], da[i].hi, bl[i][j][0], bl[i][j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int j = 0; j < NK; ++j) mma1688_tf32(ds[i][j], da[i].hi, bh[i][j][0], bh[i][j][1]);
+        }
+      }
+      // dS = P (dP - delta)
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        ds[0][j][0] = p[j][0] * ((ds[0][j][0] + ds[1][j][0]) - d0);
+        ds[0][j][1] = p[j][1] * ((ds[0][j][1] + ds[1][j][1]) - d0);
+        ds[0][j][2] = p[j][2] * ((ds[0][j][2] + ds[1][j][2]) - d1);
+        ds[0][j][3] = p[j][3] * ((ds[0][j][3] + ds[1][j][3]) - d1);
+      }
+
+      // df += dS g: dS's block kk (keys 8 kk ..) is an A fragment in
+      // permuted k order, so g is read at keys 8 kk + 2 tig and + 1. Each
+      // block's products are summed apart and added to df by fp32 adds (the
+      // tensor cores' sums cut toward zero and would drift over N).
+      float tq[NK][NG][4];
+      Tf32Frag sa[NK];
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        sa[kk] = split_frag(ds[0][kk][0], ds[0][kk][2], ds[0][kk][1], ds[0][kk][3]);
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          tq[kk][j][0] = tq[kk][j][1] = tq[kk][j][2] = tq[kk][j][3] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        uint32_t bh[NK][2], bl[NK][2];
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) {
+          const int r = (8 * kk + 2 * tig) * GS + 8 * j + grp;
+          bh[kk][0] = __float_as_uint(ghi[r]);
+          bh[kk][1] = __float_as_uint(ghi[r + GS]);
+          bl[kk][0] = __float_as_uint(glo[r]);
+          bl[kk][1] = __float_as_uint(glo[r + GS]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) mma1688_tf32(tq[kk][j], sa[kk].lo, bh[kk][0], bh[kk][1]);
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) mma1688_tf32(tq[kk][j], sa[kk].hi, bl[kk][0], bl[kk][1]);
+#pragma unroll
+        for (int kk = 0; kk < NK; ++kk) mma1688_tf32(tq[kk][j], sa[kk].hi, bh[kk][0], bh[kk][1]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dfa[j][e] += tq[kk][j][e];
+        }
+      }
+    }
+    if (t + 1 < ntiles) {
+      cp_async_wait<0>();  // tile t + 1 has landed (this thread's copies)
+      split_tile(buf ^ 1);
+    }
+    __syncthreads();  // tile t is retired and tile t + 1 split, for every warp
+    if (t + 2 < ntiles) copy(t + 2, buf);
+    cp_async_commit();
+  }
+
+  // Sum the two key halves of each query row in a fixed order
+  // (deterministic), as the other variants do. The loop's last barrier
+  // retired the staged tiles.
+  float* xs = reinterpret_cast<float*>(smem_raw) + row_warp * kMerge * 32 + lane;
+  if (split == 1) {
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * j + e) * 32] = dfa[j][e];
+    }
+  }
+  __syncthreads();
+  if (split == 1) return;
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dfa[j][e] += xs[(4 * j + e) * 32];
+  }
+
+  // Epilogue: df, written once in fp32.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + grp + 8 * r;
+    if (row >= n) continue;
+    float* frow = df + b * st.o0_sb + row * st.o0_sn;
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int col = 8 * j + 2 * tig;
+      if (vec && col < cbar) {  // cbar a multiple of 4: col + 1 < cbar, the pair 8-byte aligned
+        *reinterpret_cast<float2*>(frow + col) = make_float2(dfa[j][2 * r], dfa[j][2 * r + 1]);
+      } else {
+        if (col < cbar) frow[col] = dfa[j][2 * r];
+        if (col + 1 < cbar) frow[col + 1] = dfa[j][2 * r + 1];
       }
     }
   }
+}
 
-  if (valid) {
-    T* drow = df + b * st.o0_sb + row * st.o0_sn;
-#pragma unroll
-    for (int k = 0; k < CB; ++k) {
-      if (k < cbar && k % groups == ty) drow[k] = from_float<T>(acc[k]);
-    }
+template <int CB, int CK>
+cudaError_t launch_dq_tf32(const void* const* in, void* df, int batch, int n, int cbar, int c,
+                           const Strides& st, bool vec, cudaStream_t stream) {
+  const dim3 grid((n + kMmaKeys - 1) / kMmaKeys, batch);
+  constexpr size_t smem = dq_tf32_smem_bytes<CB, CK>();  // 38 KB at cbar 8, C 64
+  auto kernel = flash_attn_dq_tf32_kernel<CB, CK>;
+  if (smem > 48 * 1024) {  // up to 195 KB at cbar 64, C 256
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
   }
-}
-
-struct Launch {
-  dim3 grid, block;
-  size_t smem;
-};
-
-// About 128 threads a block, never fewer than one warp of rows; the
-// shared memory stays under the 48 KB of a default launch: at most
-// 4 * (16*64 + 16*256 + 8*16*32) bytes = 36.8 KB.
-template <int CB>
-Launch config(int batch, int n, int c) {
-  const int groups = (c + kColsPerThread - 1) / kColsPerThread;
-  const int rows = groups >= 4 ? 32 : 128 / groups / 32 * 32;
-  Launch l;
-  l.block = dim3(rows, groups);
-  l.grid = dim3((n + rows - 1) / rows, batch);
-  l.smem = sizeof(float) *
-           (kTile * (CB + groups * kColsPerThread) + groups * kTile * rows);
-  return l;
-}
-
-template <typename T, int CB>
-cudaError_t launch_dq(const void* const* in, void* df, int batch, int n, int cbar, int c,
-                      const Strides& st, cudaStream_t stream) {
-  const Launch l = config<CB>(batch, n, c);
-  flash_attn_dq_kernel<T, CB><<<l.grid, l.block, l.smem, stream>>>(
-      static_cast<const T*>(in[0]), static_cast<const T*>(in[1]),
-      static_cast<const T*>(in[2]), static_cast<const T*>(in[3]),
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
+      static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
       static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
-      static_cast<T*>(df), n, cbar, c, st);
+      static_cast<float*>(df), n, cbar, c, st, vec);
   return cudaGetLastError();
 }
 
-// Instantiates `fn<T, CB>` for the cbar bound (8, 16, 32 or 64).
-#define DISPATCH_CBAR(T, cbar, fn, ...)                                       \
-  do {                                                                        \
-    if (cbar <= 8) return fn<T, 8>(__VA_ARGS__);                              \
-    if (cbar <= 16) return fn<T, 16>(__VA_ARGS__);                            \
-    if (cbar <= 32) return fn<T, 32>(__VA_ARGS__);                            \
-    return fn<T, 64>(__VA_ARGS__);                                            \
-  } while (0)
+template <int CB>
+cudaError_t dispatch_dq_tf32(const void* const* in, void* df, int batch, int n, int cbar, int c,
+                             const Strides& st, bool vec, cudaStream_t s) {
+  if (c <= 64) return launch_dq_tf32<CB, 64>(in, df, batch, n, cbar, c, st, vec, s);
+  return launch_dq_tf32<CB, 256>(in, df, batch, n, cbar, c, st, vec, s);
+}
+
+cudaError_t dq_tf32(const void* const* in, void* df, int batch, int n, int cbar, int c,
+                    const Strides& st, cudaStream_t s) {
+  // As dkv_tf32: 16-byte staging copies (4 floats) of g, h (and do at C
+  // 256) and paired stores of df need 16-byte aligned rows; other layouts
+  // are staged element by element.
+  bool vec = cbar % 4 == 0 && c % 4 == 0 && aligned16(df);
+  for (int i = 0; i < 4; ++i) vec = vec && aligned16(in[i]);
+  const int64_t strides[10] = {st.f_sb, st.f_sn, st.g_sb, st.g_sn, st.h_sb, st.h_sn,
+                               st.do_sb, st.do_sn, st.o0_sb, st.o0_sn};
+  for (int i = 0; i < 10; ++i) vec = vec && strides[i] % 4 == 0;
+  if (cbar <= 8) return dispatch_dq_tf32<8>(in, df, batch, n, cbar, c, st, vec, s);
+  if (cbar <= 16) return dispatch_dq_tf32<16>(in, df, batch, n, cbar, c, st, vec, s);
+  if (cbar <= 32) return dispatch_dq_tf32<32>(in, df, batch, n, cbar, c, st, vec, s);
+  return dispatch_dq_tf32<64>(in, df, batch, n, cbar, c, st, vec, s);
+}
 
 cudaError_t check(int dtype, int device, int batch, int n, int cbar, int c) {
   if (batch < 1 || n < 1 || cbar < 1 || c < 1 || batch > 65535 || (dtype != 0 && dtype != 1)) {
@@ -1187,10 +1477,10 @@ const int64_t* wide_strides(const Strides& st, int64_t (&w)[14]) {
   return w;
 }
 
-// bf16 runs the tensor-core variants; fp32 dq the CUDA-core one, fp32 dkv
-// the TF32 tensor-core one; past the register-held widths, flash_wide.cuh's
-// (bf16 on the tensor cores, fp32 on the CUDA cores). Each writes the
-// variant it launches to `variant`.
+// bf16 runs the tensor-core variants, fp32 the TF32 tensor-core ones;
+// past the register-held widths, flash_wide.cuh's (bf16 on the tensor
+// cores, fp32 on the CUDA cores). Each writes the variant it launches to
+// `variant`.
 cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int cbar, int c,
                const Strides& st, cudaStream_t s, int* variant) {
   *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kCudaCore;
@@ -1200,7 +1490,8 @@ cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int
                                                c, wide_strides(st, w), s);
   }
   if (dtype == 1) return dq_mma(in, df, batch, n, cbar, c, st, s);
-  DISPATCH_CBAR(float, cbar, launch_dq, in, df, batch, n, cbar, c, st, s);
+  *variant = flash_mma::kTf32x3;
+  return dq_tf32(in, df, batch, n, cbar, c, st, s);
 }
 
 cudaError_t dkv(const void* const* in, void* dg, void* dh, int dtype, int batch, int n,
@@ -1218,7 +1509,7 @@ cudaError_t dkv(const void* const* in, void* dg, void* dh, int dtype, int batch,
 
 }  // namespace
 
-// dtype: 0 = float32 (dq's CUDA-core variant, dkv's 3xTF32 one), 1 =
+// dtype: 0 = float32 (the TF32 tensor-core variants, 3xTF32), 1 =
 // bfloat16 (the bf16 tensor-core ones). Strides are in elements: batch and row strides of
 // f, g, h, do, the batch stride of lse and delta (which share it), then the
 // batch and row strides of each output. The last dimension of

@@ -17,49 +17,71 @@
 // width of the PGGAN generator's schedule, 1024 // 2^stage). The pixel norm
 // needs the sum of squares over every channel of a pixel before any channel
 // is written, so a wider layer (min_channels above 1024) takes two passes:
-//  1. the grid also runs over tiles of kCoutTile channels; each block
-//     applies bias and leaky to its tile and writes the fp32 values to a
-//     workspace and its pixels' sums of squares over the tile to `ssq`
-//     [tiles][B][H W], both allocated by the caller (the workspace is y
-//     itself when y is fp32);
+//  1. the grid also runs over tiles of output channels (bf16: 1024; fp32:
+//     256, whose block of 32 pixels keeps its accumulators in registers and
+//     reads each weight for 32 pixels, where a 1024-channel block has 16);
+//     each block applies bias and leaky to its tile and writes the fp32
+//     values to a workspace and its pixels' sums of squares over the tile
+//     to `ssq` [tiles][B][H W], both allocated by the caller (the
+//     workspace is y itself when y is fp32; ssq has room for
+//     ceil(Cout / kPassTile) tiles, the narrowest);
 //  2. `pixel_norm_pass` adds each pixel's tile sums in tile order (fixed:
 //     deterministic), scales the fp32 values and rounds y once.
 // The products and sums are those of the one-pass kernel: only the order of
 // the sum of squares' additions differs. The second pass reads and writes
 // the layer's output once more (bytes, not products).
 //
-// Two variants, chosen by x's type:
-//
-// Tensor-core variant (bf16 x): an implicit GEMM [B H W pixels, 9 Cin] x
-// [9 Cin, Cout] on mma.sync m16n8k16 with fp32 accumulators and the
-// epilogue fused.
-//  - What bounds it on the H100. Each multiply-add is two bf16 products
-//    (below), so the 13 layers of a pggan256 generator pass at batch 12 are
-//    105.6 GFLOP of tensor-core work, 0.107 ms at the 989 TFLOP/s bf16
-//    peak; the 128 and 256 px layers, with 16-64 channels, are bound by
-//    their bytes instead (x read and y written once: 15-22 us at 256 px).
-//  - Numerics. The TPU kernel's weights are fp32; rounding them to bf16
-//    would compute another function. Each weight is split while it is
-//    staged into hi = bf16(w) and lo = bf16(w - hi), and every fragment is
-//    multiplied twice (x hi, then x lo) into one fp32 accumulator: x is
-//    exact in bf16 and w is carried to about 16 bits, against the output's
-//    8.
+// One kernel, `fused_conv_mma_kernel<T, ...>`, in two variants chosen by
+// x's type T: an implicit GEMM [B H W pixels, 9 Cin] x [9 Cin, Cout] on the
+// tensor cores with fp32 accumulators and the epilogue fused.
+//  - bf16 x (the tensor-core variant): mma.sync m16n8k16. Each multiply-add
+//    is two bf16 products (below), so the 13 layers of a pggan256 generator
+//    pass at batch 12 are 105.6 GFLOP of tensor-core work, 0.107 ms at the
+//    989 TFLOP/s bf16 peak; the 128 and 256 px layers, with 16-64
+//    channels, are bound by their bytes instead (x read and y written
+//    once: 15-22 us at 256 px).
+//  - fp32 x (the TF32 variant, 3xTF32): mma.sync m16n8k8 tf32. Each
+//    multiply-add is three TF32 products (below): the pass's 52.8 GFLOP
+//    are 158 GFLOP of TF32 work, 0.32 ms at the 495 TFLOP/s TF32 peak
+//    (0.79 ms for the same products on the CUDA cores' 67 TFLOP/s).
+//  - Numerics. The TPU kernel's weights are fp32; rounding them to bf16 or
+//    TF32 would compute another function. bf16: each weight is split while
+//    it is staged into hi = bf16(w) and lo = bf16(w - hi), and every
+//    fragment is multiplied twice (x hi, then x lo) into one fp32
+//    accumulator: x is exact in bf16 and w is carried to about 16 bits,
+//    against the output's 8. fp32: x is not exact in TF32, so both x and w
+//    are split (flash_mma.cuh: hi = tf32(v) by cvt.rna, lo = v - hi cut to
+//    TF32), x as its halo tile is staged and w as each K step's weights
+//    are, each once in shared memory for every warp of the block, and a
+//    product is x_lo w_hi + x_hi w_lo + x_hi w_hi (about 2^-21 of it
+//    lost). The tensor cores' fp32 sums cut toward zero, which over the
+//    2304 products of a 256-channel pixel would drift past fp32's
+//    tolerance (as the fp32 flash kernels' did over a long N), so each K
+//    chunk's products go to fresh accumulators, added to the pixel's sums
+//    by fp32 adds on the CUDA cores.
 //  - Layout. A block owns a TH x TW rectangle of one image's pixels (up to
 //    M of them: the GEMM's rows) and every output channel (the pixel norm
-//    needs them all): M shrinks as Cout grows, 256 pixels at 16-32
-//    channels down to 16 at 1024, so that the accumulators stay at 64 fp32
-//    registers a thread or fewer over 8 warps. x's halo tile [(TH+2)(TW+2)
-//    positions][16 channels] is staged channel-last: read along W from
-//    NCHW (coalesced) into registers and stored transposed, so that every
-//    tap is a row offset of 16-byte aligned rows and an A fragment is one
-//    ldmatrix (rows padded to 48 bytes: conflict-free). The weights of one
-//    K step, [taps x 16][Cout], come by 16-byte cp.async into an
-//    fp32 buffer, are split into the hi and lo rows of a double buffer,
-//    and are read by ldmatrix.trans. The K loop runs over chunks x 9 taps
-//    in steps of 9, 3 or 1 taps (bigger steps for narrower layers, whose
-//    products per tap are few), one barrier a step; the next steps'
-//    weights (a ring of 1 to 4 raw stages) and the next chunk's x are in
-//    flight while a step computes.
+//    needs them all): M shrinks as Cout grows (256 pixels at 16-32
+//    channels down to 16 at 1024), so that the accumulators fit the
+//    registers of 8 warps. x's halo tile [(TH+2)(TW+2) positions][a K
+//    chunk's channels] is staged channel-last: read along W from NCHW
+//    (coalesced) into registers and stored transposed, so that every tap
+//    is a row offset. bf16: a chunk is 16 channels, rows padded to 48
+//    bytes (conflict-free ldmatrix), an A fragment is one ldmatrix. fp32:
+//    ldmatrix cannot move 32-bit elements, so a chunk is 8 channels (one
+//    k8 step a tap), split into hi and lo rows of 8 words stored in the
+//    order 0 4 1 5 2 6 3 7: the A fragment's k tig and k tig + 4 of a row
+//    are then one 8-byte load, and a half warp's loads of 4 positions
+//    cover the 32 banks. The weights of one K step, [taps x chunk][Cout],
+//    come by 16-byte cp.async into an fp32 buffer, are split into the hi
+//    and lo rows of a double buffer (bf16 pairs, or TF32 words in rows of
+//    Cout + 8, where the B fragments' 32-bit loads at k rows tig and tig +
+//    4 fall in 32 banks), and are read by ldmatrix.trans (bf16) or those
+//    loads (fp32). The K loop runs over chunks x 9 taps in steps of 9, 3
+//    or 1 taps (bigger steps for narrower layers, whose products per tap
+//    are few), one barrier a step; the next steps' weights (a ring of 1 to
+//    4 raw stages) and the next chunk's x are in flight while a step
+//    computes.
 //  - Too few blocks at 4-32 px (12 to 96 pixel tiles at batch 12 on 132
 //    SMs). There the K loop is split across blocks (blockIdx.z takes a
 //    range of Cin chunks, up to 8), and the blocks of one tile form a
@@ -72,30 +94,6 @@
 //    (shuffles) and the block's warps (shared memory, fixed order), the
 //    scale, one rounding; the tile goes through shared memory to be stored
 //    along W, 16 bytes a thread where the rows allow it.
-//
-// CUDA-core variant (fp32 x), fp32 FMAs, which bound it: a pggan256 pass's
-// 52.8 GFLOP take 0.79 ms at the 67 TFLOP/s fp32 peak. The TPU kernel gives
-// each program an 8-row tile of one image with its halo rows duplicated in
-// device memory (BlockSpec windows cannot overlap) and holds the tile's
-// [8 W, Cout] accumulator in VMEM. Here:
-//  - a block owns 32 consecutive pixels of one image (row-major over H*W,
-//    threadIdx.x) and every output channel of them, in groups of 8 over
-//    threadIdx.y (up to 32 warps, 256 channels). Past 256 channels a thread
-//    takes 2 or 4 groups (Cout up to 512 or 1024), so that the block still
-//    owns whole channel vectors. A thread keeps its pixel's 8 accumulators
-//    per group in registers. Flattened pixels cover any H and W, down to
-//    the 4x4 layers, without idle rows;
-//  - x is read in place: each thread computes its nine taps' offsets and
-//    in-image mask once, and reads x through L1 with zero fill outside the
-//    image. Each element of x is used by 9 taps of neighbouring threads and
-//    by every warp of the block, so device memory sees it about once;
-//  - the weights of one (tap, input channel) are the same for the 32
-//    threads of a warp: one broadcast load, two float4 loads per 8 channels
-//    when Cout is a multiple of 8. Each x value loaded feeds all of the
-//    thread's groups;
-//  - the pixel norm sums squares over all Cout of a pixel, spread over the
-//    block's warps: each thread writes its 8 channels' partial sum to shared
-//    memory, one barrier, and each thread adds the partials of its pixel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -110,164 +108,14 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kPixels = 32;            // pixels per block (threadIdx.x)
-constexpr int kChannelsPerThread = 8;  // output channels of one group
-constexpr int kMaxWarps = 32;          // groups side by side (threadIdx.y)
-constexpr int kMaxGroupsPerThread = 4;
-// Output channels a block holds: both variants' widest block (here 8 x 32 x
-// 4, and the tensor-core config 8's N). Wider layers take two passes.
-constexpr int kCoutTile = kChannelsPerThread * kMaxWarps * kMaxGroupsPerThread;
+// Output channels a block holds (the widest config's N). Wider layers take
+// two passes.
+constexpr int kCoutTile = 1024;
+// The narrowest channel tile of a two-pass layer: the caller's ssq holds
+// ceil(Cout / kPassTile) tiles.
+constexpr int kPassTile = 256;
 constexpr float kSlope = 0.2f;
 constexpr float kEps = 1e-6f;
-
-// ---------------------------------------------------------------------------
-// CUDA-core variant (fp32).
-
-// kFull: Cout is a multiple of kChannelsPerThread, so every group that
-// exists has all 8 channels and their weights are 16-byte aligned (float4
-// loads). kGroups: groups of 8 channels per thread, threadIdx.y + k *
-// blockDim.y for k < kGroups; a group past Cout is skipped, uniformly over
-// its warp.
-template <bool kFull, int kGroups>
-__global__ void __launch_bounds__(kPixels * kMaxWarps)
-fused_conv_kernel(const float* __restrict__ x, const float* __restrict__ w9,
-                  const float* __restrict__ bias, float* __restrict__ y,
-                  float* __restrict__ ssq, int cin, int cout, int height, int width) {
-  __shared__ float partial[kMaxWarps][kPixels];
-  const int hw = height * width;
-  const int p = blockIdx.x * kPixels + threadIdx.x;
-  const bool valid = p < hw;
-  const int h = valid ? p / width : 0;
-  const int w = valid ? p - h * width : 0;
-  int co0[kGroups], n_ch[kGroups];
-#pragma unroll
-  for (int k = 0; k < kGroups; ++k) {
-    co0[k] = blockIdx.z * kCoutTile + (threadIdx.y + k * blockDim.y) * kChannelsPerThread;
-    n_ch[k] = max(0, min(kChannelsPerThread, cout - co0[k]));
-  }
-
-  int offset[9];
-  unsigned inside = 0;
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    const int hh = h + t / 3 - 1;
-    const int ww = w + t % 3 - 1;
-    const bool in = valid && hh >= 0 && hh < height && ww >= 0 && ww < width;
-    offset[t] = in ? hh * width + ww : 0;
-    inside |= (in ? 1u : 0u) << t;
-  }
-
-  float acc[kGroups][kChannelsPerThread];
-#pragma unroll
-  for (int k = 0; k < kGroups; ++k) {
-#pragma unroll
-    for (int j = 0; j < kChannelsPerThread; ++j) acc[k][j] = 0.f;
-  }
-
-  const float* plane = x + static_cast<int64_t>(blockIdx.y) * cin * hw;
-  for (int ci = 0; ci < cin; ++ci, plane += hw) {
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const float v = ((inside >> t) & 1u) ? plane[offset[t]] : 0.f;
-      const float* wtap = w9 + (static_cast<int64_t>(t) * cin + ci) * cout;
-#pragma unroll
-      for (int k = 0; k < kGroups; ++k) {
-        if (n_ch[k] == 0) continue;  // past Cout: uniform over the warp
-        const float* wt = wtap + co0[k];
-        if (kFull) {
-          const float4 lo = __ldg(reinterpret_cast<const float4*>(wt));
-          const float4 hi = __ldg(reinterpret_cast<const float4*>(wt) + 1);
-          acc[k][0] = fmaf(v, lo.x, acc[k][0]);
-          acc[k][1] = fmaf(v, lo.y, acc[k][1]);
-          acc[k][2] = fmaf(v, lo.z, acc[k][2]);
-          acc[k][3] = fmaf(v, lo.w, acc[k][3]);
-          acc[k][4] = fmaf(v, hi.x, acc[k][4]);
-          acc[k][5] = fmaf(v, hi.y, acc[k][5]);
-          acc[k][6] = fmaf(v, hi.z, acc[k][6]);
-          acc[k][7] = fmaf(v, hi.w, acc[k][7]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < kChannelsPerThread; ++j) {
-            if (j < n_ch[k]) acc[k][j] = fmaf(v, __ldg(wt + j), acc[k][j]);
-          }
-        }
-      }
-    }
-  }
-
-  float ss = 0.f;
-#pragma unroll
-  for (int k = 0; k < kGroups; ++k) {
-#pragma unroll
-    for (int j = 0; j < kChannelsPerThread; ++j) {
-      if (j < n_ch[k]) {
-        float v = acc[k][j] + __ldg(bias + co0[k] + j);
-        v = fmaxf(kSlope * v, v);
-        acc[k][j] = v;
-        ss = fmaf(v, v, ss);
-      }
-    }
-  }
-  partial[threadIdx.y][threadIdx.x] = ss;
-  __syncthreads();
-  float total = 0.f;
-  for (int g = 0; g < blockDim.y; ++g) total += partial[g][threadIdx.x];
-  if (!valid) return;
-  // Two passes (ssq set): this tile's sum of squares, and the values before
-  // the norm in y, which pixel_norm_pass scales in place.
-  const float scale = ssq ? 1.f : rsqrtf(total / static_cast<float>(cout) + kEps);
-  if (ssq && threadIdx.y == 0) {
-    ssq[(static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) * hw + p] = total;
-  }
-#pragma unroll
-  for (int k = 0; k < kGroups; ++k) {
-    float* out = y + (static_cast<int64_t>(blockIdx.y) * cout + co0[k]) * hw + p;
-#pragma unroll
-    for (int j = 0; j < kChannelsPerThread; ++j) {
-      if (j < n_ch[k]) out[static_cast<int64_t>(j) * hw] = acc[k][j] * scale;
-    }
-  }
-}
-
-template <int kGroups>
-void launch_groups(dim3 grid, dim3 block, bool full, const float* x, const float* w9,
-                   const float* bias, float* y, float* ssq, int cin, int cout, int height,
-                   int width, cudaStream_t stream) {
-  if (full) {
-    fused_conv_kernel<true, kGroups><<<grid, block, 0, stream>>>(x, w9, bias, y, ssq, cin,
-                                                                 cout, height, width);
-  } else {
-    fused_conv_kernel<false, kGroups><<<grid, block, 0, stream>>>(x, w9, bias, y, ssq, cin,
-                                                                  cout, height, width);
-  }
-}
-
-// blockIdx.z: the tile of kCoutTile channels (one tile, and ssq null, up to
-// kCoutTile).
-cudaError_t launch_cuda_core(const void* x, const void* w9, const void* bias, void* y,
-                             float* ssq, int batch, int cin, int cout, int height, int width,
-                             cudaStream_t stream) {
-  const int hw = height * width;
-  const int groups = (min(cout, kCoutTile) + kChannelsPerThread - 1) / kChannelsPerThread;
-  const int warps = min(groups, kMaxWarps);
-  const int per_thread = (groups + warps - 1) / warps;  // 1..4
-  const dim3 block(kPixels, warps);
-  const dim3 grid((hw + kPixels - 1) / kPixels, batch, (cout + kCoutTile - 1) / kCoutTile);
-  const float* xt = static_cast<const float*>(x);
-  const float* wt = static_cast<const float*>(w9);
-  const float* bt = static_cast<const float*>(bias);
-  float* yt = static_cast<float*>(y);
-  const bool full =
-      cout % kChannelsPerThread == 0 && reinterpret_cast<uintptr_t>(w9) % 16 == 0;
-  if (per_thread == 1) {
-    launch_groups<1>(grid, block, full, xt, wt, bt, yt, ssq, cin, cout, height, width, stream);
-  } else if (per_thread == 2) {
-    launch_groups<2>(grid, block, full, xt, wt, bt, yt, ssq, cin, cout, height, width, stream);
-  } else {
-    launch_groups<4>(grid, block, full, xt, wt, bt, yt, ssq, cin, cout, height, width, stream);
-  }
-  return cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // The second pass of a layer wider than kCoutTile: y = ws * rsqrt(mean_c +
@@ -302,49 +150,56 @@ __global__ void __launch_bounds__(kNormPixels) pixel_norm_pass(const float* ws,
 
 template <typename T>
 cudaError_t launch_pixel_norm_pass(const float* ws, const float* ssq, void* y, int batch,
-                                   int cout, int hw, cudaStream_t stream) {
+                                   int cout, int hw, int tiles, cudaStream_t stream) {
   const dim3 grid((hw + kNormPixels - 1) / kNormPixels,
                   (cout + kNormChannels - 1) / kNormChannels, batch);
   pixel_norm_pass<T><<<grid, kNormPixels, 0, stream>>>(
-      ws, ssq, static_cast<T*>(y), (cout + kCoutTile - 1) / kCoutTile, cout, hw);
+      ws, ssq, static_cast<T*>(y), tiles, cout, hw);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core variant (bf16).
+// The implicit GEMM (bf16: tensor-core variant; fp32: TF32 variant).
 
 constexpr int kThreads = 256;    // 8 warps
-constexpr int kKC = 16;          // input channels of one K chunk: one k16 step a tap
-constexpr int kXS = kKC + 8;     // staged x row stride (bf16): 48 bytes, conflict-free ldmatrix
 constexpr int kMaxSplits = 8;  // the splits of a tile form a cluster: 8 blocks at most
 
 // The staged halo tile's positions at most, for a block of M pixels; the
 // host picks tile shapes within it.
 __host__ __device__ constexpr int max_halo(int m) { return 3 * m / 2 + 64; }
 
-// MT x NT m16n8 tiles a warp, WM x WN warps. A K step is TAPS taps of one
-// 16-channel chunk (9, 3 or 1: narrow layers take bigger steps, so that a
-// step's products outweigh its barrier and copies), and STAGES steps of
-// raw fp32 weights are in flight while one computes. MINB blocks an SM
-// bound the registers.
-template <int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
+// T: x's (and y's) type. MT x NT m16n8 tiles a warp, WM x WN warps. A K
+// step is TAPS taps of one chunk of KC input channels (9, 3 or 1: narrow
+// layers take bigger steps, so that a step's products outweigh its barrier
+// and copies), and STAGES steps of raw fp32 weights are in flight while one
+// computes. MINB blocks an SM bound the registers.
+template <typename T, int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
 struct Cfg {
   static_assert(WM * WN * 32 == kThreads && NT % 2 == 0 && 9 % TAPS == 0, "8 warps");
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int KC = kF32 ? 8 : 16;       // input channels of a K chunk: a k step a tap
+  static constexpr int XS = kF32 ? 8 : KC + 8;   // staged x row stride (of each of hi, lo)
   static constexpr int M = 16 * MT * WM;  // pixels a block owns
   static constexpr int N = 8 * NT * WN;   // output channels, padded
-  static constexpr int NS = N + 8;        // staged weight row stride (bf16)
-  static constexpr int kRows = TAPS * kKC;  // weight rows of a step
-  static constexpr int kXItems = (2 * max_halo(M) + kThreads - 1) / kThreads;  // x vectors
-  static constexpr int kWItems = (kRows * N / 4 + kThreads - 1) / kThreads;    // weight float4s
+  static constexpr int NS = N + 8;        // staged weight row stride
+  static constexpr int kRows = TAPS * KC;  // weight rows of a step
+  // x vectors: 8 channels of a position each (bf16 16 bytes, fp32 32)
+  static constexpr int kXItems = ((kF32 ? 1 : 2) * max_halo(M) + kThreads - 1) / kThreads;
+  static constexpr int kWItems = (kRows * N / 4 + kThreads - 1) / kThreads;  // weight float4s
   static constexpr size_t raw_bytes = STAGES * kRows * N * sizeof(float);
-  static constexpr size_t w_bytes = 2 * 2 * kRows * NS * sizeof(bf16);  // [hi, lo][2][kRows][NS]
-  static constexpr size_t epi_bytes = WN * M * sizeof(float) + N * (M + 8) * sizeof(bf16);
+  static constexpr size_t w_bytes = 2 * 2 * kRows * NS * sizeof(T);  // [hi, lo][2][kRows][NS]
+  // A staged position: bf16 one row; fp32 hi and lo rows, and the raw
+  // copy of the next chunk's 8 values.
+  static constexpr size_t pos_bytes = (kF32 ? 2 : 1) * XS * sizeof(T);
+  static constexpr size_t raw_pos_bytes = kF32 ? 8 * sizeof(float) : 0;
+  static constexpr int YS = M + 16 / static_cast<int>(sizeof(T));  // y tile row stride
+  static constexpr size_t epi_bytes = WN * M * sizeof(float) + N * YS * sizeof(T);
   static constexpr int PS = N + 4;  // row stride (floats) of the split-K partial sums
   // Shared memory for a halo tile of `npos` positions, one x buffer or two,
   // and `splits` blocks a tile: the partial sums [M][PS], then this
   // block's rows of the sum [rows][PS] and their scales.
   static constexpr size_t smem(int npos, int xbufs, int splits) {
-    const size_t main = raw_bytes + w_bytes + xbufs * npos * kXS * sizeof(bf16);
+    const size_t main = raw_bytes + w_bytes + xbufs * npos * pos_bytes + npos * raw_pos_bytes;
     const size_t rows = (M + splits - 1) / splits;
     const size_t reduce = splits > 1 ? ((M + rows) * PS + rows) * sizeof(float) : 0;
     const size_t most = main > epi_bytes ? main : epi_bytes;
@@ -353,7 +208,7 @@ struct Cfg {
 };
 
 // How a launch cuts the work: TH x TW pixel tiles, tiles_w of them along
-// W and tiles_img in an image; Cin in nchunks chunks of 16,
+// W and tiles_img in an image; Cin in nchunks chunks of KC,
 // chunks_per_split of them a block along blockIdx.z. blockIdx.x is the
 // pixel tile plus tiles_img times the tile of N output channels (one tile
 // up to kCoutTile).
@@ -361,20 +216,23 @@ struct Tile {
   int th, tw, tiles_w, tiles_img, nchunks, chunks_per_split;
 };
 
-template <int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
+template <typename T, int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ w9, const float* __restrict__ bias,
-    bf16* __restrict__ y, float* __restrict__ ws, float* __restrict__ ssq, int cin, int cout,
+    const T* __restrict__ x, const float* __restrict__ w9, const float* __restrict__ bias,
+    T* __restrict__ y, float* __restrict__ ws, float* __restrict__ ssq, int cin, int cout,
     int height, int width, Tile tile, bool vec_w, bool vec_y) {
   using namespace flash_mma;
-  using C = Cfg<MT, NT, WM, WN, TAPS, STAGES, MINB>;
-  constexpr int M = C::M, N = C::N, NS = C::NS, kRows = C::kRows;
+  using C = Cfg<T, MT, NT, WM, WN, TAPS, STAGES, MINB>;
+  constexpr bool kF32 = C::kF32;
+  constexpr int M = C::M, N = C::N, NS = C::NS, kRows = C::kRows, KC = C::KC, XS = C::XS;
+  constexpr int YS = C::YS;
   constexpr int kStepsPerChunk = 9 / TAPS;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* raw = reinterpret_cast<float*>(smem);                        // [STAGES][kRows][N]
-  bf16* whi = reinterpret_cast<bf16*>(smem + C::raw_bytes);           // [2][kRows][NS]
-  bf16* wlo = whi + 2 * kRows * NS;                                   // [2][kRows][NS]
-  bf16* xs = reinterpret_cast<bf16*>(smem + C::raw_bytes + C::w_bytes);  // [1 or 2][npos][kXS]
+  float* raw = reinterpret_cast<float*>(smem);                   // [STAGES][kRows][N]
+  T* whi = reinterpret_cast<T*>(smem + C::raw_bytes);            // [2][kRows][NS]
+  T* wlo = whi + 2 * kRows * NS;                                 // [2][kRows][NS]
+  // [1 or 2][npos][XS] (fp32: the hi rows, then the lo rows)
+  T* xs = reinterpret_cast<T*>(smem + C::raw_bytes + C::w_bytes);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int grp = lane / 4, tig = lane % 4, mi = lane / 8, mr = lane % 8;
@@ -387,26 +245,37 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   const int hw = height * width;
   const int halo_w = tile.tw + 2;
   const int npos = (tile.th + 2) * halo_w;
+  const int xbuf_elems = (kF32 ? 2 : 1) * npos * XS;  // one x buffer (fp32: the hi rows, then lo)
+  // fp32: the next chunk's x as copied, [8][npos], after the one or two x buffers.
+  float* xraw = reinterpret_cast<float*>(xs + (tile.chunks_per_split > 1 ? 2 : 1) * xbuf_elems);
   const int tile_px = tile.th * tile.tw;
   const int c_begin = blockIdx.z * tile.chunks_per_split;
   const int nchunks = min(tile.nchunks - c_begin, tile.chunks_per_split);
   const int nsteps = kStepsPerChunk * nchunks;
   const unsigned short* xb =
       reinterpret_cast<const unsigned short*>(x) + static_cast<int64_t>(b) * cin * hw;
+  const float* xf = reinterpret_cast<const float*>(x) + static_cast<int64_t>(b) * cin * hw;
 
-  // Each lane's ldmatrix row of each m16 tile: its pixel's halo position at
-  // tap (0, 0). Rows past the tile read position 0 and are never stored.
-  int apos[MT];
+  // bf16: each lane's ldmatrix row of each m16 tile, its pixel's halo
+  // position at tap (0, 0). fp32: the positions of the A fragment's rows grp
+  // and grp + 8 of each m16 tile. Rows past the tile read position 0 and are
+  // never stored.
+  constexpr int kRowsA = kF32 ? 2 : 1;
+  int apos[MT * kRowsA];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    const int m = warp_m * 16 * MT + mt * 16 + (mi % 2) * 8 + mr;
-    apos[mt] = m < tile_px ? (m / tile.tw) * halo_w + m % tile.tw : 0;
+#pragma unroll
+    for (int r = 0; r < kRowsA; ++r) {
+      const int m = warp_m * 16 * MT + mt * 16 + (kF32 ? grp + 8 * r : (mi % 2) * 8 + mr);
+      apos[mt * kRowsA + r] = m < tile_px ? (m / tile.tw) * halo_w + m % tile.tw : 0;
+    }
   }
 
-  // x: item (g8, pos) is 8 channels of one halo position, 16 bytes; items
-  // run along the position, so a warp reads along W. Each item's offset in
-  // an x plane (-1 outside the image) and in a staged tile (-1 past the
-  // tile) are the same for every chunk: computed once.
+  // x: item (g8, pos) is 8 channels of one halo position (bf16: two items
+  // a position, 16 bytes each; fp32: one, 32 bytes); items run along the
+  // position, so a warp reads along W. Each item's offset in an x plane (-1
+  // outside the image) and in a staged tile (-1 past the tile) are the same
+  // for every chunk: computed once.
   int xoff[C::kXItems], xdst[C::kXItems];
 #pragma unroll
   for (int k = 0; k < C::kXItems; ++k) {
@@ -414,32 +283,71 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
     const int g8 = item / npos, pos = item - g8 * npos;
     const int hr = pos / halo_w, wr = pos - hr * halo_w;
     const int hh = h0 - 1 + hr, ww = w0 - 1 + wr;
-    const bool staged = item < 2 * npos;
-    xdst[k] = staged ? pos * kXS + g8 * 8 : -1;
+    const bool staged = item < (kF32 ? 1 : 2) * npos;
+    xdst[k] = staged ? pos * XS + g8 * 8 : -1;
     xoff[k] = staged && hh >= 0 && hh < height && ww >= 0 && ww < width ? hh * width + ww : -1;
   }
-  uint4 xr[C::kXItems];
+  // bf16: the next chunk's x is loaded into registers and stored
+  // transposed. fp32: each of its values is copied by a 4-byte cp.async
+  // into xraw (zero filled outside the image and past Cin), which this
+  // thread alone reads back when it splits them.
+  uint32_t xr[C::kXItems][kF32 ? 1 : 4];
+  auto copy_x = [&](int chunk) {
+#pragma unroll
+    for (int k = 0; k < C::kXItems; ++k) {
+      if (xdst[k] < 0) continue;
+      const int ci0 = chunk * KC, pos = xdst[k] / XS;
+      const float* src = xf + static_cast<int64_t>(ci0) * hw + xoff[k];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const bool in = xoff[k] >= 0 && ci0 + j < cin;
+        cp_async4(xraw + j * npos + pos, in ? src + static_cast<int64_t>(j) * hw : xf,
+                  in ? 4 : 0);
+      }
+    }
+  };
   auto load_x = [&](int chunk) {
 #pragma unroll
     for (int k = 0; k < C::kXItems; ++k) {
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      if (xoff[k] >= 0) {
-        const int ci0 = chunk * kKC + (xdst[k] % kXS);  // g8 * 8 of the item
-        const unsigned short* src = xb + static_cast<int64_t>(ci0) * hw + xoff[k];
+      if constexpr (!kF32) {
+        uint32_t v[4] = {0u, 0u, 0u, 0u};
+        if (xoff[k] >= 0) {
+          const int ci0 = chunk * KC + (xdst[k] % XS);  // g8 * 8 of the item
+          const unsigned short* src = xb + static_cast<int64_t>(ci0) * hw + xoff[k];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t bits = ci0 + j < cin ? __ldg(src + static_cast<int64_t>(j) * hw) : 0u;
-          v[j / 2] |= bits << (16 * (j % 2));
+          for (int j = 0; j < 8; ++j) {
+            const uint32_t bits = ci0 + j < cin ? __ldg(src + static_cast<int64_t>(j) * hw) : 0u;
+            v[j / 2] |= bits << (16 * (j % 2));
+          }
         }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xr[k][j] = v[j];
       }
-      xr[k] = make_uint4(v[0], v[1], v[2], v[3]);
     }
   };
+  // fp32: each value (this thread's copies in xraw) split into hi and lo,
+  // the 8 channels in the order 0 4 1 5 2 6 3 7 (k tig and k tig + 4 of an
+  // A fragment side by side).
   auto store_x = [&](int buf) {
-    bf16* dst = xs + buf * npos * kXS;
+    T* dst = xs + buf * xbuf_elems;
 #pragma unroll
     for (int k = 0; k < C::kXItems; ++k) {
-      if (xdst[k] >= 0) *reinterpret_cast<uint4*>(dst + xdst[k]) = xr[k];
+      if (xdst[k] < 0) continue;
+      if constexpr (kF32) {
+        Tf32Split s[8];
+        const int pos = xdst[k] / XS;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[j] = split_tf32(xraw[j * npos + pos]);
+        uint4* hi = reinterpret_cast<uint4*>(dst + xdst[k]);
+        uint4* lo = reinterpret_cast<uint4*>(dst + npos * XS + xdst[k]);
+        hi[0] = make_uint4(s[0].hi, s[4].hi, s[1].hi, s[5].hi);
+        hi[1] = make_uint4(s[2].hi, s[6].hi, s[3].hi, s[7].hi);
+        lo[0] = make_uint4(s[0].lo, s[4].lo, s[1].lo, s[5].lo);
+        lo[1] = make_uint4(s[2].lo, s[6].lo, s[3].lo, s[7].lo);
+      } else {
+        *reinterpret_cast<uint4*>(dst + xdst[k]) =
+            make_uint4(xr[k][0], xr[k][1], xr[k][2], xr[k][3]);
+      }
     }
   };
 
@@ -454,9 +362,9 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
       const int item = tid + k * kThreads;
       if ((kRows * N / 4) % kThreads != 0 && item >= kRows * N / 4) break;
       const int row = item / (N / 4), col = 4 * (item % (N / 4));
-      const int ci = chunk * kKC + row % kKC;
+      const int ci = chunk * KC + row % KC;
       const float* src =
-          w9 + (static_cast<int64_t>(tap0 + row / kKC) * cin + ci) * cout + n0 + col;
+          w9 + (static_cast<int64_t>(tap0 + row / KC) * cin + ci) * cout + n0 + col;
       float* dst = stage + row * N + col;
       if (vec_w) {  // Cout % 4 == 0: a chunk is all in or all out
         const bool in = ci < cin && n0 + col < cout;
@@ -468,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
     }
   };
   // This thread's items of step s's raw stage (its own copies) as hi and lo
-  // bf16 rows of weight buffer s & 1.
+  // rows of weight buffer s & 1: bf16 halves, or TF32 words.
   auto split_w = [&](int s) {
     const float* stage = raw + (s % STAGES) * kRows * N;
 #pragma unroll
@@ -477,16 +385,23 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
       if ((kRows * N / 4) % kThreads != 0 && item >= kRows * N / 4) break;
       const int row = item / (N / 4), col = 4 * (item % (N / 4));
       const float4 v = *reinterpret_cast<const float4*>(stage + row * N + col);
-      const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
-      const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
-      const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
-      const __nv_bfloat162 l01 = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
-      const __nv_bfloat162 l23 = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
       const int off = (s & 1) * kRows * NS + row * NS + col;
-      *reinterpret_cast<uint2*>(whi + off) = make_uint2(
-          *reinterpret_cast<const uint32_t*>(&h01), *reinterpret_cast<const uint32_t*>(&h23));
-      *reinterpret_cast<uint2*>(wlo + off) = make_uint2(
-          *reinterpret_cast<const uint32_t*>(&l01), *reinterpret_cast<const uint32_t*>(&l23));
+      if constexpr (kF32) {
+        const Tf32Split s0 = split_tf32(v.x), s1 = split_tf32(v.y), s2 = split_tf32(v.z),
+                        s3 = split_tf32(v.w);
+        *reinterpret_cast<uint4*>(whi + off) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
+        *reinterpret_cast<uint4*>(wlo + off) = make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
+      } else {
+        const __nv_bfloat162 h01 = __floats2bfloat162_rn(v.x, v.y);
+        const __nv_bfloat162 h23 = __floats2bfloat162_rn(v.z, v.w);
+        const float2 f01 = __bfloat1622float2(h01), f23 = __bfloat1622float2(h23);
+        const __nv_bfloat162 l01 = __floats2bfloat162_rn(v.x - f01.x, v.y - f01.y);
+        const __nv_bfloat162 l23 = __floats2bfloat162_rn(v.z - f23.x, v.w - f23.y);
+        *reinterpret_cast<uint2*>(whi + off) = make_uint2(
+            *reinterpret_cast<const uint32_t*>(&h01), *reinterpret_cast<const uint32_t*>(&h23));
+        *reinterpret_cast<uint2*>(wlo + off) = make_uint2(
+            *reinterpret_cast<const uint32_t*>(&l01), *reinterpret_cast<const uint32_t*>(&l23));
+      }
     }
   };
 
@@ -497,47 +412,104 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
     for (int nt = 0; nt < NT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] =
         acc[mt][nt][3] = 0.f;
   }
+  // fp32: the current chunk's products, in fresh accumulators (the tensor
+  // cores' sums cut toward zero), added to acc by fp32 adds at its end.
+  float cacc[kF32 ? MT : 1][kF32 ? NT : 1][4];
 
   // One step: taps tap0 .. tap0 + TAPS of the chunk in x buffer `xbuf`,
-  // weights in buffer `wb`. Per tap, all hi products, then all lo
+  // weights in buffer `wb`. bf16: per tap, all hi products, then all lo
   // products: each accumulator's two products are MT * NT mma apart.
+  // fp32: per tap and pair of n8 tiles, the lo x hi products, then hi x lo,
+  // then hi x hi, each over the pair and the m16 tiles.
   auto compute = [&](int wb, int xbuf, int tap0) {
 #pragma unroll
     for (int t = 0; t < TAPS; ++t) {
       const int tap = tap0 + t;
-      const bf16* xt = xs + xbuf * npos * kXS + ((tap / 3) * halo_w + tap % 3) * kXS +
-                       (mi / 2) * 8;
-      uint32_t a[MT][4];
+      if constexpr (kF32) {
+        const float* xh = reinterpret_cast<const float*>(xs) + xbuf * xbuf_elems +
+                          ((tap / 3) * halo_w + tap % 3) * XS + 2 * tig;
+        const float* xl = xh + npos * XS;
+        Tf32Frag a[MT];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xt + apos[mt] * kXS);
-      const int woff = wb * kRows * NS + (t * kKC + 8 * (mi % 2) + mr) * NS + warp_n * 8 * NT +
-                       8 * (mi / 2);
+        for (int mt = 0; mt < MT; ++mt) {
+          const float2 h0 = *reinterpret_cast<const float2*>(xh + apos[2 * mt] * XS);
+          const float2 h1 = *reinterpret_cast<const float2*>(xh + apos[2 * mt + 1] * XS);
+          const float2 l0 = *reinterpret_cast<const float2*>(xl + apos[2 * mt] * XS);
+          const float2 l1 = *reinterpret_cast<const float2*>(xl + apos[2 * mt + 1] * XS);
+          a[mt] = {{__float_as_uint(h0.x), __float_as_uint(h1.x), __float_as_uint(h0.y),
+                    __float_as_uint(h1.y)},
+                   {__float_as_uint(l0.x), __float_as_uint(l1.x), __float_as_uint(l0.y),
+                    __float_as_uint(l1.y)}};
+        }
+        const int woff = wb * kRows * NS + (t * KC + tig) * NS + warp_n * 8 * NT + grp;
+        const uint32_t* wh = reinterpret_cast<const uint32_t*>(whi) + woff;
+        const uint32_t* wl = reinterpret_cast<const uint32_t*>(wlo) + woff;
 #pragma unroll
-      for (int part = 0; part < 2; ++part) {
-        const bf16* wt = (part == 0 ? whi : wlo) + woff;
+        for (int j = 0; j < NT; j += 2) {  // b0: k tig, b1: k tig + 4; column grp of tile j, j + 1
+          const uint32_t bh[2][2] = {{wh[8 * j], wh[4 * NS + 8 * j]},
+                                     {wh[8 * j + 8], wh[4 * NS + 8 * j + 8]}};
+          const uint32_t bl[2][2] = {{wl[8 * j], wl[4 * NS + 8 * j]},
+                                     {wl[8 * j + 8], wl[4 * NS + 8 * j + 8]}};
 #pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {  // matrices: (k +0, n +0), (+8, +0), (+0, +8), (+8, +8)
-          uint32_t bf[4];
-          ldmatrix_x4_trans(bf, wt + 16 * j);
+          for (int e = 0; e < 2; ++e) {
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            mma16816(acc[mt][2 * j], a[mt], bf[0], bf[1]);
-            mma16816(acc[mt][2 * j + 1], a[mt], bf[2], bf[3]);
+            for (int mt = 0; mt < MT; ++mt) {
+              mma1688_tf32(cacc[mt][j + e], a[mt].lo, bh[e][0], bh[e][1]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma1688_tf32(cacc[mt][j + e], a[mt].hi, bl[e][0], bl[e][1]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma1688_tf32(cacc[mt][j + e], a[mt].hi, bh[e][0], bh[e][1]);
+            }
+          }
+        }
+      } else {
+        const bf16* xt = xs + xbuf * xbuf_elems + ((tap / 3) * halo_w + tap % 3) * XS +
+                         (mi / 2) * 8;
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(a[mt], xt + apos[mt] * XS);
+        const int woff = wb * kRows * NS + (t * KC + 8 * (mi % 2) + mr) * NS + warp_n * 8 * NT +
+                         8 * (mi / 2);
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {
+          const bf16* wt = (part == 0 ? whi : wlo) + woff;
+#pragma unroll
+          // matrices: (k +0, n +0), (+8, +0), (+0, +8), (+8, +8)
+          for (int j = 0; j < NT / 2; ++j) {
+            uint32_t bf[4];
+            ldmatrix_x4_trans(bf, wt + 16 * j);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma16816(acc[mt][2 * j], a[mt], bf[0], bf[1]);
+              mma16816(acc[mt][2 * j + 1], a[mt], bf[2], bf[3]);
+            }
           }
         }
       }
     }
   };
 
-  // Prologue: steps 0 .. STAGES - 1 copied (one cp.async group each), step
-  // 0 split, step STAGES copied into its stage; chunk 0's x staged.
+  // Prologue: steps 0 .. STAGES - 1 copied (one cp.async group each; fp32
+  // copies chunk 0's x in the first), step 0 split, step STAGES copied into
+  // its stage; chunk 0's x staged.
+  if constexpr (kF32) copy_x(c_begin);
   for (int s = 0; s < STAGES; ++s) {
     if (s < nsteps) copy_w(s);
     cp_async_commit();
   }
-  load_x(c_begin);
-  store_x(0);
+  if constexpr (!kF32) load_x(c_begin);
   cp_async_wait<STAGES - 1>();
+  store_x(0);
   split_w(0);
   if (STAGES < nsteps) copy_w(STAGES);
   cp_async_commit();
@@ -545,24 +517,59 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   // Step s computes from weight buffer s & 1 while step s + 1's raw stage
   // (copied STAGES steps earlier) is split into the other buffer, and its
   // stage is refilled with step s + 1 + STAGES. A chunk's first step loads
-  // the next chunk's x into registers, its last stores them. One barrier a
-  // step: the buffers written in step s were last read in step s - 1.
+  // the next chunk's x into registers (fp32: copies it into xraw, in that
+  // step's group), its last stores them. One barrier a step: the buffers
+  // written in step s were last read in step s - 1.
   for (int s = 0; s < nsteps; ++s) {
     const int chunk = s / kStepsPerChunk, sub = s % kStepsPerChunk;
     const bool more_x = chunk + 1 < nchunks;
-    if (sub == 0 && more_x) load_x(c_begin + chunk + 1);
+    if (sub == 0 && more_x) {
+      if constexpr (kF32) {
+        copy_x(c_begin + chunk + 1);
+      } else {
+        load_x(c_begin + chunk + 1);
+      }
+    }
+    if constexpr (kF32) {
+      if (sub == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) cacc[mt][nt][0] = cacc[mt][nt][1] = cacc[mt][nt][2] =
+              cacc[mt][nt][3] = 0.f;
+        }
+      }
+    }
     compute(s & 1, chunk & 1, TAPS * sub);
+    if constexpr (kF32) {
+      if (sub == kStepsPerChunk - 1) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] += cacc[mt][nt][e];
+          }
+        }
+      }
+    }
     if (s + 1 < nsteps) {
       cp_async_wait<STAGES - 1>();
       split_w(s + 1);  // reads its own copies, then their stage is refilled
       if (s + 1 + STAGES < nsteps) copy_w(s + 1 + STAGES);
       cp_async_commit();
     }
-    if (sub == kStepsPerChunk - 1 && more_x) store_x((chunk + 1) & 1);
+    if (sub == kStepsPerChunk - 1 && more_x) {
+      // fp32: the x copies went with the group of the chunk's first step,
+      // which the wait above covers when a chunk has more steps than
+      // STAGES; else wait for them.
+      if constexpr (kF32 && kStepsPerChunk <= STAGES) cp_async_wait<0>();
+      store_x((chunk + 1) & 1);
+    }
     __syncthreads();
   }
 
-  bf16* yb = y + static_cast<int64_t>(b) * cout * hw;
+  T* yb = y + static_cast<int64_t>(b) * cout * hw;
   // Two passes (ssq set): the tile's fp32 values go to ws and its pixels'
   // sums of squares to ssq; pixel_norm_pass scales and rounds them.
   const int ncols = min(N, cout - n0);  // the block's output channels
@@ -624,7 +631,7 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
           wsb[at] = sum[mm * PS + co];
           if (co == 0) ssqb[hh * width + ww] = scale[mm];
         } else {
-          yb[at] = __float2bfloat16(sum[mm * PS + co] * scale[mm]);
+          store_as(yb + at, sum[mm * PS + co] * scale[mm]);
         }
       }
     }
@@ -652,8 +659,8 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
       }
     }
   }
-  float* red = reinterpret_cast<float*>(smem);                        // [WN][M]
-  bf16* ys = reinterpret_cast<bf16*>(smem + WN * M * sizeof(float));  // [N][M + 8]
+  float* red = reinterpret_cast<float*>(smem);                     // [WN][M]
+  T* ys = reinterpret_cast<T*>(smem + WN * M * sizeof(float));     // [N][YS]
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -702,21 +709,22 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int col = warp_n * 8 * NT + nt * 8 + 2 * tig;
-        ys[col * (M + 8) + m] = __float2bfloat16(acc[mt][nt][2 * r] * scale);
-        ys[(col + 1) * (M + 8) + m] = __float2bfloat16(acc[mt][nt][2 * r + 1] * scale);
+        store_as(ys + col * YS + m, acc[mt][nt][2 * r] * scale);
+        store_as(ys + (col + 1) * YS + m, acc[mt][nt][2 * r + 1] * scale);
       }
     }
   }
   __syncthreads();
-  if (vec_y) {  // TW and W multiples of 8: 8 pixels of a row, 16 bytes
-    const int per_row = tile.tw / 8;
+  if (vec_y) {  // TW and W multiples of 16 bytes of y: a row's pixels, 16 bytes
+    constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+    const int per_row = tile.tw / kVec;
     for (int i = tid; i < cout * tile.th * per_row; i += kThreads) {
       const int c8 = i % per_row, rest = i / per_row;
       const int r = rest % tile.th, co = rest / tile.th;
-      const int hh = h0 + r, ww = w0 + 8 * c8;
+      const int hh = h0 + r, ww = w0 + kVec * c8;
       if (hh < height && ww < width) {
         *reinterpret_cast<uint4*>(yb + static_cast<int64_t>(co) * hw + hh * width + ww) =
-            *reinterpret_cast<const uint4*>(ys + co * (M + 8) + r * tile.tw + 8 * c8);
+            *reinterpret_cast<const uint4*>(ys + co * YS + r * tile.tw + kVec * c8);
       }
     }
   } else {
@@ -724,14 +732,14 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
       const int m = i % tile_px, co = i / tile_px;
       const int hh = h0 + m / tile.tw, ww = w0 + m % tile.tw;
       if (hh < height && ww < width) {
-        yb[static_cast<int64_t>(co) * hw + hh * width + ww] = ys[co * (M + 8) + m];
+        yb[static_cast<int64_t>(co) * hw + hh * width + ww] = ys[co * YS + m];
       }
     }
   }
 }
 
 // The instantiations: (MT, NT, WM, WN, TAPS, STAGES, MINB) -> M pixels,
-// N channels.
+// N channels, by the variant.
 #define FUSED_CONV_CONFIGS(X)                                               \
   X(0, 2, 2, 8, 1, 9, 1, 3)  /* M 256, N 16   */                            \
   X(1, 2, 4, 8, 1, 9, 1, 2)  /* M 256, N 32   */                            \
@@ -743,35 +751,58 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   X(7, 2, 8, 1, 8, 1, 3, 1)  /* M 32,  N 512  */                            \
   X(8, 1, 16, 1, 8, 1, 1, 1) /* M 16,  N 1024 = kCoutTile: every wider layer */
 
-constexpr int kConfigM[] = {256, 256, 128, 128, 64, 16, 16, 32, 16};
+// fp32 (TF32): twice the shared memory a staged element and a second set of
+// accumulators (each chunk's own), so M is halved or quartered from 32
+// channels on and the warps take fewer n8 tiles: at most 64 fp32
+// accumulators a thread at 2 blocks an SM, 128 at one: past that the
+// registers spill inside the K loop.
+#define FUSED_CONV_TF32_CONFIGS(X)                                          \
+  X(0, 2, 2, 8, 1, 9, 1, 2)  /* M 256, N 16   */                            \
+  X(1, 1, 4, 8, 1, 3, 2, 2)  /* M 128, N 32   */                            \
+  X(2, 2, 4, 4, 2, 3, 2, 2)  /* M 128, N 64   */                            \
+  X(3, 1, 4, 2, 4, 3, 1, 2)  /* M 32,  N 128  */                            \
+  X(4, 2, 4, 1, 8, 1, 4, 2)  /* M 32,  N 256  */                            \
+  X(5, 1, 4, 1, 8, 1, 4, 1)  /* M 16,  N 256: images of 16 pixels or fewer */ \
+  X(6, 1, 8, 1, 8, 1, 3, 2)  /* M 16,  N 512: the same */                   \
+  X(7, 2, 8, 1, 8, 1, 3, 1)  /* M 32,  N 512  */                            \
+  X(8, 1, 16, 1, 8, 1, 1, 1) /* M 16,  N 1024: up to kCoutTile; wider layers take 4 or 5 */
 
-int pick_config(int cout, int hw) {
+constexpr int kConfigM[] = {256, 256, 128, 128, 64, 16, 16, 32, 16};
+constexpr int kTf32ConfigM[] = {256, 128, 128, 32, 32, 16, 16, 32, 16};
+constexpr int kConfigN[] = {16, 32, 64, 128, 256, 256, 512, 512, 1024};  // both variants
+
+// `wide`: the config of the two passes' channel tiles past kCoutTile (8,
+// tiles of 1024; or 4, tiles of kPassTile).
+int pick_config(int cout, int hw, int wide) {
   if (cout <= 16) return 0;
   if (cout <= 32) return 1;
   if (cout <= 64) return 2;
   if (cout <= 128) return 3;
   if (cout <= 256) return hw <= 16 ? 5 : 4;
   if (cout <= 512) return hw <= 16 ? 6 : 7;
-  return 8;
+  if (cout <= kCoutTile) return 8;
+  return wide == 4 && hw <= 16 ? 5 : wide;
 }
 
 struct Plan {
   int config, splits;
   Tile tile;
   int64_t tiles;  // pixel tiles of the whole batch
-  int ctiles;     // tiles of kCoutTile output channels (1 up to kCoutTile)
+  int ctiles;     // tiles of the config's N output channels (1 up to kCoutTile)
 };
 
-// The pixel tile for a block of M pixels: TW a power of two from 8 below W,
-// or W itself, and as many rows as fit in M and in max_halo(M) staged
-// positions; the least (M + halo positions) per pixel wins, powers of two
-// (16-byte stores) on a tie. Then the split of Cin: the fewest
-// power-of-two splits (at most the chunks and kMaxSplits, a cluster's
-// blocks) that give every SM a block, counting the channel tiles.
-Plan make_plan(int batch, int cin, int cout, int height, int width, int sms) {
+// The pixel tile for a block of M pixels (the config's, from `config_m`):
+// TW a power of two from 8 below W, or W itself, and as many rows as fit
+// in M and in max_halo(M) staged positions; the least (M + halo positions)
+// per pixel wins, powers of two (16-byte stores) on a tie. Then the split
+// of Cin's chunks of `kc`: the fewest power-of-two splits (at most the
+// chunks and kMaxSplits, a cluster's blocks) that give every SM a block,
+// counting the channel tiles.
+Plan make_plan(int batch, int cin, int cout, int height, int width, int sms, int kc,
+               const int* config_m, int wide) {
   Plan plan;
-  plan.config = pick_config(cout, height * width);
-  const int m = kConfigM[plan.config];
+  plan.config = pick_config(cout, height * width, wide);
+  const int m = config_m[plan.config];
   double best = 1e30;
   auto consider = [&](int tw) {
     if (tw > m) return;
@@ -790,8 +821,8 @@ Plan make_plan(int batch, int cin, int cout, int height, int width, int sms) {
   plan.tile.tiles_w = (width + plan.tile.tw - 1) / plan.tile.tw;
   plan.tile.tiles_img = plan.tile.tiles_w * ((height + plan.tile.th - 1) / plan.tile.th);
   plan.tiles = static_cast<int64_t>(batch) * plan.tile.tiles_img;
-  plan.ctiles = (cout + kCoutTile - 1) / kCoutTile;
-  plan.tile.nchunks = (cin + kKC - 1) / kKC;
+  plan.ctiles = (cout + kConfigN[plan.config] - 1) / kConfigN[plan.config];
+  plan.tile.nchunks = (cin + kc - 1) / kc;
   int splits = 1;
   while (plan.tiles * plan.ctiles * splits < sms &&
          2 * splits <= min(plan.tile.nchunks, kMaxSplits)) {
@@ -802,22 +833,25 @@ Plan make_plan(int batch, int cin, int cout, int height, int width, int sms) {
   return plan;
 }
 
-template <int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
-cudaError_t launch_mma_config(const Plan& plan, const bf16* x, const float* w9,
-                              const float* bias, bf16* y, float* ws, float* ssq, int batch,
+template <typename T, int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
+cudaError_t launch_mma_config(const Plan& plan, const T* x, const float* w9,
+                              const float* bias, T* y, float* ws, float* ssq, int batch,
                               int cin, int cout, int height, int width, cudaStream_t stream) {
-  using C = Cfg<MT, NT, WM, WN, TAPS, STAGES, MINB>;
+  using C = Cfg<T, MT, NT, WM, WN, TAPS, STAGES, MINB>;
   static_assert(C::N <= kCoutTile, "a block holds at most kCoutTile channels");
-  if (plan.ctiles > 1 && C::N != kCoutTile) return cudaErrorInvalidValue;
-  auto kernel = fused_conv_mma_kernel<MT, NT, WM, WN, TAPS, STAGES, MINB>;
+  // ssq has room for tiles of kPassTile channels or wider.
+  if (plan.ctiles > 1 && C::N < kPassTile) return cudaErrorInvalidValue;
+  auto kernel = fused_conv_mma_kernel<T, MT, NT, WM, WN, TAPS, STAGES, MINB>;
   const int npos = (plan.tile.th + 2) * (plan.tile.tw + 2);
   const size_t smem = C::smem(npos, plan.tile.chunks_per_split > 1 ? 2 : 1, plan.splits);
-  // Every config may take up to 227 KB (Cout 1024: 199 KB); set once.
+  // Every config may take up to 227 KB (bf16 Cout 1024: 199 KB); set once.
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
   if (attr != cudaSuccess) return attr;
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // y elements a 16-byte store
   const bool vec_w = cout % 4 == 0 && reinterpret_cast<uintptr_t>(w9) % 16 == 0;
-  const bool vec_y = plan.tile.tw % 8 == 0 && width % 8 == 0 &&
+  const bool vec_y = plan.tile.tw % kVec == 0 && width % kVec == 0 &&
                      reinterpret_cast<uintptr_t>(y) % 16 == 0;
   cudaLaunchConfig_t config = {};
   config.gridDim =
@@ -836,24 +870,32 @@ cudaError_t launch_mma_config(const Plan& plan, const bf16* x, const float* w9,
                             width, plan.tile, vec_w, vec_y);
 }
 
+// T = bf16 runs the tensor-core configs, T = float the TF32 ones; `ctiles`
+// receives the number of channel tiles (the second pass's).
+template <typename T>
 cudaError_t launch_tensor_core(const void* x, const void* w9, const void* bias, void* y,
                                float* ws, float* ssq, int batch, int cin, int cout, int height,
-                               int width, int sms, cudaStream_t stream) {
-  const Plan plan = make_plan(batch, cin, cout, height, width, sms);
-  const bf16* xt = static_cast<const bf16*>(x);
+                               int width, int sms, cudaStream_t stream, int* ctiles) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  const Plan plan = make_plan(batch, cin, cout, height, width, sms, kF32 ? 8 : 16,
+                              kF32 ? kTf32ConfigM : kConfigM, kF32 ? 4 : 8);
+  *ctiles = plan.ctiles;
+  const T* xt = static_cast<const T*>(x);
   const float* wt = static_cast<const float*>(w9);
   const float* bt = static_cast<const float*>(bias);
-  bf16* yt = static_cast<bf16*>(y);
+  T* yt = static_cast<T*>(y);
   cudaError_t err = cudaErrorInvalidValue;
-  switch (plan.config) {
 #define FUSED_CONV_CASE(id, MT, NT, WM, WN, TAPS, STAGES, MINB)                         \
   case id:                                                                              \
-    err = launch_mma_config<MT, NT, WM, WN, TAPS, STAGES, MINB>(                        \
+    err = launch_mma_config<T, MT, NT, WM, WN, TAPS, STAGES, MINB>(                     \
         plan, xt, wt, bt, yt, ws, ssq, batch, cin, cout, height, width, stream);        \
     break;
-    FUSED_CONV_CONFIGS(FUSED_CONV_CASE)
-#undef FUSED_CONV_CASE
+  if constexpr (kF32) {
+    switch (plan.config) { FUSED_CONV_TF32_CONFIGS(FUSED_CONV_CASE) }
+  } else {
+    switch (plan.config) { FUSED_CONV_CONFIGS(FUSED_CONV_CASE) }
   }
+#undef FUSED_CONV_CASE
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -872,17 +914,19 @@ cudaError_t check(int dtype, int device, int batch, int cin, int cout, int heigh
 
 }  // namespace
 
-// dtype: 0 = float32 (the CUDA-core variant), 1 = bfloat16 (the
+// dtype: 0 = float32 (the TF32 variant, 3xTF32), 1 = bfloat16 (the
 // tensor-core one), for x and y. x, w9, bias and y are contiguous (see the
 // top of the file). Past kCoutTile output channels (and only there) ws and
 // ssq are the two passes' scratch: ws fp32 [B, Cout, H, W] (y itself for
-// fp32), ssq fp32 [ceil(Cout / kCoutTile), B, H W]; else both are null.
-// Launches on `stream` (one kernel, or the two passes) and returns the
-// cudaError_t of cudaGetLastError() after the launches (0 on success).
+// fp32), ssq fp32 [ceil(Cout / kPassTile), B, H W]; else both are null.
+// Launches on `stream` (one kernel, or the two passes), writes the
+// flash_mma::Variant it launched to `variant`, and returns the cudaError_t
+// of cudaGetLastError() after the launches (0 on success).
 extern "C" int fused_conv3x3_leaky_pixel_norm(const void* x, const void* w9, const void* bias,
                                               void* y, void* ws, void* ssq, int dtype,
                                               int device, int batch, int cin, int cout,
-                                              int height, int width, void* stream) {
+                                              int height, int width, void* stream,
+                                              int* variant) {
   int sms = 0;
   const bool two_pass = ws != nullptr && ssq != nullptr;
   cudaError_t err = check(dtype, device, batch, cin, cout, height, width, two_pass, &sms);
@@ -890,15 +934,19 @@ extern "C" int fused_conv3x3_leaky_pixel_norm(const void* x, const void* w9, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
   float* ssqf = static_cast<float*>(ssq);
+  int ctiles = 0;
   if (dtype == 0) {
-    err = launch_cuda_core(x, w9, bias, y, ssqf, batch, cin, cout, height, width, s);
+    *variant = flash_mma::kTf32x3;
+    err = launch_tensor_core<float>(x, w9, bias, y, wsf, ssqf, batch, cin, cout, height, width,
+                                    sms, s, &ctiles);
   } else {
-    err = launch_tensor_core(x, w9, bias, y, wsf, ssqf, batch, cin, cout, height, width, sms,
-                             s);
+    *variant = flash_mma::kTensorCore;
+    err = launch_tensor_core<bf16>(x, w9, bias, y, wsf, ssqf, batch, cin, cout, height, width,
+                                   sms, s, &ctiles);
   }
   if (err != cudaSuccess || !two_pass) return static_cast<int>(err);
   const int hw = height * width;
-  err = dtype == 0 ? launch_pixel_norm_pass<float>(wsf, ssqf, y, batch, cout, hw, s)
-                   : launch_pixel_norm_pass<bf16>(wsf, ssqf, y, batch, cout, hw, s);
+  err = dtype == 0 ? launch_pixel_norm_pass<float>(wsf, ssqf, y, batch, cout, hw, ctiles, s)
+                   : launch_pixel_norm_pass<bf16>(wsf, ssqf, y, batch, cout, hw, ctiles, s);
   return static_cast<int>(err);
 }

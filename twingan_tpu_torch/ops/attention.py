@@ -25,9 +25,9 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
 - each kernel's C entry point picks its variant by the input type and
   the widths, and reports the one it launched (``VARIANT_IDS``): bf16 runs
   on the tensor cores
-  (``mma.sync`` m16n8k16); fp32 B1 and B3 run on the TF32 tensor cores,
+  (``mma.sync`` m16n8k16); fp32 B1-B3 run on the TF32 tensor cores,
   each product as three TF32 products of the operands' high and low
-  halves (3xTF32, fp32-accurate), and fp32 B2 on the CUDA cores. Every
+  halves (3xTF32, fp32-accurate). Every
   c_bar and C is taken: past c_bar 64, or C 256 (where the register-held
   kernels stop), the entry points launch ``csrc/flash_wide.cuh``'s
   kernels, which cut every operand into chunks of 64 columns: bf16 on the
@@ -93,7 +93,7 @@ VARIANT_IDS = (CUDA_CORE, TENSOR_CORE, TF32X3)
 # and for the backward).
 VARIANTS = {
     KERNEL_NAME: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE},
-    DQ_KERNEL: {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE},
+    DQ_KERNEL: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE},
     DKV_KERNEL: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE},
 }
 # Past those widths, csrc/flash_wide.cuh's kernels, by input type.

@@ -17,12 +17,14 @@ activation, then ``pixel_norm`` (eps 1e-6).
   the JAX functions, and ``fused_conv`` runs it for CPU tensors;
 - ``fused_conv`` wraps the hand-written CUDA kernel
   ``csrc/fused_conv.cu``: on a CUDA tensor it launches the kernel or
-  raises, never falling back. The kernel has two variants, chosen by x's
-  type in its C entry point (``VARIANTS`` names them): bf16 x runs on the
-  tensor cores (an implicit GEMM on ``mma.sync``, each fp32 weight split
-  into a high and a low bf16 half, so the products stay those of the fp32
-  weights), fp32 x on the CUDA cores. ``variant_counts`` counts each
-  launch under its variant, beside ``launch_counts``' total;
+  raises, never falling back. The kernel is an implicit GEMM on the
+  tensor cores (``mma.sync``) in two variants, chosen by x's type in its C
+  entry point, which reports the one it launched (``VARIANTS`` names them):
+  bf16 x multiplies each fp32 weight as a high and a low bf16 half, fp32 x
+  runs on the TF32 tensor cores with x and w each split into a high and a
+  low TF32 half and three products (3xTF32), so the products stay those of
+  fp32. ``variant_counts`` counts each launch under the variant the entry
+  point reported, beside ``launch_counts``' total;
 - the kernel is the ``torch.library`` custom op
   ``twingan_tpu_torch::fused_conv``: the CUDA implementation launches it
   and adds to the counts, the CPU implementation is the plain version, and
@@ -43,9 +45,10 @@ Any Cout: the Pallas kernel holds all of Cout in one block (VMEM is its
 only bound), and so does B4 up to ``COUT_TILE`` channels. The pixel norm
 needs every channel of a pixel before any can be written, so a wider layer
 runs in two passes of the one call: the conv, bias and leaky on tiles of
-``COUT_TILE`` channels, each writing its fp32 values and its per-pixel sum
-of squares to scratch that this wrapper allocates, then the normalize,
-which adds each pixel's tile sums in a fixed order and rounds y once.
+channels (``COUT_TILE`` in bf16, ``PASS_TILE`` in fp32), each writing its
+fp32 values and its per-pixel sum of squares to scratch that this wrapper
+allocates, then the normalize, which adds each pixel's tile sums in a
+fixed order and rounds y once.
 """
 
 from __future__ import annotations
@@ -56,13 +59,16 @@ import torch
 import torch.nn.functional as F
 
 from twingan_tpu_torch.ops import cuda_build
-from twingan_tpu_torch.ops.attention import CUDA_CORE, TENSOR_CORE
+from twingan_tpu_torch.ops.attention import TENSOR_CORE, TF32X3, VARIANT_IDS
 
 KERNEL_NAME = "fused_conv"
 AUTOGRAD_ROUTE = "fused_conv_autograd"
 # Output channels one block of the kernel holds (csrc/fused_conv.cu's
-# kCoutTile); a wider layer takes two passes (see above).
+# kCoutTile); a wider layer takes two passes (see above), over channel
+# tiles of at least PASS_TILE (kPassTile), whose sums of squares the
+# wrapper makes room for.
 COUT_TILE = 1024
+PASS_TILE = 256
 LEAKY_SLOPE = 0.2
 PIXEL_NORM_EPS = 1e-6
 
@@ -71,9 +77,10 @@ PIXEL_NORM_EPS = 1e-6
 # ``ConvBlock.forward_pixel_norm`` sent to the eager layers because a
 # gradient was needed.
 launch_counts = {KERNEL_NAME: 0, AUTOGRAD_ROUTE: 0}
-# The variant the C entry point launches for each type of x, and the
-# kernel's launches by "<kernel>/<variant>".
-VARIANTS = {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE}
+# The variant the C entry point launches for each type of x (it reports the
+# one it launched by the ids of ``VARIANT_IDS``), and the kernel's launches
+# by "<kernel>/<variant>".
+VARIANTS = {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE}
 variant_counts = {f"{KERNEL_NAME}/{v}": 0 for v in VARIANTS.values()}
 
 
@@ -132,7 +139,7 @@ def _launch(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     fn = cuda_build.load(KERNEL_NAME).fused_conv3x3_leaky_pixel_norm
     if fn.argtypes is None:
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 6 + [i32] * 7 + [vp]
+        fn.argtypes = [vp] * 6 + [i32] * 7 + [vp, ctypes.POINTER(i32)]
         fn.restype = ctypes.c_int
     y = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=x.device)
     # Two passes past one block's channels: the fp32 values before the norm
@@ -142,17 +149,27 @@ def _launch(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if cout > COUT_TILE:
         ws = y if x.dtype == torch.float32 else torch.empty(
             y.shape, dtype=torch.float32, device=x.device)
-        ssq = torch.empty((-(-cout // COUT_TILE), bsz, h * w), dtype=torch.float32,
+        ssq = torch.empty((-(-cout // PASS_TILE), bsz, h * w), dtype=torch.float32,
                           device=x.device)
+    vid = ctypes.c_int(-1)
     err = fn(x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(),
              None if ws is None else ws.data_ptr(), None if ssq is None else ssq.data_ptr(),
              0 if x.dtype == torch.float32 else 1, x.device.index or 0, bsz, cin, cout, h, w,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(vid))
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError_t {err}")
-    launch_counts[KERNEL_NAME] += 1
-    variant_counts[f"{KERNEL_NAME}/{VARIANTS[x.dtype]}"] += 1
+    _count(vid)
     return y
+
+
+def _count(variant_id: ctypes.c_int) -> None:
+    """One launch, under the variant the entry point reported (a variant
+    outside ``VARIANTS`` gets a count of its own)."""
+    if not 0 <= variant_id.value < len(VARIANT_IDS):
+        raise RuntimeError(f"{KERNEL_NAME} reported no variant ({variant_id.value})")
+    launch_counts[KERNEL_NAME] += 1
+    key = f"{KERNEL_NAME}/{VARIANT_IDS[variant_id.value]}"
+    variant_counts[key] = variant_counts.get(key, 0) + 1
 
 
 @torch.library.custom_op("twingan_tpu_torch::fused_conv", mutates_args=(), device_types="cpu")

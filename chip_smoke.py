@@ -435,11 +435,12 @@ FUSED_CONV_CASES = [
     ("wide ragged, Cout 300", 2, 20, 24, 300, "bfloat16", 0),
     ("wide, Cout 520", 2, 8, 16, 520, "float32", 0),
 ] + [
-    # Past one block's 1024 channels (min_channels above 1024): two passes,
-    # in bf16 over tiles of 1024 channels (a ragged second tile of 8, 1.5
-    # and 2 tiles), in fp32 over tiles of 256.
+    # Past one block's 1024 channels (min_channels above 1024): tiles of
+    # 256 channels, one cluster a pixel tile, in one pass up to 2048 (5
+    # tiles, the last of 8 channels; 6; 8), then two passes (9 tiles).
     (f"Cout {cout}, {hw} px", 2, hw, cout, cout, dtype, 0)
-    for cout, hw in ((1032, 4), (1536, 16), (2048, 32)) for dtype in ("bfloat16", "float32")
+    for cout, hw in ((1032, 4), (1536, 16), (2048, 32), (2056, 4))
+    for dtype in ("bfloat16", "float32")
 ]
 GEN_LAYERS_PER_PASS = 13
 
@@ -1077,6 +1078,8 @@ def kernel_phase() -> dict:
             fail("kernel", f"flash_attn_fwd disagrees with the plain version at {label} "
                            f"B={b} N={n} c_bar={c_bar} C={c} {dtype}")
         results[(label, b, n, c_bar, c, dtype)] = row
+    MEASURED["flash_attn_fwd_wide"] = [wide_row(r) for r in results.values()
+                                       if r["c_bar"] > 64 or r["C"] > 256]
     return {case[-1]: results[case] for case in (SERVING_CASE, FP32_SERVING_CASE)}
 
 
@@ -1127,6 +1130,9 @@ def fused_conv_phase() -> dict:
         y = fused_conv.fused_conv(x, w9, bias)
         torch.cuda.synchronize()
         variant = [k.split("/", 1)[1] for k, v in fused_conv.variant_counts.items() if v]
+        route = [k.split("/", 1)[1] for k, v in fused_conv.route_counts.items() if v]
+        want_route = (fused_conv.TWO_PASS if cout > fused_conv.ONE_PASS_WIDTH
+                      else fused_conv.ONE_PASS).split("/", 1)[1]
         ref = fused_conv.fused_conv_plain(x, w9, bias)
         torch.cuda.synchronize()
         err = (y.float() - ref.float()).abs().max().item()
@@ -1137,7 +1143,7 @@ def fused_conv_phase() -> dict:
         bound_ms, bound_by = fused_conv_bound(b, hw, cin, cout, dtype)
         row = {"phase": "kernel", "kernel": "fused_conv", "case": label, "B": b, "H": hw,
                "W": hw, "Cin": cin, "Cout": cout, "dtype": dtype, "layers_per_pass": per_pass,
-               "variant": variant, "max_abs_err": err, "tolerance": tol,
+               "variant": variant, "route": route, "max_abs_err": err, "tolerance": tol,
                "shape_ok": tuple(y.shape) == (b, cout, hw, hw) and y.dtype == dt,
                "finite": bool(torch.isfinite(y).all()),
                "ms": time_ms(lambda: fused_conv.fused_conv(x, w9, bias)),
@@ -1154,17 +1160,29 @@ def fused_conv_phase() -> dict:
                **({"bound_ms_by_route": {r: fused_conv_bound(b, hw, cin, cout, dtype, r)[0]
                                          for r in FP32_ROUTES}} if dtype == "float32" else {})}
         row["ok"] = bool(err <= tol and row["shape_ok"] and row["finite"]
-                         and variant == [fused_conv.VARIANTS[dt]])
+                         and variant == [fused_conv.VARIANTS[dt]] and route == [want_route])
         emit(row)
         if not row["ok"]:
             fail("kernel", f"fused_conv disagrees with the plain version, or ran another "
-                           f"variant than {fused_conv.VARIANTS[dt]}, at {label} "
-                           f"B={b} H=W={hw} {cin}->{cout} {dtype}")
+                           f"variant than {fused_conv.VARIANTS[dt]} or another route than "
+                           f"{want_route}, at {label} B={b} H=W={hw} {cin}->{cout} {dtype}")
         rows.append(row)
         del x, kernel, w9, bias, y, ref, w, w_lib
         torch.cuda.empty_cache()
+    MEASURED["fused_conv_wide"] = [wide_row(r) for r in rows if r["Cout"] > fused_conv.COUT_TILE]
     return {dtype: [r for r in rows if r["layers_per_pass"] and r["dtype"] == dtype]
             for dtype in ("bfloat16", "float32")}
+
+
+WIDE_ROW_KEYS = ("case", "dtype", "B", "N", "c_bar", "C", "H", "Cin", "Cout", "variant", "route",
+                 "max_abs_err", "tolerance", "device_ms", "bound_ms", "bound_by", "plain_ms",
+                 "library_ms", "library_best_ms")
+
+
+def wide_row(row: dict) -> dict:
+    """The numbers of a kernel row past the register-held widths (or past
+    one block's 1024 channels) that the kernels line repeats."""
+    return {k: row[k] for k in WIDE_ROW_KEYS if k in row}
 
 
 def sdpa_backend(q, k, v, do):
@@ -1276,6 +1294,12 @@ def backward_kernel_phase() -> dict:
         results[(label, b, n, c_bar, c, dtype)] = row
         del o, lse, delta, args, q, k, v
         torch.cuda.empty_cache()
+    wide = [r for r in results.values() if r["c_bar"] > 64 or r["C"] > 256]
+    for name in ("flash_attn_dq", "flash_attn_dkv"):
+        MEASURED[f"{name}_wide"] = [
+            {**wide_row({k: (v[name] if isinstance(v, dict) and name in v else v)
+                         for k, v in r.items()}),
+             "max_abs_err": r["max_abs_err"], "tolerance": r["tolerance"]} for r in wide]
     return {case[-1]: results[case] for case in (TRAIN_CASE, FP32_TRAIN_CASE)}
 
 
@@ -4895,12 +4919,13 @@ def wide_configs():
     return w512, w1024, w2048
 
 
-def _serve_vs_cpu(phase: str, cfg, root: str, name: str, batches: int, per_batch: int,
+def _serve_vs_cpu(phase: str, cfg, root: str, name: str, batches: dict, per_batch: int,
                   images) -> dict:
-    """Serve ``batches`` batches of 4 of a random translator of ``cfg`` on
-    the card, counting B1's launches (``per_batch`` a batch, tensor-core
-    only), and hold the first image against fp32 on the CPU within the
-    serving phase's tolerances."""
+    """Serve ``batches[dtype]`` batches of 4 of a random translator of
+    ``cfg`` on the card in each type, counting B1's launches (``per_batch``
+    a batch, each on its type's variant only), and hold each type's first
+    image against fp32 on the CPU within the serving phase's tolerances of
+    that type (SERVE_TOLS)."""
     import numpy as np
     import torch
     from twingan_tpu_torch.infer.translate import ImageInferer
@@ -4909,32 +4934,38 @@ def _serve_vs_cpu(phase: str, cfg, root: str, name: str, batches: int, per_batch
 
     stage_dir = os.path.join(root, name)
     save_stage(stage_dir, cfg, random_translator(cfg).state_dict(), step=0)
-    inferer = ImageInferer(stage_dir)  # the card, by default
-    attention.reset_launch_counts()
-    outs = [inferer.infer_batch(images) for _ in range(batches)]
-    torch.cuda.synchronize()
-    launches = attention.launch_counts[attention.KERNEL_NAME]
-    variants = {k: v for k, v in attention.variant_counts.items() if v}
     ref = ImageInferer(stage_dir, device="cpu", dtype="float32").infer_batch(images[:1])[0]
     std = float(ref.std())
-    diff = np.abs(outs[0][0] - ref)
-    mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
-    fwd_tc = f"{attention.KERNEL_NAME}/{attention.TENSOR_CORE}"
-    row = {"phase": phase, "check": f"serve {name}, card bf16 vs CPU float32",
-           "batches": batches, "batch": len(images), "kernel_launches": launches,
-           "expected_launches": per_batch * batches, "kernel_variants": variants,
-           "output_std": std, "mean_abs_err_over_std": mean_err,
-           "max_abs_err_over_std": max_err, "mean_tolerance": SERVE_MEAN_TOL,
-           "max_tolerance": SERVE_MAX_TOL,
-           "ok": bool(all(o.shape == (len(images), *ref.shape) and np.isfinite(o).all()
-                          for o in outs)
-                      and launches == per_batch * batches and variants == {fwd_tc: launches}
-                      and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
-    emit(row)
-    if not row["ok"]:
-        fail(phase, f"serving {name} disagrees with the CPU or launched B1 other than "
-                    f"{per_batch} times a batch on its tensor-core variant")
-    return {"launches": launches, "stage_dir": stage_dir}
+    fwd = attention.KERNEL_NAME
+    launches = {}
+    for dtype, count in batches.items():
+        inferer = ImageInferer(stage_dir, dtype=dtype)  # the card, by default
+        attention.reset_launch_counts()
+        outs = [inferer.infer_batch(images) for _ in range(count)]
+        torch.cuda.synchronize()
+        launches[dtype] = attention.launch_counts[fwd]
+        variants = {k: v for k, v in attention.variant_counts.items() if v}
+        diff = np.abs(outs[0][0] - ref)
+        mean_err, max_err = float(diff.mean()) / std, float(diff.max()) / std
+        mean_tol, max_tol = SERVE_TOLS[dtype]
+        want = f"{fwd}/{attention.VARIANTS[fwd][getattr(torch, dtype)]}"
+        row = {"phase": phase, "check": f"serve {name}, card {dtype} vs CPU float32",
+               "batches": count, "batch": len(images), "kernel_launches": launches[dtype],
+               "expected_launches": per_batch * count, "kernel_variants": variants,
+               "output_std": std, "mean_abs_err_over_std": mean_err,
+               "max_abs_err_over_std": max_err, "mean_tolerance": mean_tol,
+               "max_tolerance": max_tol,
+               "ok": bool(all(o.shape == (len(images), *ref.shape) and np.isfinite(o).all()
+                              for o in outs)
+                          and launches[dtype] == per_batch * count
+                          and variants == {want: launches[dtype]}
+                          and mean_err <= mean_tol and max_err <= max_tol)}
+        emit(row)
+        if not row["ok"]:
+            fail(phase, f"serving {name} in {dtype} disagrees with the CPU or launched B1 "
+                        f"other than {per_batch} times a batch on its variant {want}")
+        del inferer, outs
+    return {"launches": sum(launches.values()), "stage_dir": stage_dir}
 
 
 def wide_phase(card: str, smi_line: str) -> dict:
@@ -4942,17 +4973,21 @@ def wide_phase(card: str, smi_line: str) -> dict:
     as listed; widths as the configurations give them):
     - the slice config at 512 channels, attention at 8 px (C 512, c_bar 64,
       N 64 in the encoder, the generator and both discriminators): 2
-      batches of 4 served (B1), one training round at batch 3 on the card
-      (B1-B3) with its launches counted, a G and a D step against fp32 on
-      the CPU (cut to 16 px: the attention layer's shape is the same), and
-      one batch served in int8 (Q1's conv_i8q at 512 channels), each conv
-      given the CPU's input bit-equal to the CPU's;
+      batches of 4 served in bf16 and one in fp32 (B1; fp32 on the wide
+      3xTF32 kernel, past C 256), one training round at batch 3 on the card
+      (B1-B3) with its launches counted, a G and a D step in fp32 and in
+      bf16 against fp32 on the CPU (cut to 16 px: the attention layer's
+      shape is the same; the fp32 steps' B1-B3 launches counted, every one
+      on the wide 3xTF32 kernel), and one batch served in int8 (Q1's
+      conv_i8q at 512 channels), each conv given the CPU's input bit-equal
+      to the CPU's;
     - the slice config at 1024 channels, attention at 4 px in the
       generator (C 1024, c_bar 128, N 16): one batch of 4 served;
     - pggan256 with min_channels 2048, cut to 32 px: a D step and a
-      ``sample``, each generator pass 7 launches of B4 at Cout 2048 (two
-      passes each: two tiles of 1024 channels), the sample against fp32 on
-      the CPU, and a bf16 D step against the CPU at 16 px.
+      ``sample``, each generator pass 7 launches of B4 at Cout 2048, each
+      one kernel (8 channel tiles of 256 in one cluster, its one-pass
+      route), the sample against fp32 on the CPU, and a bf16 D step against
+      the CPU at 16 px.
     Returns each kernel's launches on these paths."""
     import numpy as np
     import torch
@@ -4975,7 +5010,8 @@ def wide_phase(card: str, smi_line: str) -> dict:
     try:
         # 512 channels: serving.
         t0 = time.perf_counter()
-        served = _serve_vs_cpu("wide", w512, root, "512", WIDE_SERVE_BATCHES, 2, images)
+        served = _serve_vs_cpu("wide", w512, root, "512",
+                               {"bfloat16": WIDE_SERVE_BATCHES, "float32": 1}, 2, images)
         launches[fwd] += served["launches"]
         seconds["serve_512"] = time.perf_counter() - t0
 
@@ -4993,6 +5029,7 @@ def wide_phase(card: str, smi_line: str) -> dict:
         gp_noise = {d: {"alpha": torch.rand(TRAIN_BATCH, 1, 1, 1, generator=gen),
                         "noise": torch.rand(TRAIN_BATCH, cres, cres, 3, generator=gen) * 2 - 1}
                     for d in ("s", "t")}
+        fp32_steps = {}
         for row in compare_steps(small, weights, [_train_batch(rng, small, "cpu")
                                                   for _ in range(2)], gp_noise, phase="wide"):
             row["resolution"] = cres
@@ -5001,6 +5038,22 @@ def wide_phase(card: str, smi_line: str) -> dict:
             if not row["ok"]:
                 fail("wide", f"512 channels: the card's {row['check']} disagrees beyond the "
                              "limits")
+            if "card float32" in row["check"]:
+                for k, v in row["kernel_variants"].items():
+                    fp32_steps[k] = fp32_steps.get(k, 0) + v
+        # Every fp32 attention launch of the two steps on the 3xTF32 variant
+        # (C 512: the wide kernel), each kernel at least once.
+        tf32 = {f"{k}/{attention.TF32X3}" for k in (fwd, dq, dkv)}
+        row = {"phase": "wide", "check": "512 channels: the fp32 G and D steps' launches",
+               "launches_by_variant": fp32_steps, "resolution": cres,
+               "ok": bool(set(fp32_steps) == tf32 and all(fp32_steps.values()))}
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            fail("wide", "512 channels: the fp32 steps launched another variant than the "
+                         "3xTF32 one, or missed a kernel")
+        for k in (fwd, dq, dkv):
+            launches[k] += fp32_steps[f"{k}/{attention.TF32X3}"]
         seconds["train_512_vs_cpu"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -5089,7 +5142,7 @@ def wide_phase(card: str, smi_line: str) -> dict:
 
         # 1024 channels, attention at 4 px: c_bar 128.
         t0 = time.perf_counter()
-        served = _serve_vs_cpu("wide", w1024, root, "1024", 1, 1, images)
+        served = _serve_vs_cpu("wide", w1024, root, "1024", {"bfloat16": 1}, 1, images)
         launches[fwd] += served["launches"]
         seconds["serve_1024"] = time.perf_counter() - t0
     finally:
@@ -5130,6 +5183,7 @@ def wide_phase(card: str, smi_line: str) -> dict:
     torch.cuda.synchronize()
     d_counts = dict(fused_conv.launch_counts)
     d_variants = {k: v for k, v in fused_conv.variant_counts.items() if v}
+    d_routes = {k: v for k, v in fused_conv.route_counts.items() if v}
     z = torch.randn(noise_shape(w2048.model, WIDE_GEN_BATCH),
                     generator=torch.Generator().manual_seed(SEED + 14))
     fused_conv.reset_launch_counts()
@@ -5137,6 +5191,7 @@ def wide_phase(card: str, smi_line: str) -> dict:
     torch.cuda.synchronize()
     s_counts = dict(fused_conv.launch_counts)
     s_variants = {k: v for k, v in fused_conv.variant_counts.items() if v}
+    s_routes = {k: v for k, v in fused_conv.route_counts.items() if v}
     cpu = GanTrainer(w2048.replace(model=w2048.model.replace(dtype="float32")), device="cpu")
     nets = cpu.build_nets()
     nets.load_state_dict({k: v.cpu() for k, v in state.nets.state_dict().items()})
@@ -5153,8 +5208,9 @@ def wide_phase(card: str, smi_line: str) -> dict:
                                      "card bf16 vs CPU float32",
            "resolution": w2048.model.resolution, "batch": WIDE_GEN_BATCH,
            "generator_widths": sorted(widths), "d_step_launches": d_counts,
-           "d_step_variants": d_variants, "sample_launches": s_counts,
-           "sample_variants": s_variants, "output_std": std, "mean_abs_err_over_std": mean_err,
+           "d_step_variants": d_variants, "d_step_routes": d_routes,
+           "sample_launches": s_counts, "sample_variants": s_variants,
+           "sample_routes": s_routes, "output_std": std, "mean_abs_err_over_std": mean_err,
            "max_abs_err_over_std": max_err, "mean_tolerance": SERVE_MEAN_TOL,
            "max_tolerance": SERVE_MAX_TOL, "seconds": time.perf_counter() - t0,
            "ok": bool(widths == {2048} and tuple(out.shape) == tuple(ref.shape)
@@ -5162,12 +5218,13 @@ def wide_phase(card: str, smi_line: str) -> dict:
                       and d_counts == s_counts == {fused_conv.KERNEL_NAME: layers,
                                                    fused_conv.AUTOGRAD_ROUTE: 0}
                       and d_variants == s_variants == {b4_tc: layers}
+                      and d_routes == s_routes == {fused_conv.ONE_PASS: layers}
                       and mean_err <= SERVE_MEAN_TOL and max_err <= SERVE_MAX_TOL)}
     emit(row)
     rows.append(row)
     if not row["ok"]:
         fail("wide", f"Cout 2048: B4 did not run {layers} times a generator pass on its "
-                     "tensor-core variant, or the sample disagrees with the CPU")
+                     "tensor-core variant in one pass, or the sample disagrees with the CPU")
     launches[fused_conv.KERNEL_NAME] += d_counts[fused_conv.KERNEL_NAME] + s_counts[
         fused_conv.KERNEL_NAME]
     seconds["b4_2048"] = time.perf_counter() - t0
@@ -5288,7 +5345,7 @@ def fused_conv_entry(rows_by_type: dict, launches: dict, more: dict) -> dict:
               "library_best_ms the same at its best (benchmark mode, channels-last)",
         library_best_ms=total_bf16("library_best_ms"),
         eager_chain_ms=total_bf16("eager_chain_ms"), device_ms=total_bf16("device_ms"),
-        fp32=fp32)
+        fp32=fp32, routes=sorted(fused_conv.route_counts), wide=MEASURED.get("fused_conv_wide"))
 
 
 def require_no_b4(phase: str) -> None:
@@ -5351,7 +5408,7 @@ def main() -> int:
         fwd, sum(by_path.values()), by_path, row["max_abs_err"], row["ms"], row["plain_ms"],
         row["bound_ms"], row["bound_by"], row["library_ms"], variant=row["variant"][0],
         variants=kernel_variants(fwd), device_ms=row["device_ms"],
-        fp32=fp32_entry(serving_rows["float32"]))]
+        fp32=fp32_entry(serving_rows["float32"]), wide=MEASURED.get(f"{fwd}_wide"))]
     for name, grads in (("flash_attn_dq", ("df",)), ("flash_attn_dkv", ("dg", "dh"))):
         by_path = {"train": train_launches[name], "fp32": fp32_launches[name],
                    "runner": runner_launches[name],
@@ -5364,7 +5421,8 @@ def main() -> int:
             max(row["max_abs_err"][g] for g in grads), row["ms"][name], row["plain_ms"][name],
             row["bound_ms"][name], row["bound_by"][name], row["library_ms"],
             variant=row["variant"][name][0], variants=kernel_variants(name),
-            device_ms=row["device_ms"][name], fp32=fp32_entry(train_rows["float32"], name, grads)))
+            device_ms=row["device_ms"][name], fp32=fp32_entry(train_rows["float32"], name, grads),
+            wide=MEASURED.get(f"{name}_wide")))
     entries.append(fused_conv_entry(b4_rows, generation_launches,
                                     {"fp32": fp32_launches["fused_conv"],
                                      "runner": runner_launches["fused_conv"],

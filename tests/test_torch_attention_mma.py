@@ -258,20 +258,19 @@ def test_dq_kernel_runs_on_mma():
 def test_variants_by_type():
     """bf16 takes the tensor-core variant of each of the three kernels; fp32
     the 3xTF32 tensor-core variant of each; past the register-held widths,
-    the wide kernels (bf16 on the tensor cores, fp32 on the CUDA cores). The
+    the wide kernels in the same two variants (bf16 on the tensor cores,
+    fp32 on the TF32 tensor cores): no kernel runs on the CUDA cores. The
     C entry points pick the variant and report it by the ids of
     ``VARIANT_IDS``, which the counts record."""
     v = attention.VARIANTS
     assert v[attention.KERNEL_NAME] == v[attention.DQ_KERNEL] == v[attention.DKV_KERNEL] == {
         torch.float32: attention.TF32X3, torch.bfloat16: attention.TENSOR_CORE}
     assert attention.WIDE_VARIANTS == {
-        torch.float32: attention.CUDA_CORE, torch.bfloat16: attention.TENSOR_CORE}
+        torch.float32: attention.TF32X3, torch.bfloat16: attention.TENSOR_CORE}
     assert set(attention.variant_counts) == {
-        "flash_attn_fwd/tensor_core_tf32x3", "flash_attn_fwd/cuda_core",
-        "flash_attn_fwd/tensor_core", "flash_attn_dq/tensor_core_tf32x3",
-        "flash_attn_dq/cuda_core", "flash_attn_dq/tensor_core",
-        "flash_attn_dkv/tensor_core_tf32x3", "flash_attn_dkv/cuda_core",
-        "flash_attn_dkv/tensor_core"}
+        "flash_attn_fwd/tensor_core_tf32x3", "flash_attn_fwd/tensor_core",
+        "flash_attn_dq/tensor_core_tf32x3", "flash_attn_dq/tensor_core",
+        "flash_attn_dkv/tensor_core_tf32x3", "flash_attn_dkv/tensor_core"}
     enum = re.search(r"enum Variant : int \{([^}]*)\}", _source("flash_mma.cuh")).group(1)
     ids = dict(re.findall(r"(k\w+) = (\d+)", enum))
     assert {attention.VARIANT_IDS[int(i)]: k for k, i in ids.items()} == {
@@ -282,7 +281,8 @@ def test_variants_by_type():
                        (bwd, "flash_attn_dkv(")):
         head = src[src.index(f'extern "C" int {entry}'):]
         assert "void* stream, int* variant)" in head[:head.index("{")]
-    assert fwd.count("*variant = ") == 2 and bwd.count("*variant = ") == 4
+    assert fwd.count("*variant = ") == 1 and bwd.count("*variant = ") == 2
+    assert "kCudaCore" not in fwd + bwd
     attention.reset_launch_counts()
     try:
         attention._count(attention.DKV_KERNEL, ctypes.c_int(2))

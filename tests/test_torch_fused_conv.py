@@ -437,15 +437,16 @@ def test_split_weights_reconstruct_fp32():
 def test_tensor_core_source():
     """The bf16 variant is an implicit GEMM on mma.sync: x by ldmatrix, the
     split weights by ldmatrix.trans, staged by cp.async; a tile's split-K
-    blocks form a cluster and sum through distributed shared memory in rank
-    order; the C entry point sends bf16 to it."""
+    blocks (beside its channel tiles, in a one-pass layer) form a cluster
+    and sum through distributed shared memory in rank order; the C entry
+    point sends bf16 to it."""
     with open(os.path.join(REPO, "twingan_tpu_torch", "csrc", "fused_conv.cu")) as fh:
         src = fh.read()
     assert "_fused_kernel" in src and '#include "flash_mma.cuh"' in src
     body = src[src.index("fused_conv_mma_kernel("):src.index("#define FUSED_CONV_CONFIGS")]
     for op in ("mma16816(", "ldmatrix_x4(", "ldmatrix_x4_trans(", "cp_async16(",
                "__floats2bfloat162_rn(v.x - f01.x", "__shfl_xor_sync(",
-               "for (int sp = 0; sp < splits; ++sp) v += cluster.map_shared_rank(part, sp)"):
+               "v += cluster.map_shared_rank(part, me + cct * sp)[m * PS + col]"):
         assert op in body, op
     assert "atomicAdd" not in src
     assert "cudaLaunchAttributeClusterDimension" in src

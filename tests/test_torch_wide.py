@@ -200,15 +200,16 @@ def test_wide_rounding_model_within_chip_tolerance(smoke):
 
 
 def test_wide_kernel_source():
-    """Both attention libraries include the wide kernels; their C entry
-    points keep no width cap, only the grid's batch limit."""
+    """Both attention libraries include the wide kernels (bf16 on the
+    tensor cores, fp32 on the TF32 tensor cores); their C entry points keep
+    no width cap, only the grid's batch limit."""
     def source(name):
         with open(os.path.join(REPO, "twingan_tpu_torch", "csrc", name)) as fh:
             return fh.read()
 
     wide = source("flash_wide.cuh")
-    for op in ("wide_mma_kernel", "wide_fp32_kernel", "mma16816(", "ldmatrix_x4_trans(",
-               "cp_async16(", "ex2("):
+    for op in ("wide_mma_kernel", "wide_tf32_kernel", "mma16816(", "ldmatrix_x4_trans(",
+               "mma1688_tf32(", "cp_async16(", "ex2("):
         assert op in wide, op
     assert "atomicAdd" not in wide and "torch/" not in wide
     for name in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):

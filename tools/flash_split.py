@@ -4,8 +4,11 @@
 Times the bf16 forward (B1, ``csrc/flash_attn_fwd.cu``) at the serving
 shape (B 4, N 4096, c_bar 8, C 64) and the bf16 dq and dkv kernels (B2
 and B3, ``csrc/flash_attn_bwd.cu``) at the training shape (B 3), and the
-fp32 (3xTF32) forward, dq and dkv at the same shapes, each beside copies
-of its source with one part taken out:
+fp32 (3xTF32) forward, dq and dkv at the same shapes; with ``--wide``,
+the fp32 kernels past the register-held widths (``csrc/flash_wide.cuh``'s
+3xTF32 kernel) at (B 2, N 256, c_bar 256, C 2048) and at a ragged N of
+1000 with C 512 instead. Each is timed beside copies of its source with
+one part taken out:
 
 - ``no_exp``: the exponentials (each ex2 replaced by its argument);
 - ``no_scores``: the score product S = f g^T (S^T = g f^T in dkv);
@@ -20,7 +23,12 @@ of its source with one part taken out:
   subtraction and the cut of lo; both halves take the unsplit bits, the
   products stay);
 - ``no_staging``: the copies of every tile after the first (the kernel
-  reads the first tile's shared memory again).
+  reads the first tile's shared memory again; the wide kernel's steps
+  after the first two);
+- ``no_merge`` (wide): the loads of the cluster's partial outputs in the
+  epilogue (each block writes its own share unsummed).
+The wide kernel's ``no_scores`` cuts the score and dp chunks' products
+together, ``no_value`` the last product (o, df, dg or dh).
 
 The copies compute wrong results and exist only to be timed; what a part
 costs is how much faster the kernel gets without it. Each is built with
@@ -29,7 +37,7 @@ turns (kernel, copies, kernel, ...) three times: CUDA events, the median
 of 30 launches after 5 warm-ups. Prints one JSON line per timing, with the
 card's name and power limit. Run from the repository root:
 
-    python3 tools/flash_split.py [--dtype bfloat16|float32]
+    python3 tools/flash_split.py [--dtype bfloat16|float32] [--wide]
 """
 
 from __future__ import annotations
@@ -159,7 +167,38 @@ DQ_TF32_CUTS = {
     "no_staging": [("    if (t + 2 < ntiles) copy(t + 2, buf);",
                     "    if (t + 2 < ntiles && t < 0) copy(t + 2, buf);")],
 }
-# (kernel, dtype) -> (library, cuts, shape B, N, c_bar, C)
+WIDE = "flash_wide.cuh"
+
+
+def _wide_products(a: str, b_lo: str = "blr", b_hi: str = "bhr", parts=("lo", "hi_lo", "hi")):
+    """The wide kernel's three product lines of A fragment ``a``, each
+    replaced by a use of its operands (or removed, for ``no_lo``)."""
+    calls = {"lo": f"mma1688_tf32(part[jj], {a}.lo, {b_hi}[jj][0], {b_hi}[jj][1]);",
+             "hi_lo": f"mma1688_tf32(part[jj], {a}.hi, {b_lo}[jj][0], {b_lo}[jj][1]);",
+             "hi": f"mma1688_tf32(part[jj], {a}.hi, {b_hi}[jj][0], {b_hi}[jj][1]);"}
+    uses = {"lo": f"part[jj][0] += __uint_as_float({b_hi}[jj][0] ^ {b_hi}[jj][1] ^ {a}.lo[0]);",
+            "hi_lo": f"part[jj][1] += __uint_as_float({b_lo}[jj][0] ^ {b_lo}[jj][1]);",
+            "hi": f"part[jj][2] += __uint_as_float({a}.hi[0]);"}
+    return [(WIDE, calls[k], uses[k] if len(parts) == 3 else ";") for k in parts]
+
+
+WIDE_TF32_CUTS = {
+    "no_exp": [(WIDE, "s[jj][e] = ex2(fmaf(s[jj][e], kLog2e, -msc[e / 2]));",
+                "s[jj][e] = fmaf(s[jj][e], kLog2e, -msc[e / 2]);"),
+               (WIDE, "const float pe = q + (e & 1) < n ? ex2(fmaf(s[jj][e], kLog2e, -l)) : 0.f;",
+                "const float pe = q + (e & 1) < n ? fmaf(s[jj][e], kLog2e, -l) : 0.f;")],
+    "no_scores": _wide_products("af"),
+    "no_value": _wide_products("pa[kk]"),
+    "no_lo": _wide_products("af", parts=("lo", "hi_lo")) + _wide_products(
+        "pa[kk]", parts=("lo", "hi_lo")),
+    "no_split": TF32_CUTS["no_split"],
+    "no_staging": [(WIDE, "    if (gs + kStages - 1 < total) stage(gs + kStages - 1);",
+                    "    if (gs + kStages - 1 < total && gs < 0) stage(gs + kStages - 1);")],
+    "no_merge": [(WIDE, "      if (k < splits) a[k] = srcs[k][u];",
+                  "      if (k < splits) a[k] = make_float4(u, k, 0.f, 0.f);")],
+}
+WIDE_SHAPES = {"C 2048": (2, 256, 256, 2048), "ragged N": (2, 1000, 64, 512)}
+# (kernel, dtype[, shape label]) -> (library, cuts, shape B, N, c_bar, C)
 KERNELS = {
     (attention.KERNEL_NAME, "bfloat16"): (attention.KERNEL_NAME, FWD_CUTS, (4, 4096, 8, 64)),
     (attention.DQ_KERNEL, "bfloat16"): (attention.BWD_LIBRARY, DQ_CUTS, (3, 4096, 8, 64)),
@@ -169,6 +208,13 @@ KERNELS = {
     (attention.DQ_KERNEL, "float32"): (attention.BWD_LIBRARY, DQ_TF32_CUTS, (3, 4096, 8, 64)),
     (attention.DKV_KERNEL, "float32"): (attention.BWD_LIBRARY, DKV_TF32_CUTS,
                                         (3, 4096, 8, 64)),
+}
+WIDE_KERNELS = {
+    (kernel, "float32", label): (library, WIDE_TF32_CUTS, shape)
+    for label, shape in WIDE_SHAPES.items()
+    for kernel, library in ((attention.KERNEL_NAME, attention.KERNEL_NAME),
+                            (attention.DQ_KERNEL, attention.BWD_LIBRARY),
+                            (attention.DKV_KERNEL, attention.BWD_LIBRARY))
 }
 
 
@@ -218,8 +264,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
                         help="time only the kernels of this type (default: both)")
+    parser.add_argument("--wide", action="store_true",
+                        help="the fp32 kernels past the register-held widths instead")
     args = parser.parse_args()
-    kernels = {k: v for k, v in KERNELS.items() if args.dtype in (None, k[1])}
+    kernels = {k: v for k, v in (WIDE_KERNELS if args.wide else KERNELS).items()
+               if args.dtype in (None, k[1])}
     if not torch.cuda.is_available():
         print(json.dumps({"ok": False, "error": "no CUDA device"}))
         return 1
@@ -227,13 +276,19 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     workdir = tempfile.mkdtemp(prefix="flash_split_")
     try:
-        jobs = [(key, name, cuts) for key, (_, all_cuts, _) in kernels.items()
-                for name, cuts in [("kernel", []), *all_cuts.items()]]
+        # One build a copy of a library, whichever kernels and shapes share
+        # its table of cuts.
+        jobs = {(library, id(all_cuts), name): cuts for library, all_cuts, _ in kernels.values()
+                for name, cuts in [("kernel", []), *all_cuts.items()]}
         with ThreadPoolExecutor(min(len(jobs), os.cpu_count() or 8)) as pool:
-            built = list(pool.map(lambda j: (j[0], *build_copy(
-                kernels[j[0]][0], j[1], j[2], os.path.join(workdir, *j[0]))), jobs))
+            done = dict(zip(jobs, pool.map(lambda j: build_copy(
+                j[0], j[2], jobs[j], os.path.join(workdir, f"{j[0]}-{j[1]}", j[2]))[1], jobs)))
+        built = [(key, name, done[(library, id(all_cuts), name)])
+                 for key, (library, all_cuts, _) in kernels.items()
+                 for name in ["kernel", *all_cuts]]
         gen = torch.Generator(device="cuda").manual_seed(0)
-        for (kernel, dtype), (library, _, (b, n, c_bar, c)) in kernels.items():
+        for key, (library, _, (b, n, c_bar, c)) in kernels.items():
+            kernel, dtype = key[:2]
             dt = getattr(torch, dtype)
             f, g = (torch.randn(b, n, c_bar, device="cuda", generator=gen).to(dt)
                     for _ in range(2))
@@ -246,7 +301,7 @@ def main() -> int:
                 attention.DQ_KERNEL: lambda: attention.flash_attention_dq(f, g, h, do, lse, delta),
                 attention.DKV_KERNEL: lambda: attention.flash_attention_dkv(f, g, h, do, lse, delta),
             }[kernel]
-            copies = [(name, ctypes.CDLL(so)) for k, name, so in built if k == (kernel, dtype)]
+            copies = [(name, ctypes.CDLL(so)) for k, name, so in built if k == key]
             real = cuda_build.load(library)
             for rep in range(REPEATS):
                 for name, lib in copies:

@@ -2,7 +2,9 @@
 """Where the time of the fused conv kernel (B4) goes, on one card.
 
 At every distinct conv-leaky-pixel-norm layer of a pggan256 generator pass
-(batch 12, bf16 and fp32; ``chip_smoke.FUSED_CONV_CASES``), times B4
+(batch 12, bf16 and fp32; ``chip_smoke.FUSED_CONV_CASES``; with ``--wide``,
+its rows past one block's 1024 channels instead: 1032 to 2056 channels at
+B 2, one pass over a cluster of 256-channel tiles, two past 2048), times B4
 (``csrc/fused_conv.cu``, the tensor-core variant for bf16, the TF32 one
 for fp32) beside copies of its source with one part taken out:
 
@@ -26,7 +28,7 @@ nvcc flags into a temporary directory. Prints one JSON line per layer and
 one with the sums over a pass (each layer times its count) for each type,
 with the card's name and power limit. Run from the repository root:
 
-    python3 tools/fused_conv_split.py [--dtype bfloat16|float32]
+    python3 tools/fused_conv_split.py [--dtype bfloat16|float32] [--wide]
 """
 
 from __future__ import annotations
@@ -68,9 +70,9 @@ CUTS = {"bfloat16": {
                 "              acc[mt][2 * j][0] += __uint_as_float(bf[0] ^ a[mt][0] ^ bf[2]);")],
     "no_wcopy": [("        cp_async16(dst, in ? src : w9, in ? 16 : 0);",
                   "        if (in && tid < 0) cp_async16(dst, src, 16);")],
-    "no_store": [("          store_as(yb + at, sum[mm * PS + co] * scale[mm]);",
+    "no_store": [("          store_as(yb + static_cast<int64_t>(n0) * hw + at, sum[mm * PS + co] * scale[mm]);",
                   "          if (co < 0) store_as(yb, sum[mm * PS + co] * scale[mm]);"),
-                 ("        yb[static_cast<int64_t>(co) * hw + hh * width + ww] = ys[co * YS + m];",
+                 ("        yb[static_cast<int64_t>(n0 + co) * hw + hh * width + ww] = ys[co * YS + m];",
                   "        if (co < 0) yb[0] = ys[m];"),
                  ("      if (hh < height && ww < width) {\n        *reinterpret_cast<uint4*>(yb",
                   "      if (hh < 0) {\n        *reinterpret_cast<uint4*>(yb")],
@@ -111,6 +113,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
                         help="time only the variant of this type (default: both)")
+    parser.add_argument("--wide", action="store_true",
+                        help="the rows past 1024 output channels instead of pggan256's layers")
     args = parser.parse_args()
     dtypes = [d for d in CUTS if args.dtype in (None, d)]
     if not torch.cuda.is_available():
@@ -128,7 +132,9 @@ def main() -> int:
         for dtype in dtypes:
             totals = dict.fromkeys(CUTS[dtype], 0.0)
             for label, b, hw, cin, cout, case_dtype, per_pass in chip_smoke.FUSED_CONV_CASES:
-                if not per_pass or case_dtype != dtype:
+                wide = cout > fused_conv.COUT_TILE
+                if case_dtype != dtype or (wide if not args.wide else not wide) or (
+                        not args.wide and not per_pass):
                     continue
                 gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 2)
                 x = torch.randn(b, cin, hw, hw, device="cuda", generator=gen).to(
@@ -151,9 +157,10 @@ def main() -> int:
                 row["bound_us"] = 1e3 * chip_smoke.fused_conv_bound(b, hw, cin, cout, dtype)[0]
                 row["card"] = smi
                 print(json.dumps(row), flush=True)
-            print(json.dumps({"pass": "pggan256 generator, batch 12, 13 layers", "dtype": dtype,
-                              **{f"{k}_us": v for k, v in totals.items()}, "card": smi}),
-                  flush=True)
+            if not args.wide:
+                print(json.dumps({"pass": "pggan256 generator, batch 12, 13 layers",
+                                  "dtype": dtype, **{f"{k}_us": v for k, v in totals.items()},
+                                  "card": smi}), flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"ok": True}))

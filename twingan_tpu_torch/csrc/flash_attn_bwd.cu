@@ -1477,33 +1477,30 @@ const int64_t* wide_strides(const Strides& st, int64_t (&w)[14]) {
   return w;
 }
 
-// bf16 runs the tensor-core variants, fp32 the TF32 tensor-core ones;
-// past the register-held widths, flash_wide.cuh's (bf16 on the tensor
-// cores, fp32 on the CUDA cores). Each writes the variant it launches to
-// `variant`.
+// bf16 runs the tensor-core variants, fp32 the TF32 tensor-core ones (past
+// the register-held widths, flash_wide.cuh's, in the same two variants).
+// Each writes the variant it launches to `variant`.
 cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int cbar, int c,
                const Strides& st, cudaStream_t s, int* variant) {
-  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kCudaCore;
+  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kTf32x3;
   if (wide(cbar, c)) {
     int64_t w[14];
     return flash_wide::launch<flash_wide::kDq>(in, df, nullptr, nullptr, dtype, batch, n, cbar,
                                                c, wide_strides(st, w), s);
   }
   if (dtype == 1) return dq_mma(in, df, batch, n, cbar, c, st, s);
-  *variant = flash_mma::kTf32x3;
   return dq_tf32(in, df, batch, n, cbar, c, st, s);
 }
 
 cudaError_t dkv(const void* const* in, void* dg, void* dh, int dtype, int batch, int n,
                 int cbar, int c, const Strides& st, cudaStream_t s, int* variant) {
-  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kCudaCore;
+  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kTf32x3;
   if (wide(cbar, c)) {
     int64_t w[14];
     return flash_wide::launch<flash_wide::kDkv>(in, dg, dh, nullptr, dtype, batch, n, cbar, c,
                                                 wide_strides(st, w), s);
   }
   if (dtype == 1) return dkv_mma(in, dg, dh, batch, n, cbar, c, st, s);
-  *variant = flash_mma::kTf32x3;
   return dkv_tf32(in, dg, dh, batch, n, cbar, c, st, s);
 }
 

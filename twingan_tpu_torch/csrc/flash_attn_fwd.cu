@@ -608,8 +608,7 @@ cudaError_t launch_tf32(const void* f, const void* g, const void* h, void* o, vo
 
 // dtype: 0 = float32 (the 3xTF32 tensor-core variant), 1 = bfloat16 (the
 // bf16 tensor-core variant); past cbar 64, or C 256 for float32,
-// flash_wide.cuh's kernels (bf16 on the tensor cores, fp32 on the CUDA
-// cores). Strides are in elements: batch and row strides of f, g, h, o,
+// flash_wide.cuh's kernels, in the same two variants. Strides are in elements: batch and row strides of f, g, h, o,
 // then the batch stride of lse; the last dimension of f, g, h and o must be
 // contiguous. Launches on `stream`, writes the flash_mma::Variant it
 // launched to `variant`, and returns the cudaError_t of cudaGetLastError()
@@ -626,8 +625,8 @@ extern "C" int flash_attn_fwd(const void* f, const void* g, const void* h, void*
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t st[9] = {f_sb, f_sn, g_sb, g_sn, h_sb, h_sn, o_sb, o_sn, lse_sb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kTf32x3;
   if (cbar > kRegCbar || (dtype == 0 && c > kRegTf32C)) {
-    *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kCudaCore;
     const void* in[6] = {f, g, h, nullptr, nullptr, nullptr};
     const int64_t wst[14] = {f_sb, f_sn, g_sb, g_sn, h_sb, h_sn, 0, 0, 0, o_sb, o_sn, 0, 0,
                              lse_sb};
@@ -640,7 +639,6 @@ extern "C" int flash_attn_fwd(const void* f, const void* g, const void* h, void*
   bool vec = cbar % per16 == 0 && c % per16 == 0 && aligned16(f) && aligned16(g) &&
              aligned16(h) && aligned16(o);
   for (int i = 0; i < 8; ++i) vec = vec && st[i] % per16 == 0;
-  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kTf32x3;
   if (dtype == 1) {
     if (cbar <= 8) {
       err = launch_mma<8>(f, g, h, o, lse, batch, n, cbar, c, st, vec, s);

@@ -11,41 +11,78 @@
 //   dq:      df = ds g;                 dkv: dg = ds^T f, dh = p^T do;
 //   p = exp(s - lse), dp = do h^T, ds = p (dp - delta).
 //
-// Roles. A block owns 64 rows of its own side (queries for the forward
-// and dq, keys for dkv), 16 a warp, and one slice of 64 output columns
-// (blockIdx.z): o's columns of h; df's of cbar; dkv's z < ceil(cbar / 64)
-// take dg's columns, the others dh's. It loops over tiles of 64 rows of
-// the other side, and each tile is a sequence of steps of one 64-column
-// chunk each:
-//   - the score chunks: s += A B^T with A = the own rows of f (g for
-//     dkv) and B = the tile's rows of g (f), chunk kc of cbar;
-//   - dq and dkv's dg slices: the dp chunks, dp += A B^T with A = do (h)
-//     and B = h (do), chunk kc of C (dkv's dh slices need no dp);
-//   - the last step: V, the tile's rows of the output's operand at the
-//     block's slice (h for o, g for df, f for dg, do for dh), and the
-//     product out += P V with P = the probabilities (forward: the online
-//     softmax's; dh), or ds (df, dg).
-// Each step stages a [64, 64] chunk of A and one of B (the last step V
-// alone) in shared memory, double-buffered, zero filled past N and past
-// cbar and C; one barrier a step. Recomputing s (and dp) for every slice of
-// the output is the price of any width: a block's registers hold one
-// slice. It is also why these kernels take only what the others do not.
+// Two variants, as in the other kernels, each owning every output element
+// by one thread (no atomics, deterministic):
+//  - bf16 on the tensor cores (`wide_mma_kernel`, mma.sync m16n8k16, fp32
+//    accumulators; P and ds rounded to bf16 only as the last product's
+//    operand). A block owns 64 rows of its own side (queries for the
+//    forward and dq, keys for dkv), 16 a warp, and one slice of 64 output
+//    columns (blockIdx.z): o's columns of h; df's of cbar; dkv's z <
+//    ceil(cbar / 64) take dg's columns, the others dh's. It loops over
+//    tiles of 64 rows of the other side, each a sequence of steps of one
+//    64-column chunk: the score chunks s += A B^T (A the own rows of f, g
+//    for dkv; B the tile's rows of g, f), chunk kc of cbar; for dq and
+//    dkv's dg slices the dp chunks, dp += A B^T with A = do (h) and B = h
+//    (do), chunk kc of C; the last step V, the tile's rows of the output's
+//    operand at the block's slice (h for o, g for df, f for dg, do for dh),
+//    and out += P V with P the probabilities (forward: the online
+//    softmax's; dh) or ds (df, dg). A step stages a [64, 64] chunk of A and
+//    one of B (the last step V alone), double-buffered, zero filled past N,
+//    cbar and C; one barrier a step. s (and dp) are recomputed for every
+//    slice of the output: a block's registers hold one slice.
+//  - fp32 on the TF32 tensor cores (`wide_tf32_kernel`, mma.sync m16n8k8
+//    tf32, 3xTF32 as in flash_mma.cuh: hi by cvt.rna, lo = x - hi cut to
+//    TF32, x_lo y_hi + x_hi y_lo + x_hi y_hi). The same roles and 64-row
+//    tiles, with steps of 32-column chunks, and what held the CUDA-core
+//    first cut back taken on:
+//      * the products run on the tensor cores, three TF32 products a
+//        multiply-add (494.5 TFLOP/s of TF32, against 67 of fp32 FMA);
+//      * a block owns a group of output slices of 32 columns, so s and dp
+//        are computed once a group, not once a slice: six slices (192
+//        columns; 105 KB of shared memory, so that two blocks share an SM),
+//        or eight where dq's or dkv's dg groups need them to hold all of
+//        cbar (at cbar 256, C 2048 the dq products are the 0.67 GFLOP the
+//        function needs, where the first cut recomputed s and dp for each
+//        of 4 slices: 2.5 GFLOP; dkv 1.6, its dh groups recomputing s
+//        alone, against 5.2). The group's accumulators live in shared
+//        memory: each tile's products of a slice go to fresh registers,
+//        added to them by fp32 adds on the CUDA cores (with the forward's
+//        rescale folded in), since the tensor cores' own fp32 sums cut
+//        toward zero (PERF.md, Findings). The s and dp chunks likewise: each
+//        chunk's products are summed apart and added in fp32;
+//      * the other side's tiles are split over the blocks of a thread-block
+//        cluster (up to 8, portable), each taking a contiguous range of
+//        tiles: the fewest splits that fill the card's block slots and
+//        leave no block's chain of steps longer than a slot's share (dkv's
+//        dg groups, which also take dp, have the longest). At the end each
+//        block sums its share of the rows over the cluster's blocks in rank
+//        order through distributed shared memory (the forward merges its
+//        softmax states first: m = max m_k, w_k = 2^((m_k - m) log2e), l =
+//        sum w_k l_k, o = sum w_k o_k / l) and writes them: no atomics, no
+//        workspace in device memory. At (B 2, N 256, cbar 256) dq had 32
+//        blocks of one 64-column slice each on 132 SMs, each walking all 4
+//        key tiles; now 32 blocks of one key tile each, and dkv 288;
+//      * each staged operand is split once in shared memory: a thread
+//        splits the B (or V) chunk elements it copied, in place (hi over
+//        the copy, lo beside it), after its own copies land and before the
+//        step's barrier; an A chunk's elements are each read by one warp
+//        alone, which splits them as it loads its fragments. P and ds are
+//        split once a tile, in registers, into the A fragments of the last
+//        product (a C fragment is an A fragment with its k order permuted:
+//        V is read at keys 2 tig and 2 tig + 1). Rows are padded to 36
+//        words, so that both read orders of the B fragments (rows grp, k
+//        tig and tig + 4; rows 2 tig and 2 tig + 1, column grp) hit 32
+//        banks.
 //
-// Two variants, as in the other kernels: bf16 on the tensor cores
-// (`wide_mma_kernel`, mma.sync m16n8k16, fp32 accumulators; P and ds
-// rounded to bf16 only as the last product's operand) and fp32 on the CUDA
-// cores (`wide_fp32_kernel`, exact fp32, a 16 x 16 thread grid each thread
-// owning 4 x 4 of a 64 x 64 tile). Every output element is owned by one
-// thread: no atomics, deterministic.
-//
-// What bounds them: the products. At (B 2, N 256, cbar 256, C 2048) dq
-// recomputes s and dp for each of its 4 slices and dkv for each of its 4
-// dg slices (its 32 dh slices recompute s only): 2.5 and 5.2 GFLOP against
-// the 0.67 and 1.2 GFLOP the functions need. The exponentials (B N^2 a
-// slice) are at most 0.2 % of a slice's products.
+// What bounds them: the products, and at these small N the blocks' serial
+// chains. At (B 2, N 256, cbar 256, C 2048) the fp32 dq needs 0.67 GFLOP,
+// 4.1 us at three TF32 products a multiply-add; its inputs are 9 MB, 2.8 us
+// at 3.35 TB/s. The exponentials (B N^2 a group) are under 0.3 % of the
+// products. tools/flash_split.py --wide times the parts of a step.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,6 +91,10 @@
 #include "flash_mma.cuh"
 
 namespace flash_wide {
+// Internal linkage: each source that includes the header has its own copy
+// (and its own function-local statics, such as the shared-memory attribute
+// a launcher sets once), however many libraries a process loads.
+namespace {
 
 using bf16 = __nv_bfloat16;
 
@@ -121,6 +162,7 @@ __device__ __forceinline__ Step<T> step_of(const Args<T>& p, int j, int z, int k
 
 constexpr int kMmaThreads = 32 * kRows / 16;  // 4 warps, 16 own rows each
 constexpr size_t kMmaSmem = 2 * 2 * kRows * kS * sizeof(bf16);  // [2 bufs][A, B][64][kS]
+static_assert(kMmaSmem <= 48 * 1024, "a default launch's shared memory");
 
 // Rows [r0, r0 + 64), columns [c0, c0 + 64) of a row-major [n, width] bf16
 // matrix into tile[64][kS], zero filled past n and width: 16-byte cp.async
@@ -353,47 +395,159 @@ __global__ void __launch_bounds__(kMmaThreads) wide_mma_kernel(Args<bf16> p, boo
 }
 
 // ---------------------------------------------------------------------------
-// CUDA-core variant (fp32). 256 threads, (tx, ty) = (tid % 16, tid / 16):
-// the thread owns rows ty + 16 i and columns tx + 16 j (i, j < 4) of each
-// 64 x 64 product, so a warp's reads of a staged row are broadcasts and
-// its reads along a row fall in distinct banks (rows padded to 65).
+// TF32 tensor-core variant (fp32): 4 warps, 16 own rows each; a group of
+// output slices of TK columns; the other side's tiles split over a
+// cluster. Two layouts, chosen by the launch's plan (plan_tf32):
+//  - TK 32, two staging buffers, groups of up to 6 slices (192 columns):
+//    105 KB of shared memory, two blocks an SM;
+//  - TK 64, three staging buffers, groups of 4 slices (256 columns), for
+//    dq and dkv where cbar needs more than 192 columns (dp is then
+//    computed once): 225 KB, one block an SM, whose wider chunks halve the
+//    steps (and their barriers) a tile.
 
-constexpr int kF32Threads = 256;
-constexpr int kF32S = kK + 1;
-constexpr size_t kF32Smem = 2 * kRows * kF32S * sizeof(float);  // [A or P, B or V][64][65]
-static_assert(kF32Smem <= 48 * 1024 && kMmaSmem <= 48 * 1024, "a default launch's shared memory");
+constexpr int kTf32Threads = 32 * kRows / 16;
+constexpr int kGroupCols = 256;   // the widest group's columns
+constexpr int kPairCols = 192;    // ... and that of the two-blocks-an-SM layout
+constexpr int kMaxSplits = 8;     // a cluster's blocks (portable)
+constexpr int kStatWords = 2 * kRows + kMaxSplits * kRows + kRows;  // m, l; weights; 1 / l
+constexpr size_t kPairSmem = 113 * 1024;  // two blocks an SM up to this much shared memory
 
-// acc += A B^T over one 64-deep chunk of the staged tiles.
-__device__ __forceinline__ void fma_abt(float (&acc)[4][4], const float* as, const float* bs,
-                                        int tx, int ty) {
-#pragma unroll 8
-  for (int k = 0; k < kK; ++k) {
-    float a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = as[(ty + 16 * i) * kF32S + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = bs[(tx + 16 * j) * kF32S + k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+template <int TK>
+struct Tf32Layout {
+  static constexpr int kTS = TK + 4;      // staged row stride (words): 32 banks for either read order
+  static constexpr int kSubN8 = TK / 8;   // n8 tiles of a slice
+  static constexpr int kStages = TK == 32 ? 2 : 3;  // staging buffers
+  static constexpr int kStageWords = 3 * kRows * kTS;  // a buffer: A as copied, B hi, B lo
+  // Dynamic shared memory of a block whose groups hold `subs` slices: the
+  // staging buffers, [4 warps][subs][kSubN8 n8 tiles][32 lanes] float4
+  // accumulators, the forward's row statistics.
+  static size_t smem(int subs) {
+    return (kStages * kStageWords +
+            static_cast<size_t>(kTf32Threads / 32) * subs * kSubN8 * 32 * 4 + kStatWords) *
+           sizeof(float);
+  }
+};
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Step j of a tile for a block whose group starts at output column c0:
+// the score chunks of cbar (kcb), the dp chunks of C (kcc, with_dp), then
+// the group's V slices.
+template <Mode M, int kTK>
+__device__ __forceinline__ Step<float> tf32_step(const Args<float>& p, int j, int kcb, int kcc,
+                                                 bool with_dp, bool dh_group, int c0) {
+  const float *own_s = M == kDkv ? p.g : p.f, *other_s = M == kDkv ? p.f : p.g;
+  const int64_t own_s_sn = M == kDkv ? p.g_sn : p.f_sn, other_s_sn = M == kDkv ? p.f_sn : p.g_sn;
+  if (j < kcb) return {own_s, own_s_sn, p.cbar, other_s, other_s_sn, p.cbar, kTK * j, false};
+  j -= kcb;
+  if (with_dp && j < kcc) {
+    if (M == kDq) return {p.dout, p.do_sn, p.c, p.h, p.h_sn, p.c, kTK * j, false};
+    return {p.h, p.h_sn, p.c, p.dout, p.do_sn, p.c, kTK * j, false};
+  }
+  const int v0 = c0 + kTK * (j - (with_dp ? kcc : 0));
+  if (M == kFwd) return {nullptr, 0, 0, p.h, p.h_sn, p.c, v0, true};
+  if (M == kDq) return {nullptr, 0, 0, p.g, p.g_sn, p.cbar, v0, true};
+  if (!dh_group) return {nullptr, 0, 0, p.f, p.f_sn, p.cbar, v0, true};
+  return {nullptr, 0, 0, p.dout, p.do_sn, p.c, v0, true};
+}
+
+// Rows [r0, r0 + 64), columns [c0, c0 + kTK) of a row-major fp32 [n,
+// width] matrix into tile[64][kTS], zero filled past n and width: 16-byte
+// cp.async copies where `vec` (width, the row stride and the matrix
+// 16-byte multiples), else element by element. A thread's items are the
+// ones split_chunk splits.
+template <int kTK, int kTS = kTK + 4>
+__device__ __forceinline__ void copy_chunk(float* tile, const float* src, int r0, int c0, int n,
+                                           int width, int64_t sn, bool vec, int tid) {
+  if (vec) {
+    for (int i = tid; i < kRows * kTK / 4; i += kTf32Threads) {
+      const int r = i / (kTK / 4), col = c0 + 4 * (i % (kTK / 4)), row = r0 + r;
+      const bool in = row < n && col < width;
+      flash_mma::cp_async16(tile + r * kTS + 4 * (i % (kTK / 4)),
+                            in ? src + row * sn + col : src, in ? 16 : 0);
     }
+    return;
+  }
+  for (int i = tid; i < kRows * kTK; i += kTf32Threads) {
+    const int r = i / kTK, col = c0 + i % kTK, row = r0 + r;
+    tile[r * kTS + i % kTK] = row < n && col < width ? src[row * sn + col] : 0.f;
   }
 }
 
-template <Mode M>
-__global__ void __launch_bounds__(kF32Threads) wide_fp32_kernel(Args<float> p) {
-  extern __shared__ float smem_f[];
-  float* as = smem_f;               // A's chunk, then P or ds on the last step
-  float* bs = smem_f + kRows * kF32S;  // B's chunk, then V
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// This thread's items of a copied chunk, split: hi over the copy, lo into
+// `lo` at the same place.
+template <int kTK, int kTS = kTK + 4>
+__device__ __forceinline__ void split_chunk(uint32_t* hi, uint32_t* lo, bool vec, int tid) {
+  using namespace flash_mma;
+  if (vec) {
+    for (int i = tid; i < kRows * kTK / 4; i += kTf32Threads) {
+      const int at = (i / (kTK / 4)) * kTS + 4 * (i % (kTK / 4));
+      const float4 v = *reinterpret_cast<const float4*>(hi + at);
+      const Tf32Split s0 = split_tf32(v.x), s1 = split_tf32(v.y), s2 = split_tf32(v.z),
+                      s3 = split_tf32(v.w);
+      *reinterpret_cast<uint4*>(hi + at) = make_uint4(s0.hi, s1.hi, s2.hi, s3.hi);
+      *reinterpret_cast<uint4*>(lo + at) = make_uint4(s0.lo, s1.lo, s2.lo, s3.lo);
+    }
+    return;
+  }
+  for (int i = tid; i < kRows * kTK; i += kTf32Threads) {
+    const int at = (i / kTK) * kTS + i % kTK;
+    const Tf32Split s = split_tf32(__uint_as_float(hi[at]));
+    hi[at] = s.hi;
+    lo[at] = s.lo;
+  }
+}
+
+// `p` of the cluster's block `rank` (this block's own when splits is 1).
+template <typename T>
+__device__ __forceinline__ T* peer(T* p, int rank, int splits) {
+  if (splits == 1) return p;
+  return cooperative_groups::this_cluster().map_shared_rank(p, rank);
+}
+
+__device__ __forceinline__ void cluster_sync(int splits) {
+  if (splits > 1) {
+    cooperative_groups::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// gridDim: x = 64-row blocks of the own side times `splits` (a cluster
+// along x: blockIdx.x % splits is the rank, which takes tiles [rank ntiles
+// / splits, (rank + 1) ntiles / splits)), y = batch, z = output groups of
+// `subs` slices: o's of C (forward); df's of cbar (dq); dg's of cbar, then
+// dh's of C (dkv).
+template <Mode M, int kTK>
+__global__ void __launch_bounds__(kTf32Threads, 1) wide_tf32_kernel(Args<float> p, int splits,
+                                                                    int subs, bool vec) {
+  using namespace flash_mma;
+  using L = Tf32Layout<kTK>;
+  constexpr int kTS = L::kTS, kSubN8 = L::kSubN8, kStages = L::kStages;
+  constexpr int kStageWords = L::kStageWords;
+  extern __shared__ __align__(16) float smem_t[];
+  float* stage_buf = smem_t;  // [kStages][A, B hi, B lo][kRows][kTS]
+  float4* accs = reinterpret_cast<float4*>(smem_t + kStages * kStageWords);
+  float* stats = smem_t + kStages * kStageWords + (kTf32Threads / 32) * subs * kSubN8 * 32 * 4;
+  float* weights = stats + 2 * kRows;                 // [splits][kRows]
+  float* inv_l = weights + kMaxSplits * kRows;        // [kRows]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, grp = lane / 4, tig = lane % 4;
   const int b = blockIdx.y, z = blockIdx.z;
-  const int r0 = blockIdx.x * kRows;
+  const int rank = blockIdx.x % splits, r0 = (blockIdx.x / splits) * kRows;
   const int n = p.n;
-  const int kcb = (p.cbar + kK - 1) / kK, kcc = (p.c + kK - 1) / kK;
-  const bool with_dp = M == kDq || (M == kDkv && z < kcb);
-  const int spt = kcb + (with_dp ? kcc : 0) + 1;
-  const int ntiles = (n + kTileN - 1) / kTileN;
+  const int group = kTK * subs;  // output columns a group
+  const int kcb = cdiv(p.cbar, kTK), kcc = cdiv(p.c, kTK);
+  const int kdg = cdiv(p.cbar, group);  // dkv: dg's groups, then dh's
+  const bool dh_group = M == kDkv && z >= kdg;
+  const bool with_dp = M == kDq || (M == kDkv && !dh_group);
+  const int width = M == kFwd || dh_group ? p.c : p.cbar;  // of the group's output
+  const int c0 = group * (dh_group ? z - kdg : z);
+  const int gw = min(group, width - c0), nsub = cdiv(gw, kTK);
+  const int kprod = kcb + (with_dp ? kcc : 0);  // score and dp chunks a tile
+  const int spt = kprod + nsub;
+  const int ntiles = cdiv(n, kTileN);
+  const int t_begin = rank * ntiles / splits, t_end = (rank + 1) * ntiles / splits;
   p.f += b * p.f_sb;
   p.g += b * p.g_sb;
   p.h += b * p.h_sb;
@@ -402,141 +556,371 @@ __global__ void __launch_bounds__(kF32Threads) wide_fp32_kernel(Args<float> p) {
     p.lse += b * p.row_sb;
     p.delta += b * p.row_sb;
   }
-  float lr[4] = {0.f, 0.f, 0.f, 0.f}, dr[4] = {0.f, 0.f, 0.f, 0.f};  // dq: own rows' lse, delta
-  if (M == kDq) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + ty + 16 * i;
-      lr[i] = row < n ? p.lse[row] : 0.f;
-      dr[i] = row < n ? p.delta[row] : 0.f;
-    }
-  }
-  float s[4][4] = {}, dp[4][4] = {}, out[4][4] = {};
-  float m_run[4], l_run[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m_run[i] = -INFINITY, l_run[i] = 0.f;
 
-  auto load = [&](float* dst, const float* src, int rr, int c0, int width, int64_t sn) {
-    for (int i = tid; i < kRows * kK; i += kF32Threads) {
-      const int r = i / kK, col = c0 + i % kK, row = rr + r;
-      dst[r * kF32S + i % kK] = row < n && col < width ? src[row * sn + col] : 0.f;
-    }
+  // The thread's two own rows (grp and grp + 8 of its warp's 16).
+  const int lr0 = 16 * warp + grp, row0 = r0 + lr0, row1 = row0 + 8;
+  float l0 = 0.f, l1 = 0.f, d0 = 0.f, d1 = 0.f;  // dq: lse log2e and delta of the rows
+  if (M == kDq) {
+    l0 = row0 < n ? p.lse[row0] * kLog2e : 0.f;
+    l1 = row1 < n ? p.lse[row1] * kLog2e : 0.f;
+    d0 = row0 < n ? p.delta[row0] : 0.f;
+    d1 = row1 < n ? p.delta[row1] : 0.f;
+  }
+  // The warp's accumulators of slice `sub`: its n8 tiles' four values a lane.
+  auto acc_of = [&](int sub) { return accs + ((warp * subs + sub) * kSubN8) * 32 + lane; };
+  for (int sub = 0; sub < nsub; ++sub) {
+#pragma unroll
+    for (int jj = 0; jj < kSubN8; ++jj) acc_of(sub)[jj * 32] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  float s[8][4], dp[8][4], part[8][4];  // 16 rows x 64 tile columns (s, dp, a chunk's)
+  zero(s);
+  zero(dp);
+  Tf32Frag pa[8];  // P or ds as the last product's A fragments, split
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, scale[2] = {1.f, 1.f};
+
+  auto stage = [&](int gs) {
+    const int t = t_begin + gs / spt;
+    const Step<float> st = tf32_step<M, kTK>(p, gs % spt, kcb, kcc, with_dp, dh_group, c0);
+    float* buf = stage_buf + (gs % kStages) * kStageWords;
+    if (st.a) copy_chunk<kTK>(buf, st.a, r0, st.c0, n, st.a_width, st.a_sn, vec, tid);
+    copy_chunk<kTK>(buf + kRows * kTS, st.b, t * kTileN, st.c0, n, st.b_width, st.b_sn, vec,
+                    tid);
   };
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int o0 = t * kTileN;
-    for (int j = 0; j < spt; ++j) {
-      const Step<float> st = step_of<M>(p, j, z, kcb, kcc, with_dp);
-      __syncthreads();  // every thread is done with the previous step's tiles
-      if (st.a) load(as, st.a, r0, st.c0, st.a_width, st.a_sn);
-      load(bs, st.b, o0, st.c0, st.b_width, st.b_sn);
-      __syncthreads();
-      if (!st.last) {
-        if (j < kcb) {
-          fma_abt(s, as, bs, tx, ty);
-        } else {
-          fma_abt(dp, as, bs, tx, ty);
+  const int total = (t_end - t_begin) * spt;
+  for (int gs = 0; gs < kStages - 1; ++gs) {  // the first steps' copies, one group each
+    if (gs < total) stage(gs);
+    cp_async_commit();
+  }
+  for (int gs = 0; gs < total; ++gs) {
+    const float* at = stage_buf + (gs % kStages) * kStageWords;
+    uint32_t* bh = reinterpret_cast<uint32_t*>(stage_buf + (gs % kStages) * kStageWords +
+                                               kRows * kTS);
+    uint32_t* bl = bh + kRows * kTS;
+    cp_async_wait<kStages - 2>();   // this thread's copies of step gs have landed ...
+    split_chunk<kTK>(bh, bl, vec, tid);  // ... and are split in place
+    __syncthreads();  // every thread's; step gs - 1, whose buffer the next copy takes, is retired
+    if (gs + kStages - 1 < total) stage(gs + kStages - 1);
+    cp_async_commit();
+    const int t = t_begin + gs / spt, j = gs % spt;
+    if (j < kprod) {
+      // A score or dp chunk: 16 rows x 64 tile columns over kTK k, into
+      // fresh accumulators, then added in fp32.
+      zero(part);
+#pragma unroll
+      for (int ks = 0; ks < kTK / 8; ++ks) {
+        const float* a = at + lr0 * kTS + 8 * ks + tig;
+        const Tf32Frag af = split_frag(a[0], a[8 * kTS], a[4], a[8 * kTS + 4]);
+        uint32_t bhr[8][2], blr[8][2];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {  // b0: k tig, b1: k tig + 4; column grp of tile jj
+          const int o = (8 * jj + grp) * kTS + 8 * ks + tig;
+          bhr[jj][0] = bh[o];
+          bhr[jj][1] = bh[o + 4];
+          blr[jj][0] = bl[o];
+          blr[jj][1] = bl[o + 4];
         }
-        continue;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) mma1688_tf32(part[jj], af.lo, bhr[jj][0], bhr[jj][1]);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) mma1688_tf32(part[jj], af.hi, blr[jj][0], blr[jj][1]);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) mma1688_tf32(part[jj], af.hi, bhr[jj][0], bhr[jj][1]);
       }
-      // The last step: P (or ds) into `as`, then out += P V.
-      if (M == kFwd) {
+      if (j < kcb) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float mx = m_run[i];
+        for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            if (o0 + tx + 16 * jj >= n) s[i][jj] = -INFINITY;
-            mx = fmaxf(mx, s[i][jj]);
-          }
-#pragma unroll
-          for (int off = 1; off < 16; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-          const float scale = __expf(m_run[i] - mx);
-          float tsum = 0.f;
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            s[i][jj] = __expf(s[i][jj] - mx);
-            tsum += s[i][jj];
-            out[i][jj] *= scale;
-          }
-          l_run[i] = fmaf(l_run[i], scale, tsum);
-          m_run[i] = mx;
+          for (int e = 0; e < 4; ++e) s[jj][e] += part[jj][e];
         }
       } else {
-        const bool dg_slice = M == kDq || with_dp;
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int q = o0 + tx + 16 * jj;
-          const float lq = M == kDkv && q < n ? p.lse[q] : 0.f;
-          const float dq = M == kDkv && q < n && dg_slice ? p.delta[q] : 0.f;
+        for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pe = q < n ? __expf(s[i][jj] - (M == kDq ? lr[i] : lq)) : 0.f;
-            s[i][jj] = dg_slice ? pe * (dp[i][jj] - (M == kDq ? dr[i] : dq)) : pe;
+          for (int e = 0; e < 4; ++e) dp[jj][e] += part[jj][e];
+        }
+      }
+      continue;
+    }
+    const int sub = j - kprod;
+    if (sub == 0) {
+      // The tile's probabilities (or ds), once, into A fragments.
+      const int o0 = t * kTileN;  // the tile's first other-side row
+      if (M == kFwd) {
+        // Online softmax. Keys past N score -inf; the tile's first key is
+        // inside N, so the new max is finite.
+        float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (o0 + 8 * jj + 2 * tig + (e & 1) >= n) s[jj][e] = -INFINITY;
+            mx[e / 2] = fmaxf(mx[e / 2], s[jj][e]);
+          }
+        }
+        float msc[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          scale[r] = ex2((m_run[r] - mx[r]) * kLog2e);
+          msc[r] = mx[r] * kLog2e;
+          m_run[r] = mx[r];
+        }
+        float tsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[jj][e] = ex2(fmaf(s[jj][e], kLog2e, -msc[e / 2]));
+            tsum[e / 2] += s[jj][e];
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l_run[r] = fmaf(l_run[r], scale[r], tsum[r]);
+      } else {
+        // p = 2^(s log2e - lse log2e), 0 past N; dq's lse is its own rows',
+        // dkv's the tile's (the queries, by column).
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int q = o0 + 8 * jj + 2 * tig;
+          float lq[2] = {l0, l1}, dq[2] = {d0, d1};
+          if (M == kDkv) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              lq[e] = q + e < n ? p.lse[q + e] * kLog2e : 0.f;
+              dq[e] = q + e < n && with_dp ? p.delta[q + e] : 0.f;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            // dq: rows e / 2 of the thread; dkv: columns e & 1.
+            const float l = M == kDq ? lq[e / 2] : lq[e & 1];
+            const float d = M == kDq ? dq[e / 2] : dq[e & 1];
+            const float pe = q + (e & 1) < n ? ex2(fmaf(s[jj][e], kLog2e, -l)) : 0.f;
+            s[jj][e] = with_dp ? pe * (dp[jj][e] - d) : pe;
           }
         }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int kk = 0; kk < 8; ++kk) pa[kk] = split_frag(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      zero(s);
+      zero(dp);
+    }
+    // The slice's product of the tile into fresh accumulators: V read at
+    // keys 8 kk + 2 tig and + 1 (the permuted k order of P's fragments).
+    zero(part);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) as[(ty + 16 * i) * kF32S + tx + 16 * jj] = s[i][jj];
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t bhr[kSubN8][2], blr[kSubN8][2];
+#pragma unroll
+      for (int jj = 0; jj < kSubN8; ++jj) {
+        const int o = (8 * kk + 2 * tig) * kTS + 8 * jj + grp;
+        bhr[jj][0] = bh[o];
+        bhr[jj][1] = bh[o + kTS];
+        blr[jj][0] = bl[o];
+        blr[jj][1] = bl[o + kTS];
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kTileN; ++k) {
-        float a[4], v[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = as[(ty + 16 * i) * kF32S + k];
+      for (int jj = 0; jj < kSubN8; ++jj) mma1688_tf32(part[jj], pa[kk].lo, bhr[jj][0], bhr[jj][1]);
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) v[jj] = bs[k * kF32S + tx + 16 * jj];
+      for (int jj = 0; jj < kSubN8; ++jj) mma1688_tf32(part[jj], pa[kk].hi, blr[jj][0], blr[jj][1]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+      for (int jj = 0; jj < kSubN8; ++jj) mma1688_tf32(part[jj], pa[kk].hi, bhr[jj][0], bhr[jj][1]);
+    }
+    // Added to the group's accumulators in fp32 (the forward's rescaled).
+    float4* acc = acc_of(sub);
 #pragma unroll
-          for (int jj = 0; jj < 4; ++jj) out[i][jj] = fmaf(a[i], v[jj], out[i][jj]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
-      }
+    for (int jj = 0; jj < kSubN8; ++jj) {
+      float4 v = acc[jj * 32];
+      v.x = fmaf(v.x, scale[0], part[jj][0]);
+      v.y = fmaf(v.y, scale[0], part[jj][1]);
+      v.z = fmaf(v.z, scale[1], part[jj][2]);
+      v.w = fmaf(v.w, scale[1], part[jj][3]);
+      acc[jj * 32] = v;
     }
   }
 
-  float* ob = M == kDkv && z >= kcb ? p.out1 + b * p.o1_sb : p.out0 + b * p.o0_sb;
-  const int64_t osn = M == kDkv && z >= kcb ? p.o1_sn : p.o0_sn;
-  const int width = M == kFwd || (M == kDkv && z >= kcb) ? p.c : p.cbar;
-  const int c0 = kK * (M == kDkv && z >= kcb ? z - kcb : z);
+  // Epilogue. The forward's row states (m, l summed over the row's lanes).
+  if (M == kFwd) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty + 16 * i;
-    float inv = 1.f;
-    if (M == kFwd) {
-      float l = l_run[i];
-#pragma unroll
-      for (int off = 1; off < 16; off *= 2) l += __shfl_xor_sync(0xffffffffu, l, off);
-      inv = 1.f / l;
-      if (z == 0 && tx == 0 && row < n) p.lse_out[b * p.lse_sb + row] = m_run[i] + logf(l);
-    }
-    if (row >= n) continue;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int col = c0 + tx + 16 * jj;
-      if (col < width) ob[row * osn + col] = out[i][jj] * inv;
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (tig == 0) {
+        stats[lr0 + 8 * r] = m_run[r];
+        stats[kRows + lr0 + 8 * r] = l;
+      }
     }
   }
+  cluster_sync(splits);  // every block's accumulators and states are in place
+  if (M == kFwd && tid < kRows) {  // each row's merge of the blocks' softmax states
+    float mm = -INFINITY;
+    for (int k = 0; k < splits; ++k) mm = fmaxf(mm, peer(stats, k, splits)[tid]);
+    float l = 0.f;
+    for (int k = 0; k < splits; ++k) {
+      const float* st = peer(stats, k, splits);
+      const float w = ex2((st[tid] - mm) * kLog2e);
+      weights[k * kRows + tid] = w;
+      l = fmaf(w, st[kRows + tid], l);
+    }
+    inv_l[tid] = 1.f / l;
+    if (z == 0 && rank == 0 && r0 + tid < n) p.lse_out[b * p.lse_sb + r0 + tid] = mm + logf(l);
+  }
+  if (M == kFwd) __syncthreads();
+  // The block's share of the accumulators (a float4 is one lane's n8 tile:
+  // rows grp and grp + 8, columns 2 tig and + 1), summed over the cluster's
+  // blocks in rank order and written once. The peers' loads are issued
+  // together (unrolled to the largest cluster), not one after another.
+  float* ob = dh_group ? p.out1 + b * p.o1_sb : p.out0 + b * p.o0_sb;
+  const int64_t osn = dh_group ? p.o1_sn : p.o0_sn;
+  const float4* srcs[kMaxSplits];
+#pragma unroll
+  for (int k = 0; k < kMaxSplits; ++k) srcs[k] = k < splits ? peer(accs, k, splits) : accs;
+  const int units = (kTf32Threads / 32) * subs * kSubN8 * 32;
+  for (int u = rank * units / splits + tid; u < (rank + 1) * units / splits; u += kTf32Threads) {
+    const int ln = u % 32, jj = (u / 32) % kSubN8, sub = (u / (32 * kSubN8)) % subs;
+    const int w = u / (32 * kSubN8 * subs);
+    const int col = kTK * sub + 8 * jj + 2 * (ln % 4), r = 16 * w + ln / 4;
+    if (col >= gw) continue;
+    float4 a[kMaxSplits];
+#pragma unroll
+    for (int k = 0; k < kMaxSplits; ++k) {
+      if (k < splits) a[k] = srcs[k][u];
+    }
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < kMaxSplits; ++k) {
+      if (k < splits) {
+        if (M == kFwd) {
+          const float w0 = weights[k * kRows + r], w1 = weights[k * kRows + r + 8];
+          v[0] = fmaf(w0, a[k].x, v[0]);
+          v[1] = fmaf(w0, a[k].y, v[1]);
+          v[2] = fmaf(w1, a[k].z, v[2]);
+          v[3] = fmaf(w1, a[k].w, v[3]);
+        } else {
+          v[0] += a[k].x;
+          v[1] += a[k].y;
+          v[2] += a[k].z;
+          v[3] += a[k].w;
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + r + 8 * (e / 2), c = col + (e & 1);
+      if (row < n && c < gw) ob[row * osn + c0 + c] = M == kFwd ? v[e] * inv_l[r + 8 * (e / 2)] : v[e];
+    }
+  }
+  if (splits > 1) cooperative_groups::this_cluster().sync();  // no block reads another's after
+}
+
+// The launch's plan: the chunk width, the slices of a group, the groups,
+// and the split of the other side's tiles.
+struct Tf32Plan {
+  int tk, subs, groups, splits;
+};
+
+template <Mode M>
+Tf32Plan plan_tf32(int batch, int n, int cbar, int c, int sms) {
+  Tf32Plan plan;
+  // 192-column groups of 32-column slices let two blocks share an SM; dq
+  // and dkv take 256-column groups of 64-column slices where cbar needs
+  // more, so that dp is computed once.
+  const int widest = M == kFwd ? c : M == kDq ? cbar : max(cbar, c);
+  plan.tk = M != kFwd && cbar > kPairCols ? 64 : 32;
+  const int kTK = plan.tk;
+  const int rows = cdiv(n, kRows), ntiles = cdiv(n, kTileN);
+  plan.subs = min(cdiv(widest, kTK), (kTK == 64 ? kGroupCols : kPairCols) / kTK);
+  // The forward recomputes only s (cbar of C's columns) a group: at a small
+  // N it takes narrower groups, 4 or 2 slices, where 6 leave block slots
+  // empty however its tiles are split.
+  while (M == kFwd && plan.subs > 2 &&
+         static_cast<int64_t>(rows) * batch * cdiv(c, kTK * plan.subs) * min(kMaxSplits, ntiles) <
+             2 * static_cast<int64_t>(sms)) {
+    plan.subs -= 2;
+  }
+  const int group = kTK * plan.subs;
+  const int kdg = cdiv(cbar, group), kdh = cdiv(c, group);
+  plan.groups = M == kFwd ? kdh : M == kDq ? kdg : kdg + kdh;
+  // Steps a tile of each group: the longest, and the sum over the groups.
+  const int kcb = cdiv(cbar, kTK), kcc = cdiv(c, kTK);
+  int spt_max = 0;
+  int64_t spt_sum = 0;
+  for (int z = 0; z < plan.groups; ++z) {
+    const bool dh = M == kFwd || (M == kDkv && z >= kdg);
+    const int width = dh ? c : cbar, c0 = group * (M == kDkv && dh ? z - kdg : z);
+    const int spt = kcb + (dh ? 0 : kcc) + cdiv(min(group, width - c0), kTK);
+    spt_max = max(spt_max, spt);
+    spt_sum += spt;
+  }
+  // The fewest splits (a power of two, at most a cluster and the tiles)
+  // that fill every block slot of the card and leave no block's chain of
+  // steps longer than a slot's share of them all (dkv's dg groups also
+  // take dp, and their chains are the longest).
+  const size_t smem = kTK == 64 ? Tf32Layout<64>::smem(plan.subs) : Tf32Layout<32>::smem(plan.subs);
+  const int64_t slots = static_cast<int64_t>(sms) * (smem <= kPairSmem ? 2 : 1);
+  const int64_t steps = static_cast<int64_t>(rows) * batch * ntiles * spt_sum;
+  plan.splits = 1;
+  while (2 * plan.splits <= min(kMaxSplits, ntiles) &&
+         (static_cast<int64_t>(rows) * batch * plan.groups * plan.splits < slots ||
+          static_cast<int64_t>(spt_max) * cdiv(ntiles, plan.splits) * slots > steps)) {
+    plan.splits *= 2;
+  }
+  return plan;
+}
+
+template <Mode M, int kTK>
+cudaError_t launch_tf32_layout(const Args<float>& p, int batch, bool vec, const Tf32Plan& plan,
+                               cudaStream_t stream) {
+  using L = Tf32Layout<kTK>;
+  const int rows = cdiv(p.n, kRows);
+  if (plan.groups > 65535 || static_cast<int64_t>(rows) * plan.splits > INT32_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = wide_tf32_kernel<M, kTK>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::smem((kTK == 64 ? kGroupCols : kPairCols) / kTK)));
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(rows * plan.splits), batch, plan.groups);
+  config.blockDim = dim3(kTf32Threads);
+  config.dynamicSmemBytes = L::smem(plan.subs);
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = plan.splits;  // a row block's splits, one cluster
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = plan.splits > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&config, kernel, p, plan.splits, plan.subs, vec);
+}
+
+template <Mode M>
+cudaError_t launch_tf32(const Args<float>& p, int batch, bool vec, cudaStream_t stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const Tf32Plan plan = plan_tf32<M>(batch, p.n, p.cbar, p.c, sms);
+  if constexpr (M != kFwd) {  // the forward's groups are all 32-column slices
+    if (plan.tk == 64) return launch_tf32_layout<M, 64>(p, batch, vec, plan, stream);
+  }
+  return launch_tf32_layout<M, 32>(p, batch, vec, plan, stream);
 }
 
 inline bool aligned16(const void* q) { return reinterpret_cast<uintptr_t>(q) % 16 == 0; }
 
-// Launch mode M on `dtype`'s variant (0 fp32, 1 bf16); the grid's z is the
-// output slices.
+// Launch mode M on `dtype`'s variant (0 fp32: the TF32 one; 1 bf16: the
+// tensor-core one); the grid's z is the output slices (bf16) or groups
+// (fp32).
 template <Mode M>
 cudaError_t launch(const void* const* in, void* out0, void* out1, void* lse_out, int dtype,
                    int batch, int n, int cbar, int c, const int64_t* st, cudaStream_t stream) {
-  const int z = slices(M, cbar, c);
-  if (z > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((n + kRows - 1) / kRows, batch, z);
   if (dtype == 0) {
     Args<float> p = {static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
                      static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
@@ -545,9 +929,16 @@ cudaError_t launch(const void* const* in, void* out0, void* out1, void* lse_out,
                      static_cast<float*>(lse_out), n, cbar, c,
                      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
                      st[9], st[10], st[11], st[12], st[13]};
-    wide_fp32_kernel<M><<<grid, kF32Threads, kF32Smem, stream>>>(p);
-    return cudaGetLastError();
+    // 16-byte staging copies: every input row 16-byte aligned.
+    bool vec = cbar % 4 == 0 && c % 4 == 0;
+    for (int i = 0; i < 4; ++i) vec = vec && (!in[i] || aligned16(in[i]));
+    for (int i = 0; i < 8; ++i) vec = vec && st[i] % 4 == 0;
+    const cudaError_t err = launch_tf32<M>(p, batch, vec, stream);
+    return err != cudaSuccess ? err : cudaGetLastError();
   }
+  const int z = slices(M, cbar, c);
+  if (z > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((n + kRows - 1) / kRows, batch, z);
   Args<bf16> p = {static_cast<const bf16*>(in[0]), static_cast<const bf16*>(in[1]),
                   static_cast<const bf16*>(in[2]), static_cast<const bf16*>(in[3]),
                   static_cast<const float*>(in[4]), static_cast<const float*>(in[5]),
@@ -565,4 +956,5 @@ cudaError_t launch(const void* const* in, void* out0, void* out1, void* lse_out,
   return cudaGetLastError();
 }
 
+}  // namespace
 }  // namespace flash_wide

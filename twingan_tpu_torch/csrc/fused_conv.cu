@@ -16,20 +16,38 @@
 // VMEM; here a block holds up to kCoutTile = 1024 output channels (every
 // width of the PGGAN generator's schedule, 1024 // 2^stage). The pixel norm
 // needs the sum of squares over every channel of a pixel before any channel
-// is written, so a wider layer (min_channels above 1024) takes two passes:
-//  1. the grid also runs over tiles of output channels (bf16: 1024; fp32:
-//     256, whose block of 32 pixels keeps its accumulators in registers and
-//     reads each weight for 32 pixels, where a 1024-channel block has 16);
-//     each block applies bias and leaky to its tile and writes the fp32
-//     values to a workspace and its pixels' sums of squares over the tile
-//     to `ssq` [tiles][B][H W], both allocated by the caller (the
-//     workspace is y itself when y is fp32; ssq has room for
-//     ceil(Cout / kPassTile) tiles, the narrowest);
-//  2. `pixel_norm_pass` adds each pixel's tile sums in tile order (fixed:
-//     deterministic), scales the fp32 values and rounds y once.
-// The products and sums are those of the one-pass kernel: only the order of
-// the sum of squares' additions differs. The second pass reads and writes
-// the layer's output once more (bytes, not products).
+// is written. A wider layer (min_channels above 1024) is cut into channel
+// tiles of kChannelTile = 256 (a block of 64 pixels in bf16, 32 in fp32,
+// 16 at images of 16 pixels or fewer), and the channel tiles of one pixel
+// tile form one thread-block cluster (blockIdx.x: channel tile fastest):
+//  - one pass up to kOnePassWidth = 8 tiles (2048 channels): each block
+//    applies bias and leaky to its tile, leaves its pixels' sums of squares
+//    over the tile in its shared memory, and after cluster.sync() adds
+//    every block's sums in rank order through distributed shared memory
+//    (fixed: deterministic, no atomics), scales its own channels and rounds
+//    them once. No workspace, no second kernel. The channel tiles of a
+//    cluster are 8 at most, the portable size: 2048 channels cover the
+//    widest layer the JAX package's configs are run at here (min_channels
+//    2048), and 16 tiles (non-portable) would need 16 free SMs of one GPC
+//    for every pixel tile of a large image. At 16 pixels or fewer (1 pixel
+//    tile an image, 10-16 blocks at batch 2) the cluster also splits K, up
+//    to 16 blocks (non-portable; fewer where the card holds no such
+//    cluster, cudaOccupancyMaxActiveClusters), each split's partial sums
+//    added in rank order before the tiles' sums of squares;
+//  - past 2048 channels, two passes, a route of their own (the wrapper
+//    counts it): each block writes its tile's fp32 values to a workspace
+//    and its pixels' sums of squares to `ssq` [tiles][B][H W], both
+//    allocated by the caller (the workspace is y itself when y is fp32),
+//    then `pixel_norm_pass` adds each pixel's tile sums in tile order,
+//    scales the fp32 values and rounds y once.
+// The products and sums are those of the narrow kernel: only the order of
+// the sum of squares' additions differs. Weights: a block stages its
+// tile's 9 Cin x 256 weights (fp32) once for its pixels, and the blocks that
+// share a channel tile (one a cluster) run side by side in the raster, so
+// the layer's weights stream from device memory about once a wave and the
+// rest from L2. At Cout 2048, 32 px, B 2 (bf16) the blocks stage 4.8 GB of
+// weights (256 blocks of 64 pixels, 18.9 MB each), where 1024-channel blocks
+// of 16 pixels staged 19.3 GB.
 //
 // One kernel, `fused_conv_mma_kernel<T, ...>`, in two variants chosen by
 // x's type T: an implicit GEMM [B H W pixels, 9 Cin] x [9 Cin, Cout] on the
@@ -108,12 +126,17 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// Output channels a block holds (the widest config's N). Wider layers take
-// two passes.
+// Output channels a block holds (the widest config's N). Wider layers are
+// cut into channel tiles of kChannelTile, one pass up to kOnePassWidth (a
+// cluster of kMaxCluster tiles), two passes past it (the caller's ssq holds
+// ceil(Cout / kChannelTile) tiles).
 constexpr int kCoutTile = 1024;
-// The narrowest channel tile of a two-pass layer: the caller's ssq holds
-// ceil(Cout / kPassTile) tiles.
-constexpr int kPassTile = 256;
+constexpr int kChannelTile = 256;
+constexpr int kMaxCluster = 8;  // blocks of a cluster: split-K or channel tiles (portable)
+constexpr int kOnePassWidth = kMaxCluster * kChannelTile;
+// A one-pass cluster of channel tiles also takes splits of K, up to 16
+// blocks (non-portable) where the pixel tiles leave SMs idle (4-16 px).
+constexpr int kMaxWideCluster = 16;
 constexpr float kSlope = 0.2f;
 constexpr float kEps = 1e-6f;
 
@@ -162,7 +185,6 @@ cudaError_t launch_pixel_norm_pass(const float* ws, const float* ssq, void* y, i
 // The implicit GEMM (bf16: tensor-core variant; fp32: TF32 variant).
 
 constexpr int kThreads = 256;    // 8 warps
-constexpr int kMaxSplits = 8;  // the splits of a tile form a cluster: 8 blocks at most
 
 // The staged halo tile's positions at most, for a block of M pixels; the
 // host picks tile shapes within it.
@@ -193,15 +215,17 @@ struct Cfg {
   static constexpr size_t pos_bytes = (kF32 ? 2 : 1) * XS * sizeof(T);
   static constexpr size_t raw_pos_bytes = kF32 ? 8 * sizeof(float) : 0;
   static constexpr int YS = M + 16 / static_cast<int>(sizeof(T));  // y tile row stride
-  static constexpr size_t epi_bytes = WN * M * sizeof(float) + N * YS * sizeof(T);
+  // the warps' row sums [WN][M], the y tile [N][YS], the block's row sums [M]
+  static constexpr size_t epi_bytes = WN * M * sizeof(float) + N * YS * sizeof(T) +
+                                      M * sizeof(float);
   static constexpr int PS = N + 4;  // row stride (floats) of the split-K partial sums
   // Shared memory for a halo tile of `npos` positions, one x buffer or two,
   // and `splits` blocks a tile: the partial sums [M][PS], then this
-  // block's rows of the sum [rows][PS] and their scales.
+  // block's rows of the sum [rows][PS], their sums of squares and scales.
   static constexpr size_t smem(int npos, int xbufs, int splits) {
     const size_t main = raw_bytes + w_bytes + xbufs * npos * pos_bytes + npos * raw_pos_bytes;
     const size_t rows = (M + splits - 1) / splits;
-    const size_t reduce = splits > 1 ? ((M + rows) * PS + rows) * sizeof(float) : 0;
+    const size_t reduce = splits > 1 ? ((M + rows) * PS + 2 * rows) * sizeof(float) : 0;
     const size_t most = main > epi_bytes ? main : epi_bytes;
     return most > reduce ? most : reduce;
   }
@@ -209,11 +233,12 @@ struct Cfg {
 
 // How a launch cuts the work: TH x TW pixel tiles, tiles_w of them along
 // W and tiles_img in an image; Cin in nchunks chunks of KC,
-// chunks_per_split of them a block along blockIdx.z. blockIdx.x is the
-// pixel tile plus tiles_img times the tile of N output channels (one tile
-// up to kCoutTile).
+// chunks_per_split of them a block along blockIdx.z; ctiles tiles of N
+// output channels (one up to kCoutTile), of which `cluster_ct` form a
+// cluster (ctiles in one pass, 1 in two). blockIdx.x is the channel tile
+// plus ctiles times the pixel tile.
 struct Tile {
-  int th, tw, tiles_w, tiles_img, nchunks, chunks_per_split;
+  int th, tw, tiles_w, tiles_img, nchunks, chunks_per_split, ctiles, cluster_ct;
 };
 
 template <typename T, int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
@@ -238,8 +263,8 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   const int grp = lane / 4, tig = lane % 4, mi = lane / 8, mr = lane % 8;
   const int warp_m = warp % WM, warp_n = warp / WM;
   const int b = blockIdx.y;
-  const int ptile = blockIdx.x % tile.tiles_img;
-  const int n0 = (blockIdx.x / tile.tiles_img) * N;  // the block's first output channel
+  const int ctile = blockIdx.x % tile.ctiles, ptile = blockIdx.x / tile.ctiles;
+  const int n0 = ctile * N;  // the block's first output channel
   const int h0 = (ptile / tile.tiles_w) * tile.th;
   const int w0 = (ptile % tile.tiles_w) * tile.tw;
   const int hw = height * width;
@@ -562,8 +587,9 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
     if (sub == kStepsPerChunk - 1 && more_x) {
       // fp32: the x copies went with the group of the chunk's first step,
       // which the wait above covers when a chunk has more steps than
-      // STAGES; else wait for them.
-      if constexpr (kF32 && kStepsPerChunk <= STAGES) cp_async_wait<0>();
+      // STAGES; else wait for that group (kStepsPerChunk - 1 newer ones
+      // may stay in flight).
+      if constexpr (kF32 && kStepsPerChunk <= STAGES) cp_async_wait<kStepsPerChunk - 1>();
       store_x((chunk + 1) & 1);
     }
     __syncthreads();
@@ -574,15 +600,18 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   // sums of squares to ssq; pixel_norm_pass scales and rounds them.
   const int ncols = min(N, cout - n0);  // the block's output channels
   float* wsb = ws ? ws + (static_cast<int64_t>(b) * cout + n0) * hw : nullptr;
-  float* ssqb = ssq ? ssq + (static_cast<int64_t>(blockIdx.x / tile.tiles_img) * gridDim.y + b) * hw
-                    : nullptr;
+  float* ssqb = ssq ? ssq + (static_cast<int64_t>(ctile) * gridDim.y + b) * hw : nullptr;
+  namespace cg = cooperative_groups;
   // Split K: the gridDim.z blocks of a tile are one cluster. Each puts its
   // partial sums in its shared memory (the staging buffers are retired),
   // then sums one slice of the tile's rows over the cluster's blocks in
   // rank order (distributed shared memory: deterministic, no atomics) and
-  // applies the epilogue to them.
+  // applies the epilogue to them. In a one-pass cluster of several channel
+  // tiles (cct of them, each split gridDim.z ways; rank = channel tile +
+  // cct split), each block's row sums of squares are then added over the
+  // channel tiles of its split, in rank order.
+  const int cct = tile.cluster_ct;
   if (gridDim.z > 1) {
-    namespace cg = cooperative_groups;
     cg::cluster_group cluster = cg::this_cluster();
     constexpr int PS = C::PS;
     float* part = reinterpret_cast<float*>(smem);  // [M][PS]
@@ -600,16 +629,19 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
       }
     }
     cluster.sync();  // every block's partial sums are in place
-    const int splits = static_cast<int>(cluster.num_blocks());
-    const int rank = static_cast<int>(cluster.block_rank());
-    const int rows = (M + splits - 1) / splits, r0 = rank * rows;
+    const int splits = static_cast<int>(gridDim.z), split = static_cast<int>(blockIdx.z);
+    const int me = ctile % cct;  // the block's channel tile in the cluster
+    const int rows = (M + splits - 1) / splits, r0 = split * rows;
     const int nrows = max(0, min(M, r0 + rows) - r0);
-    float* sum = part + M * PS;   // [rows][PS]
-    float* scale = sum + rows * PS;  // [rows]
+    float* sum = part + M * PS;      // [rows][PS]
+    float* ssq_rows = sum + rows * PS;  // [rows]: over this tile's channels
+    float* scale = ssq_rows + rows;     // [rows]
     for (int i = tid; i < nrows * N; i += kThreads) {
       const int m = r0 + i / N, col = i % N;
       float v = 0.f;
-      for (int sp = 0; sp < splits; ++sp) v += cluster.map_shared_rank(part, sp)[m * PS + col];
+      for (int sp = 0; sp < splits; ++sp) {
+        v += cluster.map_shared_rank(part, me + cct * sp)[m * PS + col];
+      }
       v += col < ncols ? __ldg(bias + n0 + col) : 0.f;  // past Cout: 0
       sum[(m - r0) * PS + col] = fmaxf(kSlope * v, v);
     }
@@ -619,9 +651,21 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
       for (int col = lane; col < N; col += 32) t = fmaf(sum[i * PS + col], sum[i * PS + col], t);
 #pragma unroll
       for (int off = 16; off > 0; off /= 2) t += __shfl_xor_sync(0xffffffffu, t, off);
-      if (lane == 0) scale[i] = ssq ? t : rsqrtf(t / static_cast<float>(cout) + kEps);
+      if (lane == 0) ssq_rows[i] = t;
     }
-    __syncthreads();
+    if (cct > 1) cluster.sync();  // every tile's row sums are in place
+    else __syncthreads();
+    for (int i = tid; i < nrows; i += kThreads) {
+      float t = 0.f;
+      if (cct > 1) {
+        for (int c = 0; c < cct; ++c) t += cluster.map_shared_rank(ssq_rows, c + cct * split)[i];
+      } else {
+        t = ssq_rows[i];
+      }
+      scale[i] = ssq ? t : rsqrtf(t / static_cast<float>(cout) + kEps);
+    }
+    if (cct > 1) cluster.sync();  // no block reads another's row sums after this
+    else __syncthreads();
     for (int i = tid; i < ncols * nrows; i += kThreads) {  // along the rows: along W
       const int mm = i % nrows, co = i / nrows, m = r0 + mm;
       const int hh = h0 + m / tile.tw, ww = w0 + m % tile.tw;
@@ -631,7 +675,7 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
           wsb[at] = sum[mm * PS + co];
           if (co == 0) ssqb[hh * width + ww] = scale[mm];
         } else {
-          store_as(yb + at, sum[mm * PS + co] * scale[mm]);
+          store_as(yb + static_cast<int64_t>(n0) * hw + at, sum[mm * PS + co] * scale[mm]);
         }
       }
     }
@@ -661,6 +705,7 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   }
   float* red = reinterpret_cast<float*>(smem);                     // [WN][M]
   T* ys = reinterpret_cast<T*>(smem + WN * M * sizeof(float));     // [N][YS]
+  float* rss = reinterpret_cast<float*>(smem + C::epi_bytes) - M;  // [M]
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
@@ -672,6 +717,18 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
     }
   }
   __syncthreads();  // the loop's last barrier retired the staging buffers
+  // One pass over a cluster of channel tiles: the block's row sums in rss,
+  // then each row's total over the cluster's blocks, in rank order (the
+  // cluster spans blockIdx.x alone: rank = channel tile).
+  if (cct > 1) {
+    for (int m = tid; m < M; m += kThreads) {
+      float t = 0.f;
+#pragma unroll
+      for (int wn = 0; wn < WN; ++wn) t += red[wn * M + m];
+      rss[m] = t;
+    }
+    cg::this_cluster().sync();  // every block's row sums are in place
+  }
   if (ssq) {  // the first pass of two: fp32 values and the tile's sums, unscaled
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -697,20 +754,36 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
     }
     return;
   }
+  float scales[MT][2];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int m = warp_m * 16 * MT + mt * 16 + grp + 8 * r;
       float total = 0.f;
+      if (cct > 1) {
 #pragma unroll
-      for (int wn = 0; wn < WN; ++wn) total += red[wn * M + m];
-      const float scale = rsqrtf(total / static_cast<float>(cout) + kEps);
+        for (int rank = 0; rank < kMaxCluster; ++rank) {
+          if (rank < cct) total += cg::this_cluster().map_shared_rank(rss, rank)[m];
+        }
+      } else {
+#pragma unroll
+        for (int wn = 0; wn < WN; ++wn) total += red[wn * M + m];
+      }
+      scales[mt][r] = rsqrtf(total / static_cast<float>(cout) + kEps);
+    }
+  }
+  if (cct > 1) cg::this_cluster().sync();  // no block reads another's row sums after this
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int m = warp_m * 16 * MT + mt * 16 + grp + 8 * r;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int col = warp_n * 8 * NT + nt * 8 + 2 * tig;
-        store_as(ys + col * YS + m, acc[mt][nt][2 * r] * scale);
-        store_as(ys + (col + 1) * YS + m, acc[mt][nt][2 * r + 1] * scale);
+        store_as(ys + col * YS + m, acc[mt][nt][2 * r] * scales[mt][r]);
+        store_as(ys + (col + 1) * YS + m, acc[mt][nt][2 * r + 1] * scales[mt][r]);
       }
     }
   }
@@ -718,21 +791,21 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   if (vec_y) {  // TW and W multiples of 16 bytes of y: a row's pixels, 16 bytes
     constexpr int kVec = 16 / static_cast<int>(sizeof(T));
     const int per_row = tile.tw / kVec;
-    for (int i = tid; i < cout * tile.th * per_row; i += kThreads) {
+    for (int i = tid; i < ncols * tile.th * per_row; i += kThreads) {
       const int c8 = i % per_row, rest = i / per_row;
       const int r = rest % tile.th, co = rest / tile.th;
       const int hh = h0 + r, ww = w0 + kVec * c8;
       if (hh < height && ww < width) {
-        *reinterpret_cast<uint4*>(yb + static_cast<int64_t>(co) * hw + hh * width + ww) =
+        *reinterpret_cast<uint4*>(yb + static_cast<int64_t>(n0 + co) * hw + hh * width + ww) =
             *reinterpret_cast<const uint4*>(ys + co * YS + r * tile.tw + kVec * c8);
       }
     }
   } else {
-    for (int i = tid; i < cout * tile_px; i += kThreads) {
+    for (int i = tid; i < ncols * tile_px; i += kThreads) {
       const int m = i % tile_px, co = i / tile_px;
       const int hh = h0 + m / tile.tw, ww = w0 + m % tile.tw;
       if (hh < height && ww < width) {
-        yb[static_cast<int64_t>(co) * hw + hh * width + ww] = ys[co * YS + m];
+        yb[static_cast<int64_t>(n0 + co) * hw + hh * width + ww] = ys[co * YS + m];
       }
     }
   }
@@ -749,13 +822,23 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   X(5, 1, 4, 1, 8, 1, 4, 3)  /* M 16,  N 256: images of 16 pixels or fewer */ \
   X(6, 1, 8, 1, 8, 1, 3, 2)  /* M 16,  N 512: the same */                   \
   X(7, 2, 8, 1, 8, 1, 3, 1)  /* M 32,  N 512  */                            \
-  X(8, 1, 16, 1, 8, 1, 1, 1) /* M 16,  N 1024 = kCoutTile: every wider layer */
+  X(8, 1, 16, 1, 8, 1, 1, 1) /* M 16,  N 1024 = kCoutTile */                \
+  X(9, 1, 4, 1, 8, 3, 2, 1)  /* M 16,  N 256: wider layers at 16 pixels or fewer */ \
+  X(10, 2, 8, 2, 4, 3, 2, 1) /* M 64,  N 256: wider layers (fp32 alone takes 11) */
 
 // fp32 (TF32): twice the shared memory a staged element and a second set of
 // accumulators (each chunk's own), so M is halved or quartered from 32
 // channels on and the warps take fewer n8 tiles: at most 64 fp32
 // accumulators a thread at 2 blocks an SM, 128 at one: past that the
-// registers spill inside the K loop.
+// registers spill inside the K loop. Layers wider than kCoutTile take
+// configs of their own, 10 (M 64: 128 accumulators a thread at one block
+// an SM, half the weight bytes a pixel of M 32), 11 (M 32, where M 64
+// leaves SMs idle: chip_smoke.py's 1536-channel 16 px row read 1.05 ms
+// against 1.53 on an H100; bf16's M 64 stays ahead there) and, at 16
+// pixels or fewer, 9 (M 16): a block walks
+// 9 Cin / KC steps of its tile's weights, so they take 3 taps a step (48 or
+// 24 weight rows, 1 block an SM), where 1 tap a step left the wide layers
+// bound by the steps' barriers and copies.
 #define FUSED_CONV_TF32_CONFIGS(X)                                          \
   X(0, 2, 2, 8, 1, 9, 1, 2)  /* M 256, N 16   */                            \
   X(1, 1, 4, 8, 1, 3, 2, 2)  /* M 128, N 32   */                            \
@@ -765,15 +848,16 @@ __global__ void __launch_bounds__(kThreads, MINB) fused_conv_mma_kernel(
   X(5, 1, 4, 1, 8, 1, 4, 1)  /* M 16,  N 256: images of 16 pixels or fewer */ \
   X(6, 1, 8, 1, 8, 1, 3, 2)  /* M 16,  N 512: the same */                   \
   X(7, 2, 8, 1, 8, 1, 3, 1)  /* M 32,  N 512  */                            \
-  X(8, 1, 16, 1, 8, 1, 1, 1) /* M 16,  N 1024: up to kCoutTile; wider layers take 4 or 5 */
+  X(8, 1, 16, 1, 8, 1, 1, 1) /* M 16,  N 1024: up to kCoutTile */          \
+  X(9, 1, 4, 1, 8, 3, 3, 1)  /* M 16,  N 256: wider layers at 16 pixels or fewer */ \
+  X(10, 2, 8, 2, 4, 3, 3, 1) /* M 64,  N 256: wider layers */                \
+  X(11, 1, 8, 2, 4, 3, 3, 1) /* M 32,  N 256: the same, where M 64 gives too few blocks */
 
-constexpr int kConfigM[] = {256, 256, 128, 128, 64, 16, 16, 32, 16};
-constexpr int kTf32ConfigM[] = {256, 128, 128, 32, 32, 16, 16, 32, 16};
-constexpr int kConfigN[] = {16, 32, 64, 128, 256, 256, 512, 512, 1024};  // both variants
+constexpr int kConfigM[] = {256, 256, 128, 128, 64, 16, 16, 32, 16, 16, 64, 32};
+constexpr int kTf32ConfigM[] = {256, 128, 128, 32, 32, 16, 16, 32, 16, 16, 64, 32};
+constexpr int kConfigN[] = {16, 32, 64, 128, 256, 256, 512, 512, 1024, 256, 256, 256};  // both
 
-// `wide`: the config of the two passes' channel tiles past kCoutTile (8,
-// tiles of 1024; or 4, tiles of kPassTile).
-int pick_config(int cout, int hw, int wide) {
+int pick_config(int cout, int hw) {
   if (cout <= 16) return 0;
   if (cout <= 32) return 1;
   if (cout <= 64) return 2;
@@ -781,27 +865,45 @@ int pick_config(int cout, int hw, int wide) {
   if (cout <= 256) return hw <= 16 ? 5 : 4;
   if (cout <= 512) return hw <= 16 ? 6 : 7;
   if (cout <= kCoutTile) return 8;
-  return wide == 4 && hw <= 16 ? 5 : wide;
+  return hw <= 16 ? 9 : 10;  // channel tiles of kChannelTile
 }
 
 struct Plan {
   int config, splits;
   Tile tile;
   int64_t tiles;  // pixel tiles of the whole batch
-  int ctiles;     // tiles of the config's N output channels (1 up to kCoutTile)
 };
+
+// Cin's chunks cut into `splits` ranges of whole chunks.
+void set_splits(Plan& plan, int splits) {
+  plan.tile.chunks_per_split = (plan.tile.nchunks + splits - 1) / splits;
+  plan.splits = (plan.tile.nchunks + plan.tile.chunks_per_split - 1) / plan.tile.chunks_per_split;
+}
 
 // The pixel tile for a block of M pixels (the config's, from `config_m`):
 // TW a power of two from 8 below W, or W itself, and as many rows as fit
 // in M and in max_halo(M) staged positions; the least (M + halo positions)
 // per pixel wins, powers of two (16-byte stores) on a tie. Then the split
-// of Cin's chunks of `kc`: the fewest power-of-two splits (at most the
-// chunks and kMaxSplits, a cluster's blocks) that give every SM a block,
-// counting the channel tiles.
+// of Cin's chunks of `kc`: in a layer of one channel tile, the fewest
+// power-of-two splits (at most the chunks and kMaxCluster, a cluster's
+// blocks) that give every SM a block; in a one-pass layer of several
+// channel tiles (5 to 8 in its cluster) at 16 pixels or fewer, the fewest
+// splits that do, at most kMaxWideCluster blocks a cluster (the launch
+// takes fewer where the card cannot hold such a cluster), and none on
+// larger images, whose weights each split would stream again; in a
+// two-pass layer, as in one tile, counting the channel tiles.
 Plan make_plan(int batch, int cin, int cout, int height, int width, int sms, int kc,
-               const int* config_m, int wide) {
+               const int* config_m) {
   Plan plan;
-  plan.config = pick_config(cout, height * width, wide);
+  plan.config = pick_config(cout, height * width);
+  // fp32: a wide layer whose 64-pixel blocks would leave SMs without one
+  // takes 32-pixel blocks (twice the weight bytes a pixel, twice the
+  // blocks). bf16's blocks of 64 stay ahead there.
+  const int64_t ctiles_wide = (cout + kChannelTile - 1) / kChannelTile;
+  if (plan.config == 10 && kc == 8 &&
+      batch * ((static_cast<int64_t>(height) * width + 63) / 64) * ctiles_wide < sms) {
+    plan.config = 11;
+  }
   const int m = config_m[plan.config];
   double best = 1e30;
   auto consider = [&](int tw) {
@@ -821,65 +923,86 @@ Plan make_plan(int batch, int cin, int cout, int height, int width, int sms, int
   plan.tile.tiles_w = (width + plan.tile.tw - 1) / plan.tile.tw;
   plan.tile.tiles_img = plan.tile.tiles_w * ((height + plan.tile.th - 1) / plan.tile.th);
   plan.tiles = static_cast<int64_t>(batch) * plan.tile.tiles_img;
-  plan.ctiles = (cout + kConfigN[plan.config] - 1) / kConfigN[plan.config];
+  const int ctiles = (cout + kConfigN[plan.config] - 1) / kConfigN[plan.config];
+  plan.tile.ctiles = ctiles;
+  plan.tile.cluster_ct = cout <= kOnePassWidth ? ctiles : 1;
   plan.tile.nchunks = (cin + kc - 1) / kc;
   int splits = 1;
-  while (plan.tiles * plan.ctiles * splits < sms &&
-         2 * splits <= min(plan.tile.nchunks, kMaxSplits)) {
-    splits *= 2;
+  if (plan.tile.cluster_ct == 1) {
+    while (plan.tiles * ctiles * splits < sms &&
+           2 * splits <= min(plan.tile.nchunks, kMaxCluster)) {
+      splits *= 2;
+    }
+  } else if (plan.config == 9) {  // 16 pixels or fewer: too few blocks without splits of K
+    const int most = min(plan.tile.nchunks, kMaxWideCluster / plan.tile.cluster_ct);
+    while (plan.tiles * ctiles * splits < sms && splits < most) ++splits;
   }
-  plan.tile.chunks_per_split = (plan.tile.nchunks + splits - 1) / splits;
-  plan.splits = (plan.tile.nchunks + plan.tile.chunks_per_split - 1) / plan.tile.chunks_per_split;
+  set_splits(plan, splits);
   return plan;
 }
 
 template <typename T, int MT, int NT, int WM, int WN, int TAPS, int STAGES, int MINB>
-cudaError_t launch_mma_config(const Plan& plan, const T* x, const float* w9,
-                              const float* bias, T* y, float* ws, float* ssq, int batch,
-                              int cin, int cout, int height, int width, cudaStream_t stream) {
+cudaError_t launch_mma_config(Plan plan, const T* x, const float* w9, const float* bias, T* y,
+                              float* ws, float* ssq, int batch, int cin, int cout, int height,
+                              int width, cudaStream_t stream) {
   using C = Cfg<T, MT, NT, WM, WN, TAPS, STAGES, MINB>;
   static_assert(C::N <= kCoutTile, "a block holds at most kCoutTile channels");
-  // ssq has room for tiles of kPassTile channels or wider.
-  if (plan.ctiles > 1 && C::N < kPassTile) return cudaErrorInvalidValue;
+  // Several channel tiles are tiles of kChannelTile (ssq's tiles).
+  if (plan.tile.ctiles > 1 && C::N != kChannelTile) return cudaErrorInvalidValue;
   auto kernel = fused_conv_mma_kernel<T, MT, NT, WM, WN, TAPS, STAGES, MINB>;
   const int npos = (plan.tile.th + 2) * (plan.tile.tw + 2);
-  const size_t smem = C::smem(npos, plan.tile.chunks_per_split > 1 ? 2 : 1, plan.splits);
-  // Every config may take up to 227 KB (bf16 Cout 1024: 199 KB); set once.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  // Every config may take up to 227 KB (bf16 Cout 1024: 199 KB) and a
+  // cluster of up to kMaxWideCluster blocks; set once.
+  static const cudaError_t attr = [&] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+    return e != cudaSuccess ? e : cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }();
   if (attr != cudaSuccess) return attr;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // y elements a 16-byte store
   const bool vec_w = cout % 4 == 0 && reinterpret_cast<uintptr_t>(w9) % 16 == 0;
   const bool vec_y = plan.tile.tw % kVec == 0 && width % kVec == 0 &&
                      reinterpret_cast<uintptr_t>(y) % 16 == 0;
   cudaLaunchConfig_t config = {};
-  config.gridDim =
-      dim3(static_cast<unsigned>(plan.tiles / batch * plan.ctiles), batch, plan.splits);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
-  cluster[0].val.clusterDim.x = 1;
-  cluster[0].val.clusterDim.y = 1;
-  cluster[0].val.clusterDim.z = plan.splits;  // a tile's splits, one cluster
+  config.blockDim = dim3(kThreads);
+  config.stream = stream;
   config.attrs = cluster;
-  config.numAttrs = plan.splits > 1 ? 1 : 0;
+  for (;;) {
+    config.gridDim =
+        dim3(static_cast<unsigned>(plan.tiles / batch * plan.tile.ctiles), batch, plan.splits);
+    config.dynamicSmemBytes =
+        C::smem(npos, plan.tile.chunks_per_split > 1 ? 2 : 1, plan.splits);
+    if (config.dynamicSmemBytes > 227 * 1024) return cudaErrorInvalidValue;
+    // A pixel tile's channel tiles (one pass) and its splits of K, one cluster.
+    cluster[0].val.clusterDim.x = plan.tile.cluster_ct;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = plan.splits;
+    config.numAttrs = plan.splits > 1 || plan.tile.cluster_ct > 1 ? 1 : 0;
+    if (plan.tile.cluster_ct * plan.splits <= kMaxCluster) break;
+    // Past the portable size, fewer splits where the card holds no such cluster.
+    int clusters = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return err;
+    if (clusters > 0) break;
+    set_splits(plan, plan.splits - 1);
+  }
   return cudaLaunchKernelEx(&config, kernel, x, w9, bias, y, ws, ssq, cin, cout, height,
                             width, plan.tile, vec_w, vec_y);
 }
 
 // T = bf16 runs the tensor-core configs, T = float the TF32 ones; `ctiles`
-// receives the number of channel tiles (the second pass's).
+// receives the number of channel tiles (the second pass's ssq tiles).
 template <typename T>
 cudaError_t launch_tensor_core(const void* x, const void* w9, const void* bias, void* y,
                                float* ws, float* ssq, int batch, int cin, int cout, int height,
                                int width, int sms, cudaStream_t stream, int* ctiles) {
   constexpr bool kF32 = sizeof(T) == 4;
   const Plan plan = make_plan(batch, cin, cout, height, width, sms, kF32 ? 8 : 16,
-                              kF32 ? kTf32ConfigM : kConfigM, kF32 ? 4 : 8);
-  *ctiles = plan.ctiles;
+                              kF32 ? kTf32ConfigM : kConfigM);
+  *ctiles = plan.tile.ctiles;
   const T* xt = static_cast<const T*>(x);
   const float* wt = static_cast<const float*>(w9);
   const float* bt = static_cast<const float*>(bias);
@@ -904,7 +1027,7 @@ cudaError_t check(int dtype, int device, int batch, int cin, int cout, int heigh
                   bool two_pass, int* sms) {
   if (batch < 1 || batch > 65535 || cin < 1 || cout < 1 || height < 1 || width < 1 ||
       static_cast<int64_t>(height) * width > INT_MAX - kNormPixels ||
-      (cout > kCoutTile) != two_pass || (dtype != 0 && dtype != 1)) {
+      (cout > kOnePassWidth) != two_pass || (dtype != 0 && dtype != 1)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -916,10 +1039,10 @@ cudaError_t check(int dtype, int device, int batch, int cin, int cout, int heigh
 
 // dtype: 0 = float32 (the TF32 variant, 3xTF32), 1 = bfloat16 (the
 // tensor-core one), for x and y. x, w9, bias and y are contiguous (see the
-// top of the file). Past kCoutTile output channels (and only there) ws and
-// ssq are the two passes' scratch: ws fp32 [B, Cout, H, W] (y itself for
-// fp32), ssq fp32 [ceil(Cout / kPassTile), B, H W]; else both are null.
-// Launches on `stream` (one kernel, or the two passes), writes the
+// top of the file). Past kOnePassWidth output channels (and only there) ws
+// and ssq are the two passes' scratch: ws fp32 [B, Cout, H, W] (y itself
+// for fp32), ssq fp32 [ceil(Cout / kChannelTile), B, H W]; else both are
+// null. Launches on `stream` (one kernel, or the two passes), writes the
 // flash_mma::Variant it launched to `variant`, and returns the cudaError_t
 // of cudaGetLastError() after the launches (0 on success).
 extern "C" int fused_conv3x3_leaky_pixel_norm(const void* x, const void* w9, const void* bias,

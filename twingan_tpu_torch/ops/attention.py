@@ -30,8 +30,10 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
   halves (3xTF32, fp32-accurate). Every
   c_bar and C is taken: past c_bar 64, or C 256 (where the register-held
   kernels stop), the entry points launch ``csrc/flash_wide.cuh``'s
-  kernels, which cut every operand into chunks of 64 columns: bf16 on the
-  tensor cores, fp32 on the CUDA cores (``WIDE_VARIANTS``).
+  kernels, which cut every operand into chunks of 64 columns, in the same
+  two variants (``WIDE_VARIANTS``): bf16 on the tensor cores, fp32 on the
+  TF32 tensor cores (3xTF32), whose blocks each own a group of 256 output
+  columns and split the other side's tiles over a thread-block cluster.
   ``variant_counts`` counts each launch under the variant its entry point
   reported, beside ``launch_counts``' total;
 - ``FlashAttention`` is the autograd boundary. Its backward is
@@ -86,7 +88,8 @@ CUDA_CORE = "cuda_core"
 TENSOR_CORE = "tensor_core"
 TF32X3 = "tensor_core_tf32x3"
 # The variants by the id a C entry point writes to its ``variant`` argument
-# (csrc/flash_mma.cuh's ``Variant``). The entry points alone pick them.
+# (csrc/flash_mma.cuh's ``Variant``). The entry points alone pick them; no
+# kernel reports CUDA_CORE any more (the id stays, so the others keep theirs).
 VARIANT_IDS = (CUDA_CORE, TENSOR_CORE, TF32X3)
 # The variant each kernel's entry point launches for each input type at
 # the widths of its register-held kernels (c_bar <= 64; C <= 256 for fp32
@@ -97,7 +100,7 @@ VARIANTS = {
     DKV_KERNEL: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE},
 }
 # Past those widths, csrc/flash_wide.cuh's kernels, by input type.
-WIDE_VARIANTS = {torch.float32: CUDA_CORE, torch.bfloat16: TENSOR_CORE}
+WIDE_VARIANTS = {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE}
 
 
 # Kernel launches since the last reset_launch_counts(), by kernel name. Only

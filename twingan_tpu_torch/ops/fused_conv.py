@@ -43,12 +43,16 @@ halo-duplicated row tiles because BlockSpec windows cannot overlap.
 
 Any Cout: the Pallas kernel holds all of Cout in one block (VMEM is its
 only bound), and so does B4 up to ``COUT_TILE`` channels. The pixel norm
-needs every channel of a pixel before any can be written, so a wider layer
-runs in two passes of the one call: the conv, bias and leaky on tiles of
-channels (``COUT_TILE`` in bf16, ``PASS_TILE`` in fp32), each writing its
-fp32 values and its per-pixel sum of squares to scratch that this wrapper
-allocates, then the normalize, which adds each pixel's tile sums in a
-fixed order and rounds y once.
+needs every channel of a pixel before any can be written. A wider layer is
+cut into tiles of ``CHANNEL_TILE`` channels, and the tiles of one block of
+pixels form a thread-block cluster: up to ``ONE_PASS_WIDTH`` channels (8
+tiles, a portable cluster) each block adds every tile's per-pixel sums of
+squares through distributed shared memory in a fixed order and writes its
+channels once, one kernel and no scratch. Past it the layer runs in two
+passes of the one call, a route of its own (``route_counts``): each tile
+writes its fp32 values and its per-pixel sum of squares to scratch that
+this wrapper allocates, then the normalize adds each pixel's tile sums in
+a fixed order and rounds y once.
 """
 
 from __future__ import annotations
@@ -64,11 +68,14 @@ from twingan_tpu_torch.ops.attention import TENSOR_CORE, TF32X3, VARIANT_IDS
 KERNEL_NAME = "fused_conv"
 AUTOGRAD_ROUTE = "fused_conv_autograd"
 # Output channels one block of the kernel holds (csrc/fused_conv.cu's
-# kCoutTile); a wider layer takes two passes (see above), over channel
-# tiles of at least PASS_TILE (kPassTile), whose sums of squares the
-# wrapper makes room for.
+# kCoutTile); a wider layer is cut into tiles of CHANNEL_TILE (kChannelTile)
+# and runs in one pass up to ONE_PASS_WIDTH (kOnePassWidth), in two past it
+# (see above), whose tiles' sums of squares the wrapper makes room for.
 COUT_TILE = 1024
-PASS_TILE = 256
+CHANNEL_TILE = 256
+ONE_PASS_WIDTH = 8 * CHANNEL_TILE
+ONE_PASS = f"{KERNEL_NAME}/one_pass"
+TWO_PASS = f"{KERNEL_NAME}/two_pass"
 LEAKY_SLOPE = 0.2
 PIXEL_NORM_EPS = 1e-6
 
@@ -82,10 +89,13 @@ launch_counts = {KERNEL_NAME: 0, AUTOGRAD_ROUTE: 0}
 # by "<kernel>/<variant>".
 VARIANTS = {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE}
 variant_counts = {f"{KERNEL_NAME}/{v}": 0 for v in VARIANTS.values()}
+# The same launches by route: one kernel, or the two passes past
+# ONE_PASS_WIDTH channels.
+route_counts = {ONE_PASS: 0, TWO_PASS: 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, variant_counts):
+    for counts in (launch_counts, variant_counts, route_counts):
         for k in counts:
             counts[k] = 0
 
@@ -133,6 +143,20 @@ def _check(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError(f"fused_conv runs on cuda or cpu, not {x.device}")
 
 
+def _scratch(y: torch.Tensor) -> tuple:
+    """(ws, ssq) of the two passes past ONE_PASS_WIDTH channels: the fp32
+    values before the norm (y itself when y is fp32) and each channel
+    tile's per-pixel sum of squares; (None, None) up to it, where the
+    kernel needs no scratch."""
+    bsz, cout, h, w = y.shape
+    if cout <= ONE_PASS_WIDTH:
+        return None, None
+    ws = y if y.dtype == torch.float32 else torch.empty(y.shape, dtype=torch.float32,
+                                                        device=y.device)
+    return ws, torch.empty((-(-cout // CHANNEL_TILE), bsz, h * w), dtype=torch.float32,
+                           device=y.device)
+
+
 def _launch(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bsz, cin, h, w = x.shape
     cout = w9.shape[2]
@@ -142,15 +166,7 @@ def _launch(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         fn.argtypes = [vp] * 6 + [i32] * 7 + [vp, ctypes.POINTER(i32)]
         fn.restype = ctypes.c_int
     y = torch.empty((bsz, cout, h, w), dtype=x.dtype, device=x.device)
-    # Two passes past one block's channels: the fp32 values before the norm
-    # (y itself when y is fp32) and each channel tile's per-pixel sum of
-    # squares.
-    ws = ssq = None
-    if cout > COUT_TILE:
-        ws = y if x.dtype == torch.float32 else torch.empty(
-            y.shape, dtype=torch.float32, device=x.device)
-        ssq = torch.empty((-(-cout // PASS_TILE), bsz, h * w), dtype=torch.float32,
-                          device=x.device)
+    ws, ssq = _scratch(y)
     vid = ctypes.c_int(-1)
     err = fn(x.data_ptr(), w9.data_ptr(), b.data_ptr(), y.data_ptr(),
              None if ws is None else ws.data_ptr(), None if ssq is None else ssq.data_ptr(),
@@ -158,18 +174,19 @@ def _launch(x: torch.Tensor, w9: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
              torch.cuda.current_stream(x.device).cuda_stream, ctypes.byref(vid))
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: cudaError_t {err}")
-    _count(vid)
+    _count(vid, ssq is not None)
     return y
 
 
-def _count(variant_id: ctypes.c_int) -> None:
+def _count(variant_id: ctypes.c_int, two_pass: bool = False) -> None:
     """One launch, under the variant the entry point reported (a variant
-    outside ``VARIANTS`` gets a count of its own)."""
+    outside ``VARIANTS`` gets a count of its own) and its route."""
     if not 0 <= variant_id.value < len(VARIANT_IDS):
         raise RuntimeError(f"{KERNEL_NAME} reported no variant ({variant_id.value})")
     launch_counts[KERNEL_NAME] += 1
     key = f"{KERNEL_NAME}/{VARIANT_IDS[variant_id.value]}"
     variant_counts[key] = variant_counts.get(key, 0) + 1
+    route_counts[TWO_PASS if two_pass else ONE_PASS] += 1
 
 
 @torch.library.custom_op("twingan_tpu_torch::fused_conv", mutates_args=(), device_types="cpu")

@@ -319,7 +319,8 @@ KERNELS = {
 # FlashAttention-3 paper gives 3.9 T/s for the H100 SXM), at the card's top
 # SM clock, which the device phase reads from nvidia-smi.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"tensor_core": 989e12, "cuda_core": 67e12, "tensor_core_tf32x3": 494.5e12}
+PEAK_FLOPS = {"tensor_core": 989e12, "tensor_core_cluster": 989e12, "cuda_core": 67e12,
+              "tensor_core_tf32x3": 494.5e12}
 PRODUCTS = {"tensor_core_tf32x3": 3}  # hi hi + hi lo + lo hi
 EXP_PER_SM_CLOCK = 16
 exp_per_s = 3.9e12  # replaced by device_phase with the card's SMs x 16 x top clock
@@ -986,11 +987,12 @@ def expected_variant(kernel: str, dt, c_bar: int, c: int) -> str:
     report (the entry points pick it; this is the check's own statement):
     the register-held kernels up to c_bar 64 and C 256, csrc/flash_wide.cuh's
     past them (for the bf16 forward, whose kernel takes any C in 64-column
-    slices, both are the tensor-core variant)."""
+    slices, both are the tensor-core variant; the bf16 dq and dkv past them
+    are the cluster variant, ``wide_bf16_kernel``)."""
     from twingan_tpu_torch.ops import attention
 
     if c_bar > 64 or c > 256:
-        return attention.WIDE_VARIANTS[dt]
+        return attention.WIDE_VARIANTS[kernel][dt]
     return attention.VARIANTS[kernel][dt]
 
 
@@ -1062,13 +1064,18 @@ def kernel_phase() -> dict:
         ms = time_ms(lambda: attention.flash_attention_forward(f, g, h))
         dev_ms = device_ms(lambda: attention.flash_attention_forward(f, g, h))
         plain_ms = time_ms(lambda: attention.attention_core(f, g, h))
+        # Past the register-held widths, the plain version's device time too
+        # (its events time one call's host dispatch as well).
+        wide = c_bar > 64 or c > 256
+        plain_dev = device_ms(lambda: attention.attention_core(f, g, h)) if wide else None
         library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
         bound_ms, bound_by = bound(b, n, c_bar, c, dtype, want)
         row = {"phase": "kernel", "case": label, "B": b, "N": n, "c_bar": c_bar, "C": c,
                "dtype": dtype, "variant": variant, "max_abs_err": err, "tolerance": tol,
                "lse_err": lse_err, "lse_tolerance": lse_tol, "sdpa_err": sdpa_err, "ms": ms,
-               "device_ms": dev_ms,
-               "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+               "device_ms": dev_ms, "plain_ms": plain_ms,
+               **({"plain_device_ms": plain_dev} if wide else {}),
+               "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by,
                **({"bound_ms_by_route": {r: bound(b, n, c_bar, c, dtype, r)[0]
                                          for r in FP32_ROUTES}} if dtype == "float32" else {}),
@@ -1176,7 +1183,7 @@ def fused_conv_phase() -> dict:
 
 WIDE_ROW_KEYS = ("case", "dtype", "B", "N", "c_bar", "C", "H", "Cin", "Cout", "variant", "route",
                  "max_abs_err", "tolerance", "device_ms", "bound_ms", "bound_by", "plain_ms",
-                 "library_ms", "library_best_ms")
+                 "plain_device_ms", "library_ms", "library_best_ms")
 
 
 def wide_row(row: dict) -> dict:
@@ -1263,6 +1270,11 @@ def backward_kernel_phase() -> dict:
         plain_ms = None if chunked else {
             "flash_attn_dq": time_ms(lambda: attention.flash_attention_dq_plain(*args)),
             "flash_attn_dkv": time_ms(lambda: attention.flash_attention_dkv_plain(*args))}
+        wide = c_bar > 64 or c > 256  # there, the plain versions' device time too
+        plain_dev = {
+            "flash_attn_dq": device_ms(lambda: attention.flash_attention_dq_plain(*args)),
+            "flash_attn_dkv": device_ms(lambda: attention.flash_attention_dkv_plain(*args))
+        } if wide and not chunked else None
         q, k, v = (t[:, None].detach().requires_grad_(True) for t in (f, g, h))
         backend_name, backend = sdpa_backend(q, k, v, do[:, None])
         with sdpa_kernel(backend):
@@ -1274,7 +1286,7 @@ def backward_kernel_phase() -> dict:
         row = {"phase": "kernel", "kernels": ["flash_attn_dq", "flash_attn_dkv"], "case": label,
                "B": b, "N": n, "c_bar": c_bar, "C": c, "dtype": dtype, "variant": variants,
                "max_abs_err": errs, "tolerance": tols, "ms": ms, "device_ms": dev_ms,
-               "plain_ms": plain_ms,
+               "plain_ms": plain_ms, **({"plain_device_ms": plain_dev} if plain_dev else {}),
                "library": f"SDPA forward + backward, scale 1.0, {backend_name} backend",
                "library_ms": library_ms,
                "bound_ms": {k_: v_[0] for k_, v_ in bounds.items()},
@@ -5029,7 +5041,7 @@ def wide_phase(card: str, smi_line: str) -> dict:
         gp_noise = {d: {"alpha": torch.rand(TRAIN_BATCH, 1, 1, 1, generator=gen),
                         "noise": torch.rand(TRAIN_BATCH, cres, cres, 3, generator=gen) * 2 - 1}
                     for d in ("s", "t")}
-        fp32_steps = {}
+        fp32_steps, bf16_bwd = {}, {}
         for row in compare_steps(small, weights, [_train_batch(rng, small, "cpu")
                                                   for _ in range(2)], gp_noise, phase="wide"):
             row["resolution"] = cres
@@ -5038,9 +5050,11 @@ def wide_phase(card: str, smi_line: str) -> dict:
             if not row["ok"]:
                 fail("wide", f"512 channels: the card's {row['check']} disagrees beyond the "
                              "limits")
-            if "card float32" in row["check"]:
-                for k, v in row["kernel_variants"].items():
+            for k, v in row["kernel_variants"].items():
+                if "card float32" in row["check"]:
                     fp32_steps[k] = fp32_steps.get(k, 0) + v
+                elif k.startswith((dq + "/", dkv + "/")):
+                    bf16_bwd[k] = bf16_bwd.get(k, 0) + v
         # Every fp32 attention launch of the two steps on the 3xTF32 variant
         # (C 512: the wide kernel), each kernel at least once.
         tf32 = {f"{k}/{attention.TF32X3}" for k in (fwd, dq, dkv)}
@@ -5070,8 +5084,15 @@ def wide_phase(card: str, smi_line: str) -> dict:
         per_step = expected_launches(trainer, state.nets)
         expected = {k: per_step["g_step"][k] + (cfg.n_critic - 1) * per_step["d_step"][k]
                     for k in counts}
-        expected_variants = {f"{k}/{attention.VARIANTS[k][torch.bfloat16]}": expected[k]
-                             for k in (fwd, dq, dkv)}
+        # The attention's widths at 8 px (C 512, c_bar 64): B1 on its
+        # tensor-core kernel, B2 and B3 on the cluster variant.
+        _, _, _, c_bar512, c512 = WIDE_ATTENTION_CASES[0]
+        expected_variants = {
+            f"{k}/{expected_variant(k, torch.bfloat16, c_bar512, c512)}": expected[k]
+            for k in (fwd, dq, dkv)}
+        for k, v in variants.items():
+            if k.startswith((dq + "/", dkv + "/")):
+                bf16_bwd[k] = bf16_bwd.get(k, 0) + v
         losses = {k: float(v) for k, v in metrics.items()}
         row = {"phase": "wide", "check": "512 channels: one training round at 256 px",
                "batch": TRAIN_BATCH, "launches": counts, "expected_launches": expected,
@@ -5088,6 +5109,18 @@ def wide_phase(card: str, smi_line: str) -> dict:
             launches[k] += counts[k]
         del trainer, state, batches
         seconds["round_512"] = time.perf_counter() - t0
+        # Every bf16 B2 and B3 launch of the phase (the bf16 steps and the
+        # round) on the cluster variant, each kernel at least once.
+        cluster = {f"{k}/{attention.TENSOR_CORE_CLUSTER}" for k in (dq, dkv)}
+        row = {"phase": "wide", "check": "512 channels: the bf16 B2 and B3 launches",
+               "launches_by_variant": bf16_bwd,
+               "ok": bool(set(bf16_bwd) == cluster and all(bf16_bwd.values()))}
+        emit(row)
+        rows.append(row)
+        if not row["ok"]:
+            fail("wide", "512 channels: a bf16 B2 or B3 launch ran another variant than the "
+                         "cluster one, or a kernel did not run")
+        MEASURED["wide_bf16_backward_launches"] = bf16_bwd
 
         # 512 channels in int8: Q1's conv_i8q at 512 channels.
         t0 = time.perf_counter()
@@ -5360,7 +5393,8 @@ def require_no_b4(phase: str) -> None:
 def main() -> int:
     start_watchdog()
     card, smi_line = device_phase()
-    from twingan_tpu_torch.ops import fused_conv
+    import torch
+    from twingan_tpu_torch.ops import attention, fused_conv
 
     build_phase()
     serving_rows = kernel_phase()
@@ -5422,7 +5456,10 @@ def main() -> int:
             row["bound_ms"][name], row["bound_by"][name], row["library_ms"],
             variant=row["variant"][name][0], variants=kernel_variants(name),
             device_ms=row["device_ms"][name], fp32=fp32_entry(train_rows["float32"], name, grads),
-            wide=MEASURED.get(f"{name}_wide")))
+            wide=MEASURED.get(f"{name}_wide"),
+            wide_bf16_variant=attention.WIDE_VARIANTS[name][torch.bfloat16],
+            wide_bf16_launches={k: v for k, v in MEASURED["wide_bf16_backward_launches"].items()
+                                if k.startswith(name + "/")}))
     entries.append(fused_conv_entry(b4_rows, generation_launches,
                                     {"fp32": fp32_launches["fused_conv"],
                                      "runner": runner_launches["fused_conv"],
@@ -5434,7 +5471,6 @@ def main() -> int:
     entries.extend(conv_i8_entries(int8))
     emit({"kernels": entries})
     print(smi_line, flush=True)
-    import torch
 
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

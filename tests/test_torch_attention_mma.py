@@ -258,24 +258,32 @@ def test_dq_kernel_runs_on_mma():
 def test_variants_by_type():
     """bf16 takes the tensor-core variant of each of the three kernels; fp32
     the 3xTF32 tensor-core variant of each; past the register-held widths,
-    the wide kernels in the same two variants (bf16 on the tensor cores,
-    fp32 on the TF32 tensor cores): no kernel runs on the CUDA cores. The
-    C entry points pick the variant and report it by the ids of
-    ``VARIANT_IDS``, which the counts record."""
+    the wide kernels: the bf16 forward on the tensor cores, the bf16 dq and
+    dkv on the tensor cores as the cluster variant, fp32 on the TF32 tensor
+    cores: no kernel runs on the CUDA cores. The C entry points pick the
+    variant and report it by the ids of ``VARIANT_IDS``, which the counts
+    record."""
     v = attention.VARIANTS
     assert v[attention.KERNEL_NAME] == v[attention.DQ_KERNEL] == v[attention.DKV_KERNEL] == {
         torch.float32: attention.TF32X3, torch.bfloat16: attention.TENSOR_CORE}
     assert attention.WIDE_VARIANTS == {
-        torch.float32: attention.TF32X3, torch.bfloat16: attention.TENSOR_CORE}
+        attention.KERNEL_NAME: {torch.float32: attention.TF32X3,
+                                torch.bfloat16: attention.TENSOR_CORE},
+        attention.DQ_KERNEL: {torch.float32: attention.TF32X3,
+                              torch.bfloat16: attention.TENSOR_CORE_CLUSTER},
+        attention.DKV_KERNEL: {torch.float32: attention.TF32X3,
+                               torch.bfloat16: attention.TENSOR_CORE_CLUSTER}}
     assert set(attention.variant_counts) == {
         "flash_attn_fwd/tensor_core_tf32x3", "flash_attn_fwd/tensor_core",
         "flash_attn_dq/tensor_core_tf32x3", "flash_attn_dq/tensor_core",
-        "flash_attn_dkv/tensor_core_tf32x3", "flash_attn_dkv/tensor_core"}
+        "flash_attn_dq/tensor_core_cluster",
+        "flash_attn_dkv/tensor_core_tf32x3", "flash_attn_dkv/tensor_core",
+        "flash_attn_dkv/tensor_core_cluster"}
     enum = re.search(r"enum Variant : int \{([^}]*)\}", _source("flash_mma.cuh")).group(1)
     ids = dict(re.findall(r"(k\w+) = (\d+)", enum))
     assert {attention.VARIANT_IDS[int(i)]: k for k, i in ids.items()} == {
         attention.CUDA_CORE: "kCudaCore", attention.TENSOR_CORE: "kTensorCore",
-        attention.TF32X3: "kTf32x3"}
+        attention.TF32X3: "kTf32x3", attention.TENSOR_CORE_CLUSTER: "kTensorCoreCluster"}
     fwd, bwd = _source("flash_attn_fwd.cu"), _source("flash_attn_bwd.cu")
     for src, entry in ((fwd, "flash_attn_fwd("), (bwd, "flash_attn_dq("),
                        (bwd, "flash_attn_dkv(")):

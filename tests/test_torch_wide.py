@@ -201,17 +201,21 @@ def test_wide_rounding_model_within_chip_tolerance(smoke):
 
 def test_wide_kernel_source():
     """Both attention libraries include the wide kernels (bf16 on the
-    tensor cores, fp32 on the TF32 tensor cores); their C entry points keep
-    no width cap, only the grid's batch limit."""
+    tensor cores: the forward's wide_mma_kernel, dq's and dkv's
+    wide_bf16_kernel; fp32 on the TF32 tensor cores); wide_mma_kernel has
+    no dq or dkv instance left; their C entry points keep no width cap, only
+    the grid's batch limit."""
     def source(name):
         with open(os.path.join(REPO, "twingan_tpu_torch", "csrc", name)) as fh:
             return fh.read()
 
     wide = source("flash_wide.cuh")
-    for op in ("wide_mma_kernel", "wide_tf32_kernel", "mma16816(", "ldmatrix_x4_trans(",
-               "mma1688_tf32(", "cp_async16(", "ex2("):
+    for op in ("wide_mma_kernel", "wide_bf16_kernel", "wide_tf32_kernel", "mma16816(",
+               "ldmatrix_x4_trans(", "mma1688_tf32(", "cp_async16(", "ex2("):
         assert op in wide, op
     assert "atomicAdd" not in wide and "torch/" not in wide
+    assert "wide_mma_kernel<kDq>" not in wide and "wide_mma_kernel<kDkv>" not in wide
+    assert "wide_mma_kernel<M>" not in wide and "wide_mma_kernel<kFwd><<<" in wide
     for name in ("flash_attn_fwd.cu", "flash_attn_bwd.cu"):
         src = source(name)
         assert '#include "flash_wide.cuh"' in src

@@ -404,8 +404,8 @@ def test_wide_fp32_runs_the_tf32x3_variant(smoke):
     """fp32 past c_bar 64 or C 256 takes the 3xTF32 variant, which the
     entry points report for it as for the register-held kernels; the
     chip rows expect it."""
-    assert attention.WIDE_VARIANTS[torch.float32] == attention.TF32X3
     for kernel in (attention.KERNEL_NAME, attention.DQ_KERNEL, attention.DKV_KERNEL):
+        assert attention.WIDE_VARIANTS[kernel][torch.float32] == attention.TF32X3
         for c_bar, c in ((64, 512), (128, 1024), (256, 2048)):
             assert smoke.expected_variant(kernel, torch.float32, c_bar, c) == attention.TF32X3
     assert not any(k.endswith("/" + attention.CUDA_CORE) for k in attention.variant_counts)
@@ -426,10 +426,11 @@ def test_wide_fp32_body_issues_tf32_mma():
     assert [(part, b) for _, part, b in calls] == [("lo", "bh"), ("hi", "bl"), ("hi", "bh")] * 2
     for op in ("split_chunk<kTK>(bh, bl, vec, tid)", "split_frag(a[0], a[8 * kTS], a[4], a[8 * kTS + 4])",
                "split_frag(s[kk][0], s[kk][2], s[kk][1], s[kk][3])", "cp_async_wait<kStages - 2>()",
-               "cluster_sync(splits)", "srcs[k] = k < splits ? peer(accs, k, splits) : accs",
+               "cluster_sync(splits)", "peer_sources(srcs, accs, splits)",
                "ex2("):
         assert op in body, op
     assert "split_tf32(v.x)" in src and "cp_async16(" in src and "map_shared_rank(" in src
+    assert "srcs[k] = k < splits ? peer(accs, k, splits) : accs" in src
     assert "cudaLaunchAttributeClusterDimension" in src
     for gone in ("wide_fp32_kernel", "fma_abt", "kF32Threads", "atomicAdd"):
         assert gone not in src, gone

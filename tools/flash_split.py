@@ -5,10 +5,12 @@ Times the bf16 forward (B1, ``csrc/flash_attn_fwd.cu``) at the serving
 shape (B 4, N 4096, c_bar 8, C 64) and the bf16 dq and dkv kernels (B2
 and B3, ``csrc/flash_attn_bwd.cu``) at the training shape (B 3), and the
 fp32 (3xTF32) forward, dq and dkv at the same shapes; with ``--wide``,
-the fp32 kernels past the register-held widths (``csrc/flash_wide.cuh``'s
-3xTF32 kernel) at (B 2, N 256, c_bar 256, C 2048) and at a ragged N of
-1000 with C 512 instead. Each is timed beside copies of its source with
-one part taken out:
+the kernels past the register-held widths instead (``csrc/flash_wide.cuh``):
+the fp32 3xTF32 kernel at (B 2, N 256, c_bar 256, C 2048) and at a ragged
+N of 1000 with C 512, and the bf16 dq and dkv (``wide_bf16_kernel``) at
+those two and at the 512-channel configuration's (B 4, N 64, c_bar 64, C
+512) and N 4096. Each is timed beside copies of its source with one part
+taken out:
 
 - ``no_exp``: the exponentials (each ex2 replaced by its argument);
 - ``no_scores``: the score product S = f g^T (S^T = g f^T in dkv);
@@ -26,15 +28,25 @@ one part taken out:
   reads the first tile's shared memory again; the wide kernel's steps
   after the first two);
 - ``no_merge`` (wide): the loads of the cluster's partial outputs in the
-  epilogue (each block writes its own share unsummed).
-The wide kernel's ``no_scores`` cuts the score and dp chunks' products
-together, ``no_value`` the last product (o, df, dg or dh).
+  epilogue (each block writes its own share unsummed);
+- ``no_exchange`` (wide bf16): the loads of the cluster's partial dp and of
+  its sums, where the cluster splits dp's chunks (each block's own);
+- ``no_dsplit`` (wide bf16): the plan's split of dp's chunks at one or two
+  tiles (the cluster splits the tiles there too, as elsewhere);
+- ``no_resident`` (wide bf16): the own rows' chunks kept in shared memory
+  across tiles (staged again every tile);
+- ``half_splits`` (wide bf16): the plan's split of the tiles capped at half
+  the cluster (or the tiles): fewer, longer blocks.
+The wide fp32 kernel's ``no_scores`` cuts the score and dp chunks'
+products together, ``no_value`` the last product (o, df, dg or dh); the
+bf16 kernel's ``no_scores`` the score products alone, ``no_dp`` dp's.
 
 The copies compute wrong results and exist only to be timed; what a part
 costs is how much faster the kernel gets without it. Each is built with
 the package's nvcc flags into a temporary directory, and all are timed in
-turns (kernel, copies, kernel, ...) three times: CUDA events, the median
-of 30 launches after 5 warm-ups. Prints one JSON line per timing, with the
+turns (kernel, copies, kernel, ...) three times: device time, the mean of
+30 launches queued behind a spin of the card (CUDA events around them),
+after 5 warm-ups. Prints one JSON line per timing, with the
 card's name and power limit. Run from the repository root:
 
     python3 tools/flash_split.py [--dtype bfloat16|float32] [--wide]
@@ -194,10 +206,37 @@ WIDE_TF32_CUTS = {
     "no_split": TF32_CUTS["no_split"],
     "no_staging": [(WIDE, "    if (gs + kStages - 1 < total) stage(gs + kStages - 1);",
                     "    if (gs + kStages - 1 < total && gs < 0) stage(gs + kStages - 1);")],
-    "no_merge": [(WIDE, "      if (k < splits) a[k] = srcs[k][u];",
-                  "      if (k < splits) a[k] = make_float4(u, k, 0.f, 0.f);")],
+    "no_merge": [(WIDE, "  peer_sources(srcs, accs, splits);", "  peer_sources(srcs, accs, 1);")],
 }
 WIDE_SHAPES = {"C 2048": (2, 256, 256, 2048), "ragged N": (2, 1000, 64, 512)}
+# The bf16 dq and dkv kernel's cuts: a product replaced by a use of its
+# operands; the exchange's and the merge's remote loads by local ones.
+WIDE_BF16_CUTS = {
+    "no_exp": [WIDE_TF32_CUTS["no_exp"][1]],
+    "no_scores": [(WIDE, "        mma_abt<true>(s, at, bt, warp, lane);\n      } else {",
+                   "        s[0][0] += __bfloat162float(at[lane]) + __bfloat162float(bt[lane]);\n"
+                   "      } else {")],
+    "no_dp": [(WIDE, "        if constexpr (DP) mma_abt<true>(dp, at, bt, warp, lane);",
+               "        if constexpr (DP) dp[0][0] += __bfloat162float(at[lane]) + "
+               "__bfloat162float(bt[lane]);")],
+    "no_value": [(WIDE, "        mma_pv<true>(acc[i], pa, ring_b + (gs % S) * kChunkElems, lane);",
+                  "        acc[i][0][0] += __uint_as_float(pa[0][0]) + "
+                  "__bfloat162float(ring_b[(gs % S) * kChunkElems + lane]);")],
+    "no_staging": [(WIDE, "    if (gs + S - 1 < total) stage(gs + S - 1);",
+                    "    if (gs + S - 1 < total && gs < 0) stage(gs + S - 1);")],
+    "no_exchange": [(WIDE, "          peer_sources(srcs, xbuf, splits);",
+                     "          peer_sources(srcs, xbuf, 1);"),
+                    (WIDE, "const float4 v = peer(xsum, u * splits / kXUnits, splits)[u];",
+                     "const float4 v = xsum[u];")],
+    "no_merge": [(WIDE, "  peer_sources(srcs, accs, merge);", "  peer_sources(srcs, accs, 1);")],
+    "no_dsplit": [(WIDE, "  if (ntiles <= 2) {", "  if (ntiles < 0) {")],
+    "no_resident": [(WIDE, "  plan.a_res = !plan.dsplit && ", "  plan.a_res = false && ")],
+    "half_splits": [(WIDE, "                              static_cast<int64_t>(rows) * batch * ntiles * spt_sum, sms,\n"
+                           "                              min(max_splits, ntiles));",
+                     "                              static_cast<int64_t>(rows) * batch * ntiles * spt_sum, sms,\n"
+                     "                              max(1, min(max_splits, ntiles) / 2));")],
+}
+WIDE_BF16_SHAPES = {**WIDE_SHAPES, "C 512, 8 px": (4, 64, 64, 512), "N 4096": (4, 4096, 64, 512)}
 # (kernel, dtype[, shape label]) -> (library, cuts, shape B, N, c_bar, C)
 KERNELS = {
     (attention.KERNEL_NAME, "bfloat16"): (attention.KERNEL_NAME, FWD_CUTS, (4, 4096, 8, 64)),
@@ -210,11 +249,14 @@ KERNELS = {
                                         (3, 4096, 8, 64)),
 }
 WIDE_KERNELS = {
-    (kernel, "float32", label): (library, WIDE_TF32_CUTS, shape)
-    for label, shape in WIDE_SHAPES.items()
-    for kernel, library in ((attention.KERNEL_NAME, attention.KERNEL_NAME),
-                            (attention.DQ_KERNEL, attention.BWD_LIBRARY),
-                            (attention.DKV_KERNEL, attention.BWD_LIBRARY))
+    **{(kernel, "float32", label): (library, WIDE_TF32_CUTS, shape)
+       for label, shape in WIDE_SHAPES.items()
+       for kernel, library in ((attention.KERNEL_NAME, attention.KERNEL_NAME),
+                               (attention.DQ_KERNEL, attention.BWD_LIBRARY),
+                               (attention.DKV_KERNEL, attention.BWD_LIBRARY))},
+    **{(kernel, "bfloat16", label): (attention.BWD_LIBRARY, WIDE_BF16_CUTS, shape)
+       for label, shape in WIDE_BF16_SHAPES.items()
+       for kernel in (attention.DQ_KERNEL, attention.DKV_KERNEL)},
 }
 
 
@@ -240,20 +282,23 @@ def build_copy(library: str, name: str, cuts, workdir: str) -> tuple[str, str]:
 
 
 def time_ms(fn, reps: int = 30) -> float:
+    """Device time of one of ``fn``'s launches: ``reps`` launches queued
+    while the card spins (``torch.cuda._sleep``), so that the events time
+    the kernels back to back and not the host's dispatch of each; the mean,
+    after 5 warm-ups."""
     import torch
 
     for _ in range(5):
         fn()
-    events = []
-    for _ in range(reps):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        events.append((s, e))
     torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) for s, e in events)
-    return times[len(times) // 2]
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e7))  # about 10 ms: longer than enqueueing reps calls
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
 
 
 def main() -> int:
@@ -265,7 +310,7 @@ def main() -> int:
     parser.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
                         help="time only the kernels of this type (default: both)")
     parser.add_argument("--wide", action="store_true",
-                        help="the fp32 kernels past the register-held widths instead")
+                        help="the kernels past the register-held widths instead")
     args = parser.parse_args()
     kernels = {k: v for k, v in (WIDE_KERNELS if args.wide else KERNELS).items()
                if args.dtype in (None, k[1])}

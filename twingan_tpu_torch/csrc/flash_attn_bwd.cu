@@ -1477,12 +1477,14 @@ const int64_t* wide_strides(const Strides& st, int64_t (&w)[14]) {
   return w;
 }
 
-// bf16 runs the tensor-core variants, fp32 the TF32 tensor-core ones (past
-// the register-held widths, flash_wide.cuh's, in the same two variants).
-// Each writes the variant it launches to `variant`.
+// bf16 runs the tensor-core variants, fp32 the TF32 tensor-core ones; past
+// the register-held widths flash_wide.cuh's kernels: bf16 its cluster
+// variant (wide_bf16_kernel), fp32 its TF32 one. Each writes the variant it
+// launches to `variant`.
 cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int cbar, int c,
                const Strides& st, cudaStream_t s, int* variant) {
-  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kTf32x3;
+  *variant = dtype == 0 ? flash_mma::kTf32x3
+             : wide(cbar, c) ? flash_mma::kTensorCoreCluster : flash_mma::kTensorCore;
   if (wide(cbar, c)) {
     int64_t w[14];
     return flash_wide::launch<flash_wide::kDq>(in, df, nullptr, nullptr, dtype, batch, n, cbar,
@@ -1494,7 +1496,8 @@ cudaError_t dq(const void* const* in, void* df, int dtype, int batch, int n, int
 
 cudaError_t dkv(const void* const* in, void* dg, void* dh, int dtype, int batch, int n,
                 int cbar, int c, const Strides& st, cudaStream_t s, int* variant) {
-  *variant = dtype == 1 ? flash_mma::kTensorCore : flash_mma::kTf32x3;
+  *variant = dtype == 0 ? flash_mma::kTf32x3
+             : wide(cbar, c) ? flash_mma::kTensorCoreCluster : flash_mma::kTensorCore;
   if (wide(cbar, c)) {
     int64_t w[14];
     return flash_wide::launch<flash_wide::kDkv>(in, dg, dh, nullptr, dtype, batch, n, cbar, c,

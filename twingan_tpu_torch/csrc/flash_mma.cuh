@@ -64,8 +64,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 // The variant a flash-attention entry point launched, which it writes to
 // its `variant` argument (ops/attention.py's VARIANT_IDS, in this order).
 // No kernel runs on the CUDA cores any more; kCudaCore keeps its id so
-// that the others keep theirs.
-enum Variant : int { kCudaCore = 0, kTensorCore = 1, kTf32x3 = 2 };
+// that the others keep theirs. kTensorCoreCluster: the bf16 dq and dkv
+// past the register-held widths (flash_wide.cuh's wide_bf16_kernel, groups
+// of output slices over a thread-block cluster).
+enum Variant : int { kCudaCore = 0, kTensorCore = 1, kTf32x3 = 2, kTensorCoreCluster = 3 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

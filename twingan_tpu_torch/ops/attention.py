@@ -30,10 +30,13 @@ Counterpart of ``twingan_tpu/ops/attention.py``:
   halves (3xTF32, fp32-accurate). Every
   c_bar and C is taken: past c_bar 64, or C 256 (where the register-held
   kernels stop), the entry points launch ``csrc/flash_wide.cuh``'s
-  kernels, which cut every operand into chunks of 64 columns, in the same
-  two variants (``WIDE_VARIANTS``): bf16 on the tensor cores, fp32 on the
-  TF32 tensor cores (3xTF32), whose blocks each own a group of 256 output
-  columns and split the other side's tiles over a thread-block cluster.
+  kernels, which cut every operand into chunks of columns
+  (``WIDE_VARIANTS``): the bf16 forward on the tensor cores, one 64-column
+  slice of o a block; the bf16 dq and dkv on the tensor cores too, as
+  their own variant (``TENSOR_CORE_CLUSTER``): each block owns a group of
+  up to 256 output columns, and a thread-block cluster splits the other
+  side's tiles (or, at one or two tiles, dp's chunks); fp32 on the TF32
+  tensor cores (3xTF32), groups and clusters the same way.
   ``variant_counts`` counts each launch under the variant its entry point
   reported, beside ``launch_counts``' total;
 - ``FlashAttention`` is the autograd boundary. Its backward is
@@ -87,10 +90,11 @@ PLAIN_ROUTE = "attention_core_double_backward"
 CUDA_CORE = "cuda_core"
 TENSOR_CORE = "tensor_core"
 TF32X3 = "tensor_core_tf32x3"
+TENSOR_CORE_CLUSTER = "tensor_core_cluster"
 # The variants by the id a C entry point writes to its ``variant`` argument
 # (csrc/flash_mma.cuh's ``Variant``). The entry points alone pick them; no
 # kernel reports CUDA_CORE any more (the id stays, so the others keep theirs).
-VARIANT_IDS = (CUDA_CORE, TENSOR_CORE, TF32X3)
+VARIANT_IDS = (CUDA_CORE, TENSOR_CORE, TF32X3, TENSOR_CORE_CLUSTER)
 # The variant each kernel's entry point launches for each input type at
 # the widths of its register-held kernels (c_bar <= 64; C <= 256 for fp32
 # and for the backward).
@@ -99,8 +103,12 @@ VARIANTS = {
     DQ_KERNEL: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE},
     DKV_KERNEL: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE},
 }
-# Past those widths, csrc/flash_wide.cuh's kernels, by input type.
-WIDE_VARIANTS = {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE}
+# Past those widths, csrc/flash_wide.cuh's kernels, by kernel and input type.
+WIDE_VARIANTS = {
+    KERNEL_NAME: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE},
+    DQ_KERNEL: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE_CLUSTER},
+    DKV_KERNEL: {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE_CLUSTER},
+}
 
 
 # Kernel launches since the last reset_launch_counts(), by kernel name. Only
@@ -109,7 +117,7 @@ WIDE_VARIANTS = {torch.float32: TF32X3, torch.bfloat16: TENSOR_CORE}
 launch_counts = {KERNEL_NAME: 0, DQ_KERNEL: 0, DKV_KERNEL: 0, PLAIN_ROUTE: 0}
 # The same launches by "<kernel>/<variant>".
 variant_counts = {f"{k}/{v}": 0 for k, by_type in VARIANTS.items()
-                  for v in dict.fromkeys([*by_type.values(), *WIDE_VARIANTS.values()])}
+                  for v in dict.fromkeys([*by_type.values(), *WIDE_VARIANTS[k].values()])}
 
 
 def reset_launch_counts() -> None:
